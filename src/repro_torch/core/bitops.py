@@ -1,0 +1,201 @@
+"""Bit-packing and xnor-popcount primitives: the plain-PyTorch twins.
+
+Same encoding as the JAX package's ``repro.core.bitops``:
+
+* binary values are {-1, +1}; encodings are {0, 1} with ``1 <-> +1``,
+* 32 encodings pack into one ``int32`` word, LSB-first along the packed
+  axis (bit 31 set makes a negative word),
+* ``a_ij = 2 * sum_k popcount(~(w_ik ^ x_kj)) - K`` is the exact ±1 dot.
+
+Everything here is device-agnostic tensor code. It is the port's
+``xla`` serving engine and the oracle every CUDA kernel in
+``repro_torch.kernels`` is held to, bit for bit.
+
+Two torch facts shape the code: torch has no popcount op (SWAR in int64
+below), and ``sum`` over int32 promotes to int64, so every repack wraps
+back to int32 explicitly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.im2col import conv_out_size
+
+PACK_BITS = 32
+PACKED_DTYPE = torch.int32
+
+__all__ = [
+    "PACK_BITS",
+    "PACKED_DTYPE",
+    "pack_bits",
+    "pack_channels",
+    "unpack_bits",
+    "popcount",
+    "xnor_popcount_matmul",
+    "fused_xnor_layer",
+    "direct_conv_dot",
+    "direct_conv_oracle",
+    "maxpool2_packed",
+]
+
+# Elements of the int64 [M, g, N] popcount intermediate one block of
+# xnor_popcount_matmul may hold (2 MiB: blocks that stay in cache run
+# several times faster on the CPU than larger ones).
+_BLOCK_ELEMS = 1 << 18
+
+
+def _wrap_int32(words: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2^32) -> the int32 with the same bit pattern."""
+    return (words - ((words >> 31) << 32)).to(PACKED_DTYPE)
+
+
+def pack_bits(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Pack the sign bits of ``x`` along ``axis`` into int32 words.
+
+    ``bit = 1 if x >= 0 else 0`` (sign(0) := +1). ``x.shape[axis]`` must
+    be a multiple of 32. Bit ``b`` of word ``w`` encodes element
+    ``w * 32 + b``.
+    """
+    axis = axis % x.ndim
+    k = x.shape[axis]
+    if k % PACK_BITS != 0:
+        raise ValueError(f"pack axis length {k} not a multiple of {PACK_BITS}")
+    x = torch.movedim(x, axis, -1)
+    bits = (x >= 0).to(torch.int64)
+    bits = bits.reshape(*x.shape[:-1], k // PACK_BITS, PACK_BITS)
+    shifts = torch.arange(PACK_BITS, dtype=torch.int64, device=x.device)
+    words = _wrap_int32((bits << shifts).sum(dim=-1))
+    return torch.movedim(words, -1, axis)
+
+
+def pack_channels(x: torch.Tensor, *, pad_value: float = 1.0) -> torch.Tensor:
+    """Channel-pack ``[..., C]`` reals into ``[..., ceil(C/32)]`` words;
+    the tail of the last word takes the sign bit of ``pad_value``."""
+    pad = -x.shape[-1] % PACK_BITS
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad), value=pad_value)
+    return pack_bits(x, axis=-1)
+
+
+def unpack_bits(words: torch.Tensor, axis: int = -1,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of :func:`pack_bits`: int32 words -> ±1 values."""
+    axis = axis % words.ndim
+    w = torch.movedim(words, axis, -1)
+    shifts = torch.arange(PACK_BITS, dtype=torch.int32, device=w.device)
+    bits = (w[..., None] >> shifts) & 1
+    vals = (2 * bits - 1).to(dtype)
+    vals = vals.reshape(*w.shape[:-1], w.shape[-1] * PACK_BITS)
+    return torch.movedim(vals, -1, axis)
+
+
+def popcount(x: torch.Tensor) -> torch.Tensor:
+    """Population count of each int32 word's bit pattern -> int64.
+
+    SWAR in int64 on the word's low 32 bits, so the sign extension of a
+    negative word never reaches the count.
+    """
+    v = x.to(torch.int64).bitwise_and_(0xFFFFFFFF)
+    v -= (v >> 1).bitwise_and_(0x55555555)
+    v = (v & 0x33333333).add_((v >> 2).bitwise_and_(0x33333333))
+    v = (v + (v >> 4)).bitwise_and_(0x0F0F0F0F)
+    v *= 0x01010101
+    return v.bitwise_and_(0xFFFFFFFF) >> 24
+
+
+def xnor_popcount_matmul(wp: torch.Tensor, xp: torch.Tensor,
+                         k_bits: int) -> torch.Tensor:
+    """Packed ``[M, KW] x [KW, N]`` -> int32 ``[M, N]``:
+    ``2 * sum_k popcount(~(w_ik ^ x_kj)) - k_bits``.
+
+    Blocked over KW so the int64 ``[M, g, N]`` intermediate stays
+    bounded. ``k_bits`` is the true contraction length; K pads must be
+    xnor-neutral (weight word 0 against activation word -1).
+    """
+    m, kw = wp.shape
+    kw2, n = xp.shape
+    if kw != kw2:
+        raise ValueError(f"contraction mismatch: {tuple(wp.shape)} x "
+                         f"{tuple(xp.shape)}")
+    g = max(1, min(kw, _BLOCK_ELEMS // max(1, m * n)))
+    acc = torch.zeros((m, n), dtype=torch.int64, device=wp.device)
+    for k0 in range(0, kw, g):
+        wb = wp[:, k0:k0 + g, None]
+        xb = xp[None, k0:k0 + g, :]
+        acc += popcount(~(wb ^ xb)).sum(dim=1)
+    return (2 * acc - k_bits).to(torch.int32)
+
+
+def fused_xnor_layer(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
+                     a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Whole fused binary layer: packed ``[M, KW] x [KW, N]`` -> packed
+    ``[ceil(M/32), N]`` of ``sign(a*dot + b)``, repacked along M.
+
+    The affine rounds twice (multiply, then add), as the JAX reference
+    does. Rows past M inside the last word are +1 bits.
+    """
+    dot = xnor_popcount_matmul(wp, xp, k_bits)
+    y = a.float()[:, None] * dot.float() + b.float()[:, None]
+    pad = -y.shape[0] % PACK_BITS
+    if pad:
+        y = torch.nn.functional.pad(y, (0, 0, 0, pad), value=1.0)
+    return pack_bits(y, axis=0)
+
+
+def _spatial_pad(xp: torch.Tensor, pad: int) -> torch.Tensor:
+    """All-ones border words around a ``[N, H, W, CW]`` packed map."""
+    if not pad:
+        return xp
+    return torch.nn.functional.pad(xp, (0, 0, pad, pad, pad, pad), value=-1)
+
+
+def direct_conv_dot(wp: torch.Tensor, xp: torch.Tensor, k_bits: int, *,
+                    kh: int, kw: int, stride: int = 1,
+                    pad: int = 0) -> torch.Tensor:
+    """Direct binary convolution: the ±1 conv dot without a patch matrix.
+
+    ``xp``: channel-packed map ``[N, H, W, CW]`` (tail bits +1).
+    ``wp``: tap-aligned filters ``[D, kH*kW*CW]``, word
+    ``(i*kW + j)*CW + cw`` holding tap ``(i, j)``'s channel word ``cw``.
+    Borders pad with all-ones words. Returns int32 ``[N, OH, OW, D]``.
+    """
+    n, h, w, cw = xp.shape
+    d, kwords = wp.shape
+    if kwords != kh * kw * cw:
+        raise ValueError(
+            f"filter words {kwords} != kh*kw*CW = {kh}*{kw}*{cw} — direct "
+            "conv needs tap-aligned packed filters (pack_conv_aligned)"
+        )
+    oh = conv_out_size(h, kh, stride, pad)
+    ow = conv_out_size(w, kw, stride, pad)
+    xp = _spatial_pad(xp, pad)
+    wr = wp.reshape(d, kh * kw, cw)
+    acc = torch.zeros((n, oh, ow, d), dtype=torch.int64, device=xp.device)
+    for i in range(kh):
+        for j in range(kw):
+            win = xp[:, i:i + stride * (oh - 1) + 1:stride,
+                     j:j + stride * (ow - 1) + 1:stride, :]  # [N, OH, OW, CW]
+            tap = wr[:, i * kw + j, :]  # [D, CW]
+            for c in range(cw):
+                acc += popcount(~(win[..., c, None] ^ tap[:, c]))
+    return (2 * acc - k_bits).to(torch.int32)
+
+
+def direct_conv_oracle(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
+                       a: torch.Tensor, b: torch.Tensor, *, kh: int, kw: int,
+                       stride: int = 1, pad: int = 0) -> torch.Tensor:
+    """Whole fused direct-conv layer: :func:`direct_conv_dot`, then
+    ``sign(a*dot + b)`` per output channel, repacked along D (channels
+    past D get +1 bits). Returns packed ``[N, OH, OW, ceil(D/32)]``."""
+    dot = direct_conv_dot(wp, xp, k_bits, kh=kh, kw=kw, stride=stride,
+                          pad=pad)
+    y = a.float() * dot.float() + b.float()
+    return pack_channels(y)
+
+
+def maxpool2_packed(xp: torch.Tensor) -> torch.Tensor:
+    """2x2/stride-2 maxpool on a channel-packed ±1 map ``[N, H, W, CW]``:
+    the bitwise OR of the four window words."""
+    return (xp[:, 0::2, 0::2] | xp[:, 0::2, 1::2]
+            | xp[:, 1::2, 0::2] | xp[:, 1::2, 1::2])

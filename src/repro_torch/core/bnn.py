@@ -1,0 +1,216 @@
+"""The paper's evaluation model, the CIFAR-10 BNN, for fused packed
+inference in PyTorch.
+
+Architecture (as ``repro.core.bnn``):
+
+    2x(128C3) - MaxPool2 - 2x(256C3) - MaxPool2 - 2x(512C3) - MaxPool2
+    - 1024FC - 1024FC - 10FC
+
+The first conv consumes real images (FAKE_QUANT: ±1 weights, float
+inputs); every other layer is binary, and between binary layers only
+packed int32 words exist (:func:`bnn_apply_fused`). Training, the
+unfused PACKED path and the megakernel engines are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import bitops
+from repro_torch.core.binarize import QuantMode
+from repro_torch.core.layers import (
+    BN_EPS,
+    BitLinearConfig,
+    bit_conv2d,
+    fused_bit_conv2d,
+    fused_bit_linear,
+    init_conv,
+    init_linear,
+    pack_conv_fused,
+    pack_linear_fused,
+    pack_linear_params,
+    packed_act_linear,
+)
+
+CONV_CHANNELS = [(3, 128), (128, 128), (128, 256), (256, 256), (256, 512), (512, 512)]
+POOL_AFTER = {1, 3, 5}  # maxpool after conv index
+FC_SIZES = [(512 * 4 * 4, 1024), (1024, 1024), (1024, 10)]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another. Raises rather than fall back to the CPU when CUDA is asked
+    for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on CUDA by default, but "
+            "torch.cuda.is_available() is False; pass device='cpu' "
+            "(--device cpu) to run the plain-torch path on the CPU")
+    return dev
+
+
+def _init_bn(width: int, device) -> dict:
+    return {
+        "gamma": torch.ones((width,), device=device),
+        "beta": torch.zeros((width,), device=device),
+        "mean": torch.zeros((width,), device=device),
+        "var": torch.ones((width,), device=device),
+    }
+
+
+def init_bnn_params(seed: int = 0, *, device=None) -> dict[str, Any]:
+    """Random latent params from ``torch.Generator().manual_seed(seed)``
+    (not the JAX package's numbers: carry those with ``convert``)."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    params: dict[str, Any] = {"conv": [], "bn_conv": [], "fc": [], "bn_fc": []}
+    for cin, cout in CONV_CHANNELS:
+        params["conv"].append(init_conv(gen, 3, 3, cin, cout, device=dev))
+        params["bn_conv"].append(_init_bn(cout, dev))
+    for fin, fout in FC_SIZES:
+        params["fc"].append(init_linear(gen, fin, fout, device=dev))
+        params["bn_fc"].append(_init_bn(fout, dev))
+    return params
+
+
+def pack_bnn_params_fused(params: dict) -> dict:
+    """Latent float params -> fused-pipeline inference params: every
+    interior binary layer packs its weights and folds its BN (+ bias)
+    into ``(a, b)``; the first conv stays float and the last FC
+    keeps its BN unfolded."""
+    n_fc = len(FC_SIZES)
+    return {
+        "conv": [params["conv"][0]]
+        + [
+            pack_conv_fused(p, bn)
+            for p, bn in zip(params["conv"][1:], params["bn_conv"][1:])
+        ],
+        "bn_conv0": params["bn_conv"][0],
+        "fc": [
+            pack_linear_fused(params["fc"][j], params["bn_fc"][j])
+            for j in range(n_fc - 1)
+        ]
+        + [pack_linear_params(params["fc"][-1])],
+        "bn_fc_last": params["bn_fc"][-1],
+    }
+
+
+def _batchnorm(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Eval BatchNorm, in the JAX package's op order:
+    ``(x - mean) * rsqrt(var + eps) * gamma + beta``."""
+    inv = torch.rsqrt(p["var"] + BN_EPS)
+    return (x - p["mean"]) * inv * p["gamma"] + p["beta"]
+
+
+def first_conv_packed(packed: dict, images: torch.Tensor) -> torch.Tensor:
+    """The float boundary at the input: first conv (FAKE_QUANT), eval BN,
+    then channel packing -> ``[N, 32, 32, 4]`` words."""
+    lcfg = BitLinearConfig(mode=QuantMode.FAKE_QUANT, binarize_acts=False)
+    x = bit_conv2d(packed["conv"][0], images, lcfg, stride=1, pad=1)
+    x = _batchnorm(packed["bn_conv0"], x)
+    return bitops.pack_bits(x, axis=-1)
+
+
+def bnn_apply_fused(
+    packed: dict,
+    images: torch.Tensor,
+    *,
+    engine: str = "xnor",
+    conv_impl: str = "im2col",
+) -> torch.Tensor:
+    """Fused packed inference: images ``[N, 32, 32, 3]`` -> logits
+    ``[N, 10]``, with packed int32 words at every interior boundary.
+
+    ``packed`` comes from :func:`pack_bnn_params_fused`. ``engine`` is
+    ``"xnor"`` (CUDA kernels) or ``"xla"`` (plain-torch twins);
+    ``conv_impl`` is ``"im2col"`` or ``"direct"``.
+    """
+    xp = first_conv_packed(packed, images)
+    for i in range(1, len(CONV_CHANNELS)):
+        xp = fused_bit_conv2d(
+            packed["conv"][i], xp, 3 * 3 * CONV_CHANNELS[i][0],
+            kh=3, kw=3, stride=1, pad=1, engine=engine,
+            conv_impl=conv_impl,
+        )
+        if i in POOL_AFTER:
+            xp = bitops.maxpool2_packed(xp)
+    xp = xp.reshape(xp.shape[0], -1)  # word order matches pack_linear's K order
+    for j in range(len(FC_SIZES) - 1):
+        xp = fused_bit_linear(packed["fc"][j], xp, FC_SIZES[j][0],
+                              engine=engine)
+    y = packed_act_linear(packed["fc"][-1], xp, FC_SIZES[-1][0], engine=engine)
+    return _batchnorm(packed["bn_fc_last"], y)
+
+
+# Engines bnn_serve_fn (and the serving executor cache) accepts: the
+# per-layer fused chain on pack_bnn_params_fused params, through the
+# CUDA kernels ("xnor") or the plain-torch twins ("xla").
+SERVE_ENGINES = ("xla", "xnor")
+
+# Failover ladder: on repeated kernel failure an engine demotes to the
+# next rung. Every rung is bit-identical to the one above it.
+SERVE_FALLBACKS = {
+    "xnor": ("xla",),
+    "xla": (),
+}
+
+
+def bnn_serve_fn(*, engine: str = "xla", conv_impl: str = "im2col"):
+    """The serving entry point: a ``(packed, images) -> logits`` callable
+    over :func:`bnn_apply_fused` with the kernel path bound at closure
+    time, run under ``torch.inference_mode``."""
+    if engine not in SERVE_ENGINES:
+        raise ValueError(f"unknown serving engine {engine!r}; "
+                         f"expected one of {SERVE_ENGINES}")
+
+    def apply_fn(packed: dict, images: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return bnn_apply_fused(packed, images, engine=engine,
+                                   conv_impl=conv_impl)
+
+    return apply_fn
+
+
+# --- sign-form checkpoint (format "bnn-sign-v1" of repro.core.bnn) ---------
+# 1 bit per weight (np.packbits of w >= 0) plus float32 biases and BN
+# buffers. Loading gives ±1.0 latent weights, whose forward is
+# bit-identical to the trained model's.
+
+BINARY_CKPT_FORMAT = "bnn-sign-v1"
+
+
+def load_binary_checkpoint(path, *, device=None) -> dict:
+    """Load a sign-form checkpoint into latent params with ±1.0 weights."""
+    dev = resolve_device(device)
+    with np.load(path) as z:
+        if str(z["format"]) != BINARY_CKPT_FORMAT:
+            raise ValueError(
+                f"{path}: unknown binary checkpoint format {z['format']!r}"
+                f" (expected {BINARY_CKPT_FORMAT!r})")
+        data = {k: z[k] for k in z.files}
+
+    def tensor(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32, copy=True)).to(dev)
+
+    params: dict[str, Any] = {"conv": [], "bn_conv": [], "fc": [], "bn_fc": []}
+    for group in ("conv", "fc"):
+        i = 0
+        while f"{group}{i}/w_bits" in data:
+            shape = tuple(int(s) for s in data[f"{group}{i}/w_shape"])
+            bits = np.unpackbits(data[f"{group}{i}/w_bits"])[:int(np.prod(shape))]
+            p = {"w": tensor((bits.astype(np.float32) * 2.0 - 1.0).reshape(shape))}
+            if f"{group}{i}/b" in data:
+                p["b"] = tensor(data[f"{group}{i}/b"])
+            params[group].append(p)
+            i += 1
+    for group in ("bn_conv", "bn_fc"):
+        i = 0
+        while f"{group}{i}/gamma" in data:
+            params[group].append({k: tensor(data[f"{group}{i}/{k}"])
+                                  for k in ("gamma", "beta", "mean", "var")})
+            i += 1
+    return params

@@ -1,0 +1,239 @@
+"""Bit layers of the fused packed pipeline, in PyTorch.
+
+Plain functions on tensors; params are dicts of tensors, with the keys
+and layouts of ``repro.core.layers`` so the JAX package's params carry
+across (``repro_torch.convert``). Engines:
+
+  * ``engine="xnor"`` — the CUDA kernels of ``repro_torch.kernels``
+    (their plain twins on CPU tensors),
+  * ``engine="xla"``  — the plain-torch twins of ``core.bitops``, the
+    last rung of the serving fallback ladder (named after the JAX
+    engine it mirrors).
+
+The unfused PACKED path (``bit_linear``/``_packed_matmul``) and the
+megakernel executors are not ported yet; ``bit_conv2d`` covers the
+FAKE_QUANT mode the float first conv needs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import bitops
+from repro_torch.core.binarize import (QuantMode, binarize_activations,
+                                       binarize_weights)
+from repro_torch.core.im2col import col2im, filters_to_matrix, im2col
+from repro_torch.kernels import ops as kops
+
+BN_EPS = 1e-4  # the one BatchNorm eps; core.bnn._batchnorm imports it
+
+
+@dataclasses.dataclass(frozen=True)
+class BitLinearConfig:
+    """How :func:`bit_conv2d` runs. The JAX package's ``engine``,
+    ``conv_impl`` and ``blocks`` fields belong to the unfused PACKED
+    path, and ``use_scale`` (the XNOR-Net alpha) to its scaled variant;
+    neither is ported yet."""
+
+    mode: QuantMode = QuantMode.FAKE_QUANT
+    binarize_acts: bool = True
+
+
+def init_linear(generator: torch.Generator, in_features: int,
+                out_features: int, *, bias: bool = True,
+                device=None) -> dict:
+    std = (2.0 / in_features) ** 0.5
+    w = torch.randn((out_features, in_features), generator=generator) * std
+    p = {"w": w.to(device)}
+    if bias:
+        p["b"] = torch.zeros((out_features,), device=device)
+    return p
+
+
+def init_conv(generator: torch.Generator, kh: int, kw: int, c_in: int,
+              c_out: int, *, bias: bool = True, device=None) -> dict:
+    std = (2.0 / (kh * kw * c_in)) ** 0.5
+    w = torch.randn((c_out, kh, kw, c_in), generator=generator) * std
+    p = {"w": w.to(device)}
+    if bias:
+        p["b"] = torch.zeros((c_out,), device=device)
+    return p
+
+
+def _pack_rows_padded(wm: torch.Tensor) -> torch.Tensor:
+    """[out, K] real -> [out, ceil(K/32)] words, K padded with -1."""
+    pad = -wm.shape[-1] % bitops.PACK_BITS
+    if pad:
+        wm = torch.nn.functional.pad(wm, (0, pad), value=-1.0)
+    return bitops.pack_bits(wm, axis=-1)
+
+
+def pack_linear_params(params: dict) -> dict:
+    """Latent float params -> packed inference params (paper §3.1)."""
+    packed = {"w_packed": _pack_rows_padded(params["w"])}  # w: [out, in]
+    if "b" in params:
+        packed["b"] = params["b"]
+    return packed
+
+
+def pack_conv_params(params: dict) -> dict:
+    """Filters [D, kH, kW, C] -> packed matrix [D, ceil(kH*kW*C/32)]."""
+    packed = {"w_packed": _pack_rows_padded(filters_to_matrix(params["w"]))}
+    if "b" in params:
+        packed["b"] = params["b"]
+    return packed
+
+
+def pack_conv_aligned(params: dict) -> dict:
+    """Tap-aligned packing for C % 32 != 0: each tap's channel block pads
+    to whole words with -1 weights before packing, so filter word
+    ``(h*kW + w)*ceil(C/32) + cw`` lines up with ``pack_channels``
+    activation words. Identical to :func:`pack_conv_params` when
+    C % 32 == 0."""
+    w = params["w"]  # [D, kH, kW, C]
+    d = w.shape[0]
+    pad = -w.shape[-1] % bitops.PACK_BITS
+    wm = torch.nn.functional.pad(w, (0, pad), value=-1.0) if pad else w
+    packed = {"w_packed": bitops.pack_bits(wm.reshape(d, -1), axis=-1)}
+    if "b" in params:
+        packed["b"] = params["b"]
+    return packed
+
+
+def fold_bn_params(
+    bn: dict,
+    *,
+    bias: Optional[torch.Tensor] = None,
+    eps: float = BN_EPS,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inference BatchNorm (+ bias) -> the per-channel affine ``(a, b)``
+    the fused epilogue applies to the ±1 dot: ``a = s``,
+    ``b = s*(bias - mean) + beta``, ``s = gamma * rsqrt(var + eps)``.
+
+    ``torch.rsqrt`` and XLA's ``rsqrt`` round differently in some
+    channels (by up to 2 ulp), so ``(a, b)`` folded here can differ from
+    the JAX package's in the last bits.
+    """
+    s = bn["gamma"] * torch.rsqrt(bn["var"] + eps)
+    y0 = bias if bias is not None else torch.zeros_like(s)
+    b = s * (y0 - bn["mean"]) + bn["beta"]
+    return s.float(), b.float()
+
+
+def _fold_into(packed: dict, bn: dict, eps: float) -> dict:
+    a, b = fold_bn_params(bn, bias=packed.pop("b", None), eps=eps)
+    packed["a"], packed["b"] = a, b
+    return packed
+
+
+def pack_linear_fused(params: dict, bn: dict, *, eps: float = BN_EPS) -> dict:
+    """Pack weights and fold the layer's BN/bias into ``(a, b)``."""
+    return _fold_into(pack_linear_params(params), bn, eps)
+
+
+def pack_conv_fused(params: dict, bn: dict, *, eps: float = BN_EPS) -> dict:
+    """Conv variant of :func:`pack_linear_fused`."""
+    return _fold_into(pack_conv_params(params), bn, eps)
+
+
+def _fused_dispatch(wp, xpT, k_orig: int, a, b, engine: str):
+    """Packed ``[KW, N]`` acts -> packed ``[ceil(M/32), N]`` outputs."""
+    if engine == "xnor":
+        return kops.fused_xnor_gemm(wp, xpT, k_orig, a, b)
+    if engine == "xla":
+        return bitops.fused_xnor_layer(wp, xpT, k_orig, a, b)
+    raise ValueError(f"fused path has no engine {engine!r}")
+
+
+def fused_bit_linear(packed: dict, xp: torch.Tensor, k_orig: int, *,
+                     engine: str = "xnor") -> torch.Tensor:
+    """Fused binary FC: ``[batch, KW]`` packed acts (K-pad bits +1) ->
+    ``[batch, ceil(out/32)]`` packed words of ``sign(a*(x·w) + b)``."""
+    out = _fused_dispatch(packed["w_packed"], xp.T.contiguous(), k_orig,
+                          packed["a"], packed["b"], engine)
+    return out.T
+
+
+def fused_bit_conv2d(
+    packed: dict,
+    xp: torch.Tensor,
+    k_orig: int,
+    *,
+    kh: int,
+    kw: int,
+    stride: int = 1,
+    pad: int = 0,
+    engine: str = "xnor",
+    conv_impl: str = "im2col",
+) -> torch.Tensor:
+    """Fused binary conv: channel-packed ``[N, H, W, CW]`` maps in and
+    out (``[N, OH, OW, ceil(D/32)]``). Borders pad with all-ones words.
+
+    ``conv_impl="im2col"`` lowers to the patch-matrix GEMM;
+    ``"direct"`` convolves the packed map in place. Both are
+    bit-identical on both engines.
+    """
+    if conv_impl == "direct":
+        args = (packed["w_packed"], xp.contiguous(), k_orig, packed["a"],
+                packed["b"])
+        if engine == "xnor":
+            return kops.fused_direct_conv(*args, kh=kh, kw=kw, stride=stride,
+                                          pad=pad)
+        if engine == "xla":
+            return bitops.direct_conv_oracle(*args, kh=kh, kw=kw,
+                                             stride=stride, pad=pad)
+        raise ValueError(f"direct conv has no engine {engine!r}")
+    if conv_impl != "im2col":
+        raise ValueError(f"unknown conv_impl {conv_impl!r}")
+    patches, (oh, ow) = im2col(xp, kh, kw, stride=stride, pad=pad,
+                               pad_value=-1)
+    n, _, kwords = patches.shape
+    x2d = patches.reshape(n * oh * ow, kwords)
+    out = _fused_dispatch(packed["w_packed"], x2d.T.contiguous(), k_orig,
+                          packed["a"], packed["b"], engine)
+    return col2im(out.T.reshape(n, oh * ow, -1), oh, ow)
+
+
+def packed_act_linear(packed: dict, xp: torch.Tensor, k_orig: int, *,
+                      engine: str = "xnor") -> torch.Tensor:
+    """Float-boundary epilogue-free layer (the chain's last): packed
+    ``[batch, KW]`` -> float ``[batch, out]`` = ``x·w (+bias)``."""
+    wp, xpT = packed["w_packed"], xp.T.contiguous()
+    if engine == "xnor":
+        dot = kops.xnor_gemm(wp, xpT, k_orig)
+    elif engine == "xla":
+        dot = bitops.xnor_popcount_matmul(wp, xpT, k_orig)
+    else:
+        raise ValueError(f"fused path has no engine {engine!r}")
+    y = dot.T.float()
+    if "b" in packed:
+        y = y + packed["b"].float()
+    return y
+
+
+def bit_conv2d(params: dict, x: torch.Tensor, cfg: BitLinearConfig, *,
+               stride: int = 1, pad: int = 0) -> torch.Tensor:
+    """Conv via the paper's forward graph, im2col -> GEMM -> (+bias) ->
+    col2im, in the FAKE_QUANT mode (the float first conv: ±1 weights).
+
+    x: [N, H, W, C]. Returns [N, OH, OW, D]. The GEMM is a plain fp32
+    ``torch.matmul``, as the JAX package leaves it to XLA; callers on a
+    GPU keep TF32 off.
+    """
+    if cfg.mode != QuantMode.FAKE_QUANT:
+        raise NotImplementedError(f"bit_conv2d mode {cfg.mode.value!r} is not "
+                                  "ported yet; packed convs use fused_bit_conv2d")
+    w = params["w"]
+    _, kh, kw, _ = w.shape
+    patches, (oh, ow) = im2col(x, kh, kw, stride=stride, pad=pad)
+    n, _, pk = patches.shape
+    x2d = patches.reshape(n * oh * ow, pk)
+    wq, _ = binarize_weights(filters_to_matrix(w))
+    xq = binarize_activations(x2d) if cfg.binarize_acts else x2d
+    y2d = xq @ wq.to(x2d.dtype).T
+    if "b" in params:
+        y2d = y2d + params["b"].to(y2d.dtype)
+    return col2im(y2d.reshape(n, oh * ow, -1), oh, ow)

@@ -1,0 +1,123 @@
+"""Build and load the CUDA kernels of ``csrc/``.
+
+Each ``.cu`` file compiles with ``nvcc`` into its own shared library with
+a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
+build takes seconds). The libraries go to ``build/repro_torch/<hash>/``
+at the repository root, keyed by a hash of every source and the flags,
+so an edited source never loads a stale library. Nothing is built when
+this module is imported: :func:`load` builds on first CUDA use, and the
+three ``nvcc`` processes run in parallel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("xnor_gemm", "fused_gemm", "direct_conv")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signature of every exported function: all pointers and the stream as
+# void*, sizes as int; each launcher returns cudaGetLastError() as an int.
+_SIGNATURES = {
+    "repro_xnor_gemm": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_fused_xnor_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_fused_direct_conv": (
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # (CW, Wp, kh, kw) -> dynamic shared memory bytes of one block
+    "repro_fused_direct_conv_smem_bytes": (_I, _I, _I, _I),
+}
+_LIB_OF = {
+    "repro_xnor_gemm": "xnor_gemm",
+    "repro_fused_xnor_gemm": "fused_gemm",
+    "repro_fused_direct_conv": "direct_conv",
+    "repro_fused_direct_conv_smem_bytes": "direct_conv",
+}
+
+_loaded: dict[str, ctypes._CFuncPtr] = {}
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> pathlib.Path:
+    return BUILD_ROOT / source_hash()
+
+
+def nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+        shutil.which("nvcc") or "",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels of "
+                       "repro_torch are built from source on first CUDA use")
+
+
+def build() -> dict:
+    """Compile every missing library, all ``nvcc`` runs in parallel.
+
+    Returns ``{"dir", "seconds", "built": [names], "ptxas": {name: log}}``;
+    raises ``RuntimeError`` with the compiler's output if a build fails.
+    """
+    out_dir = build_dir()
+    t0 = time.monotonic()
+    missing = [n for n in SOURCES if not (out_dir / f"{n}.so").exists()]
+    compiler = nvcc() if missing else ""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in missing:
+        tmp = out_dir / f"{name}.{os.getpid()}.tmp.so"
+        procs[name] = (tmp, subprocess.Popen(
+            [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        (out_dir / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu (exit {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, out_dir / f"{name}.so")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    ptxas = {}
+    for name in SOURCES:
+        log = out_dir / f"{name}.log"
+        ptxas[name] = log.read_text() if log.exists() else ""
+    return {"dir": str(out_dir), "seconds": time.monotonic() - t0,
+            "built": sorted(procs), "ptxas": ptxas}
+
+
+def load(symbol: str) -> ctypes._CFuncPtr:
+    """The launcher ``symbol`` with its argtypes set, building first if
+    the libraries for the current sources are missing."""
+    fn = _loaded.get(symbol)
+    if fn is None:
+        path = build_dir() / f"{_LIB_OF[symbol]}.so"
+        if not path.exists():
+            build()
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        fn.argtypes = list(_SIGNATURES[symbol])
+        fn.restype = ctypes.c_int
+        _loaded[symbol] = fn
+    return fn

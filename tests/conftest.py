@@ -26,3 +26,11 @@ if "xla_force_host_platform_device_count" not in _flags:
         f"{_flags} --xla_force_host_platform_device_count="
         f"{FORCED_HOST_DEVICES}"
     ).strip()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU, nvcc and the CUDA build of torch "
+        "(tests/test_torch_cuda.py; skipped without a GPU)",
+    )

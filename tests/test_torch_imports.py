@@ -1,0 +1,43 @@
+"""The port stands alone: no module of ``src/repro_torch`` (nor the
+port's ``chip_smoke.py``) imports ``jax`` or the JAX package ``repro``,
+and importing the whole package pulls neither in."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def imported_roots(path: pathlib.Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_module_imports_neither_jax_nor_repro(path):
+    assert not imported_roots(path) & {"jax", "jaxlib", "repro"}
+
+
+def test_package_import_loads_no_jax():
+    modules = sorted(
+        ".".join(p.relative_to(PORT.parent).with_suffix("").parts).removesuffix(
+            ".__init__") for p in PORT.rglob("*.py"))
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "print(len(sys.modules)); assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
