@@ -8,16 +8,22 @@
    batch 32 and holds its output, bit for bit, against its plain-torch
    twin on the same inputs; times kernel, twin and a PyTorch library
    yardstick (fp32 ``torch.matmul`` / ``F.conv2d`` of the unpacked ±1
-   operands, TF32 off) with CUDA events.
-4. Serves 12 ragged requests (1-8 images) through ``ServingEngine
-   (engine="xnor")`` for each ``conv_impl`` on the trained checkpoint
-   ``tests/golden/bnn_trained_ckpt.npz``, and holds every request's
+   operands, TF32 off) with CUDA events. The two megakernels run at the
+   three conv-stage shapes (and once more at batch 3) and at the FC
+   trunk (batch 32 and masked tails of 1, 3 and 13 columns); beside
+   them the slice-1 per-layer kernels over the same layers are timed.
+4. Serves 12 ragged requests (1-8 images) on the trained checkpoint
+   ``tests/golden/bnn_trained_ckpt.npz`` through ``ServingEngine
+   (engine="xnor")`` for each ``conv_impl``, and through
+   ``ContinuousServingEngine(engine="megakernel")`` with a
+   ``FallbackPolicy`` holding both param sets, and holds every request's
    logits, bit for bit, against the ``xla`` (plain-torch) forward of
    the same images on the card. The launch counters are reset just
-   before each ``conv_impl``'s engine is built and read just after its
-   drain: each path must have launched exactly its own kernels, once
-   per layer per forward (warmup and served batches), and no engine
-   failover may be recorded.
+   before each path's engine is built and read just after its drain:
+   each path must have launched exactly its own kernels per forward
+   (warmup and served batches: one per layer on the ``xnor`` paths,
+   3 conv stages + 1 chain on the megakernel path), and no engine
+   failover may be recorded. Times the batch-32 forward of each path.
 5. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
@@ -214,7 +220,12 @@ def kernel_phase(dev) -> tuple[dict, list]:
 
 
 def record(total: dict, name: str, label: str, err: int, run, twin, lib,
-           nbytes: int, ops_n: int) -> dict:
+           nbytes: int, ops_n: int, per_layer=None, summed: bool = True) -> dict:
+    """Time one main-path shape: kernel (graph replay and eager call),
+    twin, library yardstick and, for a megakernel, the slice-1
+    per-layer kernels over the same layers (``per_layer``). The kernel's
+    totals sum the times of the batch-32 forward's shapes only
+    (``summed``); every shape's error counts."""
     ms = graph_ms(run)
     eager_ms = time_ms(run, iters=50)
     plain_ms = time_ms(twin, iters=2, reps=3)
@@ -224,55 +235,192 @@ def record(total: dict, name: str, label: str, err: int, run, twin, lib,
            "eager_ms": eager_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
            "bytes": nbytes, "ops": ops_n}
-    print(f"  {name:18s} {label:14s} exact  kernel {ms:.4f} ms (eager call "
-          f"{eager_ms:.4f})  plain {plain_ms:.3f} ms  library "
-          f"{library_ms:.4f} ms  bound {bms:.5f} ms ({by})", flush=True)
-    for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
-        total[k] += row[k]
+    line = (f"  {name:21s} {label:18s} exact  kernel {ms:.4f} ms (eager call "
+            f"{eager_ms:.4f})  plain {plain_ms:.3f} ms  library "
+            f"{library_ms:.4f} ms  bound {bms:.5f} ms ({by})")
+    if per_layer is not None:
+        row["per_layer_ms"] = graph_ms(per_layer)
+        line += f"  per-layer kernels {row['per_layer_ms']:.4f} ms"
+    print(line, flush=True)
+    total["max_abs_err"] = max(total["max_abs_err"], err)
+    if not summed:
+        return row
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "per_layer_ms"):
+        if k in row:
+            total[k] = total.get(k, 0.0) + row[k]
     total["bytes"] += nbytes
     total["ops"] += ops_n
-    total["max_abs_err"] = max(total["max_abs_err"], err)
     return row
 
 
-def launches_per_forward(conv_impl: str) -> dict:
-    """Kernel launches one forward of the served BNN makes: one per
-    binary conv (direct conv, or the im2col GEMM), one fused GEMM per
-    hidden FC, one xnor_gemm for the head."""
-    from repro_torch.core.bnn import CONV_CHANNELS, FC_SIZES
+# (label, input H, channels of each conv) of the three conv stages.
+STAGE_CASES = [("stage1/conv1", 32, (128, 128)),
+               ("stage2/conv2+3", 16, (128, 256, 256)),
+               ("stage3/conv4+5", 8, (256, 512, 512))]
 
+
+def stage_operands(gen, h, chans, n, dev):
+    x = rand_words(gen, (n, h, h, chans[0] // 32), dev)
+    ws, aff, k_bits = [], [], []
+    for cin, cout in zip(chans[:-1], chans[1:]):
+        ws.append(rand_words(gen, (cout, 9 * cin // 32), dev))
+        aff.append(rand_affine(gen, cout, 9 * cin, dev))
+        k_bits.append(9 * cin)
+    return x, ws, [p[0] for p in aff], [p[1] for p in aff], k_bits
+
+
+def megakernel_phase(dev, totals: dict, rows: list) -> None:
+    """Both megakernels at the main path's shapes, bit-exact against their
+    twins, timed beside the per-layer kernels and a library chain."""
+    from repro_torch.core import bitops
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator().manual_seed(1)
+    F = torch.nn.functional
+    for label, h, chans in STAGE_CASES:
+        for n in (3, BATCH):
+            x, ws, a, b, k_bits = stage_operands(gen, h, chans, n, dev)
+            run = lambda: ops.megakernel_conv_stage(x, ws, a, b, k_bits)  # noqa: E731,B023
+            twin = lambda: bitops.conv_stage_xla(x, ws, a, b, k_bits)  # noqa: E731,B023
+            err = check_equal("megakernel_conv_stage", f"{label} b{n}", run(),
+                              twin())
+            if n != BATCH:
+                print(f"  megakernel_conv_stage {label} batch {n}: exact",
+                      flush=True)
+                continue
+
+            def per_layer(x=x, ws=ws, a=a, b=b, k_bits=k_bits):
+                y = x
+                for wl, al, bl, k in zip(ws, a, b, k_bits):
+                    y = ops.fused_direct_conv(wl, y, k, al, bl, kh=3, kw=3,
+                                              stride=1, pad=1)
+                return bitops.maxpool2_packed(y)
+
+            # Yardstick: F.conv2d of the ±1 map and filters (zero padding),
+            # sign between convs, max_pool2d, NCHW, TF32 off.
+            xf = bitops.unpack_bits(x, axis=-1).permute(0, 3, 1, 2).contiguous()
+            wfs = [bitops.unpack_bits(wl, axis=-1).reshape(
+                wl.shape[0], 3, 3, -1).permute(0, 3, 1, 2).contiguous()
+                for wl in ws]
+
+            def lib(xf=xf, wfs=wfs):
+                y = xf
+                for i, wf in enumerate(wfs):
+                    y = F.conv2d(y if i == 0 else y.sign(), wf, padding=1)
+                return F.max_pool2d(y, 2)
+
+            out_words = n * (h // 2) ** 2 * chans[-1] // 32
+            nbytes = (x.numel() + sum(wl.numel() for wl in ws) + out_words) * 4
+            nbytes += 8 * sum(chans[1:])
+            ops_n = 2 * n * h * h * sum(d * k for d, k in zip(chans[1:], k_bits))
+            rows.append(record(totals["megakernel_conv_stage"],
+                               "megakernel_conv_stage", label, err, run, twin,
+                               lib, nbytes, ops_n, per_layer=per_layer))
+
+    # The FC trunk: fc0 [1024, 8192] + fc1 [1024, 1024] stacked, head
+    # [10, 1024]. Batch 32 as served (masked-tail path), then tails.
+    w_stack = rand_words(gen, (2, 1024, 256), dev)
+    w_stack[1, :, 32:] = 0                   # fc1's K pad words
+    aff = [rand_affine(gen, 1024, k, dev) for k in (8192, 1024)]
+    a_stack = torch.stack([p[0] for p in aff])
+    b_stack = torch.stack([p[1] for p in aff])
+    fin = rand_words(gen, (10, 32), dev)
+    k_bits = (8192, 1024)
+    w0, w1 = w_stack[0].contiguous(), w_stack[1, :, :32].contiguous()
+    fc_words = (w0.numel() + w1.numel() + fin.numel()) * 4 + a_stack.numel() * 8
+    for n, n_real in ((BATCH, BATCH), (8, 1), (8, 3), (16, 13)):
+        x = rand_words(gen, (256, n), dev)
+        run = lambda: ops.megakernel_chain(  # noqa: E731
+            w_stack, a_stack, b_stack, k_bits, x, 1024, final_wp=fin,  # noqa: B023
+            final_k_bits=1024, ragged_tile=ops.RAGGED_TILE_N, n_real=n_real)  # noqa: B023
+        twin = lambda: bitops.megakernel_chain_ragged_xla(  # noqa: E731
+            w_stack, a_stack, b_stack, k_bits, x, 1024, n_real,  # noqa: B023
+            final_wp=fin, final_k_bits=1024)
+        label = f"fc trunk b{n}" + (f" n_real {n_real}" if n_real != n else "")
+        got = run()
+        err = check_equal("megakernel_chain", label, got, twin())
+        if got[:, n_real:].any():
+            fail(f"megakernel_chain {label}: pad columns not zeroed")
+
+        def per_layer(x=x):
+            y = ops.fused_xnor_gemm(w0, x, 8192, a_stack[0], b_stack[0])
+            # (no-op on the card, whose kernel outputs are contiguous)
+            y = ops.fused_xnor_gemm(w1, y.contiguous(), 1024, a_stack[1],
+                                    b_stack[1])
+            return ops.xnor_gemm(fin, y.contiguous(), 1024)
+
+        wf = [bitops.unpack_bits(w, axis=-1) for w in (w0, w1, fin)]
+        xf = bitops.unpack_bits(x, axis=0)
+
+        def lib(wf=wf, xf=xf):
+            y = torch.matmul(wf[0], xf).sign()
+            return torch.matmul(wf[2], torch.matmul(wf[1], y).sign())
+
+        nbytes = fc_words + (x.numel() + 10 * n) * 4
+        ops_n = 2 * n * (1024 * 8192 + 1024 * 1024 + 10 * 1024)
+        rows.append(record(totals["megakernel_chain"], "megakernel_chain", label,
+                           err, run, twin, lib, nbytes, ops_n,
+                           per_layer=per_layer, summed=n == n_real == BATCH))
+
+
+def launches_per_forward(path: str) -> dict:
+    """Kernel launches one forward of the served BNN makes on ``path``:
+    ``direct``/``im2col`` (the per-layer ``xnor`` engine) one per binary
+    conv (direct conv, or the im2col GEMM), one fused GEMM per hidden
+    FC, one xnor_gemm for the head; ``megakernel`` one launch per conv
+    stage and one for the FC trunk."""
+    from repro_torch.core.bnn import CONV_CHANNELS, CONV_STAGES, FC_SIZES
+
+    if path == "megakernel":
+        return {"xnor_gemm": 0, "fused_xnor_gemm": 0, "fused_direct_conv": 0,
+                "megakernel_conv_stage": len(CONV_STAGES),
+                "megakernel_chain": 1}
     convs, hidden_fc = len(CONV_CHANNELS) - 1, len(FC_SIZES) - 1
-    direct = conv_impl == "direct"
+    direct = path == "direct"
     return {"xnor_gemm": 1,
             "fused_xnor_gemm": hidden_fc + (0 if direct else convs),
-            "fused_direct_conv": convs if direct else 0}
+            "fused_direct_conv": convs if direct else 0,
+            "megakernel_conv_stage": 0, "megakernel_chain": 0}
 
 
 def serve_phase(dev) -> dict:
-    from repro_torch.core.bnn import (bnn_apply_fused, first_conv_packed,
+    from repro_torch.core.bnn import (bnn_apply_fused, bnn_apply_megakernel,
+                                      first_conv_packed,
                                       load_binary_checkpoint,
-                                      pack_bnn_params_fused)
+                                      pack_bnn_params_fused,
+                                      pack_bnn_params_megakernel)
     from repro_torch.kernels import ops
     from repro_torch.launch.serve_bnn import random_requests
-    from repro_torch.serve import ServingEngine, is_error
+    from repro_torch.serve import (ContinuousServingEngine, FallbackPolicy,
+                                   ServingEngine, default_extents, is_error)
 
-    packed = pack_bnn_params_fused(load_binary_checkpoint(CKPT, device=dev))
+    latent = load_binary_checkpoint(CKPT, device=dev)
+    packed = pack_bnn_params_fused(latent)
+    mega = pack_bnn_params_megakernel(latent)
     rng = np.random.default_rng(0)
     requests = random_requests(rng, count=12, max_images=8)
     result = {"requests": len(requests),
               "images": sum(r.shape[0] for r in requests)}
 
     engines, launches = {}, {}
-    for conv_impl in ("direct", "im2col"):
+    for path in ("direct", "im2col", "megakernel"):
         # This path's counts: 0 just before its engine is built, read
         # just after its drain.
         ops.reset_launches()
         t0 = time.monotonic()
         # max_wait 0: every step dispatches what is queued, so the
-        # ragged requests reach several buckets.
-        eng = ServingEngine(packed, engine="xnor", conv_impl=conv_impl,
-                            max_wait_s=0.0)
-        eng.warmup()
+        # ragged requests reach several buckets or extent classes.
+        if path == "megakernel":
+            eng = ContinuousServingEngine(
+                mega, engine="megakernel", max_wait_s=0.0,
+                fallback=FallbackPolicy(fused_params=packed, mega_params=mega))
+            if eng.warmup() != len(default_extents(32)):
+                fail(f"megakernel: {len(eng.extents)} extent classes warmed, "
+                     f"expected {default_extents(32)}")
+        else:
+            eng = ServingEngine(packed, engine="xnor", conv_impl=path,
+                                max_wait_s=0.0)
+            eng.warmup()
         t1 = time.monotonic()
         rids = []
         for imgs in requests:
@@ -281,48 +429,51 @@ def serve_phase(dev) -> dict:
         eng.drain()
         torch.cuda.synchronize()
         t2 = time.monotonic()
-        launches[conv_impl] = dict(ops.LAUNCHES)
-        engines[conv_impl] = (eng, [eng.take(r) for r in rids])
-        result[f"{conv_impl}_warmup_s"] = t1 - t0
-        result[f"{conv_impl}_serve_s"] = t2 - t1
+        launches[path] = dict(ops.LAUNCHES)
+        engines[path] = (eng, [eng.take(r) for r in rids])
+        result[f"{path}_warmup_s"] = t1 - t0
+        result[f"{path}_serve_s"] = t2 - t1
     result["launches"] = launches
 
-    for conv_impl, (eng, got) in engines.items():
+    for path, (eng, got) in engines.items():
         snap = eng.snapshot()
-        # Every warmed bucket ran one forward, then every served batch.
-        forwards = len(eng.batcher.buckets) + snap["batches"]["dispatched"]
+        # Every warmed bucket or extent class ran one forward, then every
+        # served batch.
+        shapes = eng.extents if path == "megakernel" else eng.batcher.buckets
+        forwards = len(shapes) + snap["batches"]["dispatched"]
         expected = {k: v * forwards
-                    for k, v in launches_per_forward(conv_impl).items()}
-        if launches[conv_impl] != expected:
-            fail(f"{conv_impl}: kernel launches {launches[conv_impl]} over "
+                    for k, v in launches_per_forward(path).items()}
+        if launches[path] != expected:
+            fail(f"{path}: kernel launches {launches[path]} over "
                  f"{forwards} forwards, expected {expected}")
         if snap["dispatch"]["fallbacks"] or snap["degraded"]:
-            fail(f"{conv_impl}: engine failover recorded: "
+            fail(f"{path}: engine failover recorded: "
                  f"{snap['dispatch']['engine_path']}")
         if snap["requests"]["completed"] != len(requests):
-            fail(f"{conv_impl}: {snap['requests']['completed']} of "
+            fail(f"{path}: {snap['requests']['completed']} of "
                  f"{len(requests)} requests completed")
         for i, (imgs, logits) in enumerate(zip(requests, got)):
             if logits is None or is_error(logits):
-                fail(f"{conv_impl}: request {i} has no logits: {logits}")
+                fail(f"{path}: request {i} has no logits: {logits}")
             with torch.inference_mode():
-                want = bnn_apply_fused(packed, torch.from_numpy(imgs).to(dev),
-                                       engine="xla",
-                                       conv_impl=conv_impl).cpu().numpy()
+                want = bnn_apply_fused(
+                    packed, torch.from_numpy(imgs).to(dev), engine="xla",
+                    conv_impl="direct" if path == "megakernel"
+                    else path).cpu().numpy()
             if logits.shape != (imgs.shape[0], 10) or not np.isfinite(logits).all():
-                fail(f"{conv_impl}: request {i} logits {logits.shape}, finite="
+                fail(f"{path}: request {i} logits {logits.shape}, finite="
                      f"{np.isfinite(logits).all()}")
             if not np.array_equal(logits, want):
-                fail(f"{conv_impl}: request {i}: served xnor logits differ "
+                fail(f"{path}: request {i}: served logits differ "
                      f"from the xla forward (max abs "
                      f"{np.abs(logits - want).max()})")
-        print(f"  serve xnor/{conv_impl}: {len(requests)} requests "
-              f"({result['images']} images) bit-identical to xla; warmup "
-              f"{result[f'{conv_impl}_warmup_s']:.3f} s, serve "
-              f"{result[f'{conv_impl}_serve_s']:.3f} s, buckets "
+        print(f"  serve {eng.executors.engine}/{path}: {len(requests)} "
+              f"requests ({result['images']} images) bit-identical to xla; "
+              f"warmup {result[f'{path}_warmup_s']:.3f} s, serve "
+              f"{result[f'{path}_serve_s']:.3f} s, batch shapes "
               f"{snap['batches']['per_bucket']}", flush=True)
-        print(f"  launches on the {conv_impl} path ({forwards} forwards): "
-              f"{launches[conv_impl]}", flush=True)
+        print(f"  launches on the {path} path ({forwards} forwards): "
+              f"{launches[path]}", flush=True)
     for name in ops.LAUNCHES:
         if not sum(path[name] for path in launches.values()):
             fail(f"kernel {name} was not launched on the main path")
@@ -351,16 +502,23 @@ def serve_phase(dev) -> dict:
         np.float32)).to(dev)
     with torch.inference_mode():
         for engine, conv_impl in (("xnor", "direct"), ("xnor", "im2col"),
-                                  ("xla", "direct")):
-            fwd = lambda: bnn_apply_fused(  # noqa: E731
-                packed, x32, engine=engine, conv_impl=conv_impl)  # noqa: B023
-            ms = time_ms(fwd, iters=10 if engine == "xnor" else 1, reps=3)
+                                  ("megakernel", "stages"), ("xla", "direct")):
+            if engine == "megakernel":
+                fwd = lambda: bnn_apply_megakernel(  # noqa: E731
+                    mega, x32, engine="xnor", ragged=True)
+            else:
+                fwd = lambda: bnn_apply_fused(  # noqa: E731
+                    packed, x32, engine=engine, conv_impl=conv_impl)  # noqa: B023
+            ms = time_ms(fwd, iters=1 if engine == "xla" else 10, reps=3)
             result[f"forward_b32_{engine}_{conv_impl}_ms"] = ms
             line = f"  forward batch {BATCH} {engine}/{conv_impl}: {ms:.3f} ms"
-            if engine == "xnor":
+            if engine != "xla":
                 gms = graph_ms(fwd, iters=5)
                 result[f"forward_b32_{engine}_{conv_impl}_graph_ms"] = gms
-                line += f" eager, {gms:.3f} ms replayed from a CUDA graph"
+                # The share of the eager forward the device waits on the host.
+                result[f"forward_b32_{engine}_{conv_impl}_idle"] = 1 - gms / ms
+                line += (f" eager, {gms:.3f} ms replayed from a CUDA graph "
+                         f"(device idle {1 - gms / ms:.2f} of the eager call)")
             print(line, flush=True)
         fc = lambda: first_conv_packed(packed, x32)  # noqa: E731
         result["first_conv_b32_ms"] = time_ms(fc, iters=10, reps=3)
@@ -378,6 +536,11 @@ KERNELS = {
                         "src/repro/kernels/fused_gemm.py:125"),
     "fused_direct_conv": ("src/repro_torch/kernels/csrc/direct_conv.cu",
                           "src/repro/kernels/direct_conv.py:171"),
+    "megakernel_conv_stage": (
+        "src/repro_torch/kernels/csrc/megakernel_conv_stage.cu",
+        "src/repro/kernels/megakernel.py:339"),
+    "megakernel_chain": ("src/repro_torch/kernels/csrc/megakernel_chain.cu",
+                         "src/repro/kernels/megakernel.py:229"),
 }
 
 
@@ -410,6 +573,7 @@ def main() -> None:
 
     print(f"phase 3: kernels vs plain twins at batch {BATCH} (bit-exact)", flush=True)
     totals, rows = kernel_phase(dev)
+    megakernel_phase(dev, totals, rows)
     print("phase 4: serving on the trained checkpoint", flush=True)
     serve = serve_phase(dev)
 
@@ -434,6 +598,8 @@ def main() -> None:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": t["library_ms"],
         })
+        if "per_layer_ms" in t:
+            kernels[-1]["per_layer_ms"] = t["per_layer_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

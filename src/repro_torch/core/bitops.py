@@ -37,6 +37,9 @@ __all__ = [
     "direct_conv_dot",
     "direct_conv_oracle",
     "maxpool2_packed",
+    "megakernel_chain_xla",
+    "megakernel_chain_ragged_xla",
+    "conv_stage_xla",
 ]
 
 # Elements of the int64 [M, g, N] popcount intermediate one block of
@@ -199,3 +202,66 @@ def maxpool2_packed(xp: torch.Tensor) -> torch.Tensor:
     the bitwise OR of the four window words."""
     return (xp[:, 0::2, 0::2] | xp[:, 0::2, 1::2]
             | xp[:, 1::2, 0::2] | xp[:, 1::2, 1::2])
+
+
+def _pad_rows_ones(xp: torch.Tensor, rows: int) -> torch.Tensor:
+    """Grow packed ``[KW, N]`` activations to ``rows`` words with
+    all-ones (xnor-neutral) rows."""
+    pad = rows - xp.shape[0]
+    return torch.nn.functional.pad(xp, (0, 0, 0, pad), value=-1) if pad else xp
+
+
+def megakernel_chain_xla(w_stack: torch.Tensor, a_stack: torch.Tensor,
+                         b_stack: torch.Tensor, k_bits, xp: torch.Tensor,
+                         m_out: int, *, final_wp: torch.Tensor | None = None,
+                         final_k_bits: int = 0) -> torch.Tensor:
+    """The megakernel chain as a sequence of :func:`fused_xnor_layer`
+    calls on the stacked operands.
+
+    ``w_stack [L, M_max, KW_max]`` (pad rows and words 0), ``a_stack``/
+    ``b_stack [L, M_max]`` (pad rows ``a=0, b=+1``), packed ``xp [KW_in,
+    N]``. Between layers the activations grow back to
+    ``KW_act = max(KW_max, M_max/32)`` words with all-ones rows, as the
+    kernel's ping-pong buffers do, and each layer reads only its true
+    ``ceil(k_bits/32)`` words. Returns packed ``[ceil(m_out/32), N]``,
+    or with ``final_wp [Mf, KWf]`` the int32 ±1 dot ``[Mf, N]``.
+    """
+    n_layers, m_max, kw_max = w_stack.shape
+    kw_act = max(kw_max, m_max // PACK_BITS)
+    act = _pad_rows_ones(xp, kw_act)
+    for i in range(n_layers):
+        kw_i = min(kw_max, -(-int(k_bits[i]) // PACK_BITS))
+        out = fused_xnor_layer(w_stack[i, :, :kw_i], act[:kw_i],
+                               int(k_bits[i]), a_stack[i], b_stack[i])
+        act = _pad_rows_ones(out, kw_act)
+    if final_wp is not None:
+        return xnor_popcount_matmul(final_wp, act[:final_wp.shape[1]],
+                                    final_k_bits)
+    return act[:-(-m_out // PACK_BITS)]
+
+
+def megakernel_chain_ragged_xla(w_stack: torch.Tensor, a_stack: torch.Tensor,
+                                b_stack: torch.Tensor, k_bits,
+                                xp: torch.Tensor, m_out: int, n_real: int, *,
+                                final_wp: torch.Tensor | None = None,
+                                final_k_bits: int = 0) -> torch.Tensor:
+    """The chain's masked tail: :func:`megakernel_chain_xla` on a
+    tile-padded batch ``xp [KW_in, N_pad]``, then every output column
+    at or after ``n_real`` set to 0 (pad columns included)."""
+    out = megakernel_chain_xla(w_stack, a_stack, b_stack, k_bits, xp, m_out,
+                               final_wp=final_wp, final_k_bits=final_k_bits)
+    keep = torch.arange(out.shape[1], device=out.device) < int(n_real)
+    return torch.where(keep[None, :], out, torch.zeros_like(out))
+
+
+def conv_stage_xla(xp: torch.Tensor, weights, a, b, k_bits, *, kh: int = 3,
+                   kw: int = 3, pad: int = 1, pool: bool = True) -> torch.Tensor:
+    """One conv stage: :func:`direct_conv_oracle` chained over the
+    stage's convs (true shapes: tap-aligned ``weights[l] [D_l,
+    kH*kW*CW_l]``, ``a[l]``/``b[l] [D_l]``), then the packed-OR maxpool
+    when ``pool``. Returns packed ``[N, OH', OW', ceil(D_last/32)]``."""
+    act = xp
+    for wl, al, bl, k in zip(weights, a, b, k_bits):
+        act = direct_conv_oracle(wl, act, int(k), al, bl, kh=kh, kw=kw,
+                                 stride=1, pad=pad)
+    return maxpool2_packed(act) if pool else act

@@ -8,8 +8,10 @@ Architecture (as ``repro.core.bnn``):
 
 The first conv consumes real images (FAKE_QUANT: ±1 weights, float
 inputs); every other layer is binary, and between binary layers only
-packed int32 words exist (:func:`bnn_apply_fused`). Training, the
-unfused PACKED path and the megakernel engines are not ported yet.
+packed int32 words exist: one launch per layer in
+:func:`bnn_apply_fused`, one per network stage in
+:func:`bnn_apply_megakernel`. Training and the unfused PACKED path are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -29,15 +31,36 @@ from repro_torch.core.layers import (
     fused_bit_linear,
     init_conv,
     init_linear,
+    megakernel_conv_stage,
+    megakernel_fc_chain,
     pack_conv_fused,
     pack_linear_fused,
     pack_linear_params,
     packed_act_linear,
+    stack_chain_layers,
 )
 
 CONV_CHANNELS = [(3, 128), (128, 128), (128, 256), (256, 256), (256, 512), (512, 512)]
 POOL_AFTER = {1, 3, 5}  # maxpool after conv index
 FC_SIZES = [(512 * 4 * 4, 1024), (1024, 1024), (1024, 10)]
+
+
+def _conv_stages() -> tuple[tuple[int, ...], ...]:
+    """Interior binary convs grouped into pool-terminated stages,
+    ((1,), (2, 3), (4, 5)) for the CIFAR net: one megakernel launch
+    each. Derived from POOL_AFTER."""
+    stages, cur = [], []
+    for i in range(1, len(CONV_CHANNELS)):
+        cur.append(i)
+        if i in POOL_AFTER:
+            stages.append(tuple(cur))
+            cur = []
+    if cur:
+        stages.append(tuple(cur))
+    return tuple(stages)
+
+
+CONV_STAGES = _conv_stages()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -146,31 +169,109 @@ def bnn_apply_fused(
     return _batchnorm(packed["bn_fc_last"], y)
 
 
-# Engines bnn_serve_fn (and the serving executor cache) accepts: the
-# per-layer fused chain on pack_bnn_params_fused params, through the
-# CUDA kernels ("xnor") or the plain-torch twins ("xla").
-SERVE_ENGINES = ("xla", "xnor")
+def pack_bnn_params_megakernel(params: dict) -> dict:
+    """Latent float params -> megakernel inference params: the packing
+    and folding of :func:`pack_bnn_params_fused`, with the FC trunk's
+    interior layers stacked into the chain's ``[L, M_max, KW_max]``
+    operands (``fc_stack``) here, once, not per forward. Conv stages
+    keep their per-layer tap-aligned params."""
+    fused = pack_bnn_params_fused(params)
+    return {
+        "conv": fused["conv"],
+        "bn_conv0": fused["bn_conv0"],
+        "fc_stack": stack_chain_layers(fused["fc"][:-1]),
+        "fc_final": fused["fc"][-1],
+        "bn_fc_last": fused["bn_fc_last"],
+    }
+
+
+def bnn_apply_megakernel(
+    packed: dict,
+    images: torch.Tensor,
+    *,
+    engine: str = "xnor",
+    ragged: bool = False,
+) -> torch.Tensor:
+    """Megakernel inference: one launch per network stage.
+
+    Logits bit-identical to :func:`bnn_apply_fused`, from
+    :func:`pack_bnn_params_megakernel` params, with this launch
+    structure:
+
+      float first conv -> pack                (torch ops)
+      conv stage 1: conv1 + OR-pool           1 launch
+      conv stage 2: conv2 + conv3 + OR-pool   1 launch
+      conv stage 3: conv4 + conv5 + OR-pool   1 launch
+      FC trunk: fc0 + fc1 (fused) + fc2 dot   1 launch
+      bias + unfolded BN on [N, 10] floats    (torch ops)
+
+    ``engine="xnor"`` runs the CUDA megakernels (their twins on CPU
+    tensors), ``"xla"`` the plain-torch twins. ``ragged`` sends the FC
+    trunk through the chain's masked-tail path (batch padded to
+    ``RAGGED_TILE_N``); logits are the same either way.
+    """
+    xp = first_conv_packed(packed, images)
+    for stage in CONV_STAGES:
+        xp = megakernel_conv_stage(
+            [packed["conv"][i] for i in stage], xp,
+            tuple(3 * 3 * CONV_CHANNELS[i][0] for i in stage),
+            pool=stage[-1] in POOL_AFTER, engine=engine,
+        )
+    xp = xp.reshape(xp.shape[0], -1)  # word order matches pack_linear's K order
+    y = megakernel_fc_chain(
+        packed["fc_stack"], xp, tuple(fin for fin, _ in FC_SIZES[:-1]),
+        FC_SIZES[-2][1], final=packed["fc_final"], final_k=FC_SIZES[-1][0],
+        engine=engine, ragged=ragged,
+    )
+    return _batchnorm(packed["bn_fc_last"], y)
+
+
+# Engines bnn_serve_fn (and the serving executor caches) accepts:
+# "xla"/"xnor" run the per-layer fused chain on pack_bnn_params_fused
+# params, "megakernel"/"megakernel_xla" one launch per stage on
+# pack_bnn_params_megakernel params; the "xla" forms run the
+# plain-torch twins.
+SERVE_ENGINES = ("xla", "xnor", "megakernel", "megakernel_xla")
 
 # Failover ladder: on repeated kernel failure an engine demotes to the
-# next rung. Every rung is bit-identical to the one above it.
+# next rung. Every rung is bit-identical to the one above it. The
+# megakernel rungs take pack_bnn_params_megakernel params, the fused
+# ones pack_bnn_params_fused: FallbackPolicy skips rungs it holds no
+# params for.
 SERVE_FALLBACKS = {
+    "megakernel": ("xnor", "xla"),
+    "megakernel_xla": ("xla",),
     "xnor": ("xla",),
     "xla": (),
 }
 
 
-def bnn_serve_fn(*, engine: str = "xla", conv_impl: str = "im2col"):
+def bnn_serve_fn(*, engine: str = "xla", conv_impl: str = "im2col",
+                 ragged: bool = False):
     """The serving entry point: a ``(packed, images) -> logits`` callable
-    over :func:`bnn_apply_fused` with the kernel path bound at closure
-    time, run under ``torch.inference_mode``."""
+    over :func:`bnn_apply_fused`, or :func:`bnn_apply_megakernel` for the
+    megakernel engines (which ignore ``conv_impl``: their convs are
+    direct), with the kernel path bound at closure time, run under
+    ``torch.inference_mode``. ``ragged`` (the continuous scheduler's
+    executors) sends the megakernel FC trunk through the masked-tail
+    path; the other engines are exact-shape and ignore it."""
     if engine not in SERVE_ENGINES:
         raise ValueError(f"unknown serving engine {engine!r}; "
                          f"expected one of {SERVE_ENGINES}")
 
-    def apply_fn(packed: dict, images: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
-            return bnn_apply_fused(packed, images, engine=engine,
-                                   conv_impl=conv_impl)
+    if engine.startswith("megakernel"):
+        inner = "xnor" if engine == "megakernel" else "xla"
+
+        def apply_fn(packed: dict, images: torch.Tensor) -> torch.Tensor:
+            with torch.inference_mode():
+                return bnn_apply_megakernel(packed, images, engine=inner,
+                                            ragged=ragged)
+    else:
+
+        def apply_fn(packed: dict, images: torch.Tensor) -> torch.Tensor:
+            with torch.inference_mode():
+                return bnn_apply_fused(packed, images, engine=engine,
+                                       conv_impl=conv_impl)
 
     return apply_fn
 

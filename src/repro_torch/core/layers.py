@@ -10,9 +10,11 @@ across (``repro_torch.convert``). Engines:
     last rung of the serving fallback ladder (named after the JAX
     engine it mirrors).
 
-The unfused PACKED path (``bit_linear``/``_packed_matmul``) and the
-megakernel executors are not ported yet; ``bit_conv2d`` covers the
-FAKE_QUANT mode the float first conv needs.
+The megakernel executors (:func:`stack_chain_layers`,
+:func:`megakernel_fc_chain`, :func:`megakernel_conv_stage`) run whole
+stages of the same layers in one launch each. The unfused PACKED path
+(``bit_linear``/``_packed_matmul``) is not ported yet; ``bit_conv2d``
+covers the FAKE_QUANT mode the float first conv needs.
 """
 
 from __future__ import annotations
@@ -212,6 +214,95 @@ def packed_act_linear(packed: dict, xp: torch.Tensor, k_orig: int, *,
     if "b" in packed:
         y = y + packed["b"].float()
     return y
+
+
+# ---------------------------------------------------------------------------
+# Megakernel executors: a whole stage of layers in one launch.
+# ---------------------------------------------------------------------------
+
+def stack_chain_layers(layers: list[dict]) -> dict:
+    """Stack fused-layer params (``{"w_packed" [m, kw], "a", "b" [m]}``)
+    into the chain's operands ``{"w": [L, M_max, KW_max], "a", "b": [L,
+    M_max]}``, ``M_max = round_up(max m, 32)``, ``KW_max = max kw``. Pad
+    weight rows and words are 0; pad affine rows are ``a=0, b=+1``, so
+    the padded output bits are +1, the activation-pad convention the
+    next layer's zero weight words consume xnor-neutrally."""
+    m_max = max(-(-p["w_packed"].shape[0] // bitops.PACK_BITS)
+                * bitops.PACK_BITS for p in layers)
+    kw_max = max(p["w_packed"].shape[1] for p in layers)
+    ws, as_, bs = [], [], []
+    for p in layers:
+        m, kw = p["w_packed"].shape
+        ws.append(torch.nn.functional.pad(p["w_packed"],
+                                          (0, kw_max - kw, 0, m_max - m)))
+        as_.append(torch.nn.functional.pad(p["a"].float(), (0, m_max - m)))
+        bs.append(torch.nn.functional.pad(p["b"].float(), (0, m_max - m),
+                                          value=1.0))
+    return {"w": torch.stack(ws), "a": torch.stack(as_), "b": torch.stack(bs)}
+
+
+def megakernel_fc_chain(stack: dict, xp: torch.Tensor, k_bits, m_out: int, *,
+                        final: Optional[dict] = None, final_k: int = 0,
+                        engine: str = "xnor",
+                        ragged: bool = False) -> torch.Tensor:
+    """A whole FC trunk, the stacked fused layers and optionally the
+    float-boundary head's GEMM, in one launch.
+
+    ``stack`` comes from :func:`stack_chain_layers`; ``xp`` is ``[batch,
+    KW_in]`` packed activations. Without ``final``: ``[batch,
+    ceil(m_out/32)]`` packed words. With ``final`` (a
+    ``pack_linear_params`` dict): the head's float ``[batch, out]``, its
+    int32 dot computed in the launch and the bias added here with the
+    ops of :func:`packed_act_linear`, so logits match the per-layer chain
+    bit for bit. ``ragged`` takes the kernel's masked-tail path (batch
+    padded to ``RAGGED_TILE_N``); the twin is exact-N either way.
+    """
+    fin_wp = final["w_packed"] if final is not None else None
+    xpT = xp.T.contiguous()
+    if engine == "xnor":
+        out = kops.megakernel_chain(
+            stack["w"], stack["a"], stack["b"], tuple(k_bits), xpT, m_out,
+            final_wp=fin_wp, final_k_bits=final_k,
+            ragged_tile=kops.RAGGED_TILE_N if ragged else None)
+    elif engine == "xla":
+        out = bitops.megakernel_chain_xla(
+            stack["w"], stack["a"], stack["b"], tuple(k_bits), xpT, m_out,
+            final_wp=fin_wp, final_k_bits=final_k)
+    else:
+        raise ValueError(f"megakernel has no engine {engine!r}")
+    if final is None:
+        return out.T
+    y = out.T.float()
+    if "b" in final:
+        y = y + final["b"].float()
+    return y
+
+
+def megakernel_conv_stage(layers: list[dict], xp: torch.Tensor, k_bits, *,
+                          kh: int = 3, kw: int = 3, pad: int = 1,
+                          pool: bool = True,
+                          engine: str = "xnor") -> torch.Tensor:
+    """One conv stage, the stage's fused binary convs and the packed-OR
+    maxpool, in one launch (``engine="xnor"``) or through the chained
+    plain-torch direct-conv twin (``engine="xla"``).
+
+    ``layers``: ``pack_conv_fused`` dicts (tap-aligned ``w_packed``,
+    folded ``a``/``b``); ``xp``: ``[N, H, W, CW]`` channel-packed map.
+    Bit-identical to :func:`fused_bit_conv2d` per layer and
+    ``maxpool2_packed``; on the kernel the intermediate maps never reach
+    device memory.
+    """
+    weights = tuple(p["w_packed"] for p in layers)
+    a = tuple(p["a"] for p in layers)
+    b = tuple(p["b"] for p in layers)
+    if engine == "xnor":
+        return kops.megakernel_conv_stage(xp.contiguous(), weights, a, b,
+                                          tuple(k_bits), kh=kh, kw=kw,
+                                          pad=pad, pool=pool)
+    if engine == "xla":
+        return bitops.conv_stage_xla(xp, weights, a, b, tuple(k_bits), kh=kh,
+                                     kw=kw, pad=pad, pool=pool)
+    raise ValueError(f"megakernel has no engine {engine!r}")
 
 
 def bit_conv2d(params: dict, x: torch.Tensor, cfg: BitLinearConfig, *,

@@ -6,7 +6,7 @@ build takes seconds). The libraries go to ``build/repro_torch/<hash>/``
 at the repository root, keyed by a hash of every source and the flags,
 so an edited source never loads a stale library. Nothing is built when
 this module is imported: :func:`load` builds on first CUDA use, and the
-three ``nvcc`` processes run in parallel.
+``nvcc`` processes (one per source) run in parallel.
 """
 
 from __future__ import annotations
@@ -21,15 +21,17 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("xnor_gemm", "fused_gemm", "direct_conv")
+SOURCES = ("xnor_gemm", "fused_gemm", "direct_conv", "megakernel_conv_stage",
+           "megakernel_chain")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signature of every exported function: all pointers and the stream as
-# void*, sizes as int; each launcher returns cudaGetLastError() as an int.
+# C signature of every exported function: all pointers (arrays of pointers
+# and of ints included) and the stream as void*, sizes as int; each launcher
+# returns cudaGetLastError() as an int.
 _SIGNATURES = {
     "repro_xnor_gemm": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_fused_xnor_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -37,12 +39,28 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # (CW, Wp, kh, kw) -> dynamic shared memory bytes of one block
     "repro_fused_direct_conv_smem_bytes": (_I, _I, _I, _I),
+    # (x, out, w[], a[], b[], d_words[], cw[], k_bits[], n_layers, n_images,
+    #  hp, wp, kh, kw, pad, pool, cluster, stream)
+    "repro_megakernel_conv_stage": (_P,) * 8 + (_I,) * 9 + (_P,),
+    # (d_words[], cw[], n_layers, hp, wp, kh, kw, pad, cluster,
+    #  &smem_bytes, &max_clusters)
+    "repro_megakernel_conv_stage_limits": (_P, _P) + (_I,) * 7 + (_P, _P),
+    # (w, a, b, x, wf, out, kw_layer[], k_bits[], n_layers, m_max, kw_max,
+    #  kw_act, mf, kwf, final_k_bits, n, n_real, cluster, stream)
+    "repro_megakernel_chain": (_P,) * 8 + (_I,) * 10 + (_P,),
+    # (kw_layer[], n_layers, m_max, kw_act, mf, kwf, cluster, &smem_bytes,
+    #  &max_clusters)
+    "repro_megakernel_chain_limits": (_P,) + (_I,) * 6 + (_P, _P),
 }
 _LIB_OF = {
     "repro_xnor_gemm": "xnor_gemm",
     "repro_fused_xnor_gemm": "fused_gemm",
     "repro_fused_direct_conv": "direct_conv",
     "repro_fused_direct_conv_smem_bytes": "direct_conv",
+    "repro_megakernel_conv_stage": "megakernel_conv_stage",
+    "repro_megakernel_conv_stage_limits": "megakernel_conv_stage",
+    "repro_megakernel_chain": "megakernel_chain",
+    "repro_megakernel_chain_limits": "megakernel_chain",
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

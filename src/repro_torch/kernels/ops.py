@@ -14,6 +14,9 @@ else; :func:`reset_launches` sets every count to 0.
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import torch
 
 from repro_torch.core import bitops
@@ -21,7 +24,15 @@ from repro_torch.core.bitops import PACK_BITS, PACKED_DTYPE
 from repro_torch.core.im2col import conv_out_size
 from repro_torch.kernels import build
 
-LAUNCHES = {"xnor_gemm": 0, "fused_xnor_gemm": 0, "fused_direct_conv": 0}
+LAUNCHES = {"xnor_gemm": 0, "fused_xnor_gemm": 0, "fused_direct_conv": 0,
+            "megakernel_conv_stage": 0, "megakernel_chain": 0}
+
+# Batch tile of the chain's masked-tail path: the batch pads to a multiple
+# of it. It is the compiled tile of csrc/megakernel_chain.cu (kChainTileN),
+# where one thread-block cluster serves one tile of 8 columns.
+RAGGED_TILE_N = 8
+# Largest portable thread-block cluster on Hopper.
+MAX_CLUSTER = 8
 
 # Dynamic shared memory one block may use on Hopper (232,448 bytes).
 MAX_SMEM_BYTES = 227 * 1024
@@ -166,5 +177,199 @@ def fused_direct_conv(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
     return out
 
 
+def _ints(values) -> ctypes.Array:
+    return (ctypes.c_int * len(values))(*values)
+
+
+def _ptrs(tensors) -> ctypes.Array:
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+# (kernel, geometry) -> (smem bytes, clusters the device holds at once)
+_LIMITS: dict[tuple, tuple[int, int]] = {}
+
+
+def _check_limits(kernel: str, symbol: str, dev: torch.device, *args) -> None:
+    """Ask the library for one CTA's shared memory and the number of
+    clusters the device can run at once (``args``: the geometry, int
+    arrays as tuples); raise if the launch cannot run."""
+    key = (kernel, dev.index, args)
+    if key not in _LIMITS:
+        smem, clusters = (ctypes.c_int * 1)(), (ctypes.c_int * 1)()
+        c_args = [_ints(a) if isinstance(a, tuple) else a for a in args]
+        with torch.cuda.device(dev):
+            rc = build.load(symbol)(*c_args, smem, clusters)
+        _raise_on(rc, f"{kernel} occupancy query")
+        _LIMITS[key] = (smem[0], clusters[0])
+    smem, clusters = _LIMITS[key]
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{kernel} needs {smem} B of shared memory per block "
+                         f"(> {MAX_SMEM_BYTES})")
+    if clusters < 1:
+        raise RuntimeError(f"{kernel}: the device cannot hold one cluster of "
+                           f"this launch ({smem} B of shared memory per block)")
+
+
+def megakernel_conv_stage(xp: torch.Tensor, weights, a, b, k_bits, *,
+                          kh: int = 3, kw: int = 3, pad: int = 1,
+                          pool: bool = True) -> torch.Tensor:
+    """One conv stage in one launch: ``len(weights)`` fused direct convs
+    (stride 1) and, when ``pool``, the 2x2 packed-OR maxpool.
+
+    ``xp [N, H, W, CW]`` channel-packed; ``weights[l] [D_l, kH*kW*CW_l]``
+    tap-aligned filters with ``CW_{l+1} = ceil(D_l/32)``; ``a[l]``,
+    ``b[l] [D_l]`` folded affines; ``k_bits[l]`` the true ``kH*kW*C_l``.
+    The all-ones spatial border (``pad``, before every conv) and the
+    ``a=0, b=+1`` padding of D to whole words are applied here. Returns
+    packed ``[N, OH', OW', ceil(D_last/32)]``.
+    """
+    weights, a, b, k_bits = tuple(weights), tuple(a), tuple(b), tuple(k_bits)
+    n_layers = len(weights)
+    if not 1 <= n_layers <= 4 or not len(a) == len(b) == len(k_bits) == n_layers:
+        raise ValueError("a conv stage takes 1-4 convs, each with weights, "
+                         "a, b and k_bits")
+    _check("xp", xp, PACKED_DTYPE, 4)
+    n, h, w, cw = xp.shape
+    cws, cw_in = [], cw
+    for l, (wl, al, bl) in enumerate(zip(weights, a, b)):
+        _check(f"weights[{l}]", wl, PACKED_DTYPE, 2)
+        d, kwords = wl.shape
+        if kwords != kh * kw * cw_in:
+            raise ValueError(f"conv {l}: filter words {kwords} != kh*kw*CW = "
+                             f"{kh}*{kw}*{cw_in} (tap-aligned filters)")
+        _check_affine(al, bl, d)
+        cws.append(cw_in)
+        cw_in = -(-d // PACK_BITS)
+    if not _on_cuda(xp, *weights, *a, *b):
+        return bitops.conv_stage_xla(xp, weights, a, b, k_bits, kh=kh, kw=kw,
+                                     pad=pad, pool=pool)
+    hp, wp_sp = h + 2 * pad, w + 2 * pad
+    oh, ow = hp - kh + 1, wp_sp - kw + 1
+    for _ in range(n_layers - 1):
+        oh, ow = oh + 2 * pad - kh + 1, ow + 2 * pad - kw + 1
+    if oh < 1 or ow < 1:
+        raise ValueError(f"the stage's maps vanish: {oh}x{ow} output")
+    if pool and (oh % 2 or ow % 2):
+        raise ValueError(f"2x2 pool needs an even output map, got {oh}x{ow}")
+    ws, aps, bps, d_words = [], [], [], []
+    for wl, al, bl in zip(weights, a, b):
+        pd = -wl.shape[0] % PACK_BITS
+        if pd:
+            wl = torch.nn.functional.pad(wl, (0, 0, 0, pd))
+            al = torch.nn.functional.pad(al, (0, pd))
+            bl = torch.nn.functional.pad(bl, (0, pd), value=1.0)
+        ws.append(wl)
+        aps.append(al)
+        bps.append(bl)
+        d_words.append(wl.shape[0] // PACK_BITS)
+    cluster = math.gcd(MAX_CLUSTER, *d_words)
+    xpad = xp
+    if pad:
+        xpad = torch.nn.functional.pad(xp, (0, 0, pad, pad, pad, pad), value=-1)
+    _check_limits("megakernel_conv_stage", "repro_megakernel_conv_stage_limits",
+                  xp.device, tuple(d_words), tuple(cws), n_layers, hp, wp_sp,
+                  kh, kw, pad, cluster)
+    out_h, out_w = (oh // 2, ow // 2) if pool else (oh, ow)
+    out = torch.empty((n, out_h, out_w, d_words[-1]), dtype=torch.int32,
+                      device=xp.device)
+    if n:
+        if n * cluster > _INT_MAX:
+            raise ValueError(f"{n} images exceed the grid")
+        with torch.cuda.device(xp.device):
+            rc = build.load("repro_megakernel_conv_stage")(
+                xpad.data_ptr(), out.data_ptr(), _ptrs(ws), _ptrs(aps),
+                _ptrs(bps), _ints(d_words), _ints(cws), _ints(k_bits),
+                n_layers, n, hp, wp_sp, kh, kw, pad, int(pool), cluster,
+                _stream(xp.device))
+        _raise_on(rc, "megakernel_conv_stage")
+        LAUNCHES["megakernel_conv_stage"] += 1
+    return out
+
+
+def megakernel_chain(w_stack: torch.Tensor, a_stack: torch.Tensor,
+                     b_stack: torch.Tensor, k_bits, xp: torch.Tensor,
+                     m_out: int, *, final_wp: torch.Tensor | None = None,
+                     final_k_bits: int = 0, ragged_tile: int | None = None,
+                     n_real: int | None = None) -> torch.Tensor:
+    """``L`` stacked fused binary layers, then optionally the
+    epilogue-free head GEMM, in one launch.
+
+    ``w_stack [L, M_max, KW_max]``, ``a_stack``/``b_stack [L, M_max]``
+    from ``core.layers.stack_chain_layers``; ``k_bits`` the true K of
+    each layer; ``xp [KW_in, N]`` packed activations (K-pad bits +1),
+    grown here to ``KW_act = max(KW_max, M_max/32)`` all-ones rows and
+    N padded to the batch tile. Returns packed ``[ceil(m_out/32), N]``,
+    or with ``final_wp [Mf, KWf]`` the int32 ±1 dot ``[Mf, N]``.
+
+    ``ragged_tile`` selects the masked-tail path: the batch pads only to
+    that tile, and every output column at or after ``n_real`` (default
+    N) is 0 — pass a tile-padded ``xp`` and the true ``n_real`` to see
+    the pad columns zeroed. Real columns are the same on both paths.
+    """
+    _check("w_stack", w_stack, PACKED_DTYPE, 3)
+    _check("xp", xp, PACKED_DTYPE, 2)
+    n_layers, m_max, kw_max = w_stack.shape
+    kw_in, n = xp.shape
+    k_bits = tuple(int(k) for k in k_bits)
+    if m_max % PACK_BITS or len(k_bits) != n_layers or not 1 <= n_layers <= 8:
+        raise ValueError(f"w_stack {tuple(w_stack.shape)} needs M_max % 32 == 0 "
+                         f"and 1-8 layers, one k_bits each (got {len(k_bits)})")
+    for name, t in (("a_stack", a_stack), ("b_stack", b_stack)):
+        _check(name, t, torch.float32, 2)
+        if tuple(t.shape) != (n_layers, m_max):
+            raise ValueError(f"{name} {tuple(t.shape)} != {(n_layers, m_max)}")
+    kw_act = max(kw_max, m_max // PACK_BITS)
+    if kw_in > kw_act:
+        raise ValueError(f"xp has {kw_in} words, more than KW_act = {kw_act}")
+    mf = kwf = 0
+    if final_wp is not None:
+        _check("final_wp", final_wp, PACKED_DTYPE, 2)
+        mf, kwf = final_wp.shape
+        if kwf > kw_act:
+            raise ValueError(f"final_wp has {kwf} words, more than KW_act = {kw_act}")
+    if n_real is not None and ragged_tile is None:
+        raise ValueError("n_real needs ragged_tile (the masked-tail path)")
+    n_real = n if n_real is None else int(n_real)
+    rows = mf if final_wp is not None else -(-m_out // PACK_BITS)
+    operands = [w_stack, a_stack, b_stack, xp]
+    if final_wp is not None:
+        operands.append(final_wp)
+    if not _on_cuda(*operands):
+        if ragged_tile is None:
+            return bitops.megakernel_chain_xla(
+                w_stack, a_stack, b_stack, k_bits, xp, m_out,
+                final_wp=final_wp, final_k_bits=final_k_bits)
+        pn = -n % max(1, int(ragged_tile))
+        xpad = torch.nn.functional.pad(xp, (0, pn), value=-1) if pn else xp
+        return bitops.megakernel_chain_ragged_xla(
+            w_stack, a_stack, b_stack, k_bits, xpad, m_out, n_real,
+            final_wp=final_wp, final_k_bits=final_k_bits)[:rows, :n]
+    n_pad = -(-n // RAGGED_TILE_N) * RAGGED_TILE_N
+    if kw_act - kw_in or n_pad - n:
+        xp = torch.nn.functional.pad(xp, (0, n_pad - n, 0, kw_act - kw_in),
+                                     value=-1)
+    kw_layer = [min(kw_max, -(-k // PACK_BITS)) for k in k_bits]
+    cluster = math.gcd(MAX_CLUSTER, m_max // PACK_BITS)
+    _check_limits("megakernel_chain", "repro_megakernel_chain_limits",
+                  xp.device, tuple(kw_layer), n_layers, m_max, kw_act, mf, kwf,
+                  cluster)
+    out_rows = mf if final_wp is not None else m_max // PACK_BITS
+    out = torch.empty((out_rows, n_pad), dtype=torch.int32, device=xp.device)
+    if n:
+        with torch.cuda.device(xp.device):
+            rc = build.load("repro_megakernel_chain")(
+                w_stack.data_ptr(), a_stack.data_ptr(), b_stack.data_ptr(),
+                xp.data_ptr(),
+                final_wp.data_ptr() if final_wp is not None else None,
+                out.data_ptr(), _ints(kw_layer), _ints(k_bits), n_layers,
+                m_max, kw_max, kw_act, mf, kwf, int(final_k_bits), n_pad,
+                n_real, cluster, _stream(xp.device))
+        _raise_on(rc, "megakernel_chain")
+        LAUNCHES["megakernel_chain"] += 1
+    out = out[:rows]
+    return out if n_pad == n else out[:, :n]
+
+
 __all__ = ["LAUNCHES", "reset_launches", "xnor_gemm", "fused_xnor_gemm",
-           "fused_direct_conv"]
+           "fused_direct_conv", "megakernel_conv_stage", "megakernel_chain",
+           "RAGGED_TILE_N"]

@@ -21,6 +21,7 @@ the caller passes one. A `FaultPlan` injects deterministic failures for
 tests. All of it is observable through `ServeStats`
 (``snapshot()["dispatch"|"degraded"]``) — resilience is never silent.
 The JAX engine's mesh, heartbeat and elastic shrink are not ported.
+``serve.continuous`` builds the ragged scheduler on this engine.
 """
 
 from __future__ import annotations
@@ -53,10 +54,11 @@ class _Work:
 
 
 class ServingEngine:
-    """Batched inference over the fused packed BNN.
+    """Batched inference over the packed BNN.
 
-    ``packed_params`` comes from ``core.bnn.pack_bnn_params_fused``,
-    on the device the engine serves on. ``engine``/``conv_impl``
+    ``packed_params`` comes from ``core.bnn.pack_bnn_params_fused``
+    (``pack_bnn_params_megakernel`` for the megakernel engines), on the
+    device the engine serves on. ``engine``/``conv_impl``
     select the kernel path exactly as in ``bnn_serve_fn``;
     ``buckets``/``max_wait_s`` shape the batching policy; ``clock`` is
     injectable for deterministic tests.
@@ -92,6 +94,12 @@ class ServingEngine:
             packed_params, engine=engine, conv_impl=conv_impl,
             stats=self.stats,
         )
+        self._init_resilience(deadline_s, retry, fallback, faults)
+
+    def _init_resilience(self, deadline_s, retry, fallback, faults) -> None:
+        """Result buffers and resilience state. The continuous engine
+        builds its own batcher and executors instead of calling
+        ``__init__``, and calls this."""
         # rid -> [n, 10] float logits being filled segment by segment
         self._partial: dict[int, np.ndarray] = {}
         self._filled: dict[int, int] = {}
@@ -109,10 +117,15 @@ class ServingEngine:
         self._standby = None
 
     # -- lifecycle ---------------------------------------------------------
+    def _warm_shapes(self) -> Sequence[int]:
+        """The batch shapes ``warmup`` builds: the bucket rungs here,
+        the extent classes in the continuous engine."""
+        return self.batcher.buckets
+
     def warmup(self) -> int:
-        """Build and run every bucket's executor before taking traffic.
-        Returns the number of executors built."""
-        return self.executors.warmup(self.batcher.buckets)
+        """Build and run the executor of every shape in the ladder before
+        taking traffic. Returns the number of executors built."""
+        return self.executors.warmup(self._warm_shapes())
 
     def prewarm_fallback(self) -> int:
         """Build and warm a HOT-STANDBY executor cache one rung down
@@ -127,7 +140,7 @@ class ServingEngine:
             return 0
         self._standby = self.executors.rebuild(
             packed=self.fallback.params_for(nxt), engine=nxt)
-        return self._standby.warmup(self.batcher.buckets)
+        return self._standby.warmup(self._warm_shapes())
 
     def submit(self, images: np.ndarray, *,
                deadline_s: Optional[float] = None) -> int:

@@ -239,30 +239,40 @@ class FallbackPolicy:
 
     After ``failures_before_demote`` *consecutive* dispatch failures,
     the engine rebuilds its executor cache one rung down
-    `SERVE_FALLBACKS` (xnor → xla).  Every rung is bit-identical, so
-    failover is logit-exact.  Both rungs take ``pack_bnn_params_fused``
-    params.
+    `SERVE_FALLBACKS` (megakernel → xnor → xla; megakernel_xla → xla).
+    Every rung is bit-identical, so failover is logit-exact.
+
+    The megakernel engines take ``pack_bnn_params_megakernel`` params,
+    the fused ones ``pack_bnn_params_fused``: the policy holds both sets
+    and skips the rungs it has no params for.
     """
 
-    def __init__(self, *, fused_params=None,
+    def __init__(self, *, fused_params=None, mega_params=None,
                  failures_before_demote: int = 2, warm: bool = True):
         if failures_before_demote < 1:
             raise ValueError("failures_before_demote must be >= 1")
         self.fused_params = fused_params
+        self.mega_params = mega_params
         self.failures_before_demote = int(failures_before_demote)
         self.warm = warm
 
-    def params_for(self, engine: str):
-        if self.fused_params is None:
-            raise ValueError(f"no packed params for engine {engine!r}")
+    def _params(self, engine: str):
+        if engine.startswith("megakernel"):
+            return self.mega_params
         return self.fused_params
 
+    def params_for(self, engine: str):
+        params = self._params(engine)
+        if params is None:
+            raise ValueError(f"no packed params for engine {engine!r}")
+        return params
+
     def next_engine(self, current: str) -> Optional[str]:
-        """The first ladder rung below ``current``, or None when there is
-        nowhere left to demote (or no params to demote with)."""
+        """The first ladder rung below ``current`` this policy holds
+        params for, or None when there is nowhere left to demote."""
         from repro_torch.core.bnn import SERVE_FALLBACKS
 
-        if self.fused_params is None:
-            return None
-        rungs = SERVE_FALLBACKS.get(current, ())
-        return rungs[0] if rungs else None
+        for rung in SERVE_FALLBACKS.get(current, ()):
+            if self._params(rung) is not None:
+                return rung
+        return None

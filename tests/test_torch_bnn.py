@@ -164,11 +164,15 @@ def test_configs_mirror_the_jax_package():
 
 # Kernel wrappers one forward of each conv_impl calls: the direct path
 # runs its five binary convs through fused_direct_conv, im2col through
-# fused_xnor_gemm; fc0/fc1 are fused GEMMs and the head an xnor_gemm.
-# chip_smoke.py holds each served path's launch counts to this table.
+# fused_xnor_gemm; fc0/fc1 are fused GEMMs and the head an xnor_gemm;
+# neither calls a megakernel. chip_smoke.py holds each served path's
+# launch counts to this table.
+NO_MEGAKERNEL = {"megakernel_conv_stage": 0, "megakernel_chain": 0}
 WRAPPER_CALLS = {
-    "direct": {"xnor_gemm": 1, "fused_xnor_gemm": 2, "fused_direct_conv": 5},
-    "im2col": {"xnor_gemm": 1, "fused_xnor_gemm": 7, "fused_direct_conv": 0},
+    "direct": {"xnor_gemm": 1, "fused_xnor_gemm": 2, "fused_direct_conv": 5,
+               **NO_MEGAKERNEL},
+    "im2col": {"xnor_gemm": 1, "fused_xnor_gemm": 7, "fused_direct_conv": 0,
+               **NO_MEGAKERNEL},
 }
 
 

@@ -41,3 +41,17 @@ def test_package_import_loads_no_jax():
             "print(len(sys.modules)); assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+
+
+def test_the_megakernel_slice_is_covered():
+    """The modules of the megakernel and continuous-serving slice are
+    among the files checked above, and their CUDA sources sit beside the
+    wrappers that build them."""
+    covered = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"serve/continuous.py", "serve/executor.py", "kernels/ops.py",
+            "core/layers.py", "core/bnn.py"} <= covered
+    from repro_torch.kernels import build
+
+    for name in ("megakernel_conv_stage", "megakernel_chain"):
+        assert name in build.SOURCES
+        assert (build.CSRC / f"{name}.cu").is_file()
