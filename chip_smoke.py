@@ -4,14 +4,22 @@
 
 1. Prints the card (``nvidia-smi``), torch and CUDA versions.
 2. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``.
-3. Runs each kernel at every shape the served CIFAR BNN gives it at
-   batch 32 and holds its output, bit for bit, against its plain-torch
-   twin on the same inputs; times kernel, twin and a PyTorch library
-   yardstick (fp32 ``torch.matmul`` / ``F.conv2d`` of the unpacked ±1
-   operands, TF32 off) with CUDA events. The two megakernels run at the
+3. Runs each kernel at every shape its main path gives it and holds its
+   output, bit for bit, against its plain-torch twin on the same inputs;
+   times kernel, twin and a PyTorch library yardstick (fp32
+   ``torch.matmul`` / ``F.conv2d`` of the unpacked ±1 operands, TF32
+   off; none for ``pack_rows``) with CUDA events. The slice-1 kernels
+   run at the batch-32 serving shapes. The two megakernels run at the
    three conv-stage shapes (and once more at batch 3) and at the FC
    trunk (batch 32 and masked tails of 1, 3 and 13 columns); beside
    them the slice-1 per-layer kernels over the same layers are timed.
+   The unfused PACKED kernels run at the eight binary layers of the
+   Table 2 forward at its batch of 64 (these times make their totals),
+   and again at batch 32: ``pack_rows`` on the transposed patch matrix
+   it reads in place, timed with a cold L2 as its HBM bound assumes;
+   ``direct_conv`` at the five convs; ``unpack_gemm`` on ±1 input
+   (exact) and on real input in [-1, 1], held within rtol 1e-5 / atol
+   1e-4 of the float64-accumulated dot.
 4. Serves 12 ragged requests (1-8 images) on the trained checkpoint
    ``tests/golden/bnn_trained_ckpt.npz`` through ``ServingEngine
    (engine="xnor")`` for each ``conv_impl``, and through
@@ -24,7 +32,22 @@
    (warmup and served batches: one per layer on the ``xnor`` paths,
    3 conv stages + 1 chain on the megakernel path), and no engine
    failover may be recorded. Times the batch-32 forward of each path.
-5. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+5. Table 2 on the card: ``bnn_apply`` of the six presets of
+   ``repro_torch.configs.bnn_cifar`` on the trained checkpoint at batch
+   64. The launch counters are reset just before each preset's checked
+   forward and read just after: each preset must launch exactly its
+   kernels (PAPER_KERNEL 8 ``pack_rows`` + 8 ``xnor_gemm``,
+   DIRECT_KERNEL 5 ``direct_conv`` + 3 + 3, MXU_KERNEL 8
+   ``unpack_gemm``, the others none), and the output of each of those
+   calls must equal its plain twin on the call's own inputs. A profiler
+   failure leaves the breakdown "not measured"; a kernel or wrapper
+   error fails the run. The four PACKED presets and
+   SIMULATION must give logits bit-identical to the fused ``xla``
+   forward of the same images on the card; CONTROL_GROUP (float
+   layers, zero-padded borders: other logits) is held to its CPU
+   forward on 4 of the images. Prints each preset's device (graph) and
+   eager ms, weight bytes, and the CONTROL_GROUP / PAPER_KERNEL ratio.
+6. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Per-shape details go to ``build/chip_smoke.json``.
@@ -32,6 +55,7 @@ phase fails. Per-shape details go to ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import statistics
@@ -50,6 +74,13 @@ import torch  # noqa: E402
 # as the rate of the ±1 multiply-adds (2 ops each).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+# Float32 on the CUDA cores (pack_rows' compares) and bf16 on the tensor
+# cores, dense (unpack_gemm: its ±1 operands are exact in bf16).
+FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+OPS_RATE = {"pack_rows": FP32_OPS_PER_S, "unpack_gemm": BF16_OPS_PER_S}
+# Read between calls to time a kernel with a cold L2 (50 MB on the H100).
+L2_FLUSH_BYTES = 128 * 2**20
 BATCH = 32
 CKPT = ROOT / "tests" / "golden" / "bnn_trained_ckpt.npz"
 OUT_DIR = ROOT / "build"
@@ -79,10 +110,22 @@ def time_ms(fn, iters: int, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+def graph_ms(fn, iters: int = 20, reps: int = 5, cold: bool = False) -> float:
     """Device time per call: ``iters`` calls captured in one CUDA graph,
     replayed ``reps`` times between CUDA events (median), so no host
-    dispatch gap between launches is counted."""
+    dispatch gap between launches is counted. ``cold``: each call follows
+    a read of 128 MB (past the 50 MB L2), so its operands come from HBM,
+    as its bytes bound assumes; the time of the reads alone, captured
+    the same way, is subtracted."""
+    if cold:
+        flush_buf = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
+        flush = flush_buf.sum
+
+        def flushed():
+            flush()
+            fn()
+
+        return graph_ms(flushed, iters, reps) - graph_ms(flush, iters, reps)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -107,8 +150,9 @@ def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+def bound_ms(nbytes: int, ops: int,
+             rate: float = INT8_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -220,24 +264,31 @@ def kernel_phase(dev) -> tuple[dict, list]:
 
 
 def record(total: dict, name: str, label: str, err: int, run, twin, lib,
-           nbytes: int, ops_n: int, per_layer=None, summed: bool = True) -> dict:
+           nbytes: int, ops_n: int, per_layer=None, summed: bool = True,
+           plain_reps: int = 3, cold: bool = False) -> dict:
     """Time one main-path shape: kernel (graph replay and eager call),
-    twin, library yardstick and, for a megakernel, the slice-1
-    per-layer kernels over the same layers (``per_layer``). The kernel's
-    totals sum the times of the batch-32 forward's shapes only
-    (``summed``); every shape's error counts."""
-    ms = graph_ms(run)
+    twin, library yardstick (``lib``; None where no single PyTorch call
+    computes the function) and, for a megakernel, the slice-1 per-layer
+    kernels over the same layers (``per_layer``). The kernel's totals
+    sum the times of its main path's shapes only (``summed``); every
+    shape's error counts. ``cold``: the kernel's time is taken with a
+    cold L2 (its warm time is kept as ``warm_ms``)."""
+    ms = graph_ms(run, cold=cold)
     eager_ms = time_ms(run, iters=50)
-    plain_ms = time_ms(twin, iters=2, reps=3)
-    library_ms = graph_ms(lib, iters=5)
-    bms, by = bound_ms(nbytes, ops_n)
+    plain_ms = time_ms(twin, iters=2, reps=plain_reps)
+    library_ms = graph_ms(lib, iters=5) if lib is not None else None
+    bms, by = bound_ms(nbytes, ops_n, OPS_RATE.get(name, INT8_OPS_PER_S))
     row = {"kernel": name, "shape": label, "max_abs_err": err, "ms": ms,
            "eager_ms": eager_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
            "bytes": nbytes, "ops": ops_n}
-    line = (f"  {name:21s} {label:18s} exact  kernel {ms:.4f} ms (eager call "
-            f"{eager_ms:.4f})  plain {plain_ms:.3f} ms  library "
-            f"{library_ms:.4f} ms  bound {bms:.5f} ms ({by})")
+    if cold:
+        row["warm_ms"] = graph_ms(run)
+    lib_txt = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    line = (f"  {name:21s} {label:18s} exact  kernel {ms:.4f} ms"
+            + (f" cold L2, {row['warm_ms']:.4f} warm" if cold else "")
+            + f" (eager call {eager_ms:.4f})  plain {plain_ms:.3f} ms  library "
+            f"{lib_txt}  bound {bms:.5f} ms ({by})")
     if per_layer is not None:
         row["per_layer_ms"] = graph_ms(per_layer)
         line += f"  per-layer kernels {row['per_layer_ms']:.4f} ms"
@@ -247,7 +298,7 @@ def record(total: dict, name: str, label: str, err: int, run, twin, lib,
         return row
     for k in ("ms", "plain_ms", "library_ms", "bound_ms", "per_layer_ms"):
         if k in row:
-            total[k] = total.get(k, 0.0) + row[k]
+            total[k] = None if row[k] is None else total.get(k, 0.0) + row[k]
     total["bytes"] += nbytes
     total["ops"] += ops_n
     return row
@@ -364,23 +415,37 @@ def megakernel_phase(dev, totals: dict, rows: list) -> None:
 
 
 def launches_per_forward(path: str) -> dict:
-    """Kernel launches one forward of the served BNN makes on ``path``:
+    """Kernel launches one forward of the BNN makes on ``path``:
     ``direct``/``im2col`` (the per-layer ``xnor`` engine) one per binary
     conv (direct conv, or the im2col GEMM), one fused GEMM per hidden
     FC, one xnor_gemm for the head; ``megakernel`` one launch per conv
-    stage and one for the FC trunk."""
+    stage and one for the FC trunk. A Table 2 preset of ``bnn_apply``
+    (``PAPER_KERNEL`` ...): ``pack_rows`` + ``xnor_gemm`` per binary
+    layer, or ``direct_conv`` for the convs and ``pack_rows`` +
+    ``xnor_gemm`` for the FCs, or one ``unpack_gemm`` per binary layer;
+    none for the plain-torch and float presets."""
     from repro_torch.core.bnn import CONV_CHANNELS, CONV_STAGES, FC_SIZES
+    from repro_torch.kernels import ops
 
+    counts = dict.fromkeys(ops.LAUNCHES, 0)
+    convs, fcs = len(CONV_CHANNELS) - 1, len(FC_SIZES)
     if path == "megakernel":
-        return {"xnor_gemm": 0, "fused_xnor_gemm": 0, "fused_direct_conv": 0,
-                "megakernel_conv_stage": len(CONV_STAGES),
-                "megakernel_chain": 1}
-    convs, hidden_fc = len(CONV_CHANNELS) - 1, len(FC_SIZES) - 1
-    direct = path == "direct"
-    return {"xnor_gemm": 1,
-            "fused_xnor_gemm": hidden_fc + (0 if direct else convs),
-            "fused_direct_conv": convs if direct else 0,
-            "megakernel_conv_stage": 0, "megakernel_chain": 0}
+        counts.update(megakernel_conv_stage=len(CONV_STAGES),
+                      megakernel_chain=1)
+    elif path == "direct":
+        counts.update(xnor_gemm=1, fused_xnor_gemm=fcs - 1,
+                      fused_direct_conv=convs)
+    elif path == "im2col":
+        counts.update(xnor_gemm=1, fused_xnor_gemm=fcs - 1 + convs)
+    elif path == "PAPER_KERNEL":
+        counts.update(pack_rows=convs + fcs, xnor_gemm=convs + fcs)
+    elif path == "DIRECT_KERNEL":
+        counts.update(direct_conv=convs, pack_rows=fcs, xnor_gemm=fcs)
+    elif path == "MXU_KERNEL":
+        counts.update(unpack_gemm=convs + fcs)
+    elif path not in ("XLA_PACKED", "CONTROL_GROUP", "SIMULATION"):
+        raise ValueError(f"unknown path {path!r}")
+    return counts
 
 
 def serve_phase(dev) -> dict:
@@ -474,10 +539,6 @@ def serve_phase(dev) -> dict:
               f"{snap['batches']['per_bucket']}", flush=True)
         print(f"  launches on the {path} path ({forwards} forwards): "
               f"{launches[path]}", flush=True)
-    for name in ops.LAUNCHES:
-        if not sum(path[name] for path in launches.values()):
-            fail(f"kernel {name} was not launched on the main path")
-
     # Reference on a small input: the card's forward against the CPU's
     # plain-torch forward of the same 4 images.
     imgs = torch.from_numpy(requests[0][:4].copy())
@@ -529,6 +590,273 @@ def serve_phase(dev) -> dict:
     return result
 
 
+def unfused_kernel_phase(dev, totals: dict, rows: list, batch: int,
+                         summed: bool) -> None:
+    """The unfused PACKED kernels at the eight binary layers of the Table
+    2 forward at ``batch``: ``pack_rows`` on the transposed ``[B*HW, K]``
+    patch matrix (read in place; timed with a cold L2, see ``graph_ms``),
+    ``unpack_gemm`` on the binarized patches (exact) and on the real ones
+    (within rtol 1e-5 / atol 1e-4 of the float64-accumulated dot),
+    ``direct_conv`` at the five convs. Inputs in [-1, 1] with some 0.0
+    and -0.0, as the clipped activations the layers encode. ``summed``:
+    these are the main path's shapes, whose times make the kernels'
+    totals."""
+    from repro_torch.core import bitops
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(2 + batch)
+    cpu_gen = torch.Generator().manual_seed(3 + batch)
+    F = torch.nn.functional
+    tag = f" b{batch}"
+    layers = [(label, 9 * c, batch * h * h, d) for label, h, c, d in conv_cases()]
+    layers += [("fc0", 8192, batch, 1024), ("fc1", 1024, batch, 1024),
+               ("head", 1024, batch, 10)]
+    for label, k, n, m in layers:
+        x2d = torch.rand((n, k), generator=gen, device=dev) * 2 - 1
+        x2d.view(-1)[::97] = 0.0
+        x2d.view(-1)[::89] = -0.0
+        xt = x2d.T                                   # [K, N], K-contiguous
+        err = check_equal("pack_rows", label + tag, ops.pack_rows(xt),
+                          bitops.pack_bits(xt, axis=0).contiguous())
+        row = record(
+            totals["pack_rows"], "pack_rows", f"{label} [{k},{n}]", err,
+            lambda: ops.pack_rows(xt), lambda: bitops.pack_bits(xt, axis=0),  # noqa: B023
+            None, k * n * 4 + k * n // 8, k * n, summed=summed, cold=True)
+        # The copy reading the view in place avoids.
+        row["contiguous_copy_ms"] = graph_ms(xt.contiguous, iters=5)
+        rows.append(row)
+
+        wp = rand_words(cpu_gen, (m, k // 32), dev)
+        xpm = torch.sign(x2d) + (x2d == 0).float()   # the layer's binarize
+        xpt = xpm.T
+        run = lambda: ops.unpack_gemm(wp, xpt)  # noqa: E731,B023
+        twin = lambda: bitops.packed_matmul_unpack(  # noqa: E731
+            wp, xpt, compute_dtype=torch.float32)  # noqa: B023
+        err = check_equal("unpack_gemm", label + tag, run(), twin())
+        ref64 = bitops.packed_matmul_unpack(wp, xt, compute_dtype=torch.float32,
+                                            accum_dtype=torch.float64)
+        real = ops.unpack_gemm(wp, xt).double()
+        dev_err = (real - ref64).abs()
+        bad = int((dev_err > 1e-4 + 1e-5 * ref64.abs()).sum())
+        twin32 = bitops.packed_matmul_unpack(wp, xt, compute_dtype=torch.float32)
+        twin_err = float((twin32.double() - ref64).abs().max())
+        print(f"  unpack_gemm real input {label}{tag}: max |kernel - f64 dot| "
+              f"{float(dev_err.max()):.3g} ({bad} outside rtol 1e-5/atol 1e-4), "
+              f"fp32 twin {twin_err:.3g}, |kernel - fp32 twin| "
+              f"{float((real - twin32.double()).abs().max()):.3g}", flush=True)
+        if bad:
+            fail(f"unpack_gemm {label}{tag}: {bad} outputs on real input outside "
+                 "rtol 1e-5 / atol 1e-4 of the float64-accumulated dot")
+        wf = bitops.unpack_bits(wp, axis=-1)
+        row = record(totals["unpack_gemm"], "unpack_gemm", f"{label} [{m},{k}]x[{k},{n}]",
+                     err, run, twin, lambda: torch.matmul(wf, xpt),  # noqa: B023
+                     (m * k // 32 + k * n + m * n) * 4, 2 * m * n * k,
+                     summed=summed)
+        row["real_input_max_abs_err"] = float(dev_err.max())
+        totals["unpack_gemm"]["real_input_max_abs_err"] = max(
+            totals["unpack_gemm"].get("real_input_max_abs_err", 0.0),
+            row["real_input_max_abs_err"])
+        rows.append(row)
+
+    for label, h, c, d in conv_cases():
+        cw, k_bits = c // 32, 9 * c
+        x = rand_words(cpu_gen, (batch, h, h, cw), dev)
+        w = rand_words(cpu_gen, (d, 9 * cw), dev)
+        run = lambda: ops.direct_conv(w, x, k_bits, kh=3, kw=3, stride=1, pad=1)  # noqa: E731,B023
+        twin = lambda: bitops.direct_conv_dot(  # noqa: E731
+            w, x, k_bits, kh=3, kw=3, stride=1, pad=1)  # noqa: B023
+        err = check_equal("direct_conv", label + tag, run(), twin())
+        xf = F.pad(bitops.unpack_bits(x, axis=-1).permute(0, 3, 1, 2),
+                   (1, 1, 1, 1), value=1.0).contiguous()
+        wf = bitops.unpack_bits(w, axis=-1).reshape(d, 3, 3, c).permute(
+            0, 3, 1, 2).contiguous()
+        rows.append(record(
+            totals["direct_conv"], "direct_conv", label + tag, err, run, twin,
+            lambda: F.conv2d(xf, wf),  # noqa: B023
+            (x.numel() + w.numel() + batch * h * h * d) * 4,
+            2 * batch * h * h * d * k_bits, plain_reps=2, summed=summed))
+
+
+def preset_twins() -> dict:
+    """The plain twin of each kernel a Table 2 preset launches, called as
+    its wrapper calls it on CPU tensors."""
+    from repro_torch.core import bitops
+
+    return {
+        "pack_rows": lambda x: bitops.pack_bits(x, axis=0).contiguous(),
+        "xnor_gemm": bitops.xnor_popcount_matmul,
+        "direct_conv": bitops.direct_conv_dot,
+        "unpack_gemm": lambda wp, x: bitops.packed_matmul_unpack(
+            wp, x, compute_dtype=x.dtype),
+    }
+
+
+@contextlib.contextmanager
+def recorded_calls(names):
+    """Within the block, every call of the wrappers ``names`` of
+    ``repro_torch.kernels.ops`` is kept as (name, args, kwargs, output);
+    the wrappers are restored on exit. The recorded launches are the
+    forward's own: none is added."""
+    from repro_torch.kernels import ops
+
+    calls, originals = [], {name: getattr(ops, name) for name in names}
+
+    def recording(name, wrapper):
+        def call(*args, **kwargs):
+            out = wrapper(*args, **kwargs)
+            calls.append((name, args, kwargs, out))
+            return out
+        return call
+
+    for name, wrapper in originals.items():
+        setattr(ops, name, recording(name, wrapper))
+    try:
+        yield calls
+    finally:
+        for name, wrapper in originals.items():
+            setattr(ops, name, wrapper)
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def device_breakdown(fn, top: int = 6) -> list:
+    """Device time of one call of ``fn`` by kernel name (``torch.profiler``),
+    the ``top`` largest as ``[name, ms, share]``. The profile is
+    diagnostic: an error of the profiler itself gives "not measured", but
+    an error of ``fn`` (a kernel or a wrapper) propagates."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as err:
+        return f"not measured: {err!r}"
+    stop_error = None
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        try:
+            prof.stop()
+        except Exception as err:
+            stop_error = err
+    if stop_error is not None:
+        return f"not measured: {stop_error!r}"
+    try:
+        events = prof.key_averages()
+    except Exception as err:
+        return f"not measured: {err!r}"
+    times = {}
+    for evt in events:
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = evt.cuda_time_total
+        if us:
+            times[evt.key] = times.get(evt.key, 0.0) + us / 1e3
+    total = sum(times.values()) or 1.0
+    ranked = sorted(times.items(), key=lambda kv: -kv[1])[:top]
+    return [[name[:60], ms, ms / total] for name, ms in ranked] + [["total", total, 1.0]]
+
+
+def table2_phase(dev) -> dict:
+    """Table 2 on the card: the six presets on the trained checkpoint at
+    Table 2's batch, each preset's launches counted over one forward. Every
+    kernel call of that forward is held, bit for bit, against its plain
+    twin on the same inputs; the eager time is the mean over the
+    experiment's ``num_batches`` forwards."""
+    from repro_torch.configs.bnn_cifar import PRESETS, BNNExperiment
+    from repro_torch.core.binarize import QuantMode
+    from repro_torch.core.bnn import (bnn_apply, bnn_apply_fused,
+                                      load_binary_checkpoint, pack_bnn_params,
+                                      pack_bnn_params_fused)
+    from repro_torch.kernels import ops
+
+    exp = BNNExperiment("table2")
+    batch = exp.batch
+    twins = preset_twins()
+    latent = load_binary_checkpoint(CKPT, device=dev)
+    latent_cpu = load_binary_checkpoint(CKPT, device="cpu")
+    packed = pack_bnn_params(latent)
+    images = np.random.default_rng(64).normal(size=(batch, 32, 32, 3)).astype(
+        np.float32)
+    x = torch.from_numpy(images).to(dev)
+    result = {"experiment": exp.name, "batch": batch,
+              "num_batches": exp.num_batches, "launches": {}, "presets": {}}
+    with torch.inference_mode():
+        ref = bnn_apply_fused(pack_bnn_params_fused(latent), x, engine="xla")
+        for name, cfg in PRESETS.items():
+            is_packed = cfg.mode == QuantMode.PACKED
+            params = packed if is_packed else latent
+            fwd = lambda: bnn_apply(params, x, cfg)  # noqa: E731,B023
+            # This preset's counts: 0 just before its checked forward,
+            # read just after.
+            ops.reset_launches()
+            with recorded_calls(twins) as calls:
+                logits = fwd()
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+            result["launches"][name] = launches
+            if launches != launches_per_forward(name):
+                fail(f"{name}: kernel launches {launches} in one forward, "
+                     f"expected {launches_per_forward(name)}")
+            for i, (kname, args, kwargs, out) in enumerate(calls):
+                check_equal(kname, f"{name} call {i}", out,
+                            twins[kname](*args, **kwargs))
+            row = {"weight_bytes": _nbytes(params),
+                   "kernel_calls_checked": len(calls)}
+            del calls
+            if logits.shape != (batch, 10) or not torch.isfinite(logits).all():
+                fail(f"{name}: logits {tuple(logits.shape)} not finite [{batch}, 10]")
+            if name != "CONTROL_GROUP":
+                if not torch.equal(logits, ref):
+                    fail(f"{name}: logits differ from the fused xla forward "
+                         f"(max abs {float((logits - ref).abs().max())})")
+                check = "bit-identical to fused xla"
+            else:
+                # Float layers pad borders with 0, not +1: its own logits.
+                cpu = bnn_apply(latent_cpu, torch.from_numpy(images[:4]), cfg)
+                diff = float((logits[:4].cpu() - cpu).abs().max())
+                row["cpu_vs_gpu_max_abs"] = diff
+                if not torch.allclose(logits[:4].cpu(), cpu, rtol=1e-5,
+                                      atol=1e-4) or not torch.equal(
+                                          logits[:4].cpu().argmax(1), cpu.argmax(1)):
+                    fail(f"{name}: card logits disagree with the CPU forward "
+                         f"(max abs {diff})")
+                check = f"within {diff:.3g} of its CPU forward on 4 images"
+            row["eager_ms"] = time_ms(fwd, iters=exp.num_batches, reps=3)
+            row["graph_ms"] = graph_ms(fwd, iters=3)
+            row["device_breakdown"] = device_breakdown(fwd)
+            result["presets"][name] = row
+            if row["kernel_calls_checked"]:
+                check += (f"; its {row['kernel_calls_checked']} kernel calls "
+                          "equal their twins")
+            print(f"  {name:13s} {check}; launches/forward "
+                  f"{ {k: v for k, v in launches.items() if v} }; device "
+                  f"{row['graph_ms']:.3f} ms (graph), eager {row['eager_ms']:.3f} "
+                  f"ms; weights {row['weight_bytes']} B", flush=True)
+            if isinstance(row["device_breakdown"], str):
+                print(f"    profile {row['device_breakdown']}", flush=True)
+            else:
+                for kname, ms, share in row["device_breakdown"]:
+                    print(f"    {ms:8.4f} ms {share:6.1%}  {kname}", flush=True)
+    p = result["presets"]
+    for kind in ("graph_ms", "eager_ms"):
+        result[f"control_over_paper_{kind}"] = (
+            p["CONTROL_GROUP"][kind] / p["PAPER_KERNEL"][kind])
+    print(f"  CONTROL_GROUP / PAPER_KERNEL at batch {batch}: "
+          f"{result['control_over_paper_graph_ms']:.3f}x device, "
+          f"{result['control_over_paper_eager_ms']:.3f}x eager", flush=True)
+    return result
+
+
 KERNELS = {
     "xnor_gemm": ("src/repro_torch/kernels/csrc/xnor_gemm.cu",
                   "src/repro/kernels/xnor_gemm.py:105"),
@@ -541,6 +869,12 @@ KERNELS = {
         "src/repro/kernels/megakernel.py:339"),
     "megakernel_chain": ("src/repro_torch/kernels/csrc/megakernel_chain.cu",
                          "src/repro/kernels/megakernel.py:229"),
+    "pack_rows": ("src/repro_torch/kernels/csrc/pack_rows.cu",
+                  "src/repro/kernels/pack.py:44"),
+    "direct_conv": ("src/repro_torch/kernels/csrc/direct_conv.cu",
+                    "src/repro/kernels/direct_conv.py:235"),
+    "unpack_gemm": ("src/repro_torch/kernels/csrc/unpack_gemm.cu",
+                    "src/repro/kernels/unpack_gemm.py:74"),
 }
 
 
@@ -548,6 +882,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
     try:
+        from repro_torch.configs.bnn_cifar import BNNExperiment
         from repro_torch.kernels import build, ops
     except ImportError as err:
         fail(f"cannot import the port from {ROOT / 'src'}: {err}")
@@ -571,35 +906,49 @@ def main() -> None:
             if "registers" in line or "Compiling entry" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    print(f"phase 3: kernels vs plain twins at batch {BATCH} (bit-exact)", flush=True)
+    print("phase 3: kernels vs plain twins at their main paths' shapes "
+          "(bit-exact)", flush=True)
     totals, rows = kernel_phase(dev)
     megakernel_phase(dev, totals, rows)
+    # The Table 2 forward's own shapes (its batch) make the totals; the
+    # batch-32 shapes are checked and timed beside them.
+    unfused_kernel_phase(dev, totals, rows, BNNExperiment("table2").batch,
+                         summed=True)
+    unfused_kernel_phase(dev, totals, rows, BATCH, summed=False)
     print("phase 4: serving on the trained checkpoint", flush=True)
     serve = serve_phase(dev)
+    print("phase 5: Table 2 on the card", flush=True)
+    table2 = table2_phase(dev)
+    launches = {**serve["launches"], **table2["launches"]}
+    for name in KERNELS:
+        if not sum(path[name] for path in launches.values()):
+            fail(f"kernel {name} was not launched on the main path")
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
          "build_s": info["seconds"], "shapes": rows, "serve": serve,
-         "totals": totals}, indent=2))
+         "table2": table2, "totals": totals}, indent=2))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = totals[name]
-        t_bytes, t_ops = t["bytes"] / HBM_BYTES_PER_S, t["ops"] / INT8_OPS_PER_S
+        t_bytes = t["bytes"] / HBM_BYTES_PER_S
+        t_ops = t["ops"] / OPS_RATE.get(name, INT8_OPS_PER_S)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(p[name] for p in serve["launches"].values()),
-            "launches_by_path": {impl: p[name] for impl, p
-                                 in serve["launches"].items()},
+            "launches": sum(p[name] for p in launches.values()),
+            "launches_by_path": {path: p[name] for path, p in launches.items()
+                                 if p[name]},
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": t["library_ms"],
         })
-        if "per_layer_ms" in t:
-            kernels[-1]["per_layer_ms"] = t["per_layer_ms"]
+        for extra in ("per_layer_ms", "real_input_max_abs_err"):
+            if extra in t:
+                kernels[-1][extra] = t[extra]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,6 +33,7 @@ __all__ = [
     "unpack_bits",
     "popcount",
     "xnor_popcount_matmul",
+    "packed_matmul_unpack",
     "fused_xnor_layer",
     "direct_conv_dot",
     "direct_conv_oracle",
@@ -128,6 +129,24 @@ def xnor_popcount_matmul(wp: torch.Tensor, xp: torch.Tensor,
         xb = xp[None, k0:k0 + g, :]
         acc += popcount(~(wb ^ xb)).sum(dim=1)
     return (2 * acc - k_bits).to(torch.int32)
+
+
+def packed_matmul_unpack(wp: torch.Tensor, x: torch.Tensor, *,
+                         compute_dtype: torch.dtype = torch.bfloat16,
+                         accum_dtype: torch.dtype = torch.float32
+                         ) -> torch.Tensor:
+    """Packed weights ``[M, KW]`` x real or ±1 input ``[KW*32, N]`` ->
+    ``[M, N]`` in ``accum_dtype``: the weights unpack to ±1 in
+    ``compute_dtype``, ``x`` rounds to it, and the dot accumulates in
+    ``accum_dtype`` (the JAX package's ``preferred_element_type``). This
+    is the PACKED ``xla`` engine and the plain twin of the
+    ``unpack_gemm`` kernel (with ``compute_dtype = x.dtype``). Zero-word
+    K pads unpack to -1 and need zero rows of ``x`` against them.
+    """
+    w = unpack_bits(wp, axis=-1, dtype=compute_dtype)
+    # ±1 and compute_dtype values are exact in accum_dtype, so the product
+    # is the accum_dtype-accumulated dot of the compute_dtype operands.
+    return torch.matmul(w.to(accum_dtype), x.to(compute_dtype).to(accum_dtype))
 
 
 def fused_xnor_layer(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,

@@ -1,5 +1,5 @@
-"""The paper's evaluation model, the CIFAR-10 BNN, for fused packed
-inference in PyTorch.
+"""The paper's evaluation model, the CIFAR-10 BNN, for inference in
+PyTorch.
 
 Architecture (as ``repro.core.bnn``):
 
@@ -7,26 +7,29 @@ Architecture (as ``repro.core.bnn``):
     - 1024FC - 1024FC - 10FC
 
 The first conv consumes real images (FAKE_QUANT: ±1 weights, float
-inputs); every other layer is binary, and between binary layers only
-packed int32 words exist: one launch per layer in
-:func:`bnn_apply_fused`, one per network stage in
-:func:`bnn_apply_megakernel`. Training and the unfused PACKED path are
-not ported yet.
+inputs); every other layer is binary. :func:`bnn_apply` is the paper's
+Table 2 forward in any ``QuantMode``, with float tensors between layers
+(PACKED: each layer encodes its input on the fly). The serving paths
+keep only packed int32 words between binary layers: one launch per
+layer in :func:`bnn_apply_fused`, one per network stage in
+:func:`bnn_apply_megakernel`. Training is not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.core import bitops
-from repro_torch.core.binarize import QuantMode
+from repro_torch.core.binarize import QuantMode, binarize_activations
 from repro_torch.core.layers import (
     BN_EPS,
     BitLinearConfig,
     bit_conv2d,
+    bit_linear,
     fused_bit_conv2d,
     fused_bit_linear,
     init_conv,
@@ -34,6 +37,7 @@ from repro_torch.core.layers import (
     megakernel_conv_stage,
     megakernel_fc_chain,
     pack_conv_fused,
+    pack_conv_params,
     pack_linear_fused,
     pack_linear_params,
     packed_act_linear,
@@ -61,6 +65,24 @@ def _conv_stages() -> tuple[tuple[int, ...], ...]:
 
 
 CONV_STAGES = _conv_stages()
+
+
+@dataclasses.dataclass(frozen=True)
+class BNNConfig:
+    """How :func:`bnn_apply` runs: the quantization mode and, in PACKED
+    mode, the engine (``"xnor"``, ``"unpack"``, ``"xla"``) and conv
+    lowering (``"im2col"``, ``"direct"``). The JAX package's
+    ``use_scale`` and ``blocks`` are not ported."""
+
+    mode: QuantMode = QuantMode.FAKE_QUANT
+    engine: str = "xnor"
+    conv_impl: str = "im2col"  # "im2col" | "direct" (PACKED convs only)
+    num_classes: int = 10
+
+    def layer_cfg(self, *, binarize_acts: bool) -> BitLinearConfig:
+        return BitLinearConfig(mode=self.mode, engine=self.engine,
+                               conv_impl=self.conv_impl,
+                               binarize_acts=binarize_acts)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -100,6 +122,19 @@ def init_bnn_params(seed: int = 0, *, device=None) -> dict[str, Any]:
     return params
 
 
+def pack_bnn_params(params: dict) -> dict:
+    """Latent float params -> packed 1-bit inference params for
+    :func:`bnn_apply` in PACKED mode (paper §3.1). The first conv stays
+    float (real-valued images in); BN stays unfolded."""
+    return {
+        "conv": [params["conv"][0]]
+        + [pack_conv_params(p) for p in params["conv"][1:]],
+        "fc": [pack_linear_params(p) for p in params["fc"]],
+        "bn_conv": params["bn_conv"],
+        "bn_fc": params["bn_fc"],
+    }
+
+
 def pack_bnn_params_fused(params: dict) -> dict:
     """Latent float params -> fused-pipeline inference params: every
     interior binary layer packs its weights and folds its BN (+ bias)
@@ -127,6 +162,60 @@ def _batchnorm(p: dict, x: torch.Tensor) -> torch.Tensor:
     ``(x - mean) * rsqrt(var + eps) * gamma + beta``."""
     inv = torch.rsqrt(p["var"] + BN_EPS)
     return (x - p["mean"]) * inv * p["gamma"] + p["beta"]
+
+
+def _maxpool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2/stride-2 max pool of a float NHWC map (``lax.reduce_window``
+    with a -inf fill and VALID windows: odd trailing rows drop)."""
+    _, h, w, _ = x.shape
+    x = x[:, :h // 2 * 2, :w // 2 * 2]
+    return torch.maximum(torch.maximum(x[:, 0::2, 0::2], x[:, 0::2, 1::2]),
+                         torch.maximum(x[:, 1::2, 0::2], x[:, 1::2, 1::2]))
+
+
+def bnn_apply(params: dict, images: torch.Tensor,
+              cfg: BNNConfig) -> torch.Tensor:
+    """images ``[N, 32, 32, 3]`` -> logits ``[N, 10]``, eval mode (running
+    BN statistics), with float tensors at every layer boundary: the
+    paper's Table 2 forward.
+
+    PACKED takes :func:`pack_bnn_params` params: its first conv runs
+    FAKE_QUANT on the real images, and every later layer re-encodes the
+    clipped float activations itself (``engine`` and ``conv_impl`` pick
+    the kernels). FLOAT and FAKE_QUANT take latent params and binarize
+    the activations between layers.
+    """
+    x = images
+    packed = cfg.mode == QuantMode.PACKED
+    for i in range(len(CONV_CHANNELS)):
+        first = i == 0
+        if first and packed:
+            lcfg = BitLinearConfig(mode=QuantMode.FAKE_QUANT,
+                                   binarize_acts=False)
+        else:
+            lcfg = cfg.layer_cfg(binarize_acts=not first)
+        x = bit_conv2d(params["conv"][i], x, lcfg, stride=1, pad=1,
+                       kh=3 if packed else None, kw=3 if packed else None)
+        x = _batchnorm(params["bn_conv"][i], x)
+        if i in POOL_AFTER:
+            x = _maxpool2(x)
+        # In PACKED mode the next layer's engine binarizes and encodes.
+        x = torch.clamp(x, -1, 1) if packed else binarize_activations(x)
+    x = x.reshape(x.shape[0], -1)
+    for j in range(len(FC_SIZES)):
+        x = bit_linear(params["fc"][j], x, cfg.layer_cfg(binarize_acts=True))
+        x = _batchnorm(params["bn_fc"][j], x)
+        if j < len(FC_SIZES) - 1:
+            x = torch.clamp(x, -1, 1) if packed else binarize_activations(x)
+    return x
+
+
+def bnn_eval_logits(params: dict, images: torch.Tensor) -> torch.Tensor:
+    """The trained model's float-boundary forward: FAKE_QUANT in eval
+    mode on latent params. Every ±1 dot is an integer (exact in float32
+    below 2^24) and ``sign(0) := +1`` on every path, so PACKED and fused
+    logits of the same params equal it on the CPU."""
+    return bnn_apply(params, images, BNNConfig(mode=QuantMode.FAKE_QUANT))
 
 
 def first_conv_packed(packed: dict, images: torch.Tensor) -> torch.Tensor:

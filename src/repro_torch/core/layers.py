@@ -1,20 +1,25 @@
-"""Bit layers of the fused packed pipeline, in PyTorch.
+"""Bit layers in PyTorch: the unfused layers of the paper's forward
+graph and the fused packed pipeline.
 
 Plain functions on tensors; params are dicts of tensors, with the keys
 and layouts of ``repro.core.layers`` so the JAX package's params carry
 across (``repro_torch.convert``). Engines:
 
-  * ``engine="xnor"`` — the CUDA kernels of ``repro_torch.kernels``
-    (their plain twins on CPU tensors),
-  * ``engine="xla"``  — the plain-torch twins of ``core.bitops``, the
+  * ``engine="xnor"``   — the xnor-popcount CUDA kernels of
+    ``repro_torch.kernels`` (their plain twins on CPU tensors),
+  * ``engine="unpack"`` — unfused PACKED layers only: the ``unpack_gemm``
+    kernel, packed weights against the binarized float activations,
+  * ``engine="xla"``    — the plain-torch twins of ``core.bitops``, the
     last rung of the serving fallback ladder (named after the JAX
     engine it mirrors).
 
-The megakernel executors (:func:`stack_chain_layers`,
-:func:`megakernel_fc_chain`, :func:`megakernel_conv_stage`) run whole
-stages of the same layers in one launch each. The unfused PACKED path
-(``bit_linear``/``_packed_matmul``) is not ported yet; ``bit_conv2d``
-covers the FAKE_QUANT mode the float first conv needs.
+:func:`bit_linear` and :func:`bit_conv2d` run one layer in any
+``QuantMode`` (FLOAT control group, FAKE_QUANT, PACKED with float
+layer boundaries: the paper's Table 2 path). The fused executors keep
+packed words between layers, and the megakernel executors
+(:func:`stack_chain_layers`, :func:`megakernel_fc_chain`,
+:func:`megakernel_conv_stage`) run whole stages of them in one launch
+each.
 """
 
 from __future__ import annotations
@@ -35,13 +40,16 @@ BN_EPS = 1e-4  # the one BatchNorm eps; core.bnn._batchnorm imports it
 
 @dataclasses.dataclass(frozen=True)
 class BitLinearConfig:
-    """How :func:`bit_conv2d` runs. The JAX package's ``engine``,
-    ``conv_impl`` and ``blocks`` fields belong to the unfused PACKED
-    path, and ``use_scale`` (the XNOR-Net alpha) to its scaled variant;
-    neither is ported yet."""
+    """How :func:`bit_linear` and :func:`bit_conv2d` run. ``engine`` and
+    ``conv_impl`` matter in PACKED mode only. The JAX package's
+    ``use_scale`` (the XNOR-Net alpha) and ``blocks`` (kernel tiling)
+    are not ported."""
 
     mode: QuantMode = QuantMode.FAKE_QUANT
-    binarize_acts: bool = True
+    binarize_acts: bool = True          # False => weight-only
+    engine: str = "xla"                 # "xnor" | "unpack" | "xla"
+    conv_impl: str = "im2col"           # "im2col" | "direct" (PACKED convs)
+    compute_dtype: torch.dtype = torch.float32
 
 
 def init_linear(generator: torch.Generator, in_features: int,
@@ -79,6 +87,71 @@ def pack_linear_params(params: dict) -> dict:
     if "b" in params:
         packed["b"] = params["b"]
     return packed
+
+
+def _packed_matmul(wp: torch.Tensor, x2d: torch.Tensor, k_orig: int,
+                   cfg: BitLinearConfig) -> torch.Tensor:
+    """x2d: ``[B, K_orig]`` real, wp: ``[out, K_pad/32]``. Returns ``[B,
+    out]`` in ``cfg.compute_dtype``.
+
+    When K_orig is not a multiple of 32 the packed weights carry
+    ``n_pad = K_pad - K_orig`` trailing -1 bits. The xnor engine pads the
+    activations with +1 there (each padded position then adds exactly
+    -1 to the ±1 dot) and adds ``n_pad`` back; the unpack engines pad
+    the binarized activations with 0, which adds nothing.
+    """
+    k_pad = wp.shape[1] * bitops.PACK_BITS
+    n_pad = k_pad - k_orig
+    if cfg.engine == "xnor":
+        # Paper path: binarize + pack activations, xnor-popcount GEMM.
+        xin = torch.clamp(x2d, -1, 1).contiguous()   # pack_rows reads K-contiguous
+        if n_pad:
+            xin = torch.nn.functional.pad(xin, (0, n_pad), value=1.0)
+        xp = kops.pack_rows(xin.T)                        # [K_pad/32, B]
+        out = kops.xnor_gemm(wp, xp, k_pad) + n_pad       # [out, B] int32
+        return out.T.to(cfg.compute_dtype)
+    if cfg.engine not in ("unpack", "xla"):
+        raise ValueError(f"packed matmul has no engine {cfg.engine!r}")
+    # Binarize FIRST, then zero-pad: padded positions stay exactly 0 so
+    # the -1 pad weights add nothing.
+    xin = x2d.to(cfg.compute_dtype)
+    if cfg.binarize_acts:
+        xin = torch.sign(xin) + (xin == 0).to(cfg.compute_dtype)
+    if n_pad:
+        xin = torch.nn.functional.pad(xin, (0, n_pad))
+    if cfg.engine == "unpack":
+        y = kops.unpack_gemm(wp, xin.T)
+    else:
+        y = bitops.packed_matmul_unpack(wp, xin.T,
+                                        compute_dtype=cfg.compute_dtype)
+    return y.T.to(cfg.compute_dtype)
+
+
+def _float_matmul(w: torch.Tensor, x: torch.Tensor,
+                  cfg: BitLinearConfig) -> torch.Tensor:
+    """``x @ w^T`` on latent weights ``[out, K]``: FAKE_QUANT (±1 weights,
+    binarized activations unless weight-only) or the FLOAT control
+    group."""
+    if cfg.mode == QuantMode.FAKE_QUANT:
+        wq, _ = binarize_weights(w)
+        xq = binarize_activations(x) if cfg.binarize_acts else x
+        return xq @ wq.to(x.dtype).T
+    return x @ w.to(x.dtype).T
+
+
+def bit_linear(params: dict, x: torch.Tensor,
+               cfg: BitLinearConfig) -> torch.Tensor:
+    """``y = x @ W^T (+ b)`` under the configured quantization mode.
+    x: ``[..., in_features]``; PACKED takes ``pack_linear_params``."""
+    if cfg.mode == QuantMode.PACKED:
+        k = x.shape[-1]
+        y = _packed_matmul(params["w_packed"], x.reshape(-1, k), k, cfg)
+        y = y.reshape(*x.shape[:-1], -1)
+    else:
+        y = _float_matmul(params["w"], x, cfg)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
 
 
 def pack_conv_params(params: dict) -> dict:
@@ -305,26 +378,66 @@ def megakernel_conv_stage(layers: list[dict], xp: torch.Tensor, k_bits, *,
     raise ValueError(f"megakernel has no engine {engine!r}")
 
 
-def bit_conv2d(params: dict, x: torch.Tensor, cfg: BitLinearConfig, *,
-               stride: int = 1, pad: int = 0) -> torch.Tensor:
-    """Conv via the paper's forward graph, im2col -> GEMM -> (+bias) ->
-    col2im, in the FAKE_QUANT mode (the float first conv: ±1 weights).
+def _direct_bit_conv2d(params: dict, x: torch.Tensor, cfg: BitLinearConfig,
+                       *, kh: int, kw: int, stride: int,
+                       pad: int) -> torch.Tensor:
+    """PACKED conv without the im2col lowering (``conv_impl="direct"``):
+    binarize and channel-pack the input once (``[N, H, W, C/32]``) and
+    convolve the packed map; the ``[N*OH*OW, kH*kW*C]`` patch matrix never
+    exists. Needs C % 32 == 0, where the ``pack_conv_params`` filter
+    layout is the tap-aligned one."""
+    c = x.shape[-1]
+    if c % bitops.PACK_BITS != 0:
+        raise ValueError(
+            f"conv_impl='direct' via bit_conv2d needs C % 32 == 0, got "
+            f"C={c}; use conv_impl='im2col' (or pack_conv_aligned + "
+            "fused_bit_conv2d)")
+    if cfg.engine not in ("xnor", "xla"):
+        raise ValueError(f"conv_impl='direct' has no engine {cfg.engine!r} "
+                         "(packed-activation path: 'xnor' | 'xla')")
+    xp = bitops.pack_bits(torch.clamp(x, -1, 1), axis=-1)
+    args = (params["w_packed"], xp, kh * kw * c)
+    kwargs = dict(kh=kh, kw=kw, stride=stride, pad=pad)
+    if cfg.engine == "xnor":
+        dot = kops.direct_conv(*args, **kwargs)
+    else:
+        dot = bitops.direct_conv_dot(*args, **kwargs)
+    y = dot.to(cfg.compute_dtype)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
 
-    x: [N, H, W, C]. Returns [N, OH, OW, D]. The GEMM is a plain fp32
-    ``torch.matmul``, as the JAX package leaves it to XLA; callers on a
-    GPU keep TF32 off.
+
+def bit_conv2d(params: dict, x: torch.Tensor, cfg: BitLinearConfig, *,
+               stride: int = 1, pad: int = 0, kh: Optional[int] = None,
+               kw: Optional[int] = None) -> torch.Tensor:
+    """Conv via the paper's forward graph, im2col -> GEMM -> (+bias) ->
+    col2im (``cfg.conv_impl="im2col"``), or the direct packed-window
+    kernel (``"direct"``, PACKED mode only).
+
+    x: [N, H, W, C]. Returns [N, OH, OW, D]. PACKED takes
+    ``pack_conv_params`` and needs ``kh``/``kw``. The FLOAT and
+    FAKE_QUANT GEMMs are a plain fp32 ``torch.matmul``, as the JAX
+    package leaves them to XLA; callers on a GPU keep TF32 off.
     """
-    if cfg.mode != QuantMode.FAKE_QUANT:
-        raise NotImplementedError(f"bit_conv2d mode {cfg.mode.value!r} is not "
-                                  "ported yet; packed convs use fused_bit_conv2d")
-    w = params["w"]
-    _, kh, kw, _ = w.shape
+    packed = cfg.mode == QuantMode.PACKED
+    if packed:
+        if kh is None or kw is None:
+            raise ValueError("a PACKED conv needs kh and kw")
+        if cfg.conv_impl == "direct":
+            return _direct_bit_conv2d(params, x, cfg, kh=kh, kw=kw,
+                                      stride=stride, pad=pad)
+        if cfg.conv_impl != "im2col":
+            raise ValueError(f"unknown conv_impl {cfg.conv_impl!r}")
+    else:
+        _, kh, kw, _ = params["w"].shape
     patches, (oh, ow) = im2col(x, kh, kw, stride=stride, pad=pad)
     n, _, pk = patches.shape
     x2d = patches.reshape(n * oh * ow, pk)
-    wq, _ = binarize_weights(filters_to_matrix(w))
-    xq = binarize_activations(x2d) if cfg.binarize_acts else x2d
-    y2d = xq @ wq.to(x2d.dtype).T
+    if packed:
+        y2d = _packed_matmul(params["w_packed"], x2d, pk, cfg)
+    else:
+        y2d = _float_matmul(filters_to_matrix(params["w"]), x2d, cfg)
     if "b" in params:
         y2d = y2d + params["b"].to(y2d.dtype)
     return col2im(y2d.reshape(n, oh * ow, -1), oh, ow)

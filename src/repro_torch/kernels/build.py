@@ -22,21 +22,23 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("xnor_gemm", "fused_gemm", "direct_conv", "megakernel_conv_stage",
-           "megakernel_chain")
+           "megakernel_chain", "pack_rows", "unpack_gemm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of every exported function: all pointers (arrays of pointers
-# and of ints included) and the stream as void*, sizes as int; each launcher
-# returns cudaGetLastError() as an int.
+# and of ints included) and the stream as void*, sizes as int, element
+# strides as long long; each launcher returns cudaGetLastError() as an int.
 _SIGNATURES = {
     "repro_xnor_gemm": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_fused_xnor_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_fused_direct_conv": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # (x, w, out, N, Hp, Wp, CW, D, kh, kw, stride, k_bits, stream)
+    "repro_direct_conv_dot": (_P, _P, _P) + (_I,) * 9 + (_P,),
     # (CW, Wp, kh, kw) -> dynamic shared memory bytes of one block
     "repro_fused_direct_conv_smem_bytes": (_I, _I, _I, _I),
     # (x, out, w[], a[], b[], d_words[], cw[], k_bits[], n_layers, n_images,
@@ -51,16 +53,23 @@ _SIGNATURES = {
     # (kw_layer[], n_layers, m_max, kw_act, mf, kwf, cluster, &smem_bytes,
     #  &max_clusters)
     "repro_megakernel_chain_limits": (_P,) + (_I,) * 6 + (_P, _P),
+    # (x, out, KW, N, stride_n, stream)
+    "repro_pack_rows": (_P, _P, _I, _I, _L, _P),
+    # (w, x, out, M, KW, N, stride_k, stride_n, x_is_bf16, stream)
+    "repro_unpack_gemm": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _P),
 }
 _LIB_OF = {
     "repro_xnor_gemm": "xnor_gemm",
     "repro_fused_xnor_gemm": "fused_gemm",
     "repro_fused_direct_conv": "direct_conv",
     "repro_fused_direct_conv_smem_bytes": "direct_conv",
+    "repro_direct_conv_dot": "direct_conv",
     "repro_megakernel_conv_stage": "megakernel_conv_stage",
     "repro_megakernel_conv_stage_limits": "megakernel_conv_stage",
     "repro_megakernel_chain": "megakernel_chain",
     "repro_megakernel_chain_limits": "megakernel_chain",
+    "repro_pack_rows": "pack_rows",
+    "repro_unpack_gemm": "unpack_gemm",
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

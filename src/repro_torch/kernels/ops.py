@@ -3,7 +3,9 @@ each.
 
 A wrapper checks dtype, shape, contiguity and device, and raises on
 what its kernel does not take: a transposed view must be made
-contiguous by the caller. On CPU tensors it returns the kernel's plain
+contiguous by the caller, except for the real-valued inputs of
+``pack_rows`` (any stride along N, unit stride along K) and
+``unpack_gemm`` (any strides), which their kernels read in place. On CPU tensors it returns the kernel's plain
 twin from ``repro_torch.core.bitops``; on CUDA tensors it launches the
 kernel or raises — it never falls back. Outputs are allocated here with
 ``torch.empty``; the kernel runs on PyTorch's current stream.
@@ -25,7 +27,8 @@ from repro_torch.core.im2col import conv_out_size
 from repro_torch.kernels import build
 
 LAUNCHES = {"xnor_gemm": 0, "fused_xnor_gemm": 0, "fused_direct_conv": 0,
-            "megakernel_conv_stage": 0, "megakernel_chain": 0}
+            "megakernel_conv_stage": 0, "megakernel_chain": 0,
+            "pack_rows": 0, "direct_conv": 0, "unpack_gemm": 0}
 
 # Batch tile of the chain's masked-tail path: the batch pads to a multiple
 # of it. It is the compiled tile of csrc/megakernel_chain.cu (kChainTileN),
@@ -37,6 +40,11 @@ MAX_CLUSTER = 8
 # Dynamic shared memory one block may use on Hopper (232,448 bytes).
 MAX_SMEM_BYTES = 227 * 1024
 _INT_MAX = 2**31 - 1
+# Largest y dimension of a CUDA grid.
+_GRID_Y_MAX = 65535
+# Output rows (and columns) of one unpack_gemm block: kUnpackTile of
+# csrc/unpack_gemm.cu.
+_UNPACK_TILE = 64
 
 
 def reset_launches() -> None:
@@ -54,6 +62,18 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
                          f"{t.stride()}); call .contiguous() first")
     if t.numel() > _INT_MAX:
         raise ValueError(f"{name} has {t.numel()} elements; the kernels "
+                         "index with 32-bit sizes")
+
+
+def _check_strided(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
+    """``_check`` for an operand its kernel reads through its strides: any
+    strides (a transposed view included), sizes that fit 32-bit ints."""
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
+    if max(t.shape, default=0) > _INT_MAX:
+        raise ValueError(f"{name} has a dimension past 2^31; the kernels "
                          "index with 32-bit sizes")
 
 
@@ -133,6 +153,39 @@ def fused_xnor_gemm(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
     return out
 
 
+def _check_direct_conv(wp: torch.Tensor, xp: torch.Tensor, kh: int,
+                       kw: int) -> None:
+    _check("wp", wp, PACKED_DTYPE, 2)
+    _check("xp", xp, PACKED_DTYPE, 4)
+    cw, kwords = xp.shape[3], wp.shape[1]
+    if kwords != kh * kw * cw:
+        raise ValueError(
+            f"filter words {kwords} != kh*kw*CW = {kh}*{kw}*{cw} — direct "
+            "conv needs tap-aligned packed filters (pack_conv_aligned)")
+
+
+def _direct_conv_geometry(name: str, xp: torch.Tensor, out_c: int, *,
+                          kh: int, kw: int, stride: int, pad: int):
+    """The launch side shared by both direct-conv kernels: shared memory
+    and grid checks, the all-ones spatial border. Returns ``(xpad, (n,
+    hp, wp, cw), (oh, ow))``; ``out_c`` is the output's last dimension."""
+    n, h, w, cw = xp.shape
+    oh = conv_out_size(h, kh, stride, pad)
+    ow = conv_out_size(w, kw, stride, pad)
+    hp, wp_sp = h + 2 * pad, w + 2 * pad
+    smem = build.load("repro_fused_direct_conv_smem_bytes")(cw, wp_sp, kh, kw)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{name} needs {smem} B of shared memory per block "
+                         f"(> {MAX_SMEM_BYTES}); use conv_impl='im2col'")
+    if n * oh > _INT_MAX or n * oh * ow * out_c > _INT_MAX:
+        raise ValueError(f"{name} output [{n}, {oh}, {ow}, {out_c}] exceeds "
+                         "the grid or 32-bit sizes")
+    xpad = xp
+    if pad:
+        xpad = torch.nn.functional.pad(xp, (0, 0, pad, pad, pad, pad), value=-1)
+    return xpad, (n, hp, wp_sp, cw), (oh, ow)
+
+
 def fused_direct_conv(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
                       a: torch.Tensor, b: torch.Tensor, *, kh: int, kw: int,
                       stride: int = 1, pad: int = 0) -> torch.Tensor:
@@ -140,32 +193,16 @@ def fused_direct_conv(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
     filters ``[D, kH*kW*CW]``, per-channel affine ``a, b [D]`` -> packed
     ``[N, OH, OW, ceil(D/32)]``. The spatial border pads with all-ones
     words here; channels past D are +1 bits."""
-    _check("wp", wp, PACKED_DTYPE, 2)
-    _check("xp", xp, PACKED_DTYPE, 4)
-    n, h, w, cw = xp.shape
-    d, kwords = wp.shape
-    if kwords != kh * kw * cw:
-        raise ValueError(
-            f"filter words {kwords} != kh*kw*CW = {kh}*{kw}*{cw} — direct "
-            "conv needs tap-aligned packed filters (pack_conv_aligned)")
+    _check_direct_conv(wp, xp, kh, kw)
+    d = wp.shape[0]
     _check_affine(a, b, d)
     if not _on_cuda(wp, xp, a, b):
         return bitops.direct_conv_oracle(wp, xp, k_bits, a, b, kh=kh, kw=kw,
                                          stride=stride, pad=pad)
-    oh = conv_out_size(h, kh, stride, pad)
-    ow = conv_out_size(w, kw, stride, pad)
-    hp, wp_sp = h + 2 * pad, w + 2 * pad
-    smem = build.load("repro_fused_direct_conv_smem_bytes")(cw, wp_sp, kh, kw)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"fused_direct_conv needs {smem} B of shared memory "
-                         f"per block (> {MAX_SMEM_BYTES}); use conv_impl='im2col'")
-    if n * oh > _INT_MAX:
-        raise ValueError(f"N*OH = {n * oh} exceeds the grid")
-    xpad = xp
-    if pad:
-        xpad = torch.nn.functional.pad(xp, (0, 0, pad, pad, pad, pad), value=-1)
-    out = torch.empty((n, oh, ow, -(-d // PACK_BITS)), dtype=torch.int32,
-                      device=xp.device)
+    dw = -(-d // PACK_BITS)
+    xpad, (n, hp, wp_sp, cw), (oh, ow) = _direct_conv_geometry(
+        "fused_direct_conv", xp, dw, kh=kh, kw=kw, stride=stride, pad=pad)
+    out = torch.empty((n, oh, ow, dw), dtype=torch.int32, device=xp.device)
     if out.numel():
         with torch.cuda.device(xp.device):
             rc = build.load("repro_fused_direct_conv")(
@@ -174,6 +211,88 @@ def fused_direct_conv(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
                 int(k_bits), _stream(xp.device))
         _raise_on(rc, "fused_direct_conv")
         LAUNCHES["fused_direct_conv"] += 1
+    return out
+
+
+def direct_conv(wp: torch.Tensor, xp: torch.Tensor, k_bits: int, *,
+                kh: int, kw: int, stride: int = 1,
+                pad: int = 0) -> torch.Tensor:
+    """Direct conv without an epilogue (the ``direct_conv_dot`` kernel):
+    channel-packed ``[N, H, W, CW]`` x tap-aligned filters ``[D,
+    kH*kW*CW]`` -> the int32 ±1 dot ``[N, OH, OW, D]``, for float-boundary
+    layers that apply bias and BN themselves. The spatial border pads
+    with all-ones words here, as in :func:`fused_direct_conv`."""
+    _check_direct_conv(wp, xp, kh, kw)
+    if not _on_cuda(wp, xp):
+        return bitops.direct_conv_dot(wp, xp, k_bits, kh=kh, kw=kw,
+                                      stride=stride, pad=pad)
+    d = wp.shape[0]
+    xpad, (n, hp, wp_sp, cw), (oh, ow) = _direct_conv_geometry(
+        "direct_conv", xp, d, kh=kh, kw=kw, stride=stride, pad=pad)
+    out = torch.empty((n, oh, ow, d), dtype=torch.int32, device=xp.device)
+    if out.numel():
+        with torch.cuda.device(xp.device):
+            rc = build.load("repro_direct_conv_dot")(
+                xpad.data_ptr(), wp.data_ptr(), out.data_ptr(), n, hp, wp_sp,
+                cw, d, kh, kw, stride, int(k_bits), _stream(xp.device))
+        _raise_on(rc, "direct_conv")
+        LAUNCHES["direct_conv"] += 1
+    return out
+
+
+def pack_rows(x: torch.Tensor) -> torch.Tensor:
+    """Sign-encode float32 ``[K, N]`` along K -> contiguous int32 ``[K/32,
+    N]``: bit ``b`` of word ``w`` is ``x[32w + b, n] >= 0`` (LSB-first;
+    -0.0 sets it, NaN clears it). ``x`` must be K-contiguous (unit stride
+    along K, any stride along N), as the transposed patch matrix
+    ``x2d.T`` the layers hand over, which the kernel reads in place."""
+    _check_strided("x", x, (torch.float32,), 2)
+    k, n = x.shape
+    if k % PACK_BITS:
+        raise ValueError(f"K={k} must be a multiple of {PACK_BITS}")
+    if x.stride(0) != 1:
+        raise ValueError(f"x must have unit stride along K (got strides "
+                         f"{x.stride()}); pass the transpose of a contiguous "
+                         "[N, K] matrix")
+    kw = k // PACK_BITS
+    if not _on_cuda(x):
+        return bitops.pack_bits(x, axis=0).contiguous()
+    if kw * n > _INT_MAX or kw > _GRID_Y_MAX:
+        raise ValueError(f"pack_rows of [{k}, {n}] exceeds the grid")
+    out = torch.empty((kw, n), dtype=PACKED_DTYPE, device=x.device)
+    if out.numel():
+        with torch.cuda.device(x.device):
+            rc = build.load("repro_pack_rows")(
+                x.data_ptr(), out.data_ptr(), kw, n, x.stride(1),
+                _stream(x.device))
+        _raise_on(rc, "pack_rows")
+        LAUNCHES["pack_rows"] += 1
+    return out
+
+
+def unpack_gemm(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Packed weights ``[M, KW]`` x real input ``[KW*32, N]`` (float32 or
+    bfloat16, any strides) -> float32 ``[M, N]``: the weights unpack to
+    ±1 inside the kernel and the dot accumulates in float32. Zero-word K
+    pads unpack to -1: pair them with zero rows of ``x``."""
+    _check("wp", wp, PACKED_DTYPE, 2)
+    _check_strided("x", x, (torch.float32, torch.bfloat16), 2)
+    (m, kw), (k, n) = wp.shape, x.shape
+    if k != kw * PACK_BITS:
+        raise ValueError(f"x has {k} rows, expected KW*32 = {kw * PACK_BITS}")
+    if not _on_cuda(wp, x):
+        return bitops.packed_matmul_unpack(wp, x, compute_dtype=x.dtype)
+    if m * n > _INT_MAX or -(-m // _UNPACK_TILE) > _GRID_Y_MAX:
+        raise ValueError(f"unpack_gemm output [{m}, {n}] exceeds the grid")
+    out = torch.empty((m, n), dtype=torch.float32, device=wp.device)
+    if out.numel():
+        with torch.cuda.device(wp.device):
+            rc = build.load("repro_unpack_gemm")(
+                wp.data_ptr(), x.data_ptr(), out.data_ptr(), m, kw, n,
+                x.stride(0), x.stride(1), int(x.dtype == torch.bfloat16),
+                _stream(wp.device))
+        _raise_on(rc, "unpack_gemm")
+        LAUNCHES["unpack_gemm"] += 1
     return out
 
 
@@ -372,4 +491,4 @@ def megakernel_chain(w_stack: torch.Tensor, a_stack: torch.Tensor,
 
 __all__ = ["LAUNCHES", "reset_launches", "xnor_gemm", "fused_xnor_gemm",
            "fused_direct_conv", "megakernel_conv_stage", "megakernel_chain",
-           "RAGGED_TILE_N"]
+           "pack_rows", "direct_conv", "unpack_gemm", "RAGGED_TILE_N"]

@@ -1,7 +1,10 @@
 """The CUDA kernels against their plain-torch twins on the card, at
 ragged shapes the main path does not reach (M, N, D and C not multiples
 of 32, stride 2, no padding; for the megakernels odd batches, masked
-tails inside a tile and cluster sizes other than 8). Bit-exact. Every test here needs a GPU and
+tails inside a tile and cluster sizes other than 8; for the unfused
+PACKED kernels strided and offset inputs, -0.0 and NaN, bfloat16 and
+K not a multiple of the tile). Bit-exact, but for ``unpack_gemm`` on
+real input (tolerances at the tests). Every test here needs a GPU and
 ``nvcc`` and skips without them; run on the card with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -161,3 +164,131 @@ def test_megakernel_wrappers_raise_rather_than_fall_back(dev):
     with pytest.raises(ValueError, match="n_real needs ragged_tile"):
         ops.megakernel_chain(stack["w"], stack["a"], stack["b"], (64,), xp, 64,
                              n_real=2)
+
+
+# pack_rows on the K-contiguous transposed patch matrix: odd N, K of one
+# word and K not a multiple of the kernel's 8 words per warp, a sliced
+# view with a storage offset and a row stride past K.
+@pytest.mark.parametrize("k,n,layout", [
+    (32, 1, "transposed"), (96, 33, "transposed"), (1056, 5, "transposed"),
+    (32, 7, "transposed"), (288, 333, "transposed"), (8192, 3, "transposed"),
+    (160, 40, "sliced")])
+def test_pack_rows_matches_twin(dev, k, n, layout):
+    rng = np.random.default_rng(37)
+    base = rng.normal(size=(n + 3, k + 64)).astype(np.float32)
+    base.reshape(-1)[::11] = 0.0
+    base.reshape(-1)[::13] = -0.0    # sets the bit, as x >= 0 does
+    base.reshape(-1)[::17] = np.nan  # clears it
+    x = cu(base, dev)
+    if layout == "transposed":
+        x = x[:n, :k].contiguous().T          # [K, N] view, K-contiguous
+    else:
+        x = x[1:n + 1, 32:32 + k].T           # offset view, row stride K+64
+    before = ops.LAUNCHES["pack_rows"]
+    got = ops.pack_rows(x)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["pack_rows"] == before + 1
+    assert got.is_contiguous() and got.shape == (k // 32, n)
+    assert torch.equal(got, bitops.pack_bits(x, axis=0))
+
+
+# direct_conv: D < 32 and D not a multiple of 32, C not a multiple of 32,
+# stride 2, no padding.
+@pytest.mark.parametrize("c,d,h,stride,pad", [(32, 7, 6, 1, 1), (45, 40, 7, 2, 0),
+                                              (96, 70, 5, 1, 1)])
+def test_direct_conv_matches_twin(dev, c, d, h, stride, pad):
+    rng = np.random.default_rng(38)
+    wp = layers.pack_conv_aligned({"w": cu(pm1(rng, (d, 3, 3, c)), dev)})["w_packed"]
+    xp = bitops.pack_channels(cu(pm1(rng, (3, h, h + 1, c)), dev))
+    kw = dict(kh=3, kw=3, stride=stride, pad=pad)
+    before = ops.LAUNCHES["direct_conv"]
+    got = ops.direct_conv(wp, xp, 9 * c, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["direct_conv"] == before + 1
+    assert torch.equal(got, bitops.direct_conv_dot(wp, xp, 9 * c, **kw))
+
+
+# unpack_gemm: M and N not multiples of the 64 tile, one K word, odd KW;
+# ±1/0 input exact; real float32 input within the JAX package's tolerance
+# for its kernel (tests/test_kernels.py, rtol 1e-5, atol 1e-4); bfloat16
+# within its bfloat16 tolerance (rtol 2e-2, atol 2e-1) against the float32
+# dot of the same bfloat16 values.
+@pytest.mark.parametrize("m,kw,n,layout", [(10, 32, 33, "rows"),
+                                           (70, 3, 5, "transposed"),
+                                           (1, 1, 1, "rows"),
+                                           (130, 9, 200, "transposed")])
+def test_unpack_gemm_matches_twin(dev, m, kw, n, layout):
+    rng = np.random.default_rng(39)
+    wp = cu(words(rng, (m, kw)), dev)
+    k = 32 * kw
+
+    def operand(a):
+        x = cu(a.astype(np.float32), dev)
+        return x.T.contiguous().T if layout == "transposed" else x
+
+    ternary = operand(rng.integers(-1, 2, size=(k, n)))
+    got = ops.unpack_gemm(wp, ternary)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bitops.packed_matmul_unpack(
+        wp, ternary, compute_dtype=torch.float32))
+    real = operand(rng.normal(size=(k, n)))
+    torch.testing.assert_close(
+        ops.unpack_gemm(wp, real),
+        bitops.packed_matmul_unpack(wp, real, compute_dtype=torch.float32),
+        rtol=1e-5, atol=1e-4)
+    half = real.to(torch.bfloat16)
+    before = ops.LAUNCHES["unpack_gemm"]
+    got = ops.unpack_gemm(wp, half)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["unpack_gemm"] == before + 1
+    torch.testing.assert_close(
+        got, bitops.packed_matmul_unpack(wp, half, compute_dtype=torch.bfloat16),
+        rtol=2e-2, atol=2e-1)
+
+
+# The unfused PACKED layers on the card against the same layers on the
+# CPU: K not a multiple of 32 (n_pad > 0: the xnor engine's +1 pad and
+# correction, the unpack engine's zero pad), every engine and conv_impl.
+@pytest.mark.parametrize("engine,conv_impl", [("xnor", "im2col"),
+                                              ("xnor", "direct"),
+                                              ("unpack", "im2col"),
+                                              ("xla", "im2col")])
+def test_packed_layers_match_the_cpu(dev, engine, conv_impl):
+    from repro_torch.core.binarize import QuantMode
+
+    rng = np.random.default_rng(40)
+    cfg = layers.BitLinearConfig(mode=QuantMode.PACKED, engine=engine,
+                                 conv_impl=conv_impl)
+    lin = {"w": rng.normal(size=(45, 70)).astype(np.float32),
+           "b": rng.normal(size=45).astype(np.float32)}
+    conv = {"w": rng.normal(size=(40, 3, 3, 32)).astype(np.float32),
+            "b": rng.normal(size=40).astype(np.float32)}
+    x_lin = rng.normal(size=(9, 70)).astype(np.float32)
+    x_conv = rng.normal(size=(2, 6, 7, 32)).astype(np.float32)
+    for params, x, run in (
+            (layers.pack_linear_params, x_lin,
+             lambda p, x: layers.bit_linear(p, x, cfg)),
+            (layers.pack_conv_params, x_conv,
+             lambda p, x: layers.bit_conv2d(p, x, cfg, stride=1, pad=1, kh=3,
+                                            kw=3))):
+        want = run(params({k: torch.from_numpy(v) for k, v in
+                           (lin if x is x_lin else conv).items()}),
+                   torch.from_numpy(x))
+        got = run(params({k: cu(v, dev) for k, v in
+                          (lin if x is x_lin else conv).items()}), cu(x, dev))
+        assert torch.equal(got.cpu(), want)
+
+
+def test_unfused_wrappers_raise_rather_than_fall_back(dev):
+    rng = np.random.default_rng(41)
+    with pytest.raises(TypeError, match="float32"):
+        ops.pack_rows(cu(rng.normal(size=(64, 4)), dev))       # float64
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ops.pack_rows(cu(rng.normal(size=(48, 4)).astype(np.float32), dev))
+    with pytest.raises(ValueError, match="unit stride along K"):
+        ops.pack_rows(cu(rng.normal(size=(64, 4)).astype(np.float32), dev))
+    wp = cu(words(rng, (8, 2)), dev)
+    with pytest.raises(ValueError, match="rows, expected KW"):
+        ops.unpack_gemm(wp, cu(rng.normal(size=(63, 4)).astype(np.float32), dev))
+    with pytest.raises(ValueError, match="different devices"):
+        ops.unpack_gemm(wp, torch.zeros((64, 4)))

@@ -55,3 +55,22 @@ def test_the_megakernel_slice_is_covered():
     for name in ("megakernel_conv_stage", "megakernel_chain"):
         assert name in build.SOURCES
         assert (build.CSRC / f"{name}.cu").is_file()
+
+
+def test_the_packed_slice_is_covered():
+    """The modules of the unfused PACKED slice (the paper's Table 2 path)
+    are among the files checked above, and the CUDA sources of its three
+    kernels sit beside the wrappers that build them."""
+    covered = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"configs/bnn_cifar.py", "core/bitops.py", "core/layers.py",
+            "core/bnn.py", "kernels/ops.py", "kernels/build.py"} <= covered
+    from repro_torch.kernels import build, ops
+
+    for name in ("pack_rows", "unpack_gemm", "direct_conv"):
+        assert name in build.SOURCES
+        assert (build.CSRC / f"{name}.cu").is_file()
+    for symbol in ("repro_pack_rows", "repro_direct_conv_dot",
+                   "repro_unpack_gemm"):
+        source = build.CSRC / f"{build._LIB_OF[symbol]}.cu"
+        assert f"int {symbol}(" in source.read_text()
+    assert {"pack_rows", "direct_conv", "unpack_gemm"} <= set(ops.LAUNCHES)

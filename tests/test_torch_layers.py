@@ -164,5 +164,5 @@ def test_first_conv_fake_quant_matches_jax():
         mode=QuantMode.FAKE_QUANT, binarize_acts=False), stride=1, pad=1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-5)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="kh and kw"):
         tl.bit_conv2d(_t(p), t(x), tl.BitLinearConfig(mode=QuantMode.PACKED))
