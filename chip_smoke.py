@@ -47,7 +47,20 @@
    layers, zero-padded borders: other logits) is held to its CPU
    forward on 4 of the images. Prints each preset's device (graph) and
    eager ms, weight bytes, and the CONTROL_GROUP / PAPER_KERNEL ratio.
-6. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+6. Serves one full-width period of jamba-1.5-large-398b (8 of its 72
+   layers; every width, all 16 experts, vocab 65536) from 1-bit packed
+   weights through ``repro_torch.launch.serve.serve_config``: batch 4,
+   a 512-token prompt, 8 greedy tokens (``jamba_phase``). The prefill
+   must launch ``ssm_scan_chunk`` exactly 14 times (7 mamba layers x 2
+   chunks) and nothing else, each decode step nothing; every scan call
+   of the prefill is held within rtol/atol 1e-5 of its twin on its own
+   inputs, and the logits of every step against the same model run
+   with the twin in place of the kernel (``JAMBA_LOGIT_TOL``). Prints
+   packed vs bf16 weight bytes, prefill and decode ms (CUDA events),
+   peak memory and profiles. (Phase 3 also runs ``ssm_scan_chunk`` at
+   the prefill's chunk, a short prompt's and a ragged case, within
+   rtol/atol 1e-5 of its twin.)
+7. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Per-shape details go to ``build/chip_smoke.json``.
@@ -78,7 +91,12 @@ INT8_OPS_PER_S = 1979e12
 # cores, dense (unpack_gemm: its ±1 operands are exact in bf16).
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
-OPS_RATE = {"pack_rows": FP32_OPS_PER_S, "unpack_gemm": BF16_OPS_PER_S}
+# The scan's exps run on the special-function units: 16 MUFU.EX2 per clock
+# per SM (CUDA C++ programming guide, arithmetic instruction throughput,
+# compute capability 9.0), 132 SMs, at the 1.98 GHz boost clock.
+MUFU_EX2_PER_S = 132 * 16 * 1.98e9
+OPS_RATE = {"pack_rows": FP32_OPS_PER_S, "unpack_gemm": BF16_OPS_PER_S,
+            "ssm_scan_chunk": MUFU_EX2_PER_S}
 # Read between calls to time a kernel with a cold L2 (50 MB on the H100).
 L2_FLUSH_BYTES = 128 * 2**20
 BATCH = 32
@@ -263,16 +281,18 @@ def kernel_phase(dev) -> tuple[dict, list]:
     return totals, rows
 
 
-def record(total: dict, name: str, label: str, err: int, run, twin, lib,
+def record(total: dict, name: str, label: str, err, run, twin, lib,
            nbytes: int, ops_n: int, per_layer=None, summed: bool = True,
-           plain_reps: int = 3, cold: bool = False) -> dict:
+           plain_reps: int = 3, cold: bool = False,
+           check: str = "exact") -> dict:
     """Time one main-path shape: kernel (graph replay and eager call),
     twin, library yardstick (``lib``; None where no single PyTorch call
     computes the function) and, for a megakernel, the slice-1 per-layer
     kernels over the same layers (``per_layer``). The kernel's totals
     sum the times of its main path's shapes only (``summed``); every
     shape's error counts. ``cold``: the kernel's time is taken with a
-    cold L2 (its warm time is kept as ``warm_ms``)."""
+    cold L2 (its warm time is kept as ``warm_ms``). ``check`` says how
+    the shape was held to its twin."""
     ms = graph_ms(run, cold=cold)
     eager_ms = time_ms(run, iters=50)
     plain_ms = time_ms(twin, iters=2, reps=plain_reps)
@@ -285,7 +305,7 @@ def record(total: dict, name: str, label: str, err: int, run, twin, lib,
     if cold:
         row["warm_ms"] = graph_ms(run)
     lib_txt = "none" if library_ms is None else f"{library_ms:.4f} ms"
-    line = (f"  {name:21s} {label:18s} exact  kernel {ms:.4f} ms"
+    line = (f"  {name:21s} {label:18s} {check}  kernel {ms:.4f} ms"
             + (f" cold L2, {row['warm_ms']:.4f} warm" if cold else "")
             + f" (eager call {eager_ms:.4f})  plain {plain_ms:.3f} ms  library "
             f"{lib_txt}  bound {bms:.5f} ms ({by})")
@@ -412,6 +432,79 @@ def megakernel_phase(dev, totals: dict, rows: list) -> None:
         rows.append(record(totals["megakernel_chain"], "megakernel_chain", label,
                            err, run, twin, lib, nbytes, ops_n,
                            per_layer=per_layer, summed=n == n_real == BATCH))
+
+
+# (label, batch, chunk, d_inner, d_state, sequence the chunk is a view
+# of) of the scan: the served prefill's second chunk of a 512-token
+# prompt, a short prompt's only chunk, and a ragged case.
+SCAN_CASES = [("prefill chunk", 4, 256, 16384, 16, 512),
+              ("short prompt", 4, 32, 16384, 16, 32),
+              ("ragged", 3, 37, 16384 + 96, 16, 37)]
+SCAN_TOL = dict(rtol=1e-5, atol=1e-5)
+# jamba's dt rank, ceil(d_model / 16): B and C sit after it in x_proj's output.
+JAMBA_DT_RANK = 512
+
+
+def scan_error(name: str, label: str, got, want) -> float:
+    """Max abs error of (y, h_last) against the twin's; fails outside
+    ``SCAN_TOL`` (y sums over the state in another order)."""
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            fail(f"{name} {label}: {tuple(g.shape)} vs twin {tuple(w.shape)}, "
+                 f"finite={bool(torch.isfinite(g).all())}")
+        diff = (g - w).abs()
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+        bad = int((diff > SCAN_TOL["atol"] + SCAN_TOL["rtol"] * w.abs()).sum())
+        if bad:
+            fail(f"{name} {label}: {bad} outputs outside rtol/atol 1e-5 of the "
+                 f"plain twin (max abs err {err:.3g})")
+    return err
+
+
+def scan_operands(gen, b, c, di, ds, seq, dev):
+    """The scan's operands as the mamba prefill hands them over: dt and x
+    chunk views of ``[b, seq, di]`` tensors (the last chunk), B and C
+    column slices of an x_proj output ``[b, seq, r + 2*ds]``, A of the
+    model's init (-1..-ds), h0 != 0 (a carried state)."""
+    sl = slice(seq - c, seq)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, seq, di), generator=gen, device=dev))[:, sl]
+    xh = torch.randn((b, seq, di), generator=gen, device=dev)[:, sl]
+    bc = torch.randn((b, seq, JAMBA_DT_RANK + 2 * ds), generator=gen,
+                     device=dev)[:, sl]
+    bm, cm = bc[..., JAMBA_DT_RANK:JAMBA_DT_RANK + ds], bc[..., JAMBA_DT_RANK + ds:]
+    a = -torch.arange(1, ds + 1, dtype=torch.float32, device=dev).expand(
+        di, ds).contiguous()
+    h0 = torch.randn((b, di, ds), generator=gen, device=dev) * 0.1
+    return dt, xh, bm, cm, a, h0
+
+
+def scan_phase(dev, totals: dict, rows: list) -> None:
+    """``ssm_scan_chunk`` at the served prefill's chunk (its time makes the
+    kernels-line total), a short prompt's chunk and a ragged case, held
+    within rtol/atol 1e-5 of its twin on the card. Bound: the larger of
+    the bytes over HBM and the exps over the MUFU rate; the FP32 issue
+    bound (6 operations per exp plus dt*x) is kept beside it."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssm_scan_chunk_ref
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for label, b, c, di, ds, seq in SCAN_CASES:
+        args = scan_operands(gen, b, c, di, ds, seq, dev)
+        run = lambda: ops.ssm_scan_chunk(*args)  # noqa: E731,B023
+        twin = lambda: ssm_scan_chunk_ref(*args)  # noqa: E731,B023
+        err = scan_error("ssm_scan_chunk", label, run(), twin())
+        exps = b * c * di * ds
+        nbytes = (3 * b * c * di + 2 * b * di * ds + di * ds + 2 * b * c * ds) * 4
+        row = record(totals["ssm_scan_chunk"], "ssm_scan_chunk",
+                     f"{label} [{b},{c},{di},{ds}]", err, run, twin, None,
+                     nbytes, exps, summed=label == "prefill chunk",
+                     check=f"max err {err:.2g}")
+        row["fp32_bound_ms"] = (6 * exps + b * c * di) / FP32_OPS_PER_S * 1e3
+        if label == "prefill chunk":
+            totals["ssm_scan_chunk"]["fp32_bound_ms"] = row["fp32_bound_ms"]
+        rows.append(row)
 
 
 def launches_per_forward(path: str) -> dict:
@@ -857,6 +950,235 @@ def table2_phase(dev) -> dict:
     return result
 
 
+# Phase 6: one full-width period of jamba-1.5-large-398b, served.
+JAMBA_LAYERS, JAMBA_BATCH, JAMBA_PROMPT, JAMBA_GEN = 8, 4, 512, 8
+# Kernel path vs twin path, |diff| <= atol + rtol * |twin logit|. Stated
+# before the first run on the card, for bf16 activations: the kernel sums
+# y over the state in another order than the twin, so a y can move by an
+# ulp; where that crosses a bf16 rounding boundary an activation moves by
+# 2^-8 of itself, and such moves pass through 8 layers (and could tip a
+# near-tied MoE top-2 choice). Logits are O(1) (|logit| up to ~5 for an
+# RMS-normed x against N(0, 1/d) head rows); a wrong kernel is caught by
+# the per-call checks at 1e-5 and moves logits by far more.
+JAMBA_LOGIT_TOL = dict(rtol=2e-2, atol=5e-2)
+# The same comparison for the prefill with float32 activations (the
+# config's dtype replaced; same params): no bf16 rounding to amplify an
+# ulp of y, so only float32 reassociation through 8 layers remains.
+JAMBA_F32_LOGIT_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def _proj_bytes(tree) -> tuple[int, int]:
+    """(bytes of the packed projection weights and their alphas, bytes of
+    the same weights in bfloat16)."""
+    if isinstance(tree, list):
+        parts = [_proj_bytes(v) for v in tree]
+    elif isinstance(tree, dict) and "w_packed" in tree:
+        w = tree["w_packed"]
+        alpha = tree.get("alpha")
+        packed = w.numel() * 4 + (alpha.numel() * 4 if alpha is not None else 0)
+        return packed, w.numel() * 32 * 2
+    elif isinstance(tree, dict):
+        parts = [_proj_bytes(v) for v in tree.values()]
+    else:
+        return 0, 0
+    return sum(p[0] for p in parts), sum(p[1] for p in parts)
+
+
+def events_ms(fn, reps: int = 3) -> float:
+    """Median device-clock time of one call (CUDA events around it) after
+    one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def jamba_phase(dev, cfg=None) -> dict:
+    """Serve one full-width period of jamba-1.5-large-398b (8 layers: 7
+    mamba, 1 attention; 4 MoE of 16 experts, 4 dense FFNs; vocab 65536)
+    from 1-bit packed weights through ``launch.serve.serve_config``:
+    ``init_packed`` on the card from a seeded generator, batch 4, a
+    512-token prompt (two scan chunks), 8 greedy tokens, f32 KV cache.
+
+    The launch counts are 0 just before the prefill and read after it
+    (14 scan launches, nothing else) and after each decode step (none);
+    every scan call of the prefill is held against its twin on its own
+    inputs. The same model is run again with the twin in place of the
+    kernel (swapped here, for that run only), teacher-forced with the
+    kernel path's tokens, and its logits held to ``JAMBA_LOGIT_TOL``."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, serve_policy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssm_scan_chunk_ref
+    from repro_torch.launch.serve import serve_config
+    from repro_torch.models.model_factory import build_model
+
+    if cfg is None:
+        cfg = dataclasses.replace(get_config("jamba-1.5-large-398b"),
+                                  num_layers=JAMBA_LAYERS)
+    policy = serve_policy()
+    model = build_model(cfg, policy)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    params = model.init_packed(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    packed_b, bf16_b = _proj_bytes(params)
+    result = {"config": {"name": cfg.name, "num_layers": cfg.num_layers,
+                         "d_model": cfg.d_model, "num_experts": cfg.num_experts,
+                         "vocab_size": cfg.vocab_size, "dtype": str(cfg.dtype)},
+              "init_packed_s": time.monotonic() - t0,
+              "packed_weight_bytes": packed_b, "bf16_weight_bytes": bf16_b,
+              "param_bytes": _nbytes(params)}
+    print(f"  init_packed: {result['init_packed_s']:.1f} s; projection weights "
+          f"{packed_b / 1e9:.3f} GB packed (with alphas) vs {bf16_b / 1e9:.1f} "
+          f"GB in bf16 ({bf16_b / packed_b:.1f}x); all params "
+          f"{result['param_bytes'] / 1e9:.2f} GB", flush=True)
+
+    logits_k, launches = [], []
+
+    def on_step(step, logits):
+        torch.cuda.synchronize()
+        launches.append(dict(ops.LAUNCHES))
+        ops.reset_launches()
+        logits_k.append(logits.float().clone())
+
+    with recorded_calls(["ssm_scan_chunk"]) as calls:
+        # The counts: 0 just before the prefill (serve_config launches
+        # nothing before it), read after it and after each decode step.
+        ops.reset_launches()
+        served = serve_config(cfg, policy, batch=JAMBA_BATCH,
+                              prompt_len=JAMBA_PROMPT, gen=JAMBA_GEN, seed=0,
+                              cache_dtype=torch.float32, device=dev,
+                              params=params, on_step=on_step)
+    n_mamba = sum(not cfg.is_attention_layer(i) for i in range(cfg.num_layers))
+    chunks = -(-JAMBA_PROMPT // 256)
+    want = {**dict.fromkeys(ops.LAUNCHES, 0), "ssm_scan_chunk": n_mamba * chunks}
+    if launches[0] != want:
+        fail(f"jamba prefill: launches {launches[0]}, expected {want}")
+    for step, counts in enumerate(launches[1:], start=1):
+        if any(counts.values()):
+            fail(f"jamba decode step {step}: launches {counts}, expected none")
+    if len(calls) != want["ssm_scan_chunk"]:
+        fail(f"jamba: {len(calls)} scan calls recorded, expected "
+             f"{want['ssm_scan_chunk']}")
+    result["launches"] = {"prefill": launches[0], "decode": launches[1:]}
+    result["scan_calls_max_abs_err"] = max(
+        scan_error("ssm_scan_chunk", f"jamba prefill call {i}", out,
+                   ssm_scan_chunk_ref(*args, **kwargs))
+        for i, (_, args, kwargs, out) in enumerate(calls))
+    del calls
+    tokens = served["tokens"]
+    if tokens.shape != (JAMBA_BATCH, JAMBA_GEN) or len(logits_k) != JAMBA_GEN:
+        fail(f"jamba: tokens {tuple(tokens.shape)}, {len(logits_k)} logit steps")
+    for step, lg in enumerate(logits_k):
+        if lg.shape != (JAMBA_BATCH, cfg.vocab_size) or not torch.isfinite(lg).all():
+            fail(f"jamba step {step}: logits {tuple(lg.shape)} not finite "
+                 f"[{JAMBA_BATCH}, {cfg.vocab_size}]")
+    print(f"  served {JAMBA_BATCH} x {JAMBA_PROMPT} prompt + {JAMBA_GEN} tokens: "
+          f"prefill launched {launches[0]['ssm_scan_chunk']} scans "
+          f"({n_mamba} mamba layers x {chunks} chunks), each within "
+          f"{result['scan_calls_max_abs_err']:.2g} of its twin; decode steps "
+          f"none; host clock prefill {served['prefill_s']:.3f} s, decode "
+          f"{served['decode_s']:.3f} s", flush=True)
+
+    # The same model with the plain twin in place of the kernel,
+    # teacher-forced with the kernel path's tokens.
+    prompts = served["prompts"]
+    state0 = model.init_state(JAMBA_BATCH, JAMBA_PROMPT + JAMBA_GEN,
+                              dtype=torch.float32, device=dev)
+
+    def run(m, scan, steps):
+        """Logits of the prefill and ``steps`` teacher-forced decode steps
+        of model ``m`` with ``scan`` as ``ops.ssm_scan_chunk``."""
+        kernel = ops.ssm_scan_chunk
+        ops.ssm_scan_chunk = scan
+        try:
+            with torch.inference_mode():
+                lg, state = m.prefill(params, state0, {"tokens": prompts})
+                out = [lg.float()]
+                for step in range(steps):
+                    lg, state = m.decode_step(
+                        params, state, {"tokens": tokens[:, step:step + 1]})
+                    out.append(lg.float())
+        finally:
+            ops.ssm_scan_chunk = kernel
+        return out
+
+    def held(what, got, want, tol) -> list:
+        errs = []
+        for step, (k, t) in enumerate(zip(got, want)):
+            diff = (k - t).abs()
+            errs.append(float(diff.max()))
+            bad = int((diff > tol["atol"] + tol["rtol"] * t.abs()).sum())
+            if bad:
+                fail(f"jamba {what} step {step}: {bad} logits outside {tol} "
+                     f"(max abs diff {errs[-1]:.3g})")
+        return errs
+
+    logits_t = run(model, ssm_scan_chunk_ref, JAMBA_GEN - 1)
+    errs = held("kernel vs twin path", logits_k, logits_t, JAMBA_LOGIT_TOL)
+    agree = sum(int((k.argmax(-1) == t.argmax(-1)).sum())
+                for k, t in zip(logits_k, logits_t))
+    # Diagnostics: the kernel path's prefill once more (run to run), and
+    # kernel vs twin prefill with float32 activations.
+    rerun = run(model, ops.ssm_scan_chunk, 0)
+    model32 = build_model(dataclasses.replace(cfg, dtype=torch.float32), policy)
+    f32_k = run(model32, ops.ssm_scan_chunk, 0)
+    f32_t = run(model32, ssm_scan_chunk_ref, 0)
+    f32_errs = held("float32-activation prefill, kernel vs twin", f32_k, f32_t,
+                    JAMBA_F32_LOGIT_TOL)
+    result.update(logits_max_abs_diff=errs,
+                  logits_abs_max=float(max(t.abs().max() for t in logits_t)),
+                  greedy_agreement=f"{agree}/{JAMBA_BATCH * JAMBA_GEN}",
+                  prefill_rerun_max_abs_diff=float((rerun[0] - logits_k[0]).abs().max()),
+                  f32_prefill_max_abs_diff=f32_errs[0])
+    print(f"  kernel vs twin path (bf16 activations): max |logit diff| per step "
+          f"{[f'{e:.3g}' for e in errs]} (|logits| up to "
+          f"{result['logits_abs_max']:.3g}; tolerance {JAMBA_LOGIT_TOL}); greedy "
+          f"tokens agree {result['greedy_agreement']}; kernel path prefill run "
+          f"again: max |diff| {result['prefill_rerun_max_abs_diff']:.3g}; "
+          f"float32 activations, kernel vs twin prefill: max |diff| "
+          f"{f32_errs[0]:.3g} (tolerance {JAMBA_F32_LOGIT_TOL})", flush=True)
+    del model32, f32_k, f32_t, rerun
+
+    # Device-clock times (CUDA events) and profiles of one prefill and one
+    # decode step (functional: the state given is not written).
+    with torch.inference_mode():
+        batch_p = {"tokens": prompts}
+        batch_d = {"tokens": tokens[:, -1:]}
+        _, state1 = model.prefill(params, state0, batch_p)
+        result["prefill_ms"] = events_ms(
+            lambda: model.prefill(params, state0, batch_p), reps=2)
+        result["decode_ms_per_token"] = events_ms(
+            lambda: model.decode_step(params, state1, batch_d), reps=3)
+        result["prefill_breakdown"] = device_breakdown(
+            lambda: model.prefill(params, state0, batch_p))
+        result["decode_breakdown"] = device_breakdown(
+            lambda: model.decode_step(params, state1, batch_d))
+    result["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    print(f"  prefill {result['prefill_ms']:.1f} ms, decode "
+          f"{result['decode_ms_per_token']:.1f} ms per token (batch "
+          f"{JAMBA_BATCH}; CUDA events); max_memory_allocated "
+          f"{result['max_memory_allocated'] / 1e9:.2f} GB", flush=True)
+    for what in ("prefill", "decode"):
+        top = result[f"{what}_breakdown"]
+        print(f"    {what} profile: "
+              + (top if isinstance(top, str) else ""), flush=True)
+        if not isinstance(top, str):
+            for kname, ms, share in top:
+                print(f"    {ms:10.3f} ms {share:6.1%}  {kname}", flush=True)
+    return result
+
+
 KERNELS = {
     "xnor_gemm": ("src/repro_torch/kernels/csrc/xnor_gemm.cu",
                   "src/repro/kernels/xnor_gemm.py:105"),
@@ -875,6 +1197,8 @@ KERNELS = {
                     "src/repro/kernels/direct_conv.py:235"),
     "unpack_gemm": ("src/repro_torch/kernels/csrc/unpack_gemm.cu",
                     "src/repro/kernels/unpack_gemm.py:74"),
+    "ssm_scan_chunk": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                       "src/repro/kernels/ssm_scan.py:70"),
 }
 
 
@@ -915,11 +1239,20 @@ def main() -> None:
     unfused_kernel_phase(dev, totals, rows, BNNExperiment("table2").batch,
                          summed=True)
     unfused_kernel_phase(dev, totals, rows, BATCH, summed=False)
+    scan_phase(dev, totals, rows)
     print("phase 4: serving on the trained checkpoint", flush=True)
     serve = serve_phase(dev)
     print("phase 5: Table 2 on the card", flush=True)
     table2 = table2_phase(dev)
-    launches = {**serve["launches"], **table2["launches"]}
+    print("phase 6: jamba-1.5-large-398b, one full-width period, served "
+          "from 1-bit weights", flush=True)
+    jamba = jamba_phase(dev)
+    jamba_launches = dict(jamba["launches"]["prefill"])
+    for counts in jamba["launches"]["decode"]:
+        for name, n in counts.items():
+            jamba_launches[name] += n
+    launches = {**serve["launches"], **table2["launches"],
+                "jamba_serve": jamba_launches}
     for name in KERNELS:
         if not sum(path[name] for path in launches.values()):
             fail(f"kernel {name} was not launched on the main path")
@@ -928,7 +1261,7 @@ def main() -> None:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
          "build_s": info["seconds"], "shapes": rows, "serve": serve,
-         "table2": table2, "totals": totals}, indent=2))
+         "table2": table2, "jamba": jamba, "totals": totals}, indent=2))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -946,7 +1279,8 @@ def main() -> None:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": t["library_ms"],
         })
-        for extra in ("per_layer_ms", "real_input_max_abs_err"):
+        for extra in ("per_layer_ms", "real_input_max_abs_err",
+                      "fp32_bound_ms"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
     print(json.dumps({"kernels": kernels}))

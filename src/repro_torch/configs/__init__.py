@@ -1,1 +1,6 @@
-"""Experiment configurations of the port."""
+"""Experiment configurations of the port. Importing this package
+registers every LM architecture the port runs; ``configs.base`` has
+``get_config(name)`` / ``list_configs()``. ``bnn_cifar`` holds the
+CIFAR BNN's Table 2 presets."""
+
+from repro_torch.configs import jamba_1_5_large_398b  # noqa: F401

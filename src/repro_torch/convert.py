@@ -1,9 +1,12 @@
 """Carry params from the JAX package into the port.
 
-``params_from_numpy`` takes the JAX package's params — latent
+``params_from_numpy`` takes the JAX package's params — the BNN's, latent
 (``init_bnn_params`` / ``load_binary_checkpoint``) or fused-packed
-(``pack_bnn_params_fused``: ``w_packed``, ``a``, ``b``) — as nested
-dicts and lists of arrays, and returns the same tree of torch tensors.
+(``pack_bnn_params_fused``: ``w_packed``, ``a``, ``b``), or an LM's
+(``Model.init``, ``Model.pack``: ``layers`` a list over period positions
+of dicts whose leaves carry the periods axis, int32 ``w_packed``,
+``alpha``) — as nested dicts and lists of arrays, and returns the same
+tree of torch tensors.
 The keys and layouts of both packages agree, so nothing is renamed or
 transposed. Every array is copied: ``np.asarray`` of a JAX array is
 read-only, which ``torch.from_numpy`` would warn about and share.

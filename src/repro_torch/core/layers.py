@@ -41,12 +41,13 @@ BN_EPS = 1e-4  # the one BatchNorm eps; core.bnn._batchnorm imports it
 @dataclasses.dataclass(frozen=True)
 class BitLinearConfig:
     """How :func:`bit_linear` and :func:`bit_conv2d` run. ``engine`` and
-    ``conv_impl`` matter in PACKED mode only. The JAX package's
-    ``use_scale`` (the XNOR-Net alpha) and ``blocks`` (kernel tiling)
-    are not ported."""
+    ``conv_impl`` matter in PACKED mode only; ``use_scale`` (the XNOR-Net
+    alpha) in FAKE_QUANT mode only (PACKED params carry their ``alpha``).
+    The JAX package's ``blocks`` (kernel tiling) is not ported."""
 
     mode: QuantMode = QuantMode.FAKE_QUANT
     binarize_acts: bool = True          # False => weight-only
+    use_scale: bool = False             # XNOR-Net alpha
     engine: str = "xla"                 # "xnor" | "unpack" | "xla"
     conv_impl: str = "im2col"           # "im2col" | "direct" (PACKED convs)
     compute_dtype: torch.dtype = torch.float32
@@ -81,9 +82,16 @@ def _pack_rows_padded(wm: torch.Tensor) -> torch.Tensor:
     return bitops.pack_bits(wm, axis=-1)
 
 
-def pack_linear_params(params: dict) -> dict:
-    """Latent float params -> packed inference params (paper §3.1)."""
-    packed = {"w_packed": _pack_rows_padded(params["w"])}  # w: [out, in]
+def pack_linear_params(params: dict, *, use_scale: bool = False) -> dict:
+    """Latent float params -> packed inference params (paper §3.1).
+
+    ``w`` is ``[out, in]``, or stacked ``[..., out, in]`` (MoE experts);
+    ``use_scale`` adds the XNOR-Net ``alpha = mean(|w|)`` over the
+    unpadded ``in`` axis, one per output row."""
+    w = params["w"]
+    packed = {"w_packed": _pack_rows_padded(w)}
+    if use_scale:
+        packed["alpha"] = w.abs().mean(dim=-1)
     if "b" in params:
         packed["b"] = params["b"]
     return packed
@@ -131,21 +139,27 @@ def _float_matmul(w: torch.Tensor, x: torch.Tensor,
                   cfg: BitLinearConfig) -> torch.Tensor:
     """``x @ w^T`` on latent weights ``[out, K]``: FAKE_QUANT (±1 weights,
     binarized activations unless weight-only) or the FLOAT control
-    group."""
+    group. ``cfg.use_scale`` scales FAKE_QUANT by the per-row alpha."""
     if cfg.mode == QuantMode.FAKE_QUANT:
-        wq, _ = binarize_weights(w)
+        wq, alpha = binarize_weights(w, scale_axis=-1 if cfg.use_scale else None)
         xq = binarize_activations(x) if cfg.binarize_acts else x
-        return xq @ wq.to(x.dtype).T
+        y = xq @ wq.to(x.dtype).T
+        if alpha is not None:
+            y = y * alpha.reshape(1, -1).to(y.dtype)
+        return y
     return x @ w.to(x.dtype).T
 
 
 def bit_linear(params: dict, x: torch.Tensor,
                cfg: BitLinearConfig) -> torch.Tensor:
     """``y = x @ W^T (+ b)`` under the configured quantization mode.
-    x: ``[..., in_features]``; PACKED takes ``pack_linear_params``."""
+    x: ``[..., in_features]``; PACKED takes ``pack_linear_params`` and
+    scales by its ``alpha`` (if any) before the bias."""
     if cfg.mode == QuantMode.PACKED:
         k = x.shape[-1]
         y = _packed_matmul(params["w_packed"], x.reshape(-1, k), k, cfg)
+        if "alpha" in params:
+            y = y * params["alpha"][None, :].to(y.dtype)
         y = y.reshape(*x.shape[:-1], -1)
     else:
         y = _float_matmul(params["w"], x, cfg)

@@ -22,7 +22,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("xnor_gemm", "fused_gemm", "direct_conv", "megakernel_conv_stage",
-           "megakernel_chain", "pack_rows", "unpack_gemm")
+           "megakernel_chain", "pack_rows", "unpack_gemm", "ssm_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,6 +57,9 @@ _SIGNATURES = {
     "repro_pack_rows": (_P, _P, _I, _I, _L, _P),
     # (w, x, out, M, KW, N, stride_k, stride_n, x_is_bf16, stream)
     "repro_unpack_gemm": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _P),
+    # (dt, xh, B, C, A, h0, y, h_out, batch, chunk, di, ds, then the batch
+    #  and time strides of dt, xh, B and C, stream)
+    "repro_ssm_scan_chunk": (_P,) * 8 + (_I,) * 4 + (_L,) * 8 + (_P,),
 }
 _LIB_OF = {
     "repro_xnor_gemm": "xnor_gemm",
@@ -70,6 +73,7 @@ _LIB_OF = {
     "repro_megakernel_chain_limits": "megakernel_chain",
     "repro_pack_rows": "pack_rows",
     "repro_unpack_gemm": "unpack_gemm",
+    "repro_ssm_scan_chunk": "ssm_scan",
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

@@ -4,10 +4,12 @@ each.
 A wrapper checks dtype, shape, contiguity and device, and raises on
 what its kernel does not take: a transposed view must be made
 contiguous by the caller, except for the real-valued inputs of
-``pack_rows`` (any stride along N, unit stride along K) and
-``unpack_gemm`` (any strides), which their kernels read in place. On CPU tensors it returns the kernel's plain
-twin from ``repro_torch.core.bitops``; on CUDA tensors it launches the
-kernel or raises — it never falls back. Outputs are allocated here with
+``pack_rows`` (any stride along N, unit stride along K),
+``unpack_gemm`` (any strides) and ``ssm_scan_chunk`` (batch and time
+strides), which their kernels read in place. On CPU tensors it returns
+the kernel's plain twin from ``repro_torch.core.bitops`` (from
+``kernels.ref`` for the scan); on CUDA tensors it launches the kernel
+or raises — it never falls back. Outputs are allocated here with
 ``torch.empty``; the kernel runs on PyTorch's current stream.
 
 ``LAUNCHES[name]`` counts the launches of each kernel, and nothing
@@ -24,11 +26,12 @@ import torch
 from repro_torch.core import bitops
 from repro_torch.core.bitops import PACK_BITS, PACKED_DTYPE
 from repro_torch.core.im2col import conv_out_size
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 LAUNCHES = {"xnor_gemm": 0, "fused_xnor_gemm": 0, "fused_direct_conv": 0,
             "megakernel_conv_stage": 0, "megakernel_chain": 0,
-            "pack_rows": 0, "direct_conv": 0, "unpack_gemm": 0}
+            "pack_rows": 0, "direct_conv": 0, "unpack_gemm": 0,
+            "ssm_scan_chunk": 0}
 
 # Batch tile of the chain's masked-tail path: the batch pads to a multiple
 # of it. It is the compiled tile of csrc/megakernel_chain.cu (kChainTileN),
@@ -296,6 +299,56 @@ def unpack_gemm(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# Widest state (d_state) the scan kernel keeps in registers.
+MAX_SCAN_STATE = 32
+
+
+def ssm_scan_chunk(dt: torch.Tensor, xh: torch.Tensor, bmat: torch.Tensor,
+                   cmat: torch.Tensor, a: torch.Tensor,
+                   h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba S6 selective scan over one chunk, carrying ``h``: float32
+    ``dt, xh [B, C, di]``, ``bmat, cmat [B, C, ds]``, ``a [di, ds]``,
+    ``h0 [B, di, ds]`` -> (``y [B, C, di]``, ``h_last [B, di, ds]``), both
+    new and contiguous. ``dt``, ``xh``, ``bmat`` and ``cmat`` are read
+    through their batch and time strides (unit stride along the last
+    axis), so chunk views of a longer sequence need no copy; ``a`` and
+    ``h0`` must be contiguous. ``ds`` up to ``MAX_SCAN_STATE``."""
+    for name, x in (("dt", dt), ("xh", xh), ("bmat", bmat), ("cmat", cmat)):
+        _check_strided(name, x, (torch.float32,), 3)
+        if x.numel() and x.shape[-1] > 1 and x.stride(-1) != 1:
+            raise ValueError(f"{name} must have unit stride along its last "
+                             f"axis (got strides {x.stride()})")
+    _check("a", a, torch.float32, 2)
+    _check("h0", h0, torch.float32, 3)
+    b, c, di = dt.shape
+    ds = a.shape[1]
+    for name, x, want in (("xh", xh, (b, c, di)), ("bmat", bmat, (b, c, ds)),
+                          ("cmat", cmat, (b, c, ds)), ("a", a, (di, ds)),
+                          ("h0", h0, (b, di, ds))):
+        if tuple(x.shape) != want:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {want}")
+    if not _on_cuda(dt, xh, bmat, cmat, a, h0):
+        return ref.ssm_scan_chunk_ref(dt, xh, bmat, cmat, a, h0)
+    if ds > MAX_SCAN_STATE:
+        raise ValueError(f"ssm_scan_chunk keeps at most {MAX_SCAN_STATE} "
+                         f"states per channel in registers, got ds={ds}")
+    if b > _GRID_Y_MAX or b * c * di > _INT_MAX:
+        raise ValueError(f"ssm_scan_chunk of [{b}, {c}, {di}] exceeds the grid")
+    y = torch.empty((b, c, di), dtype=torch.float32, device=dt.device)
+    h_last = torch.empty((b, di, ds), dtype=torch.float32, device=dt.device)
+    if b and di and ds:
+        with torch.cuda.device(dt.device):
+            rc = build.load("repro_ssm_scan_chunk")(
+                dt.data_ptr(), xh.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
+                a.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+                b, c, di, ds, dt.stride(0), dt.stride(1), xh.stride(0),
+                xh.stride(1), bmat.stride(0), bmat.stride(1), cmat.stride(0),
+                cmat.stride(1), _stream(dt.device))
+        _raise_on(rc, "ssm_scan_chunk")
+        LAUNCHES["ssm_scan_chunk"] += 1
+    return y, h_last
+
+
 def _ints(values) -> ctypes.Array:
     return (ctypes.c_int * len(values))(*values)
 
@@ -491,4 +544,5 @@ def megakernel_chain(w_stack: torch.Tensor, a_stack: torch.Tensor,
 
 __all__ = ["LAUNCHES", "reset_launches", "xnor_gemm", "fused_xnor_gemm",
            "fused_direct_conv", "megakernel_conv_stage", "megakernel_chain",
-           "pack_rows", "direct_conv", "unpack_gemm", "RAGGED_TILE_N"]
+           "pack_rows", "direct_conv", "unpack_gemm", "ssm_scan_chunk",
+           "RAGGED_TILE_N", "MAX_SCAN_STATE"]

@@ -3,8 +3,9 @@ ragged shapes the main path does not reach (M, N, D and C not multiples
 of 32, stride 2, no padding; for the megakernels odd batches, masked
 tails inside a tile and cluster sizes other than 8; for the unfused
 PACKED kernels strided and offset inputs, -0.0 and NaN, bfloat16 and
-K not a multiple of the tile). Bit-exact, but for ``unpack_gemm`` on
-real input (tolerances at the tests). Every test here needs a GPU and
+K not a multiple of the tile; for the scan ragged chunks, channels and
+states, and chunk views). Bit-exact, but for ``unpack_gemm`` on real
+input and the scan (tolerances at the tests). Every test here needs a GPU and
 ``nvcc`` and skips without them; run on the card with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -292,3 +293,93 @@ def test_unfused_wrappers_raise_rather_than_fall_back(dev):
         ops.unpack_gemm(wp, cu(rng.normal(size=(63, 4)).astype(np.float32), dev))
     with pytest.raises(ValueError, match="different devices"):
         ops.unpack_gemm(wp, torch.zeros((64, 4)))
+
+
+# The selective-scan chunk: C of 1, 37 and 256 steps, batch 1 and 3, di
+# not a multiple of the 128-lane block, ds of 5 to 32 (padded to the
+# kernel's width), h0 != 0, and chunk views of a longer sequence (batch
+# stride S*di) with B, C as column slices, read in place. The state
+# update rounds as the twin's; y sums over n in another order: rtol/atol
+# 1e-5.
+@pytest.mark.parametrize("b,c,di,ds,view", [
+    (1, 1, 200, 16, False), (3, 37, 16480, 16, True), (1, 256, 300, 8, True),
+    (3, 256, 129, 5, False), (3, 37, 64, 32, True)])
+def test_ssm_scan_chunk_matches_twin(dev, b, c, di, ds, view):
+    from repro_torch.kernels.ref import ssm_scan_chunk_ref
+
+    rng = np.random.default_rng(42)
+
+    def normal(*shape, scale=1.0):
+        return cu((rng.normal(size=shape) * scale).astype(np.float32), dev)
+
+    s = 2 * c + 3 if view else c
+    sl = slice(c, 2 * c) if view else slice(0, c)
+    dt = torch.nn.functional.softplus(normal(b, s, di))[:, sl]
+    xh = normal(b, s, di)[:, sl]
+    bc = normal(b, s, 7 + 2 * ds)[:, sl]
+    bm, cm = bc[..., 7:7 + ds], bc[..., 7 + ds:]
+    a = -torch.exp(normal(di, ds, scale=0.5))
+    h0 = normal(b, di, ds, scale=0.1)
+    before = ops.LAUNCHES["ssm_scan_chunk"]
+    y, h = ops.ssm_scan_chunk(dt, xh, bm, cm, a, h0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssm_scan_chunk"] == before + 1
+    y_ref, h_ref = ssm_scan_chunk_ref(dt, xh, bm, cm, a, h0)
+    torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h, h_ref, rtol=1e-5, atol=1e-5)
+
+
+def test_scan_wrapper_raises_rather_than_fall_back(dev):
+    x = torch.zeros((1, 4, 8), device=dev)
+    with pytest.raises(ValueError, match="at most 32 states"):
+        ops.ssm_scan_chunk(x, x, torch.zeros((1, 4, 33), device=dev),
+                           torch.zeros((1, 4, 33), device=dev),
+                           torch.zeros((8, 33), device=dev),
+                           torch.zeros((1, 8, 33), device=dev))
+    with pytest.raises(ValueError, match="unit stride"):
+        ops.ssm_scan_chunk(x.transpose(1, 2).contiguous().transpose(1, 2), x,
+                           x[..., :4], x[..., :4], torch.zeros((8, 4), device=dev),
+                           torch.zeros((1, 8, 4), device=dev))
+
+
+def test_jamba_smoke_serving_matches_the_cpu(dev):
+    """The smoke jamba (float32) served on the card, through the scan
+    kernel, against the CPU (its twin) on the same packed params: a
+    2 x 512 prefill (two chunks) and two decode steps teacher-forced
+    with the CPU's tokens; float32 sums in other orders through 4
+    layers: logits within rtol/atol 1e-4."""
+    from repro_torch.configs.base import serve_policy, smoke_config
+    from repro_torch.models.model_factory import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model(smoke_config("jamba-1.5-large-398b"), serve_policy())
+    params = model.init_packed(torch.Generator().manual_seed(5))
+
+    def to(tree, d):
+        if isinstance(tree, dict):
+            return {k: to(v, d) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, d) for v in tree]
+        return tree.to(d)
+
+    prompts = torch.randint(0, 512, (2, 512), generator=torch.Generator().manual_seed(5))
+    out = {}
+    tokens = []
+    for d in ("cpu", dev):
+        p = to(params, d)
+        state = model.init_state(2, 515, dtype=torch.float32, device=d)
+        before = ops.LAUNCHES["ssm_scan_chunk"]
+        with torch.inference_mode():
+            logits, state = model.prefill(p, state, {"tokens": prompts.to(d)})
+            steps = [logits.cpu()]
+            for i in range(2):
+                if d == "cpu":
+                    tokens.append(logits.argmax(-1)[:, None])
+                logits, state = model.decode_step(p, state,
+                                                  {"tokens": tokens[i].to(d)})
+                steps.append(logits.cpu())
+        out[str(d)] = steps
+        launched = ops.LAUNCHES["ssm_scan_chunk"] - before
+        assert launched == (0 if d == "cpu" else 2 * state["mamba"]["h"].shape[0])
+    for got, want in zip(out[str(dev)], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

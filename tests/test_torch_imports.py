@@ -74,3 +74,21 @@ def test_the_packed_slice_is_covered():
         source = build.CSRC / f"{build._LIB_OF[symbol]}.cu"
         assert f"int {symbol}(" in source.read_text()
     assert {"pack_rows", "direct_conv", "unpack_gemm"} <= set(ops.LAUNCHES)
+
+
+def test_the_lm_slice_is_covered():
+    """The modules of the LM serving slice (jamba through
+    ``launch/serve.py``) are among the files checked above, and the CUDA
+    source of its scan kernel sits beside the wrapper that builds it."""
+    covered = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"configs/base.py", "configs/jamba_1_5_large_398b.py",
+            "models/common.py", "models/attention.py", "models/ffn.py",
+            "models/mamba.py", "models/transformer.py",
+            "models/model_factory.py", "launch/serve.py",
+            "kernels/ref.py"} <= covered
+    from repro_torch.kernels import build, ops
+
+    assert "ssm_scan" in build.SOURCES
+    assert build._LIB_OF["repro_ssm_scan_chunk"] == "ssm_scan"
+    assert "int repro_ssm_scan_chunk(" in (build.CSRC / "ssm_scan.cu").read_text()
+    assert "ssm_scan_chunk" in ops.LAUNCHES
