@@ -59,8 +59,25 @@
    packed vs bf16 weight bytes, prefill and decode ms (CUDA events),
    peak memory and profiles. (Phase 3 also runs ``ssm_scan_chunk`` at
    the prefill's chunk, a short prompt's and a ragged case, within
-   rtol/atol 1e-5 of its twin.)
-7. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+   rtol/atol 1e-5 of its twin. It also runs ``flash_attention`` at
+   smollm-360m's training shape [60, 4096, 64] in bf16, in float32 and at
+   a ragged [3, 1000, 64], against its twin with the kernel's KV tile,
+   with ``F.scaled_dot_product_attention`` as the yardstick, and
+   ``mlstm_chunked`` at xlstm-1.3b's [8, 4096, 1024, 1024], chunk 256, and
+   on one chunk (``attention_phase``).)
+7. The LM training forward (``lm_phase``): ``Model.loss`` of smollm-360m
+   (32 layers, batch 4 x 4096) and xlstm-1.3b (48 layers, batch 2 x 4096)
+   at full width under ``train_policy()``, on random float32 params and a
+   batch of ``synthetic_lm_batches``. The launch counts are reset just
+   before each loss forward and read after it: 32 ``flash_attention`` /
+   42 ``mlstm_chunked`` launches and nothing else; every kernel call of
+   that forward is held against its twin on its own inputs; loss and
+   logits are held to the same model with the twins in place of the
+   kernels (``LM_CASES``, ``LM_LOSS_TOL``, ``LM_LOGIT_TOL``,
+   ``LM_F32_LOSS_TOL``, ``LM_F32_LOGIT_TOL``). Prints the loss, the forward's ms (CUDA
+   events), peak memory and a profile.
+
+Last, prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Per-shape details go to ``build/chip_smoke.json``.
@@ -96,7 +113,8 @@ BF16_OPS_PER_S = 989e12
 # compute capability 9.0), 132 SMs, at the 1.98 GHz boost clock.
 MUFU_EX2_PER_S = 132 * 16 * 1.98e9
 OPS_RATE = {"pack_rows": FP32_OPS_PER_S, "unpack_gemm": BF16_OPS_PER_S,
-            "ssm_scan_chunk": MUFU_EX2_PER_S}
+            "ssm_scan_chunk": MUFU_EX2_PER_S,
+            "flash_attention": BF16_OPS_PER_S, "mlstm_chunked": FP32_OPS_PER_S}
 # Read between calls to time a kernel with a cold L2 (50 MB on the H100).
 L2_FLUSH_BYTES = 128 * 2**20
 BATCH = 32
@@ -284,7 +302,7 @@ def kernel_phase(dev) -> tuple[dict, list]:
 def record(total: dict, name: str, label: str, err, run, twin, lib,
            nbytes: int, ops_n: int, per_layer=None, summed: bool = True,
            plain_reps: int = 3, cold: bool = False,
-           check: str = "exact") -> dict:
+           check: str = "exact", rate: float | None = None) -> dict:
     """Time one main-path shape: kernel (graph replay and eager call),
     twin, library yardstick (``lib``; None where no single PyTorch call
     computes the function) and, for a megakernel, the slice-1 per-layer
@@ -292,12 +310,14 @@ def record(total: dict, name: str, label: str, err, run, twin, lib,
     sum the times of its main path's shapes only (``summed``); every
     shape's error counts. ``cold``: the kernel's time is taken with a
     cold L2 (its warm time is kept as ``warm_ms``). ``check`` says how
-    the shape was held to its twin."""
+    the shape was held to its twin; ``rate`` replaces the kernel's peak
+    rate in the bound (a float32 case of a bf16 kernel)."""
     ms = graph_ms(run, cold=cold)
     eager_ms = time_ms(run, iters=50)
     plain_ms = time_ms(twin, iters=2, reps=plain_reps)
     library_ms = graph_ms(lib, iters=5) if lib is not None else None
-    bms, by = bound_ms(nbytes, ops_n, OPS_RATE.get(name, INT8_OPS_PER_S))
+    bms, by = bound_ms(nbytes, ops_n,
+                       rate or OPS_RATE.get(name, INT8_OPS_PER_S))
     row = {"kernel": name, "shape": label, "max_abs_err": err, "ms": ms,
            "eager_ms": eager_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
@@ -504,6 +524,174 @@ def scan_phase(dev, totals: dict, rows: list) -> None:
         row["fp32_bound_ms"] = (6 * exps + b * c * di) / FP32_OPS_PER_S * 1e3
         if label == "prefill chunk":
             totals["ssm_scan_chunk"]["fp32_bound_ms"] = row["fp32_bound_ms"]
+        rows.append(row)
+
+
+# (label, BH, S, Dh, dtype) of flash attention: smollm-360m's training
+# forward (batch 4 x 15 heads, S 4096; its time makes the kernels-line
+# total), the same in float32, and a ragged case (odd BH, S not a
+# multiple of the 64-row tile).
+FLASH_CASES = [("smollm layer", 60, 4096, 64, torch.bfloat16),
+               ("float32", 60, 4096, 64, torch.float32),
+               ("ragged", 3, 1000, 64, torch.bfloat16)]
+# Float32: rtol/atol 1e-5 (dot products and sums in other orders). Bf16:
+# one bf16 ulp of the largest output of the row, each output within
+# FLASH_ELEM_ULPS bf16 ulps of its own and at most FLASH_PAST_SHARE of
+# the outputs past one (see flash_error). The last two are set from the
+# readings on an H100 (at most 13 own ulps, at most 6.1e-5 of a call's
+# outputs past one, on random inputs and on smollm-360m's own), with
+# room: a kernel that moved small outputs within their row's ulp would
+# move far more than 0.1% of them.
+FLASH_F32_TOL = dict(rtol=1e-5, atol=1e-5)
+FLASH_ELEM_ULPS = 32.0
+FLASH_PAST_SHARE = 1e-3
+# (label, BH, S, dk, dv, chunk) of the mLSTM: xlstm-1.3b's training
+# forward (batch 2 x 4 heads, 16 chunks of 256; its time makes the
+# total) and a one-chunk sequence.
+MLSTM_CASES = [("xlstm layer", 8, 4096, 1024, 1024, 256),
+               ("one chunk", 8, 256, 1024, 1024, 256)]
+# y, C, n: float32 sums over dk and the chunk in other orders. m: the same
+# float operations in the same order as the twin, so equal.
+MLSTM_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def bf16_ulp(x: torch.Tensor, floor: float = 2.0**-8) -> torch.Tensor:
+    """One bfloat16 ulp at the magnitude of ``x`` (float32), taken at
+    ``floor`` below it."""
+    _, exp = torch.frexp(torch.clamp(x.abs(), min=floor))
+    return torch.ldexp(torch.ones_like(x), exp - 8)
+
+
+def flash_error(label: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Flash attention against its twin with the kernel's KV tile (which
+    rounds where the kernel rounds). Float32: within ``FLASH_F32_TOL``.
+    Bf16: within one bf16 ulp of the largest output of each row: the
+    tensor cores sum q . k in another order than cuBLAS, and where a
+    score moves by a float32 ulp p's rounding to bf16 can flip, which
+    moves the row by up to 2^-8 p_j |v_j| / l, a step at the scale of the
+    row's values. Each output is also held within ``FLASH_ELEM_ULPS``
+    bf16 ulps of its own (taken at 2^-8 below it, as ``bf16_ulp`` does),
+    and at most ``FLASH_PAST_SHARE`` of the outputs may be past one."""
+    if got.shape != want.shape or got.dtype != want.dtype or \
+            not torch.isfinite(got).all():
+        fail(f"flash_attention {label}: {tuple(got.shape)}/{got.dtype} vs twin "
+             f"{tuple(want.shape)}/{want.dtype}, finite="
+             f"{bool(torch.isfinite(got).all())}")
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    out = {"max_abs_err": float(diff.max())}
+    if got.dtype == torch.float32:
+        bad = int((diff > FLASH_F32_TOL["atol"] + FLASH_F32_TOL["rtol"] * w.abs()).sum())
+        what = "rtol/atol 1e-5"
+    else:
+        row_ulps = diff / bf16_ulp(w.abs().amax(-1, keepdim=True))
+        elem_ulps = diff / bf16_ulp(w)
+        past = int((elem_ulps > 1).sum())
+        out.update(max_row_ulps=float(row_ulps.max()),
+                   max_elem_ulps=float(elem_ulps.max()),
+                   elements_past_own_ulp=past, elements=diff.numel())
+        bad = int((row_ulps > 1).sum()) + int((elem_ulps > FLASH_ELEM_ULPS).sum())
+        what = (f"one bf16 ulp of their row's largest output or "
+                f"{FLASH_ELEM_ULPS:g} of their own (max {out['max_elem_ulps']:.3g})")
+        if past > FLASH_PAST_SHARE * diff.numel():
+            fail(f"flash_attention {label}: {past} of {diff.numel()} outputs past "
+                 f"one bf16 ulp of their own, more than {FLASH_PAST_SHARE:g}")
+    if bad:
+        fail(f"flash_attention {label}: {bad} outputs outside {what} of the "
+             f"plain twin (max abs err {out['max_abs_err']:.3g})")
+    return out
+
+
+def mlstm_error(label: str, got, want) -> float:
+    """Max abs error of (y, C, n) against the twin's, within ``MLSTM_TOL``;
+    m equal."""
+    err = 0.0
+    for name, g, w in zip(("y", "C", "n"), got[:3], want[:3]):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            fail(f"mlstm_chunked {label}: {name} {tuple(g.shape)} vs twin "
+                 f"{tuple(w.shape)}, finite={bool(torch.isfinite(g).all())}")
+        diff = (g - w).abs()
+        err = max(err, float(diff.max()))
+        bad = int((diff > MLSTM_TOL["atol"] + MLSTM_TOL["rtol"] * w.abs()).sum())
+        if bad:
+            fail(f"mlstm_chunked {label}: {bad} of {name} outside rtol/atol 1e-4 "
+                 f"of the plain twin (max abs err {float(diff.max()):.3g})")
+    if not torch.equal(got[3], want[3]):
+        fail(f"mlstm_chunked {label}: m differs from the twin's (max abs "
+             f"{float((got[3] - want[3]).abs().max()):.3g})")
+    return err
+
+
+def flash_twin(q, k, v, causal=True):
+    """The flash twin with the kernel's KV tile."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    return flash_attention_ref(q, k, v, causal=causal, block_kv=ops.FLASH_TILE)
+
+
+def attention_phase(dev, totals: dict, rows: list) -> None:
+    """``flash_attention`` at smollm-360m's training shape (bf16; its time
+    makes the kernels-line total), in float32 and at a ragged shape, and
+    ``mlstm_chunked`` at xlstm-1.3b's (its time makes the total) and on a
+    one-chunk sequence, each held to its twin on the card and timed.
+    Library yardstick of flash: ``F.scaled_dot_product_attention(...,
+    is_causal=True)`` on the same tensors; none for the mLSTM. Bounds:
+    flash 2 BH S^2 Dh operations (causal) at the bf16 tensor-core rate
+    (float32 case: the CUDA cores' float32 rate) against Q, K, V and O;
+    the mLSTM L (L + 1) (dk + dv) + 4 L dk dv per (bh, chunk) (the
+    causal half of q k^T and of the weights times v, the diagonal
+    included, then q C and the update of C) at the float32 rate against
+    its operands."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import mlstm_chunked_ref
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    F = torch.nn.functional
+    for label, bh, s, dh, dtype in FLASH_CASES:
+        q, k, v = (torch.randn((bh, s, dh), generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        run = lambda: ops.flash_attention(q, k, v)  # noqa: E731,B023
+        twin = lambda: flash_twin(q, k, v)  # noqa: E731,B023
+        q4, k4, v4 = q[None], k[None], v[None]     # [1, BH, S, Dh]: SDPA's layout
+        lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)  # noqa: E731,B023
+        e = flash_error(label, run(), twin())
+        nbytes = 4 * bh * s * dh * q.element_size()
+        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        check = f"max err {e['max_abs_err']:.2g}" + (
+            f", {e['max_row_ulps']:.2f} row ulps, {e['max_elem_ulps']:.2f} own "
+            f"ulps, {e['elements_past_own_ulp']} of {e['elements']} past their "
+            f"own ulp" if "max_row_ulps" in e else "")
+        row = record(totals["flash_attention"], "flash_attention",
+                     f"{label} [{bh},{s},{dh}] {str(dtype)[6:]}", e["max_abs_err"],
+                     run, twin, lib, nbytes, 2 * bh * s * s * dh,
+                     summed=label == "smollm layer", check=check, rate=rate)
+        row.update(e)
+        rows.append(row)
+    for label, bh, s, dk, dv, chunk in MLSTM_CASES:
+        q = torch.randn((bh, s, dk), generator=gen, device=dev) * dk ** -0.5
+        k = torch.randn((bh, s, dk), generator=gen, device=dev)
+        v = torch.randn((bh, s, dv), generator=gen, device=dev)
+        logi = torch.randn((bh, s), generator=gen, device=dev)
+        logf = F.logsigmoid(torch.randn((bh, s), generator=gen, device=dev) + 2)
+        args = (q, k, v, logi, logf)
+        run = lambda: ops.mlstm_chunked(*args, chunk=chunk)  # noqa: E731,B023
+        twin = lambda: mlstm_chunked_ref(*args, chunk=chunk)  # noqa: E731,B023
+        err = mlstm_error(label, run(), twin())
+        ln = min(chunk, s)
+        ops_n = (s // ln) * bh * (ln * (ln + 1) * (dk + dv) + 4 * ln * dk * dv)
+        nbytes = 4 * (bh * s * (2 * dk + 2 * dv + 2) + bh * (dk * dv + dk + 1))
+        row = record(totals["mlstm_chunked"], "mlstm_chunked",
+                     f"{label} [{bh},{s},{dk},{dv}] L{ln}", err, run, twin,
+                     None, nbytes, ops_n, summed=label == "xlstm layer",
+                     check=f"max err {err:.2g}, m equal")
+        if label == "xlstm layer":
+            # the call's three kernels: gates, intra-chunk weights, recurrence
+            row["breakdown"] = device_breakdown(run, top=4)
+            print("    its kernels: " + (row["breakdown"] if isinstance(
+                row["breakdown"], str) else ", ".join(
+                    f"{n.split('(')[0].split()[-1]} {ms:.3f} ms"
+                    for n, ms, _ in row["breakdown"][:-1])), flush=True)
         rows.append(row)
 
 
@@ -1179,6 +1367,285 @@ def jamba_phase(dev, cfg=None) -> dict:
     return result
 
 
+# Phase 7: the LM training forward (Model.loss) at full width.
+# (arch, batch, kernel it must launch, launches per forward, whether its
+# bf16 logits are held to LM_LOGIT_TOL): the train_4k shape's sequence of
+# 4096 tokens, its batch of 256 cut to 4 / 2. xlstm-1.3b's bf16 logits
+# are reported, not held: on an H100 a one-float32-ulp nudge of the
+# mLSTM output in the twin path moves them by 3.1 (more than the kernel
+# does), so they measure the random-weight model's bf16 sensitivity, not
+# the kernel. Its kernel is held per call, by the bf16 loss and by the
+# float32-activation logits and loss.
+LM_CASES = [("smollm-360m", 4, "flash_attention", 32, True),
+            ("xlstm-1.3b", 2, "mlstm_chunked", 42, False)]
+LM_SEQ = 4096
+# Kernel path vs twin path, bf16 activations: |loss diff| <= LM_LOSS_TOL
+# and |logit diff| <= atol + rtol * |twin logit|. Stated before the first
+# run on the card: the kernels differ from their twins by float32 ulps
+# (flash: an occasional bf16 flip of p); where such a difference crosses
+# a bf16 rounding boundary of an activation it moves by 2^-8 of itself,
+# and such moves pass through 32 / 48 layers. On the CPU the smoke smollm
+# (2 layers, bf16) moves its logits by 0.045 when only the twin's KV
+# block changes (512 to 64). Logits are O(1) (RMS-normed x against
+# N(0, 1/d) head rows, |logit| up to ~6); a wrong kernel is caught by the
+# per-call checks and moves logits by O(1) everywhere.
+LM_LOSS_TOL = 2e-2
+LM_LOGIT_TOL = dict(rtol=0.1, atol=0.5)
+# The same loss with float32 activations (same params): no bf16 rounding
+# to amplify the kernels' float32 ulps. The logits' limit is set from
+# the readings on an H100 (xlstm-1.3b 1.7e-3, smollm-360m 1.1e-5): some
+# 6x the larger, far below the O(1) a wrong kernel gives.
+LM_F32_LOSS_TOL = 1e-3
+LM_F32_LOGIT_TOL = dict(rtol=0.0, atol=1e-2)
+
+
+def logit_diff(got: torch.Tensor, want: torch.Tensor, seq: int,
+               tol: dict) -> dict:
+    """|got - want| of two ``[B, S, V]`` logit tensors: the max, the max
+    over position ranges, the count outside ``tol`` (``atol + rtol *
+    |want|``) and the share of positions whose argmax agrees."""
+    diff = (got - want).abs()
+    per_pos = diff.amax(dim=(0, 2))
+    edges = [e for e in (0, 64, 256, 1024, seq) if e <= seq]
+    tol = tol["atol"] + tol["rtol"] * want.abs()
+    return {"max_abs_diff": float(diff.max()),
+            "by_position": {f"{a}-{b}": round(float(per_pos[a:b].max()), 4)
+                            for a, b in zip(edges[:-1], edges[1:]) if b > a},
+            "abs_max": float(want.abs().max()),
+            "outside_tol": int((diff > tol).sum()),
+            "argmax_agreement": float((got.argmax(-1) == want.argmax(-1))
+                                      .float().mean())}
+
+
+@contextlib.contextmanager
+def checked_calls(name: str, check):
+    """Within the block, every call of ``ops.<name>`` is held against its
+    twin at once (``check(label, args, kwargs, out)`` returns the call's
+    error), so the calls' operands need not be kept; yields the list of
+    errors. The forward's own launches are the only ones counted: twins
+    launch no kernel."""
+    from repro_torch.kernels import ops
+
+    errors, wrapper = [], getattr(ops, name)
+
+    def call(*args, **kwargs):
+        out = wrapper(*args, **kwargs)
+        errors.append(check(f"call {len(errors)}", args, kwargs, out))
+        return out
+
+    setattr(ops, name, call)
+    try:
+        yield errors
+    finally:
+        setattr(ops, name, wrapper)
+
+
+@contextlib.contextmanager
+def captured_logits():
+    """Within the block, the logits of the last ``lm_forward`` call are
+    kept in the yielded list, so one ``Model.loss`` gives its loss and its
+    logits."""
+    from repro_torch.models import transformer as tf_mod
+
+    kept, forward = [], tf_mod.lm_forward
+
+    def call(*args, **kwargs):
+        out = forward(*args, **kwargs)
+        kept[:] = [out[0]]
+        return out
+
+    tf_mod.lm_forward = call
+    try:
+        yield kept
+    finally:
+        tf_mod.lm_forward = forward
+
+
+@contextlib.contextmanager
+def twins_in_place():
+    """Within the block the two LM kernels' wrappers are their plain twins
+    (flash with the kernel's KV tile)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import mlstm_chunked_ref
+
+    saved = ops.flash_attention, ops.mlstm_chunked
+    ops.flash_attention, ops.mlstm_chunked = flash_twin, mlstm_chunked_ref
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.mlstm_chunked = saved
+
+
+def lm_phase(dev, cases=LM_CASES, seq: int = LM_SEQ) -> dict:
+    """``Model.loss`` of smollm-360m (batch 4) and xlstm-1.3b (batch 2) at
+    full width and S 4096 on the card, under ``train_policy()`` (fake-quant
+    ±1 weights with the XNOR-Net alpha), on random float32 params from a
+    seeded generator and a batch of ``synthetic_lm_batches``.
+
+    The launch counts are 0 just before the loss forward and read after
+    it: smollm must launch ``flash_attention`` 32 times, xlstm
+    ``mlstm_chunked`` 42 times, and nothing else. Every kernel call of that
+    forward is held against its twin on its own inputs. The loss and the
+    logits (``lm_forward``) are held to the same model run with the twins
+    in place of the kernels: the loss within ``LM_LOSS_TOL``, the logits
+    within ``LM_LOGIT_TOL`` where the case says so (see ``LM_CASES``), and
+    with float32 activations the loss within ``LM_F32_LOSS_TOL`` and the
+    logits within ``LM_F32_LOGIT_TOL``. Loss and logits come from one
+    ``Model.loss`` (``captured_logits``). Where the bf16 logits are past
+    ``LM_LOGIT_TOL``, diagnostics: the kernel path run again, and for the
+    mLSTM the twin path with y one float32 ulp up. Prints the loss, the
+    forward's ms (CUDA events), peak memory and a profile."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, train_policy
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import mlstm_chunked_ref
+    from repro_torch.models.model_factory import build_model
+
+    def check(kernel):
+        def held(label, args, kwargs, out):
+            with torch.no_grad():
+                if kernel == "flash_attention":
+                    return flash_error(label, out, flash_twin(*args, **kwargs))
+                return mlstm_error(label, out, mlstm_chunked_ref(*args, **kwargs))
+        return held
+
+    results = {}
+    for arch, batch_size, kernel, per_forward, hold_bf16_logits in cases:
+        if isinstance(arch, str):
+            cfg = get_config(arch)
+        else:
+            cfg, arch = arch, arch.name
+        policy = train_policy()
+        model = build_model(cfg, policy)
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        batch = next(synthetic_lm_batches(DataConfig(
+            seed=0, global_batch=batch_size, seq_len=seq,
+            vocab_size=cfg.vocab_size)))
+        batch = {"tokens": batch["tokens"].to(dev),
+                 "labels": batch["labels"].to(dev)}
+        res = {"config": {"name": cfg.name, "num_layers": cfg.num_layers,
+                          "d_model": cfg.d_model, "vocab_size": cfg.vocab_size,
+                          "dtype": str(cfg.dtype)},
+               "batch": [batch_size, seq], "init_s": time.monotonic() - t0,
+               "param_bytes": _nbytes(params)}
+
+        def run(m):
+            """(total, loss, logits) of one ``Model.loss``."""
+            with torch.no_grad(), captured_logits() as kept:
+                total, parts = m.loss(params, batch)
+            return float(total), float(parts["loss"]), kept[0]
+
+        with checked_calls(kernel, check(kernel)) as errors:
+            ops.reset_launches()
+            total, loss, logits_k = run(model)
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+        want = {**dict.fromkeys(ops.LAUNCHES, 0), kernel: per_forward}
+        if launches != want:
+            fail(f"{arch} loss forward: launches {launches}, expected {want}")
+        if len(errors) != per_forward or not np.isfinite(total):
+            fail(f"{arch}: {len(errors)} {kernel} calls checked, loss {total}")
+        res.update(launches=launches, loss=loss, total=total,
+                   calls_checked=len(errors),
+                   calls_max_abs_err=max(e["max_abs_err"] if isinstance(e, dict)
+                                         else e for e in errors))
+        if kernel == "flash_attention":
+            res.update(calls_max_row_ulps=max(e["max_row_ulps"] for e in errors),
+                       calls_max_elem_ulps=max(e["max_elem_ulps"] for e in errors),
+                       calls_max_share_past_own_ulp=max(
+                           e["elements_past_own_ulp"] / e["elements"] for e in errors))
+        shape = (batch_size, seq, cfg.padded_vocab)
+        if logits_k.shape != shape or not torch.isfinite(logits_k).all():
+            fail(f"{arch}: logits {tuple(logits_k.shape)}, expected {shape}, "
+                 f"finite={bool(torch.isfinite(logits_k).all())}")
+        with twins_in_place():
+            _, loss_t, logits_t = run(model)
+        res.update(twin_loss=loss_t, loss_diff=abs(loss - loss_t),
+                   logits=logit_diff(logits_k, logits_t, seq, LM_LOGIT_TOL))
+        if res["logits"]["outside_tol"]:
+            # Diagnostics of a bf16 gap past LM_LOGIT_TOL: the kernel path
+            # again (run to run), and for the mLSTM the twin path with y one
+            # float32 ulp up (the model's own sensitivity to an ulp of the
+            # kernel's output).
+            res["rerun_logits_max_abs_diff"] = float(
+                (run(model)[2] - logits_k).abs().max())
+            if kernel == "mlstm_chunked":
+                def nudged(*args, **kwargs):
+                    y, *rest = mlstm_chunked_ref(*args, **kwargs)
+                    return (torch.nextafter(y, torch.full_like(y, float("inf"))),
+                            *rest)
+                with twins_in_place():
+                    ops.mlstm_chunked = nudged
+                    res["nudged_twin_logits"] = logit_diff(
+                        run(model)[2], logits_t, seq, LM_LOGIT_TOL)
+        del logits_k, logits_t
+        model32 = build_model(dataclasses.replace(cfg, dtype=torch.float32), policy)
+        _, f32_k, f32_logits_k = run(model32)
+        with twins_in_place():
+            _, f32_t, f32_logits_t = run(model32)
+        res["f32_logits"] = logit_diff(f32_logits_k, f32_logits_t, seq,
+                                       LM_F32_LOGIT_TOL)
+        del f32_logits_k, f32_logits_t
+        res.update(f32_loss=f32_k, f32_loss_diff=abs(f32_k - f32_t))
+        lg = res["logits"]
+        print(f"  {arch} ({cfg.num_layers} layers, d_model {cfg.d_model}, batch "
+              f"{batch_size} x {seq}, params {res['param_bytes'] / 1e9:.2f} GB "
+              f"float32): loss {loss:.6f} (total {total:.6f}); launched "
+              f"{launches[kernel]} {kernel} and nothing else, every call within "
+              f"{res['calls_max_abs_err']:.3g} of its twin"
+              + (f" ({res['calls_max_row_ulps']:.2f} row ulps, "
+                 f"{res['calls_max_elem_ulps']:.2f} own ulps, at most "
+                 f"{res['calls_max_share_past_own_ulp']:.2e} of a call past one)"
+                 if "calls_max_row_ulps" in res else "")
+              + f"; twin path loss {loss_t:.6f} (|diff| {res['loss_diff']:.3g}), "
+              f"max |logit diff| {lg['max_abs_diff']:.3g} by position "
+              f"{lg['by_position']} (|logits| up to {lg['abs_max']:.3g}, "
+              f"{lg['outside_tol']} outside {LM_LOGIT_TOL}), argmax agree "
+              f"{lg['argmax_agreement']:.4f}"
+              + (f"; kernel path again: max |diff| "
+                 f"{res['rerun_logits_max_abs_diff']:.3g}"
+                 if "rerun_logits_max_abs_diff" in res else "")
+              + (f"; twin path with y one ulp up: max |logit diff| "
+                 f"{res['nudged_twin_logits']['max_abs_diff']:.3g} by position "
+                 f"{res['nudged_twin_logits']['by_position']}"
+                 if "nudged_twin_logits" in res else "")
+              + f"; float32 activations: loss {f32_k:.6f}, kernel vs twin |diff| "
+              f"{res['f32_loss_diff']:.3g}, max |logit diff| "
+              f"{res['f32_logits']['max_abs_diff']:.3g} by position "
+              f"{res['f32_logits']['by_position']} "
+              f"({res['f32_logits']['outside_tol']} outside {LM_F32_LOGIT_TOL})",
+              flush=True)
+        if res["loss_diff"] > LM_LOSS_TOL or (hold_bf16_logits and lg["outside_tol"]):
+            fail(f"{arch}: kernel vs twin path loss {loss} vs {loss_t}, "
+                 f"{lg['outside_tol']} logits outside {LM_LOGIT_TOL}")
+        if res["f32_loss_diff"] > LM_F32_LOSS_TOL or res["f32_logits"]["outside_tol"]:
+            fail(f"{arch}: float32 activations, kernel vs twin loss {f32_k} vs "
+                 f"{f32_t}, {res['f32_logits']['outside_tol']} logits outside "
+                 f"{LM_F32_LOGIT_TOL}")
+        del model32
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        res["loss_ms"] = events_ms(lambda: run(model), reps=2)
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        res["loss_breakdown"] = device_breakdown(lambda: run(model), top=8)
+        print(f"    loss forward {res['loss_ms']:.1f} ms (CUDA events); "
+              f"max_memory_allocated {res['max_memory_allocated'] / 1e9:.2f} GB; "
+              f"profile: " + (res["loss_breakdown"]
+                              if isinstance(res["loss_breakdown"], str) else ""),
+              flush=True)
+        if not isinstance(res["loss_breakdown"], str):
+            for kname, ms, share in res["loss_breakdown"]:
+                print(f"    {ms:10.3f} ms {share:6.1%}  {kname}", flush=True)
+        results[arch] = res
+        del params
+    return results
+
+
 KERNELS = {
     "xnor_gemm": ("src/repro_torch/kernels/csrc/xnor_gemm.cu",
                   "src/repro/kernels/xnor_gemm.py:105"),
@@ -1199,6 +1666,10 @@ KERNELS = {
                     "src/repro/kernels/unpack_gemm.py:74"),
     "ssm_scan_chunk": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
                        "src/repro/kernels/ssm_scan.py:70"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:102"),
+    "mlstm_chunked": ("src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+                      "src/repro/kernels/mlstm_chunk.py:112"),
 }
 
 
@@ -1240,6 +1711,7 @@ def main() -> None:
                          summed=True)
     unfused_kernel_phase(dev, totals, rows, BATCH, summed=False)
     scan_phase(dev, totals, rows)
+    attention_phase(dev, totals, rows)
     print("phase 4: serving on the trained checkpoint", flush=True)
     serve = serve_phase(dev)
     print("phase 5: Table 2 on the card", flush=True)
@@ -1247,12 +1719,16 @@ def main() -> None:
     print("phase 6: jamba-1.5-large-398b, one full-width period, served "
           "from 1-bit weights", flush=True)
     jamba = jamba_phase(dev)
+    print("phase 7: LM training forward (Model.loss) at full width",
+          flush=True)
+    lm = lm_phase(dev)
     jamba_launches = dict(jamba["launches"]["prefill"])
     for counts in jamba["launches"]["decode"]:
         for name, n in counts.items():
             jamba_launches[name] += n
     launches = {**serve["launches"], **table2["launches"],
-                "jamba_serve": jamba_launches}
+                "jamba_serve": jamba_launches,
+                **{f"{arch}_loss": r["launches"] for arch, r in lm.items()}}
     for name in KERNELS:
         if not sum(path[name] for path in launches.values()):
             fail(f"kernel {name} was not launched on the main path")
@@ -1261,7 +1737,8 @@ def main() -> None:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
          "build_s": info["seconds"], "shapes": rows, "serve": serve,
-         "table2": table2, "jamba": jamba, "totals": totals}, indent=2))
+         "table2": table2, "jamba": jamba, "lm_loss": lm, "totals": totals},
+        indent=2))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

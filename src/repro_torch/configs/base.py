@@ -4,7 +4,8 @@ quantization policies and the registry, as ``repro.configs.base``.
 Each architecture module registers one ``ModelConfig`` at import;
 ``get_config(name)`` and ``list_configs()`` import the package first so
 the registry is full. The port registers the families it runs
-(hybrid: jamba-1.5-large-398b); the others come with their families.
+(hybrid: jamba-1.5-large-398b; dense: smollm-360m; ssm: xlstm-1.3b);
+the others come with their families.
 """
 
 from __future__ import annotations
@@ -103,6 +104,13 @@ class ModelConfig:
 
 
 # --- quantization policies (the paper's encoding applied to a whole model) --
+
+def train_policy(enabled: bool = True) -> QuantPolicy:
+    """Training: fake-quant (±1 weights, float activations) binarization of
+    every ``*_proj`` matmul, weight-only, XNOR-Net alpha."""
+    return QuantPolicy(enabled=enabled, mode=QuantMode.FAKE_QUANT,
+                       binarize_acts=False, use_scale=True, engine="xla")
+
 
 def serve_policy(enabled: bool = True) -> QuantPolicy:
     """Serving: packed 1-bit weights (paper §3.1), weight-only, XNOR-Net

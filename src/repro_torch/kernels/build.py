@@ -22,16 +22,19 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("xnor_gemm", "fused_gemm", "direct_conv", "megakernel_conv_stage",
-           "megakernel_chain", "pack_rows", "unpack_gemm", "ssm_scan")
+           "megakernel_chain", "pack_rows", "unpack_gemm", "ssm_scan",
+           "flash_attention", "mlstm_chunk")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 # C signature of every exported function: all pointers (arrays of pointers
 # and of ints included) and the stream as void*, sizes as int, element
-# strides as long long; each launcher returns cudaGetLastError() as an int.
+# strides as long long, scalars as float; each launcher returns
+# cudaGetLastError() as an int.
 _SIGNATURES = {
     "repro_xnor_gemm": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_fused_xnor_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -60,6 +63,11 @@ _SIGNATURES = {
     # (dt, xh, B, C, A, h0, y, h_out, batch, chunk, di, ds, then the batch
     #  and time strides of dt, xh, B and C, stream)
     "repro_ssm_scan_chunk": (_P,) * 8 + (_I,) * 4 + (_L,) * 8 + (_P,),
+    # (q, k, v, out, BH, Sq, Skv, Dh, causal, is_bf16, scale, stream)
+    "repro_flash_attention": (_P,) * 4 + (_I,) * 6 + (_F, _P),
+    # (q, k, v, logi, logf, y, C, n, m, then the scratch sw, g, m_loc,
+    #  inter, wk, decay; BH, S, L, dk, dv, stream)
+    "repro_mlstm_chunked": (_P,) * 15 + (_I,) * 5 + (_P,),
 }
 _LIB_OF = {
     "repro_xnor_gemm": "xnor_gemm",
@@ -74,6 +82,8 @@ _LIB_OF = {
     "repro_pack_rows": "pack_rows",
     "repro_unpack_gemm": "unpack_gemm",
     "repro_ssm_scan_chunk": "ssm_scan",
+    "repro_flash_attention": "flash_attention",
+    "repro_mlstm_chunked": "mlstm_chunk",
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

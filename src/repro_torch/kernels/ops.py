@@ -8,8 +8,10 @@ contiguous by the caller, except for the real-valued inputs of
 ``unpack_gemm`` (any strides) and ``ssm_scan_chunk`` (batch and time
 strides), which their kernels read in place. On CPU tensors it returns
 the kernel's plain twin from ``repro_torch.core.bitops`` (from
-``kernels.ref`` for the scan); on CUDA tensors it launches the kernel
-or raises — it never falls back. Outputs are allocated here with
+``kernels.ref`` for the scan, flash attention and the mLSTM); on CUDA
+tensors it launches the kernel or raises — it never falls back. No
+kernel has a backward: a wrapper raises on CUDA operands that require
+grad while grad mode is on. Outputs and scratch are allocated here with
 ``torch.empty``; the kernel runs on PyTorch's current stream.
 
 ``LAUNCHES[name]`` counts the launches of each kernel, and nothing
@@ -31,7 +33,7 @@ from repro_torch.kernels import build, ref
 LAUNCHES = {"xnor_gemm": 0, "fused_xnor_gemm": 0, "fused_direct_conv": 0,
             "megakernel_conv_stage": 0, "megakernel_chain": 0,
             "pack_rows": 0, "direct_conv": 0, "unpack_gemm": 0,
-            "ssm_scan_chunk": 0}
+            "ssm_scan_chunk": 0, "flash_attention": 0, "mlstm_chunked": 0}
 
 # Batch tile of the chain's masked-tail path: the batch pads to a multiple
 # of it. It is the compiled tile of csrc/megakernel_chain.cu (kChainTileN),
@@ -80,9 +82,22 @@ def _check_strided(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
                          "index with 32-bit sizes")
 
 
-def _on_cuda(*tensors: torch.Tensor) -> bool:
+def _check_no_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would record a call of ``kernel`` on ``tensors``:
+    grad mode is on and an operand requires grad. No kernel of the port
+    has a backward, so its output would carry no gradient at all."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an operand requires grad, but the CUDA kernel has no "
+            "backward and its output would silently get no gradient; call it "
+            "under torch.no_grad() (or on detached tensors)")
+
+
+def _on_cuda(kernel: str, *tensors: torch.Tensor) -> bool:
     """True if every operand is on one CUDA device, False if all are on
-    the CPU; raises for any other mix."""
+    the CPU; raises for any other mix, and for CUDA operands that autograd
+    would track (``_check_no_grad``). On the CPU the twin, plain torch,
+    differentiates as usual."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"operands on different devices: {sorted(map(str, devices))}")
@@ -91,6 +106,7 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    _check_no_grad(kernel, *tensors)
     return True
 
 
@@ -111,7 +127,7 @@ def xnor_gemm(wp: torch.Tensor, xp: torch.Tensor, k_bits: int) -> torch.Tensor:
     (m, kw), (kw2, n) = wp.shape, xp.shape
     if kw != kw2:
         raise ValueError(f"contraction mismatch: {tuple(wp.shape)} x {tuple(xp.shape)}")
-    if not _on_cuda(wp, xp):
+    if not _on_cuda("xnor_gemm", wp, xp):
         return bitops.xnor_popcount_matmul(wp, xp, k_bits)
     out = torch.empty((m, n), dtype=torch.int32, device=wp.device)
     if m and n:
@@ -142,7 +158,7 @@ def fused_xnor_gemm(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
     if kw != kw2:
         raise ValueError(f"contraction mismatch: {tuple(wp.shape)} x {tuple(xp.shape)}")
     _check_affine(a, b, m)
-    if not _on_cuda(wp, xp, a, b):
+    if not _on_cuda("fused_xnor_gemm", wp, xp, a, b):
         return bitops.fused_xnor_layer(wp, xp, k_bits, a, b)
     mw = -(-m // PACK_BITS)
     out = torch.empty((mw, n), dtype=torch.int32, device=wp.device)
@@ -199,7 +215,7 @@ def fused_direct_conv(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
     _check_direct_conv(wp, xp, kh, kw)
     d = wp.shape[0]
     _check_affine(a, b, d)
-    if not _on_cuda(wp, xp, a, b):
+    if not _on_cuda("fused_direct_conv", wp, xp, a, b):
         return bitops.direct_conv_oracle(wp, xp, k_bits, a, b, kh=kh, kw=kw,
                                          stride=stride, pad=pad)
     dw = -(-d // PACK_BITS)
@@ -226,7 +242,7 @@ def direct_conv(wp: torch.Tensor, xp: torch.Tensor, k_bits: int, *,
     layers that apply bias and BN themselves. The spatial border pads
     with all-ones words here, as in :func:`fused_direct_conv`."""
     _check_direct_conv(wp, xp, kh, kw)
-    if not _on_cuda(wp, xp):
+    if not _on_cuda("direct_conv", wp, xp):
         return bitops.direct_conv_dot(wp, xp, k_bits, kh=kh, kw=kw,
                                       stride=stride, pad=pad)
     d = wp.shape[0]
@@ -258,7 +274,7 @@ def pack_rows(x: torch.Tensor) -> torch.Tensor:
                          f"{x.stride()}); pass the transpose of a contiguous "
                          "[N, K] matrix")
     kw = k // PACK_BITS
-    if not _on_cuda(x):
+    if not _on_cuda("pack_rows", x):
         return bitops.pack_bits(x, axis=0).contiguous()
     if kw * n > _INT_MAX or kw > _GRID_Y_MAX:
         raise ValueError(f"pack_rows of [{k}, {n}] exceeds the grid")
@@ -283,7 +299,7 @@ def unpack_gemm(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     (m, kw), (k, n) = wp.shape, x.shape
     if k != kw * PACK_BITS:
         raise ValueError(f"x has {k} rows, expected KW*32 = {kw * PACK_BITS}")
-    if not _on_cuda(wp, x):
+    if not _on_cuda("unpack_gemm", wp, x):
         return bitops.packed_matmul_unpack(wp, x, compute_dtype=x.dtype)
     if m * n > _INT_MAX or -(-m // _UNPACK_TILE) > _GRID_Y_MAX:
         raise ValueError(f"unpack_gemm output [{m}, {n}] exceeds the grid")
@@ -327,7 +343,7 @@ def ssm_scan_chunk(dt: torch.Tensor, xh: torch.Tensor, bmat: torch.Tensor,
                           ("h0", h0, (b, di, ds))):
         if tuple(x.shape) != want:
             raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {want}")
-    if not _on_cuda(dt, xh, bmat, cmat, a, h0):
+    if not _on_cuda("ssm_scan_chunk", dt, xh, bmat, cmat, a, h0):
         return ref.ssm_scan_chunk_ref(dt, xh, bmat, cmat, a, h0)
     if ds > MAX_SCAN_STATE:
         raise ValueError(f"ssm_scan_chunk keeps at most {MAX_SCAN_STATE} "
@@ -347,6 +363,126 @@ def ssm_scan_chunk(dt: torch.Tensor, xh: torch.Tensor, bmat: torch.Tensor,
         _raise_on(rc, "ssm_scan_chunk")
         LAUNCHES["ssm_scan_chunk"] += 1
     return y, h_last
+
+
+# Keys per KV tile of csrc/flash_attention.cu (kFlashKeys): the twin with
+# block_kv = FLASH_TILE rounds where the kernel rounds.
+FLASH_TILE = 64
+# Head widths the flash kernel is compiled for.
+FLASH_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _aligned(name: str, t: torch.Tensor) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary (the "
+                         "kernel loads 16 bytes at a time)")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Online-softmax attention, the JAX package's ``flash_attention``:
+    ``q [BH, Sq, Dh]``, ``k, v [BH, Skv, Dh]``, contiguous, all bfloat16
+    or all float32 -> ``[BH, Sq, Dh]`` in q's dtype; causal masks keys past
+    the query's position (both counted from 0). Scores, softmax and the
+    accumulator are float32, ``p`` is rounded to v's dtype before the PV
+    product. On the CPU: ``ref.flash_attention_ref`` with the JAX
+    function's default blocks; on the card the kernel tiles keys by
+    ``FLASH_TILE`` (its twin: ``block_kv=FLASH_TILE``). Any Sq, Skv; Dh in
+    ``FLASH_HEAD_DIMS`` on the card."""
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"q must be bfloat16 or float32, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t, q.dtype, 3)
+    bh, sq, dh = q.shape
+    skv = k.shape[1]
+    for name, t in (("k", k), ("v", v)):
+        if tuple(t.shape) != (bh, skv, dh):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{(bh, skv, dh)}")
+    if not _on_cuda("flash_attention", q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    if dh not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention is compiled for Dh in "
+                         f"{FLASH_HEAD_DIMS}, got {dh}")
+    if bh > _INT_MAX or -(-sq // 64) > _GRID_Y_MAX:
+        raise ValueError(f"flash_attention of [{bh}, {sq}, {dh}] exceeds the grid")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _aligned(name, t)
+    out = torch.empty_like(q)
+    if bh and sq and skv:
+        with torch.cuda.device(q.device):
+            rc = build.load("repro_flash_attention")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
+                sq, skv, dh, int(causal), int(q.dtype == torch.bfloat16),
+                dh ** -0.5, _stream(q.device))
+        _raise_on(rc, "flash_attention")
+        LAUNCHES["flash_attention"] += 1
+    elif bh and sq:
+        out.zero_()  # no keys: acc and l stay 0, acc / max(l, 1e-30) = 0
+    return out
+
+
+# Longest chunk, widest key and most chunks csrc/mlstm_chunk.cu takes.
+MLSTM_MAX_CHUNK, MLSTM_MAX_DK, MLSTM_MAX_CHUNKS = 256, 1024, 1024
+
+
+def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  logi: torch.Tensor, logf: torch.Tensor, *,
+                  chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor, torch.Tensor]:
+    """Chunkwise stabilized mLSTM from a zero state, the JAX package's
+    ``mlstm_chunked``: float32 contiguous ``q`` (pre-scaled by
+    ``dk**-0.5``), ``k [BH, S, dk]``, ``v [BH, S, dv]``, ``logi, logf [BH,
+    S]`` -> (y ``[BH, S, dv]``, C ``[BH, dk, dv]``, n ``[BH, 1, dk]``, m
+    ``[BH, 1, 1]``), chunks of ``L = min(chunk, S)`` steps; S must be a
+    multiple of L. On the CPU: ``ref.mlstm_chunked_ref``. On the card L
+    must be a multiple of 8 up to ``MLSTM_MAX_CHUNK``, dk and dv multiples
+    of 4, dk up to ``MLSTM_MAX_DK``."""
+    for name, t, nd in (("q", q, 3), ("k", k, 3), ("v", v, 3),
+                        ("logi", logi, 2), ("logf", logf, 2)):
+        _check(name, t, torch.float32, nd)
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    for name, t, want in (("k", k, (bh, s, dk)), ("v", v, (bh, s, dv)),
+                          ("logi", logi, (bh, s)), ("logf", logf, (bh, s))):
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want}")
+    if not _on_cuda("mlstm_chunked", q, k, v, logi, logf):
+        return ref.mlstm_chunked_ref(q, k, v, logi, logf, chunk=chunk)
+    ln = min(chunk, s)
+    if ln < 8 or ln % 8 or ln > MLSTM_MAX_CHUNK or s % ln:
+        raise ValueError(f"mlstm_chunked on the card needs a chunk that is a "
+                         f"multiple of 8 up to {MLSTM_MAX_CHUNK} and divides S; "
+                         f"got S={s}, chunk={ln}")
+    nc = s // ln
+    if dk % 4 or dv % 4 or not 4 <= dk <= MLSTM_MAX_DK or nc > MLSTM_MAX_CHUNKS:
+        raise ValueError(f"mlstm_chunked on the card needs dk, dv multiples of "
+                         f"4, dk <= {MLSTM_MAX_DK}, at most {MLSTM_MAX_CHUNKS} "
+                         f"chunks; got dk={dk}, dv={dv}, {nc} chunks")
+    if bh > _GRID_Y_MAX:
+        raise ValueError(f"mlstm_chunked of [{bh}, {s}, {dk}, {dv}] exceeds "
+                         "the grid")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _aligned(name, t)
+    dev = q.device
+    y = torch.empty((bh, s, dv), dtype=torch.float32, device=dev)
+    c_out = torch.empty((bh, dk, dv), dtype=torch.float32, device=dev)
+    n_out = torch.empty((bh, 1, dk), dtype=torch.float32, device=dev)
+    m_out = torch.empty((bh, 1, 1), dtype=torch.float32, device=dev)
+    if bh:
+        sw = torch.empty((bh, nc, ln, ln), dtype=torch.float32, device=dev)
+        gates = torch.empty((4, bh, s), dtype=torch.float32, device=dev)
+        decay = torch.empty((bh, nc), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            rc = build.load("repro_mlstm_chunked")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), logi.data_ptr(),
+                logf.data_ptr(), y.data_ptr(), c_out.data_ptr(),
+                n_out.data_ptr(), m_out.data_ptr(), sw.data_ptr(),
+                *(gates[i].data_ptr() for i in range(4)), decay.data_ptr(),
+                bh, s, ln, dk, dv, _stream(dev))
+        _raise_on(rc, "mlstm_chunked")
+        LAUNCHES["mlstm_chunked"] += 1
+    return y, c_out, n_out, m_out
 
 
 def _ints(values) -> ctypes.Array:
@@ -412,7 +548,7 @@ def megakernel_conv_stage(xp: torch.Tensor, weights, a, b, k_bits, *,
         _check_affine(al, bl, d)
         cws.append(cw_in)
         cw_in = -(-d // PACK_BITS)
-    if not _on_cuda(xp, *weights, *a, *b):
+    if not _on_cuda("megakernel_conv_stage", xp, *weights, *a, *b):
         return bitops.conv_stage_xla(xp, weights, a, b, k_bits, kh=kh, kw=kw,
                                      pad=pad, pool=pool)
     hp, wp_sp = h + 2 * pad, w + 2 * pad
@@ -506,7 +642,7 @@ def megakernel_chain(w_stack: torch.Tensor, a_stack: torch.Tensor,
     operands = [w_stack, a_stack, b_stack, xp]
     if final_wp is not None:
         operands.append(final_wp)
-    if not _on_cuda(*operands):
+    if not _on_cuda("megakernel_chain", *operands):
         if ragged_tile is None:
             return bitops.megakernel_chain_xla(
                 w_stack, a_stack, b_stack, k_bits, xp, m_out,
@@ -545,4 +681,5 @@ def megakernel_chain(w_stack: torch.Tensor, a_stack: torch.Tensor,
 __all__ = ["LAUNCHES", "reset_launches", "xnor_gemm", "fused_xnor_gemm",
            "fused_direct_conv", "megakernel_conv_stage", "megakernel_chain",
            "pack_rows", "direct_conv", "unpack_gemm", "ssm_scan_chunk",
-           "RAGGED_TILE_N", "MAX_SCAN_STATE"]
+           "flash_attention", "mlstm_chunked", "RAGGED_TILE_N",
+           "MAX_SCAN_STATE", "FLASH_TILE", "FLASH_HEAD_DIMS"]

@@ -7,6 +7,10 @@ from __future__ import annotations
 
 import torch
 
+# Masked scores and the initial stabilizers of flash attention and the
+# mLSTM, as the JAX package's kernels write them.
+NEG = -1e30
+
 
 def ssm_scan_chunk_ref(dt: torch.Tensor, xh: torch.Tensor, bmat: torch.Tensor,
                        cmat: torch.Tensor, a: torch.Tensor,
@@ -30,3 +34,119 @@ def ssm_scan_chunk_ref(dt: torch.Tensor, xh: torch.Tensor, bmat: torch.Tensor,
     if not ys:
         return dt.new_empty((b, 0, di)), h0.clone()
     return torch.stack(ys, dim=1), h
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, block_q: int = 512,
+                        block_kv: int = 512) -> torch.Tensor:
+    """Online-softmax attention over KV blocks of ``block_kv``, rounding
+    where the JAX package's Pallas ``flash_attention`` rounds:
+    ``s = (q . k in float32) * Dh**-0.5``, masked with -1e30 (causal:
+    key position <= query position); per block ``m' = max(m, max s)``,
+    ``p = exp(s - m')``, ``l = l * exp(m - m') + sum p``, ``acc = acc *
+    exp(m - m') + (p rounded to v's dtype) . v`` in float32; out ``acc /
+    max(l, 1e-30)`` in q's dtype.
+
+    q ``[BH, Sq, Dh]``, k and v ``[BH, Skv, Dh]``. Rows are independent,
+    so ``block_q`` does not change the result (it is the JAX signature's);
+    the result depends on ``block_kv`` in its last bits. A last KV block
+    shorter than ``block_kv`` is taken as it is. A causal block lying
+    wholly above a row's diagonal leaves that row exactly as it was
+    (``p = 0``, ``exp(m - m') = 1``), so only the rows it reaches are
+    updated."""
+    del block_q
+    bh, sq, dh = q.shape
+    skv = k.shape[1]
+    bkv = max(1, min(block_kv, skv))
+    scale = dh ** -0.5
+    qf = q.float()
+    acc = torch.zeros((bh, sq, v.shape[-1]), device=q.device)
+    m = torch.full((bh, sq), NEG, device=q.device)
+    den = torch.zeros((bh, sq), device=q.device)
+    q_pos = torch.arange(sq, device=q.device)
+    for j0 in range(0, skv, bkv):
+        r0 = min(j0, sq) if causal else 0
+        if r0 == sq:
+            break
+        kj, vj = k[:, j0:j0 + bkv].float(), v[:, j0:j0 + bkv]
+        s = torch.matmul(qf[:, r0:], kj.transpose(1, 2)) * scale
+        if causal:
+            k_pos = j0 + torch.arange(kj.shape[1], device=q.device)
+            s = torch.where(k_pos[None, :] <= q_pos[r0:, None], s, NEG)
+        m_prev = m[:, r0:]
+        m_new = torch.maximum(m_prev, s.amax(-1))
+        corr = torch.exp(m_prev - m_new)
+        p = torch.exp(s - m_new[..., None])
+        pv = torch.matmul(p.to(v.dtype).float(), vj.float())
+        # rows before r0 keep their values (no in-place update: autograd)
+        den = torch.cat([den[:, :r0], den[:, r0:] * corr + p.sum(-1)], 1)
+        acc = torch.cat([acc[:, :r0], acc[:, r0:] * corr[..., None] + pv], 1)
+        m = torch.cat([m[:, :r0], m_new], 1)
+    return (acc / torch.clamp(den, min=1e-30)[..., None]).to(q.dtype)
+
+
+def sequential_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumsum along the last axis, one float add after another
+    (``torch.cumsum`` on the card sums in a tree: other roundings)."""
+    out = torch.empty_like(x)
+    run = torch.zeros_like(x[..., 0])
+    for t in range(x.shape[-1]):
+        run = run + x[..., t]
+        out[..., t] = run
+    return out
+
+
+def mlstm_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      logi: torch.Tensor, logf: torch.Tensor, *,
+                      chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor, torch.Tensor]:
+    """Chunkwise stabilized mLSTM from a zero state, as the JAX package's
+    Pallas ``mlstm_chunked`` computes it, chunk after chunk carrying the
+    matrix memory ``C``, the normalizer ``n`` and the stabilizer ``m``
+    (-1e30 at the start). Within a chunk of ``L`` steps: ``b`` the
+    sequential cumsum of ``logf``, ``g = logi - b``, ``M`` its running max,
+    ``m_loc = max(M, m)``; ``y_t = (sum_{j<=t} (q_t . k_j) exp(g_j -
+    m_loc_t) v_j + (q_t C) exp(m - m_loc_t)) / max(|den_t|, 1)`` with
+    ``den`` the same sums over a ones column (``n`` for ``C``); then
+    ``C' = exp(m - m_L) C + sum_j exp(g_j - m_L) k_j v_j^T`` with ``m_L =
+    max(M_L, m)``, ``n'`` likewise, ``m' = b_L + m_L``.
+
+    q (pre-scaled by ``dk**-0.5``), k ``[BH, S, dk]``, v ``[BH, S, dv]``,
+    logi, logf ``[BH, S]``, float32. Returns (y ``[BH, S, dv]`` in q's
+    dtype, C ``[BH, dk, dv]``, n ``[BH, 1, dk]``, m ``[BH, 1, 1]``)."""
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    ln = min(chunk, s)
+    if ln < 1 or s % ln:
+        raise ValueError(f"mlstm_chunked needs S % chunk == 0, got S={s}, "
+                         f"chunk={ln}")
+    nc = s // ln
+    dev = q.device
+    b_cum = sequential_cumsum(logf.float().reshape(bh, nc, ln))
+    g = logi.float().reshape(bh, nc, ln) - b_cum
+    big_m = torch.cummax(g, dim=-1).values
+    tril = torch.ones((ln, ln), dtype=torch.bool, device=dev).tril()
+    C = torch.zeros((bh, dk, dv), device=dev)
+    n = torch.zeros((bh, 1, dk), device=dev)
+    m = torch.full((bh,), NEG, device=dev)
+    ys = []
+    for c in range(nc):
+        sl = slice(c * ln, (c + 1) * ln)
+        qc, kc, vc = q[:, sl].float(), k[:, sl].float(), v[:, sl].float()
+        gc, mc = g[:, c], big_m[:, c]
+        m_loc = torch.maximum(mc, m[:, None])
+        inter_scale = torch.exp(m[:, None] - m_loc)
+        w_intra = torch.exp(gc[:, None, :] - m_loc[:, :, None])
+        w_intra = torch.where(tril, w_intra, 0.0)
+        sw = torch.matmul(qc, kc.transpose(1, 2)) * w_intra
+        num = torch.matmul(sw, vc) + torch.matmul(qc, C) * inter_scale[..., None]
+        den = sw.sum(-1) + (qc * n).sum(-1) * inter_scale
+        ys.append(num / torch.clamp(den.abs(), min=1.0)[..., None])
+        m_loc_l = torch.maximum(mc[:, -1], m)
+        wk = torch.exp(gc - m_loc_l[:, None])
+        decay = torch.exp(m - m_loc_l)
+        kw = kc * wk[..., None]
+        C = decay[:, None, None] * C + torch.matmul(kw.transpose(1, 2), vc)
+        n = decay[:, None, None] * n + kw.sum(1, keepdim=True)
+        m = b_cum[:, c, -1] + m_loc_l
+    return torch.cat(ys, dim=1).to(q.dtype), C, n, m.reshape(bh, 1, 1)

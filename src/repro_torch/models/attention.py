@@ -7,10 +7,12 @@ The four projections (``q_proj/k_proj/v_proj/o_proj``) go through
 ``[L, B, S, Hkv, Dh]`` by the model). Scores and softmax are float32;
 the products of ``q``/``k`` and ``probs``/``v`` are summed in float32
 and rounded to the activations' dtype, as the JAX package's
-``preferred_element_type`` einsums. The JAX package's TPU-only
-flash-attention branch is not ported (it needs no cache and runs only
-in the training forward): long no-cache inputs take the chunked path,
-as the JAX package does off the TPU.
+``preferred_element_type`` einsums. Long causal self-attention with no
+cache and no window (the training forward) runs through
+``kernels.ops.flash_attention``: the kernel on the card, its plain twin
+on the CPU, where the JAX package takes this branch on the TPU only and
+the chunked path elsewhere. Every other long input takes the chunked
+path.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (Finish, Params, QuantPolicy, apply_rope,
                                        init_proj, as_drawn, proj)
 
@@ -43,8 +46,8 @@ def init_attention(generator: torch.Generator, cfg, *,
 
 
 def _repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
-    """``[B, S, Hkv, Dh] -> [B, S, Hkv*groups, Dh]`` (GQA head expansion).
-    A test oracle only: the attention paths use grouped einsums."""
+    """``[B, S, Hkv, Dh] -> [B, S, Hkv*groups, Dh]`` (GQA head expansion),
+    for the flash branch; the other paths use grouped einsums."""
     if groups == 1:
         return x
     b, s, h, dh = x.shape
@@ -141,6 +144,15 @@ def _attend(
 ) -> torch.Tensor:
     b, sq, h, dh = q.shape
     if sq * k.shape[1] > _DENSE_SCORE_LIMIT:
+        if (causal and not sliding_window and kv_valid is None
+                and sq == k.shape[1]):
+            # flash attention on [B*H, S, Dh], the GQA heads repeated
+            def heads(t):
+                return t.transpose(1, 2).reshape(b * h, sq, dh).contiguous()
+
+            out = kops.flash_attention(heads(q), heads(_repeat_kv(k, groups)),
+                                       heads(_repeat_kv(v, groups)), causal=True)
+            return out.reshape(b, h, sq, dh).transpose(1, 2)
         return _attend_chunked(
             q, k, v, groups=groups, causal=causal, q_positions=q_positions,
             kv_positions=kv_positions, kv_valid=kv_valid,

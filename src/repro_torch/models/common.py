@@ -1,5 +1,6 @@
 """Shared model components: the quantization policy, quantization-aware
-projections, norms, RoPE and embeddings, as ``repro.models.common``.
+projections, norms, RoPE, embeddings and the LM loss, as
+``repro.models.common``.
 
 Projection params are dicts ``{"w": [out, in], ("b": [out])}``; after
 :func:`pack_projection_tree` they are ``{"w_packed": int32 [out,
@@ -156,3 +157,14 @@ def stack_trees(trees: list):
     if isinstance(first, (list, tuple)):
         return type(first)(stack_trees(list(ts)) for ts in zip(*trees))
     return torch.stack(trees)
+
+
+# ------------------------------- loss ---------------------------------------
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """logits ``[..., V]``, integer labels ``[...]`` -> the mean negative
+    log-likelihood, float32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, labels.long()[..., None])[..., 0]
+    return -ll.mean()

@@ -2,11 +2,13 @@
 policy)`` -> a ``Model`` whose methods have the JAX package's
 signatures:
 
+  loss(params, batch)                 -> (total_loss, {"loss", "aux"})
   prefill(params, state, batch)       -> (last_logits, state)
   decode_step(params, state, batch)   -> (logits, state)
 
-Decoder-only token families only; ``loss`` (training), ``input_specs``
-(the dry-run) and the encoder-decoder family are not ported yet.
+Decoder-only token families only; ``loss`` is the forward alone (no
+backward through the kernels yet); ``input_specs`` (the dry-run) and the
+encoder-decoder family are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ class Model:
         return pack_projection_tree(params, use_scale=self.policy.use_scale)
 
     def loss(self, params: Params, batch: dict):
-        raise NotImplementedError("lm_loss (training) is not ported yet")
+        """The training loss of ``batch`` (``{"tokens", "labels"}``)."""
+        return tf_mod.lm_loss(params, batch, self.cfg, self.policy)
 
     def prefill(self, params: Params, state: dict, batch: dict):
         return tf_mod.prefill(params, self.cfg, self.policy, state=state,

@@ -13,8 +13,10 @@ leading layer axis; layer ``j`` of a kind in period ``p`` is entry ``p *
 per_period + j``. A forward returns new state tensors and never writes
 the state it was given.
 
-Not ported: the ``mlstm``/``slstm`` mixers (xlstm), ``remat`` and
-``lm_loss`` (training), and ``input_embeds`` (the vlm/audio stubs).
+``lm_loss`` is the training forward: ``lm_forward`` with no state,
+where long causal attention takes the flash kernel and the mLSTM the
+chunkwise kernel. Not ported: ``remat`` (it comes with the backward)
+and ``input_embeds`` (the vlm/audio stubs).
 """
 
 from __future__ import annotations
@@ -28,10 +30,12 @@ from repro_torch.core.bnn import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (Finish, Params, QuantPolicy, embed,
                                        init_embedding, init_layernorm,
                                        init_rmsnorm, as_drawn, layernorm, randn,
-                                       rmsnorm, stack_trees)
+                                       rmsnorm, softmax_cross_entropy,
+                                       stack_trees)
 
 # ------------------------------ period spec ----------------------------------
 
@@ -70,11 +74,6 @@ def _norm_fns(cfg):
     return init_rmsnorm, rmsnorm
 
 
-def _unported(mixer: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the {mixer!r} mixer (xlstm) is not ported yet (ROADMAP A9)")
-
-
 # ------------------------------ layer init -----------------------------------
 
 
@@ -87,8 +86,12 @@ def _init_layer(generator: torch.Generator, cfg, kind: LayerKind, *,
         p["attn"] = attn_mod.init_attention(generator, cfg, finish=finish)
     elif kind.mixer == "mamba":
         p["mamba"] = mamba_mod.init_mamba(generator, cfg, finish=finish)
+    elif kind.mixer == "mlstm":
+        p["mlstm"] = xlstm_mod.init_mlstm(generator, cfg, finish=finish)
+    elif kind.mixer == "slstm":
+        p["slstm"] = xlstm_mod.init_slstm(generator, cfg, finish=finish)
     else:
-        raise _unported(kind.mixer)
+        raise ValueError(kind.mixer)
     if kind.ffn != "none":
         p["norm2"] = init_norm(cfg.d_model, dev)
         if "moe" in kind.ffn:
@@ -158,9 +161,14 @@ def init_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
         st["mamba"] = mamba_mod.init_mamba_state(cfg, batch,
                                                  layers=counts["mamba"],
                                                  device=dev)
-    for kind in counts:
-        if kind not in ("attn", "mamba"):
-            raise _unported(kind)
+    if "mlstm" in counts:
+        st["mlstm"] = xlstm_mod.init_mlstm_state(cfg, batch,
+                                                 layers=counts["mlstm"],
+                                                 device=dev)
+    if "slstm" in counts:
+        st["slstm"] = xlstm_mod.init_slstm_state(cfg, batch,
+                                                 layers=counts["slstm"],
+                                                 device=dev)
     return st
 
 
@@ -181,8 +189,14 @@ def _apply_layer(x, lp: Params, cfg, policy: QuantPolicy, kind: LayerKind, *,
     elif kind.mixer == "mamba":
         out, new_state = mamba_mod.mamba(lp["mamba"], h, cfg, policy,
                                          state=layer_state)
+    elif kind.mixer == "mlstm":
+        out, new_state = xlstm_mod.mlstm_block(lp["mlstm"], h, cfg, policy,
+                                               state=layer_state)
+    elif kind.mixer == "slstm":
+        out, new_state = xlstm_mod.slstm_block(lp["slstm"], h, cfg, policy,
+                                               state=layer_state)
     else:
-        raise _unported(kind.mixer)
+        raise ValueError(kind.mixer)
     x = x + out
 
     if kind.ffn != "none":
@@ -252,6 +266,17 @@ def lm_forward(params: Params, cfg, policy: QuantPolicy, *,
 
 
 # ------------------------------ entry points ---------------------------------
+
+
+def lm_loss(params, batch: dict, cfg, policy: QuantPolicy, *,
+            aux_weight: float = 0.01):
+    """The training forward: next-token cross-entropy of ``batch["tokens"]``
+    against ``batch["labels"]`` (``[B, S]``) over the first
+    ``cfg.vocab_size`` logits, plus ``aux_weight`` times the MoE balance
+    loss. Returns (total, ``{"loss", "aux"}``)."""
+    logits, _, aux = lm_forward(params, cfg, policy, tokens=batch["tokens"])
+    loss = softmax_cross_entropy(logits[..., :cfg.vocab_size], batch["labels"])
+    return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
 
 def prefill(params, cfg, policy: QuantPolicy, *, state: dict, tokens):

@@ -166,11 +166,12 @@ def test_configs_mirror_the_jax_package():
 # runs its five binary convs through fused_direct_conv, im2col through
 # fused_xnor_gemm; fc0/fc1 are fused GEMMs and the head an xnor_gemm;
 # neither calls a megakernel, a kernel of the unfused PACKED path nor
-# the LM stack's scan. chip_smoke.py holds each served path's launch
+# the LM stack's kernels. chip_smoke.py holds each served path's launch
 # counts to this table.
 NO_MEGAKERNEL = {"megakernel_conv_stage": 0, "megakernel_chain": 0,
                  "pack_rows": 0, "direct_conv": 0, "unpack_gemm": 0,
-                 "ssm_scan_chunk": 0}
+                 "ssm_scan_chunk": 0, "flash_attention": 0,
+                 "mlstm_chunked": 0}
 WRAPPER_CALLS = {
     "direct": {"xnor_gemm": 1, "fused_xnor_gemm": 2, "fused_direct_conv": 5,
                **NO_MEGAKERNEL},

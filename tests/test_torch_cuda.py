@@ -4,8 +4,13 @@ of 32, stride 2, no padding; for the megakernels odd batches, masked
 tails inside a tile and cluster sizes other than 8; for the unfused
 PACKED kernels strided and offset inputs, -0.0 and NaN, bfloat16 and
 K not a multiple of the tile; for the scan ragged chunks, channels and
-states, and chunk views). Bit-exact, but for ``unpack_gemm`` on real
-input and the scan (tolerances at the tests). Every test here needs a GPU and
+states, and chunk views; for flash attention ragged and unequal Sq and
+Skv, odd BH, every compiled head width, bf16 and float32; for the mLSTM
+chunks of 16 to 256 steps, dk and dv not multiples of the tile).
+Bit-exact, but for ``unpack_gemm`` on real input, the scan, flash
+attention and the mLSTM (tolerances at the tests). The grad guard of the
+wrappers and the smoke LM losses on the card against the CPU are here
+too. Every test here needs a GPU and
 ``nvcc`` and skips without them; run on the card with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -20,7 +25,7 @@ import torch
 from repro_torch.core import bitops, layers
 from repro_torch.kernels import ops
 
-from torch_parity import pm1, words
+from torch_parity import bf16_ulp, pm1, words
 
 pytestmark = pytest.mark.cuda
 
@@ -383,3 +388,163 @@ def test_jamba_smoke_serving_matches_the_cpu(dev):
         assert launched == (0 if d == "cpu" else 2 * state["mamba"]["h"].shape[0])
     for got, want in zip(out[str(dev)], out["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# Flash attention against its twin with the kernel's KV tile (block_kv =
+# FLASH_TILE), which rounds where the kernel rounds: float32 within
+# rtol/atol 1e-5 (dot products and sums in another order); bf16 within
+# one bf16 ulp of the largest output of its row. Not of each element: a
+# score that moves by a float32 ulp (the tensor cores sum q . k in
+# another order than cuBLAS) can flip p's rounding to bf16, which moves
+# the row by up to 2^-8 p_j |v_j| / l, a step at the scale of the row's
+# values, not of an output element that cancels to near 0. Each output is
+# also held within 32 bf16 ulps of its own (taken at 2^-8 below it), and
+# at most 0.1% of the outputs may be past one: chip_smoke.py's
+# FLASH_ELEM_ULPS and FLASH_PAST_SHARE.
+@pytest.mark.parametrize("bh,sq,skv,dh,dtype,causal", [
+    (3, 100, 100, 64, torch.bfloat16, True),
+    (2, 256, 256, 128, torch.bfloat16, True),
+    (1, 64, 192, 32, torch.bfloat16, False),
+    (5, 130, 130, 16, torch.float32, True),
+    (2, 64, 128, 64, torch.float32, True),
+    (3, 77, 45, 32, torch.float32, False),
+    (60, 512, 512, 64, torch.bfloat16, True)])
+def test_flash_attention_matches_twin(dev, bh, sq, skv, dh, dtype, causal):
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    rng = np.random.default_rng(50)
+    q, k, v = (cu(rng.normal(size=(bh, s, dh)).astype(np.float32), dev).to(dtype)
+               for s in (sq, skv, skv))
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, block_kv=ops.FLASH_TILE)
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        diff = (got.float() - want.float()).abs()
+        ulp = bf16_ulp(want.float().abs().amax(-1, keepdim=True))
+        assert bool((diff <= ulp).all()), float((diff / ulp).max())
+        own = diff / bf16_ulp(want.float())
+        assert float(own.max()) <= 32, float(own.max())
+        assert int((own > 1).sum()) <= 1e-3 * own.numel(), int((own > 1).sum())
+
+
+# The mLSTM against its twin: float32 sums in other orders over dk and the
+# chunk (y, C, n within rtol/atol 1e-4); the stabilizer m takes the same
+# float operations in the same order (a sequential cumsum, maxima, one
+# add per chunk): equal.
+@pytest.mark.parametrize("bh,s,dk,dv,chunk", [
+    (2, 64, 32, 32, 16), (3, 96, 48, 20, 32), (1, 512, 64, 96, 256),
+    (2, 512, 1024, 64, 256), (1, 40, 36, 44, 8)])
+def test_mlstm_chunked_matches_twin(dev, bh, s, dk, dv, chunk):
+    from repro_torch.kernels.ref import mlstm_chunked_ref
+
+    rng = np.random.default_rng(51)
+    q = cu((rng.normal(size=(bh, s, dk)) * dk ** -0.5).astype(np.float32), dev)
+    k = cu(rng.normal(size=(bh, s, dk)).astype(np.float32), dev)
+    v = cu(rng.normal(size=(bh, s, dv)).astype(np.float32), dev)
+    logi = cu(rng.normal(size=(bh, s)).astype(np.float32), dev)
+    logf = torch.nn.functional.logsigmoid(
+        cu((rng.normal(size=(bh, s)) + 2).astype(np.float32), dev))
+    before = ops.LAUNCHES["mlstm_chunked"]
+    got = ops.mlstm_chunked(q, k, v, logi, logf, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mlstm_chunked"] == before + 1
+    want = mlstm_chunked_ref(q, k, v, logi, logf, chunk=chunk)
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got[3], want[3])
+
+
+def test_flash_and_mlstm_wrappers_raise_rather_than_fall_back(dev):
+    q = torch.zeros((1, 64, 48), device=dev)
+    with pytest.raises(ValueError, match="compiled for Dh"):
+        ops.flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        ops.flash_attention(q.half(), q.half(), q.half())
+    x = torch.zeros((1, 60, 8), device=dev)
+    g = torch.zeros((1, 60), device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.mlstm_chunked(x, x, x, g, g, chunk=12)
+    x = torch.zeros((1, 64, 2048), device=dev)
+    g = torch.zeros((1, 64), device=dev)
+    with pytest.raises(ValueError, match="dk <= 1024"):
+        ops.mlstm_chunked(x, x, torch.zeros((1, 64, 8), device=dev), g, g,
+                          chunk=64)
+
+
+def test_wrappers_refuse_cuda_operands_that_require_grad(dev):
+    """No kernel has a backward: a CUDA operand that requires grad, in
+    grad mode, is refused by every wrapper that takes a float operand;
+    under no_grad the same call launches."""
+    rng = np.random.default_rng(52)
+    q = cu(rng.normal(size=(1, 64, 32)).astype(np.float32), dev)
+    qg = q.clone().requires_grad_()
+    g = cu(rng.normal(size=(1, 64)).astype(np.float32), dev)
+    wp = cu(words(rng, (8, 2)), dev)
+    x = cu(rng.normal(size=(64, 4)).astype(np.float32), dev)
+    dt = torch.nn.functional.softplus(cu(rng.normal(size=(1, 8, 16)).astype(np.float32), dev))
+    scan = (dt, dt.clone(), dt[..., :4].contiguous(), dt[..., :4].contiguous(),
+            -torch.ones((16, 4), device=dev), torch.zeros((1, 16, 4), device=dev))
+    calls = {
+        "flash_attention": lambda t: ops.flash_attention(t, q, q),
+        "mlstm_chunked": lambda t: ops.mlstm_chunked(t, q, q, g, g, chunk=16),
+        "unpack_gemm": lambda t: ops.unpack_gemm(wp, t),
+        "pack_rows": lambda t: ops.pack_rows(t.T),
+        "ssm_scan_chunk": lambda t: ops.ssm_scan_chunk(t, *scan[1:]),
+    }
+    args = {"flash_attention": qg, "mlstm_chunked": qg,
+            "unpack_gemm": x.clone().requires_grad_(),
+            "pack_rows": x.T.contiguous().requires_grad_(),
+            "ssm_scan_chunk": dt.clone().requires_grad_()}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}: an operand requires grad"):
+            call(args[name])
+        before = ops.LAUNCHES[name]
+        with torch.no_grad():
+            call(args[name])
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[name] == before + 1, name
+
+
+@pytest.mark.parametrize("arch,seq", [("smollm-360m", 4096), ("xlstm-1.3b", 512)])
+def test_smoke_lm_loss_matches_the_cpu(dev, arch, seq):
+    """``Model.loss`` of the smoke config (float32) on the card, through
+    the flash kernel (smollm at S 4096) or the mLSTM kernel (xlstm, two
+    chunks), against the CPU (their twins) on the same params and batch:
+    float32 sums in other orders through the layers; loss within
+    rtol/atol 1e-4."""
+    from repro_torch.configs.base import smoke_config, train_policy
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+    from repro_torch.models.model_factory import build_model
+    from repro_torch.models.transformer import num_periods, period_spec
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config(arch)
+    mixer = "attn" if arch == "smollm-360m" else "mlstm"
+    per_forward = num_periods(cfg) * sum(k.mixer == mixer for k in period_spec(cfg))
+    model = build_model(cfg, train_policy())
+    params = model.init(torch.Generator().manual_seed(6))
+    batch = next(synthetic_lm_batches(DataConfig(
+        seed=6, global_batch=2, seq_len=seq, vocab_size=cfg.vocab_size)))
+
+    def to(tree, d):
+        if isinstance(tree, dict):
+            return {k: to(v, d) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, d) for v in tree]
+        return tree.to(d) if isinstance(tree, torch.Tensor) else tree
+
+    name = "flash_attention" if arch == "smollm-360m" else "mlstm_chunked"
+    losses = {}
+    for d in ("cpu", dev):
+        before = ops.LAUNCHES[name]
+        with torch.no_grad():
+            total, parts = model.loss(to(params, d), to(batch, d))
+        losses[str(d)] = (float(total), float(parts["loss"]))
+        launched = ops.LAUNCHES[name] - before
+        assert launched == (0 if d == "cpu" else per_forward)
+    assert np.allclose(losses[str(dev)], losses["cpu"], rtol=1e-4, atol=1e-4), losses

@@ -92,3 +92,23 @@ def test_the_lm_slice_is_covered():
     assert build._LIB_OF["repro_ssm_scan_chunk"] == "ssm_scan"
     assert "int repro_ssm_scan_chunk(" in (build.CSRC / "ssm_scan.cu").read_text()
     assert "ssm_scan_chunk" in ops.LAUNCHES
+
+
+def test_the_training_forward_slice_is_covered():
+    """The modules of the LM training forward (``Model.loss`` of
+    smollm-360m and xlstm-1.3b) are among the files checked above, and
+    the CUDA sources of its two kernels sit beside the wrappers that
+    build them."""
+    covered = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"configs/smollm_360m.py", "configs/xlstm_1_3b.py",
+            "data/pipeline.py", "models/xlstm.py", "models/attention.py",
+            "models/transformer.py", "kernels/ref.py"} <= covered
+    from repro_torch.kernels import build, ops
+
+    for source, symbol, kernel in (
+            ("flash_attention", "repro_flash_attention", "flash_attention"),
+            ("mlstm_chunk", "repro_mlstm_chunked", "mlstm_chunked")):
+        assert source in build.SOURCES
+        assert build._LIB_OF[symbol] == source
+        assert f"int {symbol}(" in (build.CSRC / f"{source}.cu").read_text()
+        assert kernel in ops.LAUNCHES

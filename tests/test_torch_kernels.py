@@ -129,6 +129,25 @@ def test_cuda_path_raises_without_cuda_and_never_falls_back(monkeypatch):
     assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
 
 
+def test_grad_guard_refuses_only_operands_autograd_would_track():
+    """No kernel has a backward: ``_check_no_grad``, which ``_on_cuda``
+    runs for CUDA operands before any launch, refuses an operand that
+    requires grad while grad mode is on, and nothing else. CPU operands
+    go to the plain twins, which differentiate as torch code does."""
+    x = torch.randn(2, 64, 16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="flash_attention: an operand requires grad"):
+        ops._check_no_grad("flash_attention", x.detach(), x)
+    with torch.no_grad():
+        ops._check_no_grad("flash_attention", x)
+    ops._check_no_grad("flash_attention", x.detach(), torch.ones(3))
+    assert ops._on_cuda("flash_attention", x) is False
+    ops.flash_attention(x, x, x).sum().backward()
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+    logi, logf = torch.zeros(2, 64), torch.full((2, 64), -0.1)
+    q = torch.randn(2, 64, 16, requires_grad=True)
+    ops.mlstm_chunked(q, q, q, logi, logf, chunk=16)[0].sum().backward()
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
+
 def test_build_needs_nvcc_here(monkeypatch):
     """Without nvcc the build raises with the reason; the
     sources hash into the build directory name."""

@@ -319,4 +319,5 @@ def test_megakernel_forward_calls_one_kernel_per_stage(models, images,
     assert calls == {"xnor_gemm": 0, "fused_xnor_gemm": 0,
                      "fused_direct_conv": 0, "megakernel_conv_stage": 3,
                      "megakernel_chain": 1, "pack_rows": 0, "direct_conv": 0,
-                     "unpack_gemm": 0, "ssm_scan_chunk": 0}
+                     "unpack_gemm": 0, "ssm_scan_chunk": 0,
+                     "flash_attention": 0, "mlstm_chunked": 0}

@@ -37,3 +37,11 @@ def ulp_distance(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Units in the last place between two float32 arrays of one sign."""
     return np.abs(a.astype(np.float32).view(np.int32).astype(np.int64)
                   - b.astype(np.float32).view(np.int32).astype(np.int64))
+
+
+def bf16_ulp(x: torch.Tensor, floor: float = 2.0**-8) -> torch.Tensor:
+    """One bfloat16 ulp at the magnitude of ``x`` (float32): ``2^(e-7)``
+    for ``|x|`` in ``[2^e, 2^(e+1))``, taken at ``floor`` below it, where
+    a bf16 ulp shrinks past the float32 rounding of the sums behind it."""
+    _, exp = torch.frexp(torch.clamp(x.abs(), min=floor))
+    return torch.ldexp(torch.ones_like(x), exp - 8)
