@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-src DIR]
 
 1. Prints the card (``nvidia-smi``), torch and CUDA versions.
 2. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``.
@@ -19,7 +19,13 @@
    it reads in place, timed with a cold L2 as its HBM bound assumes;
    ``direct_conv`` at the five convs; ``unpack_gemm`` on ±1 input
    (exact) and on real input in [-1, 1], held within rtol 1e-5 / atol
-   1e-4 of the float64-accumulated dot.
+   1e-4 of the float64-accumulated dot, and the same at jamba's decode
+   shape (one packed [8192, 8192] expert, bf16 X [8192, 4]; yardstick
+   bf16 ``torch.matmul``; not summed). The two kernels redesigned last,
+   ``flash_attention`` and ``unpack_gemm``, are also timed beside their
+   parent commit's versions on the same inputs (``parent_ms``), built
+   into ``build/parent/`` from ``--parent-src DIR`` or ``git show
+   HEAD~1`` (not measured without either).
 4. Serves 12 ragged requests (1-8 images) on the trained checkpoint
    ``tests/golden/bnn_trained_ckpt.npz`` through ``ServingEngine
    (engine="xnor")`` for each ``conv_impl``, and through
@@ -85,7 +91,9 @@ phase fails. Per-shape details go to ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import json
 import pathlib
 import statistics
@@ -239,6 +247,106 @@ def check_equal(name: str, label: str, got: torch.Tensor,
     return err
 
 
+# The kernels this PR redesigned, timed beside their parent commit's
+# versions in the same run (``--parent-src``, else ``git show HEAD~1``).
+# The parent's C launchers, as its build.py declared them: flash
+# (q, k, v, out, BH, Sq, Skv, Dh, causal, is_bf16, scale, stream), the
+# packed GEMM (w, x, out, M, KW, N, stride_k, stride_n, x_is_bf16, stream).
+PARENT_KERNELS = {
+    "flash_attention": ("repro_flash_attention",
+                        (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
+                        + (ctypes.c_float, ctypes.c_void_p)),
+    "unpack_gemm": ("repro_unpack_gemm",
+                    (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3
+                    + (ctypes.c_longlong,) * 2 + (ctypes.c_int, ctypes.c_void_p)),
+}
+PARENT_DIR = OUT_DIR / "parent"
+
+
+def start_parent_build(parent_src: str | None):
+    """Fetch the parent's sources of ``PARENT_KERNELS`` (from the
+    directory ``parent_src``, else from git's ``HEAD~1``) into
+    ``build/parent/`` and start one ``nvcc`` per source, beside the main
+    build. Returns ``{name: Popen}``, or a reason string where there is
+    no parent source."""
+    from repro_torch.kernels import build
+
+    PARENT_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, (symbol, argtypes) in PARENT_KERNELS.items():
+        rel = f"src/repro_torch/kernels/csrc/{name}.cu"
+        if parent_src is not None:
+            path = pathlib.Path(parent_src) / f"{name}.cu"
+            if not path.is_file():
+                return f"no {path}"
+            text = path.read_text()
+        else:
+            got = subprocess.run(["git", "-C", str(ROOT), "show", f"HEAD~1:{rel}"],
+                                 capture_output=True, text=True)
+            if got.returncode != 0:
+                return ("no parent source (no --parent-src, and git show HEAD~1 "
+                        f"failed: {got.stderr.strip()[:120]})")
+            text = got.stdout
+        # The parent's launcher must still take the arguments listed above.
+        decl = text[text.find(f'extern "C" int {symbol}('):]
+        decl = decl[:decl.find(")")]
+        if not decl or decl.count(",") + 1 != len(argtypes):
+            return f"the parent's {symbol} takes other arguments"
+        src = PARENT_DIR / f"{name}.cu"
+        src.write_text(text)
+        procs[name] = subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(PARENT_DIR / f"{name}.so"),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return procs
+
+
+def finish_parent_build(procs) -> dict | str:
+    """``{name: launcher}`` of the parent's kernels (argtypes set), or the
+    reason they are not measured."""
+    if isinstance(procs, str):
+        return procs
+    launchers = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            return f"the parent's {name}.cu did not build:\n{log[-2000:]}"
+        symbol, argtypes = PARENT_KERNELS[name]
+        fn = getattr(ctypes.CDLL(str(PARENT_DIR / f"{name}.so")), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        launchers[name] = fn
+    return launchers
+
+
+def parent_flash(fn, q, k, v):
+    """The parent's flash kernel on (q, k, v), causal, into a buffer of
+    its own: a callable for ``record``."""
+    out = torch.empty_like(q)
+    bh, s, dh = q.shape
+
+    def run():
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
+                k.shape[1], dh, 1, int(q.dtype == torch.bfloat16), dh ** -0.5,
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"parent flash_attention launch failed: CUDA error {rc}")
+    return run
+
+
+def parent_unpack(fn, wp, x):
+    """The parent's packed GEMM on (wp, x): a callable for ``record``."""
+    m, kw = wp.shape
+    out = torch.empty((m, x.shape[1]), dtype=torch.float32, device=wp.device)
+
+    def run():
+        rc = fn(wp.data_ptr(), x.data_ptr(), out.data_ptr(), m, kw, x.shape[1],
+                x.stride(0), x.stride(1), int(x.dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"parent unpack_gemm launch failed: CUDA error {rc}")
+    return run
+
+
 def kernel_phase(dev) -> tuple[dict, list]:
     from repro_torch.core import bitops
     from repro_torch.kernels import ops
@@ -302,16 +410,19 @@ def kernel_phase(dev) -> tuple[dict, list]:
 def record(total: dict, name: str, label: str, err, run, twin, lib,
            nbytes: int, ops_n: int, per_layer=None, summed: bool = True,
            plain_reps: int = 3, cold: bool = False,
-           check: str = "exact", rate: float | None = None) -> dict:
+           check: str = "exact", rate: float | None = None,
+           parent=None) -> dict:
     """Time one main-path shape: kernel (graph replay and eager call),
     twin, library yardstick (``lib``; None where no single PyTorch call
-    computes the function) and, for a megakernel, the slice-1 per-layer
-    kernels over the same layers (``per_layer``). The kernel's totals
-    sum the times of its main path's shapes only (``summed``); every
-    shape's error counts. ``cold``: the kernel's time is taken with a
-    cold L2 (its warm time is kept as ``warm_ms``). ``check`` says how
-    the shape was held to its twin; ``rate`` replaces the kernel's peak
-    rate in the bound (a float32 case of a bf16 kernel)."""
+    computes the function), for a megakernel the slice-1 per-layer
+    kernels over the same layers (``per_layer``), and for a redesigned
+    kernel the parent commit's version on the same inputs (``parent``,
+    see ``parent_kernels``). The kernel's totals sum the times of its
+    main path's shapes only (``summed``); every shape's error counts.
+    ``cold``: the kernel's time is taken with a cold L2 (its warm time is
+    kept as ``warm_ms``). ``check`` says how the shape was held to its
+    twin; ``rate`` replaces the kernel's peak rate in the bound (a
+    float32 case of a bf16 kernel)."""
     ms = graph_ms(run, cold=cold)
     eager_ms = time_ms(run, iters=50)
     plain_ms = time_ms(twin, iters=2, reps=plain_reps)
@@ -332,11 +443,15 @@ def record(total: dict, name: str, label: str, err, run, twin, lib,
     if per_layer is not None:
         row["per_layer_ms"] = graph_ms(per_layer)
         line += f"  per-layer kernels {row['per_layer_ms']:.4f} ms"
+    if parent is not None:
+        row["parent_ms"] = graph_ms(parent)
+        line += f"  parent {row['parent_ms']:.4f} ms"
     print(line, flush=True)
     total["max_abs_err"] = max(total["max_abs_err"], err)
     if not summed:
         return row
-    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "per_layer_ms"):
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "per_layer_ms",
+              "parent_ms"):
         if k in row:
             total[k] = None if row[k] is None else total.get(k, 0.0) + row[k]
     total["bytes"] += nbytes
@@ -530,7 +645,7 @@ def scan_phase(dev, totals: dict, rows: list) -> None:
 # (label, BH, S, Dh, dtype) of flash attention: smollm-360m's training
 # forward (batch 4 x 15 heads, S 4096; its time makes the kernels-line
 # total), the same in float32, and a ragged case (odd BH, S not a
-# multiple of the 64-row tile).
+# multiple of the bf16 kernel's 128-row block).
 FLASH_CASES = [("smollm layer", 60, 4096, 64, torch.bfloat16),
                ("float32", 60, 4096, 64, torch.float32),
                ("ragged", 3, 1000, 64, torch.bfloat16)]
@@ -630,7 +745,7 @@ def flash_twin(q, k, v, causal=True):
     return flash_attention_ref(q, k, v, causal=causal, block_kv=ops.FLASH_TILE)
 
 
-def attention_phase(dev, totals: dict, rows: list) -> None:
+def attention_phase(dev, totals: dict, rows: list, parents=None) -> None:
     """``flash_attention`` at smollm-360m's training shape (bf16; its time
     makes the kernels-line total), in float32 and at a ragged shape, and
     ``mlstm_chunked`` at xlstm-1.3b's (its time makes the total) and on a
@@ -642,7 +757,8 @@ def attention_phase(dev, totals: dict, rows: list) -> None:
     the mLSTM L (L + 1) (dk + dv) + 4 L dk dv per (bh, chunk) (the
     causal half of q k^T and of the weights times v, the diagonal
     included, then q C and the update of C) at the float32 rate against
-    its operands."""
+    its operands. ``parents``: the parent commit's launchers, timed
+    beside flash."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import mlstm_chunked_ref
 
@@ -662,10 +778,13 @@ def attention_phase(dev, totals: dict, rows: list) -> None:
             f", {e['max_row_ulps']:.2f} row ulps, {e['max_elem_ulps']:.2f} own "
             f"ulps, {e['elements_past_own_ulp']} of {e['elements']} past their "
             f"own ulp" if "max_row_ulps" in e else "")
+        parent = (parent_flash(parents["flash_attention"], q, k, v)
+                  if isinstance(parents, dict) else None)
         row = record(totals["flash_attention"], "flash_attention",
                      f"{label} [{bh},{s},{dh}] {str(dtype)[6:]}", e["max_abs_err"],
                      run, twin, lib, nbytes, 2 * bh * s * s * dh,
-                     summed=label == "smollm layer", check=check, rate=rate)
+                     summed=label == "smollm layer", check=check, rate=rate,
+                     parent=parent)
         row.update(e)
         rows.append(row)
     for label, bh, s, dk, dv, chunk in MLSTM_CASES:
@@ -872,7 +991,7 @@ def serve_phase(dev) -> dict:
 
 
 def unfused_kernel_phase(dev, totals: dict, rows: list, batch: int,
-                         summed: bool) -> None:
+                         summed: bool, parents=None) -> None:
     """The unfused PACKED kernels at the eight binary layers of the Table
     2 forward at ``batch``: ``pack_rows`` on the transposed ``[B*HW, K]``
     patch matrix (read in place; timed with a cold L2, see ``graph_ms``),
@@ -881,7 +1000,8 @@ def unfused_kernel_phase(dev, totals: dict, rows: list, batch: int,
     ``direct_conv`` at the five convs. Inputs in [-1, 1] with some 0.0
     and -0.0, as the clipped activations the layers encode. ``summed``:
     these are the main path's shapes, whose times make the kernels'
-    totals."""
+    totals. ``parents``: the parent commit's launchers
+    (``finish_parent_build``), timed beside ``unpack_gemm``."""
     from repro_torch.core import bitops
     from repro_torch.kernels import ops
 
@@ -929,10 +1049,12 @@ def unfused_kernel_phase(dev, totals: dict, rows: list, batch: int,
             fail(f"unpack_gemm {label}{tag}: {bad} outputs on real input outside "
                  "rtol 1e-5 / atol 1e-4 of the float64-accumulated dot")
         wf = bitops.unpack_bits(wp, axis=-1)
+        parent = (parent_unpack(parents["unpack_gemm"], wp, xpt)
+                  if isinstance(parents, dict) else None)
         row = record(totals["unpack_gemm"], "unpack_gemm", f"{label} [{m},{k}]x[{k},{n}]",
                      err, run, twin, lambda: torch.matmul(wf, xpt),  # noqa: B023
                      (m * k // 32 + k * n + m * n) * 4, 2 * m * n * k,
-                     summed=summed)
+                     summed=summed, parent=parent)
         row["real_input_max_abs_err"] = float(dev_err.max())
         totals["unpack_gemm"]["real_input_max_abs_err"] = max(
             totals["unpack_gemm"].get("real_input_max_abs_err", 0.0),
@@ -956,6 +1078,51 @@ def unfused_kernel_phase(dev, totals: dict, rows: list, batch: int,
             lambda: F.conv2d(xf, wf),  # noqa: B023
             (x.numel() + w.numel() + batch * h * h * d) * 4,
             2 * batch * h * h * d * k_bits, plain_reps=2, summed=summed))
+
+
+# jamba-1.5-large's decode step through the packed GEMM (ROADMAP A7b): one
+# expert's [8192, 8192] projection, packed, at batch 4 with bf16
+# activations, as ``bit_linear`` passes them (the transposed [4, 8192]).
+DECODE_CASE = ("jamba decode", 8192, 8192, 4)
+
+
+def unpack_decode_phase(dev, totals: dict, rows: list, parents=None) -> None:
+    """``unpack_gemm`` at ``DECODE_CASE``: exact on ±1/0 input, within
+    rtol 1e-5 / atol 1e-4 of the float64 dot on real input in [-1, 1];
+    timed beside bf16 ``torch.matmul`` on the unpacked bf16 weights (and
+    the parent's kernel). Off the main path: not summed."""
+    from repro_torch.core import bitops
+    from repro_torch.kernels import ops
+
+    label, m, k, n = DECODE_CASE
+    gen = torch.Generator(device=dev).manual_seed(5)
+    wp = rand_words(torch.Generator().manual_seed(6), (m, k // 32), dev)
+    x2d = torch.rand((n, k), generator=gen, device=dev) * 2 - 1
+    xpt = (torch.sign(x2d) + (x2d == 0).float()).to(torch.bfloat16).T
+    xt = x2d.to(torch.bfloat16).T
+    run = lambda: ops.unpack_gemm(wp, xpt)  # noqa: E731
+    twin = lambda: bitops.packed_matmul_unpack(  # noqa: E731
+        wp, xpt, compute_dtype=torch.bfloat16)
+    err = check_equal("unpack_gemm", label, run(), twin())
+    ref64 = bitops.packed_matmul_unpack(wp, xt, compute_dtype=torch.bfloat16,
+                                        accum_dtype=torch.float64)
+    dev_err = (ops.unpack_gemm(wp, xt).double() - ref64).abs()
+    bad = int((dev_err > 1e-4 + 1e-5 * ref64.abs()).sum())
+    print(f"  unpack_gemm real input {label}: max |kernel - f64 dot| "
+          f"{float(dev_err.max()):.3g} ({bad} outside rtol 1e-5/atol 1e-4)",
+          flush=True)
+    if bad:
+        fail(f"unpack_gemm {label}: {bad} outputs on real input outside "
+             "rtol 1e-5 / atol 1e-4 of the float64-accumulated dot")
+    wb = bitops.unpack_bits(wp, axis=-1, dtype=torch.bfloat16)
+    parent = (parent_unpack(parents["unpack_gemm"], wp, xpt)
+              if isinstance(parents, dict) else None)
+    row = record(totals["unpack_gemm"], "unpack_gemm",
+                 f"{label} [{m},{k}]x[{k},{n}] bf16", err, run, twin,
+                 lambda: torch.matmul(wb, xpt), m * k // 8 + k * n * 2 + m * n * 4,
+                 2 * m * n * k, summed=False, parent=parent)
+    row["real_input_max_abs_err"] = float(dev_err.max())
+    rows.append(row)
 
 
 def preset_twins() -> dict:
@@ -1674,6 +1841,13 @@ KERNELS = {
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--parent-src", default=None,
+        help="directory holding the parent commit's flash_attention.cu and "
+             "unpack_gemm.cu, timed beside the kernels (default: git show "
+             "HEAD~1; not measured without either)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
     try:
@@ -1693,9 +1867,14 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
+    parent_procs = start_parent_build(args.parent_src)
     info = build.build()
+    parents = finish_parent_build(parent_procs)
     print(f"kernel build: {info['seconds']:.1f} s ({', '.join(info['built']) or 'cached'})"
           f" in {info['dir']}", flush=True)
+    print("parent kernels: " + (", ".join(sorted(parents)) + f" built in {PARENT_DIR}"
+                                if isinstance(parents, dict) else
+                                f"not measured ({parents})"), flush=True)
     for name, log in info["ptxas"].items():
         for line in log.splitlines():
             if "registers" in line or "Compiling entry" in line:
@@ -1708,10 +1887,11 @@ def main() -> None:
     # The Table 2 forward's own shapes (its batch) make the totals; the
     # batch-32 shapes are checked and timed beside them.
     unfused_kernel_phase(dev, totals, rows, BNNExperiment("table2").batch,
-                         summed=True)
+                         summed=True, parents=parents)
     unfused_kernel_phase(dev, totals, rows, BATCH, summed=False)
+    unpack_decode_phase(dev, totals, rows, parents)
     scan_phase(dev, totals, rows)
-    attention_phase(dev, totals, rows)
+    attention_phase(dev, totals, rows, parents)
     print("phase 4: serving on the trained checkpoint", flush=True)
     serve = serve_phase(dev)
     print("phase 5: Table 2 on the card", flush=True)
@@ -1757,7 +1937,7 @@ def main() -> None:
             "library_ms": t["library_ms"],
         })
         for extra in ("per_layer_ms", "real_input_max_abs_err",
-                      "fp32_bound_ms"):
+                      "fp32_bound_ms", "parent_ms"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
     print(json.dumps({"kernels": kernels}))

@@ -58,8 +58,11 @@ _SIGNATURES = {
     "repro_megakernel_chain_limits": (_P,) + (_I,) * 6 + (_P, _P),
     # (x, out, KW, N, stride_n, stream)
     "repro_pack_rows": (_P, _P, _I, _I, _L, _P),
-    # (w, x, out, M, KW, N, stride_k, stride_n, x_is_bf16, stream)
-    "repro_unpack_gemm": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _P),
+    # (w, x, out, scratch, M, KW, N, stride_k, stride_n, x_is_bf16, splits,
+    #  stream)
+    "repro_unpack_gemm": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P),
+    # (M, KW, N) -> K splits (scratch [splits, M, N] when above 1)
+    "repro_unpack_gemm_splits": (_I, _I, _I),
     # (dt, xh, B, C, A, h0, y, h_out, batch, chunk, di, ds, then the batch
     #  and time strides of dt, xh, B and C, stream)
     "repro_ssm_scan_chunk": (_P,) * 8 + (_I,) * 4 + (_L,) * 8 + (_P,),
@@ -81,6 +84,7 @@ _LIB_OF = {
     "repro_megakernel_chain_limits": "megakernel_chain",
     "repro_pack_rows": "pack_rows",
     "repro_unpack_gemm": "unpack_gemm",
+    "repro_unpack_gemm_splits": "unpack_gemm",
     "repro_ssm_scan_chunk": "ssm_scan",
     "repro_flash_attention": "flash_attention",
     "repro_mlstm_chunked": "mlstm_chunk",

@@ -47,9 +47,6 @@ MAX_SMEM_BYTES = 227 * 1024
 _INT_MAX = 2**31 - 1
 # Largest y dimension of a CUDA grid.
 _GRID_Y_MAX = 65535
-# Output rows (and columns) of one unpack_gemm block: kUnpackTile of
-# csrc/unpack_gemm.cu.
-_UNPACK_TILE = 64
 
 
 def reset_launches() -> None:
@@ -301,15 +298,22 @@ def unpack_gemm(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x has {k} rows, expected KW*32 = {kw * PACK_BITS}")
     if not _on_cuda("unpack_gemm", wp, x):
         return bitops.packed_matmul_unpack(wp, x, compute_dtype=x.dtype)
-    if m * n > _INT_MAX or -(-m // _UNPACK_TILE) > _GRID_Y_MAX:
+    if m * n > _INT_MAX:
         raise ValueError(f"unpack_gemm output [{m}, {n}] exceeds the grid")
     out = torch.empty((m, n), dtype=torch.float32, device=wp.device)
     if out.numel():
         with torch.cuda.device(wp.device):
+            # Split-K where the output tiles cannot fill the card: the
+            # kernel writes each split's total to the scratch, a second
+            # kernel adds them in a fixed order.
+            splits = build.load("repro_unpack_gemm_splits")(m, kw, n)
+            scratch = (torch.empty((splits, m, n), dtype=torch.float32,
+                                   device=wp.device) if splits > 1 else None)
             rc = build.load("repro_unpack_gemm")(
-                wp.data_ptr(), x.data_ptr(), out.data_ptr(), m, kw, n,
+                wp.data_ptr(), x.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), m, kw, n,
                 x.stride(0), x.stride(1), int(x.dtype == torch.bfloat16),
-                _stream(wp.device))
+                splits, _stream(wp.device))
         _raise_on(rc, "unpack_gemm")
         LAUNCHES["unpack_gemm"] += 1
     return out
@@ -365,9 +369,12 @@ def ssm_scan_chunk(dt: torch.Tensor, xh: torch.Tensor, bmat: torch.Tensor,
     return y, h_last
 
 
-# Keys per KV tile of csrc/flash_attention.cu (kFlashKeys): the twin with
-# block_kv = FLASH_TILE rounds where the kernel rounds.
+# Keys per KV tile of csrc/flash_attention.cu (kFlashKeys, both types): the
+# twin with block_kv = FLASH_TILE rounds where the kernel rounds.
 FLASH_TILE = 64
+# Query rows per block of csrc/flash_attention.cu (kFlashRowsBf16,
+# kFlashRowsF32).
+_FLASH_ROWS = {torch.bfloat16: 128, torch.float32: 64}
 # Head widths the flash kernel is compiled for.
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
 
@@ -404,7 +411,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dh not in FLASH_HEAD_DIMS:
         raise ValueError(f"flash_attention is compiled for Dh in "
                          f"{FLASH_HEAD_DIMS}, got {dh}")
-    if bh > _INT_MAX or -(-sq // 64) > _GRID_Y_MAX:
+    if bh > _INT_MAX or -(-sq // _FLASH_ROWS[q.dtype]) > _GRID_Y_MAX:
         raise ValueError(f"flash_attention of [{bh}, {sq}, {dh}] exceeds the grid")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _aligned(name, t)

@@ -85,6 +85,27 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (acc / torch.clamp(den, min=1e-30)[..., None]).to(q.dtype)
 
 
+def split_bf16_pieces(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """Float32 ``x`` as three bfloat16-exact float32 pieces, each cut by
+    truncation (the low 16 bits cleared): ``hi`` of ``x``, ``mid`` of
+    ``x - hi``, ``lo = x - hi - mid``. The split the ``unpack_gemm``
+    kernel makes of a float32 input before its three bf16 products:
+    ``hi + mid + lo == x`` exactly for ±0 and every finite ``x`` with
+    ``|x| >= 2^-110`` (24 significant bits in three slices of 8; below,
+    ``lo`` falls under bf16's normal range and loses less than 2^-126).
+    Rounding ``hi`` to nearest instead would carry ``|x|`` above bf16's
+    largest value (~3.39e38) to inf."""
+    def trunc(v: torch.Tensor) -> torch.Tensor:
+        return (v.view(torch.int32) & -65536).view(torch.float32)
+
+    x = x.float()
+    hi = trunc(x)
+    rest = x - hi
+    mid = trunc(rest)
+    return hi, mid, rest - mid
+
+
 def sequential_cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive cumsum along the last axis, one float add after another
     (``torch.cumsum`` on the card sums in a tree: other roundings)."""

@@ -214,7 +214,7 @@ def test_direct_conv_matches_twin(dev, c, d, h, stride, pad):
     assert torch.equal(got, bitops.direct_conv_dot(wp, xp, 9 * c, **kw))
 
 
-# unpack_gemm: M and N not multiples of the 64 tile, one K word, odd KW;
+# unpack_gemm: M and N not multiples of the 128 x 64 tile, one K word, odd KW;
 # ±1/0 input exact; real float32 input within the JAX package's tolerance
 # for its kernel (tests/test_kernels.py, rtol 1e-5, atol 1e-4); bfloat16
 # within its bfloat16 tolerance (rtol 2e-2, atol 2e-1) against the float32
@@ -250,6 +250,52 @@ def test_unpack_gemm_matches_twin(dev, m, kw, n, layout):
     torch.testing.assert_close(
         got, bitops.packed_matmul_unpack(wp, half, compute_dtype=torch.bfloat16),
         rtol=2e-2, atol=2e-1)
+
+
+# unpack_gemm at the split-K shapes (the output tiles cannot fill the
+# card): fc0 at batch 64 (packed W [1024, 256], float32 X [8192, 64]) and
+# jamba's decode (packed W [8192, 256], bf16 X [8192, 4]), each as the
+# layers pass X (the transposed activations, unit stride along K) and
+# contiguous. ±1/0 input exact; real input within rtol 1e-5 / atol 1e-4 of
+# the float64 dot of the same values (the bf16 products are exact).
+@pytest.mark.parametrize("m,kw,n,dtype", [(1024, 256, 64, torch.float32),
+                                          (8192, 256, 4, torch.bfloat16)])
+@pytest.mark.parametrize("layout", ["transposed", "rows"])
+def test_unpack_gemm_split_k_shapes(dev, m, kw, n, dtype, layout):
+    rng = np.random.default_rng(42)
+    wp = cu(words(rng, (m, kw)), dev)
+    k = 32 * kw
+
+    def operand(a):
+        x = cu(a.astype(np.float32), dev).to(dtype)
+        return x.T.contiguous().T if layout == "transposed" else x
+
+    ternary = operand(rng.integers(-1, 2, size=(k, n)))
+    before = ops.LAUNCHES["unpack_gemm"]
+    got = ops.unpack_gemm(wp, ternary)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["unpack_gemm"] == before + 1
+    assert torch.equal(got, bitops.packed_matmul_unpack(
+        wp, ternary, compute_dtype=dtype))
+    real = operand(rng.uniform(-1, 1, size=(k, n)))
+    want = bitops.packed_matmul_unpack(wp, real, compute_dtype=dtype,
+                                       accum_dtype=torch.float64)
+    torch.testing.assert_close(ops.unpack_gemm(wp, real).double(), want,
+                               rtol=1e-5, atol=1e-4)
+
+
+# Two calls on the same real input give bit-equal results: the split-K
+# partials are added in a fixed order, no atomics.
+@pytest.mark.parametrize("m,kw,n", [(1024, 256, 64), (10, 32, 64),
+                                    (256, 72, 4096)])
+def test_unpack_gemm_is_deterministic(dev, m, kw, n):
+    rng = np.random.default_rng(43)
+    wp = cu(words(rng, (m, kw)), dev)
+    x = cu(rng.normal(size=(n, 32 * kw)).astype(np.float32), dev).T
+    first = ops.unpack_gemm(wp, x)
+    second = ops.unpack_gemm(wp, x)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # The unfused PACKED layers on the card against the same layers on the
@@ -408,7 +454,14 @@ def test_jamba_smoke_serving_matches_the_cpu(dev):
     (5, 130, 130, 16, torch.float32, True),
     (2, 64, 128, 64, torch.float32, True),
     (3, 77, 45, 32, torch.float32, False),
-    (60, 512, 512, 64, torch.bfloat16, True)])
+    (60, 512, 512, 64, torch.bfloat16, True),
+    # one row past and one short of the bf16 kernel's 128-row block
+    (2, 129, 129, 64, torch.bfloat16, True),
+    (2, 255, 255, 64, torch.bfloat16, True),
+    # Skv != Sq, full attention, Dh 128
+    (3, 200, 333, 128, torch.bfloat16, False),
+    # several key tiles per block, every block crossing the diagonal
+    (60, 1024, 1024, 64, torch.bfloat16, True)])
 def test_flash_attention_matches_twin(dev, bh, sq, skv, dh, dtype, causal):
     from repro_torch.kernels.ref import flash_attention_ref
 

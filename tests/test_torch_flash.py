@@ -9,7 +9,9 @@ package's ``_attend`` (its chunked path off the TPU); ``Model.loss`` of
 branch, against the JAX ``Model.loss`` on the JAX package's params
 (``params_from_numpy``). Inputs come from numpy. Float32 sums in other
 orders: the twin within rtol/atol 1e-5 of the kernel, the loss within
-rtol/atol 1e-4.
+rtol/atol 1e-4. The flash branch's gradient (autograd through the twin)
+against ``jax.grad`` of the JAX ``_attend`` pins what the kernel's backward
+will be held to (rtol/atol 1e-4).
 """
 
 import jax
@@ -48,7 +50,10 @@ def normal(rng, *shape):
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("bh,s,dh,block_q,block_kv", [
-    (2, 64, 32, 16, 32), (3, 128, 16, 32, 16), (2, 96, 32, 32, 32)])
+    (2, 64, 32, 16, 32), (3, 128, 16, 32, 16), (2, 96, 32, 32, 32),
+    # the kernel's key tile (the twin's block_kv on the card), several
+    # tiles and a 128-row query block as the bf16 kernel takes them
+    (2, 256, 64, 128, ops.FLASH_TILE), (1, 384, 32, 128, ops.FLASH_TILE)])
 def test_flash_twin_matches_the_pallas_kernel(bh, s, dh, block_q, block_kv, causal):
     rng = np.random.default_rng(150)
     q, k, v = normal(rng, bh, s, dh), normal(rng, bh, s, dh), normal(rng, bh, s, dh)
@@ -97,6 +102,36 @@ def test_attend_flash_branch_matches_jax(monkeypatch):
                         q_positions=t(pos).long(), kv_positions=t(pos).long())
     assert calls == [(b * h, s, dh)]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# The gradient the flash kernel's backward (not written yet) will be held
+# to: d/dq, dk, dv of <out, cotangent> through the port's flash branch
+# (the twin on the CPU, differentiated by autograd) against jax.grad of the
+# JAX ``_attend`` (its chunked path off the TPU), at the forward test's
+# shape. Float32 sums in other orders: rtol/atol 1e-4.
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def test_attend_flash_branch_gradient_matches_jax():
+    rng = np.random.default_rng(153)
+    b, s, h, hkv, dh = 1, 4096, 4, 2, 32
+    q, k, v = normal(rng, b, s, h, dh), normal(rng, b, s, hkv, dh), normal(rng, b, s, hkv, dh)
+    ct = normal(rng, b, s, h, dh)
+    pos = np.arange(s, dtype=np.int32)
+
+    def j_objective(q, k, v):
+        out = jattn._attend(q, k, v, groups=h // hkv, causal=True,
+                            q_positions=jnp.asarray(pos), kv_positions=jnp.asarray(pos))
+        return jnp.sum(out * jnp.asarray(ct))
+
+    want = jax.jit(jax.grad(j_objective, argnums=(0, 1, 2)))(
+        *map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (t(a).requires_grad_() for a in (q, k, v))
+    out = tattn._attend(tq, tk, tv, groups=h // hkv, causal=True,
+                        q_positions=t(pos).long(), kv_positions=t(pos).long())
+    got = torch.autograd.grad((out * t(ct)).sum(), (tq, tk, tv))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
 
 
 @pytest.mark.parametrize("policy", sorted(POLICIES))
