@@ -22,10 +22,12 @@
    1e-4 of the float64-accumulated dot, and the same at jamba's decode
    shape (one packed [8192, 8192] expert, bf16 X [8192, 4]; yardstick
    bf16 ``torch.matmul``; not summed). The two kernels redesigned last,
-   ``flash_attention`` and ``unpack_gemm``, are also timed beside their
-   parent commit's versions on the same inputs (``parent_ms``), built
-   into ``build/parent/`` from ``--parent-src DIR`` or ``git show
-   HEAD~1`` (not measured without either).
+   ``mlstm_chunked`` and ``fused_xnor_gemm``, are also timed beside
+   their parent commit's versions on the same inputs (``parent_ms``),
+   built into ``build/parent/`` from ``--parent-src DIR`` or ``git show
+   HEAD~1`` (not measured without either). Before them, the rates of the three inner loops a packed ±1
+   product can run (``XNOR_LOOP_BODY``: popc on the CUDA cores, 1-bit and
+   int8 ``mma.sync``) are measured and stored.
 4. Serves 12 ragged requests (1-8 images) on the trained checkpoint
    ``tests/golden/bnn_trained_ckpt.npz`` through ``ServingEngine
    (engine="xnor")`` for each ``conv_impl``, and through
@@ -96,6 +98,7 @@ import contextlib
 import ctypes
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -108,14 +111,20 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and int8
-# tensor-core ops/s — the fastest integer rate the card publishes, used
-# as the rate of the ±1 multiply-adds (2 ops each).
+# tensor-core ops/s.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
-# Float32 on the CUDA cores (pack_rows' compares) and bf16 on the tensor
-# cores, dense (unpack_gemm: its ±1 operands are exact in bf16).
+# The ±1 products of the xnor kernels (2 ops each). NVIDIA publishes no
+# 1-bit rate; this script's ``xnor_loop_rates`` measures the 1-bit
+# ``mma.sync`` m16n8k256 (and.popc) at the int8 m16n8k32's instruction
+# rate, with 8x its products, so their peak is taken as 8x int8's.
+B1_OPS_PER_S = 8 * INT8_OPS_PER_S
+# Float32 on the CUDA cores (pack_rows' compares), bf16 on the tensor
+# cores (unpack_gemm: its ±1 operands are exact in bf16) and tf32 on the
+# tensor cores (the mLSTM's 3xTF32 products, ``tc_bound_ms``), dense.
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 # The scan's exps run on the special-function units: 16 MUFU.EX2 per clock
 # per SM (CUDA C++ programming guide, arithmetic instruction throughput,
 # compute capability 9.0), 132 SMs, at the 1.98 GHz boost clock.
@@ -195,7 +204,7 @@ def graph_ms(fn, iters: int = 20, reps: int = 5, cold: bool = False) -> float:
 
 
 def bound_ms(nbytes: int, ops: int,
-             rate: float = INT8_OPS_PER_S) -> tuple[float, str]:
+             rate: float = B1_OPS_PER_S) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -247,56 +256,66 @@ def check_equal(name: str, label: str, got: torch.Tensor,
     return err
 
 
-# The kernels this PR redesigned, timed beside their parent commit's
+# The kernels this commit redesigned, timed beside their parent commit's
 # versions in the same run (``--parent-src``, else ``git show HEAD~1``).
-# The parent's C launchers, as its build.py declared them: flash
-# (q, k, v, out, BH, Sq, Skv, Dh, causal, is_bf16, scale, stream), the
-# packed GEMM (w, x, out, M, KW, N, stride_k, stride_n, x_is_bf16, stream).
+# {source: (the parent's C launcher, its argtypes as the parent's build.py
+# declared them)}: the fused layer (w, x, a, b, out, M, KW, N, k_bits,
+# stream), the mLSTM (q, k, v, logi, logf, y, C, n, m, sw, g, m_loc,
+# inter, wk, decay, BH, S, L, dk, dv, stream).
 PARENT_KERNELS = {
-    "flash_attention": ("repro_flash_attention",
-                        (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
-                        + (ctypes.c_float, ctypes.c_void_p)),
-    "unpack_gemm": ("repro_unpack_gemm",
-                    (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3
-                    + (ctypes.c_longlong,) * 2 + (ctypes.c_int, ctypes.c_void_p)),
+    "fused_gemm": ("repro_fused_xnor_gemm",
+                   (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)),
+    "mlstm_chunk": ("repro_mlstm_chunked",
+                    (ctypes.c_void_p,) * 15 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)),
 }
 PARENT_DIR = OUT_DIR / "parent"
 
 
 def start_parent_build(parent_src: str | None):
-    """Fetch the parent's sources of ``PARENT_KERNELS`` (from the
-    directory ``parent_src``, else from git's ``HEAD~1``) into
-    ``build/parent/`` and start one ``nvcc`` per source, beside the main
-    build. Returns ``{name: Popen}``, or a reason string where there is
-    no parent source."""
+    """Fetch the parent's sources of ``PARENT_KERNELS`` and the headers
+    they include (from the directory ``parent_src``, else from git's
+    ``HEAD~1``) into ``build/parent/`` and start one ``nvcc`` per source,
+    beside the main build. Returns ``{name: Popen}``, or a reason string
+    where there is no parent source."""
     from repro_torch.kernels import build
 
-    PARENT_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, (symbol, argtypes) in PARENT_KERNELS.items():
-        rel = f"src/repro_torch/kernels/csrc/{name}.cu"
+    def fetch(fname: str) -> str | None:
         if parent_src is not None:
-            path = pathlib.Path(parent_src) / f"{name}.cu"
-            if not path.is_file():
-                return f"no {path}"
-            text = path.read_text()
-        else:
-            got = subprocess.run(["git", "-C", str(ROOT), "show", f"HEAD~1:{rel}"],
-                                 capture_output=True, text=True)
-            if got.returncode != 0:
-                return ("no parent source (no --parent-src, and git show HEAD~1 "
-                        f"failed: {got.stderr.strip()[:120]})")
-            text = got.stdout
+            path = pathlib.Path(parent_src) / fname
+            return path.read_text() if path.is_file() else None
+        got = subprocess.run(
+            ["git", "-C", str(ROOT), "show",
+             f"HEAD~1:src/repro_torch/kernels/csrc/{fname}"],
+            capture_output=True, text=True)
+        return got.stdout if got.returncode == 0 else None
+
+    PARENT_DIR.mkdir(parents=True, exist_ok=True)
+    procs, headers = {}, set()
+    for name, (symbol, argtypes) in PARENT_KERNELS.items():
+        text = fetch(f"{name}.cu")
+        if text is None:
+            return (f"no parent {name}.cu (from --parent-src or git show "
+                    "HEAD~1)")
         # The parent's launcher must still take the arguments listed above.
         decl = text[text.find(f'extern "C" int {symbol}('):]
         decl = decl[:decl.find(")")]
         if not decl or decl.count(",") + 1 != len(argtypes):
             return f"the parent's {symbol} takes other arguments"
-        src = PARENT_DIR / f"{name}.cu"
-        src.write_text(text)
+        (PARENT_DIR / f"{name}.cu").write_text(text)
+        pending = [text]
+        while pending:  # the headers it includes, and theirs
+            for header in re.findall(r'#include "([^"]+)"', pending.pop()):
+                if header not in headers:
+                    headers.add(header)
+                    body = fetch(header)
+                    if body is None:
+                        return f"no parent {header}"
+                    (PARENT_DIR / header).write_text(body)
+                    pending.append(body)
         procs[name] = subprocess.Popen(
             [build.nvcc(), *build.NVCC_FLAGS, "-o", str(PARENT_DIR / f"{name}.so"),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             str(PARENT_DIR / f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
     return procs
 
 
@@ -318,36 +337,160 @@ def finish_parent_build(procs) -> dict | str:
     return launchers
 
 
-def parent_flash(fn, q, k, v):
-    """The parent's flash kernel on (q, k, v), causal, into a buffer of
-    its own: a callable for ``record``."""
-    out = torch.empty_like(q)
-    bh, s, dh = q.shape
+# The three inner loops a packed ±1 product can run on this card, each in
+# registers (no loads), many independent accumulators a warp, so each runs
+# at its instruction's issue ceiling: (a) xnor + popc + add on the CUDA
+# cores (fused_gemm.cu before its tensor-core tile), (b) the 1-bit
+# tensor-core product mma.sync m16n8k256 with and.popc or xor.popc, (c)
+# int8 mma.sync m16n8k32 (on ±1 bytes: exact). Rates are bit products a
+# second (one ±1 multiply-add each). Each variant is its own source, so
+# one that ptxas refuses does not stop the others. {variant: (bit products
+# a thread-iteration, loop body)}.
+XNOR_LOOP_BODY = {
+    "popc": (32 * 8, r"""
+  unsigned acc[8] = {};
+  unsigned x[8];
+  for (int j = 0; j < 8; ++j) x[j] = seed * (2 * j + 3);
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      // the word pair varies with the running count, so nothing of the
+      // xnor and popc is loop-invariant
+      asm volatile("{\n .reg .b32 t;\n xor.b32 t, %0, %1;\n not.b32 t, t;\n"
+                   " popc.b32 t, t;\n add.u32 %0, %0, t;\n}\n"
+                   : "+r"(acc[j]) : "r"(x[j]));
+    }
+  }
+  unsigned s = 0;
+  for (int j = 0; j < 8; ++j) s += acc[j];"""),
+    **{f"b1 {op}": (16 * 8 * 256 * 8 // 32, r"""
+  int c[8][4] = {};
+  const unsigned a0 = seed, a1 = seed * 3, a2 = seed * 5, a3 = seed * 7;
+  const unsigned b0 = seed ^ 0x5555u, b1 = seed ^ 0xa5a5u;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      asm volatile(
+          "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.OP {%0,%1,%2,%3}, "
+          "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+          : "+r"(c[i][0]), "+r"(c[i][1]), "+r"(c[i][2]), "+r"(c[i][3])
+          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    }
+  }
+  unsigned s = 0;
+  for (int i = 0; i < 8; ++i) s += c[i][0] + c[i][1] + c[i][2] + c[i][3];""".replace(
+        "OP", op)) for op in ("and.popc", "xor.popc")},
+    "int8": (16 * 8 * 32 * 8 // 32, r"""
+  int c[8][4] = {};
+  const unsigned a0 = seed, a1 = seed * 3, a2 = seed * 5, a3 = seed * 7;
+  const unsigned b0 = seed ^ 0x5555u, b1 = seed ^ 0xa5a5u;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      asm volatile(
+          "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+          "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+          : "+r"(c[i][0]), "+r"(c[i][1]), "+r"(c[i][2]), "+r"(c[i][3])
+          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    }
+  }
+  unsigned s = 0;
+  for (int i = 0; i < 8; ++i) s += c[i][0] + c[i][1] + c[i][2] + c[i][3];"""),
+}
+XNOR_LOOP_DIR = OUT_DIR / "xnor_loops"
+
+
+def start_xnor_loop_build() -> dict:
+    """One ``nvcc`` per inner loop of ``XNOR_LOOP_BODY``, started beside the
+    main build: ``{variant: (so path, Popen)}``."""
+    from repro_torch.kernels import build
+
+    procs = {}
+    for i, (variant, (_, body)) in enumerate(XNOR_LOOP_BODY.items()):
+        d = XNOR_LOOP_DIR / str(i)
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "loop.cu").write_text(
+            "#include <cuda_runtime.h>\n"
+            "__global__ void loop(unsigned* out, int iters) {\n"
+            "  const unsigned seed = threadIdx.x * 2654435761u + blockIdx.x;\n"
+            + body + "\n  out[blockIdx.x * blockDim.x + threadIdx.x] = s;\n}\n"
+            'extern "C" int run_loop(unsigned* out, int blocks, int threads, '
+            "int iters) {\n  loop<<<blocks, threads>>>(out, iters);\n"
+            "  return static_cast<int>(cudaGetLastError());\n}\n")
+        procs[variant] = (d / "loop.so", subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(d / "loop.so"),
+             str(d / "loop.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def xnor_loop_rates(procs: dict) -> dict:
+    """Bit products a second of each inner loop at full occupancy (2 blocks
+    of 256 threads an SM, CUDA events); a variant ptxas refuses is
+    reported with the compiler's words. Also prints each rate."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, threads, iters = 2 * sms, 256, 4096
+    out = torch.empty(blocks * threads, dtype=torch.int32, device="cuda")
+    rates = {}
+    for variant, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            rates[variant] = {"error": log.strip()[-600:]}
+            print(f"  inner loop {variant}: not built ({log.strip()[-200:]})",
+                  flush=True)
+            continue
+        lib = ctypes.CDLL(str(so))
+        lib.run_loop.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3
+        run = lambda: lib.run_loop(out.data_ptr(), blocks, threads, iters)  # noqa: E731,B023
+        if run():
+            fail(f"inner loop {variant} did not launch")
+        ms = time_ms(run, iters=3)
+        bits = blocks * threads * iters * XNOR_LOOP_BODY[variant][0]
+        rates[variant] = {"ms": ms, "bit_products_per_s": bits / ms * 1e3}
+        print(f"  inner loop {variant:12s}: {bits / ms / 1e9:10.1f} T bit "
+              f"products/s ({2 * bits / ms / 1e9:.1f} TOP/s at 2 ops each; "
+              f"{blocks} blocks x {threads} threads, {ms:.3f} ms)", flush=True)
+    return rates
+
+
+def parent_fused(fn, w, x, k_bits, a, b):
+    """The parent's fused layer on (w, x, a, b): a callable for ``record``."""
+    m, kw = w.shape
+    n = x.shape[1]
+    out = torch.empty((-(-m // 32), n), dtype=torch.int32, device=w.device)
 
     def run():
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
-                k.shape[1], dh, 1, int(q.dtype == torch.bfloat16), dh ** -0.5,
+        rc = fn(w.data_ptr(), x.data_ptr(), a.data_ptr(), b.data_ptr(),
+                out.data_ptr(), m, kw, n, k_bits,
                 torch.cuda.current_stream().cuda_stream)
         if rc:
-            fail(f"parent flash_attention launch failed: CUDA error {rc}")
+            fail(f"parent fused_xnor_gemm launch failed: CUDA error {rc}")
     return run
 
 
-def parent_unpack(fn, wp, x):
-    """The parent's packed GEMM on (wp, x): a callable for ``record``."""
-    m, kw = wp.shape
-    out = torch.empty((m, x.shape[1]), dtype=torch.float32, device=wp.device)
+def parent_mlstm(fn, q, k, v, logi, logf, chunk):
+    """The parent's mLSTM on (q, k, v, logi, logf) with its own outputs and
+    scratch: a callable for ``record``."""
+    bh, s, dk = q.shape
+    dv, ln = v.shape[-1], min(chunk, s)
+    nc = s // ln
+    f32 = dict(dtype=torch.float32, device=q.device)
+    outs = (torch.empty((bh, s, dv), **f32), torch.empty((bh, dk, dv), **f32),
+            torch.empty((bh, dk), **f32), torch.empty((bh,), **f32),
+            torch.empty((bh, nc, ln, ln), **f32))
+    gates = torch.empty((4, bh, s), **f32)
+    decay = torch.empty((bh, nc), **f32)
 
     def run():
-        rc = fn(wp.data_ptr(), x.data_ptr(), out.data_ptr(), m, kw, x.shape[1],
-                x.stride(0), x.stride(1), int(x.dtype == torch.bfloat16),
-                torch.cuda.current_stream().cuda_stream)
+        rc = fn(*(t.data_ptr() for t in (q, k, v, logi, logf, *outs)),
+                *(gates[i].data_ptr() for i in range(4)), decay.data_ptr(),
+                bh, s, ln, dk, dv, torch.cuda.current_stream().cuda_stream)
         if rc:
-            fail(f"parent unpack_gemm launch failed: CUDA error {rc}")
+            fail(f"parent mlstm_chunked launch failed: CUDA error {rc}")
     return run
 
 
-def kernel_phase(dev) -> tuple[dict, list]:
+def kernel_phase(dev, parents=None) -> tuple[dict, list]:
     from repro_torch.core import bitops
     from repro_torch.kernels import ops
 
@@ -361,6 +504,7 @@ def kernel_phase(dev) -> tuple[dict, list]:
         for label, m, kw, n, k_bits in cases:
             w = rand_words(gen, (m, kw), dev)
             x = rand_words(gen, (kw, n), dev)
+            parent = None
             if name == "xnor_gemm":
                 a = b = None
                 run = lambda: ops.xnor_gemm(w, x, k_bits)  # noqa: E731
@@ -371,6 +515,8 @@ def kernel_phase(dev) -> tuple[dict, list]:
                 run = lambda: ops.fused_xnor_gemm(w, x, k_bits, a, b)  # noqa: E731
                 twin = lambda: bitops.fused_xnor_layer(w, x, k_bits, a, b)  # noqa: E731
                 out_bytes = -(-m // 32) * n * 4
+                if isinstance(parents, dict):
+                    parent = parent_fused(parents["fused_gemm"], w, x, k_bits, a, b)
             err = check_equal(name, label, run(), twin())
             # Yardstick: the same ±1 dot as an fp32 matmul (K words past
             # k_bits are xnor-neutral pads, none here: k_bits = 32*KW).
@@ -381,7 +527,7 @@ def kernel_phase(dev) -> tuple[dict, list]:
             nbytes += 0 if a is None else 8 * m
             ops_n = 2 * m * n * k_bits
             rows.append(record(totals[name], name, label, err, run, twin, lib,
-                               nbytes, ops_n))
+                               nbytes, ops_n, parent=parent))
     for label, h, c, d in conv_cases():
         cw, k_bits = c // 32, 9 * c
         x = rand_words(gen, (BATCH, h, h, cw), dev)
@@ -428,7 +574,7 @@ def record(total: dict, name: str, label: str, err, run, twin, lib,
     plain_ms = time_ms(twin, iters=2, reps=plain_reps)
     library_ms = graph_ms(lib, iters=5) if lib is not None else None
     bms, by = bound_ms(nbytes, ops_n,
-                       rate or OPS_RATE.get(name, INT8_OPS_PER_S))
+                       rate or OPS_RATE.get(name, B1_OPS_PER_S))
     row = {"kernel": name, "shape": label, "max_abs_err": err, "ms": ms,
            "eager_ms": eager_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
@@ -717,23 +863,27 @@ def flash_error(label: str, got: torch.Tensor, want: torch.Tensor) -> dict:
     return out
 
 
-def mlstm_error(label: str, got, want) -> float:
-    """Max abs error of (y, C, n) against the twin's, within ``MLSTM_TOL``;
-    m equal."""
-    err = 0.0
+def mlstm_error(label: str, got, want) -> dict:
+    """Max abs error of each of (y, C, n) against the twin's, and its
+    largest share of the limit, within ``MLSTM_TOL``; m equal."""
+    err = {}
     for name, g, w in zip(("y", "C", "n"), got[:3], want[:3]):
         if g.shape != w.shape or not torch.isfinite(g).all():
             fail(f"mlstm_chunked {label}: {name} {tuple(g.shape)} vs twin "
                  f"{tuple(w.shape)}, finite={bool(torch.isfinite(g).all())}")
         diff = (g - w).abs()
-        err = max(err, float(diff.max()))
-        bad = int((diff > MLSTM_TOL["atol"] + MLSTM_TOL["rtol"] * w.abs()).sum())
+        limit = MLSTM_TOL["atol"] + MLSTM_TOL["rtol"] * w.abs()
+        err[name] = float(diff.max())
+        err[f"{name}_of_limit"] = float((diff / limit).max())
+        bad = int((diff > limit).sum())
         if bad:
             fail(f"mlstm_chunked {label}: {bad} of {name} outside rtol/atol 1e-4 "
                  f"of the plain twin (max abs err {float(diff.max()):.3g})")
     if not torch.equal(got[3], want[3]):
         fail(f"mlstm_chunked {label}: m differs from the twin's (max abs "
              f"{float((got[3] - want[3]).abs().max()):.3g})")
+    err["max_abs_err"] = max(err["y"], err["C"], err["n"])
+    err["max_of_limit"] = max(err["y_of_limit"], err["C_of_limit"], err["n_of_limit"])
     return err
 
 
@@ -758,7 +908,7 @@ def attention_phase(dev, totals: dict, rows: list, parents=None) -> None:
     causal half of q k^T and of the weights times v, the diagonal
     included, then q C and the update of C) at the float32 rate against
     its operands. ``parents``: the parent commit's launchers, timed
-    beside flash."""
+    beside the mLSTM."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import mlstm_chunked_ref
 
@@ -778,13 +928,10 @@ def attention_phase(dev, totals: dict, rows: list, parents=None) -> None:
             f", {e['max_row_ulps']:.2f} row ulps, {e['max_elem_ulps']:.2f} own "
             f"ulps, {e['elements_past_own_ulp']} of {e['elements']} past their "
             f"own ulp" if "max_row_ulps" in e else "")
-        parent = (parent_flash(parents["flash_attention"], q, k, v)
-                  if isinstance(parents, dict) else None)
         row = record(totals["flash_attention"], "flash_attention",
                      f"{label} [{bh},{s},{dh}] {str(dtype)[6:]}", e["max_abs_err"],
                      run, twin, lib, nbytes, 2 * bh * s * s * dh,
-                     summed=label == "smollm layer", check=check, rate=rate,
-                     parent=parent)
+                     summed=label == "smollm layer", check=check, rate=rate)
         row.update(e)
         rows.append(row)
     for label, bh, s, dk, dv, chunk in MLSTM_CASES:
@@ -800,13 +947,24 @@ def attention_phase(dev, totals: dict, rows: list, parents=None) -> None:
         ln = min(chunk, s)
         ops_n = (s // ln) * bh * (ln * (ln + 1) * (dk + dv) + 4 * ln * dk * dv)
         nbytes = 4 * (bh * s * (2 * dk + 2 * dv + 2) + bh * (dk * dv + dk + 1))
+        parent = (parent_mlstm(parents["mlstm_chunk"], *args, chunk)
+                  if isinstance(parents, dict) else None)
         row = record(totals["mlstm_chunked"], "mlstm_chunked",
-                     f"{label} [{bh},{s},{dk},{dv}] L{ln}", err, run, twin,
-                     None, nbytes, ops_n, summed=label == "xlstm layer",
-                     check=f"max err {err:.2g}, m equal")
+                     f"{label} [{bh},{s},{dk},{dv}] L{ln}", err["max_abs_err"],
+                     run, twin, None, nbytes, ops_n, summed=label == "xlstm layer",
+                     check=(f"max err y {err['y']:.2g} C {err['C']:.2g} n "
+                            f"{err['n']:.2g} ({err['max_of_limit']:.2f} of the "
+                            "limit), m equal"), parent=parent)
+        row.update(err)
+        # the same products as 3xTF32 passes on the tensor cores, the design
+        # the kernel runs (its bound_ms keeps the float32 rate)
+        row["tc_bound_ms"] = bound_ms(nbytes, 3 * ops_n, TF32_OPS_PER_S)[0]
+        print(f"    3xTF32 bound {row['tc_bound_ms']:.5f} ms", flush=True)
         if label == "xlstm layer":
-            # the call's three kernels: gates, intra-chunk weights, recurrence
-            row["breakdown"] = device_breakdown(run, top=4)
+            totals["mlstm_chunked"]["tc_bound_ms"] = row["tc_bound_ms"]
+            # the call's five kernels: the gates within chunks and their
+            # chain, the intra-chunk weights, the chunk states, the outputs
+            row["breakdown"] = device_breakdown(run, top=5)
             print("    its kernels: " + (row["breakdown"] if isinstance(
                 row["breakdown"], str) else ", ".join(
                     f"{n.split('(')[0].split()[-1]} {ms:.3f} ms"
@@ -991,7 +1149,7 @@ def serve_phase(dev) -> dict:
 
 
 def unfused_kernel_phase(dev, totals: dict, rows: list, batch: int,
-                         summed: bool, parents=None) -> None:
+                         summed: bool) -> None:
     """The unfused PACKED kernels at the eight binary layers of the Table
     2 forward at ``batch``: ``pack_rows`` on the transposed ``[B*HW, K]``
     patch matrix (read in place; timed with a cold L2, see ``graph_ms``),
@@ -1000,8 +1158,7 @@ def unfused_kernel_phase(dev, totals: dict, rows: list, batch: int,
     ``direct_conv`` at the five convs. Inputs in [-1, 1] with some 0.0
     and -0.0, as the clipped activations the layers encode. ``summed``:
     these are the main path's shapes, whose times make the kernels'
-    totals. ``parents``: the parent commit's launchers
-    (``finish_parent_build``), timed beside ``unpack_gemm``."""
+    totals."""
     from repro_torch.core import bitops
     from repro_torch.kernels import ops
 
@@ -1049,12 +1206,10 @@ def unfused_kernel_phase(dev, totals: dict, rows: list, batch: int,
             fail(f"unpack_gemm {label}{tag}: {bad} outputs on real input outside "
                  "rtol 1e-5 / atol 1e-4 of the float64-accumulated dot")
         wf = bitops.unpack_bits(wp, axis=-1)
-        parent = (parent_unpack(parents["unpack_gemm"], wp, xpt)
-                  if isinstance(parents, dict) else None)
         row = record(totals["unpack_gemm"], "unpack_gemm", f"{label} [{m},{k}]x[{k},{n}]",
                      err, run, twin, lambda: torch.matmul(wf, xpt),  # noqa: B023
                      (m * k // 32 + k * n + m * n) * 4, 2 * m * n * k,
-                     summed=summed, parent=parent)
+                     summed=summed)
         row["real_input_max_abs_err"] = float(dev_err.max())
         totals["unpack_gemm"]["real_input_max_abs_err"] = max(
             totals["unpack_gemm"].get("real_input_max_abs_err", 0.0),
@@ -1086,11 +1241,11 @@ def unfused_kernel_phase(dev, totals: dict, rows: list, batch: int,
 DECODE_CASE = ("jamba decode", 8192, 8192, 4)
 
 
-def unpack_decode_phase(dev, totals: dict, rows: list, parents=None) -> None:
+def unpack_decode_phase(dev, totals: dict, rows: list) -> None:
     """``unpack_gemm`` at ``DECODE_CASE``: exact on ±1/0 input, within
     rtol 1e-5 / atol 1e-4 of the float64 dot on real input in [-1, 1];
-    timed beside bf16 ``torch.matmul`` on the unpacked bf16 weights (and
-    the parent's kernel). Off the main path: not summed."""
+    timed beside bf16 ``torch.matmul`` on the unpacked bf16 weights. Off
+    the main path: not summed."""
     from repro_torch.core import bitops
     from repro_torch.kernels import ops
 
@@ -1115,12 +1270,10 @@ def unpack_decode_phase(dev, totals: dict, rows: list, parents=None) -> None:
         fail(f"unpack_gemm {label}: {bad} outputs on real input outside "
              "rtol 1e-5 / atol 1e-4 of the float64-accumulated dot")
     wb = bitops.unpack_bits(wp, axis=-1, dtype=torch.bfloat16)
-    parent = (parent_unpack(parents["unpack_gemm"], wp, xpt)
-              if isinstance(parents, dict) else None)
     row = record(totals["unpack_gemm"], "unpack_gemm",
                  f"{label} [{m},{k}]x[{k},{n}] bf16", err, run, twin,
                  lambda: torch.matmul(wb, xpt), m * k // 8 + k * n * 2 + m * n * 4,
-                 2 * m * n * k, summed=False, parent=parent)
+                 2 * m * n * k, summed=False)
     row["real_input_max_abs_err"] = float(dev_err.max())
     rows.append(row)
 
@@ -1719,8 +1872,9 @@ def lm_phase(dev, cases=LM_CASES, seq: int = LM_SEQ) -> dict:
             fail(f"{arch}: {len(errors)} {kernel} calls checked, loss {total}")
         res.update(launches=launches, loss=loss, total=total,
                    calls_checked=len(errors),
-                   calls_max_abs_err=max(e["max_abs_err"] if isinstance(e, dict)
-                                         else e for e in errors))
+                   calls_max_abs_err=max(e["max_abs_err"] for e in errors))
+        if kernel == "mlstm_chunked":
+            res["calls_max_of_limit"] = max(e["max_of_limit"] for e in errors)
         if kernel == "flash_attention":
             res.update(calls_max_row_ulps=max(e["max_row_ulps"] for e in errors),
                        calls_max_elem_ulps=max(e["max_elem_ulps"] for e in errors),
@@ -1769,6 +1923,8 @@ def lm_phase(dev, cases=LM_CASES, seq: int = LM_SEQ) -> dict:
                  f"{res['calls_max_elem_ulps']:.2f} own ulps, at most "
                  f"{res['calls_max_share_past_own_ulp']:.2e} of a call past one)"
                  if "calls_max_row_ulps" in res else "")
+              + (f" ({res['calls_max_of_limit']:.2f} of the limit)"
+                 if "calls_max_of_limit" in res else "")
               + f"; twin path loss {loss_t:.6f} (|diff| {res['loss_diff']:.3g}), "
               f"max |logit diff| {lg['max_abs_diff']:.3g} by position "
               f"{lg['by_position']} (|logits| up to {lg['abs_max']:.3g}, "
@@ -1844,9 +2000,9 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--parent-src", default=None,
-        help="directory holding the parent commit's flash_attention.cu and "
-             "unpack_gemm.cu, timed beside the kernels (default: git show "
-             "HEAD~1; not measured without either)")
+        help="directory holding the parent commit's " + ", ".join(
+            f"{name}.cu" for name in PARENT_KERNELS) + ", timed beside the "
+             "kernels (default: git show HEAD~1; not measured without either)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
@@ -1868,6 +2024,7 @@ def main() -> None:
           f"python {sys.version.split()[0]}", flush=True)
 
     parent_procs = start_parent_build(args.parent_src)
+    loop_procs = start_xnor_loop_build()
     info = build.build()
     parents = finish_parent_build(parent_procs)
     print(f"kernel build: {info['seconds']:.1f} s ({', '.join(info['built']) or 'cached'})"
@@ -1880,16 +2037,17 @@ def main() -> None:
             if "registers" in line or "Compiling entry" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    print("phase 3: kernels vs plain twins at their main paths' shapes "
-          "(bit-exact)", flush=True)
-    totals, rows = kernel_phase(dev)
+    print("phase 3: the packed product's inner loops, then kernels vs plain "
+          "twins at their main paths' shapes (bit-exact)", flush=True)
+    xnor_loops = xnor_loop_rates(loop_procs)
+    totals, rows = kernel_phase(dev, parents)
     megakernel_phase(dev, totals, rows)
     # The Table 2 forward's own shapes (its batch) make the totals; the
     # batch-32 shapes are checked and timed beside them.
     unfused_kernel_phase(dev, totals, rows, BNNExperiment("table2").batch,
-                         summed=True, parents=parents)
+                         summed=True)
     unfused_kernel_phase(dev, totals, rows, BATCH, summed=False)
-    unpack_decode_phase(dev, totals, rows, parents)
+    unpack_decode_phase(dev, totals, rows)
     scan_phase(dev, totals, rows)
     attention_phase(dev, totals, rows, parents)
     print("phase 4: serving on the trained checkpoint", flush=True)
@@ -1916,7 +2074,8 @@ def main() -> None:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "build_s": info["seconds"], "shapes": rows, "serve": serve,
+         "build_s": info["seconds"], "xnor_loops": xnor_loops, "shapes": rows,
+         "serve": serve,
          "table2": table2, "jamba": jamba, "lm_loss": lm, "totals": totals},
         indent=2))
 
@@ -1924,7 +2083,7 @@ def main() -> None:
     for name, (source, replaces) in KERNELS.items():
         t = totals[name]
         t_bytes = t["bytes"] / HBM_BYTES_PER_S
-        t_ops = t["ops"] / OPS_RATE.get(name, INT8_OPS_PER_S)
+        t_ops = t["ops"] / OPS_RATE.get(name, B1_OPS_PER_S)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -1937,7 +2096,7 @@ def main() -> None:
             "library_ms": t["library_ms"],
         })
         for extra in ("per_layer_ms", "real_input_max_abs_err",
-                      "fp32_bound_ms", "parent_ms"):
+                      "fp32_bound_ms", "tc_bound_ms", "parent_ms"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
     print(json.dumps({"kernels": kernels}))

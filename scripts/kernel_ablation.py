@@ -8,8 +8,9 @@ variants of a source in ``src/repro_torch/kernels/csrc`` with textual
 edits (``ABLATIONS``; most give wrong results and are only timed), and
 times each beside the unedited source at the main path's shapes, in turns
 (A B ... B A) on one card. A part's cost is the time it takes away. It
-also measures the tensor cores' ``mma.sync`` m16n8k16 bf16 rate, the
-ceiling of both kernels' products. Prints one line per shape and writes
+also measures the tensor cores' ``mma.sync`` rates: m16n8k16 bf16, the
+ceiling of flash's and unpack_gemm's products, and m16n8k8 tf32, whose
+third is the ceiling of the mLSTM's 3xTF32 products. Prints one line per shape and writes
 ``build/kernel_ablation.json``. Needs CUDA and ``nvcc``; imports no JAX.
 """
 
@@ -47,6 +48,13 @@ ABLATIONS = {
           pf[j / 2][(j & 1) * 2] = pack_bf16x2(s[j][0], s[j][1]);
           pf[j / 2][(j & 1) * 2 + 1] = pack_bf16x2(s[j][2], s[j][3]);
         }""")],
+    },
+    "mlstm_chunk": {
+        "1xTF32 (a_hi b_hi only)": [
+            ("        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mp + m2][nt], al[m2], "
+             "bh[nt][0], bh[nt][1]);", "        for (int nt = 0; nt < 0; ++nt) {}"),
+            ("        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mp + m2][nt], ah[m2], "
+             "bl[nt][0], bl[nt][1]);", "        for (int nt = 0; nt < 0; ++nt) {}")],
     },
     "unpack_gemm": {
         "no Kahan (plain +=)": [(
@@ -89,6 +97,29 @@ __global__ void hmma_loop(float* out, int iters) {
 }
 extern "C" int run_hmma(float* out, int blocks, int threads, int iters) {
   hmma_loop<<<blocks, threads>>>(out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+// iters x 16 independent m16n8k8 tf32 products per warp.
+__global__ void tmma_loop(float* out, int iters) {
+  float c[16][4] = {};
+  const uint32_t a0 = threadIdx.x << 13, a1 = a0 * 3, a2 = a0 * 5, a3 = a0 * 7;
+  const uint32_t b0 = 0x3f800000u, b1 = b0 + (1u << 13);
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+          "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+          : "+f"(c[i][0]), "+f"(c[i][1]), "+f"(c[i][2]), "+f"(c[i][3])
+          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    }
+  }
+  float s = 0.f;
+  for (int i = 0; i < 16; ++i) s += c[i][0] + c[i][1] + c[i][2] + c[i][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int run_tmma(float* out, int blocks, int threads, int iters) {
+  tmma_loop<<<blocks, threads>>>(out, iters);
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -175,6 +206,27 @@ def unpack_cases(dev):
     return cases
 
 
+def mlstm_cases(dev):
+    """xlstm-1.3b's training shape, [8, 4096, 1024, 1024] chunk 256."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    bh, s, dk, dv, ln = 8, 4096, 1024, 1024, 256
+    nc = s // ln
+    q, k = (torch.randn((bh, s, dk), generator=gen, device=dev) for _ in range(2))
+    v = torch.randn((bh, s, dv), generator=gen, device=dev)
+    logi = torch.randn((bh, s), generator=gen, device=dev)
+    logf = torch.nn.functional.logsigmoid(torch.randn((bh, s), generator=gen, device=dev) + 2)
+    f32 = dict(dtype=torch.float32, device=dev)
+    bufs = [torch.empty(shape, **f32) for shape in (
+        (bh, s, dv), (bh, dk, dv), (bh, dk), (bh,), (bh, nc, ln, ln), (bh, s), (bh, s),
+        (bh, s), (bh, s), (bh, nc), (bh, nc, 2), (bh, nc - 1, dk, dv), (bh, nc - 1, dk))]
+
+    def make(path):
+        fn = launcher(path, "repro_mlstm_chunked")
+        return lambda: fn(*(t.data_ptr() for t in (q, k, v, logi, logf, *bufs)),
+                          bh, s, ln, dk, dv, torch.cuda.current_stream().cuda_stream)
+    return [(f"xlstm layer [{bh},{s},{dk},{dv}] L{ln}", make)]
+
+
 def mma_rate() -> list:
     d = OUT / "mma"
     d.mkdir(parents=True, exist_ok=True)
@@ -182,20 +234,23 @@ def mma_rate() -> list:
     subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(d / "mma.so"),
                     str(d / "mma.cu")], check=True, capture_output=True)
     lib = ctypes.CDLL(str(d / "mma.so"))
-    lib.run_hmma.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = torch.empty(sms * 2 * 512, device="cuda")
     rows = []
-    for blocks, threads in [(sms, 128), (sms, 256), (2 * sms, 256)]:
-        iters = 4096
-        lib.run_hmma(out.data_ptr(), blocks, threads, iters)
-        ms = chip_smoke.time_ms(lambda: lib.run_hmma(out.data_ptr(), blocks, threads,  # noqa: B023
-                                                     iters), iters=1)
-        flops = blocks * threads // 32 * iters * 16 * 2 * 16 * 8 * 16
-        rows.append({"blocks": blocks, "threads": threads, "ms": ms,
-                     "tflops": flops / ms / 1e9})
-        print(f"  mma.sync m16n8k16 bf16, {blocks} blocks x {threads} threads: "
-              f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+    # (launcher, shape, k of one mma)
+    for fn, what, k in ((lib.run_hmma, "m16n8k16 bf16", 16),
+                        (lib.run_tmma, "m16n8k8 tf32", 8)):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        for blocks, threads in [(sms, 128), (sms, 256), (2 * sms, 256)]:
+            iters = 4096
+            fn(out.data_ptr(), blocks, threads, iters)
+            ms = chip_smoke.time_ms(lambda: fn(out.data_ptr(), blocks, threads,  # noqa: B023
+                                               iters), iters=1)
+            flops = blocks * threads // 32 * iters * 16 * 2 * 16 * 8 * k
+            rows.append({"mma": what, "blocks": blocks, "threads": threads,
+                         "ms": ms, "tflops": flops / ms / 1e9})
+            print(f"  mma.sync {what}, {blocks} blocks x {threads} threads: "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
     return rows
 
 
@@ -214,7 +269,8 @@ def main() -> None:
     libs = compile_variants()
     result = {"device": smi, "mma_sync": mma_rate(), "kernels": {}}
     for source, cases in (("flash_attention", flash_cases(dev)),
-                          ("unpack_gemm", unpack_cases(dev))):
+                          ("unpack_gemm", unpack_cases(dev)),
+                          ("mlstm_chunk", mlstm_cases(dev))):
         variants = [v for (s, v) in libs if s == source]
         result["kernels"][source] = {}
         for label, make in cases:

@@ -37,7 +37,10 @@ _F = ctypes.c_float
 # cudaGetLastError() as an int.
 _SIGNATURES = {
     "repro_xnor_gemm": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "repro_fused_xnor_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (w, x, a, b, out, partial, M, KW, N, k_bits, splits, stream)
+    "repro_fused_xnor_gemm": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # (M, KW, N) -> K splits (scratch [splits, N, M] int32 when above 1)
+    "repro_fused_xnor_gemm_splits": (_I, _I, _I),
     "repro_fused_direct_conv": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # (x, w, out, N, Hp, Wp, CW, D, kh, kw, stride, k_bits, stream)
@@ -69,12 +72,14 @@ _SIGNATURES = {
     # (q, k, v, out, BH, Sq, Skv, Dh, causal, is_bf16, scale, stream)
     "repro_flash_attention": (_P,) * 4 + (_I,) * 6 + (_F, _P),
     # (q, k, v, logi, logf, y, C, n, m, then the scratch sw, g, m_loc,
-    #  inter, wk, decay; BH, S, L, dk, dv, stream)
-    "repro_mlstm_chunked": (_P,) * 15 + (_I,) * 5 + (_P,),
+    #  inter, wk, decay, chunk ends, states, n states; BH, S, L, dk, dv,
+    #  stream)
+    "repro_mlstm_chunked": (_P,) * 18 + (_I,) * 5 + (_P,),
 }
 _LIB_OF = {
     "repro_xnor_gemm": "xnor_gemm",
     "repro_fused_xnor_gemm": "fused_gemm",
+    "repro_fused_xnor_gemm_splits": "fused_gemm",
     "repro_fused_direct_conv": "direct_conv",
     "repro_fused_direct_conv_smem_bytes": "direct_conv",
     "repro_direct_conv_dot": "direct_conv",

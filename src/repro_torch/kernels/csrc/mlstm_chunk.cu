@@ -12,36 +12,64 @@
 // float32 contiguous -> y [BH, S, dv], C [BH, dk, dv], n [BH, dk], m [BH].
 //
 // Replaces the Pallas kernel `mlstm_chunked` (src/repro/kernels/mlstm_chunk.py,
-// pallas_call at :112). Plain twin: repro_torch.kernels.ref.mlstm_chunked_ref.
+// pallas_call at :112). Plain twin: repro_torch.kernels.ref.mlstm_chunked_ref;
+// the decomposition below, as plain torch: ref.mlstm_chunked_states_ref.
 //
 // Bound on the H100 at the xlstm-1.3b training shape (BH 8, S 4096, dk = dv
-// 1024, L 256, 16 chunks): operations. Per (bh, chunk) 2L^2(dk + dv) +
-// 4L dk dv = 1.34 GFLOP, 172 GFLOP in all = 2.56 ms at 67 TFLOP/s (float32
-// on the CUDA cores); the operands are 0.4 GB = 0.12 ms at 3.35 TB/s.
+// 1024, L 256, 16 chunks): operations. Per (bh, chunk) L(L+1)(dk + dv)
+// (the causal q k^T and S v) + 4 L dk dv (q C and the update of C), 155
+// GFLOP in all = 2.31 ms at 67 TFLOP/s (float32 on the CUDA cores, the
+// rate of the reference's arithmetic); the operands are 0.4 GB = 0.12 ms
+// at 3.35 TB/s.
 //
-// Design. The TPU kernel keeps C [dk, dv] resident in VMEM along the
-// sequential chunk axis of its grid, one (bh) per core. At dk = dv = 1024
-// C is 4 MiB, 18x an SM's shared memory, and BH = 8 would leave 124 of 132
-// SMs idle. Three kernels, launched back to back:
-//  1. gates (one block per bh): the sequential cumsum, g, M and the
-//     stabilizer chain over chunks, a scalar recurrence that does not depend
-//     on C; writes g, m_loc, exp(m - m_loc), exp(g - m_L) per step and
-//     exp(m - m_L) per chunk, and the final m.
-//  2. intra (one block per bh, chunk and 64 rows): S[t, j] = (q_t . k_j) *
-//     exp(g_j - m_loc_t) for j <= t, else 0, the chunk's [L, L] weights,
-//     into a scratch buffer: every chunk at once, no carry involved.
-//  3. recurrence (one block per bh and 32 columns of v): the block holds
-//     its [dk, 32] slice of C and all of n in shared memory (132 KB at dk
-//     1024) through all chunks, 8 * 32 = 256 blocks. Per chunk: q C and
-//     q . n (q staged 32 dims at a time), S v and the row sums of S, then
-//     y, then C and n advanced by (k exp(g - m_L))^T v; each thread owns an
-//     8 x 4 tile of the output and sums with fma chains over the
-//     contraction. n (the ones column) is recomputed by every block: 3% of
-//     the work, and no block waits on another.
-// Rounding follows the reference's operations: separate roundings
-// (__fmul_rn / __fadd_rn) where it multiplies and adds separately; the
-// dot products sum in another order than torch.matmul.
-#include <cuda_runtime.h>
+// Design. The recurrence over chunks is only the elementwise
+// C_{c+1} = dec_c C_c + U_c with U_c = (k_c w_c)^T v_c: none of the
+// products depends on it. So the products run over every (bh, chunk) at
+// once, as in the xLSTM authors' chunkwise kernels (TFLA), in five
+// launches:
+//  1. gates_chunk, one block per (chunk, bh): the chunk's sequential cumsum
+//     b (one thread, the twin's order), g = logi - b and its running max M
+//     (a block scan: max is exact in any order).
+//  2. gates_chain, one block per (chunk, bh): the stabilizer chain over the
+//     chunks before it (one thread, the twin's order), then m_loc,
+//     exp(m - m_loc), exp(g - m_L) per step, exp(m - m_L) per chunk, and
+//     the final m.
+//  3. intra, one block per (128 x 128 tile of the chunk's [L, L] weights,
+//     chunk, bh): S[t, j] = (q_t . k_j) exp(g_j - m_loc_t) for j <= t, else
+//     0, into a scratch buffer; tiles wholly above the diagonal are not
+//     computed (and never read).
+//  4. states, one block per (128 columns of v, 128 rows of dk, bh): walks
+//     the chunks in order with its tile of C in registers, computes U_c
+//     (k scaled by exp(g - m_L) in its fragments), folds it in and
+//     writes the state entering each later chunk to scratch
+//     [BH, nc - 1, dk, dv] (n's to [BH, nc - 1, dk]), then the final C, n.
+//     C and U take 128 registers a thread: one block an SM.
+//  5. outputs, one block per (128 columns of v, 128 rows of the chunk,
+//     chunk x bh), all independent: q C_c with q . n_c (none for chunk 0,
+//     whose state is zero), (q C_c) exp(m - m_loc) parked in y, then S v
+//     with S's row sums, then y.
+// Every product (3-5) runs on the tensor cores as 3xTF32: each float32
+// operand split into two tf32 halves (hi, lo), a_hi b_hi + a_hi b_lo +
+// a_lo b_hi by mma.sync m16n8k8, float32 accumulation; each product is
+// within ~2^-21 of the float32 one, and the sums run in another order than
+// torch.matmul's, as any float32 GEMM's would. The tensor cores' float32
+// accumulation truncates, so a sum over dk (S, q C) would drift by up to
+// an ulp of its running value at each mma: kernels 3 and 5 add each
+// 32-deep slab's partial to a total rounded to nearest (flush_acc), which
+// takes them to 128 registers a thread and one block an SM (PERF.md has
+// the error and time on an H100 with and without it); the states' sums
+// run over one chunk, U from zero each time. Each product is
+// one loop over 32-deep slabs of its contraction: a 3-stage cp.async ring
+// (the next slab in flight during this one's math, one barrier a slab),
+// 128 x 128 block tiles, 64 x 32 warp tiles; operands land as they are
+// stored in memory: a K-contiguous operand (q, k in S, S) as rows of 36
+// floats (ldmatrix's 16-byte rows of 8 neighbours hit distinct banks),
+// the others as rows of 136 (8 mod 32: a fragment's 32 elements, k = t
+// and n = g, one conflict-free load).
+// Rounding elsewhere follows the reference's operations: separate
+// roundings (__fmul_rn / __fadd_rn) where it multiplies and adds
+// separately.
+#include "mma.cuh"
 
 namespace repro_torch {
 
@@ -49,436 +77,616 @@ constexpr float kMlNeg = -1e30f;
 // -inf: the start of a running max.
 #define REPRO_NEG_INF __int_as_float(0xff800000)
 constexpr int kMlThreads = 256;
-constexpr int kMlMaxL = 256;    // longest chunk
-constexpr int kMlMaxDk = 1024;  // widest key the recurrence block holds
-constexpr int kMlMaxChunks = 1024;
-constexpr int kMlRows = 64;     // rows of S per intra block
-constexpr int kMlSlice = 32;    // contraction slice staged in shared memory
-constexpr int kMlTv = 32;       // columns of v (and C) per recurrence block
-constexpr int kMlLdq = kMlRows + 4;
-constexpr int kMlLds = kMlMaxL + 4;
+constexpr int kMlMaxL = 256;        // longest chunk (two row tiles)
+constexpr int kMlMaxChunks = 1024;  // chunks the chain stages in shared memory
+constexpr int kMlTile = 128;        // rows and columns of a block's output tile
+constexpr int kMlSlab = 32;         // contraction depth of one stage
+constexpr int kMlStages = 3;
+constexpr int kMlLdk = kMlSlab + 4;   // stride of a K-contiguous slab: 4 mod 32
+constexpr int kMlLdn = kMlTile + 8;   // stride of a [k][128] slab: 8 mod 32
+constexpr int kMlOperand = kMlTile * kMlLdk;    // floats of one operand's stage
+constexpr int kMlStage = 2 * kMlOperand + kMlSlab;  // A, B and a vector (n)
+constexpr size_t kMlRingBytes = sizeof(float) * kMlStages * kMlStage;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// Slab [rows 0..127][k0, k0 + 32) of an operand whose k is contiguous
+// (row stride ld, from `src`, rows past `rows` and k past `k_end` zero)
+// into dst[row][kk] (stride kMlLdk). 16 bytes a copy, 4 a thread.
+__device__ __forceinline__ void load_kc(float* dst, const float* src,
+                                        long long ld, int rows, int k0,
+                                        int k_end) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int idx = threadIdx.x + q * kMlThreads;
+    const int r = idx >> 3, kk = (idx & 7) * 4;
+    const bool ok = r < rows && k0 + kk < k_end;
+    cp_async16(dst + r * kMlLdk + kk, ok ? src + r * ld + k0 + kk : src,
+               ok ? 16 : 0);
+  }
 }
 
-__device__ __forceinline__ void put_t(float* st, int ld, int row0, int col,
-                                      float4 val) {
-  st[(row0 + 0) * ld + col] = val.x;
-  st[(row0 + 1) * ld + col] = val.y;
-  st[(row0 + 2) * ld + col] = val.z;
-  st[(row0 + 3) * ld + col] = val.w;
+// Slab [k0, k0 + 32) x [columns 0..127] of an operand whose columns are
+// contiguous (row stride ld; columns past `cols` and k past `k_end` zero)
+// into dst[kk][col] (stride kMlLdn).
+__device__ __forceinline__ void load_mn(float* dst, const float* src,
+                                        long long ld, int cols, int k0,
+                                        int k_end) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int idx = threadIdx.x + q * kMlThreads;
+    const int kk = idx >> 5, cc = (idx & 31) * 4;
+    const bool ok = cc < cols && k0 + kk < k_end;
+    cp_async16(dst + kk * kMlLdn + cc,
+               ok ? src + static_cast<long long>(k0 + kk) * ld + cc : src,
+               ok ? 16 : 0);
+  }
 }
 
-// --- 1. gates --------------------------------------------------------------
-__global__ void __launch_bounds__(kMlThreads)
-mlstm_gates_kernel(const float* __restrict__ logi, const float* __restrict__ logf,
-                   float* __restrict__ g, float* __restrict__ m_loc,
-                   float* __restrict__ inter, float* __restrict__ wk,
-                   float* __restrict__ decay, float* __restrict__ m_out, int S,
-                   int L) {
-  __shared__ float b_last[kMlMaxChunks], big_m_last[kMlMaxChunks],
-      m_prev[kMlMaxChunks];
-  const int bh = blockIdx.x, nc = S / L;
-  const long long base = static_cast<long long>(bh) * S;
-  for (int c = threadIdx.x; c < nc; c += kMlThreads) {
-    float b = 0.f, big_m = REPRO_NEG_INF;
-    for (int t = 0; t < L; ++t) {
-      const long long i = base + static_cast<long long>(c) * L + t;
-      b = __fadd_rn(b, logf[i]);
-      const float gv = __fsub_rn(logi[i], b);
-      g[i] = gv;
-      big_m = fmaxf(big_m, gv);
+// x = hi + lo + r, hi and lo tf32 (10 stored mantissa bits each, rounded
+// to nearest), |r| <= 2^-22 |x|: x - hi is exact in float32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(__fsub_rn(x, __uint_as_float(hi))));
+}
+
+// c += A . B on the tensor cores, tf32 inputs, float32 accumulation.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A warp's 64 x 32 share of the block's 128 x 128 tile: warp w takes rows
+// 64 (w / 4).. and columns 32 (w % 4)..; acc[mt][nt] is the m16n8 tile
+// (mt, nt) in mma.sync's C layout (lane 4g + t: rows g, g + 8, columns
+// 2t, 2t + 1).
+using Acc = float[4][4][4];
+
+// Row and column (in the block's tile) of acc[mt][nt][e].
+__device__ __forceinline__ int frag_row(int mt, int e) {
+  return (threadIdx.x >> 7) * 64 + mt * 16 + ((threadIdx.x & 31) >> 2) + (e >> 1) * 8;
+}
+__device__ __forceinline__ int frag_col(int nt, int e) {
+  return ((threadIdx.x >> 5) & 3) * 32 + nt * 8 + 2 * (threadIdx.x & 3) + (e & 1);
+}
+
+__device__ __forceinline__ void zero_acc(Acc& acc) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// total += part, rounded to nearest; part = 0. The tensor cores' float32
+// accumulation truncates, so a long contraction accumulated there drifts
+// by up to an ulp of its running sum at each step: sums over more than
+// one slab are carried here instead.
+__device__ __forceinline__ void flush_acc(Acc& total, Acc& part) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        total[i][j][e] = __fadd_rn(total[i][j][e], part[i][j][e]);
+        part[i][j][e] = 0.f;
+      }
+}
+
+// acc += A . B over the slab's 32 k, as 3xTF32 on the tensor cores:
+// a_lo b_hi + a_hi b_lo + a_hi b_hi, each product of float32 operands to
+// within ~2^-21 of itself (a_lo b_lo and the remainders dropped); each
+// pass runs over 8 tiles before the next touches an accumulator again, so
+// the mma latency is hidden. A is K-contiguous ([128][kMlLdk]: ldmatrix)
+// or not ([32][kMlLdn]: one conflict-free load an element, the stride 8
+// mod 32); B likewise ([128 n][kMlLdk] or [32][kMlLdn]). `wa` (or null):
+// A's element at k is first multiplied by wa[k], one rounding, as the
+// twin's k * wk.
+template <bool kAKc, bool kBKc>
+__device__ __forceinline__ void slab_mma(const float* __restrict__ As,
+                                         const float* __restrict__ Bs,
+                                         const float* __restrict__ wa, Acc& acc) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = (threadIdx.x >> 7) * 64, col0 = ((threadIdx.x >> 5) & 3) * 32;
+#pragma unroll
+  for (int kk = 0; kk < kMlSlab; kk += 8) {
+    uint32_t bh[4][2], bl[4][2];
+    if constexpr (kBKc) {
+      // ldmatrix.x4 of rows n: r = (b0, b1) of n-tile 2p, then of 2p + 1
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        uint32_t r[4];
+        ldmatrix_x4(r, Bs + (col0 + p * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * kMlLdk +
+                           kk + ((lane >> 3) & 1) * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split_tf32(__uint_as_float(r[i]), bh[2 * p + (i >> 1)][i & 1],
+                     bl[2 * p + (i >> 1)][i & 1]);
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float* p = Bs + (kk + t) * kMlLdn + col0 + nt * 8 + g;
+        split_tf32(p[0], bh[nt][0], bl[nt][0]);
+        split_tf32(p[4 * kMlLdn], bh[nt][1], bl[nt][1]);
+      }
     }
-    b_last[c] = b;
-    big_m_last[c] = big_m;
+    const float w0 = wa != nullptr ? wa[kk + t] : 1.f;
+    const float w1 = wa != nullptr ? wa[kk + t + 4] : 1.f;
+#pragma unroll
+    for (int mp = 0; mp < 4; mp += 2) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int m2 = 0; m2 < 2; ++m2) {
+        const int mt = mp + m2;
+        float av[4];
+        if constexpr (kAKc) {
+          uint32_t r[4];
+          ldmatrix_x4(r, As + (row0 + mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kMlLdk +
+                             kk + (lane >> 4) * 4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) av[i] = __uint_as_float(r[i]);
+        } else {
+          const float* p = As + (kk + t) * kMlLdn + row0 + mt * 16 + g;
+          av[0] = p[0];
+          av[1] = p[8];
+          av[2] = p[4 * kMlLdn];
+          av[3] = p[4 * kMlLdn + 8];
+        }
+        if (wa != nullptr) {  // a0, a1 at k = kk + t; a2, a3 at kk + t + 4
+          av[0] = __fmul_rn(av[0], w0);
+          av[1] = __fmul_rn(av[1], w0);
+          av[2] = __fmul_rn(av[2], w1);
+          av[3] = __fmul_rn(av[3], w1);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(av[i], ah[m2][i], al[m2][i]);
+      }
+#pragma unroll
+      for (int m2 = 0; m2 < 2; ++m2)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mp + m2][nt], al[m2], bh[nt][0], bh[nt][1]);
+#pragma unroll
+      for (int m2 = 0; m2 < 2; ++m2)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mp + m2][nt], ah[m2], bl[nt][0], bl[nt][1]);
+#pragma unroll
+      for (int m2 = 0; m2 < 2; ++m2)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mp + m2][nt], ah[m2], bh[nt][0], bh[nt][1]);
+    }
+  }
+}
+
+// --- 1. gates within a chunk -----------------------------------------------
+// g [BH, S]; big_m [BH, S] (the running max of g; m_loc's buffer, which
+// gates_chain turns into m_loc in place); bm [BH, nc, 2] = (b, M) at the
+// chunk's last step.
+__global__ void __launch_bounds__(kMlThreads)
+mlstm_gates_chunk_kernel(const float* __restrict__ logi,
+                         const float* __restrict__ logf, float* __restrict__ g,
+                         float* __restrict__ big_m, float* __restrict__ bm,
+                         int S, int L) {
+  __shared__ float run[kMlMaxL];
+  __shared__ float warp_max[kMlThreads / 32];
+  const int c = blockIdx.x, bh = blockIdx.y, nc = S / L;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long base = static_cast<long long>(bh) * S + static_cast<long long>(c) * L;
+  if (t < L) run[t] = logf[base + t];
+  __syncthreads();
+  if (t == 0) {
+    float b = 0.f;
+    for (int i = 0; i < L; ++i) {
+      b = __fadd_rn(b, run[i]);
+      run[i] = b;
+    }
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
+  float gv = REPRO_NEG_INF;
+  if (t < L) {
+    gv = __fsub_rn(logi[base + t], run[t]);
+    g[base + t] = gv;
+  }
+  float mx = gv;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, mx, o);
+    if (lane >= o) mx = fmaxf(mx, u);
+  }
+  if (lane == 31) warp_max[warp] = mx;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) mx = fmaxf(mx, warp_max[w]);
+  if (t < L) big_m[base + t] = mx;
+  if (t == L - 1) {
+    const long long i = 2 * (static_cast<long long>(bh) * nc + c);
+    bm[i] = run[L - 1];
+    bm[i + 1] = mx;
+  }
+}
+
+// --- 2. the stabilizer chain over chunks -------------------------------------
+__global__ void __launch_bounds__(kMlThreads)
+mlstm_gates_chain_kernel(const float* __restrict__ g, float* __restrict__ m_loc,
+                         const float* __restrict__ bm, float* __restrict__ inter,
+                         float* __restrict__ wk, float* __restrict__ decay,
+                         float* __restrict__ m_out, int S, int L) {
+  __shared__ float chain[2 * kMlMaxChunks];
+  __shared__ float m_prev;
+  const int c = blockIdx.x, bh = blockIdx.y, nc = S / L, t = threadIdx.x;
+  const float* bmb = bm + 2 * static_cast<long long>(bh) * nc;
+  for (int i = t; i < 2 * (c + 1); i += kMlThreads) chain[i] = bmb[i];
+  __syncthreads();
+  if (t == 0) {
     float m = kMlNeg;
-    for (int c = 0; c < nc; ++c) {
-      m_prev[c] = m;
-      m = __fadd_rn(b_last[c], fmaxf(big_m_last[c], m));
-    }
-    m_out[bh] = m;
+    for (int cc = 0; cc < c; ++cc) m = __fadd_rn(chain[2 * cc], fmaxf(chain[2 * cc + 1], m));
+    m_prev = m;
+    if (c == nc - 1) m_out[bh] = __fadd_rn(chain[2 * c], fmaxf(chain[2 * c + 1], m));
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < nc; c += kMlThreads) {
-    const float mp = m_prev[c];
-    const float m_l = fmaxf(big_m_last[c], mp);
-    decay[static_cast<long long>(bh) * nc + c] = expf(__fsub_rn(mp, m_l));
-    float big_m = REPRO_NEG_INF;
-    for (int t = 0; t < L; ++t) {
-      const long long i = base + static_cast<long long>(c) * L + t;
-      const float gv = g[i];
-      big_m = fmaxf(big_m, gv);
-      const float ml = fmaxf(big_m, mp);
-      m_loc[i] = ml;
-      inter[i] = expf(__fsub_rn(mp, ml));
-      wk[i] = expf(__fsub_rn(gv, m_l));
-    }
+  const float mp = m_prev;
+  const float m_l = fmaxf(chain[2 * c + 1], mp);
+  if (t == 0) decay[static_cast<long long>(bh) * nc + c] = expf(__fsub_rn(mp, m_l));
+  if (t < L) {
+    const long long i = static_cast<long long>(bh) * S + static_cast<long long>(c) * L + t;
+    const float ml = fmaxf(m_loc[i], mp);
+    m_loc[i] = ml;
+    inter[i] = expf(__fsub_rn(mp, ml));
+    wk[i] = expf(__fsub_rn(g[i], m_l));
   }
 }
 
-// --- 2. intra-chunk weights S ---------------------------------------------
-// Block (row tile, chunk, bh); thread: rows 8*(tid % 8).., columns
-// 8*(tid / 8)..; a warp covers 32 columns of all 64 rows and skips the
-// contraction when they all lie above the tile's last row.
-__global__ void __launch_bounds__(kMlThreads)
+// --- 3. intra-chunk weights S ---------------------------------------------
+// Block (tile, chunk, bh); tile 0 = rows and columns [0, 128), and for
+// L > 128 tile 1 = (rows [128, L), columns [0, 128)), tile 2 = both [128, L).
+__global__ void __launch_bounds__(kMlThreads, 1)
 mlstm_intra_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ g, const float* __restrict__ m_loc,
                    float* __restrict__ sw, int S, int L, int dk) {
-  __shared__ __align__(16) float qs[kMlSlice * kMlLdq];
-  __shared__ __align__(16) float ks[kMlSlice * kMlLds];
-  const int t0 = blockIdx.x * kMlRows, c = blockIdx.y, bh = blockIdx.z;
-  const int nc = S / L;
+  extern __shared__ __align__(16) float ring[];
+  const int c = blockIdx.y, bh = blockIdx.z, nc = S / L;
+  const int t0 = blockIdx.x == 0 ? 0 : kMlTile, j0 = blockIdx.x == 2 ? kMlTile : 0;
   const long long row0 = static_cast<long long>(bh) * S + static_cast<long long>(c) * L;
-  const int tid = threadIdx.x, rg = tid % 8, cg = tid / 8, warp = tid / 32;
-  const int j_end = min(L, t0 + kMlRows);           // S[t, j] = 0 past it
-  const int j_stage = min(L, (j_end + 31) / 32 * 32);  // what active warps read
-  const bool active = warp * 32 < j_end;
-  float acc[8][8];
+  const int rows = min(kMlTile, L - t0), cols = min(kMlTile, L - j0);
+  const float* qa = q + (row0 + t0) * dk;
+  const float* kb = k + (row0 + j0) * dk;
+  Acc acc, slab;
+  zero_acc(acc);
+  zero_acc(slab);
+  const int slabs = (dk + kMlSlab - 1) / kMlSlab;
+  auto load = [&](int s) {
+    float* st = ring + (s % kMlStages) * kMlStage;
+    load_kc(st, qa, dk, rows, s * kMlSlab, dk);
+    load_kc(st + kMlOperand, kb, dk, cols, s * kMlSlab, dk);
+  };
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int d0 = 0; d0 < dk; d0 += kMlSlice) {
-    __syncthreads();
-    for (int i = tid; i < kMlRows * 8; i += kMlThreads) {
-      const int r = i / 8, dd = (i % 8) * 4;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t0 + r < L && d0 + dd < dk) val = load4(q + (row0 + t0 + r) * dk + d0 + dd);
-      put_t(qs, kMlLdq, dd, r, val);
-    }
-    for (int i = tid; i < kMlMaxL * 8; i += kMlThreads) {
-      const int j = i / 8, dd = (i % 8) * 4;
-      if (j >= ((j_stage + 31) / 32) * 32) break;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (j < j_stage && d0 + dd < dk) val = load4(k + (row0 + j) * dk + d0 + dd);
-      put_t(ks, kMlLds, dd, j, val);
-    }
-    __syncthreads();
-    if (active) {
-#pragma unroll 4
-      for (int dd = 0; dd < kMlSlice; ++dd) {
-        const float4 a0 = load4(qs + dd * kMlLdq + rg * 8);
-        const float4 a1 = load4(qs + dd * kMlLdq + rg * 8 + 4);
-        const float4 b0 = load4(ks + dd * kMlLds + cg * 8);
-        const float4 b1 = load4(ks + dd * kMlLds + cg * 8 + 4);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-    }
+  for (int s = 0; s < kMlStages - 1; ++s) {
+    if (s < slabs) load(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < slabs; ++s) {
+    cp_async_wait<kMlStages - 2>();
+    __syncthreads();  // slab s has landed; slab s - 1's stage is free
+    if (s + kMlStages - 1 < slabs) load(s + kMlStages - 1);
+    cp_async_commit();
+    const float* st = ring + (s % kMlStages) * kMlStage;
+    slab_mma<true, true>(st, st + kMlOperand, nullptr, slab);
+    flush_acc(acc, slab);
   }
   float* out = sw + (static_cast<long long>(bh) * nc + c) * L * L;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int t = t0 + rg * 8 + i;
-    if (t < L) {
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = t0 + frag_row(mt, 2 * h);
+      if (t >= L) continue;
       const float ml = m_loc[row0 + t];
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int j = cg * 8 + jj;
-        if (j < L) {
-          float val = 0.f;
-          if (j <= t) val = __fmul_rn(acc[i][jj], expf(__fsub_rn(g[row0 + j], ml)));
-          out[static_cast<long long>(t) * L + j] = val;
+      for (int nt = 0; nt < 4; ++nt) {
+        const int jj = j0 + frag_col(nt, 0);  // and jj + 1 (L is even)
+        if (jj >= L) continue;
+        float2 val = make_float2(0.f, 0.f);
+        if (jj <= t) val.x = __fmul_rn(acc[mt][nt][2 * h], expf(__fsub_rn(g[row0 + jj], ml)));
+        if (jj + 1 <= t) {
+          val.y = __fmul_rn(acc[mt][nt][2 * h + 1], expf(__fsub_rn(g[row0 + jj + 1], ml)));
         }
+        *reinterpret_cast<float2*>(out + static_cast<long long>(t) * L + jj) = val;
       }
     }
+}
+
+// --- 4. chunk states --------------------------------------------------------
+// Block (128 columns of v, 128 rows of dk, bh). Its tile of C stays in
+// registers through the chunks; U_c accumulates beside it.
+__global__ void __launch_bounds__(kMlThreads, 1)
+mlstm_states_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                    const float* __restrict__ wk, const float* __restrict__ decay,
+                    float* __restrict__ states, float* __restrict__ nstates,
+                    float* __restrict__ c_out, float* __restrict__ n_out, int S,
+                    int L, int dk, int dv) {
+  extern __shared__ __align__(16) float ring[];
+  const int j0 = blockIdx.x * kMlTile, d0 = blockIdx.y * kMlTile, bh = blockIdx.z;
+  const int nc = S / L, tid = threadIdx.x;
+  const int rows = min(kMlTile, dk - d0), cols = min(kMlTile, dv - j0);
+  const bool with_n = blockIdx.x == 0;  // one block of each dk tile sums n
+  const int per_chunk = (L + kMlSlab - 1) / kMlSlab, slabs = nc * per_chunk;
+  auto chunk_row = [&](int s) {
+    return static_cast<long long>(bh) * S + static_cast<long long>(s / per_chunk) * L;
+  };
+  auto load = [&](int s) {
+    float* st = ring + (s % kMlStages) * kMlStage;
+    const long long r0 = chunk_row(s);
+    const int k0 = (s % per_chunk) * kMlSlab;
+    load_mn(st, k + r0 * dk + d0, dk, rows, k0, L);
+    load_mn(st + kMlOperand, v + r0 * dv + j0, dv, cols, k0, L);
+    if (tid < kMlSlab / 4) {  // w = exp(g - m_L) of the slab's steps
+      const bool ok = k0 + tid * 4 < L;
+      cp_async16(st + 2 * kMlOperand + tid * 4, ok ? wk + r0 + k0 + tid * 4 : wk,
+                 ok ? 16 : 0);
+    }
+  };
+  Acc cst, u;
+  zero_acc(cst);
+  zero_acc(u);
+  float n_st = 0.f, n_sum = 0.f;  // n of row d0 + tid (tid < 128)
+#pragma unroll
+  for (int s = 0; s < kMlStages - 1; ++s) {
+    if (s < slabs) load(s);
+    cp_async_commit();
   }
-}
-
-// --- 3. the recurrence over chunks ------------------------------------------
-// Dynamic shared memory, in floats: C slice [dkp][32], n [dkp], the chunk's
-// v slice [256][32], a staging buffer [32][260], exp(m - m_loc) and
-// exp(g - m_L) of the chunk [256] each.
-inline size_t recur_smem_bytes(int dkp) {
-  return sizeof(float) * (static_cast<size_t>(dkp) * kMlTv + dkp + kMlMaxL * kMlTv +
-                          kMlSlice * kMlLds + 2 * kMlMaxL);
-}
-
-__device__ __forceinline__ float lane8_sum(float x) {
-  x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 4));
-  return x;
-}
-
-// Block (v column tile, bh); thread: rows (of t, or of d) 8*(tid / 8).., v
-// columns 4*(tid % 8)..; the 8 lanes of one row group sum n and the row sums
-// between them.
-__global__ void __launch_bounds__(kMlThreads)
-mlstm_recur_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ sw,
-                   const float* __restrict__ inter, const float* __restrict__ wk,
-                   const float* __restrict__ decay, float* __restrict__ y,
-                   float* __restrict__ c_out, float* __restrict__ n_out, int S,
-                   int L, int dk, int dv) {
-  extern __shared__ __align__(16) float recur_smem[];
-  const int dkp = (dk + kMlSlice - 1) / kMlSlice * kMlSlice;
-  float* cs = recur_smem;                     // [dkp][32]
-  float* ns = cs + dkp * kMlTv;               // [dkp]
-  float* vt = ns + dkp;                       // [256][32]
-  float* st = vt + kMlMaxL * kMlTv;           // [32][260]
-  float* vis = st + kMlSlice * kMlLds;        // [256]
-  float* vwk = vis + kMlMaxL;                 // [256]
-  const int v0 = blockIdx.x * kMlTv, bh = blockIdx.y;
-  const int nc = S / L;
-  const int tid = threadIdx.x, tg = tid / 8, cg = tid % 8;
-  const int r0 = tg * 8;                      // first row of the thread
-  for (int i = tid; i < dkp * kMlTv; i += kMlThreads) cs[i] = 0.f;
-  for (int i = tid; i < dkp; i += kMlThreads) ns[i] = 0.f;
-
-  for (int c = 0; c < nc; ++c) {
-    const long long row0 = static_cast<long long>(bh) * S + static_cast<long long>(c) * L;
-    __syncthreads();  // the previous chunk's C, n are written; vt, st free
-    for (int i = tid; i < L; i += kMlThreads) {
-      vis[i] = inter[row0 + i];
-      vwk[i] = wk[row0 + i];
+  for (int s = 0; s < slabs; ++s) {
+    const int c = s / per_chunk;
+    cp_async_wait<kMlStages - 2>();
+    __syncthreads();
+    if (s + kMlStages - 1 < slabs) load(s + kMlStages - 1);
+    cp_async_commit();
+    const float* st = ring + (s % kMlStages) * kMlStage;
+    const float* w = st + 2 * kMlOperand;
+    slab_mma<false, false>(st, st + kMlOperand, w, u);
+    if (with_n && tid < kMlTile) {  // sum_j k_j w_j, the products rounded as the twin's
+#pragma unroll 8
+      for (int kk = 0; kk < kMlSlab; ++kk) {
+        n_sum = __fadd_rn(n_sum, __fmul_rn(st[kk * kMlLdn + tid], w[kk]));
+      }
     }
-    for (int i = tid; i < L * 8; i += kMlThreads) {
-      const int j = i / 8, cc = (i % 8) * 4;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (v0 + cc < dv) val = load4(v + (row0 + j) * dv + v0 + cc);
-      *reinterpret_cast<float4*>(vt + j * kMlTv + cc) = val;
-    }
+    if (s % per_chunk != per_chunk - 1) continue;
+    // End of chunk c: C = dec C + U, n = dec n + sum_j k_j w_j; store the
+    // state entering chunk c + 1, or the final one.
     const float dec = decay[static_cast<long long>(bh) * nc + c];
-    const bool rows = r0 < L;
-
-    // q C and q . n (inter-chunk terms)
-    float a1[8][4], dn[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      dn[i] = 0.f;
+    for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) a1[i][j] = 0.f;
-    }
-    for (int d0 = 0; d0 < dkp; d0 += kMlSlice) {
-      __syncthreads();
-      for (int i = tid; i < L * 8; i += kMlThreads) {
-        const int t = i / 8, dd = (i % 8) * 4;
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (d0 + dd < dk) val = load4(q + (row0 + t) * dk + d0 + dd);
-        put_t(st, kMlLds, dd, t, val);
-      }
-      __syncthreads();
-      if (rows) {
-#pragma unroll 4
-        for (int dd = 0; dd < kMlSlice; ++dd) {
-          const float4 q0 = load4(st + dd * kMlLds + r0);
-          const float4 q1 = load4(st + dd * kMlLds + r0 + 4);
-          const float4 cv = load4(cs + (d0 + dd) * kMlTv + cg * 4);
-          const float a[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
-          const float b[4] = {cv.x, cv.y, cv.z, cv.w};
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) a1[i][j] = fmaf(a[i], b[j], a1[i][j]);
-        }
+      for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int dd = cg + 8 * e;
-          const float nv = ns[d0 + dd];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) dn[i] = fmaf(st[dd * kMlLds + r0 + i], nv, dn[i]);
+          cst[mt][nt][e] = __fadd_rn(__fmul_rn(dec, cst[mt][nt][e]), u[mt][nt][e]);
         }
-      }
-    }
+    zero_acc(u);
+    n_st = __fadd_rn(__fmul_rn(dec, n_st), n_sum);
+    n_sum = 0.f;
+    const bool last = c == nc - 1;
+    float* cdst = last ? c_out + static_cast<long long>(bh) * dk * dv
+                       : states + (static_cast<long long>(bh) * (nc - 1) + c) * dk * dv;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) dn[i] = lane8_sum(dn[i]);
-
-    // S v and the row sums of S (intra-chunk terms)
-    const float* swc = sw + (static_cast<long long>(bh) * nc + c) * L * L;
-    float a2[8][4], di[8];
+    for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      di[i] = 0.f;
+      for (int h = 0; h < 2; ++h) {
+        const int d = d0 + frag_row(mt, 2 * h);
+        if (d >= dk) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) a2[i][j] = 0.f;
-    }
-    for (int j0 = 0; j0 < L; j0 += kMlSlice) {
-      __syncthreads();
-      for (int i = tid; i < L * 8; i += kMlThreads) {
-        const int t = i / 8, jj = (i % 8) * 4;
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (j0 + jj < L) val = load4(swc + static_cast<long long>(t) * L + j0 + jj);
-        put_t(st, kMlLds, jj, t, val);
-      }
-      __syncthreads();
-      const int jn = min(kMlSlice, L - j0);
-      if (rows && j0 <= r0 + 7) {  // S is 0 above the thread's last row
-        for (int jj = 0; jj < jn; ++jj) {
-          const float4 s0 = load4(st + jj * kMlLds + r0);
-          const float4 s1 = load4(st + jj * kMlLds + r0 + 4);
-          const float4 vv = load4(vt + (j0 + jj) * kMlTv + cg * 4);
-          const float a[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-          const float b[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) a2[i][j] = fmaf(a[i], b[j], a2[i][j]);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int jj = cg + 8 * e;
-          if (jj < jn) {
-#pragma unroll
-            for (int i = 0; i < 8; ++i) di[i] = __fadd_rn(di[i], st[jj * kMlLds + r0 + i]);
+        for (int nt = 0; nt < 4; ++nt) {
+          const int col = frag_col(nt, 0);
+          if (col < cols) {
+            *reinterpret_cast<float2*>(cdst + static_cast<long long>(d) * dv + j0 + col) =
+                make_float2(cst[mt][nt][2 * h], cst[mt][nt][2 * h + 1]);
           }
         }
       }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) di[i] = lane8_sum(di[i]);
-
-    // y = (S v + (q C) e) / max(|S 1 + (q . n) e|, 1), e = exp(m - m_loc)
-    if (rows && v0 + cg * 4 < dv) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int t = r0 + i;
-        const float e = vis[t];
-        const float den = fmaxf(fabsf(__fadd_rn(di[i], __fmul_rn(dn[i], e))), 1.f);
-        float4 out;
-        out.x = __fadd_rn(a2[i][0], __fmul_rn(a1[i][0], e)) / den;
-        out.y = __fadd_rn(a2[i][1], __fmul_rn(a1[i][1], e)) / den;
-        out.z = __fadd_rn(a2[i][2], __fmul_rn(a1[i][2], e)) / den;
-        out.w = __fadd_rn(a2[i][3], __fmul_rn(a1[i][3], e)) / den;
-        *reinterpret_cast<float4*>(y + (row0 + t) * dv + v0 + cg * 4) = out;
-      }
-    }
-
-    // C = decay C + (k w)^T v, n = decay n + sum_j k_j w_j, w = exp(g - m_L):
-    // 256 rows of d at a time.
-    for (int p0 = 0; p0 < dkp; p0 += kMlThreads) {
-      float a3[8][4], sn[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        sn[i] = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) a3[i][j] = 0.f;
-      }
-      const bool drows = p0 + r0 < dkp;
-      for (int j0 = 0; j0 < L; j0 += kMlSlice) {
-        __syncthreads();
-        for (int i = tid; i < kMlSlice * 64; i += kMlThreads) {
-          const int jj = i / 64, dd = (i % 64) * 4;
-          float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (j0 + jj < L && p0 + dd < dk) {
-            val = load4(k + (row0 + j0 + jj) * dk + p0 + dd);
-            const float w = vwk[j0 + jj];
-            val.x = __fmul_rn(val.x, w);
-            val.y = __fmul_rn(val.y, w);
-            val.z = __fmul_rn(val.z, w);
-            val.w = __fmul_rn(val.w, w);
-          }
-          *reinterpret_cast<float4*>(st + jj * kMlLds + dd) = val;
-        }
-        __syncthreads();
-        const int jn = min(kMlSlice, L - j0);
-        if (drows) {
-          for (int jj = 0; jj < jn; ++jj) {
-            const float4 k0 = load4(st + jj * kMlLds + r0);
-            const float4 k1 = load4(st + jj * kMlLds + r0 + 4);
-            const float4 vv = load4(vt + (j0 + jj) * kMlTv + cg * 4);
-            const float a[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
-            const float b[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j) a3[i][j] = fmaf(a[i], b[j], a3[i][j]);
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int jj = cg + 8 * e;
-            if (jj < jn) {
-#pragma unroll
-              for (int i = 0; i < 8; ++i) sn[i] = __fadd_rn(sn[i], st[jj * kMlLds + r0 + i]);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) sn[i] = lane8_sum(sn[i]);
-      if (drows) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int d = p0 + r0 + i;
-          float4 cv = load4(cs + d * kMlTv + cg * 4);
-          cv.x = __fadd_rn(__fmul_rn(dec, cv.x), a3[i][0]);
-          cv.y = __fadd_rn(__fmul_rn(dec, cv.y), a3[i][1]);
-          cv.z = __fadd_rn(__fmul_rn(dec, cv.z), a3[i][2]);
-          cv.w = __fadd_rn(__fmul_rn(dec, cv.w), a3[i][3]);
-          *reinterpret_cast<float4*>(cs + d * kMlTv + cg * 4) = cv;
-          if (cg == 0) ns[d] = __fadd_rn(__fmul_rn(dec, ns[d]), sn[i]);
-        }
-      }
+    if (with_n && tid < rows) {
+      float* ndst = last ? n_out + static_cast<long long>(bh) * dk
+                         : nstates + (static_cast<long long>(bh) * (nc - 1) + c) * dk;
+      ndst[d0 + tid] = n_st;
     }
   }
+}
+
+// --- 5. outputs ---------------------------------------------------------------
+// Block (128 columns of v, 128 rows of the chunk, bh * nc + c). Dynamic
+// shared memory: the ring, then q . n and the row sums of S, 128 each.
+__global__ void __launch_bounds__(kMlThreads, 1)
+mlstm_outputs_kernel(const float* __restrict__ q, const float* __restrict__ v,
+                     const float* __restrict__ sw, const float* __restrict__ inter,
+                     const float* __restrict__ states,
+                     const float* __restrict__ nstates, float* __restrict__ y,
+                     int S, int L, int dk, int dv) {
+  extern __shared__ __align__(16) float ring[];
+  float* dn_s = ring + kMlStages * kMlStage;
+  float* di_s = dn_s + kMlTile;
+  const int nc = S / L, tid = threadIdx.x;
+  const int j0 = blockIdx.x * kMlTile, t0 = blockIdx.y * kMlTile;
+  const int bh = blockIdx.z / nc, c = blockIdx.z % nc;
+  const int rows = min(kMlTile, L - t0), cols = min(kMlTile, dv - j0);
+  const int j_end = min(L, t0 + kMlTile);  // S[t, j] = 0 past the tile's last row
+  const long long row0 = static_cast<long long>(bh) * S + static_cast<long long>(c) * L;
+  const long long state = static_cast<long long>(bh) * (nc - 1) + c - 1;
+  const int slabs_qc = c > 0 ? (dk + kMlSlab - 1) / kMlSlab : 0;  // C_0 = 0
+  const int slabs = slabs_qc + (j_end + kMlSlab - 1) / kMlSlab;
+  const float* qa = q + (row0 + t0) * dk;
+  const float* sa = sw + ((static_cast<long long>(bh) * nc + c) * L + t0) * L;
+  const float* vb = v + row0 * dv + j0;
+  auto load = [&](int s) {
+    float* st = ring + (s % kMlStages) * kMlStage;
+    if (s < slabs_qc) {
+      const int k0 = s * kMlSlab;
+      load_kc(st, qa, dk, rows, k0, dk);
+      load_mn(st + kMlOperand, states + state * dk * dv + j0, dv, cols, k0, dk);
+      if (tid < kMlSlab / 4) {
+        const bool ok = k0 + tid * 4 < dk;
+        const float* src = nstates + state * dk + k0 + tid * 4;
+        cp_async16(st + 2 * kMlOperand + tid * 4, ok ? src : nstates, ok ? 16 : 0);
+      }
+    } else {
+      const int k0 = (s - slabs_qc) * kMlSlab;
+      load_kc(st, sa, L, rows, k0, j_end);
+      load_mn(st + kMlOperand, vb, dv, cols, k0, j_end);
+    }
+  };
+  Acc acc, slab;
+  zero_acc(acc);
+  zero_acc(slab);
+  // q . n (then S's row sums) of row tid / 2 over half the slab each
+  const int rr = tid >> 1, half = (tid & 1) * (kMlSlab / 2);
+  float part = 0.f;
+#pragma unroll
+  for (int s = 0; s < kMlStages - 1; ++s) {
+    if (s < slabs) load(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < slabs; ++s) {
+    cp_async_wait<kMlStages - 2>();
+    __syncthreads();
+    if (s + kMlStages - 1 < slabs) load(s + kMlStages - 1);
+    cp_async_commit();
+    const float* st = ring + (s % kMlStages) * kMlStage;
+    slab_mma<true, false>(st, st + kMlOperand, nullptr, slab);
+    flush_acc(acc, slab);
+    const float* ar = st + rr * kMlLdk + half;
+    if (s < slabs_qc) {
+      const float* nv = st + 2 * kMlOperand + half;
+#pragma unroll
+      for (int e = 0; e < kMlSlab / 2; ++e) part = fmaf(ar[e], nv[e], part);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kMlSlab / 2; ++e) part = __fadd_rn(part, ar[e]);
+    }
+    if (s != slabs_qc - 1) continue;
+    // q C done: park (q C) exp(m - m_loc) in y, keep q . n
+    part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, 1));
+    if (half == 0) dn_s[rr] = part;
+    part = 0.f;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = t0 + frag_row(mt, 2 * h);
+        if (t >= L) continue;
+        const float e = inter[row0 + t];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int col = frag_col(nt, 0);
+          if (col < cols) {
+            *reinterpret_cast<float2*>(y + (row0 + t) * dv + j0 + col) =
+                make_float2(__fmul_rn(acc[mt][nt][2 * h], e),
+                            __fmul_rn(acc[mt][nt][2 * h + 1], e));
+          }
+        }
+      }
+    zero_acc(acc);
+  }
+  part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, 1));
+  if (half == 0) di_s[rr] = part;
   __syncthreads();
-  for (int i = tid; i < dk * 8; i += kMlThreads) {
-    const int d = i / 8, cc = (i % 8) * 4;
-    if (v0 + cc < dv) {
-      *reinterpret_cast<float4*>(c_out + (static_cast<long long>(bh) * dk + d) * dv + v0 + cc) =
-          load4(cs + d * kMlTv + cc);
+  // y = (S v + (q C) e) / max(|S 1 + (q . n) e|, 1), e = exp(m - m_loc)
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = frag_row(mt, 2 * h), t = t0 + r;
+      if (t >= L) continue;
+      const float e = inter[row0 + t];
+      const float dn = c > 0 ? dn_s[r] : 0.f;
+      const float den = fmaxf(fabsf(__fadd_rn(di_s[r], __fmul_rn(dn, e))), 1.f);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = frag_col(nt, 0);
+        if (col >= cols) continue;
+        float2* dst = reinterpret_cast<float2*>(y + (row0 + t) * dv + j0 + col);
+        float2 out = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        if (c > 0) {
+          const float2 qc = *dst;
+          out.x = __fadd_rn(out.x, qc.x);
+          out.y = __fadd_rn(out.y, qc.y);
+        }
+        out.x = out.x / den;
+        out.y = out.y / den;
+        *dst = out;
+      }
     }
-  }
-  if (blockIdx.x == 0) {
-    for (int d = tid; d < dk; d += kMlThreads) n_out[static_cast<long long>(bh) * dk + d] = ns[d];
-  }
 }
 
 }  // namespace repro_torch
 
 // q, k [BH, S, dk], v [BH, S, dv], logi, logf [BH, S] -> y [BH, S, dv],
 // C [BH, dk, dv], n [BH, dk], m [BH]; float32, contiguous, 16-byte aligned.
-// Scratch: sw [BH, S/L, L, L], g, m_loc, inter, wk [BH, S], decay [BH, S/L].
-// S % L == 0, L % 8 == 0, L <= 256, S/L <= 1024, dk % 4 == dv % 4 == 0,
-// dk <= 1024.
+// Scratch: sw [BH, S/L, L, L], g, m_loc, inter, wk [BH, S], decay [BH, S/L],
+// bm [BH, S/L, 2], states [BH, S/L - 1, dk, dv], nstates [BH, S/L - 1, dk].
+// S % L == 0, L % 8 == 0, L <= 256, S/L <= 1024, BH * S/L <= 65535,
+// dk / 128 <= 65535 (rounded up), dk % 4 == dv % 4 == 0.
 extern "C" int repro_mlstm_chunked(const void* q, const void* k, const void* v,
                                    const void* logi, const void* logf, void* y,
                                    void* c_out, void* n_out, void* m_out,
                                    void* sw, void* g, void* m_loc, void* inter,
-                                   void* wk, void* decay, int BH, int S, int L,
-                                   int dk, int dv, void* stream) {
+                                   void* wk, void* decay, void* bm, void* states,
+                                   void* nstates, int BH, int S, int L, int dk,
+                                   int dv, void* stream) {
   using namespace repro_torch;
   if (L < 8 || L > kMlMaxL || L % 8 || S % L || S / L > kMlMaxChunks ||
-      dk % 4 || dv % 4 || dk > kMlMaxDk || dk < 4 || dv < 4) {
+      static_cast<long long>(BH) * (S / L) > 65535 ||
+      (dk + kMlTile - 1) / kMlTile > 65535 || dk % 4 || dv % 4 ||
+      dk < 4 || dv < 4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* fq = static_cast<const float*>(q);
   const auto* fk = static_cast<const float*>(k);
+  const auto* fv = static_cast<const float*>(v);
   auto* fg = static_cast<float*>(g);
   auto* fm = static_cast<float*>(m_loc);
   auto* fi = static_cast<float*>(inter);
   auto* fw = static_cast<float*>(wk);
   auto* fd = static_cast<float*>(decay);
   auto* fsw = static_cast<float*>(sw);
+  auto* fst = static_cast<float*>(states);
+  auto* fns = static_cast<float*>(nstates);
   const int nc = S / L;
-  mlstm_gates_kernel<<<BH, kMlThreads, 0, s>>>(
-      static_cast<const float*>(logi), static_cast<const float*>(logf), fg, fm,
-      fi, fw, fd, static_cast<float*>(m_out), S, L);
-  cudaError_t err = cudaGetLastError();
+  const int out_smem = static_cast<int>(kMlRingBytes + 2 * kMlTile * sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      mlstm_intra_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out_smem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(mlstm_states_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, out_smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(mlstm_outputs_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, out_smem);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlstm_intra_kernel<<<dim3((L + kMlRows - 1) / kMlRows, nc, BH), kMlThreads, 0, s>>>(
+  mlstm_gates_chunk_kernel<<<dim3(nc, BH), kMlThreads, 0, s>>>(
+      static_cast<const float*>(logi), static_cast<const float*>(logf), fg, fm,
+      static_cast<float*>(bm), S, L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mlstm_gates_chain_kernel<<<dim3(nc, BH), kMlThreads, 0, s>>>(
+      fg, fm, static_cast<const float*>(bm), fi, fw, fd,
+      static_cast<float*>(m_out), S, L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mlstm_intra_kernel<<<dim3(L > kMlTile ? 3 : 1, nc, BH), kMlThreads, kMlRingBytes, s>>>(
       fq, fk, fg, fm, fsw, S, L, dk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int dkp = (dk + kMlSlice - 1) / kMlSlice * kMlSlice;
-  const size_t smem = recur_smem_bytes(dkp);
-  err = cudaFuncSetAttribute(mlstm_recur_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mlstm_recur_kernel<<<dim3((dv + kMlTv - 1) / kMlTv, BH), kMlThreads, smem, s>>>(
-      fq, fk, static_cast<const float*>(v), fsw, fi, fw, fd,
-      static_cast<float*>(y), static_cast<float*>(c_out),
+  mlstm_states_kernel<<<dim3((dv + kMlTile - 1) / kMlTile, (dk + kMlTile - 1) / kMlTile, BH),
+                        kMlThreads, kMlRingBytes, s>>>(
+      fk, fv, fw, fd, fst, fns, static_cast<float*>(c_out),
       static_cast<float*>(n_out), S, L, dk, dv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mlstm_outputs_kernel<<<dim3((dv + kMlTile - 1) / kMlTile, (L + kMlTile - 1) / kMlTile,
+                              BH * nc),
+                         kMlThreads, out_smem, s>>>(
+      fq, fv, fsw, fi, fst, fns, static_cast<float*>(y), S, L, dk, dv);
   return static_cast<int>(cudaGetLastError());
 }

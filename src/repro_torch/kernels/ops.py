@@ -161,9 +161,14 @@ def fused_xnor_gemm(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
     out = torch.empty((mw, n), dtype=torch.int32, device=wp.device)
     if m and n:
         with torch.cuda.device(wp.device):
+            splits = build.load("repro_fused_xnor_gemm_splits")(m, kw, n)
+            # split K: each split's integer counts, added in order after
+            partial = (torch.empty((splits, n, m), dtype=torch.int32,
+                                   device=wp.device) if splits > 1 else None)
             rc = build.load("repro_fused_xnor_gemm")(
                 wp.data_ptr(), xp.data_ptr(), a.data_ptr(), b.data_ptr(),
-                out.data_ptr(), m, kw, n, int(k_bits), _stream(wp.device))
+                out.data_ptr(), None if partial is None else partial.data_ptr(),
+                m, kw, n, int(k_bits), splits, _stream(wp.device))
         _raise_on(rc, "fused_xnor_gemm")
         LAUNCHES["fused_xnor_gemm"] += 1
     return out
@@ -429,8 +434,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-# Longest chunk, widest key and most chunks csrc/mlstm_chunk.cu takes.
-MLSTM_MAX_CHUNK, MLSTM_MAX_DK, MLSTM_MAX_CHUNKS = 256, 1024, 1024
+# Longest chunk and most chunks csrc/mlstm_chunk.cu takes, and the rows of
+# dk (and columns of dv) one block of its states kernel holds.
+MLSTM_MAX_CHUNK, MLSTM_MAX_CHUNKS, MLSTM_TILE = 256, 1024, 128
 
 
 def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -444,7 +450,7 @@ def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``[BH, 1, 1]``), chunks of ``L = min(chunk, S)`` steps; S must be a
     multiple of L. On the CPU: ``ref.mlstm_chunked_ref``. On the card L
     must be a multiple of 8 up to ``MLSTM_MAX_CHUNK``, dk and dv multiples
-    of 4, dk up to ``MLSTM_MAX_DK``."""
+    of 4; the grid bounds BH x S / L and dk / ``MLSTM_TILE`` by 65535."""
     for name, t, nd in (("q", q, 3), ("k", k, 3), ("v", v, 3),
                         ("logi", logi, 2), ("logf", logf, 2)):
         _check(name, t, torch.float32, nd)
@@ -462,13 +468,13 @@ def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"multiple of 8 up to {MLSTM_MAX_CHUNK} and divides S; "
                          f"got S={s}, chunk={ln}")
     nc = s // ln
-    if dk % 4 or dv % 4 or not 4 <= dk <= MLSTM_MAX_DK or nc > MLSTM_MAX_CHUNKS:
+    if dk % 4 or dv % 4 or dk < 4 or nc > MLSTM_MAX_CHUNKS:
         raise ValueError(f"mlstm_chunked on the card needs dk, dv multiples of "
-                         f"4, dk <= {MLSTM_MAX_DK}, at most {MLSTM_MAX_CHUNKS} "
-                         f"chunks; got dk={dk}, dv={dv}, {nc} chunks")
-    if bh > _GRID_Y_MAX:
+                         f"4 and at most {MLSTM_MAX_CHUNKS} chunks; got dk={dk}, "
+                         f"dv={dv}, {nc} chunks")
+    if bh * nc > _GRID_Y_MAX or -(-dk // MLSTM_TILE) > _GRID_Y_MAX:
         raise ValueError(f"mlstm_chunked of [{bh}, {s}, {dk}, {dv}] exceeds "
-                         "the grid")
+                         "the grid (BH x chunks or dk / 128 past 65535)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _aligned(name, t)
     dev = q.device
@@ -480,12 +486,18 @@ def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sw = torch.empty((bh, nc, ln, ln), dtype=torch.float32, device=dev)
         gates = torch.empty((4, bh, s), dtype=torch.float32, device=dev)
         decay = torch.empty((bh, nc), dtype=torch.float32, device=dev)
+        chunk_ends = torch.empty((bh, nc, 2), dtype=torch.float32, device=dev)
+        # the states entering chunks 1.. (503 MB at xlstm-1.3b's training
+        # shape, [8, 15, 1024, 1024] float32)
+        states = torch.empty((bh, nc - 1, dk, dv), dtype=torch.float32, device=dev)
+        nstates = torch.empty((bh, nc - 1, dk), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             rc = build.load("repro_mlstm_chunked")(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), logi.data_ptr(),
                 logf.data_ptr(), y.data_ptr(), c_out.data_ptr(),
                 n_out.data_ptr(), m_out.data_ptr(), sw.data_ptr(),
                 *(gates[i].data_ptr() for i in range(4)), decay.data_ptr(),
+                chunk_ends.data_ptr(), states.data_ptr(), nstates.data_ptr(),
                 bh, s, ln, dk, dv, _stream(dev))
         _raise_on(rc, "mlstm_chunked")
         LAUNCHES["mlstm_chunked"] += 1

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.bitops import PACK_BITS, popcount
+
 # Masked scores and the initial stabilizers of flash attention and the
 # mLSTM, as the JAX package's kernels write them.
 NEG = -1e30
@@ -106,6 +108,26 @@ def split_bf16_pieces(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
     return hi, mid, rest - mid
 
 
+def xnor_dot_and_popc(wp: torch.Tensor, xp: torch.Tensor,
+                      k_bits: int) -> torch.Tensor:
+    """``bitops.xnor_popcount_matmul`` the way the ``fused_xnor_gemm``
+    kernel computes it on the tensor cores, whose 1-bit product counts
+    ``popc(w & x)`` (``mma.sync ... .and.popc``): bit by bit ``xnor(w, x)
+    = 1 - w - x + 2 w x``, so over the KW words of a row and a column
+    ``sum popc(~(w ^ x)) = 32 KW - P(w) - P(x) + 2 sum popc(w & x)``, with
+    ``P`` the row's and the column's popcounts. It holds for any words,
+    the xnor-neutral pads included. Packed ``wp [M, KW]``, ``xp [KW, N]``
+    (int32) -> int32 ``[M, N]`` dot ``2 * count - k_bits``."""
+    m, kw = wp.shape
+    n = xp.shape[1]
+    both = torch.zeros((m, n), dtype=torch.int64, device=wp.device)
+    for k in range(kw):
+        both += popcount(wp[:, k, None] & xp[None, k, :])
+    count = (PACK_BITS * kw - popcount(wp).sum(1)[:, None]
+             - popcount(xp).sum(0)[None, :] + 2 * both)
+    return (2 * count - k_bits).to(torch.int32)
+
+
 def sequential_cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive cumsum along the last axis, one float add after another
     (``torch.cumsum`` on the card sums in a tree: other roundings)."""
@@ -115,6 +137,21 @@ def sequential_cumsum(x: torch.Tensor) -> torch.Tensor:
         run = run + x[..., t]
         out[..., t] = run
     return out
+
+
+def _mlstm_gates(logi: torch.Tensor, logf: torch.Tensor, chunk: int):
+    """The mLSTM's gates within each chunk: (L, number of chunks, ``b`` the
+    sequential cumsum of ``logf``, ``g = logi - b``, ``M`` its running
+    max), each ``[BH, nc, L]``."""
+    bh, s = logi.shape
+    ln = min(chunk, s)
+    if ln < 1 or s % ln:
+        raise ValueError(f"mlstm_chunked needs S % chunk == 0, got S={s}, "
+                         f"chunk={ln}")
+    nc = s // ln
+    b_cum = sequential_cumsum(logf.float().reshape(bh, nc, ln))
+    g = logi.float().reshape(bh, nc, ln) - b_cum
+    return ln, nc, b_cum, g, torch.cummax(g, dim=-1).values
 
 
 def mlstm_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -137,15 +174,8 @@ def mlstm_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype, C ``[BH, dk, dv]``, n ``[BH, 1, dk]``, m ``[BH, 1, 1]``)."""
     bh, s, dk = q.shape
     dv = v.shape[-1]
-    ln = min(chunk, s)
-    if ln < 1 or s % ln:
-        raise ValueError(f"mlstm_chunked needs S % chunk == 0, got S={s}, "
-                         f"chunk={ln}")
-    nc = s // ln
+    ln, nc, b_cum, g, big_m = _mlstm_gates(logi, logf, chunk)
     dev = q.device
-    b_cum = sequential_cumsum(logf.float().reshape(bh, nc, ln))
-    g = logi.float().reshape(bh, nc, ln) - b_cum
-    big_m = torch.cummax(g, dim=-1).values
     tril = torch.ones((ln, ln), dtype=torch.bool, device=dev).tril()
     C = torch.zeros((bh, dk, dv), device=dev)
     n = torch.zeros((bh, 1, dk), device=dev)
@@ -171,3 +201,51 @@ def mlstm_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         n = decay[:, None, None] * n + kw.sum(1, keepdim=True)
         m = b_cum[:, c, -1] + m_loc_l
     return torch.cat(ys, dim=1).to(q.dtype), C, n, m.reshape(bh, 1, 1)
+
+
+def mlstm_chunked_states_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, logi: torch.Tensor,
+                             logf: torch.Tensor, *, chunk: int = 128
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor, torch.Tensor]:
+    """``mlstm_chunked_ref`` in the order the CUDA kernel computes it: the
+    stabilizer chain over the chunks first, then the states ``(C, n)``
+    entering every chunk (``C_{c+1} = exp(m_c - m_L) C_c + (k_c w_c)^T
+    v_c``, the twin's operations in the twin's order), then every chunk's
+    ``y`` from its entering state at once, as batched products over the
+    chunks. Same arguments and returns as ``mlstm_chunked_ref``; its C, n
+    and m are the twin's exactly, its y the same products summed by
+    batched matmuls."""
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    ln, nc, b_cum, g, big_m = _mlstm_gates(logi, logf, chunk)
+    dev = q.device
+    m_prev = [torch.full((bh,), NEG, device=dev)]
+    for c in range(nc):
+        m_loc_l = torch.maximum(big_m[:, c, -1], m_prev[c])
+        m_prev.append(b_cum[:, c, -1] + m_loc_l)
+    m_in = torch.stack(m_prev[:nc], 1)                    # [BH, nc]
+    m_last = torch.maximum(big_m[..., -1], m_in)          # m_L of each chunk
+    qc, kc, vc = (x.float().reshape(bh, nc, ln, x.shape[-1]) for x in (q, k, v))
+    wk = torch.exp(g - m_last[..., None])
+    decay = torch.exp(m_in - m_last)
+    C = torch.zeros((bh, dk, dv), device=dev)
+    n = torch.zeros((bh, 1, dk), device=dev)
+    cs, ns = [], []
+    for c in range(nc):
+        cs.append(C)
+        ns.append(n)
+        kw = kc[:, c] * wk[:, c, :, None]
+        C = decay[:, c, None, None] * C + torch.matmul(kw.transpose(1, 2), vc[:, c])
+        n = decay[:, c, None, None] * n + kw.sum(1, keepdim=True)
+    c_in, n_in = torch.stack(cs, 1), torch.stack(ns, 1)  # [BH, nc, dk, dv], [BH, nc, 1, dk]
+    m_loc = torch.maximum(big_m, m_in[..., None])
+    inter = torch.exp(m_in[..., None] - m_loc)
+    tril = torch.ones((ln, ln), dtype=torch.bool, device=dev).tril()
+    w_intra = torch.where(tril, torch.exp(g[..., None, :] - m_loc[..., :, None]), 0.0)
+    sw = torch.matmul(qc, kc.transpose(-1, -2)) * w_intra
+    num = torch.matmul(sw, vc) + torch.matmul(qc, c_in) * inter[..., None]
+    den = sw.sum(-1) + (qc * n_in).sum(-1) * inter
+    y = num / torch.clamp(den.abs(), min=1.0)[..., None]
+    return (y.reshape(bh, s, dv).to(q.dtype), C, n,
+            m_prev[nc].reshape(bh, 1, 1))

@@ -53,14 +53,26 @@ def test_xnor_gemm_matches_twin(dev, m, kw, n):
     assert torch.equal(got, bitops.xnor_popcount_matmul(w, x, 32 * kw - 5))
 
 
-@pytest.mark.parametrize("m,kw,n", [(45, 3, 7), (1024, 32, 3), (10, 70, 40)])
-def test_fused_xnor_gemm_matches_twin(dev, m, kw, n):
+# The seven shapes of the batch-32 forward (fc0, fc1 split K; the five
+# im2col convs), a ragged last word (k_bits below 32*KW), and the tile's
+# edges (M = 33, N = 1, N = 129, N not a multiple of 4).
+@pytest.mark.parametrize("m,kw,n,short", [
+    (45, 3, 7, 0), (1024, 32, 3, 0), (10, 70, 40, 0),
+    (1024, 256, 32, 0), (1024, 32, 32, 0), (128, 36, 32768, 0),
+    (256, 36, 8192, 0), (256, 72, 8192, 0), (512, 72, 2048, 0),
+    (512, 144, 2048, 0), (256, 72, 8192, 13), (33, 9, 129, 5), (33, 40, 1, 31),
+    (300, 257, 33, 7)])
+def test_fused_xnor_gemm_matches_twin(dev, m, kw, n, short):
     rng = np.random.default_rng(31)
     w, x = cu(words(rng, (m, kw)), dev), cu(words(rng, (kw, n)), dev)
+    k_bits = 32 * kw - short
     a = cu(rng.normal(size=m).astype(np.float32), dev)
     b = cu((rng.normal(size=m) * 6).astype(np.float32), dev)
-    got = ops.fused_xnor_gemm(w, x, 32 * kw, a, b)
-    assert torch.equal(got, bitops.fused_xnor_layer(w, x, 32 * kw, a, b))
+    before = ops.LAUNCHES["fused_xnor_gemm"]
+    got = ops.fused_xnor_gemm(w, x, k_bits, a, b)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_xnor_gemm"] == before + 1
+    assert torch.equal(got, bitops.fused_xnor_layer(w, x, k_bits, a, b))
 
 
 @pytest.mark.parametrize("c,d,h,stride,pad", [(45, 40, 7, 1, 1), (32, 7, 6, 2, 0),
@@ -489,19 +501,31 @@ def test_flash_attention_matches_twin(dev, bh, sq, skv, dh, dtype, causal):
 # chunk (y, C, n within rtol/atol 1e-4); the stabilizer m takes the same
 # float operations in the same order (a sequential cumsum, maxima, one
 # add per chunk): equal.
-@pytest.mark.parametrize("bh,s,dk,dv,chunk", [
-    (2, 64, 32, 32, 16), (3, 96, 48, 20, 32), (1, 512, 64, 96, 256),
-    (2, 512, 1024, 64, 256), (1, 40, 36, 44, 8)])
-def test_mlstm_chunked_matches_twin(dev, bh, s, dk, dv, chunk):
-    from repro_torch.kernels.ref import mlstm_chunked_ref
-
-    rng = np.random.default_rng(51)
+def mlstm_inputs(dev, bh, s, dk, dv, seed=51):
+    rng = np.random.default_rng(seed)
     q = cu((rng.normal(size=(bh, s, dk)) * dk ** -0.5).astype(np.float32), dev)
     k = cu(rng.normal(size=(bh, s, dk)).astype(np.float32), dev)
     v = cu(rng.normal(size=(bh, s, dv)).astype(np.float32), dev)
     logi = cu(rng.normal(size=(bh, s)).astype(np.float32), dev)
     logf = torch.nn.functional.logsigmoid(
         cu((rng.normal(size=(bh, s)) + 2).astype(np.float32), dev))
+    return q, k, v, logi, logf
+
+
+# Besides the narrow cases: several chunks at full width (the states
+# buffer and every tile), 12 chunks of 8 steps at narrow dims, a dv that
+# is not a multiple of the kernel's 128-column tile, a chunk between 128
+# and 256 (ragged diagonal tiles past the first row tile) and a dk past
+# 1024 that is not a multiple of the 128-row tile.
+@pytest.mark.parametrize("bh,s,dk,dv,chunk", [
+    (2, 64, 32, 32, 16), (3, 96, 48, 20, 32), (1, 512, 64, 96, 256),
+    (2, 512, 1024, 64, 256), (1, 40, 36, 44, 8), (2, 1024, 1024, 1024, 256),
+    (1, 96, 40, 12, 8), (1, 512, 200, 1000, 256), (1, 384, 64, 72, 192),
+    (1, 128, 1100, 36, 64)])
+def test_mlstm_chunked_matches_twin(dev, bh, s, dk, dv, chunk):
+    from repro_torch.kernels.ref import mlstm_chunked_ref
+
+    q, k, v, logi, logf = mlstm_inputs(dev, bh, s, dk, dv)
     before = ops.LAUNCHES["mlstm_chunked"]
     got = ops.mlstm_chunked(q, k, v, logi, logf, chunk=chunk)
     torch.cuda.synchronize()
@@ -510,6 +534,16 @@ def test_mlstm_chunked_matches_twin(dev, bh, s, dk, dv, chunk):
     for g, w in zip(got[:3], want[:3]):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
     assert torch.equal(got[3], want[3])
+
+
+def test_mlstm_chunked_is_deterministic(dev):
+    """No atomics, no order that depends on scheduling: two calls on the
+    same input give the same bits."""
+    args = mlstm_inputs(dev, 2, 1024, 256, 384, seed=52)
+    first = ops.mlstm_chunked(*args, chunk=256)
+    second = ops.mlstm_chunked(*args, chunk=256)
+    for g, w in zip(first, second):
+        assert torch.equal(g, w)
 
 
 def test_flash_and_mlstm_wrappers_raise_rather_than_fall_back(dev):
@@ -522,11 +556,10 @@ def test_flash_and_mlstm_wrappers_raise_rather_than_fall_back(dev):
     g = torch.zeros((1, 60), device=dev)
     with pytest.raises(ValueError, match="multiple of 8"):
         ops.mlstm_chunked(x, x, x, g, g, chunk=12)
-    x = torch.zeros((1, 64, 2048), device=dev)
-    g = torch.zeros((1, 64), device=dev)
-    with pytest.raises(ValueError, match="dk <= 1024"):
-        ops.mlstm_chunked(x, x, torch.zeros((1, 64, 8), device=dev), g, g,
-                          chunk=64)
+    x = torch.zeros((1, 8 * 1025, 8), device=dev)
+    g = torch.zeros((1, 8 * 1025), device=dev)
+    with pytest.raises(ValueError, match="at most 1024 chunks"):
+        ops.mlstm_chunked(x, x, x, g, g, chunk=8)
 
 
 def test_wrappers_refuse_cuda_operands_that_require_grad(dev):

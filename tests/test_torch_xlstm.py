@@ -33,7 +33,7 @@ from repro_torch.configs.base import float_policy, smoke_config, train_policy
 from repro_torch.convert import params_from_numpy
 from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import mlstm_chunked_ref
+from repro_torch.kernels.ref import mlstm_chunked_ref, mlstm_chunked_states_ref
 from repro_torch.models import xlstm as tx
 from repro_torch.models.model_factory import build_model
 
@@ -82,6 +82,29 @@ def test_mlstm_twin_matches_the_pallas_kernel(bh, s, dk, dv, chunk):
     args = (q, k, v, logi, logf)
     want = mlstm_chunked(*map(jnp.asarray, args), chunk=chunk, interpret=True)
     got = mlstm_chunked_ref(*map(t, args), chunk=chunk)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        close(g, w, rtol=2e-5, atol=2e-5)
+
+
+# The CUDA kernel's order (the states entering every chunk first, then
+# every chunk's y from them) against the twin's chunk-after-chunk order:
+# the same per-chunk operations on the CPU, so C, n and m equal and y
+# within rtol/atol 1e-6 (batched products over the chunks); against the
+# Pallas kernel rtol/atol 2e-5, as the twin.
+@pytest.mark.parametrize("bh,s,dk,dv,chunk", [(2, 128, 64, 64, 32), (1, 96, 40, 12, 8)])
+def test_mlstm_states_order_matches_twin_and_pallas(bh, s, dk, dv, chunk):
+    rng = np.random.default_rng(161)
+    q = normal(rng, bh, s, dk, scale=dk ** -0.5)
+    k, v = normal(rng, bh, s, dk), normal(rng, bh, s, dv)
+    logi, logf = gates(rng, bh, s)
+    args = (q, k, v, logi, logf)
+    got = mlstm_chunked_states_ref(*map(t, args), chunk=chunk)
+    twin = mlstm_chunked_ref(*map(t, args), chunk=chunk)
+    torch.testing.assert_close(got[0], twin[0], rtol=1e-6, atol=1e-6)
+    for g, w in zip(got[1:], twin[1:]):
+        assert torch.equal(g, w)
+    want = mlstm_chunked(*map(jnp.asarray, args), chunk=chunk, interpret=True)
     for g, w in zip(got, want):
         assert g.shape == w.shape
         close(g, w, rtol=2e-5, atol=2e-5)
