@@ -22,10 +22,14 @@
    1e-4 of the float64-accumulated dot, and the same at jamba's decode
    shape (one packed [8192, 8192] expert, bf16 X [8192, 4]; yardstick
    bf16 ``torch.matmul``; not summed). The two kernels redesigned last,
-   ``mlstm_chunked`` and ``fused_xnor_gemm``, are also timed beside
-   their parent commit's versions on the same inputs (``parent_ms``),
-   built into ``build/parent/`` from ``--parent-src DIR`` or ``git show
-   HEAD~1`` (not measured without either). Before them, the rates of the three inner loops a packed ±1
+   ``fused_direct_conv`` and ``megakernel_conv_stage``, are also timed
+   beside their parent commit's versions on the same inputs
+   (``parent_ms``; the parents' all-ones border padded in the timed call,
+   as their wrapper did), built into ``build/parent/`` from
+   ``--parent-src DIR`` or ``git show HEAD~1`` (not measured without
+   either), and beside a bf16 ``F.conv2d`` of the same ±1 operands
+   (``library_bf16_ms``, a timing yardstick only: its outputs round).
+   Before them, the rates of the three inner loops a packed ±1
    product can run (``XNOR_LOOP_BODY``: popc on the CUDA cores, 1-bit and
    int8 ``mma.sync``) are measured and stored.
 4. Serves 12 ragged requests (1-8 images) on the trained checkpoint
@@ -259,14 +263,16 @@ def check_equal(name: str, label: str, got: torch.Tensor,
 # The kernels this commit redesigned, timed beside their parent commit's
 # versions in the same run (``--parent-src``, else ``git show HEAD~1``).
 # {source: (the parent's C launcher, its argtypes as the parent's build.py
-# declared them)}: the fused layer (w, x, a, b, out, M, KW, N, k_bits,
-# stream), the mLSTM (q, k, v, logi, logf, y, C, n, m, sw, g, m_loc,
-# inter, wk, decay, BH, S, L, dk, dv, stream).
+# declared them)}: the fused direct conv (x padded, w, a, b, out, N, Hp,
+# Wp, CW, D, kh, kw, stride, k_bits, stream), the conv stage (x padded,
+# out, w[], a[], b[], d_words[], cw[], k_bits[], n_layers, n_images, hp,
+# wp, kh, kw, pad, pool, cluster, stream).
 PARENT_KERNELS = {
-    "fused_gemm": ("repro_fused_xnor_gemm",
-                   (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)),
-    "mlstm_chunk": ("repro_mlstm_chunked",
-                    (ctypes.c_void_p,) * 15 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)),
+    "direct_conv": ("repro_fused_direct_conv",
+                    (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)),
+    "megakernel_conv_stage": (
+        "repro_megakernel_conv_stage",
+        (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)),
 }
 PARENT_DIR = OUT_DIR / "parent"
 
@@ -453,40 +459,48 @@ def xnor_loop_rates(procs: dict) -> dict:
     return rates
 
 
-def parent_fused(fn, w, x, k_bits, a, b):
-    """The parent's fused layer on (w, x, a, b): a callable for ``record``."""
-    m, kw = w.shape
-    n = x.shape[1]
-    out = torch.empty((-(-m // 32), n), dtype=torch.int32, device=w.device)
+def parent_direct_conv(fn, w, x, k_bits, a, b):
+    """The parent's fused direct conv (3x3, stride 1, pad 1) on (w, x, a,
+    b), the all-ones border padded here as the parent's wrapper did (timed
+    with the call): a callable for ``record``."""
+    n, h, wd, cw = x.shape
+    d = w.shape[0]
+    out = torch.empty((n, h, wd, -(-d // 32)), dtype=torch.int32, device=w.device)
 
     def run():
-        rc = fn(w.data_ptr(), x.data_ptr(), a.data_ptr(), b.data_ptr(),
-                out.data_ptr(), m, kw, n, k_bits,
+        xpad = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1), value=-1)
+        rc = fn(xpad.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+                out.data_ptr(), n, h + 2, wd + 2, cw, d, 3, 3, 1, k_bits,
                 torch.cuda.current_stream().cuda_stream)
         if rc:
-            fail(f"parent fused_xnor_gemm launch failed: CUDA error {rc}")
+            fail(f"parent fused_direct_conv launch failed: CUDA error {rc}")
+        return out
     return run
 
 
-def parent_mlstm(fn, q, k, v, logi, logf, chunk):
-    """The parent's mLSTM on (q, k, v, logi, logf) with its own outputs and
-    scratch: a callable for ``record``."""
-    bh, s, dk = q.shape
-    dv, ln = v.shape[-1], min(chunk, s)
-    nc = s // ln
-    f32 = dict(dtype=torch.float32, device=q.device)
-    outs = (torch.empty((bh, s, dv), **f32), torch.empty((bh, dk, dv), **f32),
-            torch.empty((bh, dk), **f32), torch.empty((bh,), **f32),
-            torch.empty((bh, nc, ln, ln), **f32))
-    gates = torch.empty((4, bh, s), **f32)
-    decay = torch.empty((bh, nc), **f32)
+def parent_conv_stage(fn, x, ws, a, b, k_bits):
+    """The parent's conv stage (3x3, pad 1, pooled; D a multiple of 32) on
+    (x, ws, a, b), the border padded here as the parent's wrapper did, its
+    cluster gcd(8, D_l/32): a callable for ``record``."""
+    import math
+
+    from repro_torch.kernels import ops
+
+    n, h, wd, cw = x.shape
+    d_words = [wl.shape[0] // 32 for wl in ws]
+    args = (ops._ptrs(ws), ops._ptrs(a), ops._ptrs(b), ops._ints(d_words),
+            ops._ints([cw] + d_words[:-1]), ops._ints(k_bits))
+    cluster = math.gcd(8, *d_words)
+    out = torch.empty((n, h // 2, wd // 2, d_words[-1]), dtype=torch.int32,
+                      device=x.device)
 
     def run():
-        rc = fn(*(t.data_ptr() for t in (q, k, v, logi, logf, *outs)),
-                *(gates[i].data_ptr() for i in range(4)), decay.data_ptr(),
-                bh, s, ln, dk, dv, torch.cuda.current_stream().cuda_stream)
+        xpad = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1), value=-1)
+        rc = fn(xpad.data_ptr(), out.data_ptr(), *args, len(ws), n, h + 2, wd + 2,
+                3, 3, 1, 1, cluster, torch.cuda.current_stream().cuda_stream)
         if rc:
-            fail(f"parent mlstm_chunked launch failed: CUDA error {rc}")
+            fail(f"parent megakernel_conv_stage launch failed: CUDA error {rc}")
+        return out
     return run
 
 
@@ -504,7 +518,6 @@ def kernel_phase(dev, parents=None) -> tuple[dict, list]:
         for label, m, kw, n, k_bits in cases:
             w = rand_words(gen, (m, kw), dev)
             x = rand_words(gen, (kw, n), dev)
-            parent = None
             if name == "xnor_gemm":
                 a = b = None
                 run = lambda: ops.xnor_gemm(w, x, k_bits)  # noqa: E731
@@ -515,8 +528,6 @@ def kernel_phase(dev, parents=None) -> tuple[dict, list]:
                 run = lambda: ops.fused_xnor_gemm(w, x, k_bits, a, b)  # noqa: E731
                 twin = lambda: bitops.fused_xnor_layer(w, x, k_bits, a, b)  # noqa: E731
                 out_bytes = -(-m // 32) * n * 4
-                if isinstance(parents, dict):
-                    parent = parent_fused(parents["fused_gemm"], w, x, k_bits, a, b)
             err = check_equal(name, label, run(), twin())
             # Yardstick: the same ±1 dot as an fp32 matmul (K words past
             # k_bits are xnor-neutral pads, none here: k_bits = 32*KW).
@@ -527,7 +538,7 @@ def kernel_phase(dev, parents=None) -> tuple[dict, list]:
             nbytes += 0 if a is None else 8 * m
             ops_n = 2 * m * n * k_bits
             rows.append(record(totals[name], name, label, err, run, twin, lib,
-                               nbytes, ops_n, parent=parent))
+                               nbytes, ops_n))
     for label, h, c, d in conv_cases():
         cw, k_bits = c // 32, 9 * c
         x = rand_words(gen, (BATCH, h, h, cw), dev)
@@ -537,19 +548,28 @@ def kernel_phase(dev, parents=None) -> tuple[dict, list]:
             w, x, k_bits, a, b, kh=3, kw=3, stride=1, pad=1)
         twin = lambda: bitops.direct_conv_oracle(  # noqa: E731
             w, x, k_bits, a, b, kh=3, kw=3, stride=1, pad=1)
-        err = check_equal("fused_direct_conv", label, run(), twin())
+        want = twin()
+        err = check_equal("fused_direct_conv", label, run(), want)
+        parent = None
+        if isinstance(parents, dict):
+            parent = parent_direct_conv(parents["direct_conv"], w, x, k_bits, a, b)
+            check_equal("parent fused_direct_conv", label, parent(), want)
         # Yardstick: F.conv2d of the ±1 map, pre-padded with +1 (the
-        # binary border), and the ±1 filters, NCHW, TF32 off.
+        # binary border), and the ±1 filters, NCHW, TF32 off; and the same
+        # in bf16 (a timing yardstick only: its outputs round).
         xf = torch.nn.functional.pad(
             bitops.unpack_bits(x, axis=-1).permute(0, 3, 1, 2), (1, 1, 1, 1),
             value=1.0).contiguous()
         wf = bitops.unpack_bits(w, axis=-1).reshape(d, 3, 3, c).permute(
             0, 3, 1, 2).contiguous()
         lib = lambda: torch.nn.functional.conv2d(xf, wf)  # noqa: E731
+        xh, wh = xf.bfloat16(), wf.bfloat16()
+        lib_bf16 = lambda: torch.nn.functional.conv2d(xh, wh)  # noqa: E731
         nbytes = (x.numel() + w.numel() + BATCH * h * h * (d // 32)) * 4 + 8 * d
         ops_n = 2 * BATCH * h * h * d * k_bits
         rows.append(record(totals["fused_direct_conv"], "fused_direct_conv",
-                           label, err, run, twin, lib, nbytes, ops_n))
+                           label, err, run, twin, lib, nbytes, ops_n,
+                           parent=parent, lib_bf16=lib_bf16))
     return totals, rows
 
 
@@ -557,7 +577,7 @@ def record(total: dict, name: str, label: str, err, run, twin, lib,
            nbytes: int, ops_n: int, per_layer=None, summed: bool = True,
            plain_reps: int = 3, cold: bool = False,
            check: str = "exact", rate: float | None = None,
-           parent=None) -> dict:
+           parent=None, lib_bf16=None) -> dict:
     """Time one main-path shape: kernel (graph replay and eager call),
     twin, library yardstick (``lib``; None where no single PyTorch call
     computes the function), for a megakernel the slice-1 per-layer
@@ -566,7 +586,9 @@ def record(total: dict, name: str, label: str, err, run, twin, lib,
     see ``parent_kernels``). The kernel's totals sum the times of its
     main path's shapes only (``summed``); every shape's error counts.
     ``cold``: the kernel's time is taken with a cold L2 (its warm time is
-    kept as ``warm_ms``). ``check`` says how the shape was held to its
+    kept as ``warm_ms``). ``lib_bf16``: the library yardstick in bf16 (a
+    timing yardstick only; its outputs round), kept as
+    ``library_bf16_ms``. ``check`` says how the shape was held to its
     twin; ``rate`` replaces the kernel's peak rate in the bound (a
     float32 case of a bf16 kernel)."""
     ms = graph_ms(run, cold=cold)
@@ -592,12 +614,15 @@ def record(total: dict, name: str, label: str, err, run, twin, lib,
     if parent is not None:
         row["parent_ms"] = graph_ms(parent)
         line += f"  parent {row['parent_ms']:.4f} ms"
+    if lib_bf16 is not None:
+        row["library_bf16_ms"] = graph_ms(lib_bf16, iters=5)
+        line += f"  library bf16 {row['library_bf16_ms']:.4f} ms"
     print(line, flush=True)
     total["max_abs_err"] = max(total["max_abs_err"], err)
     if not summed:
         return row
     for k in ("ms", "plain_ms", "library_ms", "bound_ms", "per_layer_ms",
-              "parent_ms"):
+              "parent_ms", "library_bf16_ms"):
         if k in row:
             total[k] = None if row[k] is None else total.get(k, 0.0) + row[k]
     total["bytes"] += nbytes
@@ -621,9 +646,11 @@ def stage_operands(gen, h, chans, n, dev):
     return x, ws, [p[0] for p in aff], [p[1] for p in aff], k_bits
 
 
-def megakernel_phase(dev, totals: dict, rows: list) -> None:
+def megakernel_phase(dev, totals: dict, rows: list, parents=None) -> None:
     """Both megakernels at the main path's shapes, bit-exact against their
-    twins, timed beside the per-layer kernels and a library chain."""
+    twins, timed beside the per-layer kernels and a library chain (fp32,
+    and bf16 for the conv stages); the conv stage also beside the parent
+    commit's (``parents``)."""
     from repro_torch.core import bitops
     from repro_torch.kernels import ops
 
@@ -634,8 +661,9 @@ def megakernel_phase(dev, totals: dict, rows: list) -> None:
             x, ws, a, b, k_bits = stage_operands(gen, h, chans, n, dev)
             run = lambda: ops.megakernel_conv_stage(x, ws, a, b, k_bits)  # noqa: E731,B023
             twin = lambda: bitops.conv_stage_xla(x, ws, a, b, k_bits)  # noqa: E731,B023
+            want = twin()
             err = check_equal("megakernel_conv_stage", f"{label} b{n}", run(),
-                              twin())
+                              want)
             if n != BATCH:
                 print(f"  megakernel_conv_stage {label} batch {n}: exact",
                       flush=True)
@@ -661,13 +689,32 @@ def megakernel_phase(dev, totals: dict, rows: list) -> None:
                     y = F.conv2d(y if i == 0 else y.sign(), wf, padding=1)
                 return F.max_pool2d(y, 2)
 
+            xh, whs = xf.bfloat16(), [wf.bfloat16() for wf in wfs]
+            parent = None
+            if isinstance(parents, dict):
+                parent = parent_conv_stage(parents["megakernel_conv_stage"], x, ws,
+                                           a, b, k_bits)
+                check_equal("parent megakernel_conv_stage", label, parent(), want)
+
             out_words = n * (h // 2) ** 2 * chans[-1] // 32
             nbytes = (x.numel() + sum(wl.numel() for wl in ws) + out_words) * 4
             nbytes += 8 * sum(chans[1:])
             ops_n = 2 * n * h * h * sum(d * k for d, k in zip(chans[1:], k_bits))
-            rows.append(record(totals["megakernel_conv_stage"],
-                               "megakernel_conv_stage", label, err, run, twin,
-                               lib, nbytes, ops_n, per_layer=per_layer))
+            row = record(totals["megakernel_conv_stage"], "megakernel_conv_stage",
+                         label, err, run, twin, lib, nbytes, ops_n,
+                         per_layer=per_layer, parent=parent,
+                         lib_bf16=lambda xh=xh, whs=whs: lib(xh, whs))
+            # the launcher's occupancy query: shared memory of a CTA and the
+            # clusters the card holds at once (the batch's 32 in one wave?)
+            d_words = tuple(wl.shape[0] // 32 for wl in ws)
+            row["smem_bytes"], row["clusters_at_once"] = next(
+                (v for k, v in ops._LIMITS.items()
+                 if k[0] == "megakernel_conv_stage" and k[2][0] == d_words),
+                ("not measured", "not measured"))
+            print(f"    {row['smem_bytes']} B of shared memory a CTA, "
+                  f"{row['clusters_at_once']} clusters of {ops.MAX_CLUSTER} at once",
+                  flush=True)
+            rows.append(row)
 
     # The FC trunk: fc0 [1024, 8192] + fc1 [1024, 1024] stacked, head
     # [10, 1024]. Batch 32 as served (masked-tail path), then tails.
@@ -895,7 +942,7 @@ def flash_twin(q, k, v, causal=True):
     return flash_attention_ref(q, k, v, causal=causal, block_kv=ops.FLASH_TILE)
 
 
-def attention_phase(dev, totals: dict, rows: list, parents=None) -> None:
+def attention_phase(dev, totals: dict, rows: list) -> None:
     """``flash_attention`` at smollm-360m's training shape (bf16; its time
     makes the kernels-line total), in float32 and at a ragged shape, and
     ``mlstm_chunked`` at xlstm-1.3b's (its time makes the total) and on a
@@ -907,8 +954,7 @@ def attention_phase(dev, totals: dict, rows: list, parents=None) -> None:
     the mLSTM L (L + 1) (dk + dv) + 4 L dk dv per (bh, chunk) (the
     causal half of q k^T and of the weights times v, the diagonal
     included, then q C and the update of C) at the float32 rate against
-    its operands. ``parents``: the parent commit's launchers, timed
-    beside the mLSTM."""
+    its operands."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import mlstm_chunked_ref
 
@@ -947,14 +993,12 @@ def attention_phase(dev, totals: dict, rows: list, parents=None) -> None:
         ln = min(chunk, s)
         ops_n = (s // ln) * bh * (ln * (ln + 1) * (dk + dv) + 4 * ln * dk * dv)
         nbytes = 4 * (bh * s * (2 * dk + 2 * dv + 2) + bh * (dk * dv + dk + 1))
-        parent = (parent_mlstm(parents["mlstm_chunk"], *args, chunk)
-                  if isinstance(parents, dict) else None)
         row = record(totals["mlstm_chunked"], "mlstm_chunked",
                      f"{label} [{bh},{s},{dk},{dv}] L{ln}", err["max_abs_err"],
                      run, twin, None, nbytes, ops_n, summed=label == "xlstm layer",
                      check=(f"max err y {err['y']:.2g} C {err['C']:.2g} n "
                             f"{err['n']:.2g} ({err['max_of_limit']:.2f} of the "
-                            "limit), m equal"), parent=parent)
+                            "limit), m equal"))
         row.update(err)
         # the same products as 3xTF32 passes on the tensor cores, the design
         # the kernel runs (its bound_ms keeps the float32 rate)
@@ -2041,7 +2085,7 @@ def main() -> None:
           "twins at their main paths' shapes (bit-exact)", flush=True)
     xnor_loops = xnor_loop_rates(loop_procs)
     totals, rows = kernel_phase(dev, parents)
-    megakernel_phase(dev, totals, rows)
+    megakernel_phase(dev, totals, rows, parents)
     # The Table 2 forward's own shapes (its batch) make the totals; the
     # batch-32 shapes are checked and timed beside them.
     unfused_kernel_phase(dev, totals, rows, BNNExperiment("table2").batch,
@@ -2049,7 +2093,7 @@ def main() -> None:
     unfused_kernel_phase(dev, totals, rows, BATCH, summed=False)
     unpack_decode_phase(dev, totals, rows)
     scan_phase(dev, totals, rows)
-    attention_phase(dev, totals, rows, parents)
+    attention_phase(dev, totals, rows)
     print("phase 4: serving on the trained checkpoint", flush=True)
     serve = serve_phase(dev)
     print("phase 5: Table 2 on the card", flush=True)
@@ -2096,7 +2140,8 @@ def main() -> None:
             "library_ms": t["library_ms"],
         })
         for extra in ("per_layer_ms", "real_input_max_abs_err",
-                      "fp32_bound_ms", "tc_bound_ms", "parent_ms"):
+                      "fp32_bound_ms", "tc_bound_ms", "parent_ms",
+                      "library_bf16_ms"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
     print(json.dumps({"kernels": kernels}))

@@ -7,10 +7,13 @@ host), so this script removes one part of a kernel at a time: it builds
 variants of a source in ``src/repro_torch/kernels/csrc`` with textual
 edits (``ABLATIONS``; most give wrong results and are only timed), and
 times each beside the unedited source at the main path's shapes, in turns
-(A B ... B A) on one card. A part's cost is the time it takes away. It
+(A B ... B A) on one card. A part's cost is the time it takes away (the
+two conv kernels: the gather of the implicit patch matrix, the ldmatrix
+B fragments, the exchange through distributed shared memory). It
 also measures the tensor cores' ``mma.sync`` rates: m16n8k16 bf16, the
 ceiling of flash's and unpack_gemm's products, and m16n8k8 tf32, whose
-third is the ceiling of the mLSTM's 3xTF32 products. Prints one line per shape and writes
+third is the ceiling of the mLSTM's 3xTF32 products; and the latency of
+one 1-bit m16n8k256 in a dependent chain. Prints one line per shape and writes
 ``build/kernel_ablation.json``. Needs CUDA and ``nvcc``; imports no JAX.
 """
 
@@ -55,6 +58,26 @@ ABLATIONS = {
              "bh[nt][0], bh[nt][1]);", "        for (int nt = 0; nt < 0; ++nt) {}"),
             ("        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mp + m2][nt], ah[m2], "
              "bl[nt][0], bl[nt][1]);", "        for (int nt = 0; nt < 0; ++nt) {}")],
+    },
+    "direct_conv": {
+        "gather as a contiguous load (no table, no border test)": [(
+            """      const bool inside = static_cast<unsigned>(y0 + (e.y >> 16)) < static_cast<unsigned>(H) &&
+                          static_cast<unsigned>(x0 + (e.y & 0xffff)) < static_cast<unsigned>(W);
+      const unsigned* src = img + (off0 + e.x);""",
+            """      const bool inside = true;
+      const unsigned* src = img + min(max(off0, 0) + k, H * W - 1);""")],
+    },
+    "megakernel_conv_stage": {
+        "B by 4-byte loads, not ldmatrix": [(
+            "if (c.cw % 4 == 0) {\n    unit_counts<true>",
+            "if (false) {\n    unit_counts<true>")],
+        "DSMEM exchange as local writes": [(
+            "*cluster.map_shared_rank(cell, g) = word;",
+            "if (g == 0) *cell = word;")],
+        "filters not staged (no cp.async of W)": [(
+            "cp_async16(dst, k < K ? from : wg, k < K ? 16 : 0);", "(void)from;")],
+        "no products (K loop skipped)": [(
+            "for (int kk = 0; kk < K; kk += 8) {", "for (int kk = 0; kk < 0; kk += 8) {")],
     },
     "unpack_gemm": {
         "no Kahan (plain +=)": [(
@@ -120,6 +143,25 @@ __global__ void tmma_loop(float* out, int iters) {
 }
 extern "C" int run_tmma(float* out, int blocks, int threads, int iters) {
   tmma_loop<<<blocks, threads>>>(out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+// iters dependent 1-bit m16n8k256 and.popc products (one accumulator): the
+// latency of one, when a warp runs alone.
+__global__ void b1_chain(float* out, int iters) {
+  int c[4] = {};
+  const uint32_t a0 = threadIdx.x, a1 = a0 * 3, a2 = a0 * 5, a3 = a0 * 7;
+  const uint32_t b0 = a0 ^ 0x5555u, b1 = a0 ^ 0xa5a5u;
+  for (int it = 0; it < iters; ++it) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  }
+  out[threadIdx.x] = static_cast<float>(c[0] + c[1] + c[2] + c[3]);
+}
+extern "C" int run_b1_chain(float* out, int iters) {
+  b1_chain<<<1, 32>>>(out, iters);
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -206,6 +248,132 @@ def unpack_cases(dev):
     return cases
 
 
+def direct_conv_cases(dev):
+    """The five convs of the batch-32 forward (3x3, stride 1, pad 1)."""
+    cpu = torch.Generator().manual_seed(18)
+    cases = []
+    for label, h, c, d in chip_smoke.conv_cases():
+        cw, k_bits = c // 32, 9 * c
+        x = chip_smoke.rand_words(cpu, (chip_smoke.BATCH, h, h, cw), dev)
+        w = chip_smoke.rand_words(cpu, (d, 9 * cw), dev)
+        a, b = chip_smoke.rand_affine(cpu, d, k_bits, dev)
+        out = torch.empty((chip_smoke.BATCH, h, h, d // 32), dtype=torch.int32,
+                          device=dev)
+
+        def make(path, x=x, w=w, a=a, b=b, out=out, h=h, cw=cw, d=d, k_bits=k_bits):
+            fn = launcher(path, "repro_fused_direct_conv")
+            return lambda: fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+                              out.data_ptr(), chip_smoke.BATCH, h, h, cw, d, 3, 3, 1,
+                              1, k_bits, torch.cuda.current_stream().cuda_stream)
+        cases.append((f"{label} b{chip_smoke.BATCH}", make))
+    return cases
+
+
+def conv_stage_cases(dev):
+    """The three conv stages of the batch-32 forward."""
+    from repro_torch.kernels import ops
+
+    cpu = torch.Generator().manual_seed(19)
+    cases = []
+    for label, h, chans in chip_smoke.STAGE_CASES:
+        x, ws, a, b, k_bits = chip_smoke.stage_operands(cpu, h, chans,
+                                                        chip_smoke.BATCH, dev)
+        d_words = [wl.shape[0] // 32 for wl in ws]
+        args = (ops._ptrs(ws), ops._ptrs(a), ops._ptrs(b), ops._ints(d_words),
+                ops._ints([chans[0] // 32] + d_words[:-1]), ops._ints(k_bits))
+        out = torch.empty((chip_smoke.BATCH, h // 2, h // 2, d_words[-1]),
+                          dtype=torch.int32, device=dev)
+
+        def make(path, x=x, out=out, args=args, h=h, n_layers=len(ws),
+                 cluster=8, keep=(ws, a, b)):
+            # (`keep`: the tensors behind the pointer arrays stay alive)
+            fn = launcher(path, "repro_megakernel_conv_stage")
+            return lambda: fn(x.data_ptr(), out.data_ptr(), *args, n_layers,
+                              chip_smoke.BATCH, h + 2, h + 2, 3, 3, 1, 1, cluster,
+                              torch.cuda.current_stream().cuda_stream)
+        cases.append((f"{label} b{chip_smoke.BATCH}", make))
+    return cases
+
+
+# Where a conv-stage CTA's time goes: globaltimer stamps (thread 0 of
+# each CTA) at the phase boundaries of megakernel_conv_stage.cu, inserted
+# as text: 0 start, 1 staging issued, 2 past the first cluster barrier,
+# then for conv l: 3 + 2l its filters landed and P(w) counted, 4 + 2l its
+# units done; 11 end.
+def _stamp(slot: str) -> str:
+    return ("if (threadIdx.x == 0) { unsigned long long t_; asm volatile("
+            f'"mov.u64 %0, %%globaltimer;" : "=l"(t_)); g_ts[blockIdx.x * 12 + ({slot})]'
+            " = t_; }\n")
+
+
+TIMELINE_EDITS = [
+    ("namespace repro_torch {\n\nconstexpr int kStageMaxLayers",
+     "__device__ unsigned long long g_ts[4096 * 12];\n"
+     'extern "C" void* ts_ptr() { void* p; cudaGetSymbolAddress(&p, g_ts); return p; }\n'
+     "namespace repro_torch {\n\nconstexpr int kStageMaxLayers"),
+    ("  const StageLayout L = stage_layout(p);\n",
+     "  const StageLayout L = stage_layout(p);\n" + _stamp("0")),
+    ("  cluster.sync();\n\n  int hin = p.hp;",
+     _stamp("1") + "  cluster.sync();\n" + _stamp("2") + "\n  int hin = p.hp;"),
+    ("    __syncthreads();  // P(w) is readable\n",
+     "    __syncthreads();  // P(w) is readable\n" + _stamp("3 + 2 * l")),
+    ("    if (!c.last || parts > 1) {\n      cluster.sync();",
+     _stamp("4 + 2 * l") + "    if (!c.last || parts > 1) {\n      cluster.sync();"),
+    ("    win = c.nxt_w;\n  }\n}", "    win = c.nxt_w;\n  }\n" + _stamp("11") + "}"),
+]
+
+
+def stage_timeline(dev) -> dict:
+    """Median time since its start at which a CTA of each main-path stage
+    reaches each phase boundary, the spread of CTA start times, and the
+    launch's span (one call at batch 32, after warm-up)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    src = (build.CSRC / "megakernel_conv_stage.cu").read_text()
+    for old, new in TIMELINE_EDITS:
+        if old not in src:
+            return {"error": f"timeline anchor missing: {old[:40]!r}"}
+        src = src.replace(old, new)
+    d = OUT / "timeline"
+    d.mkdir(parents=True, exist_ok=True)
+    for header in build.CSRC.glob("*.cuh"):
+        shutil.copy(header, d / header.name)
+    (d / "stage.cu").write_text(src)
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(d / "lib.so"),
+                    str(d / "stage.cu")], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(d / "lib.so"))
+    lib.ts_ptr.restype = ctypes.c_void_p
+    copy = ctypes.CDLL("libcuda.so.1").cuMemcpyDtoH_v2
+    copy.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_size_t]
+    result = {}
+    for (label, make), (_, h, chans) in zip(conv_stage_cases(dev), chip_smoke.STAGE_CASES):
+        run = make(d / "lib.so")
+        run()
+        torch.cuda.synchronize()
+        n_ctas = chip_smoke.BATCH * 8
+        host = np.zeros(n_ctas * 12, dtype=np.uint64)
+        if copy(host.ctypes.data, lib.ts_ptr(), host.nbytes):
+            return {"error": "cuMemcpyDtoH failed"}
+        ts = host.reshape(n_ctas, 12).astype(np.int64)
+        rel = (ts - ts[:, :1].min()) / 1e3
+        slots = [0, 1, 2] + list(range(3, 3 + 2 * (len(chans) - 1))) + [11]
+        row = {"span_us": float(rel[:, 11].max()),
+               "start_us_quantiles": [float(q) for q in np.quantile(
+                   rel[:, 0], [0, 0.5, 0.9, 1.0])],
+               "median_us_since_start": {s_: float(np.median(rel[:, s_] - rel[:, 0]))
+                                         for s_ in slots}}
+        result[label] = row
+        print(f"  megakernel_conv_stage timeline {label}: span {row['span_us']:.1f} us, "
+              f"CTA starts (0/50/90/100%) " + " ".join(
+                  f"{q:.1f}" for q in row["start_us_quantiles"]) + " us; median since "
+              "start: " + ", ".join(f"{s_}: {v:.1f}" for s_, v in
+                                     row["median_us_since_start"].items()) + " us",
+              flush=True)
+    return result
+
+
 def mlstm_cases(dev):
     """xlstm-1.3b's training shape, [8, 4096, 1024, 1024] chunk 256."""
     gen = torch.Generator(device=dev).manual_seed(15)
@@ -251,6 +419,12 @@ def mma_rate() -> list:
                          "ms": ms, "tflops": flops / ms / 1e9})
             print(f"  mma.sync {what}, {blocks} blocks x {threads} threads: "
                   f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+    lib.run_b1_chain.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    iters = 1 << 16
+    ms = chip_smoke.time_ms(lambda: lib.run_b1_chain(out.data_ptr(), iters), iters=1)
+    rows.append({"mma": "m16n8k256 b1 and.popc, one dependent chain", "ns_each": ms * 1e6 / iters})
+    print(f"  mma.sync m16n8k256 b1 and.popc, one warp, dependent: {ms * 1e6 / iters:.1f} ns "
+          "each", flush=True)
     return rows
 
 
@@ -268,9 +442,13 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     libs = compile_variants()
     result = {"device": smi, "mma_sync": mma_rate(), "kernels": {}}
-    for source, cases in (("flash_attention", flash_cases(dev)),
-                          ("unpack_gemm", unpack_cases(dev)),
-                          ("mlstm_chunk", mlstm_cases(dev))):
+    result["conv_stage_timeline"] = stage_timeline(dev)
+    for source, cases in (("direct_conv", direct_conv_cases),
+                          ("megakernel_conv_stage", conv_stage_cases),
+                          ("flash_attention", flash_cases),
+                          ("unpack_gemm", unpack_cases),
+                          ("mlstm_chunk", mlstm_cases)):
+        cases = cases(dev)
         variants = [v for (s, v) in libs if s == source]
         result["kernels"][source] = {}
         for label, make in cases:

@@ -19,14 +19,11 @@
 // (128 x 64 where 128-wide tiles would not give every SM one, 128 x 32
 // where N <= 32), 32-word K slabs in flight through a cp.async ring. The
 // epilogue takes the staged xnor counts one column and 32 rows at a time,
-// a row a lane: dot = 2 count - k_bits, y = (a dot) + b rounded twice
-// (never an FMA), and one __ballot_sync of y >= 0 is one output word, the
-// LSB-first word of `sign_repack_m`. Rows past M take y = +1 (the a = 0,
-// b = +1 pad rows of the JAX wrapper), so their bits are 1. Where the
-// tiles cannot fill the card and K is long (fc0), K is split: each split
-// writes its integer counts to scratch [splits, N, M], and a second
-// kernel, one warp an output word, adds them in split order (exact in any
-// order) and runs the epilogue once.
+// a row a lane, and ballots the output word (tc_sign_words); rows past M
+// are +1 bits. Where the tiles cannot fill the card and K is long (fc0),
+// K is split: each split writes its integer counts to scratch [splits,
+// N, M], and a second kernel, one warp an output word, adds them in split
+// order (exact in any order) and runs the epilogue once.
 #include <algorithm>
 #include <cstdint>
 
@@ -44,8 +41,8 @@ fused_xnor_gemm_kernel(const unsigned* __restrict__ W, const unsigned* __restric
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kTcBM, split = blockIdx.z;
   const int k_begin = min(KW, split * split_words);
   const int k_end = min(KW, k_begin + split_words);
-  tc_xnor_counts<BN>(tc_ring, W, X, M, KW, N, m0, n0, k_begin, k_end, vec & 1,
-                     vec & 2);
+  tc_xnor_counts<BN>(tc_ring, W, M, KW, m0, k_begin, k_end, vec & 1,
+                     TcGemmX<BN>{X, N, n0, (vec & 2) != 0});
   // A warp takes a group of 32 rows (one per lane) and 32 columns: the
   // counts of one column at a time, and lane j keeps column j's word, so
   // the stores are whole 128-byte rows of the output.
@@ -55,9 +52,9 @@ fused_xnor_gemm_kernel(const unsigned* __restrict__ W, const unsigned* __restric
     const int rg = grp % (kTcBM / 32), nc = n0 + grp / (kTcBM / 32) * 32;
     const int mr = m0 + rg * 32, m = mr + lane;
     if (mr >= M) continue;
-    const int* col = dots + (nc - n0) * kTcLdd + rg * 32 + lane;
     if (partial != nullptr) {
       if (m < M) {
+        const int* col = dots + (nc - n0) * kTcLdd + rg * 32 + lane;
         int* dst = partial + (static_cast<long long>(split) * N + nc) * M + m;
         for (int j = 0; j < 32 && nc + j < N; ++j) {
           dst[static_cast<long long>(j) * M] = col[j * kTcLdd];
@@ -65,15 +62,9 @@ fused_xnor_gemm_kernel(const unsigned* __restrict__ W, const unsigned* __restric
       }
       continue;
     }
-    const float am = m < M ? a[m] : 0.f;
-    const float bm = m < M ? b[m] : 1.f;
-    unsigned mine = 0;
-#pragma unroll 4
-    for (int j = 0; j < 32; ++j) {
-      const float y = m < M ? bn_affine(am, 2 * col[j * kTcLdd] - k_bits, bm) : 1.f;
-      const unsigned word = sign_repack_warp(y);
-      if (lane == j) mine = word;
-    }
+    const bool real = m < M;
+    const unsigned mine = tc_sign_words(dots, rg * 32, nc - n0, real, real ? a[m] : 0.f,
+                                        real ? b[m] : 1.f, k_bits);
     if (nc + lane < N) out[static_cast<long long>(mr / kRowsPerWarp) * N + nc + lane] = mine;
   }
 }
@@ -97,22 +88,6 @@ fused_xnor_reduce_kernel(const int* __restrict__ partial, const float* __restric
   const float y = m < M ? bn_affine(a[m], 2 * total - k_bits, b[m]) : 1.f;
   const unsigned bits = sign_repack_warp(y);
   if ((threadIdx.x & 31) == 0) out[word] = bits;
-}
-
-// Columns of a block's tile: 128, or 64 where 128-wide tiles would not
-// give every SM one, or 32 for N <= 32.
-inline int tile_n(int M, int N, int sms) {
-  if (N <= 32) return 32;
-  const long long tiles = static_cast<long long>((M + kTcBM - 1) / kTcBM) * ((N + 127) / 128);
-  return tiles >= sms ? 128 : 64;
-}
-
-inline int sm_count() {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess) {
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
 }
 
 template <int BN>

@@ -1,5 +1,7 @@
 // The packed ±1 product on the tensor cores: 1-bit mma.sync m16n8k256 with
-// and.popc, for the xnor kernels of this directory (fused_gemm.cu first).
+// and.popc, for the xnor kernels of this directory (fused_gemm.cu and the
+// fused direct conv of direct_conv.cu; megakernel_conv_stage.cu runs the
+// same mma on operands resident in shared memory).
 //
 // On the H100 the 1-bit mma.sync with and.popc issues at the rate of the
 // int8 one (same instructions a second) with 8x the bits each: 5,146 T
@@ -13,18 +15,20 @@
 // (reference: repro_torch.kernels.ref.xnor_dot_and_popc). Words past
 // the operand's K load as 0 and add nothing to any term.
 //
-// The tile: W [M, KW] x X [KW, N], both row-major packed words, one block
-// of 8 warps a kTcBM x BN output tile (BN 128, 64 or 32: the caller's),
-// 32-word K slabs through a 2-stage cp.async ring. W lands as rows of
-// kTcLdw words (36: ldmatrix's 16-byte rows of 8 neighbours hit distinct
-// banks) and ldmatrix.x4 gives the A fragment directly; X lands as it is
-// stored ([k][n], stride BN + 8 = 8 mod 32), so each lane's B words
-// (k = t, n = g) are one conflict-free 32-bit load. The row popcounts come
-// from the A fragments of the warps at the first N position, the column
+// The tile: W [M, KW] row-major packed words against an X operand [KW, N]
+// that a loader brings in slab by slab (TcGemmX: a row-major matrix; the
+// direct conv's loader gathers the implicit patch matrix from the map),
+// one block of 8 warps a kTcBM x BN output tile (BN 128, 64 or 32:
+// tile_n), 32-word K slabs through a 2-stage cp.async ring. W lands as
+// rows of kTcLdw words (36: ldmatrix's 16-byte rows of 8 neighbours hit
+// distinct banks) and ldmatrix.x4 gives the A fragment directly; X lands
+// as [k][n] (stride BN + 8 = 8 mod 32), so each lane's B words (k = t,
+// n = g) are one conflict-free 32-bit load. The row popcounts come from
+// the A fragments of the warps at the first N position, the column
 // popcounts from the B fragments of the warps at the first M position.
 // The counts are staged through shared memory as dots[n][m], so a warp
-// can then take one column and 32 consecutive rows, one row a lane:
-// today's row-per-lane layout of sign_repack_warp.
+// can then take one column and 32 consecutive rows, one row a lane, and
+// ballot the sign word (tc_sign_words).
 #pragma once
 
 #include "mma.cuh"
@@ -63,20 +67,14 @@ __device__ __forceinline__ void mma_b1_and_popc(int (&c)[4], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One K slab [k0, k0 + 32) of W rows [m0, m0 + 128) and X columns
-// [n0, n0 + BN) into the stage `st`; words outside the matrices or past
-// k_end are 0. `vec_w` / `vec_x`: whole 16-byte copies (KW, resp. N, a
-// multiple of 4 and the base 16-byte aligned), else one word a copy.
-template <int BN>
-__device__ __forceinline__ void tc_load_slab(uint32_t* st, const unsigned* __restrict__ W,
-                                             const unsigned* __restrict__ X, int M,
-                                             int KW, int N, int m0, int n0, int k0,
-                                             int k_end, bool vec_w, bool vec_x) {
-  using T = TcTile<BN>;
+// One K slab [k0, k0 + 32) of W rows [m0, m0 + 128) into `ws`; words
+// outside W or past k_end are 0. `vec`: whole 16-byte copies (KW a
+// multiple of 4 and W 16-byte aligned), else one word a copy.
+__device__ __forceinline__ void tc_load_w_slab(uint32_t* ws, const unsigned* __restrict__ W,
+                                               int M, int KW, int m0, int k0, int k_end,
+                                               bool vec) {
   const int tid = threadIdx.x;
-  uint32_t* ws = st;
-  uint32_t* xs = st + kTcBM * kTcLdw;
-  if (vec_w) {
+  if (vec) {
 #pragma unroll
     for (int q = 0; q < kTcBM * kTcSlab / 4 / kTcThreads; ++q) {
       const int idx = tid + q * kTcThreads;
@@ -93,32 +91,49 @@ __device__ __forceinline__ void tc_load_slab(uint32_t* st, const unsigned* __res
                 ok ? W + static_cast<long long>(m0 + r) * KW + k0 + kk : W, ok);
     }
   }
-  if (vec_x) {
-    for (int idx = tid; idx < kTcSlab * BN / 4; idx += kTcThreads) {
-      const int kk = idx / (BN / 4), cc = (idx % (BN / 4)) * 4;
-      const bool ok = k0 + kk < k_end && n0 + cc < N;
-      cp_async16(xs + kk * T::kLdx + cc,
-                 ok ? X + static_cast<long long>(k0 + kk) * N + n0 + cc : X, ok ? 16 : 0);
-    }
-  } else {
-    for (int idx = tid; idx < kTcSlab * BN; idx += kTcThreads) {
-      const int kk = idx / BN, cc = idx % BN;
-      const bool ok = k0 + kk < k_end && n0 + cc < N;
-      cp_async4(xs + kk * T::kLdx + cc,
-                ok ? X + static_cast<long long>(k0 + kk) * N + n0 + cc : X, ok);
+}
+
+// The X slab loader of a row-major X [KW, N]: slab [k0, k0 + 32) of
+// columns [n0, n0 + BN) into xs[k][n] (stride TcTile<BN>::kLdx); words
+// outside X or past k_end are 0. `vec`: 16-byte copies (N a multiple of 4
+// and X 16-byte aligned).
+template <int BN>
+struct TcGemmX {
+  const unsigned* X;
+  int N, n0;
+  bool vec;
+  __device__ __forceinline__ void operator()(uint32_t* xs, int k0, int k_end) const {
+    constexpr int kLdx = TcTile<BN>::kLdx;
+    const int tid = threadIdx.x;
+    if (vec) {
+      for (int idx = tid; idx < kTcSlab * BN / 4; idx += kTcThreads) {
+        const int kk = idx / (BN / 4), cc = (idx % (BN / 4)) * 4;
+        const bool ok = k0 + kk < k_end && n0 + cc < N;
+        cp_async16(xs + kk * kLdx + cc,
+                   ok ? X + static_cast<long long>(k0 + kk) * N + n0 + cc : X, ok ? 16 : 0);
+      }
+    } else {
+      for (int idx = tid; idx < kTcSlab * BN; idx += kTcThreads) {
+        const int kk = idx / BN, cc = idx % BN;
+        const bool ok = k0 + kk < k_end && n0 + cc < N;
+        cp_async4(xs + kk * kLdx + cc,
+                  ok ? X + static_cast<long long>(k0 + kk) * N + n0 + cc : X, ok);
+      }
     }
   }
-}
+};
 
 // The xnor counts sum_{k in [k_begin, k_end)} popc(~(W[m][k] ^ X[k][n])) of
 // the block's tile, staged into `ring` as dots[n * kTcLdd + m] (m, n
-// local). Ends with a barrier: the counts are readable by every thread.
-template <int BN>
+// local). `load_x(xs, k0, k_end)` brings X's slab [k0, k0 + 32) of the
+// block's columns into xs[k][n] with cp.async or plain stores, words past
+// k_end as 0. Ends with a barrier: the counts are readable by every
+// thread.
+template <int BN, class XSlab>
 __device__ __forceinline__ void tc_xnor_counts(uint32_t* ring, const unsigned* __restrict__ W,
-                                               const unsigned* __restrict__ X, int M,
-                                               int KW, int N, int m0, int n0,
-                                               int k_begin, int k_end, bool vec_w,
-                                               bool vec_x) {
+                                               int M, int KW, int m0, int k_begin,
+                                               int k_end, bool vec_w,
+                                               const XSlab& load_x) {
   using T = TcTile<BN>;
   __shared__ int pw_s[kTcBM];
   __shared__ int px_s[BN];
@@ -141,8 +156,9 @@ __device__ __forceinline__ void tc_xnor_counts(uint32_t* ring, const unsigned* _
 #pragma unroll
   for (int s = 0; s < kTcStages - 1; ++s) {
     if (s < slabs) {
-      tc_load_slab<BN>(ring + s * T::kStageWords, W, X, M, KW, N, m0, n0,
-                       k_begin + s * kTcSlab, k_end, vec_w, vec_x);
+      uint32_t* st = ring + s * T::kStageWords;
+      tc_load_w_slab(st, W, M, KW, m0, k_begin + s * kTcSlab, k_end, vec_w);
+      load_x(st + kTcBM * kTcLdw, k_begin + s * kTcSlab, k_end);
     }
     cp_async_commit();
   }
@@ -151,8 +167,9 @@ __device__ __forceinline__ void tc_xnor_counts(uint32_t* ring, const unsigned* _
     __syncthreads();  // slab s has landed; slab s - 1's stage is free
     const int next = s + kTcStages - 1;
     if (next < slabs) {
-      tc_load_slab<BN>(ring + (next % kTcStages) * T::kStageWords, W, X, M, KW, N,
-                       m0, n0, k_begin + next * kTcSlab, k_end, vec_w, vec_x);
+      uint32_t* st = ring + (next % kTcStages) * T::kStageWords;
+      tc_load_w_slab(st, W, M, KW, m0, k_begin + next * kTcSlab, k_end, vec_w);
+      load_x(st + kTcBM * kTcLdw, k_begin + next * kTcSlab, k_end);
     }
     cp_async_commit();
     const uint32_t* ws = ring + (s % kTcStages) * T::kStageWords;
@@ -221,6 +238,42 @@ __device__ __forceinline__ void tc_xnor_counts(uint32_t* ring, const unsigned* _
         dots[n * kTcLdd + m] = bits - pw_s[m] - px_s[n] + 2 * acc[i][j][e];
       }
   __syncthreads();
+}
+
+// The sign words of the staged counts' columns [c, c + 32), rows [r, r +
+// 32) (local; one row a lane, `real` when the lane's row is below M):
+// dot = 2 count - k_bits, y = (a dot) + b rounded twice (never an FMA),
+// rows past M y = +1 (the a = 0, b = +1 pad rows of the JAX wrappers), and
+// one __ballot_sync of y >= 0 is one word, the LSB-first word of
+// `sign_repack_m`. Lane j returns column c + j's word.
+__device__ __forceinline__ unsigned tc_sign_words(const int* dots, int r, int c, bool real,
+                                                  float a, float b, int k_bits) {
+  const int lane = threadIdx.x & 31;
+  const int* col = dots + c * kTcLdd + r + lane;
+  unsigned mine = 0;
+#pragma unroll 4
+  for (int j = 0; j < 32; ++j) {
+    const float y = real ? bn_affine(a, 2 * col[j * kTcLdd] - k_bits, b) : 1.f;
+    const unsigned word = sign_repack_warp(y);
+    if (lane == j) mine = word;
+  }
+  return mine;
+}
+
+// Columns of a block's tile: 128, or 64 where 128-wide tiles would not
+// give every SM one, or 32 for N <= 32.
+inline int tile_n(int M, int N, int sms) {
+  if (N <= 32) return 32;
+  const long long tiles = static_cast<long long>((M + kTcBM - 1) / kTcBM) * ((N + 127) / 128);
+  return tiles >= sms ? 128 : 64;
+}
+
+inline int sm_count() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
 }
 
 }  // namespace repro_torch

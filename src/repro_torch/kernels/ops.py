@@ -185,26 +185,17 @@ def _check_direct_conv(wp: torch.Tensor, xp: torch.Tensor, kh: int,
             "conv needs tap-aligned packed filters (pack_conv_aligned)")
 
 
-def _direct_conv_geometry(name: str, xp: torch.Tensor, out_c: int, *,
-                          kh: int, kw: int, stride: int, pad: int):
-    """The launch side shared by both direct-conv kernels: shared memory
-    and grid checks, the all-ones spatial border. Returns ``(xpad, (n,
-    hp, wp, cw), (oh, ow))``; ``out_c`` is the output's last dimension."""
-    n, h, w, cw = xp.shape
+def _direct_conv_out(name: str, xp: torch.Tensor, out_c: int, *, kh: int,
+                     kw: int, stride: int, pad: int) -> tuple[int, int]:
+    """``(oh, ow)`` of a direct conv; raises where the output ``[n, oh,
+    ow, out_c]`` exceeds 32-bit sizes."""
+    n, h, w, _ = xp.shape
     oh = conv_out_size(h, kh, stride, pad)
     ow = conv_out_size(w, kw, stride, pad)
-    hp, wp_sp = h + 2 * pad, w + 2 * pad
-    smem = build.load("repro_fused_direct_conv_smem_bytes")(cw, wp_sp, kh, kw)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{name} needs {smem} B of shared memory per block "
-                         f"(> {MAX_SMEM_BYTES}); use conv_impl='im2col'")
-    if n * oh > _INT_MAX or n * oh * ow * out_c > _INT_MAX:
+    if n * oh * ow * out_c > _INT_MAX:
         raise ValueError(f"{name} output [{n}, {oh}, {ow}, {out_c}] exceeds "
-                         "the grid or 32-bit sizes")
-    xpad = xp
-    if pad:
-        xpad = torch.nn.functional.pad(xp, (0, 0, pad, pad, pad, pad), value=-1)
-    return xpad, (n, hp, wp_sp, cw), (oh, ow)
+                         "32-bit sizes")
+    return oh, ow
 
 
 def fused_direct_conv(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
@@ -212,8 +203,9 @@ def fused_direct_conv(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
                       stride: int = 1, pad: int = 0) -> torch.Tensor:
     """Fused direct conv: channel-packed ``[N, H, W, CW]`` x tap-aligned
     filters ``[D, kH*kW*CW]``, per-channel affine ``a, b [D]`` -> packed
-    ``[N, OH, OW, ceil(D/32)]``. The spatial border pads with all-ones
-    words here; channels past D are +1 bits."""
+    ``[N, OH, OW, ceil(D/32)]``. The spatial border is all-ones words (the
+    kernel lays it down; the map is read unpadded); channels past D are
+    +1 bits."""
     _check_direct_conv(wp, xp, kh, kw)
     d = wp.shape[0]
     _check_affine(a, b, d)
@@ -221,14 +213,15 @@ def fused_direct_conv(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
         return bitops.direct_conv_oracle(wp, xp, k_bits, a, b, kh=kh, kw=kw,
                                          stride=stride, pad=pad)
     dw = -(-d // PACK_BITS)
-    xpad, (n, hp, wp_sp, cw), (oh, ow) = _direct_conv_geometry(
-        "fused_direct_conv", xp, dw, kh=kh, kw=kw, stride=stride, pad=pad)
+    n, h, w, cw = xp.shape
+    oh, ow = _direct_conv_out("fused_direct_conv", xp, dw, kh=kh, kw=kw,
+                              stride=stride, pad=pad)
     out = torch.empty((n, oh, ow, dw), dtype=torch.int32, device=xp.device)
     if out.numel():
         with torch.cuda.device(xp.device):
             rc = build.load("repro_fused_direct_conv")(
-                xpad.data_ptr(), wp.data_ptr(), a.data_ptr(), b.data_ptr(),
-                out.data_ptr(), n, hp, wp_sp, cw, d, kh, kw, stride,
+                xp.data_ptr(), wp.data_ptr(), a.data_ptr(), b.data_ptr(),
+                out.data_ptr(), n, h, w, cw, d, kh, kw, stride, pad,
                 int(k_bits), _stream(xp.device))
         _raise_on(rc, "fused_direct_conv")
         LAUNCHES["fused_direct_conv"] += 1
@@ -248,8 +241,17 @@ def direct_conv(wp: torch.Tensor, xp: torch.Tensor, k_bits: int, *,
         return bitops.direct_conv_dot(wp, xp, k_bits, kh=kh, kw=kw,
                                       stride=stride, pad=pad)
     d = wp.shape[0]
-    xpad, (n, hp, wp_sp, cw), (oh, ow) = _direct_conv_geometry(
-        "direct_conv", xp, d, kh=kh, kw=kw, stride=stride, pad=pad)
+    n, h, w, cw = xp.shape
+    oh, ow = _direct_conv_out("direct_conv", xp, d, kh=kh, kw=kw,
+                              stride=stride, pad=pad)
+    hp, wp_sp = h + 2 * pad, w + 2 * pad
+    smem = build.load("repro_direct_conv_dot_smem_bytes")(cw, wp_sp, kh, kw)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"direct_conv needs {smem} B of shared memory per "
+                         f"block (> {MAX_SMEM_BYTES}); use conv_impl='im2col'")
+    xpad = xp
+    if pad:
+        xpad = torch.nn.functional.pad(xp, (0, 0, pad, pad, pad, pad), value=-1)
     out = torch.empty((n, oh, ow, d), dtype=torch.int32, device=xp.device)
     if out.numel():
         with torch.cuda.device(xp.device):
@@ -546,8 +548,9 @@ def megakernel_conv_stage(xp: torch.Tensor, weights, a, b, k_bits, *,
     ``xp [N, H, W, CW]`` channel-packed; ``weights[l] [D_l, kH*kW*CW_l]``
     tap-aligned filters with ``CW_{l+1} = ceil(D_l/32)``; ``a[l]``,
     ``b[l] [D_l]`` folded affines; ``k_bits[l]`` the true ``kH*kW*C_l``.
-    The all-ones spatial border (``pad``, before every conv) and the
-    ``a=0, b=+1`` padding of D to whole words are applied here. Returns
+    The all-ones spatial border (``pad``, before every conv) is laid down
+    by the kernel, which reads the map unpadded; the ``a=0, b=+1``
+    padding of D to whole words is applied here. Returns
     packed ``[N, OH', OW', ceil(D_last/32)]``.
     """
     weights, a, b, k_bits = tuple(weights), tuple(a), tuple(b), tuple(k_bits)
@@ -589,10 +592,8 @@ def megakernel_conv_stage(xp: torch.Tensor, weights, a, b, k_bits, *,
         aps.append(al)
         bps.append(bl)
         d_words.append(wl.shape[0] // PACK_BITS)
-    cluster = math.gcd(MAX_CLUSTER, *d_words)
-    xpad = xp
-    if pad:
-        xpad = torch.nn.functional.pad(xp, (0, 0, pad, pad, pad, pad), value=-1)
+    # A cluster of 8 CTAs an image, in channel groups of gcd(8, D_l/32).
+    cluster = MAX_CLUSTER
     _check_limits("megakernel_conv_stage", "repro_megakernel_conv_stage_limits",
                   xp.device, tuple(d_words), tuple(cws), n_layers, hp, wp_sp,
                   kh, kw, pad, cluster)
@@ -604,7 +605,7 @@ def megakernel_conv_stage(xp: torch.Tensor, weights, a, b, k_bits, *,
             raise ValueError(f"{n} images exceed the grid")
         with torch.cuda.device(xp.device):
             rc = build.load("repro_megakernel_conv_stage")(
-                xpad.data_ptr(), out.data_ptr(), _ptrs(ws), _ptrs(aps),
+                xp.data_ptr(), out.data_ptr(), _ptrs(ws), _ptrs(aps),
                 _ptrs(bps), _ints(d_words), _ints(cws), _ints(k_bits),
                 n_layers, n, hp, wp_sp, kh, kw, pad, int(pool), cluster,
                 _stream(xp.device))

@@ -5,9 +5,11 @@ held to on the card."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.core.bitops import PACK_BITS, popcount
+from repro_torch.core.bitops import PACK_BITS, pack_bits, popcount
 
 # Masked scores and the initial stabilizers of flash attention and the
 # mLSTM, as the JAX package's kernels write them.
@@ -108,24 +110,117 @@ def split_bf16_pieces(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
     return hi, mid, rest - mid
 
 
-def xnor_dot_and_popc(wp: torch.Tensor, xp: torch.Tensor,
-                      k_bits: int) -> torch.Tensor:
-    """``bitops.xnor_popcount_matmul`` the way the ``fused_xnor_gemm``
-    kernel computes it on the tensor cores, whose 1-bit product counts
-    ``popc(w & x)`` (``mma.sync ... .and.popc``): bit by bit ``xnor(w, x)
-    = 1 - w - x + 2 w x``, so over the KW words of a row and a column
-    ``sum popc(~(w ^ x)) = 32 KW - P(w) - P(x) + 2 sum popc(w & x)``, with
-    ``P`` the row's and the column's popcounts. It holds for any words,
-    the xnor-neutral pads included. Packed ``wp [M, KW]``, ``xp [KW, N]``
-    (int32) -> int32 ``[M, N]`` dot ``2 * count - k_bits``."""
+def xnor_dot_and_popc(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
+                      real_words: int | None = None) -> torch.Tensor:
+    """``bitops.xnor_popcount_matmul`` the way the xnor kernels compute it
+    on the tensor cores, whose 1-bit product counts ``popc(w & x)``
+    (``mma.sync ... .and.popc``): bit by bit ``xnor(w, x) = 1 - w - x + 2
+    w x``, so over the KW words of a row and a column ``sum popc(~(w ^ x))
+    = 32 KW - P(w) - P(x) + 2 sum popc(w & x)``, with ``P`` the row's and
+    the column's popcounts. It holds for any words, the xnor-neutral pads
+    included. ``real_words``: KW counts only the first ``real_words``
+    words, and the words past them, zeros in both operands (the tile's
+    loads past K), add nothing to any term. Packed ``wp [M, KW]``, ``xp
+    [KW, N]`` (int32) -> int32 ``[M, N]`` dot ``2 * count - k_bits``."""
     m, kw = wp.shape
     n = xp.shape[1]
     both = torch.zeros((m, n), dtype=torch.int64, device=wp.device)
     for k in range(kw):
         both += popcount(wp[:, k, None] & xp[None, k, :])
-    count = (PACK_BITS * kw - popcount(wp).sum(1)[:, None]
+    kw_real = kw if real_words is None else real_words
+    count = (PACK_BITS * kw_real - popcount(wp).sum(1)[:, None]
              - popcount(xp).sum(0)[None, :] + 2 * both)
     return (2 * count - k_bits).to(torch.int32)
+
+
+def window_words(xp: torch.Tensor, *, kh: int, kw: int, stride: int,
+                 pad: int) -> torch.Tensor:
+    """The implicit patch matrix of a direct conv in the kernels' K order:
+    channel-packed ``[N, H, W, CW]`` -> ``[N, OH, OW, kh*kw*CW]``, word
+    ``(i*kw + j)*CW + c`` of output pixel (y, x) being word c of map pixel
+    ``(y*stride - pad + i, x*stride - pad + j)``, all-ones where that lies
+    on the spatial border."""
+    n, h, w, _ = xp.shape
+    oh = (h + 2 * pad - kh) // stride + 1
+    ow = (w + 2 * pad - kw) // stride + 1
+    xpad = torch.nn.functional.pad(xp, (0, 0, pad, pad, pad, pad), value=-1)
+    return torch.cat([xpad[:, i:i + stride * (oh - 1) + 1:stride,
+                           j:j + stride * (ow - 1) + 1:stride]
+                      for i in range(kh) for j in range(kw)], dim=-1)
+
+
+def _conv_sign_words(wp: torch.Tensor, patches: torch.Tensor, k_bits: int,
+                     a: torch.Tensor, b: torch.Tensor,
+                     slab: int) -> torch.Tensor:
+    """Packed sign words ``[ceil(M/32), P]`` of filter rows ``wp [M, K]``
+    against window words ``patches [P, K]``: K zero-filled to a multiple
+    of ``slab`` in both operands (the tiles' loads past K), counts by
+    :func:`xnor_dot_and_popc` over the real K, ``y = (a*dot) + b``, rows
+    past M +1 bits."""
+    kwords = wp.shape[1]
+    fill = -kwords % slab
+    wk = torch.nn.functional.pad(wp, (0, fill))
+    xk = torch.nn.functional.pad(patches, (0, fill)).T
+    dot = xnor_dot_and_popc(wk, xk, k_bits, real_words=kwords)
+    y = a.float()[:, None] * dot.float() + b.float()[:, None]
+    y = torch.nn.functional.pad(y, (0, 0, 0, -y.shape[0] % PACK_BITS), value=1.0)
+    return pack_bits(y, axis=0)
+
+
+def direct_conv_tc(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
+                   a: torch.Tensor, b: torch.Tensor, *, kh: int, kw: int,
+                   stride: int = 1, pad: int = 0) -> torch.Tensor:
+    """``bitops.direct_conv_oracle`` as the ``fused_direct_conv`` kernel
+    computes it: an implicit GEMM of the filters ``wp [D, K]`` against
+    the window words of every output pixel (:func:`window_words`, K in
+    tap-major order, border words all-ones), 32-word K slabs with zeros
+    past K, counts from the and-popc identity, the epilogue ``(a*dot) +
+    b`` packed along D with +1 bits past D, stored pixel-major: packed
+    ``[N, OH, OW, ceil(D/32)]``."""
+    patches = window_words(xp, kh=kh, kw=kw, stride=stride, pad=pad)
+    n, oh, ow, kwords = patches.shape
+    words = _conv_sign_words(wp, patches.reshape(-1, kwords), k_bits, a, b,
+                             slab=32)
+    return words.T.reshape(n, oh, ow, -1).contiguous()
+
+
+def conv_stage_tc(xp: torch.Tensor, weights, a, b, k_bits, *, kh: int = 3,
+                  kw: int = 3, pad: int = 1, pool: bool = True,
+                  unit: int = 16) -> torch.Tensor:
+    """``bitops.conv_stage_xla`` as the ``megakernel_conv_stage`` kernel's
+    cluster computes it: every conv's D padded to whole words (rows 0,
+    ``a = 0, b = +1``), a cluster of ``S = gcd(8, D_l/32 for every l)``
+    CTAs, CTA r computing channel words ``[r*DW_l/S, (r+1)*DW_l/S)`` of
+    every conv over the image's output pixels in chunks of ``unit`` (a
+    warp's unit; K in 8-word mma steps, zeros past K), the words of all
+    CTAs making the next conv's map; after the last conv the 2x2 OR-pool.
+    Returns packed ``[N, OH', OW', ceil(D_last/32)]``."""
+    d_words = [-(-wl.shape[0] // PACK_BITS) for wl in weights]
+    cluster = math.gcd(8, *d_words)
+    act = xp
+    for wl, al, bl, k, dw in zip(weights, a, b, k_bits, d_words):
+        fill = dw * PACK_BITS - wl.shape[0]
+        wl = torch.nn.functional.pad(wl, (0, 0, 0, fill))
+        al = torch.nn.functional.pad(al, (0, fill))
+        bl = torch.nn.functional.pad(bl, (0, fill), value=1.0)
+        patches = window_words(act, kh=kh, kw=kw, stride=1, pad=pad)
+        n, oh, ow, kwords = patches.shape
+        patches = patches.reshape(n, oh * ow, kwords)
+        own = dw // cluster * PACK_BITS
+        nxt = torch.empty((n, oh * ow, dw), dtype=act.dtype, device=act.device)
+        for r in range(cluster):
+            rows = slice(r * own, (r + 1) * own)
+            for p0 in range(0, oh * ow, unit):
+                chunk = patches[:, p0:p0 + unit].reshape(-1, kwords)
+                words = _conv_sign_words(wl[rows], chunk, int(k), al[rows],
+                                         bl[rows], slab=8)
+                nxt[:, p0:p0 + unit, rows.start // PACK_BITS:rows.stop // PACK_BITS] = (
+                    words.T.reshape(n, -1, own // PACK_BITS))
+        act = nxt.reshape(n, oh, ow, dw)
+    if not pool:
+        return act
+    return (act[:, 0::2, 0::2] | act[:, 0::2, 1::2]
+            | act[:, 1::2, 0::2] | act[:, 1::2, 1::2])
 
 
 def sequential_cumsum(x: torch.Tensor) -> torch.Tensor:

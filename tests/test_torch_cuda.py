@@ -88,6 +88,53 @@ def test_fused_direct_conv_matches_twin(dev, c, d, h, stride, pad):
     assert torch.equal(got, bitops.direct_conv_oracle(wp, xp, 9 * c, a, b, **kw))
 
 
+def _conv_inputs(rng, c, d, h, w, n, dev):
+    wp = layers.pack_conv_aligned({"w": cu(pm1(rng, (d, 3, 3, c)), dev)})["w_packed"]
+    xp = bitops.pack_channels(cu(pm1(rng, (n, h, w, c)), dev))
+    a = cu(rng.normal(size=d).astype(np.float32), dev)
+    b = cu((rng.normal(size=d) * np.sqrt(9 * c) * 0.3).astype(np.float32), dev)
+    return wp, xp, a, b
+
+
+# The tensor-core implicit GEMM: the five convs of the main path at batch
+# 3 (CW 4, 4, 8, 8, 16; 128-, 64-wide tiles), a pixel count that is not a
+# multiple of any tile width (3 x 7 x 9 = 189), stride 2 with CW % 4 == 0
+# and with CW 3, D of 7 (one partial word) and 40.
+@pytest.mark.parametrize("c,d,h,w,n,stride,pad", [
+    (128, 128, 32, 32, 3, 1, 1), (128, 256, 16, 16, 3, 1, 1),
+    (256, 256, 16, 16, 3, 1, 1), (256, 512, 8, 8, 3, 1, 1),
+    (512, 512, 8, 8, 3, 1, 1), (128, 96, 7, 9, 3, 1, 1),
+    (256, 64, 9, 11, 3, 2, 1), (96, 7, 10, 9, 1, 2, 0), (64, 40, 5, 33, 2, 1, 1)])
+def test_fused_direct_conv_tc_shapes(dev, c, d, h, w, n, stride, pad):
+    rng = np.random.default_rng(38)
+    wp, xp, a, b = _conv_inputs(rng, c, d, h, w, n, dev)
+    kw = dict(kh=3, kw=3, stride=stride, pad=pad)
+    before = ops.LAUNCHES["fused_direct_conv"]
+    got = ops.fused_direct_conv(wp, xp, 9 * c, a, b, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_direct_conv"] == before + 1
+    want = bitops.direct_conv_oracle(wp, xp, 9 * c, a, b, **kw)
+    assert torch.equal(got, want)
+    assert got.unique().numel() > 2   # both bit values occur
+
+
+def test_redesigned_conv_kernels_repeat_exactly(dev):
+    """Repeated calls give identical words (no race between the cp.async
+    ring, the gather's plain stores, the cluster's exchange and the
+    epilogue)."""
+    rng = np.random.default_rng(39)
+    wp, xp, a, b = _conv_inputs(rng, 256, 512, 8, 8, 8, dev)
+    first = ops.fused_direct_conv(wp, xp, 9 * 256, a, b, kh=3, kw=3, pad=1)
+    weights, sa, sb, k_bits, sx = _stage_inputs(rng, (128, 256, 256), 16, 16, 8, dev)
+    stage = ops.megakernel_conv_stage(sx, weights, sa, sb, k_bits)
+    for _ in range(20):
+        assert torch.equal(ops.fused_direct_conv(wp, xp, 9 * 256, a, b, kh=3, kw=3,
+                                                 pad=1), first)
+        assert torch.equal(ops.megakernel_conv_stage(sx, weights, sa, sb, k_bits),
+                           stage)
+    torch.cuda.synchronize()
+
+
 def test_cuda_wrappers_refuse_transposed_views(dev):
     rng = np.random.default_rng(33)
     w, x = cu(words(rng, (10, 4)), dev), cu(words(rng, (6, 4)), dev)
@@ -109,13 +156,18 @@ def _stage_inputs(rng, chans, h, w, n, dev):
     return weights, a, b, k_bits, xp
 
 
-# D of 50, 70, 96 and 192 channels (not multiples of 256; cluster sizes
-# 1, 2 and 8), odd batches, non-square maps, one to four convs (four:
-# an intermediate buffer is reused at another width).
+# D of 50, 70, 96 and 192 channels (not multiples of 256; channel groups
+# of 1, 2, 4 and 8 CTAs), odd batches, non-square maps, one to four convs (four:
+# an intermediate buffer is reused at another width); the main path's
+# three stages at batch 3, a four-conv stage of CW 4 (ldmatrix B
+# fragments throughout) and pixel counts that are not a multiple of the
+# 16-pixel unit (7 x 9, 5 x 6, 6 x 10).
 @pytest.mark.parametrize("chans,h,w,n,pool", [
     ((40, 50, 70), 8, 8, 3, True), ((40, 50, 70), 7, 9, 1, False),
     ((64, 96), 6, 10, 5, True), ((32, 64, 128, 192, 64), 5, 6, 2, False),
-    ((256, 256), 4, 4, 3, True)])
+    ((256, 256), 4, 4, 3, True), ((128, 128), 32, 32, 3, True),
+    ((128, 256, 256), 16, 16, 3, True), ((256, 512, 512), 8, 8, 3, True),
+    ((128, 128, 128, 128, 128), 6, 10, 3, True), ((256, 256, 512), 7, 9, 2, False)])
 def test_megakernel_conv_stage_matches_twin(dev, chans, h, w, n, pool):
     rng = np.random.default_rng(34)
     weights, a, b, k_bits, xp = _stage_inputs(rng, chans, h, w, n, dev)
