@@ -22,13 +22,14 @@
    1e-4 of the float64-accumulated dot, and the same at jamba's decode
    shape (one packed [8192, 8192] expert, bf16 X [8192, 4]; yardstick
    bf16 ``torch.matmul``; not summed). The two kernels redesigned last,
-   ``fused_direct_conv`` and ``megakernel_conv_stage``, are also timed
-   beside their parent commit's versions on the same inputs
-   (``parent_ms``; the parents' all-ones border padded in the timed call,
-   as their wrapper did), built into ``build/parent/`` from
-   ``--parent-src DIR`` or ``git show HEAD~1`` (not measured without
-   either), and beside a bf16 ``F.conv2d`` of the same ±1 operands
-   (``library_bf16_ms``, a timing yardstick only: its outputs round).
+   ``direct_conv`` (``direct_conv_dot``) and ``ssm_scan_chunk``, are also
+   timed beside their parent commit's versions on the same inputs
+   (``parent_ms``, ``PARENT_KERNELS``; the parent conv's all-ones border
+   padded in the timed call, as its wrapper did), built into
+   ``build/parent/`` from ``--parent-src DIR`` or ``git show HEAD~1`` (not
+   measured without either). The three conv kernels are timed beside a
+   bf16 ``F.conv2d`` of the same ±1 operands (``library_bf16_ms``, a
+   timing yardstick only: its outputs round).
    Before them, the rates of the three inner loops a packed ±1
    product can run (``XNOR_LOOP_BODY``: popc on the CUDA cores, 1-bit and
    int8 ``mma.sync``) are measured and stored.
@@ -262,18 +263,19 @@ def check_equal(name: str, label: str, got: torch.Tensor,
 
 # The kernels this commit redesigned, timed beside their parent commit's
 # versions in the same run (``--parent-src``, else ``git show HEAD~1``).
-# {source: (the parent's C launcher, its argtypes as the parent's build.py
-# declared them)}: the fused direct conv (x padded, w, a, b, out, N, Hp,
-# Wp, CW, D, kh, kw, stride, k_bits, stream), the conv stage (x padded,
-# out, w[], a[], b[], d_words[], cw[], k_bits[], n_layers, n_images, hp,
-# wp, kh, kw, pad, pool, cluster, stream).
+# {kernel: (its source, the parent's C launcher, its argtypes as the
+# parent's build.py declared them)}: the direct conv's int32 dot (x padded,
+# w, out, N, Hp, Wp, CW, D, kh, kw, stride, k_bits, stream) and the scan
+# (dt, xh, B, C, A, h0, y, h_out, batch, chunk, di, ds, the batch and time
+# strides of dt, xh, B and C, stream).
 PARENT_KERNELS = {
-    "direct_conv": ("repro_fused_direct_conv",
-                    (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)),
-    "megakernel_conv_stage": (
-        "repro_megakernel_conv_stage",
-        (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)),
+    "direct_conv": ("direct_conv", "repro_direct_conv_dot",
+                    (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)),
+    "ssm_scan_chunk": ("ssm_scan", "repro_ssm_scan_chunk",
+                       (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 4
+                       + (ctypes.c_longlong,) * 8 + (ctypes.c_void_p,)),
 }
+PARENT_SOURCES = sorted({source for source, _, _ in PARENT_KERNELS.values()})
 PARENT_DIR = OUT_DIR / "parent"
 
 
@@ -281,7 +283,7 @@ def start_parent_build(parent_src: str | None):
     """Fetch the parent's sources of ``PARENT_KERNELS`` and the headers
     they include (from the directory ``parent_src``, else from git's
     ``HEAD~1``) into ``build/parent/`` and start one ``nvcc`` per source,
-    beside the main build. Returns ``{name: Popen}``, or a reason string
+    beside the main build. Returns ``{source: Popen}``, or a reason string
     where there is no parent source."""
     from repro_torch.kernels import build
 
@@ -297,16 +299,19 @@ def start_parent_build(parent_src: str | None):
 
     PARENT_DIR.mkdir(parents=True, exist_ok=True)
     procs, headers = {}, set()
-    for name, (symbol, argtypes) in PARENT_KERNELS.items():
+    for name in PARENT_SOURCES:
         text = fetch(f"{name}.cu")
         if text is None:
             return (f"no parent {name}.cu (from --parent-src or git show "
                     "HEAD~1)")
-        # The parent's launcher must still take the arguments listed above.
-        decl = text[text.find(f'extern "C" int {symbol}('):]
-        decl = decl[:decl.find(")")]
-        if not decl or decl.count(",") + 1 != len(argtypes):
-            return f"the parent's {symbol} takes other arguments"
+        # The parent's launchers must still take the arguments listed above.
+        for source, symbol, argtypes in PARENT_KERNELS.values():
+            if source != name:
+                continue
+            decl = text[text.find(f'extern "C" int {symbol}('):]
+            decl = decl[:decl.find(")")]
+            if not decl or decl.count(",") + 1 != len(argtypes):
+                return f"the parent's {symbol} takes other arguments"
         (PARENT_DIR / f"{name}.cu").write_text(text)
         pending = [text]
         while pending:  # the headers it includes, and theirs
@@ -326,20 +331,20 @@ def start_parent_build(parent_src: str | None):
 
 
 def finish_parent_build(procs) -> dict | str:
-    """``{name: launcher}`` of the parent's kernels (argtypes set), or the
-    reason they are not measured."""
+    """``{kernel: launcher}`` of the parent's kernels (argtypes set), or
+    the reason they are not measured."""
     if isinstance(procs, str):
         return procs
-    launchers = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             return f"the parent's {name}.cu did not build:\n{log[-2000:]}"
-        symbol, argtypes = PARENT_KERNELS[name]
-        fn = getattr(ctypes.CDLL(str(PARENT_DIR / f"{name}.so")), symbol)
+    launchers = {}
+    for kernel, (source, symbol, argtypes) in PARENT_KERNELS.items():
+        fn = getattr(ctypes.CDLL(str(PARENT_DIR / f"{source}.so")), symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-        launchers[name] = fn
+        launchers[kernel] = fn
     return launchers
 
 
@@ -459,52 +464,45 @@ def xnor_loop_rates(procs: dict) -> dict:
     return rates
 
 
-def parent_direct_conv(fn, w, x, k_bits, a, b):
-    """The parent's fused direct conv (3x3, stride 1, pad 1) on (w, x, a,
-    b), the all-ones border padded here as the parent's wrapper did (timed
-    with the call): a callable for ``record``."""
+def parent_direct_conv_dot(fn, w, x, k_bits):
+    """The parent's direct conv dot (3x3, stride 1, pad 1) on (w, x), the
+    all-ones border padded here as the parent's wrapper did (timed with
+    the call): a callable for ``record``."""
     n, h, wd, cw = x.shape
     d = w.shape[0]
-    out = torch.empty((n, h, wd, -(-d // 32)), dtype=torch.int32, device=w.device)
+    out = torch.empty((n, h, wd, d), dtype=torch.int32, device=w.device)
 
     def run():
         xpad = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1), value=-1)
-        rc = fn(xpad.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-                out.data_ptr(), n, h + 2, wd + 2, cw, d, 3, 3, 1, k_bits,
-                torch.cuda.current_stream().cuda_stream)
+        rc = fn(xpad.data_ptr(), w.data_ptr(), out.data_ptr(), n, h + 2, wd + 2,
+                cw, d, 3, 3, 1, k_bits, torch.cuda.current_stream().cuda_stream)
         if rc:
-            fail(f"parent fused_direct_conv launch failed: CUDA error {rc}")
+            fail(f"parent direct_conv launch failed: CUDA error {rc}")
         return out
     return run
 
 
-def parent_conv_stage(fn, x, ws, a, b, k_bits):
-    """The parent's conv stage (3x3, pad 1, pooled; D a multiple of 32) on
-    (x, ws, a, b), the border padded here as the parent's wrapper did, its
-    cluster gcd(8, D_l/32): a callable for ``record``."""
-    import math
-
-    from repro_torch.kernels import ops
-
-    n, h, wd, cw = x.shape
-    d_words = [wl.shape[0] // 32 for wl in ws]
-    args = (ops._ptrs(ws), ops._ptrs(a), ops._ptrs(b), ops._ints(d_words),
-            ops._ints([cw] + d_words[:-1]), ops._ints(k_bits))
-    cluster = math.gcd(8, *d_words)
-    out = torch.empty((n, h // 2, wd // 2, d_words[-1]), dtype=torch.int32,
-                      device=x.device)
+def parent_scan(fn, dt, xh, bm, cm, a, h0):
+    """The parent's scan on the wrapper's operands (read in place through
+    the same strides): a callable for ``record``."""
+    b, c, di = dt.shape
+    ds = a.shape[1]
+    y = torch.empty((b, c, di), dtype=torch.float32, device=dt.device)
+    h_last = torch.empty((b, di, ds), dtype=torch.float32, device=dt.device)
 
     def run():
-        xpad = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1), value=-1)
-        rc = fn(xpad.data_ptr(), out.data_ptr(), *args, len(ws), n, h + 2, wd + 2,
-                3, 3, 1, 1, cluster, torch.cuda.current_stream().cuda_stream)
+        rc = fn(dt.data_ptr(), xh.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+                a.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+                b, c, di, ds, dt.stride(0), dt.stride(1), xh.stride(0),
+                xh.stride(1), bm.stride(0), bm.stride(1), cm.stride(0),
+                cm.stride(1), torch.cuda.current_stream().cuda_stream)
         if rc:
-            fail(f"parent megakernel_conv_stage launch failed: CUDA error {rc}")
-        return out
+            fail(f"parent ssm_scan_chunk launch failed: CUDA error {rc}")
+        return y, h_last
     return run
 
 
-def kernel_phase(dev, parents=None) -> tuple[dict, list]:
+def kernel_phase(dev) -> tuple[dict, list]:
     from repro_torch.core import bitops
     from repro_torch.kernels import ops
 
@@ -550,10 +548,6 @@ def kernel_phase(dev, parents=None) -> tuple[dict, list]:
             w, x, k_bits, a, b, kh=3, kw=3, stride=1, pad=1)
         want = twin()
         err = check_equal("fused_direct_conv", label, run(), want)
-        parent = None
-        if isinstance(parents, dict):
-            parent = parent_direct_conv(parents["direct_conv"], w, x, k_bits, a, b)
-            check_equal("parent fused_direct_conv", label, parent(), want)
         # Yardstick: F.conv2d of the ±1 map, pre-padded with +1 (the
         # binary border), and the ±1 filters, NCHW, TF32 off; and the same
         # in bf16 (a timing yardstick only: its outputs round).
@@ -569,7 +563,7 @@ def kernel_phase(dev, parents=None) -> tuple[dict, list]:
         ops_n = 2 * BATCH * h * h * d * k_bits
         rows.append(record(totals["fused_direct_conv"], "fused_direct_conv",
                            label, err, run, twin, lib, nbytes, ops_n,
-                           parent=parent, lib_bf16=lib_bf16))
+                           lib_bf16=lib_bf16))
     return totals, rows
 
 
@@ -646,11 +640,10 @@ def stage_operands(gen, h, chans, n, dev):
     return x, ws, [p[0] for p in aff], [p[1] for p in aff], k_bits
 
 
-def megakernel_phase(dev, totals: dict, rows: list, parents=None) -> None:
+def megakernel_phase(dev, totals: dict, rows: list) -> None:
     """Both megakernels at the main path's shapes, bit-exact against their
     twins, timed beside the per-layer kernels and a library chain (fp32,
-    and bf16 for the conv stages); the conv stage also beside the parent
-    commit's (``parents``)."""
+    and bf16 for the conv stages)."""
     from repro_torch.core import bitops
     from repro_torch.kernels import ops
 
@@ -690,11 +683,6 @@ def megakernel_phase(dev, totals: dict, rows: list, parents=None) -> None:
                 return F.max_pool2d(y, 2)
 
             xh, whs = xf.bfloat16(), [wf.bfloat16() for wf in wfs]
-            parent = None
-            if isinstance(parents, dict):
-                parent = parent_conv_stage(parents["megakernel_conv_stage"], x, ws,
-                                           a, b, k_bits)
-                check_equal("parent megakernel_conv_stage", label, parent(), want)
 
             out_words = n * (h // 2) ** 2 * chans[-1] // 32
             nbytes = (x.numel() + sum(wl.numel() for wl in ws) + out_words) * 4
@@ -702,7 +690,7 @@ def megakernel_phase(dev, totals: dict, rows: list, parents=None) -> None:
             ops_n = 2 * n * h * h * sum(d * k for d, k in zip(chans[1:], k_bits))
             row = record(totals["megakernel_conv_stage"], "megakernel_conv_stage",
                          label, err, run, twin, lib, nbytes, ops_n,
-                         per_layer=per_layer, parent=parent,
+                         per_layer=per_layer,
                          lib_bf16=lambda xh=xh, whs=whs: lib(xh, whs))
             # the launcher's occupancy query: shared memory of a CTA and the
             # clusters the card holds at once (the batch's 32 in one wave?)
@@ -808,12 +796,13 @@ def scan_operands(gen, b, c, di, ds, seq, dev):
     return dt, xh, bm, cm, a, h0
 
 
-def scan_phase(dev, totals: dict, rows: list) -> None:
+def scan_phase(dev, totals: dict, rows: list, parents=None) -> None:
     """``ssm_scan_chunk`` at the served prefill's chunk (its time makes the
     kernels-line total), a short prompt's chunk and a ragged case, held
-    within rtol/atol 1e-5 of its twin on the card. Bound: the larger of
-    the bytes over HBM and the exps over the MUFU rate; the FP32 issue
-    bound (6 operations per exp plus dt*x) is kept beside it."""
+    within rtol/atol 1e-5 of its twin on the card, and timed beside the
+    parent commit's kernel (``parents``, held to the twin too). Bound: the
+    larger of the bytes over HBM and the exps over the MUFU rate; the FP32
+    issue bound (6 operations per exp plus dt*x) is kept beside it."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ssm_scan_chunk_ref
 
@@ -822,13 +811,24 @@ def scan_phase(dev, totals: dict, rows: list) -> None:
         args = scan_operands(gen, b, c, di, ds, seq, dev)
         run = lambda: ops.ssm_scan_chunk(*args)  # noqa: E731,B023
         twin = lambda: ssm_scan_chunk_ref(*args)  # noqa: E731,B023
-        err = scan_error("ssm_scan_chunk", label, run(), twin())
+        want = twin()
+        err = scan_error("ssm_scan_chunk", label, run(), want)
+        parent = None
+        if isinstance(parents, dict):
+            parent = parent_scan(parents["ssm_scan_chunk"], *args)
+            scan_error("parent ssm_scan_chunk", label, parent(), want)
         exps = b * c * di * ds
         nbytes = (3 * b * c * di + 2 * b * di * ds + di * ds + 2 * b * c * ds) * 4
         row = record(totals["ssm_scan_chunk"], "ssm_scan_chunk",
                      f"{label} [{b},{c},{di},{ds}]", err, run, twin, None,
                      nbytes, exps, summed=label == "prefill chunk",
-                     check=f"max err {err:.2g}")
+                     check=f"max err {err:.2g}", parent=parent)
+        if parent is not None:
+            # the same float operations in the same order as the parent's
+            # one thread a channel: expected bit for bit
+            row["equals_parent"] = all(torch.equal(g, w) for g, w in zip(run(), parent()))
+            print(f"    bit-identical to the parent kernel: {row['equals_parent']}",
+                  flush=True)
         row["fp32_bound_ms"] = (6 * exps + b * c * di) / FP32_OPS_PER_S * 1e3
         if label == "prefill chunk":
             totals["ssm_scan_chunk"]["fp32_bound_ms"] = row["fp32_bound_ms"]
@@ -1193,13 +1193,14 @@ def serve_phase(dev) -> dict:
 
 
 def unfused_kernel_phase(dev, totals: dict, rows: list, batch: int,
-                         summed: bool) -> None:
+                         summed: bool, parents=None) -> None:
     """The unfused PACKED kernels at the eight binary layers of the Table
     2 forward at ``batch``: ``pack_rows`` on the transposed ``[B*HW, K]``
     patch matrix (read in place; timed with a cold L2, see ``graph_ms``),
     ``unpack_gemm`` on the binarized patches (exact) and on the real ones
     (within rtol 1e-5 / atol 1e-4 of the float64-accumulated dot),
-    ``direct_conv`` at the five convs. Inputs in [-1, 1] with some 0.0
+    ``direct_conv`` at the five convs (beside the parent commit's kernel,
+    ``parents``, and a bf16 ``F.conv2d``). Inputs in [-1, 1] with some 0.0
     and -0.0, as the clipped activations the layers encode. ``summed``:
     these are the main path's shapes, whose times make the kernels'
     totals."""
@@ -1267,16 +1268,26 @@ def unfused_kernel_phase(dev, totals: dict, rows: list, batch: int,
         run = lambda: ops.direct_conv(w, x, k_bits, kh=3, kw=3, stride=1, pad=1)  # noqa: E731,B023
         twin = lambda: bitops.direct_conv_dot(  # noqa: E731
             w, x, k_bits, kh=3, kw=3, stride=1, pad=1)  # noqa: B023
-        err = check_equal("direct_conv", label + tag, run(), twin())
+        want = twin()
+        err = check_equal("direct_conv", label + tag, run(), want)
+        parent = None
+        if isinstance(parents, dict):
+            parent = parent_direct_conv_dot(parents["direct_conv"], w, x, k_bits)
+            check_equal("parent direct_conv", label + tag, parent(), want)
+        # Yardsticks: F.conv2d of the ±1 map, pre-padded with +1 (the
+        # binary border), and the ±1 filters, NCHW, TF32 off; and the same
+        # in bf16 (a timing yardstick only: its outputs round).
         xf = F.pad(bitops.unpack_bits(x, axis=-1).permute(0, 3, 1, 2),
                    (1, 1, 1, 1), value=1.0).contiguous()
         wf = bitops.unpack_bits(w, axis=-1).reshape(d, 3, 3, c).permute(
             0, 3, 1, 2).contiguous()
+        xh, wh = xf.bfloat16(), wf.bfloat16()
         rows.append(record(
             totals["direct_conv"], "direct_conv", label + tag, err, run, twin,
             lambda: F.conv2d(xf, wf),  # noqa: B023
             (x.numel() + w.numel() + batch * h * h * d) * 4,
-            2 * batch * h * h * d * k_bits, plain_reps=2, summed=summed))
+            2 * batch * h * h * d * k_bits, plain_reps=2, summed=summed,
+            parent=parent, lib_bf16=lambda: F.conv2d(xh, wh)))  # noqa: B023
 
 
 # jamba-1.5-large's decode step through the packed GEMM (ROADMAP A7b): one
@@ -2045,7 +2056,8 @@ def main() -> None:
     parser.add_argument(
         "--parent-src", default=None,
         help="directory holding the parent commit's " + ", ".join(
-            f"{name}.cu" for name in PARENT_KERNELS) + ", timed beside the "
+            f"{name}.cu" for name in PARENT_SOURCES) + " and the headers they "
+             "include, timed beside the "
              "kernels (default: git show HEAD~1; not measured without either)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -2084,15 +2096,15 @@ def main() -> None:
     print("phase 3: the packed product's inner loops, then kernels vs plain "
           "twins at their main paths' shapes (bit-exact)", flush=True)
     xnor_loops = xnor_loop_rates(loop_procs)
-    totals, rows = kernel_phase(dev, parents)
-    megakernel_phase(dev, totals, rows, parents)
+    totals, rows = kernel_phase(dev)
+    megakernel_phase(dev, totals, rows)
     # The Table 2 forward's own shapes (its batch) make the totals; the
     # batch-32 shapes are checked and timed beside them.
     unfused_kernel_phase(dev, totals, rows, BNNExperiment("table2").batch,
-                         summed=True)
-    unfused_kernel_phase(dev, totals, rows, BATCH, summed=False)
+                         summed=True, parents=parents)
+    unfused_kernel_phase(dev, totals, rows, BATCH, summed=False, parents=parents)
     unpack_decode_phase(dev, totals, rows)
-    scan_phase(dev, totals, rows)
+    scan_phase(dev, totals, rows, parents)
     attention_phase(dev, totals, rows)
     print("phase 4: serving on the trained checkpoint", flush=True)
     serve = serve_phase(dev)

@@ -1,6 +1,6 @@
 """Where the time of a hand-written kernel goes, on one GPU.
 
-    python3 scripts/kernel_ablation.py [--reps N]
+    python3 scripts/kernel_ablation.py [--reps N] [--only SOURCE ...]
 
 No profiler here sees inside a kernel (``ncu`` does not run on the card's
 host), so this script removes one part of a kernel at a time: it builds
@@ -8,8 +8,10 @@ variants of a source in ``src/repro_torch/kernels/csrc`` with textual
 edits (``ABLATIONS``; most give wrong results and are only timed), and
 times each beside the unedited source at the main path's shapes, in turns
 (A B ... B A) on one card. A part's cost is the time it takes away (the
-two conv kernels: the gather of the implicit patch matrix, the ldmatrix
-B fragments, the exchange through distributed shared memory). It
+two conv kernels: the gather of the implicit patch matrix, the int32
+stores of ``direct_conv_dot``, the ldmatrix B fragments, the exchange
+through distributed shared memory; the scan: lanes a channel,
+``ex2.approx`` against ``expf``). It
 also measures the tensor cores' ``mma.sync`` rates: m16n8k16 bf16, the
 ceiling of flash's and unpack_gemm's products, and m16n8k8 tf32, whose
 third is the ceiling of the mLSTM's 3xTF32 products; and the latency of
@@ -60,12 +62,23 @@ ABLATIONS = {
              "bl[nt][0], bl[nt][1]);", "        for (int nt = 0; nt < 0; ++nt) {}")],
     },
     "direct_conv": {
+        "no int32 stores (direct_conv_dot's epilogue)": [(
+            "*reinterpret_cast<int4*>(dst) = dot;", "(void)dst;")],
         "gather as a contiguous load (no table, no border test)": [(
             """      const bool inside = static_cast<unsigned>(y0 + (e.y >> 16)) < static_cast<unsigned>(H) &&
                           static_cast<unsigned>(x0 + (e.y & 0xffff)) < static_cast<unsigned>(W);
       const unsigned* src = img + (off0 + e.x);""",
             """      const bool inside = true;
       const unsigned* src = img + min(max(off0, 0) + k, H * W - 1);""")],
+    },
+    "ssm_scan": {
+        **{f"{g} lane{'s' if g > 1 else ''} a channel at ds 16": [(
+            "err = launch<16, 2>(args, B, s);", f"err = launch<16, {g}>(args, B, s);")]
+           for g in (1, 4, 8)},
+        "ex2.approx, not expf": [("constexpr bool kScanEx2 = false;",
+                                  "constexpr bool kScanEx2 = true;")],
+        "dt, x loaded 2 groups ahead, not 4": [("constexpr int kScanLoads = 4;",
+                                                "constexpr int kScanLoads = 2;")],
     },
     "megakernel_conv_stage": {
         "B by 4-byte loads, not ldmatrix": [(
@@ -167,11 +180,14 @@ extern "C" int run_b1_chain(float* out, int iters) {
 """
 
 
-def compile_variants() -> dict:
-    """``{(source, variant): .so path or None}``, every nvcc in parallel
-    (variant "as is" is the unedited source)."""
+def compile_variants(sources) -> dict:
+    """``{(source, variant): .so path or None}`` for the ``sources`` of
+    ``ABLATIONS``, every nvcc in parallel (variant "as is" is the unedited
+    source)."""
     procs, libs = {}, {}
     for source, variants in ABLATIONS.items():
+        if source not in sources:
+            continue
         text = (build.CSRC / f"{source}.cu").read_text()
         for variant, edits in {"as is": [], **variants}.items():
             edited = text
@@ -249,9 +265,25 @@ def unpack_cases(dev):
 
 
 def direct_conv_cases(dev):
-    """The five convs of the batch-32 forward (3x3, stride 1, pad 1)."""
+    """The five convs of Table 2's DIRECT_KERNEL forward at its batch of
+    64 through ``direct_conv_dot`` (int32 out), then the five of the
+    batch-32 served forward through the fused kernel (3x3, stride 1, pad
+    1)."""
     cpu = torch.Generator().manual_seed(18)
     cases = []
+    batch = 64
+    for label, h, c, d in chip_smoke.conv_cases():
+        cw, k_bits = c // 32, 9 * c
+        x = chip_smoke.rand_words(cpu, (batch, h, h, cw), dev)
+        w = chip_smoke.rand_words(cpu, (d, 9 * cw), dev)
+        out = torch.empty((batch, h, h, d), dtype=torch.int32, device=dev)
+
+        def make(path, x=x, w=w, out=out, h=h, cw=cw, d=d, k_bits=k_bits):
+            fn = launcher(path, "repro_direct_conv_dot")
+            return lambda: fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), batch, h, h,
+                              cw, d, 3, 3, 1, 1, k_bits,
+                              torch.cuda.current_stream().cuda_stream)
+        cases.append((f"dot {label} b{batch}", make))
     for label, h, c, d in chip_smoke.conv_cases():
         cw, k_bits = c // 32, 9 * c
         x = chip_smoke.rand_words(cpu, (chip_smoke.BATCH, h, h, cw), dev)
@@ -265,8 +297,27 @@ def direct_conv_cases(dev):
             return lambda: fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
                               out.data_ptr(), chip_smoke.BATCH, h, h, cw, d, 3, 3, 1,
                               1, k_bits, torch.cuda.current_stream().cuda_stream)
-        cases.append((f"{label} b{chip_smoke.BATCH}", make))
+        cases.append((f"fused {label} b{chip_smoke.BATCH}", make))
     return cases
+
+
+def scan_cases(dev):
+    """The jamba prefill's chunk (4, 256, 16384, 16), read in place as
+    ``chip_smoke.scan_operands`` hands it over."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    label, b, c, di, ds, seq = chip_smoke.SCAN_CASES[0]
+    dt, xh, bm, cm, a, h0 = chip_smoke.scan_operands(gen, b, c, di, ds, seq, dev)
+    y = torch.empty((b, c, di), device=dev)
+    h_last = torch.empty((b, di, ds), device=dev)
+
+    def make(path):
+        fn = launcher(path, "repro_ssm_scan_chunk")
+        return lambda: fn(dt.data_ptr(), xh.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+                          a.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+                          b, c, di, ds, dt.stride(0), dt.stride(1), xh.stride(0),
+                          xh.stride(1), bm.stride(0), bm.stride(1), cm.stride(0),
+                          cm.stride(1), torch.cuda.current_stream().cuda_stream)
+    return [(f"{label} [{b},{c},{di},{ds}]", make)]
 
 
 def conv_stage_cases(dev):
@@ -432,6 +483,9 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=2,
                         help="turns per variant (A B ... B A counts 2)")
+    parser.add_argument("--only", nargs="*", default=None, metavar="SOURCE",
+                        help="ablate only these sources (default: all), and "
+                             "skip the mma rates and the stage timeline")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_ablation: needs a GPU")
@@ -440,14 +494,18 @@ def main() -> None:
                          text=True).stdout.strip()
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
-    libs = compile_variants()
-    result = {"device": smi, "mma_sync": mma_rate(), "kernels": {}}
-    result["conv_stage_timeline"] = stage_timeline(dev)
-    for source, cases in (("direct_conv", direct_conv_cases),
-                          ("megakernel_conv_stage", conv_stage_cases),
-                          ("flash_attention", flash_cases),
-                          ("unpack_gemm", unpack_cases),
-                          ("mlstm_chunk", mlstm_cases)):
+    sources = {"direct_conv": direct_conv_cases, "ssm_scan": scan_cases,
+               "megakernel_conv_stage": conv_stage_cases,
+               "flash_attention": flash_cases, "unpack_gemm": unpack_cases,
+               "mlstm_chunk": mlstm_cases}
+    if args.only is not None:
+        sources = {k: v for k, v in sources.items() if k in args.only}
+    libs = compile_variants(sources)
+    result = {"device": smi, "kernels": {}}
+    if args.only is None:
+        result["mma_sync"] = mma_rate()
+        result["conv_stage_timeline"] = stage_timeline(dev)
+    for source, cases in sources.items():
         cases = cases(dev)
         variants = [v for (s, v) in libs if s == source]
         result["kernels"][source] = {}

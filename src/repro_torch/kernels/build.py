@@ -44,11 +44,9 @@ _SIGNATURES = {
     # (x, w, a, b, out, N, H, W, CW, D, kh, kw, stride, pad, k_bits, stream);
     # x the unpadded map
     "repro_fused_direct_conv": (_P,) * 5 + (_I,) * 10 + (_P,),
-    # (x, w, out, N, Hp, Wp, CW, D, kh, kw, stride, k_bits, stream); x the
-    # padded map
-    "repro_direct_conv_dot": (_P, _P, _P) + (_I,) * 9 + (_P,),
-    # (CW, Wp, kh, kw) -> dynamic shared memory bytes of one dot block
-    "repro_direct_conv_dot_smem_bytes": (_I, _I, _I, _I),
+    # (x, w, out, N, H, W, CW, D, kh, kw, stride, pad, k_bits, stream); x the
+    # unpadded map
+    "repro_direct_conv_dot": (_P, _P, _P) + (_I,) * 10 + (_P,),
     # (x, out, w[], a[], b[], d_words[], cw[], k_bits[], n_layers, n_images,
     #  hp, wp, kh, kw, pad, pool, cluster, stream); x the unpadded map, hp
     #  and wp its padded sizes
@@ -84,7 +82,6 @@ _LIB_OF = {
     "repro_fused_xnor_gemm": "fused_gemm",
     "repro_fused_xnor_gemm_splits": "fused_gemm",
     "repro_fused_direct_conv": "direct_conv",
-    "repro_direct_conv_dot_smem_bytes": "direct_conv",
     "repro_direct_conv_dot": "direct_conv",
     "repro_megakernel_conv_stage": "megakernel_conv_stage",
     "repro_megakernel_conv_stage_limits": "megakernel_conv_stage",

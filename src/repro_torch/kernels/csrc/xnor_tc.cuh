@@ -1,6 +1,6 @@
 // The packed ±1 product on the tensor cores: 1-bit mma.sync m16n8k256 with
 // and.popc, for the xnor kernels of this directory (fused_gemm.cu and the
-// fused direct conv of direct_conv.cu; megakernel_conv_stage.cu runs the
+// two direct convs of direct_conv.cu; megakernel_conv_stage.cu runs the
 // same mma on operands resident in shared memory).
 //
 // On the H100 the 1-bit mma.sync with and.popc issues at the rate of the

@@ -234,8 +234,9 @@ def direct_conv(wp: torch.Tensor, xp: torch.Tensor, k_bits: int, *,
     """Direct conv without an epilogue (the ``direct_conv_dot`` kernel):
     channel-packed ``[N, H, W, CW]`` x tap-aligned filters ``[D,
     kH*kW*CW]`` -> the int32 ±1 dot ``[N, OH, OW, D]``, for float-boundary
-    layers that apply bias and BN themselves. The spatial border pads
-    with all-ones words here, as in :func:`fused_direct_conv`."""
+    layers that apply bias and BN themselves. The spatial border is
+    all-ones words (the kernel lays it down; the map is read unpadded), as
+    in :func:`fused_direct_conv`."""
     _check_direct_conv(wp, xp, kh, kw)
     if not _on_cuda("direct_conv", wp, xp):
         return bitops.direct_conv_dot(wp, xp, k_bits, kh=kh, kw=kw,
@@ -244,20 +245,12 @@ def direct_conv(wp: torch.Tensor, xp: torch.Tensor, k_bits: int, *,
     n, h, w, cw = xp.shape
     oh, ow = _direct_conv_out("direct_conv", xp, d, kh=kh, kw=kw,
                               stride=stride, pad=pad)
-    hp, wp_sp = h + 2 * pad, w + 2 * pad
-    smem = build.load("repro_direct_conv_dot_smem_bytes")(cw, wp_sp, kh, kw)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"direct_conv needs {smem} B of shared memory per "
-                         f"block (> {MAX_SMEM_BYTES}); use conv_impl='im2col'")
-    xpad = xp
-    if pad:
-        xpad = torch.nn.functional.pad(xp, (0, 0, pad, pad, pad, pad), value=-1)
     out = torch.empty((n, oh, ow, d), dtype=torch.int32, device=xp.device)
     if out.numel():
         with torch.cuda.device(xp.device):
             rc = build.load("repro_direct_conv_dot")(
-                xpad.data_ptr(), wp.data_ptr(), out.data_ptr(), n, hp, wp_sp,
-                cw, d, kh, kw, stride, int(k_bits), _stream(xp.device))
+                xp.data_ptr(), wp.data_ptr(), out.data_ptr(), n, h, w, cw, d,
+                kh, kw, stride, pad, int(k_bits), _stream(xp.device))
         _raise_on(rc, "direct_conv")
         LAUNCHES["direct_conv"] += 1
     return out

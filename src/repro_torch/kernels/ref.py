@@ -40,6 +40,33 @@ def ssm_scan_chunk_ref(dt: torch.Tensor, xh: torch.Tensor, bmat: torch.Tensor,
     return torch.stack(ys, dim=1), h
 
 
+def ssm_scan_chunk_chain(dt: torch.Tensor, xh: torch.Tensor,
+                         bmat: torch.Tensor, cmat: torch.Tensor,
+                         a: torch.Tensor, h0: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssm_scan_chunk_ref` in the order of work of the
+    ``ssm_scan_chunk`` kernel (tests only): ``da = exp(dt * A)`` and the
+    update ``h * da + (dt * x) * B`` rounded at every op, as the twin's;
+    ``y`` one fma chain over the states in order, ``fma(h_n, C_n, acc)``
+    from ``acc = 0`` (the kernel carries it from lane to lane), each fma
+    a float64 product and sum rounded to float32."""
+    b, c, di = dt.shape
+    h = h0
+    ys = []
+    for t in range(c):
+        da = torch.exp(dt[:, t, :, None] * a)
+        dbx = (dt[:, t] * xh[:, t])[..., None] * bmat[:, t, None, :]
+        h = h * da + dbx
+        prod = h.double() * cmat[:, t, None, :].double()
+        acc = torch.zeros((b, di), dtype=torch.float32)
+        for n in range(prod.shape[-1]):
+            acc = (acc.double() + prod[..., n]).float()
+        ys.append(acc)
+    if not ys:
+        return dt.new_empty((b, 0, di)), h0.clone()
+    return torch.stack(ys, dim=1), h
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, block_q: int = 512,
                         block_kv: int = 512) -> torch.Tensor:
@@ -149,19 +176,25 @@ def window_words(xp: torch.Tensor, *, kh: int, kw: int, stride: int,
                       for i in range(kh) for j in range(kw)], dim=-1)
 
 
-def _conv_sign_words(wp: torch.Tensor, patches: torch.Tensor, k_bits: int,
-                     a: torch.Tensor, b: torch.Tensor,
-                     slab: int) -> torch.Tensor:
-    """Packed sign words ``[ceil(M/32), P]`` of filter rows ``wp [M, K]``
-    against window words ``patches [P, K]``: K zero-filled to a multiple
-    of ``slab`` in both operands (the tiles' loads past K), counts by
-    :func:`xnor_dot_and_popc` over the real K, ``y = (a*dot) + b``, rows
-    past M +1 bits."""
+def _conv_dots(wp: torch.Tensor, patches: torch.Tensor, k_bits: int,
+               slab: int) -> torch.Tensor:
+    """Int32 dots ``[M, P]`` of filter rows ``wp [M, K]`` against window
+    words ``patches [P, K]``: K zero-filled to a multiple of ``slab`` in
+    both operands (the tiles' loads past K), counts by
+    :func:`xnor_dot_and_popc` over the real K."""
     kwords = wp.shape[1]
     fill = -kwords % slab
     wk = torch.nn.functional.pad(wp, (0, fill))
     xk = torch.nn.functional.pad(patches, (0, fill)).T
-    dot = xnor_dot_and_popc(wk, xk, k_bits, real_words=kwords)
+    return xnor_dot_and_popc(wk, xk, k_bits, real_words=kwords)
+
+
+def _conv_sign_words(wp: torch.Tensor, patches: torch.Tensor, k_bits: int,
+                     a: torch.Tensor, b: torch.Tensor,
+                     slab: int) -> torch.Tensor:
+    """Packed sign words ``[ceil(M/32), P]`` of :func:`_conv_dots`: ``y =
+    (a*dot) + b``, rows past M +1 bits."""
+    dot = _conv_dots(wp, patches, k_bits, slab)
     y = a.float()[:, None] * dot.float() + b.float()[:, None]
     y = torch.nn.functional.pad(y, (0, 0, 0, -y.shape[0] % PACK_BITS), value=1.0)
     return pack_bits(y, axis=0)
@@ -182,6 +215,20 @@ def direct_conv_tc(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
     words = _conv_sign_words(wp, patches.reshape(-1, kwords), k_bits, a, b,
                              slab=32)
     return words.T.reshape(n, oh, ow, -1).contiguous()
+
+
+def direct_conv_dot_tc(wp: torch.Tensor, xp: torch.Tensor, k_bits: int, *,
+                       kh: int, kw: int, stride: int = 1,
+                       pad: int = 0) -> torch.Tensor:
+    """``bitops.direct_conv_dot`` as the ``direct_conv_dot`` kernel computes
+    it: the implicit GEMM of :func:`direct_conv_tc` (window words in
+    tap-major K order, all-ones border words, zeros past K in 32-word
+    slabs, counts from the and-popc identity), then the int32 epilogue
+    ``2 * count - k_bits`` stored pixel-major: int32 ``[N, OH, OW, D]``."""
+    patches = window_words(xp, kh=kh, kw=kw, stride=stride, pad=pad)
+    n, oh, ow, kwords = patches.shape
+    dot = _conv_dots(wp, patches.reshape(-1, kwords), k_bits, slab=32)
+    return dot.T.reshape(n, oh, ow, -1).contiguous()
 
 
 def conv_stage_tc(xp: torch.Tensor, weights, a, b, k_bits, *, kh: int = 3,

@@ -1,22 +1,26 @@
-"""The two conv kernels that run on the 1-bit tensor cores, as plain
+"""The three conv kernels that run on the 1-bit tensor cores, as plain
 references of the way they compute (``kernels/ref.py``):
 ``direct_conv_tc``, the implicit GEMM of ``fused_direct_conv`` (window
 words in tap-major K order, all-ones border words, zeros past K, counts
-from the and-popc identity, the pixel-major packed epilogue), and
+from the and-popc identity, the pixel-major packed epilogue),
+``direct_conv_dot_tc``, the same GEMM with the int32 epilogue of
+``direct_conv_dot`` (``2 * count - k_bits``, pixel-major), and
 ``conv_stage_tc``, the cluster of ``megakernel_conv_stage`` (per-CTA
 channel slices, 16-pixel chunks, OR-pool). Each is held exactly to the
 port's twins (``bitops.direct_conv_oracle``, ``bitops.conv_stage_xla``)
 and to the JAX package's, on inputs drawn with numpy: C not a multiple
 of 32, CW of 1 to 3 and 16, stride 2, D not a multiple of 32, odd
-batches; and once to the JAX package's Pallas ``fused_direct_conv`` in
-interpret mode. The kernels themselves are held to the twins on the
+batches; and to the JAX package's Pallas kernels in interpret mode
+(``fused_direct_conv`` once, ``direct_conv_dot`` at every case). The kernels themselves are held to the twins on the
 card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import bitops as jbits
+from repro.kernels.direct_conv import direct_conv_dot as pallas_direct_conv_dot
 from repro.kernels.direct_conv import fused_direct_conv as pallas_fused_direct_conv
 from repro_torch.core import bitops, layers
 from repro_torch.kernels import ref
@@ -71,6 +75,39 @@ def test_direct_conv_tc_equals_the_pallas_kernel():
         jnp.pad(jnp.asarray(b), (0, fill), constant_values=1.0)[:, None],
         kh=3, kw=3, block_d=32, interpret=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("c,d,h,w,n,stride,pad", CONV_CASES)
+def test_direct_conv_dot_tc_equals_both_oracles(c, d, h, w, n, stride, pad):
+    """The int32 epilogue of the same implicit GEMM (``direct_conv_dot``)
+    against the port's twin and the JAX package's, exactly."""
+    rng = np.random.default_rng(184)
+    wp, xp, _, _ = conv_operands(rng, c, d, h, w, n)
+    kw = dict(kh=3, kw=3, stride=stride, pad=pad)
+    got = ref.direct_conv_dot_tc(t(wp), t(xp), 9 * c, **kw)
+    assert got.dtype == torch.int32 and got.shape == (
+        n, (h + 2 * pad - 3) // stride + 1, (w + 2 * pad - 3) // stride + 1, d)
+    np.testing.assert_array_equal(
+        got.numpy(), bitops.direct_conv_dot(t(wp), t(xp), 9 * c, **kw).numpy())
+    want = jbits.direct_conv_dot(jnp.asarray(wp), jnp.asarray(xp), 9 * c, **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("c,d,h,w,n,stride,pad", CONV_CASES)
+def test_direct_conv_dot_tc_equals_the_pallas_kernel(c, d, h, w, n, stride, pad):
+    """The Pallas ``direct_conv_dot`` in interpret mode as its wrapper calls
+    it: the map padded with all-ones words, D padded to its 32-row block
+    with zero filters, the rows past D sliced off."""
+    rng = np.random.default_rng(185)
+    wp, xp, _, _ = conv_operands(rng, c, d, h, w, n)
+    got = ref.direct_conv_dot_tc(t(wp), t(xp), 9 * c, kh=3, kw=3, stride=stride,
+                                 pad=pad)
+    want = pallas_direct_conv_dot(
+        jnp.pad(jnp.asarray(wp), ((0, -d % 32), (0, 0))),
+        jnp.pad(jnp.asarray(xp), ((0, 0), (pad, pad), (pad, pad), (0, 0)),
+                constant_values=-1),
+        9 * c, kh=3, kw=3, stride=stride, block_d=32, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want)[..., :d])
 
 
 def test_zeros_past_k_add_nothing():

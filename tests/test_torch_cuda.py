@@ -278,6 +278,38 @@ def test_direct_conv_matches_twin(dev, c, d, h, stride, pad):
     assert torch.equal(got, bitops.direct_conv_dot(wp, xp, 9 * c, **kw))
 
 
+# direct_conv on the tensor-core implicit GEMM: the five convs of Table 2's
+# DIRECT_KERNEL forward at its batch of 64 (128-wide tiles, 16-byte
+# stores), and a map 1200 pixels wide at CW 16, whose three padded rows
+# (230 KB) the popc kernel staged in shared memory and so refused.
+@pytest.mark.parametrize("c,d,h,w,n", [
+    (128, 128, 32, 32, 64), (128, 256, 16, 16, 64), (256, 256, 16, 16, 64),
+    (256, 512, 8, 8, 64), (512, 512, 8, 8, 64), (512, 40, 3, 1200, 1)])
+def test_direct_conv_tc_shapes(dev, c, d, h, w, n):
+    rng = np.random.default_rng(43)
+    wp = layers.pack_conv_aligned({"w": cu(pm1(rng, (d, 3, 3, c)), dev)})["w_packed"]
+    xp = bitops.pack_channels(cu(pm1(rng, (n, h, w, c)), dev))
+    kw = dict(kh=3, kw=3, stride=1, pad=1)
+    before = ops.LAUNCHES["direct_conv"]
+    got = ops.direct_conv(wp, xp, 9 * c, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["direct_conv"] == before + 1
+    assert torch.equal(got, bitops.direct_conv_dot(wp, xp, 9 * c, **kw))
+
+
+def test_direct_conv_repeats_exactly(dev):
+    """Repeated calls give identical dots (no race between the cp.async
+    ring, the gather's plain stores and the epilogue's reads of the staged
+    counts), at conv1's shape, the widest output."""
+    rng = np.random.default_rng(44)
+    wp = layers.pack_conv_aligned({"w": cu(pm1(rng, (128, 3, 3, 128)), dev)})["w_packed"]
+    xp = bitops.pack_channels(cu(pm1(rng, (64, 32, 32, 128)), dev))
+    first = ops.direct_conv(wp, xp, 9 * 128, kh=3, kw=3, pad=1)
+    for _ in range(20):
+        assert torch.equal(ops.direct_conv(wp, xp, 9 * 128, kh=3, kw=3, pad=1), first)
+    torch.cuda.synchronize()
+
+
 # unpack_gemm: M and N not multiples of the 128 x 64 tile, one K word, odd KW;
 # ±1/0 input exact; real float32 input within the JAX package's tolerance
 # for its kernel (tests/test_kernels.py, rtol 1e-5, atol 1e-4); bfloat16
@@ -439,6 +471,34 @@ def test_ssm_scan_chunk_matches_twin(dev, b, c, di, ds, view):
     y, h = ops.ssm_scan_chunk(dt, xh, bm, cm, a, h0)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["ssm_scan_chunk"] == before + 1
+    y_ref, h_ref = ssm_scan_chunk_ref(dt, xh, bm, cm, a, h0)
+    torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h, h_ref, rtol=1e-5, atol=1e-5)
+
+
+# Every compiled state width (ds 5 and 8 on one lane a channel, 16 on 2,
+# 32 on 4) at C 1, 37 and 256, di 330 (not a multiple of any block's 64 to
+# 256 channels), B and C column slices at an odd column offset (4-byte
+# copies) or a 16-byte aligned one.
+@pytest.mark.parametrize("ds", [5, 8, 16, 32])
+@pytest.mark.parametrize("c", [1, 37, 256])
+def test_ssm_scan_chunk_every_width(dev, c, ds):
+    from repro_torch.kernels.ref import ssm_scan_chunk_ref
+
+    rng = np.random.default_rng(45 + ds + c)
+
+    def normal(*shape, scale=1.0):
+        return cu((rng.normal(size=shape) * scale).astype(np.float32), dev)
+
+    b, di, off = 2, 330, 3 if c % 2 else 4
+    dt = torch.nn.functional.softplus(normal(b, c, di))
+    xh = normal(b, c, di)
+    bc = normal(b, c, off + 2 * ds)
+    bm, cm = bc[..., off:off + ds], bc[..., off + ds:]
+    a = -torch.exp(normal(di, ds, scale=0.5))
+    h0 = normal(b, di, ds, scale=0.1)
+    y, h = ops.ssm_scan_chunk(dt, xh, bm, cm, a, h0)
+    torch.cuda.synchronize()
     y_ref, h_ref = ssm_scan_chunk_ref(dt, xh, bm, cm, a, h0)
     torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(h, h_ref, rtol=1e-5, atol=1e-5)

@@ -7,7 +7,10 @@ The twin is the sequential recurrence; the Pallas kernel is sequential
 too but reduces ``y`` over ``n`` in its own order, and the associative
 scan reassociates the products of ``exp(dt*A)``: float32 sums in other
 orders, held to rtol/atol 1e-5 (the JAX package's own tolerance between
-its kernel and its oracles, ``tests/test_ssm_scan.py``).
+its kernel and its oracles, ``tests/test_ssm_scan.py``). The CUDA
+kernel's own order of work (y as one fma chain over the states, carried
+across the lanes that hold them), ``ref.ssm_scan_chunk_chain``, is held
+to both within the same tolerance.
 """
 
 import jax
@@ -19,7 +22,7 @@ import torch
 from repro.kernels.ssm_scan import ssm_scan_chunk as pallas_scan
 from repro.models.mamba import _selective_scan_chunk as jax_model_chunk
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import ssm_scan_chunk_ref
+from repro_torch.kernels.ref import ssm_scan_chunk_chain, ssm_scan_chunk_ref
 from repro_torch.models import mamba as tmamba
 
 from torch_parity import t
@@ -55,6 +58,40 @@ def test_twin_matches_pallas_kernel(b, c, di, ds, bd):
     # the wrapper on CPU tensors is the twin, exactly
     y_w, h_w = ops.ssm_scan_chunk(*map(t, args))
     assert torch.equal(y_w, y) and torch.equal(h_w, h)
+
+
+@pytest.mark.parametrize("b,c,di,ds", [
+    (2, 16, 64, 5), (1, 37, 32, 8), (3, 8, 32, 16), (1, 16, 32, 32)])
+def test_chain_order_matches_twin_and_pallas(b, c, di, ds):
+    """``ssm_scan_chunk_chain`` (y as one fma chain over the states, the
+    kernel's order) against the twin and the Pallas kernel in interpret
+    mode: float32 sums in other orders, rtol/atol 1e-5; its state equals
+    the twin's exactly (the same ops in the same order)."""
+    args = scan_inputs(70 + ds, b, c, di, ds)
+    y, h = ssm_scan_chunk_chain(*map(t, args))
+    y_t, h_t = ssm_scan_chunk_ref(*map(t, args))
+    np.testing.assert_allclose(y.numpy(), y_t.numpy(), **TOL)
+    assert torch.equal(h, h_t)
+    y_j, h_j = pallas_scan(*map(jnp.asarray, args), block_d=16, interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), **TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_j), **TOL)
+
+
+def test_chain_order_sums_the_states_in_order():
+    """One step, h0 = 0, dt = x = 1, A = 0 (so da = 1 and h = B), C = 1:
+    y is the states added in order in float32, so 1e8 + 1 loses the 1 and
+    the chain gives 1.75 where the exact sum is 2.75."""
+    ds = 16
+    bvec = np.array([1e8, 1, -1e8, 1, 3, 0.5, -3, 0.25] + [0.0] * 8, np.float32)
+    args = (np.ones((1, 1, 1), np.float32), np.ones((1, 1, 1), np.float32),
+            bvec[None, None], np.ones((1, 1, ds), np.float32),
+            np.zeros((1, ds), np.float32), np.zeros((1, 1, ds), np.float32))
+    y, h = ssm_scan_chunk_chain(*map(t, args))
+    acc = np.float32(0)
+    for v in bvec:
+        acc = np.float32(acc + v)
+    assert float(y) == float(acc) == 1.75
+    np.testing.assert_array_equal(h.numpy()[0, 0], bvec)
 
 
 def test_twin_matches_the_models_associative_scan():
