@@ -46,9 +46,28 @@
    the same images on the card. The launch counters are reset just
    before each path's engine is built and read just after its drain:
    each path must have launched exactly its own kernels per forward
-   (warmup and served batches: one per layer on the ``xnor`` paths,
-   3 conv stages + 1 chain on the megakernel path), and no engine
-   failover may be recorded. Times the batch-32 forward of each path.
+   (one per layer on the ``xnor`` paths, 3 conv stages + 1 chain on the
+   megakernel path; the engines serve from CUDA graphs, so each warmed
+   shape runs one eager forward before its capture and one replay at
+   warmup, and each served batch one replay, whose launches the
+   executor counts), and no engine failover may be recorded. Times the
+   batch-32 forward of each path. Then (4a) every executor a deployment
+   can capture, each engine x conv_impl x bucket of the default ladder
+   and each extent class of the continuous engine for every rung of its
+   ladder, replays logits bit-identical to the eager forward, with one
+   capture a shape warmed and none after; (4b) every tiling
+   ``kernels.autotune`` can select, at each tunable kernel's Table 2 and
+   served shapes, is bit-identical to the twin (clusters whose shared
+   memory exceeds a block's are refused and counted), then ``tune`` runs
+   once per kernel at its batch-32 served shape and
+   ``tune_serving_blocks`` at bucket 32 for xnor/direct, xnor/im2col and
+   the megakernel, each winner printed beside the ``AUTO`` time; (4c)
+   the CLI's ``run_sustained`` serves ``LOAD_RATE`` requests/s for
+   ``LOAD_SECONDS`` s on the continuous megakernel engine and the
+   xnor/direct bucket engine, every answered request's logits checked,
+   and prints p50/p99 latency, images/s and the pad-row fraction; (4d)
+   a 32-image request through each engine with graphs, submit to
+   logits, beside the eager and raw-graph forward times.
 5. Table 2 on the card: ``bnn_apply`` of the six presets of
    ``repro_torch.configs.bnn_cifar`` on the trained checkpoint at batch
    64. The launch counters are reset just before each preset's checked
@@ -1146,10 +1165,11 @@ def serve_phase(dev) -> dict:
 
     for path, (eng, got) in engines.items():
         snap = eng.snapshot()
-        # Every warmed bucket or extent class ran one forward, then every
-        # served batch.
+        # Every warmed bucket or extent class ran one forward eagerly
+        # before its capture and one replay at warmup, then every served
+        # batch a replay (whose launches the executor counts).
         shapes = eng.extents if path == "megakernel" else eng.batcher.buckets
-        forwards = len(shapes) + snap["batches"]["dispatched"]
+        forwards = 2 * len(shapes) + snap["batches"]["dispatched"]
         expected = {k: v * forwards
                     for k, v in launches_per_forward(path).items()}
         if launches[path] != expected:
@@ -1231,6 +1251,295 @@ def serve_phase(dev) -> dict:
         print(f"  first conv + BN + pack, batch {BATCH}: "
               f"{result['first_conv_b32_ms']:.3f} ms eager, "
               f"{result['first_conv_b32_graph_ms']:.3f} ms graph", flush=True)
+    return result
+
+
+# The bucket ladder and extent classes phase 4 captures, and the engines.
+GRAPH_BUCKETS = (1, 8, 32, 128)
+GRAPH_PATHS = [("xnor", "direct"), ("xnor", "im2col"), ("xla", "direct"),
+               ("xla", "im2col"), ("megakernel", "direct"),
+               ("megakernel_xla", "direct")]
+# The continuous engine's extent classes at 32 rows (1/2/4/8/16/24/32), for
+# the megakernel engines and the per-layer rungs of its fallback ladder.
+RAGGED_PATHS = [("megakernel", "im2col"), ("megakernel_xla", "im2col"),
+                ("xnor", "im2col"), ("xla", "im2col")]
+
+
+def graph_phase(dev, packed: dict, mega: dict) -> dict:
+    """Phase 4(a): every executor a deployment can capture, its
+    graph-replayed logits against the eager forward's, bit for bit: each
+    engine x conv_impl x bucket of the default ladder, and each extent
+    class of the continuous engine for every rung of its ladder. Each
+    cache is warmed first; its captures must equal the shapes warmed, and
+    the checks after it (hits only) must add none."""
+    from repro_torch.core.bnn import bnn_serve_fn
+    from repro_torch.serve import (ExecutorCache, RaggedExecutorCache,
+                                   default_extents)
+
+    rng = np.random.default_rng(40)
+    result = {}
+    cases = [(ExecutorCache, GRAPH_BUCKETS, p, False) for p in GRAPH_PATHS]
+    cases += [(RaggedExecutorCache, default_extents(32), p, True)
+              for p in RAGGED_PATHS]
+    for cls, shapes, (engine, conv_impl), ragged in cases:
+        params = mega if engine.startswith("megakernel") else packed
+        t0 = time.monotonic()
+        cache = cls(params, engine=engine, conv_impl=conv_impl)
+        warmed = cache.warmup(shapes)
+        t_warm = time.monotonic() - t0
+        eager = bnn_serve_fn(engine=engine, conv_impl=conv_impl, ragged=ragged)
+        for rows in shapes:
+            x = rng.normal(size=(rows, 32, 32, 3)).astype(np.float32)
+            got = cache.run(x)
+            want = eager(params, torch.from_numpy(x).to(dev)).cpu().numpy()
+            if got.shape != (rows, 10) or not np.array_equal(got, want):
+                fail(f"graph {engine}/{conv_impl} {cls.__name__} at {rows}: "
+                     "replayed logits differ from the eager forward (max abs "
+                     f"{np.abs(got - want).max() if got.shape == want.shape else 'shape'})")
+        compiles = cache.stats.executor_compiles
+        if not warmed == compiles == len(shapes) or cache.size != len(shapes):
+            fail(f"graph {engine}/{conv_impl} {cls.__name__}: {compiles} "
+                 f"captures ({warmed} at warmup) for {len(shapes)} shapes")
+        name = f"{engine}/{conv_impl}/{'extents' if ragged else 'buckets'}"
+        result[name] = {"shapes": list(shapes), "captures": compiles,
+                        "warmup_s": t_warm}
+        print(f"  graphs {name}: {len(shapes)} shapes {list(shapes)} "
+              f"replayed bit-identical to eager; {compiles} captures, "
+              f"{warmed} at warmup ({t_warm:.2f} s)", flush=True)
+        cache.release()
+    return result
+
+
+def first_conv_invariance(dev, packed: dict) -> dict:
+    """Phase 4a, first: the float first conv's packed words of 256 images
+    must not depend on the batch they come in (batches of 1, 3, 8, 24, 32
+    and 128; ``core.bnn._first_conv`` runs its GEMM on fixed chunks), with
+    the trained checkpoint's weights and with the serving CLI's random
+    ones (seed 0). Beside it, for the record, the words that one GEMM of
+    the whole batch, as ``bit_conv2d`` computes it, flips against one image
+    at a time."""
+    from repro_torch.core import bitops
+    from repro_torch.core.binarize import QuantMode
+    from repro_torch.core.bnn import (_batchnorm, first_conv_packed,
+                                      init_bnn_params, pack_bnn_params_fused)
+    from repro_torch.core.layers import BitLinearConfig, bit_conv2d
+
+    imgs = torch.from_numpy(np.random.default_rng(42).normal(
+        size=(256, 32, 32, 3)).astype(np.float32)).to(dev)
+    lcfg = BitLinearConfig(mode=QuantMode.FAKE_QUANT, binarize_acts=False)
+    result = {}
+    for name, params in (("trained", packed), ("random seed 0",
+                         pack_bnn_params_fused(init_bnn_params(0, device=dev)))):
+
+        def one_gemm(x, params=params):
+            y = bit_conv2d(params["conv"][0], x, lcfg, stride=1, pad=1)
+            return bitops.pack_bits(_batchnorm(params["bn_conv0"], y), axis=-1)
+
+        def words(fn, n):
+            with torch.inference_mode():
+                return torch.cat([fn(imgs[i:i + n]) for i in range(0, 256, n)])
+
+        served = lambda x, params=params: first_conv_packed(params, x)  # noqa: E731
+        ref = words(served, 1)
+        for n in (3, 8, 24, 32, 128):
+            if not torch.equal(words(served, n), ref):
+                fail(f"first conv ({name} weights): the packed words of a batch "
+                     f"of {n} differ from one image at a time")
+        alone = words(one_gemm, 1)
+        flips = {n: int((words(one_gemm, n) != alone).sum()) for n in (8, 32, 128)}
+        result[name] = {"one_gemm_word_flips": flips}
+        print(f"  first conv, {name} weights: 256 images' words equal at batches "
+              f"1/3/8/24/32/128; one GEMM of the whole batch would flip {flips} "
+              f"of {alone.numel()} words against one image at a time", flush=True)
+    return result
+
+
+# Phase 4(b): each tunable kernel's shapes, Table 2's (batch 64) and the
+# batch-32 served ones, and the one shape ``tune`` runs at.
+def tiling_shapes(paper_batch: int) -> dict:
+    from repro_torch.kernels import autotune
+
+    gemm = autotune.gemm_shape
+    paper = [gemm(m, kw, n) for _, m, kw, n, _ in paper_gemm_cases(paper_batch)]
+    head, fused = gemm_cases()
+    served = [gemm(m, kw, n) for _, m, kw, n, _ in head + fused]
+    convs = {b: [autotune.conv_shape(b, h, h, c // 32, d, 3, 3, 1, 1)
+                 for _, h, c, d in conv_cases()] for b in (paper_batch, BATCH)}
+    stages = [autotune.stage_shape(BATCH, h, h, chans[0] // 32,
+                                   [c // 32 for c in chans[1:]], 3, 3, 1, True)
+              for _, h, chans in STAGE_CASES]
+    trunk = autotune.chain_shape((256, 32), 1024, 256, 256, 10, 32, BATCH)
+    return {
+        "xnor_gemm": (paper + served[:1], served[0]),
+        "fused_xnor_gemm": (served[1:], served[1]),
+        "fused_direct_conv": (convs[BATCH], convs[BATCH][0]),
+        "direct_conv": (convs[paper_batch] + convs[BATCH], convs[BATCH][0]),
+        "megakernel_conv_stage": (stages, stages[0]),
+        "megakernel_chain": ([trunk], trunk),
+    }
+
+
+TILING_TWINS = {"xnor_gemm": "xnor_popcount_matmul",
+                "fused_xnor_gemm": "fused_xnor_layer",
+                "fused_direct_conv": "direct_conv_oracle",
+                "direct_conv": "direct_conv_dot",
+                "megakernel_conv_stage": "conv_stage_xla",
+                "megakernel_chain": "megakernel_chain_xla"}
+
+
+def tiling_phase(dev, paper_batch: int, packed: dict, mega: dict) -> dict:
+    """Phase 4(b): every tiling ``kernels.autotune`` can select, at each
+    tunable kernel's Table 2 and served shapes, bit-identical to the
+    twin (a cluster whose shared memory exceeds a block's must raise
+    ValueError, and is counted); then ``tune`` once per kernel at its
+    batch-32 served shape and ``tune_serving_blocks`` at bucket 32, each
+    winner printed beside the ``AUTO`` time. The cache is a fresh file
+    under ``build/``, removed after, so no later phase reads a tuned
+    entry: their ``AUTO`` is the heuristic."""
+    import os
+
+    from repro_torch.core import bitops
+    from repro_torch.kernels import autotune
+    from repro_torch.serve import tune_serving_blocks
+
+    cache = OUT_DIR / "chip_smoke_autotune.json"
+    cache.unlink(missing_ok=True)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(cache)
+    os.environ.pop("REPRO_AUTOTUNE", None)
+    result = {"variants": {}, "tuned": {}, "serving": {}}
+    try:
+        for kernel, (shapes, tune_at) in tiling_shapes(paper_batch).items():
+            twin = getattr(bitops, TILING_TWINS[kernel])
+            ran = refused = 0
+            for shape in shapes:
+                call = autotune.operands(kernel, shape, dev)
+                want = twin(*call.args, **call.kwargs)
+                for cfg in autotune.default_candidates(kernel, shape):
+                    try:
+                        got = call(**autotune.block_kwargs(cfg, kernel))
+                    except ValueError:
+                        refused += 1
+                        continue
+                    torch.cuda.synchronize()
+                    check_equal(kernel, f"{shape} {cfg.key()}", got, want)
+                    ran += 1
+            timings = {}
+            best = autotune.tune(kernel, tune_at, device=dev, timings=timings)
+            entry = autotune.load_entry(kernel, tune_at)
+            if entry != best:
+                fail(f"tune {kernel}: the cache holds {entry}, not {best}")
+            result["variants"][kernel] = {"shapes": len(shapes), "ran": ran,
+                                          "refused": refused}
+            result["tuned"][kernel] = {
+                "shape": tune_at, "winner": best.key(),
+                "winner_ms": timings[best] * 1e3,
+                "auto_ms": timings[autotune.AUTO] * 1e3,
+                "candidates_ms": {(c if isinstance(c, str) else c.key()):
+                                  (None if t is None else t * 1e3)
+                                  for c, t in timings.items()}}
+            print(f"  tilings {kernel}: {ran} variants at {len(shapes)} shapes "
+                  f"bit-identical to the twin ({refused} refused: shared "
+                  f"memory); tuned at {tune_at}: {best.key()} "
+                  f"{timings[best] * 1e3:.4f} ms vs AUTO "
+                  f"{timings[autotune.AUTO] * 1e3:.4f} ms", flush=True)
+        for engine, conv_impl, params in (("xnor", "direct", packed),
+                                          ("xnor", "im2col", packed),
+                                          ("megakernel", "direct", mega)):
+            timings = {}
+            best = tune_serving_blocks(params, BATCH, engine=engine,
+                                       conv_impl=conv_impl, timings=timings)
+            key = f"{engine}/{conv_impl}"
+            result["serving"][key] = {
+                "winner": autotune.blocks_key(best),
+                "candidates_ms": {autotune.blocks_key(c):
+                                  (None if t is None else t * 1e3)
+                                  for c, t in timings.items()}}
+            print(f"  serving tiling {key} at bucket {BATCH}: "
+                  f"{autotune.blocks_key(best)} {timings[best] * 1e3:.4f} ms vs "
+                  f"AUTO {timings[autotune.AUTO] * 1e3:.4f} ms (graph replay)",
+                  flush=True)
+    finally:
+        cache.unlink(missing_ok=True)
+        os.environ.pop("REPRO_AUTOTUNE_CACHE", None)
+    return result
+
+
+# Phase 4(c): arrivals a second and seconds of the load runs.
+LOAD_RATE, LOAD_SECONDS = 500.0, 3.0
+
+
+def load_phase() -> dict:
+    """Phase 4(c): ``run_sustained`` of the serving CLI on the card,
+    ``LOAD_SECONDS`` of open-loop arrivals at ``LOAD_RATE`` requests a
+    second (1-8 images each, random weights from seed 0), on the
+    megakernel continuous engine (32 rows a dispatch) and the xnor/direct
+    bucket engine (the default ladder); every answered request's logits
+    held to its exact-shape forward. A failed, unanswered or divergent
+    request fails the phase."""
+    from repro_torch.launch import serve_bnn
+
+    result = {}
+    for name, argv in (
+            ("megakernel/continuous", ["--scheduler", "continuous",
+                                       "--engine", "megakernel"]),
+            ("xnor/direct/bucket", ["--engine", "xnor", "--conv-impl",
+                                    "direct"])):
+        args = serve_bnn.parse_args(
+            ["--sustained", "--rate", str(LOAD_RATE), "--duration",
+             str(LOAD_SECONDS), "--device", "cuda"] + argv)
+        try:
+            snap = serve_bnn.run_sustained(args)
+        except SystemExit as err:
+            fail(f"load run {name}: {err}")
+        lat = snap["latency_s"]
+        result[name] = {
+            "requests": snap["requests"]["completed"],
+            "images_per_s": snap["throughput"]["images_per_s"],
+            "p50_ms": lat["p50"] * 1e3, "p95_ms": lat["p95"] * 1e3,
+            "p99_ms": lat["p99"] * 1e3,
+            "pad_row_fraction": snap["batches"]["pad_row_fraction"],
+            "dispatches": snap["batches"]["dispatched"],
+            "captures": snap["executors"]["compiles"],
+            "check": snap["check"]}
+        r = result[name]
+        print(f"  load {name}: {r['requests']} requests at {LOAD_RATE:.0f}/s "
+              f"for {LOAD_SECONDS:.0f} s: p50 {r['p50_ms']:.3f} ms, p99 "
+              f"{r['p99_ms']:.3f} ms, {r['images_per_s']:.1f} images/s, pad "
+              f"fraction {r['pad_row_fraction']:.3f}, {r['dispatches']} "
+              f"dispatches, {r['captures']} captures; every logit checked",
+              flush=True)
+    return result
+
+
+def engine_latency(dev, packed: dict, mega: dict, reps: int = 50) -> dict:
+    """Phase 4(d): one request of 32 images through the serving engine
+    with graphs, submit to logits on the host clock (median of ``reps``
+    after a warmed ladder): the bucket engine (xnor/direct, a bucket of
+    32) and the continuous megakernel engine (32 rows a dispatch)."""
+    from repro_torch.serve import ContinuousServingEngine, ServingEngine
+
+    x = np.random.default_rng(41).normal(size=(BATCH, 32, 32, 3)).astype(
+        np.float32)
+    result = {}
+    for name, eng in (
+            ("xnor_direct", ServingEngine(packed, engine="xnor",
+                                          conv_impl="direct", buckets=(BATCH,),
+                                          max_wait_s=0.0)),
+            ("megakernel", ContinuousServingEngine(mega, engine="megakernel",
+                                                   max_rows=BATCH,
+                                                   max_wait_s=0.0))):
+        eng.warmup()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            rid = eng.submit(x)
+            eng.step()
+            eng.drain()
+            logits = eng.take(rid)
+            times.append(time.perf_counter() - t0)
+            if logits is None or logits.shape != (BATCH, 10):
+                fail(f"engine latency {name}: no logits")
+        result[f"engine_b32_{name}_ms"] = statistics.median(times) * 1e3
     return result
 
 
@@ -2145,6 +2454,32 @@ def main() -> None:
     attention_phase(dev, totals, rows)
     print("phase 4: serving on the trained checkpoint", flush=True)
     serve = serve_phase(dev)
+    from repro_torch.core.bnn import (load_binary_checkpoint,
+                                      pack_bnn_params_fused,
+                                      pack_bnn_params_megakernel)
+    latent = load_binary_checkpoint(CKPT, device=dev)
+    packed = pack_bnn_params_fused(latent)
+    mega = pack_bnn_params_megakernel(latent)
+    print("phase 4a: every executor's CUDA graph against its eager forward",
+          flush=True)
+    serve["first_conv"] = first_conv_invariance(dev, packed)
+    serve["graphs"] = graph_phase(dev, packed, mega)
+    print("phase 4b: every kernel tiling against the twins, and the tuner",
+          flush=True)
+    serve["tilings"] = tiling_phase(dev, paper_batch, packed, mega)
+    print(f"phase 4c: load runs ({LOAD_RATE:.0f} requests/s for "
+          f"{LOAD_SECONDS:.0f} s)", flush=True)
+    serve["load"] = load_phase()
+    print(f"phase 4d: a request of {BATCH} images through the engine",
+          flush=True)
+    serve.update(engine_latency(dev, packed, mega))
+    for name, fwd in (("xnor_direct", "xnor_direct"),
+                      ("megakernel", "megakernel_stages")):
+        print(f"  batch {BATCH} {name}: {serve[f'engine_b32_{name}_ms']:.3f} ms "
+              f"through the engine (graphs, submit to logits on the host), "
+              f"{serve[f'forward_b{BATCH}_{fwd}_ms']:.3f} ms eager forward, "
+              f"{serve[f'forward_b{BATCH}_{fwd}_graph_ms']:.3f} ms graph "
+              "replay alone", flush=True)
     print("phase 5: Table 2 on the card", flush=True)
     table2 = table2_phase(dev)
     print("phase 6: jamba-1.5-large-398b, one full-width period, served "

@@ -343,7 +343,7 @@ def direct_conv_cases(dev):
         def make(path, x=x, w=w, out=out, h=h, cw=cw, d=d, k_bits=k_bits):
             fn = launcher(path, "repro_direct_conv_dot")
             return lambda: fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), batch, h, h,
-                              cw, d, 3, 3, 1, 1, k_bits,
+                              cw, d, 3, 3, 1, 1, k_bits, 0,
                               torch.cuda.current_stream().cuda_stream)
         cases.append((f"dot {label} b{batch}", make))
     for label, h, c, d in chip_smoke.conv_cases():
@@ -358,7 +358,7 @@ def direct_conv_cases(dev):
             fn = launcher(path, "repro_fused_direct_conv")
             return lambda: fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
                               out.data_ptr(), chip_smoke.BATCH, h, h, cw, d, 3, 3, 1,
-                              1, k_bits, torch.cuda.current_stream().cuda_stream)
+                              1, k_bits, 0, torch.cuda.current_stream().cuda_stream)
         cases.append((f"fused {label} b{chip_smoke.BATCH}", make))
     return cases
 
@@ -380,7 +380,7 @@ def xnor_gemm_cases(dev):
                     if splits > 1 else None)
             return lambda: fn(w.data_ptr(), x.data_ptr(), out.data_ptr(),
                               None if part is None else part.data_ptr(), m, kw, n,
-                              k_bits, splits, torch.cuda.current_stream().cuda_stream)
+                              k_bits, splits, 0, torch.cuda.current_stream().cuda_stream)
         cases.append((f"{label} b64 [{m},{kw}]x[{kw},{n}]", make))
     return cases
 

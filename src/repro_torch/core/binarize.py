@@ -1,8 +1,11 @@
-"""Binarization math: deterministic sign and XNOR-Net scale factors.
+"""Binarization math: deterministic sign, the straight-through estimator
+and XNOR-Net scale factors.
 
-``sign(0) := +1``, as in ``repro.core.binarize``. The straight-through
-estimator (``ste_sign``) belongs to training and is not ported yet: the
-functions here are forward-only.
+``sign(0) := +1``, as in ``repro.core.binarize``. FAKE_QUANT layers
+binarize through :func:`ste_sign`: ``Sign(x)`` forward and the hard-tanh
+straight-through gradient ``g * (|x| <= 1)`` backward (BNN,
+Courbariaux et al. 2016, eq. 4); the XNOR-Net scale carries no gradient
+(``stop_gradient`` in the JAX package, ``detach`` here).
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ class QuantMode(str, enum.Enum):
     """How a Bit* layer executes.
 
     FLOAT        — plain matmul on the latent real weights.
-    FAKE_QUANT   — ±1 values held in float.
+    FAKE_QUANT   — ±1 values held in float, STE gradients.
     PACKED       — 1-bit packed int32 weights (inference).
     """
 
@@ -27,8 +30,29 @@ class QuantMode(str, enum.Enum):
 
 
 def sign(x: torch.Tensor) -> torch.Tensor:
-    """±1 with sign(0) := +1, in ``x``'s dtype."""
+    """±1 with sign(0) := +1, in ``x``'s dtype. No gradient: training
+    paths take :func:`ste_sign`."""
     return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
+
+
+class _SteSign(torch.autograd.Function):
+    """:func:`sign` forward, the hard-tanh STE backward."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        return sign(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        (x,) = ctx.saved_tensors
+        return g * (x.abs() <= 1.0).to(g.dtype)
+
+
+def ste_sign(x: torch.Tensor) -> torch.Tensor:
+    """Sign with sign(0) := +1 and the hard-tanh STE gradient: the
+    JAX package's ``ste_sign`` custom VJP."""
+    return _SteSign.apply(x)
 
 
 def weight_scale(w: torch.Tensor, axis: int = -1,
@@ -40,13 +64,14 @@ def weight_scale(w: torch.Tensor, axis: int = -1,
 def binarize_weights(
     w: torch.Tensor, *, scale_axis: Optional[int] = None
 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Latent weights -> (±1 weights, optional alpha scale)."""
-    wb = sign(w)
+    """Latent weights -> (±1 STE weights, optional alpha scale). Alpha is
+    detached: no gradient flows through it."""
+    wb = ste_sign(w)
     if scale_axis is None:
         return wb, None
-    return wb, weight_scale(w, axis=scale_axis)
+    return wb, weight_scale(w, axis=scale_axis).detach()
 
 
 def binarize_activations(x: torch.Tensor, clip: float = 1.0) -> torch.Tensor:
-    """Htanh then sign, the BNN activation binarization."""
-    return sign(torch.clamp(x, -clip, clip))
+    """Htanh then sign, the BNN activation binarization (STE backward)."""
+    return ste_sign(torch.clamp(x, -clip, clip))

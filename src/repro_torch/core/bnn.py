@@ -12,7 +12,9 @@ Table 2 forward in any ``QuantMode``, with float tensors between layers
 (PACKED: each layer encodes its input on the fly). The serving paths
 keep only packed int32 words between binary layers: one launch per
 layer in :func:`bnn_apply_fused`, one per network stage in
-:func:`bnn_apply_megakernel`. Training is not ported yet.
+:func:`bnn_apply_megakernel`. Every kernel path takes a ``blocks``
+tiling (``kernels.autotune``; logits do not depend on it) and every
+packer the XNOR-Net ``use_scale``. Training is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitops
-from repro_torch.core.binarize import QuantMode, binarize_activations
+from repro_torch.core.binarize import (QuantMode, binarize_activations,
+                                       binarize_weights)
+from repro_torch.core.im2col import col2im, filters_to_matrix, im2col
 from repro_torch.core.layers import (
     BN_EPS,
     BitLinearConfig,
@@ -43,6 +47,7 @@ from repro_torch.core.layers import (
     packed_act_linear,
     stack_chain_layers,
 )
+from repro_torch.kernels.autotune import AUTO
 
 CONV_CHANNELS = [(3, 128), (128, 128), (128, 256), (256, 256), (256, 512), (512, 512)]
 POOL_AFTER = {1, 3, 5}  # maxpool after conv index
@@ -70,19 +75,25 @@ CONV_STAGES = _conv_stages()
 @dataclasses.dataclass(frozen=True)
 class BNNConfig:
     """How :func:`bnn_apply` runs: the quantization mode and, in PACKED
-    mode, the engine (``"xnor"``, ``"unpack"``, ``"xla"``) and conv
-    lowering (``"im2col"``, ``"direct"``). The JAX package's
-    ``use_scale`` and ``blocks`` are not ported."""
+    mode, the engine (``"xnor"``, ``"unpack"``, ``"xla"``), conv lowering
+    (``"im2col"``, ``"direct"``) and kernel tiling (``blocks``: ``"auto"``
+    or a ``kernels.autotune.BlockConfig``); ``use_scale`` the XNOR-Net
+    alpha of FAKE_QUANT layers and of the first conv (PACKED params carry
+    theirs from ``pack_bnn_params(..., use_scale=True)``)."""
 
     mode: QuantMode = QuantMode.FAKE_QUANT
     engine: str = "xnor"
     conv_impl: str = "im2col"  # "im2col" | "direct" (PACKED convs only)
+    use_scale: bool = False
     num_classes: int = 10
+    blocks: object = AUTO
 
     def layer_cfg(self, *, binarize_acts: bool) -> BitLinearConfig:
         return BitLinearConfig(mode=self.mode, engine=self.engine,
                                conv_impl=self.conv_impl,
-                               binarize_acts=binarize_acts)
+                               use_scale=self.use_scale,
+                               binarize_acts=binarize_acts,
+                               blocks=self.blocks)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -122,37 +133,39 @@ def init_bnn_params(seed: int = 0, *, device=None) -> dict[str, Any]:
     return params
 
 
-def pack_bnn_params(params: dict) -> dict:
+def pack_bnn_params(params: dict, *, use_scale: bool = False) -> dict:
     """Latent float params -> packed 1-bit inference params for
     :func:`bnn_apply` in PACKED mode (paper §3.1). The first conv stays
-    float (real-valued images in); BN stays unfolded."""
+    float (real-valued images in); BN stays unfolded. ``use_scale`` adds
+    each binary layer's XNOR-Net ``alpha``."""
     return {
         "conv": [params["conv"][0]]
-        + [pack_conv_params(p) for p in params["conv"][1:]],
-        "fc": [pack_linear_params(p) for p in params["fc"]],
+        + [pack_conv_params(p, use_scale=use_scale) for p in params["conv"][1:]],
+        "fc": [pack_linear_params(p, use_scale=use_scale) for p in params["fc"]],
         "bn_conv": params["bn_conv"],
         "bn_fc": params["bn_fc"],
     }
 
 
-def pack_bnn_params_fused(params: dict) -> dict:
+def pack_bnn_params_fused(params: dict, *, use_scale: bool = False) -> dict:
     """Latent float params -> fused-pipeline inference params: every
-    interior binary layer packs its weights and folds its BN (+ bias)
-    into ``(a, b)``; the first conv stays float and the last FC
-    keeps its BN unfolded."""
+    interior binary layer packs its weights and folds its BN (+ bias +
+    ``use_scale``'s alpha) into ``(a, b)``; the first conv stays float
+    and the last FC keeps its BN unfolded (and its alpha)."""
     n_fc = len(FC_SIZES)
     return {
         "conv": [params["conv"][0]]
         + [
-            pack_conv_fused(p, bn)
+            pack_conv_fused(p, bn, use_scale=use_scale)
             for p, bn in zip(params["conv"][1:], params["bn_conv"][1:])
         ],
         "bn_conv0": params["bn_conv"][0],
         "fc": [
-            pack_linear_fused(params["fc"][j], params["bn_fc"][j])
+            pack_linear_fused(params["fc"][j], params["bn_fc"][j],
+                              use_scale=use_scale)
             for j in range(n_fc - 1)
         ]
-        + [pack_linear_params(params["fc"][-1])],
+        + [pack_linear_params(params["fc"][-1], use_scale=use_scale)],
         "bn_fc_last": params["bn_fc"][-1],
     }
 
@@ -191,7 +204,8 @@ def bnn_apply(params: dict, images: torch.Tensor,
         first = i == 0
         if first and packed:
             lcfg = BitLinearConfig(mode=QuantMode.FAKE_QUANT,
-                                   binarize_acts=False)
+                                   binarize_acts=False,
+                                   use_scale=cfg.use_scale)
         else:
             lcfg = cfg.layer_cfg(binarize_acts=not first)
         x = bit_conv2d(params["conv"][i], x, lcfg, stride=1, pad=1,
@@ -218,11 +232,51 @@ def bnn_eval_logits(params: dict, images: torch.Tensor) -> torch.Tensor:
     return bnn_apply(params, images, BNNConfig(mode=QuantMode.FAKE_QUANT))
 
 
-def first_conv_packed(packed: dict, images: torch.Tensor) -> torch.Tensor:
-    """The float boundary at the input: first conv (FAKE_QUANT), eval BN,
-    then channel packing -> ``[N, 32, 32, 4]`` words."""
-    lcfg = BitLinearConfig(mode=QuantMode.FAKE_QUANT, binarize_acts=False)
-    x = bit_conv2d(packed["conv"][0], images, lcfg, stride=1, pad=1)
+# Images one float32 GEMM of the first conv takes on CUDA (_first_conv).
+FIRST_CONV_CHUNK = 8
+
+
+def _first_conv(params: dict, images: torch.Tensor,
+                use_scale: bool) -> torch.Tensor:
+    """The first conv, FAKE_QUANT on float images, as :func:`bit_conv2d`
+    computes it; on CUDA its GEMM runs on fixed chunks of
+    ``FIRST_CONV_CHUNK`` images, the batch zero-padded to whole chunks.
+    cuBLAS picks a float32 GEMM kernel by shape and its kernels sum K in
+    different orders, so an image's products round differently alone than
+    in a batch (a packed word flips now and then: ``chip_smoke.py`` phase
+    4a counts them). One GEMM shape at every batch size keeps a request's
+    logits independent of the batch the engines serve it in."""
+    lcfg = BitLinearConfig(mode=QuantMode.FAKE_QUANT, binarize_acts=False,
+                           use_scale=use_scale)
+    if images.device.type != "cuda":
+        return bit_conv2d(params, images, lcfg, stride=1, pad=1)
+    n = images.shape[0]
+    pad = -n % FIRST_CONV_CHUNK
+    x = torch.nn.functional.pad(images, (0, 0, 0, 0, 0, 0, 0, pad)) if pad else images
+    patches, (oh, ow) = im2col(x, 3, 3, stride=1, pad=1)
+    x2d = patches.reshape(-1, patches.shape[-1])
+    wq, alpha = binarize_weights(filters_to_matrix(params["w"]),
+                                 scale_axis=-1 if use_scale else None)
+    wt = wq.to(x2d.dtype).T
+    y = torch.empty((x2d.shape[0], wt.shape[1]), dtype=x2d.dtype,
+                    device=x2d.device)
+    rows = FIRST_CONV_CHUNK * oh * ow
+    for r in range(0, x2d.shape[0], rows):
+        torch.matmul(x2d[r:r + rows], wt, out=y[r:r + rows])
+    if alpha is not None:
+        y = y * alpha.reshape(1, -1).to(y.dtype)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return col2im(y.reshape(x.shape[0], oh * ow, -1), oh, ow)[:n]
+
+
+def first_conv_packed(packed: dict, images: torch.Tensor, *,
+                      use_scale: bool = False) -> torch.Tensor:
+    """The float boundary at the input: first conv (FAKE_QUANT, with
+    alpha under ``use_scale``), eval BN, then channel packing ->
+    ``[N, 32, 32, 4]`` words. Each image's words do not depend on the
+    batch it comes in (:func:`_first_conv`)."""
+    x = _first_conv(packed["conv"][0], images, use_scale)
     x = _batchnorm(packed["bn_conv0"], x)
     return bitops.pack_bits(x, axis=-1)
 
@@ -233,38 +287,44 @@ def bnn_apply_fused(
     *,
     engine: str = "xnor",
     conv_impl: str = "im2col",
+    use_scale: bool = False,
+    blocks: object = AUTO,
 ) -> torch.Tensor:
     """Fused packed inference: images ``[N, 32, 32, 3]`` -> logits
     ``[N, 10]``, with packed int32 words at every interior boundary.
 
     ``packed`` comes from :func:`pack_bnn_params_fused`. ``engine`` is
     ``"xnor"`` (CUDA kernels) or ``"xla"`` (plain-torch twins);
-    ``conv_impl`` is ``"im2col"`` or ``"direct"``.
+    ``conv_impl`` is ``"im2col"`` or ``"direct"``; ``use_scale`` gives
+    the first conv its alpha; ``blocks`` is ``"auto"`` or a
+    ``kernels.autotune.BlockConfig`` for every kernel launched. Logits
+    are bit-identical across engines, conv lowerings and tilings.
     """
-    xp = first_conv_packed(packed, images)
+    xp = first_conv_packed(packed, images, use_scale=use_scale)
     for i in range(1, len(CONV_CHANNELS)):
         xp = fused_bit_conv2d(
             packed["conv"][i], xp, 3 * 3 * CONV_CHANNELS[i][0],
             kh=3, kw=3, stride=1, pad=1, engine=engine,
-            conv_impl=conv_impl,
+            conv_impl=conv_impl, blocks=blocks,
         )
         if i in POOL_AFTER:
             xp = bitops.maxpool2_packed(xp)
     xp = xp.reshape(xp.shape[0], -1)  # word order matches pack_linear's K order
     for j in range(len(FC_SIZES) - 1):
         xp = fused_bit_linear(packed["fc"][j], xp, FC_SIZES[j][0],
-                              engine=engine)
-    y = packed_act_linear(packed["fc"][-1], xp, FC_SIZES[-1][0], engine=engine)
+                              engine=engine, blocks=blocks)
+    y = packed_act_linear(packed["fc"][-1], xp, FC_SIZES[-1][0], engine=engine,
+                          blocks=blocks)
     return _batchnorm(packed["bn_fc_last"], y)
 
 
-def pack_bnn_params_megakernel(params: dict) -> dict:
+def pack_bnn_params_megakernel(params: dict, *, use_scale: bool = False) -> dict:
     """Latent float params -> megakernel inference params: the packing
     and folding of :func:`pack_bnn_params_fused`, with the FC trunk's
     interior layers stacked into the chain's ``[L, M_max, KW_max]``
     operands (``fc_stack``) here, once, not per forward. Conv stages
     keep their per-layer tap-aligned params."""
-    fused = pack_bnn_params_fused(params)
+    fused = pack_bnn_params_fused(params, use_scale=use_scale)
     return {
         "conv": fused["conv"],
         "bn_conv0": fused["bn_conv0"],
@@ -279,6 +339,8 @@ def bnn_apply_megakernel(
     images: torch.Tensor,
     *,
     engine: str = "xnor",
+    use_scale: bool = False,
+    blocks: object = AUTO,
     ragged: bool = False,
 ) -> torch.Tensor:
     """Megakernel inference: one launch per network stage.
@@ -297,20 +359,22 @@ def bnn_apply_megakernel(
     ``engine="xnor"`` runs the CUDA megakernels (their twins on CPU
     tensors), ``"xla"`` the plain-torch twins. ``ragged`` sends the FC
     trunk through the chain's masked-tail path (batch padded to
-    ``RAGGED_TILE_N``); logits are the same either way.
+    ``RAGGED_TILE_N``); logits are the same either way, and for every
+    ``blocks`` (the megakernels' clusters). ``use_scale`` as in
+    :func:`bnn_apply_fused`.
     """
-    xp = first_conv_packed(packed, images)
+    xp = first_conv_packed(packed, images, use_scale=use_scale)
     for stage in CONV_STAGES:
         xp = megakernel_conv_stage(
             [packed["conv"][i] for i in stage], xp,
             tuple(3 * 3 * CONV_CHANNELS[i][0] for i in stage),
-            pool=stage[-1] in POOL_AFTER, engine=engine,
+            pool=stage[-1] in POOL_AFTER, engine=engine, blocks=blocks,
         )
     xp = xp.reshape(xp.shape[0], -1)  # word order matches pack_linear's K order
     y = megakernel_fc_chain(
         packed["fc_stack"], xp, tuple(fin for fin, _ in FC_SIZES[:-1]),
         FC_SIZES[-2][1], final=packed["fc_final"], final_k=FC_SIZES[-1][0],
-        engine=engine, ragged=ragged,
+        engine=engine, blocks=blocks, ragged=ragged,
     )
     return _batchnorm(packed["bn_fc_last"], y)
 
@@ -336,14 +400,16 @@ SERVE_FALLBACKS = {
 
 
 def bnn_serve_fn(*, engine: str = "xla", conv_impl: str = "im2col",
-                 ragged: bool = False):
+                 blocks: object = AUTO, ragged: bool = False):
     """The serving entry point: a ``(packed, images) -> logits`` callable
     over :func:`bnn_apply_fused`, or :func:`bnn_apply_megakernel` for the
     megakernel engines (which ignore ``conv_impl``: their convs are
-    direct), with the kernel path bound at closure time, run under
-    ``torch.inference_mode``. ``ragged`` (the continuous scheduler's
-    executors) sends the megakernel FC trunk through the masked-tail
-    path; the other engines are exact-shape and ignore it."""
+    direct), with the kernel path and tiling (``blocks``) bound at
+    closure time, run under ``torch.inference_mode``. ``ragged`` (the
+    continuous scheduler's executors) sends the megakernel FC trunk
+    through the masked-tail path; the other engines are exact-shape and
+    ignore it. The serving executors capture one CUDA graph of it per
+    batch shape (``serve.executor``)."""
     if engine not in SERVE_ENGINES:
         raise ValueError(f"unknown serving engine {engine!r}; "
                          f"expected one of {SERVE_ENGINES}")
@@ -354,13 +420,13 @@ def bnn_serve_fn(*, engine: str = "xla", conv_impl: str = "im2col",
         def apply_fn(packed: dict, images: torch.Tensor) -> torch.Tensor:
             with torch.inference_mode():
                 return bnn_apply_megakernel(packed, images, engine=inner,
-                                            ragged=ragged)
+                                            blocks=blocks, ragged=ragged)
     else:
 
         def apply_fn(packed: dict, images: torch.Tensor) -> torch.Tensor:
             with torch.inference_mode():
                 return bnn_apply_fused(packed, images, engine=engine,
-                                       conv_impl=conv_impl)
+                                       conv_impl=conv_impl, blocks=blocks)
 
     return apply_fn
 

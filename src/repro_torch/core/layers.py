@@ -34,6 +34,7 @@ from repro_torch.core.binarize import (QuantMode, binarize_activations,
                                        binarize_weights)
 from repro_torch.core.im2col import col2im, filters_to_matrix, im2col
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.autotune import AUTO, block_kwargs
 
 BN_EPS = 1e-4  # the one BatchNorm eps; core.bnn._batchnorm imports it
 
@@ -43,7 +44,8 @@ class BitLinearConfig:
     """How :func:`bit_linear` and :func:`bit_conv2d` run. ``engine`` and
     ``conv_impl`` matter in PACKED mode only; ``use_scale`` (the XNOR-Net
     alpha) in FAKE_QUANT mode only (PACKED params carry their ``alpha``).
-    The JAX package's ``blocks`` (kernel tiling) is not ported."""
+    ``blocks`` is ``"auto"`` or a ``kernels.autotune.BlockConfig``, the
+    tiling of every kernel the layer launches."""
 
     mode: QuantMode = QuantMode.FAKE_QUANT
     binarize_acts: bool = True          # False => weight-only
@@ -51,6 +53,7 @@ class BitLinearConfig:
     engine: str = "xla"                 # "xnor" | "unpack" | "xla"
     conv_impl: str = "im2col"           # "im2col" | "direct" (PACKED convs)
     compute_dtype: torch.dtype = torch.float32
+    blocks: object = AUTO
 
 
 def init_linear(generator: torch.Generator, in_features: int,
@@ -116,7 +119,8 @@ def _packed_matmul(wp: torch.Tensor, x2d: torch.Tensor, k_orig: int,
         if n_pad:
             xin = torch.nn.functional.pad(xin, (0, n_pad), value=1.0)
         xp = kops.pack_rows(xin.T)                        # [K_pad/32, B]
-        out = kops.xnor_gemm(wp, xp, k_pad) + n_pad       # [out, B] int32
+        out = kops.xnor_gemm(wp, xp, k_pad, **block_kwargs(
+            cfg.blocks, "xnor_gemm")) + n_pad             # [out, B] int32
         return out.T.to(cfg.compute_dtype)
     if cfg.engine not in ("unpack", "xla"):
         raise ValueError(f"packed matmul has no engine {cfg.engine!r}")
@@ -128,7 +132,7 @@ def _packed_matmul(wp: torch.Tensor, x2d: torch.Tensor, k_orig: int,
     if n_pad:
         xin = torch.nn.functional.pad(xin, (0, n_pad))
     if cfg.engine == "unpack":
-        y = kops.unpack_gemm(wp, xin.T)
+        y = kops.unpack_gemm(wp, xin.T, **block_kwargs(cfg.blocks, "unpack_gemm"))
     else:
         y = bitops.packed_matmul_unpack(wp, xin.T,
                                         compute_dtype=cfg.compute_dtype)
@@ -168,25 +172,32 @@ def bit_linear(params: dict, x: torch.Tensor,
     return y
 
 
-def pack_conv_params(params: dict) -> dict:
-    """Filters [D, kH, kW, C] -> packed matrix [D, ceil(kH*kW*C/32)]."""
-    packed = {"w_packed": _pack_rows_padded(filters_to_matrix(params["w"]))}
+def pack_conv_params(params: dict, *, use_scale: bool = False) -> dict:
+    """Filters [D, kH, kW, C] -> packed matrix [D, ceil(kH*kW*C/32)];
+    ``use_scale`` adds the XNOR-Net ``alpha = mean(|w|)`` of each
+    filter."""
+    wm = filters_to_matrix(params["w"])
+    packed = {"w_packed": _pack_rows_padded(wm)}
+    if use_scale:
+        packed["alpha"] = wm.abs().mean(dim=-1)
     if "b" in params:
         packed["b"] = params["b"]
     return packed
 
 
-def pack_conv_aligned(params: dict) -> dict:
+def pack_conv_aligned(params: dict, *, use_scale: bool = False) -> dict:
     """Tap-aligned packing for C % 32 != 0: each tap's channel block pads
     to whole words with -1 weights before packing, so filter word
     ``(h*kW + w)*ceil(C/32) + cw`` lines up with ``pack_channels``
     activation words. Identical to :func:`pack_conv_params` when
-    C % 32 == 0."""
+    C % 32 == 0, ``alpha`` included."""
     w = params["w"]  # [D, kH, kW, C]
     d = w.shape[0]
     pad = -w.shape[-1] % bitops.PACK_BITS
     wm = torch.nn.functional.pad(w, (0, pad), value=-1.0) if pad else w
     packed = {"w_packed": bitops.pack_bits(wm.reshape(d, -1), axis=-1)}
+    if use_scale:
+        packed["alpha"] = w.reshape(d, -1).abs().mean(dim=-1)
     if "b" in params:
         packed["b"] = params["b"]
     return packed
@@ -196,53 +207,61 @@ def fold_bn_params(
     bn: dict,
     *,
     bias: Optional[torch.Tensor] = None,
+    alpha: Optional[torch.Tensor] = None,
     eps: float = BN_EPS,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Inference BatchNorm (+ bias) -> the per-channel affine ``(a, b)``
-    the fused epilogue applies to the ±1 dot: ``a = s``,
-    ``b = s*(bias - mean) + beta``, ``s = gamma * rsqrt(var + eps)``.
+    """Inference BatchNorm (+ bias + XNOR-Net alpha) -> the per-channel
+    affine ``(a, b)`` the fused epilogue applies to the ±1 dot:
+    ``a = s*alpha`` (``s`` without alpha), ``b = s*(bias - mean) + beta``,
+    ``s = gamma * rsqrt(var + eps)``.
 
     ``torch.rsqrt`` and XLA's ``rsqrt`` round differently in some
     channels (by up to 2 ulp), so ``(a, b)`` folded here can differ from
     the JAX package's in the last bits.
     """
     s = bn["gamma"] * torch.rsqrt(bn["var"] + eps)
+    a = s * alpha if alpha is not None else s
     y0 = bias if bias is not None else torch.zeros_like(s)
     b = s * (y0 - bn["mean"]) + bn["beta"]
-    return s.float(), b.float()
+    return a.float(), b.float()
 
 
 def _fold_into(packed: dict, bn: dict, eps: float) -> dict:
-    a, b = fold_bn_params(bn, bias=packed.pop("b", None), eps=eps)
+    a, b = fold_bn_params(bn, bias=packed.pop("b", None),
+                          alpha=packed.pop("alpha", None), eps=eps)
     packed["a"], packed["b"] = a, b
     return packed
 
 
-def pack_linear_fused(params: dict, bn: dict, *, eps: float = BN_EPS) -> dict:
-    """Pack weights and fold the layer's BN/bias into ``(a, b)``."""
-    return _fold_into(pack_linear_params(params), bn, eps)
+def pack_linear_fused(params: dict, bn: dict, *, use_scale: bool = False,
+                      eps: float = BN_EPS) -> dict:
+    """Pack weights and fold the layer's BN/bias/alpha into ``(a, b)``."""
+    return _fold_into(pack_linear_params(params, use_scale=use_scale), bn, eps)
 
 
-def pack_conv_fused(params: dict, bn: dict, *, eps: float = BN_EPS) -> dict:
+def pack_conv_fused(params: dict, bn: dict, *, use_scale: bool = False,
+                    eps: float = BN_EPS) -> dict:
     """Conv variant of :func:`pack_linear_fused`."""
-    return _fold_into(pack_conv_params(params), bn, eps)
+    return _fold_into(pack_conv_params(params, use_scale=use_scale), bn, eps)
 
 
-def _fused_dispatch(wp, xpT, k_orig: int, a, b, engine: str):
+def _fused_dispatch(wp, xpT, k_orig: int, a, b, engine: str, blocks=AUTO):
     """Packed ``[KW, N]`` acts -> packed ``[ceil(M/32), N]`` outputs."""
     if engine == "xnor":
-        return kops.fused_xnor_gemm(wp, xpT, k_orig, a, b)
+        return kops.fused_xnor_gemm(wp, xpT, k_orig, a, b,
+                                    **block_kwargs(blocks, "fused_xnor_gemm"))
     if engine == "xla":
         return bitops.fused_xnor_layer(wp, xpT, k_orig, a, b)
     raise ValueError(f"fused path has no engine {engine!r}")
 
 
 def fused_bit_linear(packed: dict, xp: torch.Tensor, k_orig: int, *,
-                     engine: str = "xnor") -> torch.Tensor:
+                     engine: str = "xnor", blocks=AUTO) -> torch.Tensor:
     """Fused binary FC: ``[batch, KW]`` packed acts (K-pad bits +1) ->
-    ``[batch, ceil(out/32)]`` packed words of ``sign(a*(x·w) + b)``."""
+    ``[batch, ceil(out/32)]`` packed words of ``sign(a*(x·w) + b)``.
+    ``blocks``: ``"auto"`` or a ``kernels.autotune.BlockConfig``."""
     out = _fused_dispatch(packed["w_packed"], xp.T.contiguous(), k_orig,
-                          packed["a"], packed["b"], engine)
+                          packed["a"], packed["b"], engine, blocks)
     return out.T
 
 
@@ -257,6 +276,7 @@ def fused_bit_conv2d(
     pad: int = 0,
     engine: str = "xnor",
     conv_impl: str = "im2col",
+    blocks: object = AUTO,
 ) -> torch.Tensor:
     """Fused binary conv: channel-packed ``[N, H, W, CW]`` maps in and
     out (``[N, OH, OW, ceil(D/32)]``). Borders pad with all-ones words.
@@ -269,8 +289,9 @@ def fused_bit_conv2d(
         args = (packed["w_packed"], xp.contiguous(), k_orig, packed["a"],
                 packed["b"])
         if engine == "xnor":
-            return kops.fused_direct_conv(*args, kh=kh, kw=kw, stride=stride,
-                                          pad=pad)
+            return kops.fused_direct_conv(
+                *args, kh=kh, kw=kw, stride=stride, pad=pad,
+                **block_kwargs(blocks, "fused_direct_conv"))
         if engine == "xla":
             return bitops.direct_conv_oracle(*args, kh=kh, kw=kw,
                                              stride=stride, pad=pad)
@@ -282,22 +303,24 @@ def fused_bit_conv2d(
     n, _, kwords = patches.shape
     x2d = patches.reshape(n * oh * ow, kwords)
     out = _fused_dispatch(packed["w_packed"], x2d.T.contiguous(), k_orig,
-                          packed["a"], packed["b"], engine)
+                          packed["a"], packed["b"], engine, blocks)
     return col2im(out.T.reshape(n, oh * ow, -1), oh, ow)
 
 
 def packed_act_linear(packed: dict, xp: torch.Tensor, k_orig: int, *,
-                      engine: str = "xnor") -> torch.Tensor:
+                      engine: str = "xnor", blocks=AUTO) -> torch.Tensor:
     """Float-boundary epilogue-free layer (the chain's last): packed
-    ``[batch, KW]`` -> float ``[batch, out]`` = ``x·w (+bias)``."""
+    ``[batch, KW]`` -> float ``[batch, out]`` = ``x·w (*alpha) (+bias)``."""
     wp, xpT = packed["w_packed"], xp.T.contiguous()
     if engine == "xnor":
-        dot = kops.xnor_gemm(wp, xpT, k_orig)
+        dot = kops.xnor_gemm(wp, xpT, k_orig, **block_kwargs(blocks, "xnor_gemm"))
     elif engine == "xla":
         dot = bitops.xnor_popcount_matmul(wp, xpT, k_orig)
     else:
         raise ValueError(f"fused path has no engine {engine!r}")
     y = dot.T.float()
+    if "alpha" in packed:
+        y = y * packed["alpha"][None, :].float()
     if "b" in packed:
         y = y + packed["b"].float()
     return y
@@ -330,7 +353,7 @@ def stack_chain_layers(layers: list[dict]) -> dict:
 
 def megakernel_fc_chain(stack: dict, xp: torch.Tensor, k_bits, m_out: int, *,
                         final: Optional[dict] = None, final_k: int = 0,
-                        engine: str = "xnor",
+                        engine: str = "xnor", blocks=AUTO,
                         ragged: bool = False) -> torch.Tensor:
     """A whole FC trunk, the stacked fused layers and optionally the
     float-boundary head's GEMM, in one launch.
@@ -339,10 +362,11 @@ def megakernel_fc_chain(stack: dict, xp: torch.Tensor, k_bits, m_out: int, *,
     KW_in]`` packed activations. Without ``final``: ``[batch,
     ceil(m_out/32)]`` packed words. With ``final`` (a
     ``pack_linear_params`` dict): the head's float ``[batch, out]``, its
-    int32 dot computed in the launch and the bias added here with the
-    ops of :func:`packed_act_linear`, so logits match the per-layer chain
-    bit for bit. ``ragged`` takes the kernel's masked-tail path (batch
-    padded to ``RAGGED_TILE_N``); the twin is exact-N either way.
+    int32 dot computed in the launch and alpha and the bias applied here
+    with the ops of :func:`packed_act_linear`, so logits match the
+    per-layer chain bit for bit. ``ragged`` takes the kernel's
+    masked-tail path (batch padded to ``RAGGED_TILE_N``); the twin is
+    exact-N either way. ``blocks`` picks the chain's cluster.
     """
     fin_wp = final["w_packed"] if final is not None else None
     xpT = xp.T.contiguous()
@@ -350,7 +374,8 @@ def megakernel_fc_chain(stack: dict, xp: torch.Tensor, k_bits, m_out: int, *,
         out = kops.megakernel_chain(
             stack["w"], stack["a"], stack["b"], tuple(k_bits), xpT, m_out,
             final_wp=fin_wp, final_k_bits=final_k,
-            ragged_tile=kops.RAGGED_TILE_N if ragged else None)
+            ragged_tile=kops.RAGGED_TILE_N if ragged else None,
+            **block_kwargs(blocks, "megakernel_chain"))
     elif engine == "xla":
         out = bitops.megakernel_chain_xla(
             stack["w"], stack["a"], stack["b"], tuple(k_bits), xpT, m_out,
@@ -360,6 +385,8 @@ def megakernel_fc_chain(stack: dict, xp: torch.Tensor, k_bits, m_out: int, *,
     if final is None:
         return out.T
     y = out.T.float()
+    if "alpha" in final:
+        y = y * final["alpha"][None, :].float()
     if "b" in final:
         y = y + final["b"].float()
     return y
@@ -367,8 +394,8 @@ def megakernel_fc_chain(stack: dict, xp: torch.Tensor, k_bits, m_out: int, *,
 
 def megakernel_conv_stage(layers: list[dict], xp: torch.Tensor, k_bits, *,
                           kh: int = 3, kw: int = 3, pad: int = 1,
-                          pool: bool = True,
-                          engine: str = "xnor") -> torch.Tensor:
+                          pool: bool = True, engine: str = "xnor",
+                          blocks=AUTO) -> torch.Tensor:
     """One conv stage, the stage's fused binary convs and the packed-OR
     maxpool, in one launch (``engine="xnor"``) or through the chained
     plain-torch direct-conv twin (``engine="xla"``).
@@ -377,15 +404,15 @@ def megakernel_conv_stage(layers: list[dict], xp: torch.Tensor, k_bits, *,
     folded ``a``/``b``); ``xp``: ``[N, H, W, CW]`` channel-packed map.
     Bit-identical to :func:`fused_bit_conv2d` per layer and
     ``maxpool2_packed``; on the kernel the intermediate maps never reach
-    device memory.
+    device memory. ``blocks`` picks the stage's cluster.
     """
     weights = tuple(p["w_packed"] for p in layers)
     a = tuple(p["a"] for p in layers)
     b = tuple(p["b"] for p in layers)
     if engine == "xnor":
-        return kops.megakernel_conv_stage(xp.contiguous(), weights, a, b,
-                                          tuple(k_bits), kh=kh, kw=kw,
-                                          pad=pad, pool=pool)
+        return kops.megakernel_conv_stage(
+            xp.contiguous(), weights, a, b, tuple(k_bits), kh=kh, kw=kw,
+            pad=pad, pool=pool, **block_kwargs(blocks, "megakernel_conv_stage"))
     if engine == "xla":
         return bitops.conv_stage_xla(xp, weights, a, b, tuple(k_bits), kh=kh,
                                      kw=kw, pad=pad, pool=pool)
@@ -413,10 +440,13 @@ def _direct_bit_conv2d(params: dict, x: torch.Tensor, cfg: BitLinearConfig,
     args = (params["w_packed"], xp, kh * kw * c)
     kwargs = dict(kh=kh, kw=kw, stride=stride, pad=pad)
     if cfg.engine == "xnor":
-        dot = kops.direct_conv(*args, **kwargs)
+        dot = kops.direct_conv(*args, **kwargs,
+                               **block_kwargs(cfg.blocks, "direct_conv"))
     else:
         dot = bitops.direct_conv_dot(*args, **kwargs)
     y = dot.to(cfg.compute_dtype)
+    if "alpha" in params:
+        y = y * params["alpha"].to(y.dtype)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y
@@ -450,6 +480,8 @@ def bit_conv2d(params: dict, x: torch.Tensor, cfg: BitLinearConfig, *,
     x2d = patches.reshape(n * oh * ow, pk)
     if packed:
         y2d = _packed_matmul(params["w_packed"], x2d, pk, cfg)
+        if "alpha" in params:
+            y2d = y2d * params["alpha"][None, :].to(y2d.dtype)
     else:
         y2d = _float_matmul(filters_to_matrix(params["w"]), x2d, cfg)
     if "b" in params:

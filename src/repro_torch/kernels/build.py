@@ -36,20 +36,21 @@ _F = ctypes.c_float
 # strides as long long, scalars as float; each launcher returns
 # cudaGetLastError() as an int.
 _SIGNATURES = {
-    # (w, x, out, partial, M, KW, N, k_bits, splits, stream)
-    "repro_xnor_gemm": (_P,) * 4 + (_I,) * 5 + (_P,),
+    # (w, x, out, partial, M, KW, N, k_bits, splits, tile_n, stream);
+    # tile_n 0 takes the C heuristic
+    "repro_xnor_gemm": (_P,) * 4 + (_I,) * 6 + (_P,),
     # (M, KW, N) -> K splits (scratch [splits, M, N] int32 when above 1)
     "repro_xnor_gemm_splits": (_I, _I, _I),
-    # (w, x, a, b, out, partial, M, KW, N, k_bits, splits, stream)
-    "repro_fused_xnor_gemm": (_P,) * 6 + (_I,) * 5 + (_P,),
-    # (M, KW, N) -> K splits (scratch [splits, N, M] int32 when above 1)
-    "repro_fused_xnor_gemm_splits": (_I, _I, _I),
-    # (x, w, a, b, out, N, H, W, CW, D, kh, kw, stride, pad, k_bits, stream);
-    # x the unpadded map
-    "repro_fused_direct_conv": (_P,) * 5 + (_I,) * 10 + (_P,),
-    # (x, w, out, N, H, W, CW, D, kh, kw, stride, pad, k_bits, stream); x the
-    # unpadded map
-    "repro_direct_conv_dot": (_P, _P, _P) + (_I,) * 10 + (_P,),
+    # (M, N) -> the tile width the C heuristic picks
+    "repro_xnor_gemm_tile_n": (_I, _I),
+    # (w, x, a, b, out, partial, M, KW, N, k_bits, splits, tile_n, stream)
+    "repro_fused_xnor_gemm": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # (x, w, a, b, out, N, H, W, CW, D, kh, kw, stride, pad, k_bits, tile_n,
+    #  stream); x the unpadded map
+    "repro_fused_direct_conv": (_P,) * 5 + (_I,) * 11 + (_P,),
+    # (x, w, out, N, H, W, CW, D, kh, kw, stride, pad, k_bits, tile_n,
+    #  stream); x the unpadded map
+    "repro_direct_conv_dot": (_P, _P, _P) + (_I,) * 11 + (_P,),
     # (x, out, w[], a[], b[], d_words[], cw[], k_bits[], n_layers, n_images,
     #  hp, wp, kh, kw, pad, pool, cluster, stream); x the unpadded map, hp
     #  and wp its padded sizes
@@ -83,8 +84,8 @@ _SIGNATURES = {
 _LIB_OF = {
     "repro_xnor_gemm": "xnor_gemm",
     "repro_xnor_gemm_splits": "xnor_gemm",
+    "repro_xnor_gemm_tile_n": "xnor_gemm",
     "repro_fused_xnor_gemm": "fused_gemm",
-    "repro_fused_xnor_gemm_splits": "fused_gemm",
     "repro_fused_direct_conv": "direct_conv",
     "repro_direct_conv_dot": "direct_conv",
     "repro_megakernel_conv_stage": "megakernel_conv_stage",

@@ -216,11 +216,13 @@ inline bool conv_shape(ConvShape* s, int N, int H, int W, int CW, int D, int kh,
 
 }  // namespace repro_torch
 
-// x: the unpadded map [N, H, W, CW]; out [N, OH, OW, ceil(D/32)].
+// x: the unpadded map [N, H, W, CW]; out [N, OH, OW, ceil(D/32)]. tile_n:
+// 0 (tile_n's choice over D x N*OH*OW), 32, 64 or 128; any other request
+// returns cudaErrorInvalidValue.
 extern "C" int repro_fused_direct_conv(const void* x, const void* w, const void* a,
                                        const void* b, void* out, int N, int H, int W,
                                        int CW, int D, int kh, int kw, int stride, int pad,
-                                       int k_bits, void* stream) {
+                                       int k_bits, int tile_n_req, void* stream) {
   using namespace repro_torch;
   ConvShape s;
   if (!conv_shape(&s, N, H, W, CW, D, kh, kw, stride, pad, k_bits)) {
@@ -233,7 +235,9 @@ extern "C" int repro_fused_direct_conv(const void* x, const void* w, const void*
   const auto* fb = static_cast<const float*>(b);
   auto* fo = static_cast<unsigned*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
-  switch (tile_n(D, s.npix, sm_count())) {
+  switch (tc_resolve_tile_n(tile_n_req, D, s.npix, sm_count())) {
+    case -1:
+      return static_cast<int>(cudaErrorInvalidValue);
     case 32:
       return launch_fused_conv<32>(fx, fw, fa, fb, fo, s, vec_w, st);
     case 64:
@@ -243,10 +247,11 @@ extern "C" int repro_fused_direct_conv(const void* x, const void* w, const void*
   }
 }
 
-// x: the unpadded map [N, H, W, CW]; out int32 [N, OH, OW, D].
+// x: the unpadded map [N, H, W, CW]; out int32 [N, OH, OW, D]. tile_n as
+// repro_fused_direct_conv's.
 extern "C" int repro_direct_conv_dot(const void* x, const void* w, void* out, int N, int H,
                                      int W, int CW, int D, int kh, int kw, int stride,
-                                     int pad, int k_bits, void* stream) {
+                                     int pad, int k_bits, int tile_n_req, void* stream) {
   using namespace repro_torch;
   ConvShape s;
   if (!conv_shape(&s, N, H, W, CW, D, kh, kw, stride, pad, k_bits)) {
@@ -258,7 +263,9 @@ extern "C" int repro_direct_conv_dot(const void* x, const void* w, void* out, in
   const auto* fw = static_cast<const unsigned*>(w);
   auto* fo = static_cast<int*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
-  switch (tile_n(D, s.npix, sm_count())) {
+  switch (tc_resolve_tile_n(tile_n_req, D, s.npix, sm_count())) {
+    case -1:
+      return static_cast<int>(cudaErrorInvalidValue);
     case 32:
       return launch_conv_dot<32>(fx, fw, fo, s, vec_w, vec_out, st);
     case 64:

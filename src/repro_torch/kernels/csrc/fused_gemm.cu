@@ -112,22 +112,16 @@ cudaError_t launch_fused(const unsigned* w, const unsigned* x, const float* a,
 
 }  // namespace repro_torch
 
-// K splits of an [M, KW] x [KW, N] fused layer on the current device
-// (tc_k_splits: split only where the tiles cannot fill the card and K is
-// long, fc0). The caller allocates an int32 scratch [splits, N, M] when it
-// is above 1.
-extern "C" int repro_fused_xnor_gemm_splits(int M, int KW, int N) {
-  using namespace repro_torch;
-  return tc_k_splits(M, KW, N, sm_count());
-}
-
-// partial: int32 [splits, N, M] when splits > 1 (else unused).
+// partial: int32 [splits, N, M] when splits > 1 (else unused). tile_n: 0
+// (tile_n's choice), 32, 64 or 128; splits: 1, or tc_splits_ok's. Any
+// other request returns cudaErrorInvalidValue.
 extern "C" int repro_fused_xnor_gemm(const void* w, const void* x, const void* a,
                                      const void* b, void* out, void* partial, int M,
-                                     int KW, int N, int k_bits, int splits,
+                                     int KW, int N, int k_bits, int splits, int tile_n_req,
                                      void* stream) {
   using namespace repro_torch;
-  if (splits < 1 || (splits > 1 && partial == nullptr)) {
+  const int bn = tc_resolve_tile_n(tile_n_req, M, N, sm_count());
+  if (bn < 0 || !tc_splits_ok(KW, splits) || (splits > 1 && partial == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
@@ -139,7 +133,7 @@ extern "C" int repro_fused_xnor_gemm(const void* w, const void* x, const void* a
   auto* fo = static_cast<unsigned*>(out);
   auto* fp = static_cast<int*>(partial);
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (tile_n(M, N, sm_count())) {
+  switch (bn) {
     case 32:
       return launch_fused<32>(fw, fx, fa, fb, fo, fp, M, KW, N, k_bits, splits, vec, s);
     case 64:

@@ -521,9 +521,12 @@ ChainParams make_chain_params(const void* w, const void* a, const void* b,
   return p;
 }
 
+// The clusters the chain takes: a power of two up to 16 CTAs that divides
+// M_max/32, each CTA owning M_max/cluster rows of every layer.
 bool chain_geometry_ok(int n_layers, int m_max, int cluster) {
   return n_layers >= 1 && n_layers <= kChainMaxLayers && cluster >= 1 &&
-         cluster <= kChainMaxCluster && m_max % (32 * cluster) == 0;
+         cluster <= kChainMaxCluster && (cluster & (cluster - 1)) == 0 &&
+         m_max % (32 * cluster) == 0;
 }
 
 cudaError_t chain_set_attributes(int smem, int cluster) {
@@ -570,15 +573,19 @@ extern "C" int repro_megakernel_chain_limits(const int* kw_layer, int n_layers,
   const int smem = chain_finish(p);
   *smem_bytes = smem;
   cudaError_t err = chain_set_attributes(smem, cluster);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // as repro_megakernel_conv_stage_limits
+    return static_cast<int>(err);
+  }
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = chain_launch_config(1, cluster, smem, nullptr, attr);
   err = cudaOccupancyMaxActiveClusters(max_clusters, megakernel_chain_kernel, &cfg);
   return static_cast<int>(err);
 }
 
-// A cluster of `cluster` CTAs (gcd(16, M_max/32) on the main path) for
-// every 8 columns of N.
+// A cluster of `cluster` CTAs (gcd(16, M_max/32) on the main path unless
+// the caller asks for another, chain_geometry_ok's) for every 8 columns of
+// N; any other request returns cudaErrorInvalidValue.
 extern "C" int repro_megakernel_chain(
     const void* w, const void* a, const void* b, const void* x,
     const void* wf, void* out, const int* kw_layer, const int* k_bits,

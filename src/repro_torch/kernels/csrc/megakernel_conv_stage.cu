@@ -520,6 +520,13 @@ cudaLaunchConfig_t launch_config(int n_images, int cluster, int smem,
   return cfg;
 }
 
+// The clusters the stage takes: 1, 2, 4 or 8 CTAs an image. The epilogue's
+// lane g of a quad writes CTA g's copy of the next map, so at most 8; a
+// power of two divides every channel word count's gcd with it.
+inline bool stage_cluster_ok(int cluster) {
+  return cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8;
+}
+
 }  // namespace repro_torch
 
 // Shared-memory bytes of one CTA and the number of clusters of that size
@@ -529,7 +536,9 @@ extern "C" int repro_megakernel_conv_stage_limits(
     const int* d_words, const int* cw, int n_layers, int hp, int wp, int kh,
     int kw, int pad, int cluster, int* smem_bytes, int* max_clusters) {
   using namespace repro_torch;
-  if (n_layers < 1 || n_layers > kStageMaxLayers) return cudaErrorInvalidValue;
+  if (n_layers < 1 || n_layers > kStageMaxLayers || !stage_cluster_ok(cluster)) {
+    return cudaErrorInvalidValue;
+  }
   const StageParams p = make_params(nullptr, nullptr, nullptr, nullptr, d_words, cw,
                                     nullptr, n_layers, hp, wp, kh, kw, pad, 0,
                                     cluster);
@@ -539,7 +548,11 @@ extern "C" int repro_megakernel_conv_stage_limits(
   cudaError_t err = cudaFuncSetAttribute(
       megakernel_conv_stage_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused size (more than a block may have) must
+                         // not surface at the next launch's error check
+    return static_cast<int>(err);
+  }
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = launch_config(1, cluster, smem, nullptr, attr);
   err = cudaOccupancyMaxActiveClusters(max_clusters,
@@ -555,7 +568,9 @@ extern "C" int repro_megakernel_conv_stage(
     const int* k_bits, int n_layers, int n_images, int hp, int wp, int kh,
     int kw, int pad, int pool, int cluster, void* stream) {
   using namespace repro_torch;
-  if (n_layers < 1 || n_layers > kStageMaxLayers) return cudaErrorInvalidValue;
+  if (n_layers < 1 || n_layers > kStageMaxLayers || !stage_cluster_ok(cluster)) {
+    return cudaErrorInvalidValue;
+  }
   const StageParams p = make_params(x, w, a, b, d_words, cw, k_bits, n_layers,
                                     hp, wp, kh, kw, pad, pool, cluster);
   const int smem = stage_layout(p).total * static_cast<int>(sizeof(unsigned));

@@ -116,18 +116,30 @@ cudaError_t launch_xnor_gemm(const unsigned* w, const unsigned* x, int* out, int
 }  // namespace repro_torch
 
 // K splits of an [M, KW] x [KW, N] product on the current device (1, or
-// more where the tiles cannot fill the card and K is long: fc0). The
-// caller allocates an int32 scratch [splits, M, N] when it is above 1.
+// more where the tiles cannot fill the card and K is long: fc0), the
+// heuristic behind a request of 0 (the wrapper mirrors it in Python,
+// kernels/autotune.py). The caller allocates an int32 scratch [splits, M,
+// N] when it is above 1.
 extern "C" int repro_xnor_gemm_splits(int M, int KW, int N) {
   using namespace repro_torch;
   return tc_k_splits(M, KW, N, sm_count());
 }
 
-// partial: int32 [splits, M, N] when splits > 1 (else unused).
-extern "C" int repro_xnor_gemm(const void* w, const void* x, void* out, void* partial, int M,
-                               int KW, int N, int k_bits, int splits, void* stream) {
+// The tile width tile_n picks for [M, KW] x [KW, N] on the current device.
+extern "C" int repro_xnor_gemm_tile_n(int M, int N) {
   using namespace repro_torch;
-  if (splits < 1 || (splits > 1 && partial == nullptr)) {
+  return tile_n(M, N, sm_count());
+}
+
+// partial: int32 [splits, M, N] when splits > 1 (else unused). tile_n: 0
+// (tile_n's choice), 32, 64 or 128; splits: 1, or tc_splits_ok's. Any
+// other request returns cudaErrorInvalidValue.
+extern "C" int repro_xnor_gemm(const void* w, const void* x, void* out, void* partial, int M,
+                               int KW, int N, int k_bits, int splits, int tile_n_req,
+                               void* stream) {
+  using namespace repro_torch;
+  const int bn = tc_resolve_tile_n(tile_n_req, M, N, sm_count());
+  if (bn < 0 || !tc_splits_ok(KW, splits) || (splits > 1 && partial == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
@@ -139,7 +151,7 @@ extern "C" int repro_xnor_gemm(const void* w, const void* x, void* out, void* pa
   auto* fo = static_cast<int*>(out);
   auto* fp = static_cast<int*>(partial);
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (tile_n(M, N, sm_count())) {
+  switch (bn) {
     case 32:
       return launch_xnor_gemm<32>(fw, fx, fo, fp, M, KW, N, k_bits, splits, vec, s);
     case 64:

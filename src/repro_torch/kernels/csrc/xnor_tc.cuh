@@ -302,6 +302,24 @@ inline int tc_k_splits(int M, int KW, int N, int sms) {
   return (KW + split_words - 1) / split_words;
 }
 
+// The K splits a caller may request: 1, or more where every split of
+// the rounded width tc_split_words holds at least one word (no empty
+// split) and the grid's z extent takes them.
+inline bool tc_splits_ok(int KW, int splits) {
+  if (splits == 1) return true;
+  if (splits < 1 || splits > 65535 || KW < 1) return false;
+  const int split_words = tc_split_words(KW, splits);
+  return (KW + split_words - 1) / split_words == splits;
+}
+
+// A requested tile width: 0 takes tile_n's, 32, 64 and 128 are compiled
+// (TcTile<BN>); anything else is -1, which the launchers refuse with
+// cudaErrorInvalidValue.
+inline int tc_resolve_tile_n(int requested, int M, int N, int sms) {
+  if (requested == 0) return tile_n(M, N, sms);
+  return requested == 32 || requested == 64 || requested == 128 ? requested : -1;
+}
+
 inline int sm_count() {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess) {

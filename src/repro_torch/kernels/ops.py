@@ -14,21 +14,31 @@ kernel has a backward: a wrapper raises on CUDA operands that require
 grad while grad mode is on. Outputs and scratch are allocated here with
 ``torch.empty``; the kernel runs on PyTorch's current stream.
 
+The tensor-core kernels take a tiling (``tile_n``, ``k_splits``, a
+megakernel's ``cluster``; ``kernels.autotune``): ``AUTO`` resolves per
+launch to the tuned cache entry of the shape, else the C launchers'
+heuristic. Every tiling computes the same integer counts, so outputs do
+not depend on it; a tiling a kernel cannot run raises ``ValueError``,
+on the CPU too, where the twins ignore a valid one. ``unpack_gemm`` and
+``pack_rows`` take none.
+
 ``LAUNCHES[name]`` counts the launches of each kernel, and nothing
-else; :func:`reset_launches` sets every count to 0.
+else; :func:`reset_launches` sets every count to 0 and
+:func:`add_launches` adds the launches a replayed CUDA graph makes
+(``serve.executor``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
 from repro_torch.core import bitops
 from repro_torch.core.bitops import PACK_BITS, PACKED_DTYPE
 from repro_torch.core.im2col import conv_out_size
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import autotune, build, ref
+from repro_torch.kernels.autotune import AUTO
 
 LAUNCHES = {"xnor_gemm": 0, "fused_xnor_gemm": 0, "fused_direct_conv": 0,
             "megakernel_conv_stage": 0, "megakernel_chain": 0,
@@ -41,9 +51,6 @@ LAUNCHES = {"xnor_gemm": 0, "fused_xnor_gemm": 0, "fused_direct_conv": 0,
 RAGGED_TILE_N = 8
 # Largest portable thread-block cluster on Hopper.
 MAX_CLUSTER = 8
-# Largest cluster of the chain: Hopper's non-portable 16, where the device
-# holds one; else the portable 8 (``_chain_cluster``).
-MAX_CHAIN_CLUSTER = 16
 
 # Dynamic shared memory one block may use on Hopper (232,448 bytes).
 MAX_SMEM_BYTES = 227 * 1024
@@ -55,6 +62,24 @@ _GRID_Y_MAX = 65535
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (kernel -> launches) to ``LAUNCHES``: the kernels a
+    CUDA graph launches each time it is replayed, which no wrapper sees."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
+
+
+# SMs of each CUDA device, for the tiling heuristics.
+_SMS: dict[int, int] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
@@ -114,33 +139,51 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _raise_on(rc: int, kernel: str) -> None:
+# cudaErrorInvalidValue: what a launcher returns for arguments it refuses.
+_CUDA_INVALID_VALUE = 1
+
+
+def _raise_on(rc: int, kernel: str, tiling: dict | None = None) -> None:
+    """Raise for a launcher's CUDA error code; ``ValueError`` where it
+    refused the requested ``tiling``, never a quiet fallback."""
+    if rc == _CUDA_INVALID_VALUE and tiling is not None:
+        raise ValueError(f"{kernel} refused the tiling {tiling} "
+                         "(cudaErrorInvalidValue)")
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
 
 
-def xnor_gemm(wp: torch.Tensor, xp: torch.Tensor, k_bits: int) -> torch.Tensor:
+def _check_gemm_tiling(kw: int, tile_n, k_splits) -> None:
+    autotune.check_tile_n(tile_n)
+    autotune.check_k_splits(kw, k_splits)
+
+
+def xnor_gemm(wp: torch.Tensor, xp: torch.Tensor, k_bits: int, *,
+              tile_n=AUTO, k_splits=AUTO) -> torch.Tensor:
     """Packed ``[M, KW] x [KW, N]`` -> int32 ``[M, N]`` ±1 dot
-    (``2*popcount(xnor) - k_bits``; ``k_bits`` is the true K)."""
+    (``2*popcount(xnor) - k_bits``; ``k_bits`` is the true K). ``tile_n``
+    (32, 64, 128) and ``k_splits`` pick the tiling (module docstring)."""
     _check("wp", wp, PACKED_DTYPE, 2)
     _check("xp", xp, PACKED_DTYPE, 2)
     (m, kw), (kw2, n) = wp.shape, xp.shape
     if kw != kw2:
         raise ValueError(f"contraction mismatch: {tuple(wp.shape)} x {tuple(xp.shape)}")
+    _check_gemm_tiling(kw, tile_n, k_splits)
     if not _on_cuda("xnor_gemm", wp, xp):
         return bitops.xnor_popcount_matmul(wp, xp, k_bits)
     out = torch.empty((m, n), dtype=torch.int32, device=wp.device)
     if m and n:
         with torch.cuda.device(wp.device):
-            splits = build.load("repro_xnor_gemm_splits")(m, kw, n)
+            bn, splits = autotune.resolve_gemm("xnor_gemm", m, kw, n, tile_n,
+                                               k_splits, _sm_count(wp.device))
             # split K: each split's integer counts, added in order after
             partial = (torch.empty((splits, m, n), dtype=torch.int32,
                                    device=wp.device) if splits > 1 else None)
             rc = build.load("repro_xnor_gemm")(
                 wp.data_ptr(), xp.data_ptr(), out.data_ptr(),
                 None if partial is None else partial.data_ptr(), m, kw, n,
-                int(k_bits), splits, _stream(wp.device))
-        _raise_on(rc, "xnor_gemm")
+                int(k_bits), splits, bn, _stream(wp.device))
+        _raise_on(rc, "xnor_gemm", dict(tile_n=bn, k_splits=splits))
         LAUNCHES["xnor_gemm"] += 1
     return out
 
@@ -153,31 +196,36 @@ def _check_affine(a: torch.Tensor, b: torch.Tensor, rows: int) -> None:
 
 
 def fused_xnor_gemm(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
-                    a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+                    a: torch.Tensor, b: torch.Tensor, *, tile_n=AUTO,
+                    k_splits=AUTO) -> torch.Tensor:
     """Fused binary layer: packed ``[M, KW] x [KW, N]``, per-row affine
     ``a, b [M]`` -> packed int32 ``[ceil(M/32), N]`` of
-    ``sign(a*dot + b)`` repacked along M; rows past M are +1 bits."""
+    ``sign(a*dot + b)`` repacked along M; rows past M are +1 bits.
+    ``tile_n`` and ``k_splits`` as :func:`xnor_gemm`'s."""
     _check("wp", wp, PACKED_DTYPE, 2)
     _check("xp", xp, PACKED_DTYPE, 2)
     (m, kw), (kw2, n) = wp.shape, xp.shape
     if kw != kw2:
         raise ValueError(f"contraction mismatch: {tuple(wp.shape)} x {tuple(xp.shape)}")
     _check_affine(a, b, m)
+    _check_gemm_tiling(kw, tile_n, k_splits)
     if not _on_cuda("fused_xnor_gemm", wp, xp, a, b):
         return bitops.fused_xnor_layer(wp, xp, k_bits, a, b)
     mw = -(-m // PACK_BITS)
     out = torch.empty((mw, n), dtype=torch.int32, device=wp.device)
     if m and n:
         with torch.cuda.device(wp.device):
-            splits = build.load("repro_fused_xnor_gemm_splits")(m, kw, n)
+            bn, splits = autotune.resolve_gemm(
+                "fused_xnor_gemm", m, kw, n, tile_n, k_splits,
+                _sm_count(wp.device))
             # split K: each split's integer counts, added in order after
             partial = (torch.empty((splits, n, m), dtype=torch.int32,
                                    device=wp.device) if splits > 1 else None)
             rc = build.load("repro_fused_xnor_gemm")(
                 wp.data_ptr(), xp.data_ptr(), a.data_ptr(), b.data_ptr(),
                 out.data_ptr(), None if partial is None else partial.data_ptr(),
-                m, kw, n, int(k_bits), splits, _stream(wp.device))
-        _raise_on(rc, "fused_xnor_gemm")
+                m, kw, n, int(k_bits), splits, bn, _stream(wp.device))
+        _raise_on(rc, "fused_xnor_gemm", dict(tile_n=bn, k_splits=splits))
         LAUNCHES["fused_xnor_gemm"] += 1
     return out
 
@@ -208,15 +256,17 @@ def _direct_conv_out(name: str, xp: torch.Tensor, out_c: int, *, kh: int,
 
 def fused_direct_conv(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
                       a: torch.Tensor, b: torch.Tensor, *, kh: int, kw: int,
-                      stride: int = 1, pad: int = 0) -> torch.Tensor:
+                      stride: int = 1, pad: int = 0,
+                      tile_n=AUTO) -> torch.Tensor:
     """Fused direct conv: channel-packed ``[N, H, W, CW]`` x tap-aligned
     filters ``[D, kH*kW*CW]``, per-channel affine ``a, b [D]`` -> packed
     ``[N, OH, OW, ceil(D/32)]``. The spatial border is all-ones words (the
     kernel lays it down; the map is read unpadded); channels past D are
-    +1 bits."""
+    +1 bits. ``tile_n`` (32, 64, 128): the tile's pixel columns."""
     _check_direct_conv(wp, xp, kh, kw)
     d = wp.shape[0]
     _check_affine(a, b, d)
+    autotune.check_tile_n(tile_n)
     if not _on_cuda("fused_direct_conv", wp, xp, a, b):
         return bitops.direct_conv_oracle(wp, xp, k_bits, a, b, kh=kh, kw=kw,
                                          stride=stride, pad=pad)
@@ -227,25 +277,30 @@ def fused_direct_conv(wp: torch.Tensor, xp: torch.Tensor, k_bits: int,
     out = torch.empty((n, oh, ow, dw), dtype=torch.int32, device=xp.device)
     if out.numel():
         with torch.cuda.device(xp.device):
+            bn = autotune.resolve_conv(
+                "fused_direct_conv",
+                autotune.conv_shape(n, h, w, cw, d, kh, kw, stride, pad),
+                n * oh * ow, tile_n, _sm_count(xp.device))
             rc = build.load("repro_fused_direct_conv")(
                 xp.data_ptr(), wp.data_ptr(), a.data_ptr(), b.data_ptr(),
                 out.data_ptr(), n, h, w, cw, d, kh, kw, stride, pad,
-                int(k_bits), _stream(xp.device))
-        _raise_on(rc, "fused_direct_conv")
+                int(k_bits), bn, _stream(xp.device))
+        _raise_on(rc, "fused_direct_conv", dict(tile_n=bn))
         LAUNCHES["fused_direct_conv"] += 1
     return out
 
 
 def direct_conv(wp: torch.Tensor, xp: torch.Tensor, k_bits: int, *,
                 kh: int, kw: int, stride: int = 1,
-                pad: int = 0) -> torch.Tensor:
+                pad: int = 0, tile_n=AUTO) -> torch.Tensor:
     """Direct conv without an epilogue (the ``direct_conv_dot`` kernel):
     channel-packed ``[N, H, W, CW]`` x tap-aligned filters ``[D,
     kH*kW*CW]`` -> the int32 ±1 dot ``[N, OH, OW, D]``, for float-boundary
     layers that apply bias and BN themselves. The spatial border is
     all-ones words (the kernel lays it down; the map is read unpadded), as
-    in :func:`fused_direct_conv`."""
+    in :func:`fused_direct_conv`, and so is ``tile_n``."""
     _check_direct_conv(wp, xp, kh, kw)
+    autotune.check_tile_n(tile_n)
     if not _on_cuda("direct_conv", wp, xp):
         return bitops.direct_conv_dot(wp, xp, k_bits, kh=kh, kw=kw,
                                       stride=stride, pad=pad)
@@ -256,10 +311,14 @@ def direct_conv(wp: torch.Tensor, xp: torch.Tensor, k_bits: int, *,
     out = torch.empty((n, oh, ow, d), dtype=torch.int32, device=xp.device)
     if out.numel():
         with torch.cuda.device(xp.device):
+            bn = autotune.resolve_conv(
+                "direct_conv",
+                autotune.conv_shape(n, h, w, cw, d, kh, kw, stride, pad),
+                n * oh * ow, tile_n, _sm_count(xp.device))
             rc = build.load("repro_direct_conv_dot")(
                 xp.data_ptr(), wp.data_ptr(), out.data_ptr(), n, h, w, cw, d,
-                kh, kw, stride, pad, int(k_bits), _stream(xp.device))
-        _raise_on(rc, "direct_conv")
+                kh, kw, stride, pad, int(k_bits), bn, _stream(xp.device))
+        _raise_on(rc, "direct_conv", dict(tile_n=bn))
         LAUNCHES["direct_conv"] += 1
     return out
 
@@ -522,33 +581,40 @@ _LIMITS: dict[tuple, tuple[int, int]] = {}
 def _limits(kernel: str, symbol: str, dev: torch.device, *args) -> tuple[int, int]:
     """One CTA's shared memory and the number of clusters the device can
     run at once, from the library (``args``: the geometry, int arrays as
-    tuples); cached."""
+    tuples); cached. A geometry whose shared memory exceeds a block's
+    holds no cluster (the library's attribute call refuses it)."""
     key = (kernel, dev.index, args)
     if key not in _LIMITS:
         smem, clusters = (ctypes.c_int * 1)(), (ctypes.c_int * 1)()
         c_args = [_ints(a) if isinstance(a, tuple) else a for a in args]
         with torch.cuda.device(dev):
             rc = build.load(symbol)(*c_args, smem, clusters)
-        _raise_on(rc, f"{kernel} occupancy query")
-        _LIMITS[key] = (smem[0], clusters[0])
+        if rc != 0 and smem[0] > MAX_SMEM_BYTES:
+            _LIMITS[key] = (smem[0], 0)
+        else:
+            _raise_on(rc, f"{kernel} occupancy query")
+            _LIMITS[key] = (smem[0], clusters[0])
     return _LIMITS[key]
 
 
-def _check_limits(kernel: str, symbol: str, dev: torch.device, *args) -> None:
+def _check_limits(kernel: str, symbol: str, dev: torch.device, *args,
+                  requested: bool = False) -> None:
     """Raise if the launch of geometry ``args`` cannot run (see
-    ``_limits``)."""
+    ``_limits``); ``ValueError`` throughout for a ``requested`` cluster,
+    which the caller may change."""
     smem, clusters = _limits(kernel, symbol, dev, *args)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"{kernel} needs {smem} B of shared memory per block "
                          f"(> {MAX_SMEM_BYTES})")
     if clusters < 1:
-        raise RuntimeError(f"{kernel}: the device cannot hold one cluster of "
-                           f"this launch ({smem} B of shared memory per block)")
+        err = ValueError if requested else RuntimeError
+        raise err(f"{kernel}: the device cannot hold one cluster of "
+                  f"this launch ({smem} B of shared memory per block)")
 
 
 def megakernel_conv_stage(xp: torch.Tensor, weights, a, b, k_bits, *,
                           kh: int = 3, kw: int = 3, pad: int = 1,
-                          pool: bool = True) -> torch.Tensor:
+                          pool: bool = True, cluster=AUTO) -> torch.Tensor:
     """One conv stage in one launch: ``len(weights)`` fused direct convs
     (stride 1) and, when ``pool``, the 2x2 packed-OR maxpool.
 
@@ -558,7 +624,8 @@ def megakernel_conv_stage(xp: torch.Tensor, weights, a, b, k_bits, *,
     The all-ones spatial border (``pad``, before every conv) is laid down
     by the kernel, which reads the map unpadded; the ``a=0, b=+1``
     padding of D to whole words is applied here. Returns
-    packed ``[N, OH', OW', ceil(D_last/32)]``.
+    packed ``[N, OH', OW', ceil(D_last/32)]``. ``cluster``: CTAs an image
+    (1, 2, 4 or 8; ``AUTO`` 8 unless tuned).
     """
     weights, a, b, k_bits = tuple(weights), tuple(a), tuple(b), tuple(k_bits)
     n_layers = len(weights)
@@ -577,6 +644,7 @@ def megakernel_conv_stage(xp: torch.Tensor, weights, a, b, k_bits, *,
         _check_affine(al, bl, d)
         cws.append(cw_in)
         cw_in = -(-d // PACK_BITS)
+    autotune.check_stage_cluster(cluster)
     if not _on_cuda("megakernel_conv_stage", xp, *weights, *a, *b):
         return bitops.conv_stage_xla(xp, weights, a, b, k_bits, kh=kh, kw=kw,
                                      pad=pad, pool=pool)
@@ -599,11 +667,13 @@ def megakernel_conv_stage(xp: torch.Tensor, weights, a, b, k_bits, *,
         aps.append(al)
         bps.append(bl)
         d_words.append(wl.shape[0] // PACK_BITS)
-    # A cluster of 8 CTAs an image, in channel groups of gcd(8, D_l/32).
-    cluster = MAX_CLUSTER
+    # A cluster of S CTAs an image, in channel groups of gcd(S, D_l/32).
+    requested = cluster != AUTO
+    cluster = autotune.resolve_stage_cluster(
+        autotune.stage_shape(n, h, w, cw, d_words, kh, kw, pad, pool), cluster)
     _check_limits("megakernel_conv_stage", "repro_megakernel_conv_stage_limits",
                   xp.device, tuple(d_words), tuple(cws), n_layers, hp, wp_sp,
-                  kh, kw, pad, cluster)
+                  kh, kw, pad, cluster, requested=requested)
     out_h, out_w = (oh // 2, ow // 2) if pool else (oh, ow)
     out = torch.empty((n, out_h, out_w, d_words[-1]), dtype=torch.int32,
                       device=xp.device)
@@ -616,7 +686,7 @@ def megakernel_conv_stage(xp: torch.Tensor, weights, a, b, k_bits, *,
                 _ptrs(bps), _ints(d_words), _ints(cws), _ints(k_bits),
                 n_layers, n, hp, wp_sp, kh, kw, pad, int(pool), cluster,
                 _stream(xp.device))
-        _raise_on(rc, "megakernel_conv_stage")
+        _raise_on(rc, "megakernel_conv_stage", dict(cluster=cluster))
         LAUNCHES["megakernel_conv_stage"] += 1
     return out
 
@@ -626,14 +696,12 @@ def _chain_cluster(dev: torch.device, *geometry) -> int:
     kw_act, mf, kwf): gcd(16, M_max/32) CTAs (one owning every M_max/S
     rows of each layer), or gcd(8, M_max/32) where the device cannot hold
     one cluster of 16; raises where it cannot hold either."""
-    m_words = geometry[2] // PACK_BITS
-    wide = math.gcd(MAX_CHAIN_CLUSTER, m_words)
+    wide, cluster = autotune.heuristic_chain_clusters(geometry[2])
     if wide > MAX_CLUSTER:
         smem, clusters = _limits("megakernel_chain", "repro_megakernel_chain_limits",
                                  dev, *geometry, wide)
         if smem <= MAX_SMEM_BYTES and clusters >= 1:
             return wide
-    cluster = math.gcd(MAX_CLUSTER, m_words)
     _check_limits("megakernel_chain", "repro_megakernel_chain_limits", dev,
                   *geometry, cluster)
     return cluster
@@ -643,7 +711,7 @@ def megakernel_chain(w_stack: torch.Tensor, a_stack: torch.Tensor,
                      b_stack: torch.Tensor, k_bits, xp: torch.Tensor,
                      m_out: int, *, final_wp: torch.Tensor | None = None,
                      final_k_bits: int = 0, ragged_tile: int | None = None,
-                     n_real: int | None = None) -> torch.Tensor:
+                     n_real: int | None = None, cluster=AUTO) -> torch.Tensor:
     """``L`` stacked fused binary layers, then optionally the
     epilogue-free head GEMM, in one launch.
 
@@ -658,6 +726,9 @@ def megakernel_chain(w_stack: torch.Tensor, a_stack: torch.Tensor,
     that tile, and every output column at or after ``n_real`` (default
     N) is 0 — pass a tile-padded ``xp`` and the true ``n_real`` to see
     the pad columns zeroed. Real columns are the same on both paths.
+
+    ``cluster``: CTAs a cluster, a power of two up to 16 dividing
+    M_max/32 (``AUTO``: tuned, else ``_chain_cluster``'s).
     """
     _check("w_stack", w_stack, PACKED_DTYPE, 3)
     _check("xp", xp, PACKED_DTYPE, 2)
@@ -682,6 +753,7 @@ def megakernel_chain(w_stack: torch.Tensor, a_stack: torch.Tensor,
             raise ValueError(f"final_wp has {kwf} words, more than KW_act = {kw_act}")
     if n_real is not None and ragged_tile is None:
         raise ValueError("n_real needs ragged_tile (the masked-tail path)")
+    autotune.check_chain_cluster(cluster, m_max)
     n_real = n if n_real is None else int(n_real)
     rows = mf if final_wp is not None else -(-m_out // PACK_BITS)
     operands = [w_stack, a_stack, b_stack, xp]
@@ -702,8 +774,15 @@ def megakernel_chain(w_stack: torch.Tensor, a_stack: torch.Tensor,
         xp = torch.nn.functional.pad(xp, (0, n_pad - n, 0, kw_act - kw_in),
                                      value=-1)
     kw_layer = [min(kw_max, -(-k // PACK_BITS)) for k in k_bits]
-    cluster = _chain_cluster(xp.device, tuple(kw_layer), n_layers, m_max,
-                             kw_act, mf, kwf)
+    geometry = (tuple(kw_layer), n_layers, m_max, kw_act, mf, kwf)
+    cluster = autotune.resolve_chain_cluster(
+        autotune.chain_shape(kw_layer, m_max, kw_max, kw_act, mf, kwf, n_pad),
+        cluster)
+    if cluster == AUTO:
+        cluster = _chain_cluster(xp.device, *geometry)
+    else:
+        _check_limits("megakernel_chain", "repro_megakernel_chain_limits",
+                      xp.device, *geometry, cluster, requested=True)
     out_rows = mf if final_wp is not None else m_max // PACK_BITS
     out = torch.empty((out_rows, n_pad), dtype=torch.int32, device=xp.device)
     if n:
@@ -715,7 +794,7 @@ def megakernel_chain(w_stack: torch.Tensor, a_stack: torch.Tensor,
                 out.data_ptr(), _ints(kw_layer), _ints(k_bits), n_layers,
                 m_max, kw_max, kw_act, mf, kwf, int(final_k_bits), n_pad,
                 n_real, cluster, _stream(xp.device))
-        _raise_on(rc, "megakernel_chain")
+        _raise_on(rc, "megakernel_chain", dict(cluster=cluster))
         LAUNCHES["megakernel_chain"] += 1
     out = out[:rows]
     return out if n_pad == n else out[:, :n]

@@ -13,6 +13,10 @@ executor caches and serving stats.
     from repro_torch.serve import ContinuousServingEngine
     eng = ContinuousServingEngine(pack_bnn_params_megakernel(params),
                                   engine="megakernel")
+
+On CUDA every bucket or extent class is served from a captured CUDA
+graph (``serve.executor``); ``serve.tuning`` picks a deployment's kernel
+tiling.
 """
 
 from repro_torch.serve.buckets import (DEFAULT_BUCKETS, bucket_for,
@@ -28,6 +32,9 @@ from repro_torch.serve.faults import (DeadlineExceeded, FallbackPolicy,
                                       is_error)
 from repro_torch.serve.queue import Batch, MicroBatcher, Request, Segment
 from repro_torch.serve.stats import ServeStats, percentile
+from repro_torch.serve.tuning import (SERVE_KERNEL, default_serving_candidates,
+                                      load_serving_blocks, serving_shape,
+                                      tune_serving_blocks)
 
 __all__ = [
     "DEFAULT_BUCKETS", "bucket_for", "normalize_buckets", "pad_to_bucket",
@@ -39,4 +46,6 @@ __all__ = [
     "ServeStats", "percentile",
     "DeadlineExceeded", "RequestFailed", "is_error", "InjectedFault",
     "NaNLogits", "FaultSpec", "FaultPlan", "RetryPolicy", "FallbackPolicy",
+    "SERVE_KERNEL", "serving_shape", "default_serving_candidates",
+    "load_serving_blocks", "tune_serving_blocks",
 ]

@@ -23,7 +23,9 @@ Policy beyond the ladder's:
 Every request served here yields logits bit-identical to its exact-shape
 forward: pad rows are zero images and samples are independent, and the
 masked tail leaves real columns unchanged (``tests/test_torch_continuous.py``).
-The JAX engine's mesh, heartbeat and elastic shrink are not ported.
+On CUDA each extent class is one captured CUDA graph (``serve.executor``).
+The JAX engine's mesh, heartbeat and elastic shrink are not ported (one
+device; no ``"mesh"`` part in the snapshot).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from repro_torch.kernels.autotune import AUTO
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.serve.executor import (RaggedExecutorCache, default_extents,
                                         extent_for)
@@ -149,8 +152,8 @@ class ContinuousServingEngine(ServingEngine):
     ``submit/step/drain/take/cancel`` surface and the bit-identity
     contract of :class:`~repro_torch.serve.engine.ServingEngine`.
 
-    ``packed_params``/``engine``/``conv_impl`` mean what they mean for
-    the bucket engine (``engine="megakernel"`` takes
+    ``packed_params``/``engine``/``conv_impl``/``blocks`` mean what they
+    mean for the bucket engine (``engine="megakernel"`` takes
     ``pack_bnn_params_megakernel`` params); ``max_rows`` bounds one
     dispatch, ``max_queue_rows`` admission (:class:`QueueFull`),
     ``slo_s`` arms the SLO-aware wait and the snapshot's goodput.
@@ -163,6 +166,7 @@ class ContinuousServingEngine(ServingEngine):
         *,
         engine: str = "xla",
         conv_impl: str = "im2col",
+        blocks: object = AUTO,
         max_rows: int = DEFAULT_MAX_ROWS,
         max_wait_s: float = 0.002,
         max_queue_rows: Optional[int] = None,
@@ -184,7 +188,7 @@ class ContinuousServingEngine(ServingEngine):
             max_queue_rows=max_queue_rows, slo_s=slo_s,
             slo_headroom=slo_headroom, clock=clock)
         self.executors = RaggedExecutorCache(
-            packed_params, engine=engine, conv_impl=conv_impl,
+            packed_params, engine=engine, conv_impl=conv_impl, blocks=blocks,
             stats=self.stats)
         self.extents = default_extents(max_rows, tile=self.executors.tile)
         self._init_resilience(deadline_s, retry, fallback, faults)

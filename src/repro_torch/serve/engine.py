@@ -20,8 +20,12 @@ completes as `DeadlineExceeded`, never silently late. A
 the caller passes one. A `FaultPlan` injects deterministic failures for
 tests. All of it is observable through `ServeStats`
 (``snapshot()["dispatch"|"degraded"]``) — resilience is never silent.
-The JAX engine's mesh, heartbeat and elastic shrink are not ported.
-``serve.continuous`` builds the ragged scheduler on this engine.
+The JAX engine's mesh, heartbeat and elastic shrink are not ported: the
+engine serves on one device, and the snapshot has no ``"mesh"`` part.
+On CUDA the executors replay one CUDA graph per bucket
+(``serve.executor``); a failover captures the new engine's lazily and
+releases the old ones. ``serve.continuous`` builds the ragged scheduler
+on this engine.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.kernels.autotune import AUTO
 from repro_torch.serve.buckets import DEFAULT_BUCKETS
 from repro_torch.serve.executor import IMAGE_SHAPE, ExecutorCache
 from repro_torch.serve.faults import (DeadlineExceeded, FallbackPolicy,
@@ -58,10 +63,11 @@ class ServingEngine:
 
     ``packed_params`` comes from ``core.bnn.pack_bnn_params_fused``
     (``pack_bnn_params_megakernel`` for the megakernel engines), on the
-    device the engine serves on. ``engine``/``conv_impl``
-    select the kernel path exactly as in ``bnn_serve_fn``;
-    ``buckets``/``max_wait_s`` shape the batching policy; ``clock`` is
-    injectable for deterministic tests.
+    device the engine serves on. ``engine``/``conv_impl``/``blocks``
+    select the kernel path and tiling exactly as in ``bnn_serve_fn``;
+    ``buckets``/``max_wait_s`` shape the batching policy; ``slo_s`` arms
+    the snapshot's goodput (a measurement only: the ladder does not
+    wait by it); ``clock`` is injectable for deterministic tests.
 
     Resilience knobs (DESIGN.md §11): ``deadline_s`` is the default
     per-request deadline (``submit`` can override per request);
@@ -77,22 +83,24 @@ class ServingEngine:
         *,
         engine: str = "xla",
         conv_impl: str = "im2col",
+        blocks: object = AUTO,
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         max_wait_s: float = 0.002,
+        slo_s: Optional[float] = None,
         deadline_s: Optional[float] = None,
         retry: Optional[RetryPolicy] = None,
         fallback: Optional[FallbackPolicy] = None,
         faults: Optional[FaultPlan] = None,
         clock: Callable[[], float] = time.monotonic,
     ):
-        self.stats = ServeStats()
+        self.stats = ServeStats(slo_s=slo_s)
         self.clock = clock
         self.batcher = MicroBatcher(
             buckets, max_wait_s=max_wait_s, clock=clock,
         )
         self.executors = ExecutorCache(
             packed_params, engine=engine, conv_impl=conv_impl,
-            stats=self.stats,
+            blocks=blocks, stats=self.stats,
         )
         self._init_resilience(deadline_s, retry, fallback, faults)
 
@@ -371,6 +379,7 @@ class ServingEngine:
         if nxt is None:
             return
         old = self.executors.engine
+        self.executors.release()
         if self._standby is not None and self._standby.engine == nxt:
             # Hot standby (prewarm_fallback): swap in warmed executors.
             self.executors = self._standby

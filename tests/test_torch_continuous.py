@@ -130,7 +130,7 @@ def test_failover_demotes_megakernel_to_xnor_to_xla(params):
     snap = eng.snapshot()
     assert snap["dispatch"]["engine_path"] == ["megakernel->xnor", "xnor->xla"]
     assert eng.executors.engine == "xla"
-    assert eng.executors.key(4) == (4, "xla", "im2col", "ragged")
+    assert eng.executors.key(4) == (4, "xla", "im2col", "auto", "ragged")
     assert [f["engine"] for f in plan.fired] == ["megakernel"] * 2 + ["xnor"] * 2
     # Rungs without params are skipped; without any, nothing demotes.
     assert FallbackPolicy(fused_params=params["fused"]).next_engine(

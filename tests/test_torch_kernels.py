@@ -161,10 +161,26 @@ def test_build_needs_nvcc_here(monkeypatch):
 
 
 def test_block_kwargs_accepts_only_the_compiled_tiling():
-    assert autotune.block_kwargs(autotune.AUTO) == {}
-    assert autotune.block_kwargs(autotune.COMPILED_TILE) == {}
-    assert autotune.block_kwargs(autotune.BlockConfig(block_n=64), conv=True) == {}
+    """``block_kwargs`` hands each kernel the fields it reads; the tile's
+    fixed dimensions take no other value, and ``unpack_gemm`` and
+    ``pack_rows``, which compile one tiling, refuse any request."""
+    auto, cfg = autotune.AUTO, autotune.BlockConfig
+    assert autotune.block_kwargs(auto, "xnor_gemm") == {}
+    assert autotune.block_kwargs(cfg(), "unpack_gemm") == {}
+    assert autotune.block_kwargs(cfg(block_n=64, k_splits=2), "xnor_gemm") == {
+        "tile_n": 64, "k_splits": 2}
+    assert autotune.block_kwargs(cfg(block_n=64, k_splits=2),
+                                 "direct_conv") == {"tile_n": 64}
+    assert autotune.block_kwargs(cfg(block_n=64, chain_cluster=16),
+                                 "megakernel_chain") == {"cluster": 16}
+    assert autotune.block_kwargs(cfg(stage_cluster=4),
+                                 "megakernel_conv_stage") == {"cluster": 4}
+    for kernel in ("unpack_gemm", "pack_rows"):
+        with pytest.raises(ValueError, match="compiles one tiling"):
+            autotune.block_kwargs(cfg(block_n=64), kernel)
+    for bad in (dict(block_m=64), dict(block_kw=16), dict(block_n=96),
+                dict(k_splits=0), dict(stage_cluster=16), dict(chain_cluster=3)):
+        with pytest.raises(ValueError):
+            cfg(**bad)
     with pytest.raises(ValueError):
-        autotune.block_kwargs(autotune.BlockConfig(block_n=64))
-    with pytest.raises(ValueError):
-        autotune.block_kwargs("fast")
+        autotune.block_kwargs("fast", "xnor_gemm")

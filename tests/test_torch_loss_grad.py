@@ -8,8 +8,8 @@ On the CPU the port's kernel wrappers return their plain twins, which
 autograd differentiates; on CUDA the wrappers raise on operands that
 require grad, because no kernel has a backward yet. These are the
 gradients the backward kernels will be held to. The loss is taken under
-``float_policy()``: the port has no straight-through estimator for
-``train_policy()``'s sign yet, so its weight gradients would be zero.
+``float_policy()``; ``tests/test_torch_binarize_grad.py`` holds it under
+``train_policy()``, through the straight-through estimator.
 
 Params and batch come from numpy: every leaf of the JAX package's init
 tree is drawn from ``np.random.default_rng`` at the init's scale
