@@ -112,6 +112,20 @@
    kernels (``LM_CASES``, ``LM_LOSS_TOL``, ``LM_LOGIT_TOL``,
    ``LM_F32_LOSS_TOL``, ``LM_F32_LOGIT_TOL``). Prints the loss, the forward's ms (CUDA
    events), peak memory and a profile.
+8. The BNN's train-to-serve loop at full width (``train_phase``):
+   ``train_bnn`` with ``BNNTrainerConfig()``'s defaults (200 STE steps at
+   batch 64, checkpoints every 50) must learn (the back-half mean loss
+   0.5 below the first, held-out accuracy above chance, latents in
+   [-1, 1], running BN statistics moved) and launch no kernel; one
+   step's time by CUDA events, images/s, peak memory and the device's
+   busy share (``torch.profiler``) beside the float32 bound
+   (``train_step_flops``). The run resumed from step 150 must end
+   bit-identical; ``pack_trained_params`` must verify every engine on 64
+   held-out images for it and for a 20-step ``use_scale`` run; its
+   sign-form checkpoint, loaded on the card, serves 12 requests through
+   the ``xnor``/direct and continuous megakernel engines, each equal to
+   the float-boundary forward of its images alone. The phase's launches
+   are the path ``bnn_train_export``.
 
 Last, prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``.
 
@@ -124,6 +138,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import json
 import pathlib
 import re
@@ -2370,6 +2385,279 @@ def lm_phase(dev, cases=LM_CASES, seq: int = LM_SEQ) -> dict:
     return results
 
 
+# Phase 8: steps timed by CUDA events (after warm-up steps), the
+# held-out images of the export probe, and the served requests.
+TRAIN_WARMUP_STEPS = 5
+TRAIN_TIMED_STEPS = 20
+PROBE_IMAGES = 64
+USE_SCALE_STEPS = 20
+
+
+def train_step_flops(batch: int) -> int:
+    """Multiply-adds x 2 of one STE train step's GEMMs: the forward's, and
+    the backward's two (inputs and weights) for every layer but the first
+    conv, whose inputs (the images) take no gradient."""
+    from repro_torch.core.bnn import CONV_CHANNELS, FC_SIZES, POOL_AFTER
+
+    side, fwd = 32, []
+    for i, (cin, cout) in enumerate(CONV_CHANNELS):
+        fwd.append(2 * batch * side * side * 9 * cin * cout)
+        side //= 2 if i in POOL_AFTER else 1
+    fwd += [2 * batch * fin * fout for fin, fout in FC_SIZES]
+    return 3 * sum(fwd) - fwd[0]
+
+
+def train_phase(dev) -> dict:
+    """Phase 8: the BNN's train-to-serve loop at full width on the card.
+
+    (a) ``train_bnn`` with ``BNNTrainerConfig()``'s defaults (200 steps at
+    batch 64), checkpoints every 50 steps under ``build/``; held as
+    ``tests/test_train.py`` holds its trainer; beside it one train step's
+    time by CUDA events, images/s, peak memory and the device's busy share
+    over 20 steps (``torch.profiler``). (b) the last checkpoint deleted,
+    the same run again: it resumes from step 150 and must end with every
+    leaf bit-identical. (c) ``pack_trained_params`` on 64 held-out images,
+    both ``conv_impl``s, of (a)'s latents and of a 20-step ``use_scale``
+    run. (d) the sign-form checkpoint written and loaded on the card, its
+    logits unchanged, 12 requests of 1-8 images served from it by the
+    ``xnor``/direct bucket engine and the continuous megakernel engine,
+    each answer equal to the float-boundary forward of its images alone.
+    (e) the kernel launches of the phase (none in training)."""
+    import shutil
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import manager
+    from repro_torch.core.bnn import (bnn_eval_logits, init_bnn_params,
+                                      load_binary_checkpoint,
+                                      pack_bnn_params_fused,
+                                      pack_bnn_params_megakernel,
+                                      pack_trained_params,
+                                      save_binary_checkpoint, update_bn_stats)
+    from repro_torch.data.pipeline import DataConfig, cifar_batch_at
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_bnn import random_requests
+    from repro_torch.serve import (ContinuousServingEngine, ServingEngine,
+                                   is_error)
+    from repro_torch.train.bnn_trainer import (BNNTrainerConfig, _BNNTask,
+                                               bnn_clip_predicate, train_bnn)
+    from repro_torch.train.step import _grads_of, init_opt_state, make_train_step
+
+    work = OUT_DIR / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = BNNTrainerConfig(checkpoint_dir=str(work / "ckpt"))
+    result = {"config": {k: v for k, v in vars(cfg).items()
+                         if k != "checkpoint_dir"}}
+    try:
+        # This phase's counts: 0 here, read at its end.
+        ops.reset_launches()
+
+        # (a) One step's time: the trainer's step and EMA on the stream's
+        # first batches, already on the card.
+        task = _BNNTask(cfg.model_config())
+        step_fn = make_train_step(task, cfg.train_config(),
+                                  clip_predicate=bnn_clip_predicate)
+        data_cfg = DataConfig(seed=cfg.data_seed, global_batch=cfg.batch)
+        n_steps = TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS
+        feeds = [{k: cifar_batch_at(data_cfg, i)[k].to(dev)
+                  for k in ("images", "labels")} for i in range(n_steps)]
+        state = [init_bnn_params(cfg.seed, device=dev), None]
+        state[1] = init_opt_state(state[0])
+
+        def steps(batches):
+            for feed in batches:
+                p, o, m = step_fn(state[0], state[1], feed)
+                state[0] = update_bn_stats(p, m.pop("bn_stats"),
+                                           momentum=cfg.bn_momentum)
+                state[1] = o
+
+        def grads(batches):
+            for feed in batches:
+                _grads_of(task, state[0], feed)
+
+        def events_ms(fn):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(feeds[TRAIN_WARMUP_STEPS:])
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / TRAIN_TIMED_STEPS
+
+        steps(feeds[:TRAIN_WARMUP_STEPS])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = events_ms(steps)
+        # The loss and its gradient alone: the rest of a step is the clip,
+        # AdamW and the EMA over the params' 54 leaves.
+        grad_ms = events_ms(grads)
+        flops = train_step_flops(cfg.batch)
+        breakdown = device_breakdown(
+            lambda: steps(feeds[TRAIN_WARMUP_STEPS:]), top=12)
+        device_ms = (breakdown[-1][1] / TRAIN_TIMED_STEPS
+                     if not isinstance(breakdown, str) else None)
+        result.update(
+            step_ms=step_ms, grad_ms=grad_ms,
+            images_per_s=cfg.batch * 1e3 / step_ms,
+            step_flops=flops, step_bound_ms=flops / FP32_OPS_PER_S * 1e3,
+            step_peak_memory=torch.cuda.max_memory_allocated(),
+            step_device_ms=device_ms,
+            busy_share=None if device_ms is None else device_ms / step_ms,
+            step_breakdown=breakdown)
+        del state, feeds
+        print(f"  train step (batch {cfg.batch}): {step_ms:.3f} ms by CUDA "
+              f"events over {TRAIN_TIMED_STEPS} steps after "
+              f"{TRAIN_WARMUP_STEPS} (the loss and its gradient alone "
+              f"{grad_ms:.3f} ms); {result['images_per_s']:.0f} images/s; "
+              f"bound {result['step_bound_ms']:.3f} ms ({flops / 1e9:.1f} "
+              f"GFLOP at the float32 peak); peak memory "
+              f"{result['step_peak_memory'] / 1e9:.2f} GB; device busy "
+              + ("not measured" if device_ms is None else
+                 f"{device_ms:.3f} ms a step, share {result['busy_share']:.3f}"),
+              flush=True)
+        if not isinstance(breakdown, str):
+            for kname, ms, share in breakdown:
+                print(f"    {ms:10.3f} ms {share:6.1%}  {kname}", flush=True)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        res = train_bnn(cfg, device=dev)
+        torch.cuda.synchronize()
+        result["train_s"] = time.monotonic() - t0
+        result["train_peak_memory"] = torch.cuda.max_memory_allocated()
+        loss = res.history["loss"]
+        back_half = float(np.mean(loss[cfg.steps // 2:]))
+        result.update(first_loss=loss[0], back_half_loss=back_half,
+                      first_lr_scale=res.history["lr_scale"][0],
+                      eval_loss=res.eval_loss, eval_acc=res.eval_acc)
+        print(f"  train_bnn: {cfg.steps} steps in {result['train_s']:.2f} s "
+              f"(host clock, data and checkpoints included); loss "
+              f"{loss[0]:.4f} -> back-half mean {back_half:.4f}; held-out "
+              f"loss {res.eval_loss:.4f} acc {res.eval_acc:.4f} (chance "
+              f"0.10); peak memory {result['train_peak_memory'] / 1e9:.2f} GB",
+              flush=True)
+        if not res.history["lr_scale"][0] > 0.0:
+            fail("train: the first step's lr_scale is 0")
+        if not back_half < loss[0] - 0.5:
+            fail(f"train: back-half mean loss {back_half} is not below the "
+                 f"first loss {loss[0]} - 0.5")
+        for group in ("conv", "fc"):
+            for j, layer in enumerate(res.params[group]):
+                if float(layer["w"].abs().max()) > 1.0:
+                    fail(f"train: {group}[{j}].w left [-1, 1]")
+        if not bool((res.params["bn_conv"][0]["mean"] != 0).any()):
+            fail("train: bn_conv[0].mean never moved off 0")
+        latest = manager.latest_valid_step(cfg.checkpoint_dir)
+        if latest != cfg.steps:
+            fail(f"train: latest valid checkpoint {latest}, expected {cfg.steps}")
+        if not res.eval_acc > 0.10:
+            fail(f"train: held-out accuracy {res.eval_acc} is not above chance")
+        trained = dict(ops.LAUNCHES)
+        if any(trained.values()):
+            fail(f"train: training launched kernels {trained}")
+
+        # (b) Resume from the checkpoint before the last.
+        shutil.rmtree(pathlib.Path(cfg.checkpoint_dir) / f"step_{cfg.steps:08d}")
+        t0 = time.monotonic()
+        again = train_bnn(cfg, device=dev)
+        result["resume_s"] = time.monotonic() - t0
+        result["resume_from"] = again.start_step
+        if again.start_step != cfg.steps - cfg.checkpoint_every:
+            fail(f"resume: started at {again.start_step}")
+        leaves = list(zip(tree.leaves_with_path((res.params, res.opt_state)),
+                          tree.leaves((again.params, again.opt_state))))
+        differ = [path for (path, a), b in leaves if not torch.equal(a, b)]
+        if differ or again.history["loss"] != loss[again.start_step:]:
+            fail(f"resume: leaves not bit-identical to the uninterrupted run: "
+                 f"{differ[:5]} ({len(differ)} of {len(leaves)})")
+        result["resume_leaves_equal"] = len(leaves)
+        print(f"  resumed from step {again.start_step}: {len(leaves)} param "
+              f"and optimizer leaves bit-identical ({result['resume_s']:.2f} s)",
+              flush=True)
+
+        # (c) Export under the probe, with and without alpha.
+        probe = cifar_batch_at(DataConfig(seed=cfg.data_seed,
+                                          global_batch=PROBE_IMAGES),
+                               cfg.steps + cfg.eval_batches)["images"].to(dev)
+        scaled = train_bnn(dataclasses.replace(
+            cfg, steps=USE_SCALE_STEPS, use_scale=True, checkpoint_dir=None),
+            device=dev)
+        result["use_scale_run"] = {"steps": USE_SCALE_STEPS,
+                                   "eval_acc": scaled.eval_acc,
+                                   "eval_loss": scaled.eval_loss}
+        for name, params, use_scale in (("trained", res.params, False),
+                                        ("use_scale", scaled.params, True)):
+            t0 = time.monotonic()
+            try:
+                packs = pack_trained_params(params, use_scale=use_scale,
+                                            probe_images=probe)
+            except ValueError as err:
+                fail(f"export ({name}): {err}")
+            result[f"export_{name}_s"] = time.monotonic() - t0
+            print(f"  export ({name}, use_scale={use_scale}): packed/xla, "
+                  f"fused xla+xnor x im2col+direct, megakernel + "
+                  f"megakernel_xla bit-identical to the float-boundary "
+                  f"forward on {PROBE_IMAGES} held-out images "
+                  f"({', '.join(sorted(packs))})", flush=True)
+
+        # (d) The sign-form checkpoint, loaded on the card and served.
+        sign_path = work / "trained_sign.npz"
+        save_binary_checkpoint(sign_path, res.params)
+        loaded = load_binary_checkpoint(sign_path, device=dev)
+        with torch.no_grad():
+            before = bnn_eval_logits(res.params, probe)
+            after = bnn_eval_logits(loaded, probe)
+        if not torch.equal(before, after):
+            fail("sign-form checkpoint: logits changed in the round trip "
+                 f"({int((before != after).sum())} differ)")
+        result["sign_checkpoint_bytes"] = sign_path.stat().st_size
+        fused = pack_bnn_params_fused(loaded)
+        mega = pack_bnn_params_megakernel(loaded)
+        requests = random_requests(np.random.default_rng(8), count=12,
+                                   max_images=8)
+        served = {}
+        for name, eng in (
+                ("xnor/direct", ServingEngine(fused, engine="xnor",
+                                              conv_impl="direct",
+                                              max_wait_s=0.0)),
+                ("megakernel", ContinuousServingEngine(
+                    mega, engine="megakernel", max_wait_s=0.0))):
+            eng.warmup()
+            rids = []
+            for imgs in requests:
+                rids.append(eng.submit(imgs))
+                eng.step()
+            eng.drain()
+            for i, (imgs, rid) in enumerate(zip(requests, rids)):
+                got = eng.take(rid)
+                if got is None or is_error(got):
+                    fail(f"serve {name}: request {i} has no logits: {got}")
+                with torch.no_grad():
+                    want = bnn_eval_logits(
+                        loaded, torch.from_numpy(imgs).to(dev)).cpu().numpy()
+                if not np.array_equal(got, want):
+                    fail(f"serve {name}: request {i} differs from the "
+                         "float-boundary forward of its images alone (max "
+                         f"abs {np.abs(got - want).max()})")
+            eng.executors.release()
+            served[name] = len(requests)
+            print(f"  served {name} from the sign-form checkpoint "
+                  f"({sign_path.stat().st_size / 1e6:.2f} MB): "
+                  f"{len(requests)} requests ({sum(r.shape[0] for r in requests)} "
+                  "images) equal to the float-boundary forward", flush=True)
+        result["served"] = served
+        result["launches"] = dict(ops.LAUNCHES)
+        print(f"  launches of phase 8: {result['launches']}", flush=True)
+        for name in ("fused_direct_conv", "fused_xnor_gemm", "xnor_gemm",
+                     "megakernel_conv_stage", "megakernel_chain"):
+            if not result["launches"][name]:
+                fail(f"phase 8: {name} was not launched")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return result
+
+
 KERNELS = {
     "xnor_gemm": ("src/repro_torch/kernels/csrc/xnor_gemm.cu",
                   "src/repro/kernels/xnor_gemm.py:105"),
@@ -2488,13 +2776,17 @@ def main() -> None:
     print("phase 7: LM training forward (Model.loss) at full width",
           flush=True)
     lm = lm_phase(dev)
+    print("phase 8: the BNN trained, resumed, exported and served on the card",
+          flush=True)
+    train = train_phase(dev)
     jamba_launches = dict(jamba["launches"]["prefill"])
     for counts in jamba["launches"]["decode"]:
         for name, n in counts.items():
             jamba_launches[name] += n
     launches = {**serve["launches"], **table2["launches"],
                 "jamba_serve": jamba_launches,
-                **{f"{arch}_loss": r["launches"] for arch, r in lm.items()}}
+                **{f"{arch}_loss": r["launches"] for arch, r in lm.items()},
+                "bnn_train_export": train["launches"]}
     for name in KERNELS:
         if not sum(path[name] for path in launches.values()):
             fail(f"kernel {name} was not launched on the main path")
@@ -2504,7 +2796,8 @@ def main() -> None:
         {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
          "build_s": info["seconds"], "xnor_loops": xnor_loops, "shapes": rows,
          "serve": serve,
-         "table2": table2, "jamba": jamba, "lm_loss": lm, "totals": totals},
+         "table2": table2, "jamba": jamba, "lm_loss": lm, "train": train,
+         "totals": totals},
         indent=2))
 
     kernels = []

@@ -72,6 +72,29 @@ def binarize_weights(
     return wb, weight_scale(w, axis=scale_axis).detach()
 
 
+class _Htanh(torch.autograd.Function):
+    """``clamp(x, -clip, clip)`` with ``jnp.clip``'s gradient: 1 inside,
+    0 outside, and 1/2 at ``x == ±clip`` (``jnp.clip`` is a max then a
+    min, and each splits a tie between its inputs), where
+    ``torch.clamp`` passes 1."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, clip: float) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        ctx.clip = clip
+        return torch.clamp(x, -clip, clip)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (x,) = ctx.saved_tensors
+        a = x.abs()
+        scale = (a < ctx.clip).to(g.dtype) + 0.5 * (a == ctx.clip).to(g.dtype)
+        return g * scale, None
+
+
 def binarize_activations(x: torch.Tensor, clip: float = 1.0) -> torch.Tensor:
-    """Htanh then sign, the BNN activation binarization (STE backward)."""
-    return ste_sign(torch.clamp(x, -clip, clip))
+    """Htanh then sign, the BNN activation binarization (STE backward).
+    The Htanh's gradient at ``x == ±clip`` is the JAX package's 1/2
+    (:class:`_Htanh`): a FAKE_QUANT layer re-binarizes its ±1 input, so
+    every binary layer's input gradient passes through that tie."""
+    return ste_sign(_Htanh.apply(x, clip))

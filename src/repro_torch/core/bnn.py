@@ -1,5 +1,6 @@
-"""The paper's evaluation model, the CIFAR-10 BNN, for inference in
-PyTorch.
+"""The paper's evaluation model, the CIFAR-10 BNN, in PyTorch: its
+training forward and loss, its inference paths, and the export from one
+to the other.
 
 Architecture (as ``repro.core.bnn``):
 
@@ -14,7 +15,16 @@ keep only packed int32 words between binary layers: one launch per
 layer in :func:`bnn_apply_fused`, one per network stage in
 :func:`bnn_apply_megakernel`. Every kernel path takes a ``blocks``
 tiling (``kernels.autotune``; logits do not depend on it) and every
-packer the XNOR-Net ``use_scale``. Training is not ported yet.
+packer the XNOR-Net ``use_scale``.
+
+Training (``train.bnn_trainer``) runs :func:`bnn_apply` in FAKE_QUANT
+with ``training=True``: batch BatchNorm statistics, STE gradients by
+plain autograd (:func:`bnn_train_loss`), the batch statistics folded
+into the running buffers outside autograd (:func:`update_bn_stats`).
+:func:`pack_trained_params` exports trained latents to every packed
+format and verifies every engine bit-identical to the float-boundary
+forward (:func:`bnn_eval_logits`); :func:`save_binary_checkpoint`
+writes the 1-bit sign form the serving CLI loads.
 """
 
 from __future__ import annotations
@@ -170,47 +180,70 @@ def pack_bnn_params_fused(params: dict, *, use_scale: bool = False) -> dict:
     }
 
 
-def _batchnorm(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Eval BatchNorm, in the JAX package's op order:
-    ``(x - mean) * rsqrt(var + eps) * gamma + beta``."""
-    inv = torch.rsqrt(p["var"] + BN_EPS)
-    return (x - p["mean"]) * inv * p["gamma"] + p["beta"]
+def _batchnorm(p: dict, x: torch.Tensor, training: bool = False,
+               stats: list | None = None) -> torch.Tensor:
+    """BatchNorm over every axis but the last, in the JAX package's op
+    order: ``(x - mean) * rsqrt(var + eps) * gamma + beta``. Eval mode
+    reads the running ``mean``/``var`` buffers; training mode takes the
+    batch mean and the biased variance (``jnp.var``'s, ``correction=0``)
+    and appends them to ``stats`` when given."""
+    if training:
+        axes = tuple(range(x.ndim - 1))
+        mean = torch.mean(x, dim=axes)
+        var = torch.var(x, dim=axes, correction=0)
+        if stats is not None:
+            stats.append({"mean": mean, "var": var})
+    else:
+        mean, var = p["mean"], p["var"]
+    inv = torch.rsqrt(var + BN_EPS)
+    return (x - mean) * inv * p["gamma"] + p["beta"]
 
 
 def _maxpool2(x: torch.Tensor) -> torch.Tensor:
     """2x2/stride-2 max pool of a float NHWC map (``lax.reduce_window``
-    with a -inf fill and VALID windows: odd trailing rows drop)."""
-    _, h, w, _ = x.shape
-    x = x[:, :h // 2 * 2, :w // 2 * 2]
-    return torch.maximum(torch.maximum(x[:, 0::2, 0::2], x[:, 0::2, 1::2]),
-                         torch.maximum(x[:, 1::2, 0::2], x[:, 1::2, 1::2]))
+    with a -inf fill and VALID windows: odd trailing rows drop). Its
+    gradient goes to the first maximal element of a window in row-major
+    order, as ``reduce_window``'s does; ties are common here (equal
+    integer dots of a channel normalize to equal floats), and splitting
+    them, as ``torch.maximum`` does, would give other gradients."""
+    y = torch.nn.functional.max_pool2d(x.permute(0, 3, 1, 2), 2, 2)
+    return y.permute(0, 2, 3, 1)
 
 
-def bnn_apply(params: dict, images: torch.Tensor,
-              cfg: BNNConfig) -> torch.Tensor:
-    """images ``[N, 32, 32, 3]`` -> logits ``[N, 10]``, eval mode (running
-    BN statistics), with float tensors at every layer boundary: the
-    paper's Table 2 forward.
+def bnn_apply(params: dict, images: torch.Tensor, cfg: BNNConfig, *,
+              training: bool = False, return_stats: bool = False):
+    """images ``[N, 32, 32, 3]`` -> logits ``[N, 10]`` with float tensors at
+    every layer boundary: the paper's Table 2 forward, and the training
+    forward.
 
     PACKED takes :func:`pack_bnn_params` params: its first conv runs
     FAKE_QUANT on the real images, and every later layer re-encodes the
     clipped float activations itself (``engine`` and ``conv_impl`` pick
     the kernels). FLOAT and FAKE_QUANT take latent params and binarize
-    the activations between layers.
+    the activations between layers (STE gradients).
+
+    ``training=True`` uses batch BatchNorm statistics; ``return_stats``
+    also returns them per layer, ``{"bn_conv": [{"mean", "var"}, ...],
+    "bn_fc": [...]}``, for :func:`update_bn_stats`. PACKED's first conv,
+    and FAKE_QUANT's in eval mode, is :func:`_first_conv`, the serving
+    engines' own (on CUDA its GEMM runs in fixed chunks of images), so
+    the float-boundary forward and every engine compute it alike.
     """
+    stats_conv = [] if return_stats else None
+    stats_fc = [] if return_stats else None
     x = images
     packed = cfg.mode == QuantMode.PACKED
     for i in range(len(CONV_CHANNELS)):
         first = i == 0
-        if first and packed:
-            lcfg = BitLinearConfig(mode=QuantMode.FAKE_QUANT,
-                                   binarize_acts=False,
-                                   use_scale=cfg.use_scale)
+        if first and (packed or (cfg.mode == QuantMode.FAKE_QUANT
+                                 and not training)):
+            x = _first_conv(params["conv"][0], x, cfg.use_scale)
         else:
-            lcfg = cfg.layer_cfg(binarize_acts=not first)
-        x = bit_conv2d(params["conv"][i], x, lcfg, stride=1, pad=1,
-                       kh=3 if packed else None, kw=3 if packed else None)
-        x = _batchnorm(params["bn_conv"][i], x)
+            x = bit_conv2d(params["conv"][i], x,
+                           cfg.layer_cfg(binarize_acts=not first), stride=1,
+                           pad=1, kh=3 if packed else None,
+                           kw=3 if packed else None)
+        x = _batchnorm(params["bn_conv"][i], x, training, stats_conv)
         if i in POOL_AFTER:
             x = _maxpool2(x)
         # In PACKED mode the next layer's engine binarizes and encodes.
@@ -218,18 +251,65 @@ def bnn_apply(params: dict, images: torch.Tensor,
     x = x.reshape(x.shape[0], -1)
     for j in range(len(FC_SIZES)):
         x = bit_linear(params["fc"][j], x, cfg.layer_cfg(binarize_acts=True))
-        x = _batchnorm(params["bn_fc"][j], x)
+        x = _batchnorm(params["bn_fc"][j], x, training, stats_fc)
         if j < len(FC_SIZES) - 1:
             x = torch.clamp(x, -1, 1) if packed else binarize_activations(x)
+    if return_stats:
+        return x, {"bn_conv": stats_conv, "bn_fc": stats_fc}
     return x
 
 
-def bnn_eval_logits(params: dict, images: torch.Tensor) -> torch.Tensor:
+def bnn_eval_logits(params: dict, images: torch.Tensor, *,
+                    use_scale: bool = False) -> torch.Tensor:
     """The trained model's float-boundary forward: FAKE_QUANT in eval
-    mode on latent params. Every ±1 dot is an integer (exact in float32
-    below 2^24) and ``sign(0) := +1`` on every path, so PACKED and fused
-    logits of the same params equal it on the CPU."""
-    return bnn_apply(params, images, BNNConfig(mode=QuantMode.FAKE_QUANT))
+    mode on latent params (``use_scale``: the XNOR-Net alpha). Every ±1
+    dot is an integer (exact in float32 below 2^24), ``sign(0) := +1`` on
+    every path and the first conv is the engines' own, so the packed
+    engines reproduce it bit for bit (:func:`pack_trained_params`)."""
+    return bnn_apply(params, images,
+                     BNNConfig(mode=QuantMode.FAKE_QUANT, use_scale=use_scale))
+
+
+def xent_and_acc(logits: torch.Tensor, labels: torch.Tensor):
+    """Mean cross-entropy and accuracy against int labels."""
+    logp = torch.log_softmax(logits, dim=-1)
+    loss = -torch.mean(torch.gather(logp, 1, labels.long()[:, None]))
+    acc = torch.mean((torch.argmax(logits, -1) == labels).to(torch.float32))
+    return loss, acc
+
+
+def bnn_loss(params, images, labels, cfg: BNNConfig):
+    """(loss, accuracy) of the training forward (batch statistics)."""
+    return xent_and_acc(bnn_apply(params, images, cfg, training=True), labels)
+
+
+def bnn_train_loss(params, images, labels, cfg: BNNConfig):
+    """:func:`bnn_loss` with the BatchNorm batch statistics as aux:
+    ``(loss, {"acc", "bn_stats"})``. The trainer folds the statistics
+    into the running buffers (:func:`update_bn_stats`), which packed
+    inference reads; without them the export would normalize with the
+    init statistics."""
+    logits, stats = bnn_apply(params, images, cfg, training=True,
+                              return_stats=True)
+    loss, acc = xent_and_acc(logits, labels)
+    return loss, {"acc": acc, "bn_stats": stats}
+
+
+@torch.no_grad()
+def update_bn_stats(params: dict, bn_stats: dict, *,
+                    momentum: float = 0.9) -> dict:
+    """EMA the batch statistics into the BN buffers, ``new = momentum *
+    old + (1 - momentum) * batch``, outside autograd (the buffers are no
+    trainable params)."""
+    out = dict(params)
+    for key in ("bn_conv", "bn_fc"):
+        out[key] = [
+            {**bn,
+             "mean": momentum * bn["mean"] + (1 - momentum) * s["mean"],
+             "var": momentum * bn["var"] + (1 - momentum) * s["var"]}
+            for bn, s in zip(params[key], bn_stats[key])
+        ]
+    return out
 
 
 # Images one float32 GEMM of the first conv takes on CUDA (_first_conv).
@@ -431,12 +511,88 @@ def bnn_serve_fn(*, engine: str = "xla", conv_impl: str = "im2col",
     return apply_fn
 
 
+@torch.no_grad()
+def pack_trained_params(params: dict, *, use_scale: bool = False,
+                        probe_images: torch.Tensor | None = None,
+                        probe_conv_impls: tuple[str, ...] = ("im2col", "direct"),
+                        ) -> dict:
+    """Export trained latents into the packed formats the engines take:
+    ``"packed"`` (:func:`pack_bnn_params`, the unfused PACKED path),
+    ``"fused"`` (:func:`pack_bnn_params_fused`, serving engines
+    ``"xla"``/``"xnor"``) and ``"megakernel"``
+    (:func:`pack_bnn_params_megakernel`).
+
+    With ``probe_images`` the export is verified before it ships: the
+    logits of ``packed/xla``, of the fused chain on both engines x
+    ``probe_conv_impls`` and of both megakernel engines must equal the
+    float-boundary forward's (:func:`bnn_eval_logits`) bit for bit, or a
+    ValueError names each diverging engine. On CUDA probe images the
+    ``xnor`` and ``megakernel`` engines launch the kernels. Runs under
+    ``torch.no_grad()``, so params that require grad never reach the
+    kernels' grad guard."""
+    out = {
+        "packed": pack_bnn_params(params, use_scale=use_scale),
+        "fused": pack_bnn_params_fused(params, use_scale=use_scale),
+        "megakernel": pack_bnn_params_megakernel(params, use_scale=use_scale),
+    }
+    if probe_images is None:
+        return out
+
+    want = bnn_eval_logits(params, probe_images, use_scale=use_scale)
+    got = {"packed/xla": bnn_apply(
+        out["packed"], probe_images,
+        BNNConfig(mode=QuantMode.PACKED, engine="xla", use_scale=use_scale))}
+    for engine in ("xla", "xnor"):
+        for conv_impl in probe_conv_impls:
+            got[f"fused/{engine}/{conv_impl}"] = bnn_apply_fused(
+                out["fused"], probe_images, engine=engine,
+                conv_impl=conv_impl, use_scale=use_scale)
+    for engine, inner in (("megakernel", "xnor"), ("megakernel_xla", "xla")):
+        got[engine] = bnn_apply_megakernel(
+            out["megakernel"], probe_images, engine=inner,
+            use_scale=use_scale)
+    bad = {k: int((v != want).sum()) for k, v in got.items()
+           if not torch.equal(v, want)}
+    if bad:
+        raise ValueError(
+            "pack_trained_params bit-identity check failed — packed "
+            "logits diverge from the trained float-boundary forward on "
+            f"the probe batch: {bad} (engine -> #differing logits). "
+            "The exported model would not serve what was trained.")
+    return out
+
+
 # --- sign-form checkpoint (format "bnn-sign-v1" of repro.core.bnn) ---------
-# 1 bit per weight (np.packbits of w >= 0) plus float32 biases and BN
-# buffers. Loading gives ±1.0 latent weights, whose forward is
-# bit-identical to the trained model's.
+# A trained BNN's forward depends on its latent weights only through
+# their sign, so the checkpoint for serving stores 1 bit per weight
+# (np.packbits of w >= 0) plus float32 biases and BN buffers, ~32x
+# smaller than the latents. Loading gives ±1.0 latent weights, whose
+# forward is bit-identical to the trained model's (sign(sign(w)) ==
+# sign(w) with sign(0) := +1). Not for resuming training: the latent
+# magnitudes are gone (checkpoint/manager.py keeps them).
 
 BINARY_CKPT_FORMAT = "bnn-sign-v1"
+
+
+def save_binary_checkpoint(path, params: dict) -> None:
+    """Write the sign-form checkpoint (``.npz``) of latent params."""
+    arrays: dict[str, Any] = {"format": np.asarray(BINARY_CKPT_FORMAT)}
+
+    def host(t) -> np.ndarray:
+        return t.detach().cpu().numpy()
+
+    for group in ("conv", "fc"):
+        for i, p in enumerate(params[group]):
+            w = host(p["w"])
+            arrays[f"{group}{i}/w_bits"] = np.packbits((w >= 0).reshape(-1))
+            arrays[f"{group}{i}/w_shape"] = np.asarray(w.shape)
+            if "b" in p:
+                arrays[f"{group}{i}/b"] = host(p["b"]).astype(np.float32)
+    for group in ("bn_conv", "bn_fc"):
+        for i, bn in enumerate(params[group]):
+            for k, v in bn.items():
+                arrays[f"{group}{i}/{k}"] = host(v).astype(np.float32)
+    np.savez_compressed(path, **arrays)
 
 
 def load_binary_checkpoint(path, *, device=None) -> dict:

@@ -10,6 +10,9 @@ K not a multiple of the tile; for the scan ragged chunks, channels and
 states, and chunk views; for flash attention ragged and unequal Sq and
 Skv, odd BH, every compiled head width, bf16 and float32; for the mLSTM
 chunks of 16 to 256 steps, dk and dv not multiples of the tile).
+The BNN's train-to-serve loop on the card: a 20-step ``train_bnn`` that
+resumes bit for bit, its export verified on every engine, and every eval
+forward computing the first conv alike at batches 1 to 128.
 Bit-exact, but for ``unpack_gemm`` on real input, the scan, flash
 attention and the mLSTM (tolerances at the tests). The grad guard of the
 wrappers and the smoke LM losses on the card against the CPU are here
@@ -28,7 +31,7 @@ import torch
 from repro_torch.core import bitops, layers
 from repro_torch.kernels import ops
 
-from torch_parity import bf16_ulp, pm1, words
+from torch_parity import CKPT, bf16_ulp, pm1, words
 
 pytestmark = pytest.mark.cuda
 
@@ -838,3 +841,112 @@ def test_smoke_lm_loss_matches_the_cpu(dev, arch, seq):
         launched = ops.LAUNCHES[name] - before
         assert launched == (0 if d == "cpu" else per_forward)
     assert np.allclose(losses[str(dev)], losses["cpu"], rtol=1e-4, atol=1e-4), losses
+
+
+# ------------------------- the BNN train-to-serve loop -------------------------
+
+
+@pytest.fixture(scope="module")
+def bnn_run(tmp_path_factory):
+    """A 20-step ``train_bnn`` at batch 32 on the card with checkpoints
+    every 10 steps, and its rerun after the last checkpoint is deleted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import shutil
+
+    from repro_torch.train.bnn_trainer import BNNTrainerConfig, train_bnn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d = tmp_path_factory.mktemp("bnn_ckpt")
+    cfg = BNNTrainerConfig(steps=20, batch=32, warmup_steps=2, eval_batches=1,
+                           checkpoint_dir=str(d), checkpoint_every=10)
+    full = train_bnn(cfg, device="cuda")
+    shutil.rmtree(d / f"step_{cfg.steps:08d}")
+    resumed = train_bnn(cfg, device="cuda")
+    return cfg, full, resumed
+
+
+def test_train_bnn_on_the_card_learns_and_resumes_bit_identically(bnn_run):
+    """As ``tests/test_train.py``'s trainer cases: step 1 is live, the loss
+    falls, latents stay in [-1, 1], running BN statistics move, the last
+    checkpoint validates; and a run resumed from step 10 ends with every
+    param and optimizer leaf bit-identical."""
+    from repro_torch import tree
+
+    cfg, full, resumed = bnn_run
+    assert full.start_step == 0 and resumed.start_step == 10
+    assert full.history["lr_scale"][0] > 0.0
+    assert np.mean(full.history["loss"][10:]) < full.history["loss"][0] - 0.5
+    for group in ("conv", "fc"):
+        for layer in full.params[group]:
+            assert layer["w"].is_cuda and float(layer["w"].abs().max()) <= 1.0
+    assert bool((full.params["bn_conv"][0]["mean"] != 0).any())
+    assert resumed.history["loss"] == full.history["loss"][10:]
+    for a, b in zip(tree.leaves((full.params, full.opt_state)),
+                    tree.leaves((resumed.params, resumed.opt_state))):
+        assert torch.equal(a, b)
+
+
+def test_export_of_weights_trained_on_the_card(bnn_run):
+    """``pack_trained_params`` on the card's trained latents: every engine
+    (the kernels: fused xnor both convs, the megakernels) bit-identical
+    to the float-boundary forward on 64 held-out images, with and without
+    the XNOR-Net alpha; each kernel of those paths launched."""
+    from repro_torch.core.bnn import pack_trained_params
+    from repro_torch.data.pipeline import DataConfig, cifar_batch_at
+
+    cfg, full, _ = bnn_run
+    probe = cifar_batch_at(DataConfig(seed=cfg.data_seed, global_batch=64),
+                           cfg.steps + 1)["images"].cuda()
+    for use_scale in (False, True):
+        ops.reset_launches()
+        out = pack_trained_params(full.params, use_scale=use_scale,
+                                  probe_images=probe)
+        assert set(out) == {"packed", "fused", "megakernel"}
+        for name in ("fused_xnor_gemm", "fused_direct_conv", "xnor_gemm",
+                     "megakernel_conv_stage", "megakernel_chain"):
+            assert ops.LAUNCHES[name] > 0, name
+
+
+@pytest.mark.parametrize("weights", ["random", "trained"])
+def test_eval_forwards_compute_the_first_conv_alike(dev, weights):
+    """On CUDA every eval forward runs the first conv as the engines do
+    (``core.bnn._first_conv``: its GEMM in fixed chunks of images), so
+    the float-boundary forward, PACKED ``bnn_apply`` and the fused and
+    megakernel engines give equal logits on 256 images served in batches
+    of 1, 8, 32 and 128. One GEMM of the whole batch rounds its sums by
+    shape: on these images and the random weights (``chip_smoke.py``
+    phase 4a's) it flips 4 of their 1,048,576 first-conv words at
+    batches 8, 32 and 128."""
+    from repro_torch.core.binarize import QuantMode
+    from repro_torch.core.bnn import (BNNConfig, bnn_apply, bnn_apply_fused,
+                                      bnn_apply_megakernel, bnn_eval_logits,
+                                      init_bnn_params, load_binary_checkpoint,
+                                      pack_bnn_params, pack_bnn_params_fused,
+                                      pack_bnn_params_megakernel)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    latent = (init_bnn_params(0, device=dev) if weights == "random"
+              else load_binary_checkpoint(CKPT, device=dev))
+    packed, fused = pack_bnn_params(latent), pack_bnn_params_fused(latent)
+    mega = pack_bnn_params_megakernel(latent)
+    images = cu(np.random.default_rng(42).normal(size=(256, 32, 32, 3)).astype(
+        np.float32), dev)
+    with torch.no_grad():
+        for n, i in ((n, i) for n in (1, 8, 32, 128) for i in range(0, 256, n)):
+            x = images[i:i + n]
+            want = bnn_eval_logits(latent, x)
+            got = {
+                "packed/xla": bnn_apply(packed, x, BNNConfig(
+                    mode=QuantMode.PACKED, engine="xla")),
+                "packed/xnor": bnn_apply(packed, x, BNNConfig(
+                    mode=QuantMode.PACKED, engine="xnor")),
+                "fused/xnor": bnn_apply_fused(fused, x, engine="xnor",
+                                              conv_impl="direct"),
+                "fused/xla": bnn_apply_fused(fused, x, engine="xla"),
+                "megakernel": bnn_apply_megakernel(mega, x),
+            }
+            bad = {k: int((v != want).sum()) for k, v in got.items()
+                   if not torch.equal(v, want)}
+            assert not bad, f"batch {n} at image {i}: logits differing {bad}"
