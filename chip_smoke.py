@@ -126,6 +126,17 @@
    the ``xnor``/direct and continuous megakernel engines, each equal to
    the float-boundary forward of its images alone. The phase's launches
    are the path ``bnn_train_export``.
+9. The BNN served over a mesh of replicas (``mesh_phase``): every card
+   when there are two or more, else 4 replicas sharing the card, each with
+   its own stream, graph pool and CUDA graphs. The xnor/direct bucket
+   engine serves 12 requests bit-identical to the single-device ``xla``
+   forward, with exactly k x the path's kernels a forward; the continuous
+   megakernel engine loses replica 1 at dispatch 2 (an injected
+   ``device_loss``), shrinks to the survivors and re-dispatches, then
+   shrinks again when replica 1 stops beating, every answer bit-identical
+   and none failed; a batch-32 dispatch through k graphs and through one
+   is timed on the host clock. The phase's launches are the path
+   ``bnn_serve_mesh``.
 
 Last, prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``.
 
@@ -2658,6 +2669,286 @@ def train_phase(dev) -> dict:
     return result
 
 
+# Phase 9: replicas of one card when it is alone; the heartbeat timeout on
+# the phase's fake clock, and the host-clock reps of its dispatch times.
+MESH_REPLICAS_ON_ONE_CARD = 4
+HEARTBEAT_S = 10.0
+MESH_TIME_REPS = 50
+
+
+class FakeClock:
+    """An engine clock that moves only when told to."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        self.t += dt
+
+
+def mesh_phase(dev) -> dict:
+    """Phase 9: the BNN served over a mesh of replicas on the trained
+    checkpoint. The mesh is every visible card when there are at least
+    two, else ``MESH_REPLICAS_ON_ONE_CARD`` replicas sharing the card, each
+    with its own stream, graph pool and graphs.
+
+    (a) ``ServingEngine(engine="xnor", conv_impl="direct", mesh=)``: its
+    ladder is ``mesh_buckets(DEFAULT_BUCKETS, k)``, warmup builds one
+    executor a rung, 12 requests of 1-8 images each equal, bit for bit,
+    the single-device ``xla`` forward of its images alone on the card; the
+    launch counts, 0 just before the engine is built, are k x the path's
+    kernels for every forward of warmup (each rung's eager run before its
+    capture and one replay) and every dispatched batch; no failover, no
+    shrink. (b) The continuous ``megakernel`` engine on the same mesh with
+    a ``device_loss`` of replica 1 at dispatch 2, on a fake clock: the
+    batch in flight is re-dispatched on the survivors (k/2), every answer
+    stays bit-identical, the snapshot reads one shrink and no failed
+    request, the extents are multiples of the survivor count and traffic
+    builds no executor; then replica 1 stops beating past
+    ``HEARTBEAT_S`` and the next ``step()`` shrinks the mesh again; the
+    launch counts match every forward on the mesh of its time. Counts of
+    (a) and (b) are the path ``bnn_serve_mesh``. (c) Host-clock times of
+    a batch-32 dispatch through the meshed xnor/direct executors (k
+    graphs, launched then collected) beside the unmeshed one (one graph of
+    32 rows), and of each shrink's re-warm: a record, not a claim (on one
+    card the replicas share its SMs)."""
+    from repro_torch.core.bnn import (load_binary_checkpoint,
+                                      pack_bnn_params_fused,
+                                      pack_bnn_params_megakernel)
+    from repro_torch.distributed.fault_tolerance import serving_shrink_plan
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import ServingMesh
+    from repro_torch.launch.serve_bnn import random_requests
+    from repro_torch.serve import (DEFAULT_BUCKETS, ContinuousServingEngine,
+                                   ExecutorCache, FaultPlan, FaultSpec,
+                                   ServingEngine, is_error, mesh_buckets)
+
+    cards = torch.cuda.device_count()
+    mesh = ServingMesh(tuple(torch.device("cuda", i) for i in range(cards))
+                       if cards >= 2 else (dev,) * MESH_REPLICAS_ON_ONE_CARD)
+    k = len(mesh)
+    print(f"  mesh: {k} replicas on {len(set(mesh.devices))} card(s) "
+          f"({', '.join(map(str, mesh.devices))})", flush=True)
+    latent = load_binary_checkpoint(CKPT, device=dev)
+    packed = pack_bnn_params_fused(latent)
+    mega = pack_bnn_params_megakernel(latent)
+    requests = random_requests(np.random.default_rng(9), count=12, max_images=8)
+    wants = [wants_of(packed, r, dev) for r in requests]
+    result = {"replicas": k, "cards": len(set(mesh.devices)),
+              "requests": len(requests),
+              "images": sum(r.shape[0] for r in requests)}
+
+    def serve(eng, label: str, picked: range) -> None:
+        rids = []
+        for i in picked:
+            rids.append(eng.submit(requests[i]))
+            eng.step()
+        eng.drain()
+        for i, rid in zip(picked, rids):
+            got = eng.take(rid)
+            if got is None or is_error(got):
+                fail(f"mesh {label}: request {i} has no logits: {got}")
+            if not np.array_equal(got, wants[i]):
+                fail(f"mesh {label}: request {i} differs from the "
+                     "single-device xla forward (max abs "
+                     f"{np.abs(got - wants[i]).max()})")
+
+    def forwards_launch(path: str, forwards: int) -> dict:
+        return {name: n * forwards
+                for name, n in launches_per_forward(path).items()}
+
+    # (a) The bucket engine. This path's counts: 0 just before its engine.
+    ops.reset_launches()
+    t0 = time.monotonic()
+    eng = ServingEngine(packed, engine="xnor", conv_impl="direct",
+                        max_wait_s=0.0, mesh=mesh)
+    ladder = mesh_buckets(DEFAULT_BUCKETS, k)
+    if eng.batcher.buckets != ladder:
+        fail(f"mesh bucket ladder {eng.batcher.buckets}, expected {ladder}")
+    if eng.warmup() != len(ladder):
+        fail(f"mesh warmup built {eng.executors.size} executors for {ladder}")
+    result["bucket_warmup_s"] = time.monotonic() - t0
+    serve(eng, "xnor/direct", range(len(requests)))
+    torch.cuda.synchronize()
+    snap = eng.snapshot()
+    forwards = k * (2 * len(ladder) + snap["batches"]["dispatched"])
+    counts = dict(ops.LAUNCHES)
+    if counts != forwards_launch("direct", forwards):
+        fail(f"mesh xnor/direct: launches {counts} over {forwards} replica "
+             f"forwards, expected {forwards_launch('direct', forwards)}")
+    if (snap["degraded"] or snap["mesh"]["shrinks"]
+            or snap["executors"]["compiles"] != len(ladder)):
+        fail(f"mesh xnor/direct: failover, shrink or build under traffic: "
+             f"{snap['dispatch']} {snap['mesh']} {snap['executors']}")
+    eng.executors.release()
+    result["bucket"] = {"ladder": list(ladder), "forwards": forwards,
+                        "launches": counts,
+                        "per_bucket": snap["batches"]["per_bucket"]}
+    print(f"  mesh xnor/direct bucket engine: ladder {list(ladder)}, "
+          f"{len(requests)} requests ({result['images']} images) "
+          f"bit-identical to the single-device xla forward; {forwards} "
+          f"replica forwards launched {counts}; warmup "
+          f"{result['bucket_warmup_s']:.2f} s", flush=True)
+
+    # (b) The continuous megakernel engine: a loss, then a silent replica.
+    clk = FakeClock()
+    eng = ContinuousServingEngine(
+        mega, engine="megakernel", max_wait_s=0.0, mesh=mesh,
+        heartbeat_timeout_s=HEARTBEAT_S, clock=clk,
+        faults=FaultPlan([FaultSpec("device_loss", at=2, device=1)],
+                         sleep=clk.advance))
+    ladders = [(k, eng.extents)]
+    eng.warmup()
+    rewarm_s = []
+    warmup = eng.warmup
+
+    def timed_warmup() -> int:
+        t = time.monotonic()
+        built = warmup()
+        torch.cuda.synchronize()
+        rewarm_s.append(time.monotonic() - t)
+        ladders.append((eng.executors.devices, eng.extents))
+        return built
+
+    eng.warmup = timed_warmup   # the shrink re-warms through this
+    serve(eng, "megakernel, device loss", range(6))
+    snap = eng.snapshot()
+    survivors = serving_shrink_plan(k - 1)
+    if (snap["mesh"] != {"shrinks": 1, "devices": survivors}
+            or snap["requests"]["failed"] or not snap["degraded"]):
+        fail(f"mesh device loss: snapshot mesh {snap['mesh']}, requests "
+             f"{snap['requests']}, degraded {snap['degraded']}")
+    if any(e % survivors for e in eng.extents):
+        fail(f"mesh device loss: extents {eng.extents} on {survivors} devices")
+    built = snap["executors"]["compiles"]
+    serve(eng, "megakernel, shrunk", range(6, 9))
+    if eng.snapshot()["executors"]["compiles"] != built:
+        fail("mesh device loss: an executor was built under traffic")
+    shrunk_until = eng.snapshot()["batches"]["dispatched"]
+    if survivors > 1:
+        clk.advance(HEARTBEAT_S / 2)
+        for d in range(survivors):
+            if d != 1:
+                eng.beat(d)
+        clk.advance(HEARTBEAT_S * 0.75)     # replica 1 silent past the timeout
+    serve(eng, "megakernel, heartbeat", range(9, len(requests)))
+    torch.cuda.synchronize()
+    snap = eng.snapshot()
+    last = serving_shrink_plan(survivors - 1) if survivors > 1 else survivors
+    if (snap["mesh"]["devices"] != last or snap["requests"]["failed"]
+            or snap["requests"]["completed"] != len(requests)):
+        fail(f"mesh heartbeat: snapshot mesh {snap['mesh']}, requests "
+             f"{snap['requests']}")
+    # Every forward on the mesh of its time: k at warmup and for the two
+    # dispatches before the loss (the lost one launched nothing), then the
+    # survivors' re-warm and dispatches, then the last mesh's.
+    (k0, e0), (k1, e1) = ladders[0], ladders[1]
+    forwards = k0 * (2 * len(e0) + 2) + k1 * 2 * len(e1)
+    if len(ladders) > 2:
+        k2, e2 = ladders[2]
+        forwards += (k1 * (shrunk_until - 2) + k2 * 2 * len(e2)
+                     + k2 * (snap["batches"]["dispatched"] - shrunk_until))
+    else:
+        forwards += k1 * (snap["batches"]["dispatched"] - 2)
+    mega_counts = {name: ops.LAUNCHES[name] - counts[name] for name in counts}
+    if mega_counts != forwards_launch("megakernel", forwards):
+        fail(f"mesh megakernel: launches {mega_counts} over {forwards} "
+             f"replica forwards, expected "
+             f"{forwards_launch('megakernel', forwards)}")
+    eng.executors.release()
+    result["launches"] = dict(ops.LAUNCHES)
+    result["continuous"] = {
+        "meshes": [n for n, _ in ladders],
+        "extents": [list(e) for _, e in ladders], "forwards": forwards, "launches": mega_counts, "rewarm_s": rewarm_s,
+        "snapshot_mesh": snap["mesh"], "per_bucket": snap["batches"]["per_bucket"]}
+    print(f"  mesh megakernel continuous engine: meshes "
+          f"{' -> '.join(str(n) for n, _ in ladders)} (device loss at "
+          f"dispatch 2, then replica 1 silent past {HEARTBEAT_S:.0f} s), "
+          f"extents {[list(e) for _, e in ladders]}; {len(requests)} requests "
+          f"bit-identical, 0 failed; re-warm "
+          f"{', '.join(f'{t:.3f}' for t in rewarm_s)} s (host clock); "
+          f"{forwards} replica forwards launched {mega_counts}", flush=True)
+
+    # (c) A batch-32 dispatch, meshed and not, on the host clock; beside
+    # it the replays alone by CUDA events: the replicas' graphs on their
+    # own streams, the same graphs one after another on one stream, and
+    # the one graph of 32 rows.
+    x = np.random.default_rng(10).normal(size=(BATCH, 32, 32, 3)).astype(
+        np.float32)
+    replays = {}
+    for name, cache in (("mesh", ExecutorCache(packed, engine="xnor",
+                                               conv_impl="direct", mesh=mesh)),
+                        ("single", ExecutorCache(packed, engine="xnor",
+                                                 conv_impl="direct"))):
+        ex = cache.get(BATCH)
+        got = ex(x)
+        if not np.array_equal(got, ex(x)) or not np.array_equal(
+                got, wants_of(packed, x, dev)):
+            fail(f"mesh timing {name}: a dispatch differs from the forward")
+        times = []
+        for _ in range(MESH_TIME_REPS):
+            t = time.perf_counter()
+            ex(x)
+            times.append(time.perf_counter() - t)
+        result[f"dispatch_b32_{name}_ms"] = statistics.median(times) * 1e3
+        graphs = [(e.graph, e.stream) for e in getattr(ex, "replicas", [ex])]
+        replays[name] = replays_ms(dev, graphs)
+        if name == "mesh":
+            replays["mesh_one_stream"] = replays_ms(
+                dev, [(g, None) for g, _ in graphs])
+        cache.release()
+    result["replay_b32_ms"] = replays
+    print(f"  batch {BATCH} dispatch (host clock, copies in and out "
+          f"included, median of {MESH_TIME_REPS}): {k} graphs of "
+          f"{BATCH // k} rows launched then collected "
+          f"{result['dispatch_b32_mesh_ms']:.3f} ms, one graph of {BATCH} "
+          f"rows {result['dispatch_b32_single_ms']:.3f} ms; replays alone "
+          f"(CUDA events): {k} graphs on their streams "
+          f"{replays['mesh']:.3f} ms, on one stream "
+          f"{replays['mesh_one_stream']:.3f} ms, one graph "
+          f"{replays['single']:.3f} ms", flush=True)
+    return result
+
+
+def wants_of(packed: dict, x: np.ndarray, dev) -> np.ndarray:
+    """The single-device ``xla`` forward of ``x`` on the card."""
+    from repro_torch.core.bnn import bnn_apply_fused
+
+    with torch.inference_mode():
+        return bnn_apply_fused(packed, torch.from_numpy(x).to(dev),
+                               engine="xla", conv_impl="direct").cpu().numpy()
+
+
+def replays_ms(dev, graphs: list, iters: int = 20, reps: int = 5) -> float:
+    """Device time of one round of ``graphs`` (``[(graph, stream or
+    None)]``): each replayed ``iters`` times on its stream (the current
+    one for None), every stream starting after one event and the current
+    stream waiting for all before the next, by CUDA events (median of
+    ``reps``, divided by ``iters``)."""
+    cur = torch.cuda.current_stream(dev)
+    streams = [stream or cur for _, stream in graphs]
+    times = []
+    for _ in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(cur)
+        for stream in streams:
+            stream.wait_stream(cur)
+        for (graph, _), stream in zip(graphs, streams):
+            with torch.cuda.stream(stream):
+                for _ in range(iters):
+                    graph.replay()
+        for stream in streams:
+            cur.wait_stream(stream)
+        end.record(cur)
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times[1:])
+
+
 KERNELS = {
     "xnor_gemm": ("src/repro_torch/kernels/csrc/xnor_gemm.cu",
                   "src/repro/kernels/xnor_gemm.py:105"),
@@ -2779,6 +3070,9 @@ def main() -> None:
     print("phase 8: the BNN trained, resumed, exported and served on the card",
           flush=True)
     train = train_phase(dev)
+    print("phase 9: the BNN served over a mesh of replicas, with a device "
+          "loss and a silent heartbeat", flush=True)
+    mesh = mesh_phase(dev)
     jamba_launches = dict(jamba["launches"]["prefill"])
     for counts in jamba["launches"]["decode"]:
         for name, n in counts.items():
@@ -2786,7 +3080,8 @@ def main() -> None:
     launches = {**serve["launches"], **table2["launches"],
                 "jamba_serve": jamba_launches,
                 **{f"{arch}_loss": r["launches"] for arch, r in lm.items()},
-                "bnn_train_export": train["launches"]}
+                "bnn_train_export": train["launches"],
+                "bnn_serve_mesh": mesh["launches"]}
     for name in KERNELS:
         if not sum(path[name] for path in launches.values()):
             fail(f"kernel {name} was not launched on the main path")
@@ -2797,6 +3092,7 @@ def main() -> None:
          "build_s": info["seconds"], "xnor_loops": xnor_loops, "shapes": rows,
          "serve": serve,
          "table2": table2, "jamba": jamba, "lm_loss": lm, "train": train,
+         "mesh": mesh,
          "totals": totals},
         indent=2))
 

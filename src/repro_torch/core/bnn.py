@@ -480,7 +480,8 @@ SERVE_FALLBACKS = {
 
 
 def bnn_serve_fn(*, engine: str = "xla", conv_impl: str = "im2col",
-                 blocks: object = AUTO, ragged: bool = False):
+                 blocks: object = AUTO, ragged: bool = False,
+                 mesh: object = None):
     """The serving entry point: a ``(packed, images) -> logits`` callable
     over :func:`bnn_apply_fused`, or :func:`bnn_apply_megakernel` for the
     megakernel engines (which ignore ``conv_impl``: their convs are
@@ -489,7 +490,17 @@ def bnn_serve_fn(*, engine: str = "xla", conv_impl: str = "im2col",
     continuous scheduler's executors) sends the megakernel FC trunk
     through the masked-tail path; the other engines are exact-shape and
     ignore it. The serving executors capture one CUDA graph of it per
-    batch shape (``serve.executor``)."""
+    batch shape (``serve.executor``).
+
+    ``mesh`` (a ``launch.mesh.ServingMesh``, DESIGN.md §10) makes it a
+    ``(replicas, images) -> logits`` callable, ``replicas`` from
+    ``distributed.sharding.replicate(packed, mesh)``: the batch splits
+    into one contiguous shard a device (``ValueError`` when the rows do
+    not divide the mesh, as ``shard_map`` raises), every shard is
+    launched on its replica before any is collected, and the logits are
+    gathered on the host in mesh order. Each shard runs the
+    single-device forward, so the logits equal the unsharded forward's
+    bit for bit."""
     if engine not in SERVE_ENGINES:
         raise ValueError(f"unknown serving engine {engine!r}; "
                          f"expected one of {SERVE_ENGINES}")
@@ -508,7 +519,18 @@ def bnn_serve_fn(*, engine: str = "xla", conv_impl: str = "im2col",
                 return bnn_apply_fused(packed, images, engine=engine,
                                        conv_impl=conv_impl, blocks=blocks)
 
-    return apply_fn
+    if mesh is None:
+        return apply_fn
+
+    from repro_torch.distributed.sharding import shard_rows
+
+    def sharded_fn(replicas: list, images: torch.Tensor) -> torch.Tensor:
+        shards = images.split(shard_rows(images.shape[0], len(mesh)))
+        outs = [apply_fn(p, x.to(d, non_blocking=True))
+                for p, x, d in zip(replicas, shards, mesh.devices)]
+        return torch.cat([y.cpu() for y in outs])
+
+    return sharded_fn
 
 
 @torch.no_grad()

@@ -1,0 +1,88 @@
+"""The packed-BNN serving mesh (DESIGN.md §10): an ordered tuple of
+devices on one ``"data"`` axis, driven by one process.
+
+The JAX package serves on a ``jax.sharding.Mesh`` from one controller:
+packed weights replicated, the batch sharded, a collective-free forward
+(``bnn_serve_fn(mesh=)``). The port's counterpart is a list of devices in
+one process: one replica of the packed weights on each, a batch split into
+one contiguous shard a replica, every shard launched before any result is
+collected (``distributed.sharding``, ``serve.executor``). No process group
+and no collective is needed.
+
+On the CPU a mesh of ``n`` entries ``cpu:0 .. cpu:n-1`` is the counterpart
+of the JAX package's forced host devices: every entry is the CPU, and the
+shards run one after another through the plain-torch twins.
+
+The LM dry-run's ``make_production_mesh`` is not ported (ROADMAP A6d).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.bnn import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingMesh:
+    """A 1-D ``("data",)`` serving mesh: ``devices`` in mesh order.
+
+    Any non-empty sequence of CUDA devices, or of CPU devices, is
+    accepted, repeats included (as ``jax.sharding.Mesh`` takes any device
+    array): several replicas may share one card, each with its own
+    stream, graph pool and graphs. A mix of CUDA and CPU devices raises.
+    """
+
+    devices: tuple
+
+    def __post_init__(self):
+        devs = tuple(torch.device(d) for d in self.devices)
+        if not devs:
+            raise ValueError("a serving mesh needs >= 1 device")
+        kinds = {d.type for d in devs}
+        if len(kinds) > 1 or not kinds <= {"cuda", "cpu"}:
+            raise ValueError("a serving mesh holds CUDA devices or CPU "
+                             f"devices, not {sorted(map(str, devs))}")
+        if "cuda" in kinds:
+            devs = tuple(d if d.index is not None else torch.device(
+                "cuda", torch.cuda.current_device()) for d in devs)
+        object.__setattr__(self, "devices", devs)
+
+    @property
+    def shape(self) -> dict:
+        return {"data": len(self.devices)}
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+
+def make_serving_mesh(n_devices: Optional[int] = None, *,
+                      device=None) -> ServingMesh:
+    """The serving mesh over the first ``n_devices`` devices of a kind.
+
+    CUDA unless ``device`` names the CPU (``core.bnn.resolve_device``,
+    which raises when CUDA is asked for and absent): the first
+    ``n_devices`` visible cards, all of them by default; ``ValueError``
+    for ``n_devices < 1`` and ``RuntimeError`` when fewer cards exist,
+    as the JAX package's ``make_serving_mesh``. On the CPU, ``n_devices``
+    entries ``cpu:0 ..`` for any ``n_devices`` (default 1). No device
+    repeats."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        have = torch.cuda.device_count()
+        n = have if n_devices is None else int(n_devices)
+    else:
+        have = None
+        n = 1 if n_devices is None else int(n_devices)
+    if n < 1:
+        raise ValueError(f"serving mesh needs >= 1 device, got {n}")
+    if have is not None and have < n:
+        raise RuntimeError(f"need {n} CUDA devices for the serving mesh, "
+                           f"have {have}")
+    return ServingMesh(tuple(torch.device(dev.type, i) for i in range(n)))
+
+
+__all__ = ["ServingMesh", "make_serving_mesh"]

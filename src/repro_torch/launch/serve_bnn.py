@@ -8,7 +8,10 @@ admission control (``--max-queue-rows``) and an SLO-aware wait
 per-layer fused chain, ``megakernel``/``megakernel_xla`` one launch per
 network stage (``--conv-impl`` then does not apply: those convs are
 direct). ``--fallback on`` arms the bit-identical demotion ladder,
-holding both param packings for a megakernel engine.
+holding both param packings for a megakernel engine. ``--devices N``
+serves on a mesh of the first ``N`` devices (``launch.mesh``): the packed
+weights replicated on each, every batch split across them, one process
+driving them all; with ``--device cpu`` they are ``N`` CPU entries.
 ``--blocks tuned`` serves the tiling that
 ``repro_torch.serve.tuning.tune_serving_blocks`` stored in the autotune
 cache (``$REPRO_AUTOTUNE_CACHE``), probing the buckets largest first;
@@ -39,6 +42,8 @@ and absent. Weights are random, from ``--seed``.
       --scheduler continuous --engine megakernel --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve_bnn --sustained \
       --scheduler continuous --engine megakernel --rate 200 --duration 3
+  PYTHONPATH=src python -m repro_torch.launch.serve_bnn --smoke \
+      --devices 8 --device cpu
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from repro_torch.core.bnn import (SERVE_ENGINES, bnn_apply_fused,
                                   pack_bnn_params_fused,
                                   pack_bnn_params_megakernel, resolve_device)
 from repro_torch.kernels.autotune import AUTO
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.serve import (DEFAULT_BUCKETS, ContinuousServingEngine,
                                FallbackPolicy, QueueFull, RetryPolicy,
                                ServingEngine, is_error, load_serving_blocks)
@@ -79,6 +85,11 @@ def serving_blocks(args):
 
 def build_engine(args, *, clock=time.monotonic) -> ServingEngine:
     device = resolve_device(args.device)
+    mesh = None
+    if args.devices > 1:
+        mesh = make_serving_mesh(args.devices, device=device)
+        print(f"serving mesh: {args.devices} devices, 1-D data axis "
+              "(weights replicated, batch sharded)")
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -99,7 +110,7 @@ def build_engine(args, *, clock=time.monotonic) -> ServingEngine:
                     if args.deadline_ms is not None else None),
         # --max-retries counts re-dispatches; the policy counts attempts
         retry=RetryPolicy(max_attempts=args.max_retries + 1),
-        fallback=fallback, clock=clock)
+        mesh=mesh, fallback=fallback, clock=clock)
     if args.scheduler == "continuous":
         return ContinuousServingEngine(
             packed, max_rows=args.max_rows,
@@ -234,6 +245,15 @@ def run_sustained(args, *, clock=time.monotonic) -> dict:
         print(f"SLO {snap['slo']['slo_s'] * 1e3:.1f} ms: goodput "
               f"{snap['slo']['goodput_images_per_s']:.1f} img/s "
               f"({snap['slo']['images_within_slo']} images within it)")
+    req, disp = snap["requests"], snap["dispatch"]
+    if (req["expired"] or req["failed"] or disp["retries"]
+            or snap["degraded"]):
+        print(f"resilience: {req['expired']} expired, {req['failed']} "
+              f"failed, {disp['retries']} batch retries, "
+              f"{disp['fallbacks']} fallbacks "
+              f"({' '.join(disp['engine_path']) or 'none'}), "
+              f"{snap['mesh']['shrinks']} mesh shrinks | "
+              f"degraded={snap['degraded']}")
     print(json.dumps(snap, indent=2))
     snap["check"] = check_results(eng, submitted, results, args)
     snap["check"].update(rejected=rejected, warmup_built=n_built)
@@ -295,6 +315,10 @@ def make_parser() -> argparse.ArgumentParser:
                     help="sustained: seconds of traffic")
     ap.add_argument("--max-images", type=int, default=8,
                     help="images per request ~ U{1..max}")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="serve on a mesh of the first N devices of the "
+                         "--device kind: weights replicated, every batch "
+                         "split across them")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     ap.add_argument("--seed", type=int, default=0)

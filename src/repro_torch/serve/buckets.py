@@ -33,6 +33,20 @@ def normalize_buckets(buckets: Sequence[int]) -> tuple[int, ...]:
     return tuple(out)
 
 
+def mesh_buckets(buckets: Sequence[int], devices: int) -> tuple[int, ...]:
+    """The ladder a meshed engine serves: every rung rounded up to a
+    multiple of ``devices``, then normalized (rungs that collapse merge),
+    so each dispatched batch splits into equal shards across the serving
+    mesh. With 8 devices the default 1/8/32/128 ladder becomes 8/32/128:
+    light traffic pays at most ``devices - 1`` zero pad rows a dispatch,
+    the price of a forward without collectives."""
+    if devices < 1:
+        raise ValueError(f"devices must be >= 1, got {devices}")
+    if devices == 1:
+        return normalize_buckets(buckets)
+    return normalize_buckets(-(-int(b) // devices) * devices for b in buckets)
+
+
 def bucket_for(n: int, buckets: Sequence[int]) -> int:
     """Smallest bucket >= n. ``n`` must not exceed the largest bucket
     (the micro-batcher never assembles more rows than that)."""
@@ -59,5 +73,5 @@ def pad_to_bucket(images: np.ndarray, bucket: int) -> np.ndarray:
     return np.concatenate([np.asarray(images), pad], axis=0)
 
 
-__all__ = ["DEFAULT_BUCKETS", "normalize_buckets", "bucket_for",
-           "pad_to_bucket"]
+__all__ = ["DEFAULT_BUCKETS", "mesh_buckets", "normalize_buckets",
+           "bucket_for", "pad_to_bucket"]

@@ -1,5 +1,6 @@
 """Continuous-batching scheduler: ragged coalescing over the
-variable-extent megakernel (DESIGN.md §9), on one device.
+variable-extent megakernel (DESIGN.md §9), on one device or a serving
+mesh.
 
 The bucket ladder pads every dispatch to a fixed rung (1/8/32/128). This
 scheduler instead admits, on each ``step()``, whatever requests are
@@ -23,9 +24,10 @@ Policy beyond the ladder's:
 Every request served here yields logits bit-identical to its exact-shape
 forward: pad rows are zero images and samples are independent, and the
 masked tail leaves real columns unchanged (``tests/test_torch_continuous.py``).
-On CUDA each extent class is one captured CUDA graph (``serve.executor``).
-The JAX engine's mesh, heartbeat and elastic shrink are not ported (one
-device; no ``"mesh"`` part in the snapshot).
+On CUDA each extent class is one captured CUDA graph (``serve.executor``),
+one a replica on a mesh. On a mesh the extent classes are device
+multiples (``extent_for(..., devices=)``), recomputed after an elastic
+shrink.
 """
 
 from __future__ import annotations
@@ -158,6 +160,11 @@ class ContinuousServingEngine(ServingEngine):
     dispatch, ``max_queue_rows`` admission (:class:`QueueFull`),
     ``slo_s`` arms the SLO-aware wait and the snapshot's goodput.
     ``warmup`` builds every class of ``default_extents(max_rows)``.
+
+    ``mesh`` shards every dispatch across a serving mesh: the classes
+    become ``default_extents(max_rows, devices=k)``, so a 3-row batch on
+    8 devices runs at extent 8 and hands back 3 rows; ``mesh`` and
+    ``heartbeat_timeout_s`` mean what they mean for the bucket engine.
     """
 
     def __init__(
@@ -172,10 +179,12 @@ class ContinuousServingEngine(ServingEngine):
         max_queue_rows: Optional[int] = None,
         slo_s: Optional[float] = None,
         slo_headroom: float = 0.5,
+        mesh: object = None,
         deadline_s: Optional[float] = None,
         retry=None,
         fallback=None,
         faults=None,
+        heartbeat_timeout_s: Optional[float] = None,
         clock: Callable[[], float] = time.monotonic,
     ):
         # Not super().__init__: the base builds a bucket batcher and cache.
@@ -189,9 +198,10 @@ class ContinuousServingEngine(ServingEngine):
             slo_headroom=slo_headroom, clock=clock)
         self.executors = RaggedExecutorCache(
             packed_params, engine=engine, conv_impl=conv_impl, blocks=blocks,
-            stats=self.stats)
-        self.extents = default_extents(max_rows, tile=self.executors.tile)
-        self._init_resilience(deadline_s, retry, fallback, faults)
+            mesh=mesh, stats=self.stats)
+        self._on_remesh()
+        self._init_resilience(deadline_s, retry, fallback, faults,
+                              heartbeat_timeout_s)
 
     def _warm_shapes(self):
         """Extent classes instead of bucket rungs, for ``warmup`` and
@@ -220,6 +230,13 @@ class ContinuousServingEngine(ServingEngine):
         logits = self._execute_rows(x)
         self.batcher.note_service(extent, self.clock() - t0)
         return logits, extent
+
+    def _on_remesh(self) -> None:
+        # The extent classes are device multiples: at construction and
+        # after an elastic shrink they are those of the current mesh.
+        self.extents = default_extents(
+            self.batcher.max_rows, tile=self.executors.tile,
+            devices=self.executors.devices)
 
 
 __all__ = ["ContinuousBatcher", "ContinuousServingEngine", "QueueFull",

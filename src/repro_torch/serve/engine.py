@@ -1,5 +1,5 @@
 """The serving engine: queue + executor cache + stats in one dispatch
-loop (DESIGN.md §7), on one device.
+loop (DESIGN.md §7), on one device or a serving mesh of them.
 
 Synchronous by construction — ``submit()`` enqueues, ``step()`` applies
 the micro-batcher's flush rules and runs every ready batch, ``drain()``
@@ -17,13 +17,14 @@ deadline_s=)``) are enforced before every dispatch — an expired request
 completes as `DeadlineExceeded`, never silently late. A
 `FallbackPolicy` demotes the engine down the bit-identical
 `SERVE_FALLBACKS` ladder on repeated kernel failure; it is off unless
-the caller passes one. A `FaultPlan` injects deterministic failures for
-tests. All of it is observable through `ServeStats`
-(``snapshot()["dispatch"|"degraded"]``) — resilience is never silent.
-The JAX engine's mesh, heartbeat and elastic shrink are not ported: the
-engine serves on one device, and the snapshot has no ``"mesh"`` part.
-On CUDA the executors replay one CUDA graph per bucket
-(``serve.executor``); a failover captures the new engine's lazily and
+the caller passes one. On a meshed engine a `DeviceLost` dispatch, or a
+device whose heartbeat went silent, shrinks the mesh to the largest
+surviving power of two and re-dispatches the work in flight. A
+`FaultPlan` injects deterministic failures for tests. All of it is
+observable through `ServeStats` (``snapshot()["dispatch"|"mesh"|
+"degraded"]``) — resilience is never silent. On CUDA the executors
+replay one CUDA graph per bucket (``serve.executor``), one a replica on
+a mesh; a failover or a shrink captures the new executors lazily and
 releases the old ones. ``serve.continuous`` builds the ragged scheduler
 on this engine.
 """
@@ -38,11 +39,14 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from repro_torch.kernels.autotune import AUTO
-from repro_torch.serve.buckets import DEFAULT_BUCKETS
+from repro_torch.distributed.fault_tolerance import (HeartbeatMonitor,
+                                                     shrink_serving_mesh)
+from repro_torch.distributed.sharding import mesh_devices
+from repro_torch.serve.buckets import DEFAULT_BUCKETS, mesh_buckets
 from repro_torch.serve.executor import IMAGE_SHAPE, ExecutorCache
-from repro_torch.serve.faults import (DeadlineExceeded, FallbackPolicy,
-                                      FaultPlan, InjectedFault, NaNLogits,
-                                      RequestFailed, RetryPolicy)
+from repro_torch.serve.faults import (DeadlineExceeded, DeviceLost,
+                                      FallbackPolicy, FaultPlan, InjectedFault,
+                                      NaNLogits, RequestFailed, RetryPolicy)
 from repro_torch.serve.queue import MicroBatcher
 from repro_torch.serve.stats import ServeStats
 
@@ -69,12 +73,21 @@ class ServingEngine:
     the snapshot's goodput (a measurement only: the ladder does not
     wait by it); ``clock`` is injectable for deterministic tests.
 
+    ``mesh`` (a ``launch.mesh.ServingMesh``, DESIGN.md §10) serves every
+    batch data-parallel: the packed params are replicated on each of its
+    devices, each batch is split across them, and the bucket ladder is
+    rounded to device multiples (``mesh_buckets``). Logits stay
+    bit-identical to single-device dispatch.
+
     Resilience knobs (DESIGN.md §11): ``deadline_s`` is the default
     per-request deadline (``submit`` can override per request);
     ``retry`` is the `RetryPolicy` bounding redispatch of failed
     batches; ``fallback`` is an optional `FallbackPolicy` arming engine
     demotion; ``faults`` is an optional `FaultPlan` injecting
-    deterministic failures.
+    deterministic failures; ``heartbeat_timeout_s`` (meshed engines
+    only) arms a `HeartbeatMonitor`: call ``beat(device)`` from the
+    device-health source, and a device silent past the timeout shrinks
+    the mesh as a mid-dispatch `DeviceLost` does.
     """
 
     def __init__(
@@ -87,24 +100,29 @@ class ServingEngine:
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         max_wait_s: float = 0.002,
         slo_s: Optional[float] = None,
+        mesh: object = None,
         deadline_s: Optional[float] = None,
         retry: Optional[RetryPolicy] = None,
         fallback: Optional[FallbackPolicy] = None,
         faults: Optional[FaultPlan] = None,
+        heartbeat_timeout_s: Optional[float] = None,
         clock: Callable[[], float] = time.monotonic,
     ):
         self.stats = ServeStats(slo_s=slo_s)
         self.clock = clock
         self.batcher = MicroBatcher(
-            buckets, max_wait_s=max_wait_s, clock=clock,
+            mesh_buckets(buckets, mesh_devices(mesh)),
+            max_wait_s=max_wait_s, clock=clock,
         )
         self.executors = ExecutorCache(
             packed_params, engine=engine, conv_impl=conv_impl,
-            blocks=blocks, stats=self.stats,
+            blocks=blocks, mesh=mesh, stats=self.stats,
         )
-        self._init_resilience(deadline_s, retry, fallback, faults)
+        self._init_resilience(deadline_s, retry, fallback, faults,
+                              heartbeat_timeout_s)
 
-    def _init_resilience(self, deadline_s, retry, fallback, faults) -> None:
+    def _init_resilience(self, deadline_s, retry, fallback, faults,
+                         heartbeat_timeout_s) -> None:
         """Result buffers and resilience state. The continuous engine
         builds its own batcher and executors instead of calling
         ``__init__``, and calls this."""
@@ -123,6 +141,11 @@ class ServingEngine:
         self._retry_events = 0
         self._engine_failures = 0
         self._standby = None
+        self.monitor = None
+        if heartbeat_timeout_s is not None and self.executors.mesh is not None:
+            self.monitor = HeartbeatMonitor(
+                self.executors.devices, timeout=heartbeat_timeout_s,
+                clock=self.clock)
 
     # -- lifecycle ---------------------------------------------------------
     def _warm_shapes(self) -> Sequence[int]:
@@ -183,6 +206,7 @@ class ServingEngine:
         """Run the flush rules once; dispatch any ready batches.
         Returns the request ids resolved by this call (completed,
         expired, or failed)."""
+        self._check_heartbeats()
         resolved = self._expire()
         return resolved + self._run(self.batcher.poll())
 
@@ -213,6 +237,23 @@ class ServingEngine:
         self._deadline.pop(rid, None)
         result = self.results.pop(rid, None)
         return req is not None or partial is not None or result is not None
+
+    def beat(self, device: int) -> None:
+        """Record a heartbeat for ``device``, a position in the current
+        mesh (meshed engines with ``heartbeat_timeout_s`` armed; no-op
+        otherwise)."""
+        if self.monitor is not None:
+            self.monitor.beat(device)
+
+    # -- internals ---------------------------------------------------------
+    def _check_heartbeats(self) -> None:
+        if self.monitor is None:
+            return
+        for dev in self.monitor.dead_hosts():
+            # One shrink per step: a shrink rebuilds the monitor for the
+            # new mesh, so the old mesh's dead positions are moot.
+            if self._shrink(dev):
+                break
 
     def _expire(self) -> list[int]:
         """Complete every past-deadline request as `DeadlineExceeded`.
@@ -251,6 +292,8 @@ class ServingEngine:
                     self.faults.sleep(spec.latency_s)
                 elif spec.kind == "raise":
                     raise InjectedFault(f"injected fault at dispatch {idx}")
+                elif spec.kind == "device_loss":
+                    raise DeviceLost(spec.device)
         logits = self.executors.run(x)
         if spec is not None and spec.kind == "nan":
             logits = np.full_like(logits, np.nan)
@@ -332,10 +375,16 @@ class ServingEngine:
         return done
 
     def _on_failure(self, work: _Work, err: Exception) -> list[int]:
-        """Route one failed dispatch: it burns an attempt, may demote the
-        engine, and either backs off at the queue front (FIFO preserved)
-        or — budget exhausted — completes every rider as
+        """Route one failed dispatch: a device loss that shrinks the mesh
+        re-dispatches free of charge; anything else burns an attempt, may
+        demote the engine, and either backs off at the queue front (FIFO
+        preserved) or — budget exhausted — completes every rider as
         `RequestFailed`."""
+        if isinstance(err, DeviceLost) and self._shrink(err.device):
+            # The loss is the mesh's fault, not the batch's: re-dispatch
+            # it on the shrunk mesh without charging its retry budget.
+            self._inflight.appendleft(work)
+            return []
         self._engine_failures += 1
         self._maybe_demote()
         work.attempts += 1
@@ -393,6 +442,36 @@ class ServingEngine:
         self.stats.on_fallback(old, nxt)
         if self.fallback.warm:
             self.warmup()
+
+    def _shrink(self, device: int) -> bool:
+        """Elastic mesh shrink: release the executors, rebuild them on
+        the largest surviving power-of-two mesh and re-warm the ladder at
+        the new device multiple. Returns False when no shrink is possible
+        (unmeshed engine, invalid device, nothing left): the caller then
+        treats the loss as an ordinary dispatch failure."""
+        if self.executors.mesh is None:
+            return False
+        new_mesh = shrink_serving_mesh(self.executors.mesh, (device,))
+        if new_mesh is None:
+            return False
+        old_devices = self.executors.devices
+        self.executors.release()
+        self.executors = self.executors.rebuild(mesh=new_mesh)
+        self._on_remesh()
+        self.stats.on_shrink(old_devices, self.executors.devices)
+        if self.monitor is not None:
+            self.monitor = HeartbeatMonitor(
+                self.executors.devices, timeout=self.monitor.timeout,
+                clock=self.clock)
+        self.warmup()
+        return True
+
+    def _on_remesh(self) -> None:
+        # The bucket ladder was rounded to multiples of the first mesh's
+        # device count; a power-of-two shrink keeps every rung divisible
+        # by the survivors' (serving_shrink_plan), so it stays as it is.
+        # The continuous engine recomputes its extent classes here.
+        pass
 
     def snapshot(self) -> dict:
         return self.stats.snapshot()

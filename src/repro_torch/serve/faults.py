@@ -18,9 +18,7 @@ Everything here is deterministic and clock-free by construction:
 - `RetryPolicy` jitter is seeded per retry event, so backoff delays
   replay exactly.
 
-Nothing in this file touches torch; it is pure policy. The port serves
-on one device, so the JAX package's ``DeviceLost`` fault (mesh shrink)
-has no counterpart here yet.
+Nothing in this file touches torch; it is pure policy.
 """
 
 from __future__ import annotations
@@ -37,6 +35,7 @@ __all__ = [
     "is_error",
     "InjectedFault",
     "NaNLogits",
+    "DeviceLost",
     "FaultSpec",
     "FaultPlan",
     "RetryPolicy",
@@ -92,12 +91,22 @@ class NaNLogits(RuntimeError):
     converted into a retryable failure instead of poisoned results."""
 
 
+class DeviceLost(RuntimeError):
+    """A device of the serving mesh died mid-dispatch. Carries the
+    device's position in the mesh; a meshed engine shrinks the mesh past
+    it (DESIGN.md §11) and does not charge the batch's retry budget."""
+
+    def __init__(self, device: int = 0):
+        super().__init__(f"device {device} lost")
+        self.device = int(device)
+
+
 # ---------------------------------------------------------------------------
 # deterministic fault injection
 # ---------------------------------------------------------------------------
 
 
-_KINDS = ("raise", "nan", "latency")
+_KINDS = ("raise", "nan", "latency", "device_loss")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,7 +117,8 @@ class FaultSpec:
     engine match (``None`` is a wildcard).  ``kind`` is one of
     ``raise`` (executor raises `InjectedFault`), ``nan`` (logits come
     back all-NaN), ``latency`` (dispatch sleeps ``latency_s`` through
-    the plan's sleep hook before running).
+    the plan's sleep hook before running), ``device_loss`` (raises
+    `DeviceLost` for ``device``, a position in the serving mesh).
     """
 
     kind: str
@@ -117,6 +127,7 @@ class FaultSpec:
     extent: Optional[int] = None
     engine: Optional[str] = None
     latency_s: float = 0.0
+    device: int = 0
 
     def __post_init__(self):
         if self.kind not in _KINDS:

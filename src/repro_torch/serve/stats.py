@@ -30,7 +30,8 @@ Snapshot schema (``ServeStats.snapshot()``)::
      "dispatch": {"retries": int,                  # batch redispatches
                   "fallbacks": int,                # engine demotions
                   "engine_path": ["old->new", ...]},
-     "degraded": bool}    # any engine fallback happened
+     "mesh": {"shrinks": int, "devices": int | None},  # None: no shrink
+     "degraded": bool}    # any engine fallback or mesh shrink happened
 
 ``scheduler`` labels which dispatch policy produced the numbers (the
 bucket ladder or the continuous/ragged scheduler, DESIGN.md §7/§9); the
@@ -86,6 +87,8 @@ class ServeStats:
     batch_retries: int = 0
     dispatch_fallbacks: int = 0
     engine_path: list = dataclasses.field(default_factory=list)
+    mesh_shrinks: int = 0
+    mesh_devices: Optional[int] = None
     images_within_slo: int = 0
     dispatched_batches: int = 0
     real_rows: int = 0
@@ -146,6 +149,10 @@ class ServeStats:
     def on_fallback(self, old_engine: str, new_engine: str) -> None:
         self.dispatch_fallbacks += 1
         self.engine_path.append(f"{old_engine}->{new_engine}")
+
+    def on_shrink(self, old_devices: int, new_devices: int) -> None:
+        self.mesh_shrinks += 1
+        self.mesh_devices = new_devices
 
     def on_executor(self, key: str, *, hit: bool, compiled: bool) -> None:
         if hit:
@@ -236,7 +243,11 @@ class ServeStats:
                 "fallbacks": self.dispatch_fallbacks,
                 "engine_path": list(self.engine_path),
             },
-            "degraded": bool(self.dispatch_fallbacks),
+            "mesh": {
+                "shrinks": self.mesh_shrinks,
+                "devices": self.mesh_devices,
+            },
+            "degraded": bool(self.dispatch_fallbacks or self.mesh_shrinks),
         }
 
 

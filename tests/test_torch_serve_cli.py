@@ -25,9 +25,8 @@ def _flags(parser: argparse.ArgumentParser) -> set:
     return {s for a in parser._actions for s in a.option_strings} - {"-h", "--help"}
 
 
-def test_flags_match_the_jax_cli_but_devices(monkeypatch):
-    """Every flag of ``repro.launch.serve_bnn`` but ``--devices`` (the
-    simulated mesh), plus ``--device``."""
+def test_flags_match_the_jax_cli(monkeypatch):
+    """Every flag of ``repro.launch.serve_bnn``, plus ``--device``."""
     def capture(self, *args, **kwargs):
         raise _Captured(self)
 
@@ -37,13 +36,25 @@ def test_flags_match_the_jax_cli_but_devices(monkeypatch):
     monkeypatch.undo()
     jax_flags = _flags(got.value.args[0])
     assert "--devices" in jax_flags and "--sustained" in jax_flags
-    assert _flags(serve_bnn.make_parser()) == (jax_flags - {"--devices"}) | {
-        "--device"}
+    assert _flags(serve_bnn.make_parser()) == jax_flags | {"--device"}
     with pytest.raises(SystemExit):
         serve_bnn.parse_args(["--smoke", "--sustained"])
     smoke, sustained = serve_bnn.parse_args([]), serve_bnn.parse_args(["--sustained"])
     assert (smoke.buckets, smoke.max_rows) == ((1, 4, 8), 8)
     assert (sustained.buckets, sustained.max_rows) == ((1, 8, 32, 128), 32)
+
+
+@pytest.mark.parametrize("scheduler", ["bucket", "continuous"])
+def test_smoke_on_a_mesh_of_four_cpu_devices(scheduler, capsys):
+    snap = serve_bnn.main(["--smoke", "--devices", "4", "--device", "cpu",
+                           "--scheduler", scheduler, "--requests", "3",
+                           "--max-images", "3", "--max-rows", "4"])
+    out = capsys.readouterr().out
+    assert "serving mesh: 4 devices, 1-D data axis" in out
+    assert "0 logits mismatches" in out
+    assert snap["requests"]["completed"] == 3
+    assert all(k.endswith("|mesh4") for k in snap["executors"]["keys"])
+    assert all(b % 4 == 0 for b in snap["batches"]["per_bucket"])
 
 
 class StepClock:
