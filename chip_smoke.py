@@ -137,6 +137,18 @@
    and none failed; a batch-32 dispatch through k graphs and through one
    is timed on the host clock. The phase's launches are the path
    ``bnn_serve_mesh``.
+10. The BNN trained over a mesh of replicas, under chaos
+   (``train_resilient_phase``): 8 replicas (every card when there are 8 or
+   more, else round-robin over the cards), batch 64. The data-parallel
+   step on one shard equals the single-device step bit for bit; each
+   gradient compression (float32, EF int8, 1-bit EF sign-SGD) trains 60
+   steps and passes ``benchmarks/train_bench.py``'s gates, with its step
+   ms, images/s and busy share; sign-SGD replays bit for bit.
+   ``benchmarks/train_chaos.py``'s full scenario (preemption, torn
+   checkpoint, NaN batch, a lost host 8 -> 4) through
+   ``train_bnn_resilient`` holds its six gates, and a straggler is evicted
+   (8 -> 4). The chaos run's params export under the probe. The phase's
+   launches (the export's) are the path ``bnn_train_resilient``.
 
 Last, prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``.
 
@@ -2913,6 +2925,357 @@ def mesh_phase(dev) -> dict:
     return result
 
 
+# Phase 10: the data-parallel BNN on replicas (every card when there are at
+# least 8, else 8 round-robin over the visible cards), the JAX benchmarks'
+# gates (benchmarks/train_bench.py, benchmarks/train_chaos.py).
+DP_REPLICAS = 8
+DP_STEPS = 60
+DP_TIMED_FROM = 10
+DP_REPLAY_STEPS = 10
+LOSS_DROP_GATE = 0.30
+CHAOS_STEPS, CHAOS_EVERY = 24, 6
+CHAOS_AT = {"preempt": 8, "torn_ckpt": 12, "nan_batch": 14, "device_loss": 20}
+CHAOS_LOST_HOST = 5
+STRAGGLER_HOST, STRAGGLER_STEPS, STRAGGLER_EVERY = 7, 8, 4
+EF_RTOL = 1e-5
+
+
+def dp_mesh():
+    """Phase 10's mesh: every card when there are ``DP_REPLICAS`` or more
+    (and they divide the batch), else ``DP_REPLICAS`` replicas spread
+    round-robin over the cards."""
+    from repro_torch.launch.mesh import ServingMesh
+
+    cards = torch.cuda.device_count()
+    k = cards if cards >= DP_REPLICAS and 64 % cards == 0 else DP_REPLICAS
+    return ServingMesh(tuple(torch.device("cuda", i % cards) for i in range(k)))
+
+
+def train_resilient_phase(dev) -> dict:
+    """Phase 10: the BNN trained over a mesh of replicas, under chaos.
+
+    (a) The data-parallel step (``make_dp_train_step``) at full width,
+    batch 64: on one shard with ``"none"`` it must equal ``make_train_step``
+    bit for bit; on the mesh, from one init, each compression runs
+    ``DP_STEPS`` steps of the stateless stream (the cosine horizon is
+    ``DP_STEPS``) and must pass ``benchmarks/train_bench.py``'s gates (the
+    final-quarter mean loss ``LOSS_DROP_GATE`` below the first step's,
+    relatively; each compressed run's final loss within ``max(2 base, base
+    + 0.5)`` of the float32 run's); a second ``DP_REPLAY_STEPS``-step
+    sign-SGD run must reproduce the first's params at that step bit for
+    bit. Each compression's step ms (CUDA events), images/s and device
+    busy share (``torch.profiler``). (b) ``benchmarks/train_chaos.py``'s
+    full scenario through ``train_bnn_resilient`` on the mesh with
+    sign-SGD (``control``, ``chaosA``: preemption, torn checkpoint, NaN
+    batch; ``controlB``: a lost host 8 -> 4; ``chaosB``: all four) and its
+    six gates, computed as that script computes them; then a straggler
+    (host ``STRAGGLER_HOST`` at 10x from step 1 for 4 steps, patience 3)
+    must be evicted, the mesh shrink to 4 and the run end finite.
+    Checkpoints go under ``build/`` and are removed. (c) ``chaosB``'s
+    params through ``pack_trained_params`` on 64 held-out images: every
+    engine verified. The launch counts are 0 at the phase's start and read
+    at its end: training launches none, the export each serving kernel
+    (the path ``bnn_train_resilient``)."""
+    import shutil
+
+    from repro_torch import tree
+    from repro_torch.core.bnn import (init_bnn_params, pack_trained_params,
+                                      update_bn_stats)
+    from repro_torch.data.pipeline import DataConfig, cifar_batch_at
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import ServingMesh
+    from repro_torch.train.bnn_trainer import (DP_COMPRESSIONS,
+                                               BNNTrainerConfig, _BNNTask,
+                                               bnn_clip_predicate,
+                                               init_dp_error_feedback,
+                                               make_dp_train_step)
+    from repro_torch.train.resilience import (ResilienceConfig,
+                                              TrainFaultPlan, TrainFaultSpec,
+                                              train_bnn_resilient)
+    from repro_torch.train.step import init_opt_state, make_train_step
+
+    t_phase = time.monotonic()
+    mesh = dp_mesh()
+    k = len(mesh)
+    cfg = BNNTrainerConfig(steps=DP_STEPS)
+    task = _BNNTask(cfg.model_config())
+    tcfg = cfg.train_config()
+    data_cfg = DataConfig(seed=cfg.data_seed, global_batch=cfg.batch)
+    feeds = [{key: cifar_batch_at(data_cfg, i)[key].to(dev)
+              for key in ("images", "labels")} for i in range(DP_STEPS)]
+    result = {"replicas": k, "cards": len(set(mesh.devices)),
+              "batch": cfg.batch, "steps": DP_STEPS}
+    print(f"  mesh: {k} replicas on {result['cards']} card(s), batch "
+          f"{cfg.batch} ({cfg.batch // k} images a shard)", flush=True)
+    # This phase's counts: 0 here, read at its end.
+    ops.reset_launches()
+
+    # (a) One shard is the single-device step.
+    single = make_train_step(task, tcfg, clip_predicate=bnn_clip_predicate)
+    one = make_dp_train_step(task, tcfg, ServingMesh((dev,)),
+                             grad_compression="none",
+                             clip_predicate=bnn_clip_predicate)
+    params = init_bnn_params(cfg.seed, device=dev)
+    a = (params, init_opt_state(params))
+    b = (*a, init_dp_error_feedback(params, 1))
+    for i, feed in enumerate(feeds[:3]):
+        pa, oa, ma = single(*a, feed)
+        pb, ob, eb, mb = one(*b, feed)
+        differ = [path for (path, x), y in zip(
+            tree.leaves_with_path((pa, oa, ma)), tree.leaves((pb, ob, mb)))
+            if not torch.equal(x, y)]
+        if differ:
+            fail(f"DP step on one shard differs from the single-device step "
+                 f"at step {i}: {differ[:5]}")
+        a, b = (pa, oa), (pb, ob, eb)
+    del a, b
+    print("  make_dp_train_step on 1 shard, 'none': 3 steps bit-identical "
+          "to make_train_step", flush=True)
+
+    # (a) Each compression on the mesh, from one init.
+    runs = {}
+    replay_at = None
+    for comp in DP_COMPRESSIONS:
+        step = make_dp_train_step(task, tcfg, mesh, grad_compression=comp,
+                                  clip_predicate=bnn_clip_predicate)
+        params = init_bnn_params(cfg.seed, device=dev)
+        state = [params, init_opt_state(params),
+                 init_dp_error_feedback(params, k)]
+        losses = []
+
+        def run_steps(batch_feeds, state=state, step=step, losses=losses):
+            for feed in batch_feeds:
+                p, o, e, m = step(*state, feed)
+                state[:] = [update_bn_stats(p, m.pop("bn_stats"),
+                                            momentum=cfg.bn_momentum), o, e]
+                losses.append(m["loss"])
+
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        run_steps(feeds[:DP_TIMED_FROM])
+        if comp == "signsgd":
+            replay_at = [x.clone() for x in tree.leaves(state[0])]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run_steps(feeds[DP_TIMED_FROM:])
+        end.record()
+        end.synchronize()
+        run_s = time.monotonic() - t0
+        step_ms = start.elapsed_time(end) / (DP_STEPS - DP_TIMED_FROM)
+        loss = torch.stack(losses).tolist()
+        tail = float(np.mean(loss[-max(1, len(loss) // 4):]))
+        drop = 1.0 - tail / loss[0]
+        # The busy share over one more step (after the gated run).
+        extra = feeds[:1]
+        breakdown = device_breakdown(lambda: run_steps(extra), top=8)
+        device_ms = (breakdown[-1][1] / len(extra)
+                     if not isinstance(breakdown, str) else None)
+        runs[comp] = {"first_loss": loss[0], "tail_mean_loss": tail,
+                      "final_loss": loss[DP_STEPS - 1], "loss_drop": drop,
+                      "run_s": run_s, "step_ms": step_ms,
+                      "images_per_s": cfg.batch * 1e3 / step_ms,
+                      "step_device_ms": device_ms,
+                      "busy_share": (None if device_ms is None
+                                     else device_ms / step_ms),
+                      "breakdown": breakdown}
+        print(f"  DP {comp:8s} {k} replicas: loss {loss[0]:.4f} -> final "
+              f"quarter {tail:.4f} (drop {drop:.3f}), final "
+              f"{runs[comp]['final_loss']:.4f}; step {step_ms:.3f} ms by CUDA "
+              f"events over steps {DP_TIMED_FROM}-{DP_STEPS - 1}, "
+              f"{runs[comp]['images_per_s']:.0f} images/s; device busy "
+              + ("not measured" if device_ms is None else
+                 f"{device_ms:.3f} ms a step, share "
+                 f"{runs[comp]['busy_share']:.3f}")
+              + f"; {DP_STEPS} steps in {run_s:.2f} s (host clock)",
+              flush=True)
+        if not isinstance(breakdown, str):
+            for kname, ms, share in breakdown:
+                print(f"    {ms:10.3f} ms {share:6.1%}  {kname}", flush=True)
+        if not drop >= LOSS_DROP_GATE:
+            fail(f"DP {comp}: final-quarter loss {tail} is not "
+                 f"{LOSS_DROP_GATE:.0%} below the first {loss[0]}")
+        del state[:]
+    base = runs["none"]["final_loss"]
+    for comp in ("int8", "signsgd"):
+        if not runs[comp]["final_loss"] <= max(2.0 * base, base + 0.5):
+            fail(f"DP {comp}: final loss {runs[comp]['final_loss']} does not "
+                 f"track the float32 run's {base}")
+    result["dp"] = runs
+    print("  (PR 23's single-device step at batch 64: 47.6 ms)", flush=True)
+
+    # (a) The sign-SGD run replays bit for bit.
+    step = make_dp_train_step(task, tcfg, mesh, grad_compression="signsgd",
+                              clip_predicate=bnn_clip_predicate)
+    params = init_bnn_params(cfg.seed, device=dev)
+    state = [params, init_opt_state(params), init_dp_error_feedback(params, k)]
+    for feed in feeds[:DP_REPLAY_STEPS]:
+        p, o, e, m = step(*state, feed)
+        state = [update_bn_stats(p, m.pop("bn_stats"),
+                                 momentum=cfg.bn_momentum), o, e]
+    differ = sum(not torch.equal(x, y)
+                 for x, y in zip(tree.leaves(state[0]), replay_at))
+    if differ:
+        fail(f"DP signsgd: a second {DP_REPLAY_STEPS}-step run differs from "
+             f"the first in {differ} param leaves")
+    result["signsgd_replay_leaves_equal"] = len(replay_at)
+    print(f"  DP signsgd: a second {DP_REPLAY_STEPS}-step run bit-identical "
+          f"({len(replay_at)} param leaves)", flush=True)
+    del state, replay_at, feeds
+    if any(ops.LAUNCHES.values()):
+        fail(f"DP training launched kernels {dict(ops.LAUNCHES)}")
+
+    # (b) The chaos scenario.
+    work = OUT_DIR / "chip_smoke_resilient"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ccfg = BNNTrainerConfig(steps=CHAOS_STEPS, checkpoint_every=CHAOS_EVERY,
+                            eval_batches=0)
+    chaos_specs = [TrainFaultSpec("preempt", at=CHAOS_AT["preempt"]),
+                   TrainFaultSpec("torn_ckpt", at=CHAOS_AT["torn_ckpt"],
+                                  flavor="torn"),
+                   TrainFaultSpec("nan_batch", at=CHAOS_AT["nan_batch"])]
+    loss_spec = TrainFaultSpec("device_loss", at=CHAOS_AT["device_loss"],
+                               host=CHAOS_LOST_HOST)
+    plans = {"control": None, "chaosA": TrainFaultPlan(chaos_specs),
+             "controlB": TrainFaultPlan([loss_spec]),
+             "chaosB": TrainFaultPlan(chaos_specs + [loss_spec])}
+    chaos = {}
+    try:
+        for name, plan in plans.items():
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            res = train_bnn_resilient(
+                dataclasses.replace(ccfg, checkpoint_dir=str(work / name)),
+                mesh=mesh, faults=plan, grad_compression="signsgd")
+            torch.cuda.synchronize()
+            fired = len(plan.fired) if plan is not None else 0
+            chaos[name] = {"result": res, "fired": fired,
+                           "seconds": time.monotonic() - t0}
+            shutil.rmtree(work / name, ignore_errors=True)
+            print(f"  {name:8s} faults={fired} recomputed="
+                  f"{res.recomputed_steps} n_dev={res.n_devices} events "
+                  f"{[e['kind'] for e in res.events]} final loss "
+                  f"{res.history['loss'][-1]:.4f} "
+                  f"({chaos[name]['seconds']:.2f} s)", flush=True)
+
+        def trees_equal(x, y):
+            lx, ly = tree.leaves(x), tree.leaves(y)
+            return len(lx) == len(ly) and all(
+                torch.equal(u, v) for u, v in zip(lx, ly))
+
+        def finite(x):
+            return all(bool(torch.isfinite(v).all()) for v in tree.leaves(x))
+
+        def resumes_ok(c, ctrl):
+            fps = ctrl["result"].fingerprints
+            return all(p["step"] in fps and p["params_sha"] == fps[p["step"]]
+                       for p in c["result"].restore_points)
+
+        nan_steps = set(plans["chaosA"].steps_of("nan_batch"))
+        caught = {e["step"] for name in ("chaosA", "chaosB")
+                  for e in chaos[name]["result"].events
+                  if e["kind"] == "sentinel_nan"}
+        folds = [e for name in ("controlB", "chaosB")
+                 for e in chaos[name]["result"].events
+                 if e["kind"] == "ef_folded"]
+        gates = {
+            "zero_runs_lost": all(
+                len(c["result"].history["loss"]) == CHAOS_STEPS
+                and finite(c["result"].params) for c in chaos.values()),
+            "bit_identical_A": trees_equal(chaos["control"]["result"].params,
+                                           chaos["chaosA"]["result"].params),
+            "bit_identical_B": trees_equal(chaos["controlB"]["result"].params,
+                                           chaos["chaosB"]["result"].params),
+            "sentinel_catches_all_nan": nan_steps <= caught,
+            "ef_mass_conserved": (
+                len(folds) == 2
+                and all(f["max_rel_delta"] <= EF_RTOL for f in folds)
+                and all(f["n_old"] == k and f["n_new"] == k // 2
+                        for f in folds)),
+            "bounded_recompute": all(
+                c["result"].recomputed_steps <= CHAOS_EVERY * max(c["fired"], 1)
+                for c in chaos.values()),
+            "resume_points_match": (resumes_ok(chaos["chaosA"], chaos["control"])
+                                    and resumes_ok(chaos["chaosB"],
+                                                   chaos["controlB"])),
+        }
+        print("  chaos gates: " + ", ".join(
+            f"{g} {'PASS' if ok else 'FAIL'}" for g, ok in gates.items()),
+            flush=True)
+        if not all(gates.values()):
+            fail(f"chaos gates: {gates}")
+
+        # The straggler.
+        plan = TrainFaultPlan([TrainFaultSpec("straggler", at=1, count=4,
+                                              host=STRAGGLER_HOST)])
+        t0 = time.monotonic()
+        strag = train_bnn_resilient(
+            BNNTrainerConfig(steps=STRAGGLER_STEPS,
+                             checkpoint_every=STRAGGLER_EVERY, eval_batches=0,
+                             checkpoint_dir=str(work / "straggler")),
+            mesh=mesh, faults=plan, grad_compression="signsgd",
+            resilience=ResilienceConfig(straggler_patience=3))
+        strag_s = time.monotonic() - t0
+        evicted = [e for e in strag.events if e["kind"] == "straggler_evicted"]
+        if (not evicted or evicted[0]["hosts"] != [STRAGGLER_HOST]
+                or strag.n_devices != k // 2 or not finite(strag.params)
+                or len(strag.history["loss"]) != STRAGGLER_STEPS):
+            fail(f"straggler: events {strag.events}, n_devices "
+                 f"{strag.n_devices}")
+        print(f"  straggler host {STRAGGLER_HOST}: evicted at step "
+              f"{evicted[0]['step']}, mesh {k} -> {strag.n_devices}, events "
+              f"{[e['kind'] for e in strag.events]}, finite "
+              f"({strag_s:.2f} s)", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if any(ops.LAUNCHES.values()):
+        fail(f"resilient training launched kernels {dict(ops.LAUNCHES)}")
+    result["chaos"] = {
+        "config": {"steps": CHAOS_STEPS, "batch": ccfg.batch,
+                   "checkpoint_every": CHAOS_EVERY, "n_devices": k,
+                   "grad_compression": "signsgd", "ef_rtol": EF_RTOL,
+                   "fault_plan": {**CHAOS_AT,
+                                  "device_loss_host": CHAOS_LOST_HOST}},
+        "runs": {name: {
+            "faults_fired": c["fired"], "seconds": c["seconds"],
+            "events": [e["kind"] for e in c["result"].events],
+            "recomputed_steps": c["result"].recomputed_steps,
+            "restore_points": c["result"].restore_points,
+            "device_trajectory": c["result"].device_trajectory,
+            "final_n_devices": c["result"].n_devices,
+            "final_loss": c["result"].history["loss"][-1]}
+            for name, c in chaos.items()},
+        "ef_folds": folds, "gates": gates,
+        "straggler": {"events": strag.events, "n_devices": strag.n_devices,
+                      "seconds": strag_s}}
+
+    # (c) chaosB's params, exported under the probe.
+    probe = cifar_batch_at(DataConfig(seed=cfg.data_seed,
+                                      global_batch=PROBE_IMAGES),
+                           CHAOS_STEPS)["images"].to(dev)
+    t0 = time.monotonic()
+    try:
+        packs = pack_trained_params(chaos["chaosB"]["result"].params,
+                                    probe_images=probe)
+    except ValueError as err:
+        fail(f"export of chaosB: {err}")
+    result["export_s"] = time.monotonic() - t0
+    print(f"  export of chaosB: every engine bit-identical to the "
+          f"float-boundary forward on {PROBE_IMAGES} held-out images "
+          f"({', '.join(sorted(packs))}, {result['export_s']:.2f} s)",
+          flush=True)
+    result["launches"] = dict(ops.LAUNCHES)
+    for name in ("fused_direct_conv", "fused_xnor_gemm", "xnor_gemm",
+                 "megakernel_conv_stage", "megakernel_chain"):
+        if not result["launches"][name]:
+            fail(f"phase 10: {name} was not launched")
+    result["phase_s"] = time.monotonic() - t_phase
+    print(f"  launches of phase 10: {result['launches']}; phase "
+          f"{result['phase_s']:.1f} s", flush=True)
+    return result
+
+
 def wants_of(packed: dict, x: np.ndarray, dev) -> np.ndarray:
     """The single-device ``xla`` forward of ``x`` on the card."""
     from repro_torch.core.bnn import bnn_apply_fused
@@ -3073,6 +3436,9 @@ def main() -> None:
     print("phase 9: the BNN served over a mesh of replicas, with a device "
           "loss and a silent heartbeat", flush=True)
     mesh = mesh_phase(dev)
+    print("phase 10: the BNN trained over a mesh of replicas, under chaos, "
+          "and exported", flush=True)
+    resilient = train_resilient_phase(dev)
     jamba_launches = dict(jamba["launches"]["prefill"])
     for counts in jamba["launches"]["decode"]:
         for name, n in counts.items():
@@ -3081,7 +3447,8 @@ def main() -> None:
                 "jamba_serve": jamba_launches,
                 **{f"{arch}_loss": r["launches"] for arch, r in lm.items()},
                 "bnn_train_export": train["launches"],
-                "bnn_serve_mesh": mesh["launches"]}
+                "bnn_serve_mesh": mesh["launches"],
+                "bnn_train_resilient": resilient["launches"]}
     for name in KERNELS:
         if not sum(path[name] for path in launches.values()):
             fail(f"kernel {name} was not launched on the main path")
@@ -3092,7 +3459,7 @@ def main() -> None:
          "build_s": info["seconds"], "xnor_loops": xnor_loops, "shapes": rows,
          "serve": serve,
          "table2": table2, "jamba": jamba, "lm_loss": lm, "train": train,
-         "mesh": mesh,
+         "mesh": mesh, "train_resilient": resilient,
          "totals": totals},
         indent=2))
 

@@ -9,6 +9,11 @@ one contiguous shard a replica, every shard launched before any result is
 collected (``distributed.sharding``, ``serve.executor``). No process group
 and no collective is needed.
 
+The same mesh is the 1-D ``"data"`` mesh of data-parallel training
+(``train.bnn_trainer.make_dp_train_step``, ``train.resilience``): one
+batch shard a replica, the gradients reduced in mesh order on the first
+replica's device.
+
 On the CPU a mesh of ``n`` entries ``cpu:0 .. cpu:n-1`` is the counterpart
 of the JAX package's forced host devices: every entry is the CPU, and the
 shards run one after another through the plain-torch twins.
@@ -28,7 +33,8 @@ from repro_torch.core.bnn import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class ServingMesh:
-    """A 1-D ``("data",)`` serving mesh: ``devices`` in mesh order.
+    """A 1-D ``("data",)`` mesh, for serving and for data-parallel
+    training: ``devices`` in mesh order.
 
     Any non-empty sequence of CUDA devices, or of CPU devices, is
     accepted, repeats included (as ``jax.sharding.Mesh`` takes any device

@@ -16,8 +16,19 @@ know about.
 Checkpoints (latents + optimizer state) go through
 ``checkpoint/manager.py`` and resume bit for bit;
 ``core.bnn.save_binary_checkpoint`` is the sign-form export for serving.
-Not ported yet: the data-parallel step with compressed gradients
-(``make_dp_train_step``) and the resilient trainer.
+
+``make_dp_train_step`` is the data-parallel step over a 1-D ``"data"``
+mesh (``launch.mesh.ServingMesh``): each shard's gradient, then a reduce
+through ``distributed.compression``: float32 (``"none"``), error-feedback
+int8 (``"int8"``) or 1-bit EF sign-SGD (``"signsgd"``). The JAX package
+runs it under ``shard_map`` with ``psum``; the port runs the shards one
+after another in one process and sums in mesh order on the device of the
+first replica, neither ``torch.cuda.comm.reduce_add`` nor NCCL: the
+resilient trainer's chaos gates need replays bit-identical to their
+controls, so the order of every float sum must not vary; the mesh is one
+process with no process group; and replicas may share one card. A shard
+on another card is moved to the first with ``.to()``.
+``train/resilience.py`` wraps both steps in the fault-tolerance machinery.
 """
 
 from __future__ import annotations
@@ -35,8 +46,13 @@ from repro_torch.core.bnn import (BNNConfig, bnn_eval_logits,
                                   resolve_device, update_bn_stats,
                                   xent_and_acc)
 from repro_torch.data.pipeline import DataConfig, synthetic_cifar_batches
-from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.train.step import TrainConfig, init_opt_state, make_train_step
+from repro_torch.distributed import compression
+from repro_torch.distributed.sharding import shard_rows
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.optim.clip import clip_by_global_norm
+from repro_torch.optim.schedules import cosine_schedule
+from repro_torch.train.step import (TrainConfig, _grads_of, init_opt_state,
+                                    make_train_step)
 
 
 def bnn_clip_predicate(path: tuple) -> bool:
@@ -111,6 +127,8 @@ def evaluate_bnn(params, data_iter, *, batches: int,
         loss, acc = xent_and_acc(logits, b["labels"].to(dev))
         losses.append(loss)
         accs.append(acc)
+    if not losses:      # the JAX package's mean of no batches: NaN
+        return float("nan"), float("nan")
     return (float(torch.mean(torch.stack(losses))),
             float(torch.mean(torch.stack(accs))))
 
@@ -184,3 +202,103 @@ def train_bnn(cfg: BNNTrainerConfig, *, params=None, verbose: bool = False,
     return TrainResult(params=params, opt_state=opt_state, history=history,
                        eval_loss=eval_loss, eval_acc=eval_acc,
                        start_step=start_step)
+
+
+# ---------------------------------------------------------------------------
+# The data-parallel train step with a compressed gradient reduce.
+# ---------------------------------------------------------------------------
+
+DP_COMPRESSIONS = ("none", "int8", "signsgd")
+
+
+def init_dp_error_feedback(params, n_devices: int):
+    """Zero error-feedback residuals: one a gradient leaf and shard,
+    stacked on a leading ``[n_devices, ...]`` axis (the JAX package's
+    layout, so a checkpoint resumes in either package). Each shard
+    accumulates the quantization error of its own gradient stream."""
+    return tree.tree_map(
+        lambda p: torch.zeros((n_devices,) + tuple(p.shape), dtype=p.dtype,
+                              device=p.device), params)
+
+
+def make_dp_train_step(task, tcfg: TrainConfig, mesh, *,
+                       grad_compression: str = "signsgd",
+                       clip_predicate=None):
+    """The data-parallel train step over ``mesh``'s devices: ``(params,
+    opt_state, err, batch) -> (params, opt_state, err, metrics)``.
+
+    The batch is split into ``len(mesh)`` contiguous shards
+    (``distributed.sharding.shard_rows``); shard ``i`` takes the
+    gradient of ``task.loss`` on its rows alone on ``mesh.devices[i]``
+    (BatchNorm sees the shard's own batch statistics, as each
+    ``shard_map`` shard does). The gradients meet in mesh order:
+
+      * ``"none"``: their sum over the mesh divided by n (the JAX
+        package's ``pmean``),
+      * ``"int8"``: ``compression.psum_compressed``,
+      * ``"signsgd"``: ``compression.psum_signsgd``.
+
+    ``err`` is :func:`init_dp_error_feedback`'s tree, row ``i`` shard
+    ``i``'s residual. Then one global-norm clip, the cosine schedule on
+    ``count + 1`` and one AdamW update with the latent clip. ``loss``,
+    ``acc`` and ``bn_stats`` are each the mean of the shards' in mesh
+    order (the JAX package's ``pmean`` of the shard statistics, not the
+    global batch's). Params, optimizer state and ``err`` live on one
+    device; the results come back there. ``tcfg.microbatches`` is not
+    read, as in the JAX package's step.
+    """
+    if grad_compression not in DP_COMPRESSIONS:
+        raise ValueError(
+            f"unknown grad_compression {grad_compression!r}; expected one "
+            f"of {DP_COMPRESSIONS}")
+    reduce = {"int8": compression.psum_compressed,
+              "signsgd": compression.psum_signsgd}.get(grad_compression)
+    devices = tuple(mesh.devices)
+    n = len(devices)
+
+    def mesh_mean(xs, home):
+        return (compression._mesh_sum(list(xs)) / n).to(home)
+
+    def train_step(params, opt_state, err, batch):
+        home = tree.leaves(params)[0].device
+        rows = shard_rows(int(tree.leaves(batch)[0].shape[0]), n)
+        replicas: dict = {home: params}
+        losses, shard_metrics, shard_grads = [], [], []
+        for i, dev in enumerate(devices):
+            if dev not in replicas:
+                replicas[dev] = tree.tree_map(lambda t: t.to(dev), params)
+            shard = tree.tree_map(
+                lambda t: t[i * rows:(i + 1) * rows].to(dev), batch)
+            loss, metrics, grads = _grads_of(task, replicas[dev], shard)
+            losses.append(loss)
+            shard_metrics.append(metrics)
+            shard_grads.append(tree.leaves(grads))
+        per_leaf = list(zip(*shard_grads))
+        if reduce is None:
+            means = [mesh_mean(gs, home) for gs in per_leaf]
+            new_err = err
+        else:
+            means, rows_out = [], []
+            for gs, e in zip(per_leaf, tree.leaves(err)):
+                mean, rows = reduce(list(gs), e)
+                means.append(mean.to(home))
+                rows_out.append(rows.to(home))
+            new_rows = iter(rows_out)
+            new_err = tree.tree_map(lambda _: next(new_rows), err)
+        leaves = iter(means)
+        grads = tree.tree_map(lambda _: next(leaves), params)
+
+        grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
+        step = opt_state["adam"]["count"] + 1  # post-increment, as make_train_step
+        lr_scale = cosine_schedule(step, warmup_steps=tcfg.warmup_steps,
+                                   total_steps=tcfg.total_steps)
+        new_params, new_adam = adamw_update(
+            grads, opt_state["adam"], params, tcfg.adamw, lr_scale=lr_scale,
+            clip_predicate=clip_predicate)
+        metrics = {
+            **tree.tree_map(lambda *ms: mesh_mean(ms, home), *shard_metrics),
+            "loss": mesh_mean(losses, home), "grad_norm": gnorm,
+            "lr_scale": lr_scale}
+        return new_params, {"adam": new_adam}, new_err, metrics
+
+    return train_step

@@ -12,7 +12,10 @@ Skv, odd BH, every compiled head width, bf16 and float32; for the mLSTM
 chunks of 16 to 256 steps, dk and dv not multiples of the tile).
 The BNN's train-to-serve loop on the card: a 20-step ``train_bnn`` that
 resumes bit for bit, its export verified on every engine, and every eval
-forward computing the first conv alike at batches 1 to 128.
+forward computing the first conv alike at batches 1 to 128. The
+data-parallel step on replicas sharing the card: one shard equals the
+single-device step bit for bit, and sign-SGD over 4 shards replays bit
+for bit.
 Bit-exact, but for ``unpack_gemm`` on real input, the scan, flash
 attention and the mLSTM (tolerances at the tests). The grad guard of the
 wrappers and the smoke LM losses on the card against the CPU are here
@@ -950,3 +953,64 @@ def test_eval_forwards_compute_the_first_conv_alike(dev, weights):
             bad = {k: int((v != want).sum()) for k, v in got.items()
                    if not torch.equal(v, want)}
             assert not bad, f"batch {n} at image {i}: logits differing {bad}"
+
+
+def _dp_setup(dev, batch: int):
+    from repro_torch.core.bnn import init_bnn_params
+    from repro_torch.data.pipeline import DataConfig, cifar_batch_at
+    from repro_torch.train.bnn_trainer import BNNTrainerConfig, _BNNTask
+    from repro_torch.train.step import init_opt_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = BNNTrainerConfig(steps=10, batch=batch, warmup_steps=1)
+    params = init_bnn_params(0, device=dev)
+    feeds = [{k: cifar_batch_at(DataConfig(seed=11, global_batch=batch), s)[k]
+              .to(dev) for k in ("images", "labels")} for s in range(3)]
+    return cfg, _BNNTask(cfg.model_config()), params, init_opt_state(params), feeds
+
+
+def test_dp_step_on_one_shard_is_the_single_device_step(dev):
+    from repro_torch import tree
+    from repro_torch.launch.mesh import ServingMesh
+    from repro_torch.train.bnn_trainer import (bnn_clip_predicate,
+                                               init_dp_error_feedback,
+                                               make_dp_train_step)
+    from repro_torch.train.step import make_train_step
+
+    cfg, task, params, opt, feeds = _dp_setup(dev, 16)
+    single = make_train_step(task, cfg.train_config(),
+                             clip_predicate=bnn_clip_predicate)
+    dp = make_dp_train_step(task, cfg.train_config(), ServingMesh((dev,)),
+                            grad_compression="none",
+                            clip_predicate=bnn_clip_predicate)
+    a = (params, opt)
+    b = (params, opt, init_dp_error_feedback(params, 1))
+    for feed in feeds:
+        pa, oa, ma = single(*a, feed)
+        pb, ob, eb, mb = dp(*b, feed)
+        for x, y in zip(tree.leaves((pa, oa, ma)), tree.leaves((pb, ob, mb))):
+            assert torch.equal(x, y)
+        a, b = (pa, oa), (pb, ob, eb)
+
+
+def test_signsgd_dp_step_replays_bit_for_bit(dev):
+    from repro_torch import tree
+    from repro_torch.launch.mesh import ServingMesh
+    from repro_torch.train.bnn_trainer import (bnn_clip_predicate,
+                                               init_dp_error_feedback,
+                                               make_dp_train_step)
+
+    cfg, task, params, opt, feeds = _dp_setup(dev, 32)
+    for compression in ("int8", "signsgd"):
+        dp = make_dp_train_step(task, cfg.train_config(),
+                                ServingMesh((dev,) * 4),
+                                grad_compression=compression,
+                                clip_predicate=bnn_clip_predicate)
+        runs = []
+        for _ in range(2):
+            state = (params, opt, init_dp_error_feedback(params, 4))
+            for feed in feeds:
+                *state, metrics = dp(*state, feed)
+            runs.append(tree.leaves((state, metrics)))
+        assert all(torch.equal(x, y) for x, y in zip(*runs)), compression
+        assert bool(torch.isfinite(runs[0][0]).all())
