@@ -149,6 +149,19 @@
    ``train_bnn_resilient`` holds its six gates, and a straggler is evicted
    (8 -> 4). The chaos run's params export under the probe. The phase's
    launches (the export's) are the path ``bnn_train_resilient``.
+11. The LM trainer (``lm_bwd_kernel_phase``, ``lm_train_phase``): the
+   three backward kernels (``flash_attention_bwd``, ``ssm_scan_chunk_bwd``,
+   ``mlstm_chunked_bwd``) at their training shapes against their twins on
+   the same saved tensors (``BWD_F32_TOL``, ``BWD_BF16_ULPS``), timed
+   beside their bounds, twins and, for flash, SDPA's backward; then
+   smollm-360m (32 layers, batch 4 x 4096) and xlstm-1.3b (one 8-layer
+   period, batch 2 x 4096) trained through ``launch.train.train`` under
+   ``train_policy()``: the first step's loss and per-leaf gradients held
+   to the twins' (``LM_GRAD_TOL``), the launch counts of every step (with
+   remat each period's forward runs twice), ms a step, tokens/s, peak
+   memory, busy share and a profile; the three smoke families must learn
+   with ``quickstart.py``'s settings, and a run resumes from its
+   checkpoint. The phase's launches are the path ``lm_train``.
 
 Last, prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``.
 
@@ -197,7 +210,10 @@ TF32_OPS_PER_S = 495e12
 MUFU_EX2_PER_S = 132 * 16 * 1.98e9
 OPS_RATE = {"pack_rows": FP32_OPS_PER_S, "unpack_gemm": BF16_OPS_PER_S,
             "ssm_scan_chunk": MUFU_EX2_PER_S,
-            "flash_attention": BF16_OPS_PER_S, "mlstm_chunked": FP32_OPS_PER_S}
+            "flash_attention": BF16_OPS_PER_S, "mlstm_chunked": FP32_OPS_PER_S,
+            "flash_attention_bwd": BF16_OPS_PER_S,
+            "ssm_scan_chunk_bwd": MUFU_EX2_PER_S,
+            "mlstm_chunked_bwd": FP32_OPS_PER_S}
 # Read between calls to time a kernel with a cold L2 (50 MB on the H100).
 L2_FLUSH_BYTES = 128 * 2**20
 BATCH = 32
@@ -1765,14 +1781,16 @@ def _nbytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def device_breakdown(fn, top: int = 6) -> list:
+def device_breakdown(fn, top: int = 6, warm: bool = True) -> list:
     """Device time of one call of ``fn`` by kernel name (``torch.profiler``),
-    the ``top`` largest as ``[name, ms, share]``. The profile is
+    the ``top`` largest as ``[name, ms, share]``, after one warm-up call
+    (``warm``; without, for a ``fn`` already warm). The profile is
     diagnostic: an error of the profiler itself gives "not measured", but
     an error of ``fn`` (a kernel or a wrapper) propagates."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     try:
         prof = profile(activities=[ProfilerActivity.CUDA])
@@ -3312,6 +3330,407 @@ def replays_ms(dev, graphs: list, iters: int = 20, reps: int = 5) -> float:
     return statistics.median(times[1:])
 
 
+# ------------------------- phase 11: the LM trainer -------------------------
+
+# (label, B, C, di, ds) of the scan's backward: jamba's chunk (its time
+# makes the kernels-line total; the operands as the prefill's, chunk views
+# of a longer sequence), a ragged case and a state width past 16 (the
+# kernel's 32-state build).
+SCAN_BWD_CASES = [("jamba chunk", 1, 256, 16384, 16, 512),
+                  ("ragged", 3, 37, 1000, 13, 37),
+                  ("ds 24", 2, 64, 300, 24, 64)]
+# Backward kernels against their twins on the same saved tensors: each
+# gradient within rtol of itself plus atol of its largest magnitude
+# (a sum over thousands of terms in another order lands where
+# cancellation leaves a small total). Set from the readings on an H100
+# (at most 3.5e-6 of the largest magnitude: flash's float32 dk; the scan
+# and the mLSTM at most 1e-6), with 5x room.
+BWD_F32_TOL = dict(rtol=1e-4, atol=2e-5)
+# Bf16 flash backward: the kernel and the twin round p and dS to bf16 at
+# the same points, but the float32 sums before them run in other orders,
+# so a p or dS can round to the neighbouring bf16 value, and the outputs
+# round to bf16 at the end: each gradient within BWD_BF16_ULPS bf16 ulps
+# of its largest magnitude. Readings on an H100: at most 2.1e-3 of the
+# largest magnitude (dk at smollm's shape), about half such an ulp.
+BWD_BF16_ULPS = 2.0
+# Per-leaf relative L2 error of the first step's gradients, kernels
+# against twins, both forward and backward, over every parameter leaf.
+# Bf16: smollm-360m read 6.8e-3 at most (median 2.6e-3) on an H100;
+# float32 activations (xlstm, see LM_TRAIN_CASES): set from its reading.
+LM_GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
+# The LM training runs: (arch, batch, seq, steps, layers or None for the
+# published depth, the activations' dtype of the first-step gradient
+# check or None for the config's). xlstm's is float32: in bf16 its
+# logits are not reproducible under float32-ulp changes of one mLSTM
+# output (phase 7), so no kernel-vs-twin gradient gate holds there.
+LM_TRAIN_CASES = [("smollm-360m", 4, 4096, 3, None, None),
+                  ("xlstm-1.3b", 2, 4096, 2, 8, torch.float32)]
+# quickstart.py's settings, through the launcher, for the smoke families
+SMOKE_TRAIN = dict(steps=60, batch=8, seq=64, lr=1e-3)
+SMOKE_ARCHS = ("smollm-360m", "xlstm-1.3b", "jamba-1.5-large-398b")
+
+
+def grad_error(kernel: str, label: str, names, got, want, dtype) -> dict:
+    """Each gradient against the twin's: float32 within ``BWD_F32_TOL``
+    (rtol of itself plus atol of the tensor's largest magnitude), bf16
+    within ``BWD_BF16_ULPS`` bf16 ulps of the tensor's largest magnitude.
+    Returns the max abs error, and per tensor its error over its largest
+    magnitude (``rel``)."""
+    out = {"max_abs_err": 0.0}
+    for name, g, w in zip(names, got, want):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.isfinite(g).all():
+            fail(f"{kernel} {label}: d{name} {tuple(g.shape)}/{g.dtype} vs twin "
+                 f"{tuple(w.shape)}/{w.dtype}, finite={bool(torch.isfinite(g).all())}")
+        if not g.numel():
+            continue
+        gf, wf = g.float(), w.float()
+        diff = (gf - wf).abs()
+        scale = float(wf.abs().max()) or 1.0
+        out["max_abs_err"] = max(out["max_abs_err"], float(diff.max()))
+        out[f"{name}_rel"] = float(diff.max()) / scale
+        if dtype == torch.bfloat16:
+            limit = BWD_BF16_ULPS * float(bf16_ulp(torch.tensor(scale)))
+            bad = int((diff > limit).sum())
+            what = f"{BWD_BF16_ULPS:g} bf16 ulps of its largest magnitude"
+        else:
+            limit = BWD_F32_TOL["rtol"] * wf.abs() + BWD_F32_TOL["atol"] * scale
+            bad = int((diff > limit).sum())
+            what = "rtol 1e-3 of itself plus atol 1e-4 of its largest magnitude"
+        if bad:
+            fail(f"{kernel} {label}: {bad} of d{name} outside {what} of the plain "
+                 f"twin (max abs err {float(diff.max()):.3g}, largest {scale:.3g})")
+    return out
+
+
+def lm_bwd_kernel_phase(dev, totals: dict, rows: list) -> None:
+    """The three backward kernels at their training shapes, each held to
+    its twin run on the card on the same saved tensors (the forward
+    kernel's output and what it keeps: flash attention's row log-sum-exp,
+    the mLSTM's chunk states) and timed: flash attention at FLASH_CASES
+    (bf16 at smollm-360m's training shape makes the total) with SDPA's
+    backward on the same tensors as its yardstick, the scan at
+    SCAN_BWD_CASES, the mLSTM at MLSTM_CASES with random final-state
+    gradients. Bounds: flash 5 BH S^2 Dh operations (2.5x the forward's)
+    at the bf16 tensor-core rate (float32: the CUDA cores'), against its
+    operands and gradients; the scan B C di ds exps at the MUFU rate
+    against its operands and gradients; the mLSTM L (L + 1) (3 dk + 2
+    dv) + 8 L dk dv per (bh, chunk) (five [L, L] products over the causal
+    half, four [L, d] x [d, d] ones) at the float32 rate."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    F = torch.nn.functional
+    for label, bh, s, dh, dtype in FLASH_CASES:
+        q, k, v = (torch.randn((bh, s, dh), generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        do = torch.randn((bh, s, dh), generator=gen, device=dev).to(dtype)
+        o, lse = ops._flash_forward(q, k, v, True)
+        run = lambda: ops.flash_attention_bwd(q, k, v, o, lse, do)  # noqa: E731,B023
+        twin = lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do)  # noqa: E731,B023
+        e = grad_error("flash_attention_bwd", label, "qkv", run(), twin(), dtype)
+        q4, k4, v4 = (t[None].detach().requires_grad_() for t in (q, k, v))
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        do4 = do[None]
+        sdpa = lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True)  # noqa: E731,B023
+        sdpa_ms = time_ms(sdpa, iters=5)
+        nbytes = (8 * bh * s * dh) * q.element_size() + 4 * bh * s
+        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        summed = label == "smollm layer"
+        row = record(totals["flash_attention_bwd"], "flash_attention_bwd",
+                     f"{label} [{bh},{s},{dh}] {str(dtype)[6:]}", e["max_abs_err"],
+                     run, twin, None, nbytes, 5 * bh * s * s * dh, summed=summed,
+                     check=("max |err| / max |grad|: " + ", ".join(
+                         f"d{n} {e[n + '_rel']:.2g}" for n in "qkv")), rate=rate)
+        row.update(e, library_ms=sdpa_ms)
+        if summed:
+            totals["flash_attention_bwd"]["library_ms"] = sdpa_ms
+        print(f"    SDPA backward (library yardstick) {sdpa_ms:.4f} ms", flush=True)
+        rows.append(row)
+        del q4, k4, v4, out4
+    for label, b, c, di, ds, seq in SCAN_BWD_CASES:
+        args = scan_operands(gen, b, c, di, ds, seq, dev)
+        dy = torch.randn((b, c, di), generator=gen, device=dev)
+        dh_last = torch.randn((b, di, ds), generator=gen, device=dev)
+        run = lambda: ops.ssm_scan_chunk_bwd(*args, dy, dh_last)  # noqa: E731,B023
+        twin = lambda: ref.ssm_scan_chunk_bwd_ref(*args, dy, dh_last)  # noqa: E731,B023
+        e = grad_error("ssm_scan_chunk_bwd", label, ("dt", "xh", "B", "C", "A", "h0"),
+                       run(), twin(), torch.float32)
+        nbytes = (5 * b * c * di + 4 * b * c * ds + 2 * di * ds + 4 * b * di * ds) * 4
+        row = record(totals["ssm_scan_chunk_bwd"], "ssm_scan_chunk_bwd",
+                     f"{label} [{b},{c},{di},{ds}]", e["max_abs_err"], run, twin, None,
+                     nbytes, b * c * di * ds, summed=label == "jamba chunk",
+                     check=("max |err| / max |grad|: " + ", ".join(
+                         f"d{n} {e[n + '_rel']:.2g}"
+                         for n in ("dt", "xh", "B", "C", "A", "h0"))))
+        row.update(e)
+        rows.append(row)
+    for label, bh, s, dk, dv, chunk in MLSTM_CASES:
+        q = torch.randn((bh, s, dk), generator=gen, device=dev) * dk ** -0.5
+        k = torch.randn((bh, s, dk), generator=gen, device=dev)
+        v = torch.randn((bh, s, dv), generator=gen, device=dev)
+        logi = torch.randn((bh, s), generator=gen, device=dev)
+        logf = F.logsigmoid(torch.randn((bh, s), generator=gen, device=dev) + 2)
+        y, _, _, _, states, nstates = ops._mlstm_forward(q, k, v, logi, logf, chunk)
+        dy = torch.randn((bh, s, dv), generator=gen, device=dev)
+        dC = torch.randn((bh, dk, dv), generator=gen, device=dev) * 1e-2
+        dn = torch.randn((bh, 1, dk), generator=gen, device=dev) * 1e-2
+        args = (q, k, v, logi, logf, y, states, nstates, dy, dC, dn)
+        run = lambda: ops.mlstm_chunked_bwd(*args, chunk=chunk)  # noqa: E731,B023
+        twin = lambda: ref.mlstm_chunked_bwd_ref(*args, chunk=chunk)  # noqa: E731,B023
+        e = grad_error("mlstm_chunked_bwd", label, ("q", "k", "v", "logi", "logf"),
+                       run(), twin(), torch.float32)
+        ln = min(chunk, s)
+        ops_n = (s // ln) * bh * (ln * (ln + 1) * (3 * dk + 2 * dv) + 8 * ln * dk * dv)
+        nbytes = 4 * (bh * s * (4 * dk + 6 * dv + 4) + states.numel() + nstates.numel()
+                      + bh * (dk * dv + dk))
+        row = record(totals["mlstm_chunked_bwd"], "mlstm_chunked_bwd",
+                     f"{label} [{bh},{s},{dk},{dv}] L{ln}", e["max_abs_err"], run, twin,
+                     None, nbytes, ops_n, summed=label == "xlstm layer",
+                     check=("max |err| / max |grad|: " + ", ".join(
+                         f"d{n} {e[n + '_rel']:.2g}"
+                         for n in ("q", "k", "v", "logi", "logf"))))
+        row.update(e)
+        if label == "xlstm layer":
+            row["breakdown"] = device_breakdown(run, top=8)
+            print("    its kernels: " + (row["breakdown"] if isinstance(
+                row["breakdown"], str) else ", ".join(
+                    f"{n.split('(')[0].split()[-1]} {ms:.3f} ms"
+                    for n, ms, _ in row["breakdown"][:-1])), flush=True)
+        rows.append(row)
+        del args, states, nstates
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def twin_grads_in_place():
+    """Within the block the three LM kernels run their plain twins forward
+    and backward (flash with the kernel's KV tile), through the same
+    ``autograd.Function``s."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+
+    names = ("_flash_forward", "flash_attention_bwd", "_ssm_forward",
+             "ssm_scan_chunk_bwd", "_mlstm_forward", "mlstm_chunked_bwd")
+    saved = {n: getattr(ops, n) for n in names}
+    ops._flash_forward = lambda q, k, v, causal: ref.flash_attention_ref(
+        q, k, v, causal=causal, block_kv=ops.FLASH_TILE, return_lse=True)
+    ops.flash_attention_bwd = ref.flash_attention_bwd_ref
+    ops._ssm_forward = ref.ssm_scan_chunk_ref
+    ops.ssm_scan_chunk_bwd = ref.ssm_scan_chunk_bwd_ref
+    ops._mlstm_forward = lambda q, k, v, logi, logf, chunk: ref.mlstm_chunked_ref(
+        q, k, v, logi, logf, chunk=chunk, return_states=True)
+    ops.mlstm_chunked_bwd = ref.mlstm_chunked_bwd_ref
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(ops, n, f)
+
+
+def _leaf_rel_l2(got, want) -> dict:
+    """Per-leaf relative L2 error ``|g - w| / |w|`` over matching trees."""
+    from repro_torch import tree
+
+    out = {}
+    for (path, g), w in zip(tree.leaves_with_path(got), tree.leaves(want)):
+        den = float(torch.linalg.vector_norm(w.float()))
+        num = float(torch.linalg.vector_norm((g - w).float()))
+        out["/".join(str(p) for p in path)] = num / den if den else num
+    return out
+
+
+def lm_train_run(dev, arch: str, batch: int, seq: int, steps: int,
+                 layers: int | None, grad_dtype=None) -> dict:
+    """One LM family trained at full width through ``launch.train.train``
+    (``smoke=False``, ``train_policy()``, ``layers`` cutting the depth
+    where given): the first step's loss and gradients against the same
+    step with the twins in place (forward and backward; activations in
+    ``grad_dtype`` where given), per-leaf relative L2 within
+    ``LM_GRAD_TOL``; the launch counts of every step;
+    a finite loss at every step; ms a step by CUDA events, tokens/s, peak
+    memory, and a profile of one step with its busy share."""
+    from repro_torch.configs.base import get_config, train_policy
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model_factory import build_model
+    from repro_torch.models.transformer import num_periods, period_spec
+    from repro_torch.train.step import _grads_of
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    mixer = {"attn": "flash_attention", "mlstm": "mlstm_chunked"}
+    per_period = {}
+    for kind in period_spec(cfg):
+        if kind.mixer in mixer:
+            per_period[mixer[kind.mixer]] = per_period.get(mixer[kind.mixer], 0) + 1
+    # remat: each period's forward runs twice, its backward once
+    want = {name: 0 for name in ops.LAUNCHES}
+    for name, n in per_period.items():
+        want[name] = 2 * n * num_periods(cfg)
+        want[name + "_bwd"] = n * num_periods(cfg)
+    res = {"layers": cfg.num_layers, "batch": batch, "seq": seq}
+
+    # the first step's gradients, kernels and twins, on train()'s params
+    # and first batch (its seed 0)
+    torch.cuda.empty_cache()
+    model = build_model(cfg if grad_dtype is None else dataclasses.replace(
+        cfg, dtype=grad_dtype), train_policy())
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    b0 = next(synthetic_lm_batches(DataConfig(seed=0, global_batch=batch,
+                                              seq_len=seq, vocab_size=cfg.vocab_size)))
+    b0 = {"tokens": b0["tokens"].to(dev), "labels": b0["labels"].to(dev)}
+    ops.reset_launches()
+    loss_k, _, grads_k = _grads_of(model, params, b0)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    if counts != want:
+        fail(f"{arch} training step: launches {counts}, expected {want}")
+    with twin_grads_in_place():
+        loss_t, _, grads_t = _grads_of(model, params, b0)
+    rel = _leaf_rel_l2(grads_k, grads_t)
+    del grads_k, grads_t, params
+    torch.cuda.empty_cache()
+    dname = str(model.cfg.dtype)[6:]
+    worst = max(rel, key=rel.get)
+    res.update(loss_kernels=float(loss_k), loss_twins=float(loss_t),
+               grad_rel_l2_max=rel[worst], grad_rel_l2_worst_leaf=worst,
+               grad_rel_l2_median=statistics.median(rel.values()),
+               launches_per_step={k: v for k, v in counts.items() if v})
+    print(f"  {arch} first step: loss {float(loss_k):.5f} (twins {float(loss_t):.5f}), "
+          f"gradients per-leaf rel L2 max {rel[worst]:.3g} ({worst}), median "
+          f"{res['grad_rel_l2_median']:.3g} ({dname} activations); launches "
+          f"{res['launches_per_step']}",
+          flush=True)
+    if not abs(float(loss_k) - float(loss_t)) <= LM_LOSS_TOL:
+        fail(f"{arch} first step: loss {float(loss_k)} vs twins {float(loss_t)}")
+    if rel[worst] > LM_GRAD_TOL[dname]:
+        fail(f"{arch} first step: gradient {worst} rel L2 {rel[worst]:.3g} > "
+             f"{LM_GRAD_TOL[dname]} of the twins'")
+
+    # the steps through the launcher, each timed and counted
+    step_ms, step_counts, profiled = [], [], {}
+    made = launch_train.make_train_step
+
+    def timed_step_factory(model_, tcfg):
+        inner = made(model_, tcfg)
+
+        def step(p, o, bt):
+            ops.reset_launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(p, o, bt)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            step_counts.append(dict(ops.LAUNCHES))
+            if len(step_ms) == steps - 1 and not profiled:
+                profiled["breakdown"] = device_breakdown(
+                    lambda: inner(p, o, bt), top=8, warm=False)
+            return out
+
+        return step
+
+    launch_train.make_train_step = timed_step_factory
+    get = launch_train.get_config
+    launch_train.get_config = lambda name: cfg if name == arch else get(name)
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        out = launch_train.train(arch, smoke=False, steps=steps, batch=batch,
+                                 seq=seq, lr=3e-4, log_every=1, device=dev)
+    finally:
+        launch_train.make_train_step, launch_train.get_config = made, get
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    losses = out["losses"]
+    del out
+    torch.cuda.empty_cache()
+    if len(losses) != steps or not np.isfinite(losses).all():
+        fail(f"{arch} training: losses {losses}")
+    for i, c in enumerate(step_counts):
+        if c != want:
+            fail(f"{arch} training step {i}: launches {c}, expected {want}")
+    timed = step_ms[1:] or step_ms
+    ms = statistics.median(timed)
+    bd = profiled.get("breakdown", "not measured")
+    busy = (bd[-1][1] / ms) if isinstance(bd, list) else None
+    # the path's launches: the first step's gradients and every step
+    res["launches"] = {name: counts[name] + sum(c[name] for c in step_counts)
+                       for name in counts}
+    res.update(losses=losses, step_ms=step_ms, ms_per_step=ms,
+               tokens_per_s=batch * seq / (ms / 1e3), breakdown=bd, busy_share=busy)
+    print(f"  {arch} ({cfg.num_layers} layers, batch {batch} x {seq}): losses "
+          f"{[round(x, 4) for x in losses]}, {ms:.1f} ms a step (steps "
+          f"{[round(x, 1) for x in step_ms]}), {res['tokens_per_s']:.0f} tokens/s, "
+          f"peak memory {res['max_memory_allocated'] / 2**30:.2f} GiB, busy "
+          + ("not measured" if busy is None else f"{busy:.2f}"), flush=True)
+    if isinstance(bd, list):
+        print("    step profile: " + ", ".join(
+            f"{n.split('(')[0][:40]} {t:.1f} ms" for n, t, _ in bd[:-1]), flush=True)
+    return res
+
+
+def lm_train_phase(dev, cases=LM_TRAIN_CASES) -> dict:
+    """Phase 11: the LM trainer on the card (after the backward kernels'
+    checks in ``lm_bwd_kernel_phase``). Each of ``cases`` through
+    ``lm_train_run``; then the three smoke families through the launcher
+    with ``quickstart.py``'s settings (``SMOKE_TRAIN``), each of which
+    must learn (the mean of the last 5 losses below the first 5's; the
+    jamba run launches the scan's backward), and the resume of
+    ``tests/test_launch.py``: 12 steps with checkpoints every 5, then a
+    run to 14 that resumes from step 10 and yields 4 losses. Launch
+    counts of the whole phase are the ``lm_train`` path's."""
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+
+    t0 = time.monotonic()
+    res, total = {}, {name: 0 for name in ops.LAUNCHES}
+    for arch, batch, seq, steps, layers, grad_dtype in cases:
+        ops.reset_launches()
+        res[arch] = lm_train_run(dev, arch, batch, seq, steps, layers, grad_dtype)
+        for name, n in res[arch]["launches"].items():
+            total[name] += n
+    smoke = {}
+    for arch in SMOKE_ARCHS:
+        ops.reset_launches()
+        out = train(arch, smoke=True, log_every=SMOKE_TRAIN["steps"], device=dev,
+                    **SMOKE_TRAIN)
+        losses = out["losses"]
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+        for name, n in counts.items():
+            total[name] += n
+        smoke[arch] = {"first5": first, "last5": last, "launches": counts}
+        print(f"  smoke {arch}: loss {first:.4f} -> {last:.4f} over "
+              f"{SMOKE_TRAIN['steps']} steps; launches {counts}", flush=True)
+        if not (np.isfinite(losses).all() and last < first):
+            fail(f"smoke {arch} did not learn: {first} -> {last}")
+    if not smoke["jamba-1.5-large-398b"]["launches"].get("ssm_scan_chunk_bwd"):
+        fail("the smoke jamba run launched no ssm_scan_chunk_bwd")
+    ckpt = OUT_DIR / "chip_smoke_lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ops.reset_launches()
+    kw = dict(smoke=True, batch=4, seq=32, lr=1e-3, ckpt_dir=str(ckpt),
+              ckpt_every=5, log_every=100, device=dev)
+    first_run = train("smollm-360m", steps=12, **kw)["losses"]
+    resumed = train("smollm-360m", steps=14, **kw)["losses"]
+    shutil.rmtree(ckpt, ignore_errors=True)
+    for name, n in ops.LAUNCHES.items():
+        total[name] += n
+    if len(first_run) != 12 or len(resumed) != 4 or not np.isfinite(
+            first_run + resumed).all():
+        fail(f"resume: {len(first_run)} then {len(resumed)} losses, expected 12 then 4")
+    res.update(smoke=smoke, resume={"first": first_run, "resumed": resumed},
+               launches=total, seconds=time.monotonic() - t0)
+    print(f"  resume: 12 steps, then {len(resumed)} from step 10; phase 11 "
+          f"{res['seconds']:.1f} s", flush=True)
+    return res
+
+
 KERNELS = {
     "xnor_gemm": ("src/repro_torch/kernels/csrc/xnor_gemm.cu",
                   "src/repro/kernels/xnor_gemm.py:105"),
@@ -3336,6 +3755,14 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:102"),
     "mlstm_chunked": ("src/repro_torch/kernels/csrc/mlstm_chunk.cu",
                       "src/repro/kernels/mlstm_chunk.py:112"),
+    # the backward kernels have no Pallas original: each names the JAX
+    # function whose jax.grad it computes
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/attention.py:84"),
+    "ssm_scan_chunk_bwd": ("src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+                           "src/repro/models/mamba.py:67"),
+    "mlstm_chunked_bwd": ("src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+                          "src/repro/models/xlstm.py:49"),
 }
 
 
@@ -3439,6 +3866,11 @@ def main() -> None:
     print("phase 10: the BNN trained over a mesh of replicas, under chaos, "
           "and exported", flush=True)
     resilient = train_resilient_phase(dev)
+    print("phase 11: the LM trainer: the backward kernels against their "
+          "twins, then smollm-360m and xlstm-1.3b trained at full width, the "
+          "smoke families and a resume through the launcher", flush=True)
+    lm_bwd_kernel_phase(dev, totals, rows)
+    lm_train = lm_train_phase(dev)
     jamba_launches = dict(jamba["launches"]["prefill"])
     for counts in jamba["launches"]["decode"]:
         for name, n in counts.items():
@@ -3448,7 +3880,8 @@ def main() -> None:
                 **{f"{arch}_loss": r["launches"] for arch, r in lm.items()},
                 "bnn_train_export": train["launches"],
                 "bnn_serve_mesh": mesh["launches"],
-                "bnn_train_resilient": resilient["launches"]}
+                "bnn_train_resilient": resilient["launches"],
+                "lm_train": lm_train["launches"]}
     for name in KERNELS:
         if not sum(path[name] for path in launches.values()):
             fail(f"kernel {name} was not launched on the main path")
@@ -3459,7 +3892,7 @@ def main() -> None:
          "build_s": info["seconds"], "xnor_loops": xnor_loops, "shapes": rows,
          "serve": serve,
          "table2": table2, "jamba": jamba, "lm_loss": lm, "train": train,
-         "mesh": mesh, "train_resilient": resilient,
+         "mesh": mesh, "train_resilient": resilient, "lm_train": lm_train,
          "totals": totals},
         indent=2))
 

@@ -292,7 +292,7 @@ def flash_cases(dev):
     def make(path):
         fn = launcher(path, "repro_flash_attention")
         return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                          bh, s, s, dh, 1, 1, dh ** -0.5,
+                          None, bh, s, s, dh, 1, 1, dh ** -0.5,
                           torch.cuda.current_stream().cuda_stream)
     return [(f"smollm layer [{bh},{s},{dh}] bf16", make)]
 

@@ -12,12 +12,10 @@ on injectable clocks, for the serving engines and the resilient trainer
 * ``serving_shrink_plan`` and ``shrink_serving_mesh`` choose the survivor
   mesh: the first survivors, in mesh order, up to the largest power of
   two. ``MeshPlan`` / ``plan_mesh_for`` give the (pod, data, model) shape
-  the JAX package's elastic LM mesh would take for a device count.
+  the JAX package's elastic LM mesh would take for a device count, and
+  ``make_elastic_mesh`` lays a device list out on it.
 * ``run_with_recovery`` is the driver loop: step, heartbeat, checkpoint
   cadence, and on a ``WorkerFailure`` rebuild, restore and go on.
-
-``make_elastic_mesh`` is not ported: its one caller is the LM launcher,
-whose (data, model) meshes wait for the LM trainer (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -135,6 +133,19 @@ def plan_mesh_for(num_devices: int, *, model_parallel: int = 16,
         data = num_devices // model_parallel
         return MeshPlan((data, model_parallel), ("data", "model"))
     return MeshPlan((num_devices,), ("data",))
+
+
+def make_elastic_mesh(devices: Sequence, *, model_parallel: int = 16
+                      ) -> tuple[np.ndarray, tuple[str, ...]]:
+    """The JAX package's elastic LM mesh as a pure function: the first
+    ``plan.num_devices`` of ``devices`` as a numpy object array of shape
+    ``plan.shape``, in order, and ``plan.axes``, for ``plan =
+    plan_mesh_for(len(devices))``."""
+    devices = list(devices)
+    plan = plan_mesh_for(len(devices), model_parallel=model_parallel)
+    grid = np.empty(plan.num_devices, dtype=object)
+    grid[:] = devices[:plan.num_devices]
+    return grid.reshape(plan.shape), plan.axes
 
 
 def serving_shrink_plan(n_surviving: int) -> int:

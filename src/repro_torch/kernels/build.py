@@ -23,7 +23,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("xnor_gemm", "fused_gemm", "direct_conv", "megakernel_conv_stage",
            "megakernel_chain", "pack_rows", "unpack_gemm", "ssm_scan",
-           "flash_attention", "mlstm_chunk")
+           "flash_attention", "mlstm_chunk", "flash_attention_bwd",
+           "ssm_scan_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -74,12 +75,24 @@ _SIGNATURES = {
     # (dt, xh, B, C, A, h0, y, h_out, batch, chunk, di, ds, then the batch
     #  and time strides of dt, xh, B and C, stream)
     "repro_ssm_scan_chunk": (_P,) * 8 + (_I,) * 4 + (_L,) * 8 + (_P,),
-    # (q, k, v, out, BH, Sq, Skv, Dh, causal, is_bf16, scale, stream)
-    "repro_flash_attention": (_P,) * 4 + (_I,) * 6 + (_F, _P),
+    # (dt, xh, B, C, A, h0, dy, dh_last, d dt, d xh, d B, d C, d A, d h0,
+    #  then the scratch hs, part, a_part; batch, chunk, di, ds, then the
+    #  batch and time strides of dt, xh, B and C, stream)
+    "repro_ssm_scan_chunk_bwd": (_P,) * 17 + (_I,) * 4 + (_L,) * 8 + (_P,),
+    # (q, k, v, out, lse, BH, Sq, Skv, Dh, causal, is_bf16, scale, stream);
+    # lse [BH, Sq] float32
+    "repro_flash_attention": (_P,) * 5 + (_I,) * 6 + (_F, _P),
+    # (q, k, v, o, lse, do, delta, dq, dk, dv, BH, Sq, Skv, Dh, causal,
+    #  is_bf16, scale, stream); delta [BH, Sq] float32 scratch
+    "repro_flash_attention_bwd": (_P,) * 10 + (_I,) * 6 + (_F, _P),
     # (q, k, v, logi, logf, y, C, n, m, then the scratch sw, g, m_loc,
     #  inter, wk, decay, chunk ends, states, n states; BH, S, L, dk, dv,
     #  stream)
     "repro_mlstm_chunked": (_P,) * 18 + (_I,) * 5 + (_P,),
+    # (q, k, v, logi, logf, y, states, nstates, dy, dC or NULL, dn or NULL,
+    #  dq, dk, dv, dlogi, dlogf, then the scratch sw, dsw, dnum, prod,
+    #  dC_out, dn_out, vec, cvec; BH, S, L, dk, dv, stream)
+    "repro_mlstm_chunked_bwd": (_P,) * 24 + (_I,) * 5 + (_P,),
 }
 _LIB_OF = {
     "repro_xnor_gemm": "xnor_gemm",
@@ -96,8 +109,11 @@ _LIB_OF = {
     "repro_unpack_gemm": "unpack_gemm",
     "repro_unpack_gemm_splits": "unpack_gemm",
     "repro_ssm_scan_chunk": "ssm_scan",
+    "repro_ssm_scan_chunk_bwd": "ssm_scan_bwd",
     "repro_flash_attention": "flash_attention",
+    "repro_flash_attention_bwd": "flash_attention_bwd",
     "repro_mlstm_chunked": "mlstm_chunk",
+    "repro_mlstm_chunked_bwd": "mlstm_chunk",
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

@@ -5,7 +5,9 @@
 //   acc = acc * exp(m - m') + (p rounded to v's dtype) . v in float32;
 //   out = acc / max(l, 1e-30) in q's dtype,
 // for q [BH, Sq, Dh], k, v [BH, Skv, Dh] (contiguous, bf16 or float32, Dh in
-// {16, 32, 64, 128}) -> out [BH, Sq, Dh].
+// {16, 32, 64, 128}) -> out [BH, Sq, Dh], and the row log-sum-exp
+// lse = m + log(l) [BH, Sq] in float32 that the backward
+// (flash_attention_bwd.cu) takes, when an lse pointer is given.
 //
 // Replaces the Pallas kernel `flash_attention`
 // (src/repro/kernels/flash_attention.py, pallas_call at :102). Plain twin:
@@ -199,8 +201,8 @@ __global__ void __launch_bounds__(kFlashThreadsBf16, DH <= 64 ? 2 : 1)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ out, int Sq, int Skv,
-                  int causal, float scale) {
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                  int Sq, int Skv, int causal, float scale) {
   using Smem = FlashBf16Smem<DH>;
   constexpr int kLd = Smem::kLd;
   constexpr int kDt = DH / 8;    // n-tiles of the output
@@ -344,6 +346,11 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+  if (lse != nullptr && t == 0) {  // the quad's four lanes hold one row's m, l
+    float* lb = lse + static_cast<long long>(bh) * Sq;
+    if (row_a < Sq) lb[row_a] = __fadd_rn(m_a, logf(l_a));
+    if (row_b < Sq) lb[row_b] = __fadd_rn(m_b, logf(l_b));
+  }
   __nv_bfloat16* ob = out + static_cast<long long>(bh) * Sq * DH;
 #pragma unroll
   for (int d = 0; d < kDt; ++d) {
@@ -361,8 +368,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int DH>
 cudaError_t launch_flash_bf16(const void* q, const void* k, const void* v,
-                              void* o, int BH, int Sq, int Skv, int causal,
-                              float scale, cudaStream_t stream) {
+                              void* o, float* lse, int BH, int Sq, int Skv,
+                              int causal, float scale, cudaStream_t stream) {
   const size_t smem = FlashBf16Smem<DH>::kBytes;
   auto kernel = flash_bf16_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -371,8 +378,8 @@ cudaError_t launch_flash_bf16(const void* q, const void* k, const void* v,
   const dim3 grid(BH, (Sq + kFlashRowsBf16 - 1) / kFlashRowsBf16);
   kernel<<<grid, kFlashThreadsBf16, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq,
-      Skv, causal, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      Sq, Skv, causal, scale);
   return cudaGetLastError();
 }
 
@@ -417,8 +424,9 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
 template <int DH>
 __global__ void __launch_bounds__(kFlashThreadsF32)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int Sq,
-                 int Skv, int causal, float scale) {
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int Sq, int Skv, int causal,
+                 float scale) {
   using Smem = FlashF32Smem<DH>;
   constexpr int kLd = Smem::kLd, kSLd = Smem::kSLd, kPLd = Smem::kPLd,
                 kOLd = Smem::kOLd;
@@ -517,6 +525,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (qpos < Sq) {
+    if (lse != nullptr && h == 0) {
+      lse[static_cast<long long>(bh) * Sq + qpos] = __fadd_rn(m_run, logf(l_run));
+    }
     const float den = fmaxf(l_run, 1e-30f);
     float* orow = out + (static_cast<long long>(bh) * Sq + qpos) * DH + h * kHalf;
 #pragma unroll
@@ -526,8 +537,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DH>
 cudaError_t launch_flash_f32(const void* q, const void* k, const void* v,
-                             void* o, int BH, int Sq, int Skv, int causal,
-                             float scale, cudaStream_t stream) {
+                             void* o, float* lse, int BH, int Sq, int Skv,
+                             int causal, float scale, cudaStream_t stream) {
   const size_t smem = FlashF32Smem<DH>::kBytes;
   auto kernel = flash_f32_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -536,36 +547,38 @@ cudaError_t launch_flash_f32(const void* q, const void* k, const void* v,
   const dim3 grid(BH, (Sq + kFlashRowsF32 - 1) / kFlashRowsF32);
   kernel<<<grid, kFlashThreadsF32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, causal,
-      scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Skv,
+      causal, scale);
   return cudaGetLastError();
 }
 
 template <int DH>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
-                         int BH, int Sq, int Skv, int causal, int is_bf16,
-                         float scale, cudaStream_t s) {
-  return is_bf16 ? launch_flash_bf16<DH>(q, k, v, o, BH, Sq, Skv, causal, scale, s)
-                 : launch_flash_f32<DH>(q, k, v, o, BH, Sq, Skv, causal, scale, s);
+                         float* lse, int BH, int Sq, int Skv, int causal,
+                         int is_bf16, float scale, cudaStream_t s) {
+  return is_bf16 ? launch_flash_bf16<DH>(q, k, v, o, lse, BH, Sq, Skv, causal, scale, s)
+                 : launch_flash_f32<DH>(q, k, v, o, lse, BH, Sq, Skv, causal, scale, s);
 }
 
 }  // namespace repro_torch
 
 // q [BH, Sq, Dh], k, v [BH, Skv, Dh], out [BH, Sq, Dh], contiguous, 16-byte
-// aligned; is_bf16 selects bfloat16 (else float32); Dh in {16, 32, 64, 128}.
-// Query rows per block: 128 in bf16, 64 in float32 (ops._FLASH_ROWS).
+// aligned; lse [BH, Sq] float32, or NULL; is_bf16 selects bfloat16 (else
+// float32); Dh in {16, 32, 64, 128}. Query rows per block: 128 in bf16, 64
+// in float32 (ops._FLASH_ROWS).
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int BH, int Sq,
-                                     int Skv, int dh, int causal, int is_bf16,
-                                     float scale, void* stream) {
+                                     const void* v, void* out, void* lse_out,
+                                     int BH, int Sq, int Skv, int dh, int causal,
+                                     int is_bf16, float scale, void* stream) {
   using namespace repro_torch;
   const auto s = static_cast<cudaStream_t>(stream);
+  auto* lse = static_cast<float*>(lse_out);
   cudaError_t err;
   switch (dh) {
-    case 16: err = launch_flash<16>(q, k, v, out, BH, Sq, Skv, causal, is_bf16, scale, s); break;
-    case 32: err = launch_flash<32>(q, k, v, out, BH, Sq, Skv, causal, is_bf16, scale, s); break;
-    case 64: err = launch_flash<64>(q, k, v, out, BH, Sq, Skv, causal, is_bf16, scale, s); break;
-    case 128: err = launch_flash<128>(q, k, v, out, BH, Sq, Skv, causal, is_bf16, scale, s); break;
+    case 16: err = launch_flash<16>(q, k, v, out, lse, BH, Sq, Skv, causal, is_bf16, scale, s); break;
+    case 32: err = launch_flash<32>(q, k, v, out, lse, BH, Sq, Skv, causal, is_bf16, scale, s); break;
+    case 64: err = launch_flash<64>(q, k, v, out, lse, BH, Sq, Skv, causal, is_bf16, scale, s); break;
+    case 128: err = launch_flash<128>(q, k, v, out, lse, BH, Sq, Skv, causal, is_bf16, scale, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

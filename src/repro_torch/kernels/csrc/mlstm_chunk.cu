@@ -690,3 +690,592 @@ extern "C" int repro_mlstm_chunked(const void* q, const void* k, const void* v,
       fq, fv, fsw, fi, fst, fns, static_cast<float*>(y), S, L, dk, dv);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ============================================================================
+// The backward: dq, dk, dv, dlogi, dlogf of the chunkwise mLSTM above from
+// its inputs, its output y, the states entering chunks 1.. (the forward's
+// `states`, `nstates` scratch), dy and the final state's dC, dn (zero when
+// absent); the final m gets no gradient. Per chunk, with D = max(|den|, 1)
+// and W[t, j] = exp(g_j - m_loc_t) (j <= t):
+//   dnum = dy / D, dden = -(dy . y) / D sign(den) (1/2 of it at |den| = 1,
+//   0 below: jax.grad splits a tie of max in halves),
+//   dSW = dnum V^T + dden (causal triangle), dS = dSW o W, dlogW = dSW o SW,
+//   dq = dS K + inter (dnum C_in^T) + inter dden n_in, dk = dS^T Q,
+//   dv = SW^T dnum; then the state gradients as a reverse scan over chunks,
+//   dC_out[c-1] = exp(m_in - m_L)_c dC_out[c] + Q_c^T (inter dnum)_c (and
+//   n's), and from them dk += wk (V dC_out^T + dn_out), dv += wk K dC_out;
+//   last the gates, chunk by chunk from the last: the stabilizer does not
+//   cancel where D clamps, so the gradients of m_loc = max(M, m_in), of
+//   m_L and of the chain m' = b_L + m_L go to the running max M (to the
+//   latest maximum of g, torch.cummax's index) and to the previous chunk;
+//   dlogi = dg, dlogf = the reverse cumsum of -dg (+ dm' at the last step).
+//
+// Replaces no Pallas kernel: the JAX package has no backward for its
+// `mlstm_chunked`; this computes jax.grad of the reference path
+// `_mlstm_chunk` (src/repro/models/xlstm.py:49-93) scanned over chunks
+// (:146). Plain twin: repro_torch.kernels.ref.mlstm_chunked_bwd_ref, the
+// same decomposition in plain torch.
+//
+// Bound on the H100 at the xlstm-1.3b training shape (BH 8, S 4096, dk = dv
+// 1024, L 256): operations. Nine products per chunk, five over [L, L]
+// (S again, dnum V^T, SW^T dnum, dS K, dS^T Q: 2 L^2 d each) and four over
+// [L, d] x [d, d] (dnum C^T, Q^T dnum, V dC^T, K dC: 2 L d^2 each), 361
+// GFLOP as computed; the causal half of the [L, L] ones, 318 GFLOP, =
+// 4.75 ms at 67 TFLOP/s (float32 on the CUDA cores).
+//
+// Design, a simple first kernel: float32 on the CUDA cores throughout. The
+// products run through one batched GEMM kernel (64 x 64 block tiles, 16-
+// deep k slabs in shared memory, 4 x 4 outputs a thread; either operand
+// read transposed; an optional scale along k or along the rows, an
+// optional accumulate), batched over (bh, chunk) by pointer strides; the
+// elementwise and row work (the weights, den and D, dS and the log-weight
+// sums, the row dots) runs one warp a row; the reverse scan over chunks
+// one thread an element of (C, n); the gates one block a (bh) with the
+// sequential parts (running max, the argmax routing, the reverse cumsum)
+// on one thread. Every sum has a fixed order: no atomics, deterministic.
+// ============================================================================
+
+namespace repro_torch {
+
+// Slots of the [BH, S] (vec) and [BH, S/L] (cvec) vectors of the scratch:
+// ops.MLSTM_BWD_VECS = 10 and ops.MLSTM_BWD_CVECS = 5 of them (bm takes two).
+enum { kVG, kVMloc, kVInter, kVWk, kVDden, kVQn, kVDinter, kVDwk, kVRow, kVCol };
+enum { kCBm = 0, kCDecay = 2, kCDdecay = 3, kCMout = 4 };
+
+constexpr int kGmTile = 64, kGmK = 16, kGmThreads = 256;
+
+struct GemmOp {
+  const float* a;     // op(A) [M, K]: A[m * lda + k], or A[k * lda + m] (ta)
+  const float* b;     // op(B) [K, N]: B[k * ldb + n], or B[n * ldb + k] (tb)
+  float* c;           // C [M, N], C[m * ldc + n]
+  const float* kscale;   // op(B)[k, :] scaled by kscale[k], or NULL
+  const float* rscale;   // the product's row m scaled by rscale[m], or NULL
+  long long lda, ldb, ldc;
+  // batch z = bh * nb + cb: every pointer advances by its (bh, cb) strides
+  long long sa_bh, sa_c, sb_bh, sb_c, sc_bh, sc_c, sk_bh, sk_c, sr_bh, sr_c;
+  int M, N, K, nb, ta, tb, accumulate;
+};
+
+// C = (accumulate ? C : 0) + rscale * (op(A) diag(kscale) op(B)), float32.
+__global__ void __launch_bounds__(kGmThreads)
+mlstm_bwd_gemm_kernel(const GemmOp p) {
+  __shared__ __align__(16) float sa[kGmK][kGmTile + 4];
+  __shared__ __align__(16) float sb[kGmK][kGmTile + 4];
+  const int z = blockIdx.z, bh = z / p.nb, cb = z % p.nb;
+  const float* A = p.a + bh * p.sa_bh + cb * p.sa_c;
+  const float* B = p.b + bh * p.sb_bh + cb * p.sb_c;
+  float* C = p.c + bh * p.sc_bh + cb * p.sc_c;
+  const float* ks = p.kscale ? p.kscale + bh * p.sk_bh + cb * p.sk_c : nullptr;
+  const float* rs = p.rscale ? p.rscale + bh * p.sr_bh + cb * p.sr_c : nullptr;
+  const int m0 = blockIdx.y * kGmTile, n0 = blockIdx.x * kGmTile;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < p.K; k0 += kGmK) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int idx = tid + i * kGmThreads;
+      int m, k;
+      if (p.ta) { m = idx % kGmTile; k = idx / kGmTile; }
+      else { k = idx % kGmK; m = idx / kGmK; }
+      const bool ok = m0 + m < p.M && k0 + k < p.K;
+      sa[k][m] = ok ? (p.ta ? A[(k0 + k) * p.lda + m0 + m] : A[(m0 + m) * p.lda + k0 + k])
+                    : 0.f;
+      int n, kb;
+      if (p.tb) { kb = idx % kGmK; n = idx / kGmK; }
+      else { n = idx % kGmTile; kb = idx / kGmTile; }
+      const bool okb = n0 + n < p.N && k0 + kb < p.K;
+      float bv = 0.f;
+      if (okb) {
+        bv = p.tb ? B[(n0 + n) * p.ldb + k0 + kb] : B[(k0 + kb) * p.ldb + n0 + n];
+        if (ks) bv = __fmul_rn(bv, ks[k0 + kb]);
+      }
+      sb[kb][n] = bv;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kGmK; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(&sa[kk][ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&sb[kk][tx * 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= p.M) continue;
+    const float r = rs ? rs[m] : 1.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n >= p.N) continue;
+      float v = rs ? __fmul_rn(r, acc[i][j]) : acc[i][j];
+      if (p.accumulate) v = __fadd_rn(C[m * p.ldc + n], v);
+      C[m * p.ldc + n] = v;
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+struct MlBwd {
+  const float *q, *k, *v, *y, *states, *nstates, *dy, *dC, *dn;
+  float *dq, *dk, *dv, *dlogi, *dlogf;
+  float *sw, *dsw, *dnum, *prod, *dc_out, *dn_out, *vec, *cvec;
+  int BH, S, L, dk_, dv_, nc;
+  __device__ float* vecp(int slot) const {
+    return vec + static_cast<long long>(slot) * BH * S;
+  }
+  __device__ float* cvecp(int slot) const {
+    return cvec + static_cast<long long>(slot) * BH * nc;
+  }
+};
+
+// One warp a row t of chunk c: SW[t, :] (zero past t) and its sum, q . n_in,
+// den, D, dy . y, dden, and dnum = dy / D.
+__global__ void mlstm_bwd_rows_kernel(const MlBwd p) {
+  const long long row = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= static_cast<long long>(p.BH) * p.S) return;
+  const int bh = static_cast<int>(row / p.S), pos = static_cast<int>(row % p.S);
+  const int c = pos / p.L, t = pos % p.L;
+  const long long base = static_cast<long long>(bh) * p.S + static_cast<long long>(c) * p.L;
+  const float* g = p.vecp(kVG) + base;
+  const float ml = p.vecp(kVMloc)[row];
+  float* swr = p.sw + (static_cast<long long>(bh) * p.nc + c) * p.L * p.L +
+               static_cast<long long>(t) * p.L;
+  float den_i = 0.f;
+  for (int j = lane; j < p.L; j += 32) {
+    const float w = j <= t ? expf(__fsub_rn(g[j], ml)) : 0.f;
+    const float x = __fmul_rn(swr[j], w);
+    swr[j] = x;
+    den_i += x;
+  }
+  den_i = warp_sum(den_i);
+  float qn = 0.f;
+  if (c > 0) {
+    const float* nin = p.nstates + (static_cast<long long>(bh) * (p.nc - 1) + c - 1) * p.dk_;
+    const float* qr = p.q + row * p.dk_;
+    for (int d = lane; d < p.dk_; d += 32) qn = fmaf(qr[d], nin[d], qn);
+    qn = warp_sum(qn);
+  }
+  const float den = __fadd_rn(den_i, __fmul_rn(qn, p.vecp(kVInter)[row]));
+  const float dmax = fmaxf(fabsf(den), 1.f);
+  const float* dyr = p.dy + row * p.dv_;
+  const float* yr = p.y + row * p.dv_;
+  float dyy = 0.f;
+  for (int d = lane; d < p.dv_; d += 32) dyy = fmaf(dyr[d], yr[d], dyy);
+  dyy = warp_sum(dyy);
+  const float fac = fabsf(den) > 1.f ? 1.f : (fabsf(den) == 1.f ? 0.5f : 0.f);
+  const float sgn = den > 0.f ? 1.f : (den < 0.f ? -1.f : 0.f);
+  float* dnr = p.dnum + row * p.dv_;
+  for (int d = lane; d < p.dv_; d += 32) dnr[d] = __fdiv_rn(dyr[d], dmax);
+  if (lane == 0) {
+    p.vecp(kVDden)[row] = __fmul_rn(__fmul_rn(__fdiv_rn(-dyy, dmax), sgn), fac);
+    p.vecp(kVQn)[row] = qn;
+  }
+}
+
+// One thread a column j of chunk c: sum_{t >= j} (dSW[t, j] + dden_t) SW[t, j]
+// (run before dsw_kernel overwrites dSW).
+__global__ void mlstm_bwd_cols_kernel(const MlBwd p) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x, c = blockIdx.y, bh = blockIdx.z;
+  if (j >= p.L) return;
+  const long long tile = (static_cast<long long>(bh) * p.nc + c) * p.L * p.L;
+  const long long base = static_cast<long long>(bh) * p.S + static_cast<long long>(c) * p.L;
+  const float* dden = p.vecp(kVDden) + base;
+  float acc = 0.f;
+  for (int t = j; t < p.L; ++t) {
+    const long long e = tile + static_cast<long long>(t) * p.L + j;
+    acc = fmaf(__fadd_rn(p.dsw[e], dden[t]), p.sw[e], acc);
+  }
+  p.vecp(kVCol)[base + j] = acc;
+}
+
+// One warp a row t: dSW = dnum V^T + dden on the triangle, its row sum of
+// dSW o SW, and dS = dSW o W in place.
+__global__ void mlstm_bwd_dsw_kernel(const MlBwd p) {
+  const long long row = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= static_cast<long long>(p.BH) * p.S) return;
+  const int bh = static_cast<int>(row / p.S), pos = static_cast<int>(row % p.S);
+  const int c = pos / p.L, t = pos % p.L;
+  const long long base = static_cast<long long>(bh) * p.S + static_cast<long long>(c) * p.L;
+  const float* g = p.vecp(kVG) + base;
+  const float ml = p.vecp(kVMloc)[row];
+  const float dd = p.vecp(kVDden)[row];
+  const long long off = (static_cast<long long>(bh) * p.nc + c) * p.L * p.L +
+                        static_cast<long long>(t) * p.L;
+  float* dr = p.dsw + off;
+  const float* sr = p.sw + off;
+  float acc = 0.f;
+  for (int j = lane; j < p.L; j += 32) {
+    float x = 0.f;
+    if (j <= t) {
+      const float ds = __fadd_rn(dr[j], dd);
+      acc = fmaf(ds, sr[j], acc);
+      x = __fmul_rn(ds, expf(__fsub_rn(g[j], ml)));
+    }
+    dr[j] = x;
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) p.vecp(kVRow)[row] = acc;
+}
+
+// One warp a row t (chunks >= 1; chunk 0 has a zero state): dinter = q .
+// prod + dden qn, dq += inter prod + (inter dden) n_in, prod = dnum C_in^T.
+__global__ void mlstm_bwd_qinter_kernel(const MlBwd p) {
+  const long long row = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= static_cast<long long>(p.BH) * p.S) return;
+  const int bh = static_cast<int>(row / p.S), c = static_cast<int>(row % p.S) / p.L;
+  if (c == 0) {
+    if (lane == 0) p.vecp(kVDinter)[row] = 0.f;
+    return;
+  }
+  const float inter = p.vecp(kVInter)[row], dd = p.vecp(kVDden)[row];
+  const float idd = __fmul_rn(inter, dd);
+  const float* nin = p.nstates + (static_cast<long long>(bh) * (p.nc - 1) + c - 1) * p.dk_;
+  const float* qr = p.q + row * p.dk_;
+  const float* pr = p.prod + row * p.dk_;
+  float* dqr = p.dq + row * p.dk_;
+  float acc = 0.f;
+  for (int d = lane; d < p.dk_; d += 32) {
+    acc = fmaf(qr[d], pr[d], acc);
+    dqr[d] = __fadd_rn(__fadd_rn(dqr[d], __fmul_rn(inter, pr[d])), __fmul_rn(idd, nin[d]));
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) p.vecp(kVDinter)[row] = __fadd_rn(acc, __fmul_rn(dd, p.vecp(kVQn)[row]));
+}
+
+// dn_out[c - 1] = sum_t inter_t dden_t q_t (chunks c >= 1), one thread a
+// column d.
+__global__ void mlstm_bwd_dn_loc_kernel(const MlBwd p) {
+  const int d = blockIdx.x * blockDim.x + threadIdx.x, c = blockIdx.y + 1, bh = blockIdx.z;
+  if (d >= p.dk_) return;
+  const long long base = static_cast<long long>(bh) * p.S + static_cast<long long>(c) * p.L;
+  const float* inter = p.vecp(kVInter) + base;
+  const float* dden = p.vecp(kVDden) + base;
+  float acc = 0.f;
+  for (int t = 0; t < p.L; ++t) {
+    acc = fmaf(__fmul_rn(inter[t], dden[t]), p.q[(base + t) * p.dk_ + d], acc);
+  }
+  p.dn_out[(static_cast<long long>(bh) * p.nc + c - 1) * p.dk_ + d] = acc;
+}
+
+// The reverse scan over chunks, one thread an element of (C, n):
+// dC_out[nc - 1] = dC (0 if absent); dC_out[c - 1] = decay_c dC_out[c] +
+// (the local part already in dC_out[c - 1]).
+__global__ void mlstm_bwd_scan_kernel(const MlBwd p) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int bh = blockIdx.y;
+  const long long nC = static_cast<long long>(p.dk_) * p.dv_;
+  if (e >= nC + p.dk_) return;
+  const bool is_n = e >= nC;
+  const long long idx = is_n ? e - nC : e;
+  float* buf = is_n ? p.dn_out + static_cast<long long>(bh) * p.nc * p.dk_
+                    : p.dc_out + static_cast<long long>(bh) * p.nc * nC;
+  const long long stride = is_n ? p.dk_ : nC;
+  const float* seed = is_n ? p.dn : p.dC;
+  float cur = seed ? seed[(is_n ? static_cast<long long>(bh) * p.dk_ : bh * nC) + idx] : 0.f;
+  buf[(p.nc - 1) * stride + idx] = cur;
+  const float* decay = p.cvecp(kCDecay) + static_cast<long long>(bh) * p.nc;
+  for (int c = p.nc - 1; c >= 1; --c) {
+    cur = __fadd_rn(__fmul_rn(decay[c], cur), buf[(c - 1) * stride + idx]);
+    buf[(c - 1) * stride + idx] = cur;
+  }
+}
+
+// One warp a row j: p8 = prod + dn_out (prod = V dC_out^T), dwk = k . p8,
+// dk += wk p8.
+__global__ void mlstm_bwd_kstate_kernel(const MlBwd p) {
+  const long long row = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= static_cast<long long>(p.BH) * p.S) return;
+  const int bh = static_cast<int>(row / p.S), c = static_cast<int>(row % p.S) / p.L;
+  const float wk = p.vecp(kVWk)[row];
+  const float* dno = p.dn_out + (static_cast<long long>(bh) * p.nc + c) * p.dk_;
+  const float* kr = p.k + row * p.dk_;
+  const float* pr = p.prod + row * p.dk_;
+  float* dkr = p.dk + row * p.dk_;
+  float acc = 0.f;
+  for (int d = lane; d < p.dk_; d += 32) {
+    const float p8 = __fadd_rn(pr[d], dno[d]);
+    acc = fmaf(kr[d], p8, acc);
+    dkr[d] = __fadd_rn(dkr[d], __fmul_rn(wk, p8));
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) p.vecp(kVDwk)[row] = acc;
+}
+
+// ddecay_c = <dC_out[c], C_in[c]> + <dn_out[c], n_in[c]>, one block a
+// (chunk >= 1, bh); a fixed-order block sum.
+__global__ void mlstm_bwd_ddecay_kernel(const MlBwd p) {
+  __shared__ float part[kMlThreads];
+  const int c = blockIdx.x + 1, bh = blockIdx.y;
+  const long long nC = static_cast<long long>(p.dk_) * p.dv_;
+  const float* dco = p.dc_out + (static_cast<long long>(bh) * p.nc + c) * nC;
+  const float* cin = p.states + (static_cast<long long>(bh) * (p.nc - 1) + c - 1) * nC;
+  const float* dno = p.dn_out + (static_cast<long long>(bh) * p.nc + c) * p.dk_;
+  const float* nin = p.nstates + (static_cast<long long>(bh) * (p.nc - 1) + c - 1) * p.dk_;
+  float acc = 0.f;
+  for (long long e = threadIdx.x; e < nC; e += kMlThreads) acc = fmaf(dco[e], cin[e], acc);
+  float accn = 0.f;
+  for (int e = threadIdx.x; e < p.dk_; e += kMlThreads) accn = fmaf(dno[e], nin[e], accn);
+  part[threadIdx.x] = __fadd_rn(acc, accn);
+  __syncthreads();
+  for (int w = kMlThreads / 2; w >= 1; w >>= 1) {
+    if (threadIdx.x < w) part[threadIdx.x] = __fadd_rn(part[threadIdx.x], part[threadIdx.x + w]);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) p.cvecp(kCDdecay)[static_cast<long long>(bh) * p.nc + c] = part[0];
+}
+
+// Block sum of one value a thread (kMlThreads), the same order everywhere.
+__device__ float block_sum(float v, float* red) {
+  red[threadIdx.x] = v;
+  __syncthreads();
+  for (int w = kMlThreads / 2; w >= 1; w >>= 1) {
+    if (threadIdx.x < w) red[threadIdx.x] = __fadd_rn(red[threadIdx.x], red[threadIdx.x + w]);
+    __syncthreads();
+  }
+  const float out = red[0];
+  __syncthreads();
+  return out;
+}
+
+// The gates, one block a bh, chunk by chunk from the last, carrying dm_out
+// (the gradient of the stabilizer leaving the chunk; 0 for the final m).
+__global__ void __launch_bounds__(kMlThreads)
+mlstm_bwd_gates_kernel(const MlBwd p) {
+  __shared__ float m_in[kMlMaxChunks];
+  __shared__ float big_m[kMlMaxL], dbig[kMlMaxL], dg[kMlMaxL];
+  __shared__ int new_max[kMlMaxL];
+  __shared__ float red[kMlThreads];
+  __shared__ float dm_l_sh;
+  const int bh = blockIdx.x, t = threadIdx.x, L = p.L, nc = p.nc;
+  const float* bm = p.cvecp(kCBm) + 2 * static_cast<long long>(bh) * nc;
+  if (t == 0) {  // the stabilizer entering each chunk, as the forward's chain
+    float m = kMlNeg;
+    for (int c = 0; c < nc; ++c) {
+      m_in[c] = m;
+      m = __fadd_rn(bm[2 * c], fmaxf(bm[2 * c + 1], m));
+    }
+  }
+  __syncthreads();
+  const float* decay = p.cvecp(kCDecay) + static_cast<long long>(bh) * nc;
+  const float* ddecay = p.cvecp(kCDdecay) + static_cast<long long>(bh) * nc;
+  float dm_out = 0.f;
+  for (int c = nc - 1; c >= 0; --c) {
+    const long long base = static_cast<long long>(bh) * p.S + static_cast<long long>(c) * L;
+    const float* g = p.vecp(kVG) + base;
+    if (t == 0) {  // running max and where it is set (ties: the latest)
+      float run = REPRO_NEG_INF;
+      for (int i = 0; i < L; ++i) {
+        new_max[i] = g[i] >= run;
+        run = fmaxf(run, g[i]);
+        big_m[i] = run;
+      }
+    }
+    __syncthreads();
+    const float mi = m_in[c];
+    float it = 0.f, wt = 0.f, away = 0.f;
+    if (t < L) {
+      const float f = big_m[t] > mi ? 1.f : (big_m[t] == mi ? 0.5f : 0.f);
+      it = __fmul_rn(p.vecp(kVDinter)[base + t], p.vecp(kVInter)[base + t]);
+      wt = __fmul_rn(p.vecp(kVDwk)[base + t], p.vecp(kVWk)[base + t]);
+      const float dm_loc = __fsub_rn(-p.vecp(kVRow)[base + t], it);
+      dbig[t] = __fmul_rn(dm_loc, f);
+      away = __fmul_rn(dm_loc, 1.f - f);
+      dg[t] = __fadd_rn(p.vecp(kVCol)[base + t], wt);
+    }
+    const float sum_it = block_sum(it, red);
+    const float sum_wt = block_sum(wt, red);
+    const float sum_away = block_sum(away, red);
+    if (t == 0) {
+      const float dd = c > 0 ? __fmul_rn(ddecay[c], decay[c]) : 0.f;
+      const float dm_l = __fsub_rn(__fsub_rn(dm_out, sum_wt), dd);
+      const float fl = big_m[L - 1] > mi ? 1.f : (big_m[L - 1] == mi ? 0.5f : 0.f);
+      dbig[L - 1] = __fadd_rn(dbig[L - 1], __fmul_rn(dm_l, fl));
+      dm_l_sh = __fadd_rn(__fadd_rn(__fadd_rn(sum_it, dd), sum_away),
+                          __fmul_rn(dm_l, 1.f - fl));
+      // the running max's gradient to where each maximum was set
+      float acc = 0.f;
+      for (int i = L - 1; i >= 0; --i) {
+        acc = __fadd_rn(acc, dbig[i]);
+        if (new_max[i]) {
+          dg[i] = __fadd_rn(dg[i], acc);
+          acc = 0.f;
+        }
+      }
+      // dlogi = dg; dlogf = reverse cumsum of db = -dg (+ dm_out at L - 1)
+      float run = dm_out;
+      for (int i = L - 1; i >= 0; --i) {
+        run = __fsub_rn(run, dg[i]);
+        p.dlogf[base + i] = run;
+        p.dlogi[base + i] = dg[i];
+      }
+    }
+    __syncthreads();
+    dm_out = dm_l_sh;
+    __syncthreads();
+  }
+}
+
+inline cudaError_t run_gemm(GemmOp op, int batches, cudaStream_t s) {
+  const dim3 grid((op.N + kGmTile - 1) / kGmTile, (op.M + kGmTile - 1) / kGmTile, batches);
+  if (batches == 0 || op.M == 0 || op.N == 0) return cudaSuccess;
+  mlstm_bwd_gemm_kernel<<<grid, kGmThreads, 0, s>>>(op);
+  return cudaGetLastError();
+}
+
+}  // namespace repro_torch
+
+// q, k [BH, S, dk], v, y, dy [BH, S, dv], logi, logf [BH, S], states [BH,
+// S/L - 1, dk, dv], nstates [BH, S/L - 1, dk], dC [BH, dk, dv] and dn [BH,
+// dk] (either NULL: zero) -> dq, dk, dv, dlogi, dlogf; float32 contiguous.
+// Scratch: sw, dsw [BH, S/L, L, L], dnum [BH, S, dv], prod [BH, S, dk],
+// dc_out [BH, S/L, dk, dv], dn_out [BH, S/L, dk], vec [10, BH, S], cvec
+// [5, BH, S/L]. The limits of repro_mlstm_chunked.
+extern "C" int repro_mlstm_chunked_bwd(
+    const void* q, const void* k, const void* v, const void* logi,
+    const void* logf, const void* y, const void* states, const void* nstates,
+    const void* dy, const void* dC, const void* dn, void* dq, void* dk, void* dv,
+    void* dlogi, void* dlogf, void* sw, void* dsw, void* dnum, void* prod,
+    void* dc_out, void* dn_out, void* vec, void* cvec, int BH, int S, int L,
+    int dk_, int dv_, void* stream) {
+  using namespace repro_torch;
+  if (L < 8 || L > kMlMaxL || L % 8 || S % L || S / L > kMlMaxChunks ||
+      static_cast<long long>(BH) * (S / L) > 65535 || dk_ % 4 || dv_ % 4 ||
+      dk_ < 4 || dv_ < 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int nc = S / L;
+  const MlBwd p{static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<const float*>(y),
+                static_cast<const float*>(states), static_cast<const float*>(nstates),
+                static_cast<const float*>(dy), static_cast<const float*>(dC),
+                static_cast<const float*>(dn), static_cast<float*>(dq),
+                static_cast<float*>(dk), static_cast<float*>(dv),
+                static_cast<float*>(dlogi), static_cast<float*>(dlogf),
+                static_cast<float*>(sw), static_cast<float*>(dsw),
+                static_cast<float*>(dnum), static_cast<float*>(prod),
+                static_cast<float*>(dc_out), static_cast<float*>(dn_out),
+                static_cast<float*>(vec), static_cast<float*>(cvec), BH, S, L, dk_, dv_,
+                nc};
+  float* fvec = static_cast<float*>(vec);
+  float* fcvec = static_cast<float*>(cvec);
+  const long long vs = static_cast<long long>(BH) * S, cs = static_cast<long long>(BH) * nc;
+  float *g = fvec + kVG * vs, *m_loc = fvec + kVMloc * vs, *inter = fvec + kVInter * vs,
+        *wk = fvec + kVWk * vs;
+  cudaError_t err;
+#define REPRO_CHECK() \
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err)
+  // the gates, as the forward computes them
+  mlstm_gates_chunk_kernel<<<dim3(nc, BH), kMlThreads, 0, s>>>(
+      static_cast<const float*>(logi), static_cast<const float*>(logf), g, m_loc,
+      fcvec + kCBm * cs, S, L);
+  REPRO_CHECK();
+  mlstm_gates_chain_kernel<<<dim3(nc, BH), kMlThreads, 0, s>>>(
+      g, m_loc, fcvec + kCBm * cs, inter, wk, fcvec + kCDecay * cs, fcvec + kCMout * cs,
+      S, L);
+  REPRO_CHECK();
+  const long long LL = static_cast<long long>(L) * L;
+  const long long Sdk = static_cast<long long>(S) * dk_, Sdv = static_cast<long long>(S) * dv_;
+  const long long Ldk = static_cast<long long>(L) * dk_, Ldv = static_cast<long long>(L) * dv_;
+  const long long CC = static_cast<long long>(dk_) * dv_;
+  const int batches = BH * nc, later = BH * (nc - 1);
+  auto op = [&](const float* a, long long lda, long long sa_bh, long long sa_c, int ta,
+                const float* b, long long ldb, long long sb_bh, long long sb_c, int tb,
+                float* c, long long ldc, long long sc_bh, long long sc_c, int M, int N,
+                int K, int nb) {
+    GemmOp o{};
+    o.a = a; o.b = b; o.c = c;
+    o.lda = lda; o.ldb = ldb; o.ldc = ldc;
+    o.sa_bh = sa_bh; o.sa_c = sa_c; o.sb_bh = sb_bh; o.sb_c = sb_c;
+    o.sc_bh = sc_bh; o.sc_c = sc_c;
+    o.M = M; o.N = N; o.K = K; o.nb = nb; o.ta = ta; o.tb = tb;
+    return o;
+  };
+  const auto* fq = static_cast<const float*>(q);
+  const auto* fk = static_cast<const float*>(k);
+  const auto* fv = static_cast<const float*>(v);
+  auto* fsw = static_cast<float*>(sw);
+  auto* fdsw = static_cast<float*>(dsw);
+  auto* fdnum = static_cast<float*>(dnum);
+  auto* fprod = static_cast<float*>(prod);
+  auto* fdco = static_cast<float*>(dc_out);
+  const unsigned row_blocks = static_cast<unsigned>((vs + 7) / 8);
+  // S = Q K^T per chunk
+  if ((err = run_gemm(op(fq, dk_, Sdk, Ldk, 0, fk, dk_, Sdk, Ldk, 1, fsw, L, nc * LL, LL,
+                         L, L, dk_, nc), batches, s)) != cudaSuccess) return static_cast<int>(err);
+  mlstm_bwd_rows_kernel<<<row_blocks, 256, 0, s>>>(p);
+  REPRO_CHECK();
+  // dnum V^T
+  if ((err = run_gemm(op(fdnum, dv_, Sdv, Ldv, 0, fv, dv_, Sdv, Ldv, 1, fdsw, L, nc * LL, LL,
+                         L, L, dv_, nc), batches, s)) != cudaSuccess) return static_cast<int>(err);
+  mlstm_bwd_cols_kernel<<<dim3((L + 127) / 128, nc, BH), 128, 0, s>>>(p);
+  REPRO_CHECK();
+  mlstm_bwd_dsw_kernel<<<row_blocks, 256, 0, s>>>(p);
+  REPRO_CHECK();
+  // dv = SW^T dnum, dq = dS K, dk = dS^T Q
+  if ((err = run_gemm(op(fsw, L, nc * LL, LL, 1, fdnum, dv_, Sdv, Ldv, 0, p.dv, dv_, Sdv, Ldv,
+                         L, dv_, L, nc), batches, s)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = run_gemm(op(fdsw, L, nc * LL, LL, 0, fk, dk_, Sdk, Ldk, 0, p.dq, dk_, Sdk, Ldk,
+                         L, dk_, L, nc), batches, s)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = run_gemm(op(fdsw, L, nc * LL, LL, 1, fq, dk_, Sdk, Ldk, 0, p.dk, dk_, Sdk, Ldk,
+                         L, dk_, L, nc), batches, s)) != cudaSuccess) return static_cast<int>(err);
+  if (nc > 1) {
+    // prod = dnum C_in^T (chunks >= 1)
+    if ((err = run_gemm(op(fdnum + Ldv, dv_, Sdv, Ldv, 0, static_cast<const float*>(states),
+                           dv_, (nc - 1) * CC, CC, 1, fprod + Ldk, dk_, Sdk, Ldk, L, dk_, dv_,
+                           nc - 1), later, s)) != cudaSuccess) return static_cast<int>(err);
+  }
+  mlstm_bwd_qinter_kernel<<<row_blocks, 256, 0, s>>>(p);
+  REPRO_CHECK();
+  if (nc > 1) {
+    // dC_out[c - 1] = Q_c^T (inter dnum)_c (chunks c >= 1), dn_out[c - 1]
+    GemmOp o = op(fq + Ldk, dk_, Sdk, Ldk, 1, fdnum + Ldv, dv_, Sdv, Ldv, 0, fdco, dv_,
+                  nc * CC, CC, dk_, dv_, L, nc - 1);
+    o.kscale = inter + L;
+    o.sk_bh = S;
+    o.sk_c = L;
+    if ((err = run_gemm(o, later, s)) != cudaSuccess) return static_cast<int>(err);
+    mlstm_bwd_dn_loc_kernel<<<dim3((dk_ + 127) / 128, nc - 1, BH), 128, 0, s>>>(p);
+    REPRO_CHECK();
+  }
+  mlstm_bwd_scan_kernel<<<dim3(static_cast<unsigned>((CC + dk_ + 255) / 256), BH), 256, 0, s>>>(p);
+  REPRO_CHECK();
+  // prod = V dC_out^T; dk += wk (prod + dn_out), dwk
+  if ((err = run_gemm(op(fv, dv_, Sdv, Ldv, 0, fdco, dv_, nc * CC, CC, 1, fprod, dk_, Sdk, Ldk,
+                         L, dk_, dv_, nc), batches, s)) != cudaSuccess) return static_cast<int>(err);
+  mlstm_bwd_kstate_kernel<<<row_blocks, 256, 0, s>>>(p);
+  REPRO_CHECK();
+  {  // dv += wk (K dC_out)
+    GemmOp o = op(fk, dk_, Sdk, Ldk, 0, fdco, dv_, nc * CC, CC, 0, p.dv, dv_, Sdv, Ldv, L,
+                  dv_, dk_, nc);
+    o.rscale = wk;
+    o.sr_bh = S;
+    o.sr_c = L;
+    o.accumulate = 1;
+    if ((err = run_gemm(o, batches, s)) != cudaSuccess) return static_cast<int>(err);
+  }
+  if (nc > 1) {
+    mlstm_bwd_ddecay_kernel<<<dim3(nc - 1, BH), kMlThreads, 0, s>>>(p);
+    REPRO_CHECK();
+  }
+  mlstm_bwd_gates_kernel<<<BH, kMlThreads, 0, s>>>(p);
+  REPRO_CHECK();
+#undef REPRO_CHECK
+  return 0;
+}

@@ -9,10 +9,18 @@ contiguous by the caller, except for the real-valued inputs of
 strides), which their kernels read in place. On CPU tensors it returns
 the kernel's plain twin from ``repro_torch.core.bitops`` (from
 ``kernels.ref`` for the scan, flash attention and the mLSTM); on CUDA
-tensors it launches the kernel or raises — it never falls back. No
-kernel has a backward: a wrapper raises on CUDA operands that require
-grad while grad mode is on. Outputs and scratch are allocated here with
-``torch.empty``; the kernel runs on PyTorch's current stream.
+tensors it launches the kernel or raises — it never falls back. Outputs
+and scratch are allocated here with ``torch.empty``; the kernel runs on
+PyTorch's current stream.
+
+The three LM kernels (``flash_attention``, ``ssm_scan_chunk``,
+``mlstm_chunked``) are ``torch.autograd.Function``s: the forward saves
+what its backward needs (flash attention's row log-sum-exp, the mLSTM's
+chunk states), and the backward is a kernel of its own
+(``flash_attention_bwd``, ``ssm_scan_chunk_bwd``, ``mlstm_chunked_bwd``),
+the twins of ``kernels.ref`` on the CPU. The BNN kernels and
+``unpack_gemm`` have no backward: they raise on CUDA operands that
+require grad while grad mode is on.
 
 The tensor-core kernels take a tiling (``tile_n``, ``k_splits``, a
 megakernel's ``cluster``; ``kernels.autotune``): ``AUTO`` resolves per
@@ -43,7 +51,9 @@ from repro_torch.kernels.autotune import AUTO
 LAUNCHES = {"xnor_gemm": 0, "fused_xnor_gemm": 0, "fused_direct_conv": 0,
             "megakernel_conv_stage": 0, "megakernel_chain": 0,
             "pack_rows": 0, "direct_conv": 0, "unpack_gemm": 0,
-            "ssm_scan_chunk": 0, "flash_attention": 0, "mlstm_chunked": 0}
+            "ssm_scan_chunk": 0, "flash_attention": 0, "mlstm_chunked": 0,
+            "flash_attention_bwd": 0, "ssm_scan_chunk_bwd": 0,
+            "mlstm_chunked_bwd": 0}
 
 # Batch tile of the chain's masked-tail path: the batch pads to a multiple
 # of it. It is the n tile of csrc/megakernel_chain.cu's mma (kChainTileN),
@@ -109,8 +119,10 @@ def _check_strided(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
 
 def _check_no_grad(kernel: str, *tensors: torch.Tensor) -> None:
     """Raise if autograd would record a call of ``kernel`` on ``tensors``:
-    grad mode is on and an operand requires grad. No kernel of the port
-    has a backward, so its output would carry no gradient at all."""
+    grad mode is on and an operand requires grad. The BNN kernels and
+    ``unpack_gemm`` have no backward, so their output would carry no
+    gradient at all. (The LM kernels check inside their
+    ``autograd.Function``'s forward, where grad mode is off.)"""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{kernel}: an operand requires grad, but the CUDA kernel has no "
@@ -414,13 +426,23 @@ def ssm_scan_chunk(dt: torch.Tensor, xh: torch.Tensor, bmat: torch.Tensor,
                           ("h0", h0, (b, di, ds))):
         if tuple(x.shape) != want:
             raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {want}")
-    if not _on_cuda("ssm_scan_chunk", dt, xh, bmat, cmat, a, h0):
-        return ref.ssm_scan_chunk_ref(dt, xh, bmat, cmat, a, h0)
+    return _SsmScanChunk.apply(dt, xh, bmat, cmat, a, h0)
+
+
+def _check_scan_grid(b: int, c: int, di: int, ds: int) -> None:
     if ds > MAX_SCAN_STATE:
         raise ValueError(f"ssm_scan_chunk keeps at most {MAX_SCAN_STATE} "
                          f"states per channel in registers, got ds={ds}")
     if b > _GRID_Y_MAX or b * c * di > _INT_MAX:
         raise ValueError(f"ssm_scan_chunk of [{b}, {c}, {di}] exceeds the grid")
+
+
+def _ssm_forward(dt, xh, bmat, cmat, a, h0):
+    if not _on_cuda("ssm_scan_chunk", dt, xh, bmat, cmat, a, h0):
+        return ref.ssm_scan_chunk_ref(dt, xh, bmat, cmat, a, h0)
+    b, c, di = dt.shape
+    ds = a.shape[1]
+    _check_scan_grid(b, c, di, ds)
     y = torch.empty((b, c, di), dtype=torch.float32, device=dt.device)
     h_last = torch.empty((b, di, ds), dtype=torch.float32, device=dt.device)
     if b and di and ds:
@@ -436,6 +458,75 @@ def ssm_scan_chunk(dt: torch.Tensor, xh: torch.Tensor, bmat: torch.Tensor,
     return y, h_last
 
 
+class _SsmScanChunk(torch.autograd.Function):
+    """The scan kernel (or its twin) forward; ``ssm_scan_chunk_bwd``
+    backward, from the inputs it saves."""
+
+    @staticmethod
+    def forward(ctx, dt, xh, bmat, cmat, a, h0):
+        ctx.save_for_backward(dt, xh, bmat, cmat, a, h0)
+        return _ssm_forward(dt, xh, bmat, cmat, a, h0)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dh_last):
+        return ssm_scan_chunk_bwd(*ctx.saved_tensors, dy, dh_last)
+
+
+def ssm_scan_chunk_bwd(dt: torch.Tensor, xh: torch.Tensor, bmat: torch.Tensor,
+                       cmat: torch.Tensor, a: torch.Tensor, h0: torch.Tensor,
+                       dy: torch.Tensor, dh_last: torch.Tensor
+                       ) -> tuple[torch.Tensor, ...]:
+    """The gradients of :func:`ssm_scan_chunk` with respect to ``(dt, xh,
+    bmat, cmat, a, h0)`` from the output gradients ``dy [B, C, di]`` and
+    ``dh_last [B, di, ds]``, all float32; the inputs as the forward takes
+    them (read through their strides), the gradients new and contiguous.
+    On the CPU: ``ref.ssm_scan_chunk_bwd_ref``. On the card the
+    ``ssm_scan_bwd.cu`` kernel recomputes the states from ``h0`` into a
+    ``[B, C, ds, di]`` scratch and runs the recurrence in reverse; the
+    sums over channels (``d bmat``, ``d cmat``) and over batch and time
+    (``d a``) are per-warp partials added in a fixed order by a second
+    kernel: no atomics, the gradients are deterministic."""
+    b, c, di = dt.shape
+    ds = a.shape[1]
+    for name, x, want in (("dy", dy, (b, c, di)), ("dh_last", dh_last, (b, di, ds))):
+        _check_strided(name, x, (torch.float32,), 3)
+        if tuple(x.shape) != want:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {want}")
+    if not _on_cuda("ssm_scan_chunk_bwd", dt, xh, bmat, cmat, a, h0, dy, dh_last):
+        return ref.ssm_scan_chunk_bwd_ref(dt, xh, bmat, cmat, a, h0, dy, dh_last)
+    _check_scan_grid(b, c, di, ds)
+    dev = dt.device
+    dy, dh_last = dy.contiguous(), dh_last.contiguous()
+    ddt = torch.empty((b, c, di), dtype=torch.float32, device=dev)
+    dxh = torch.empty((b, c, di), dtype=torch.float32, device=dev)
+    dbm = torch.empty((b, c, ds), dtype=torch.float32, device=dev)
+    dcm = torch.empty((b, c, ds), dtype=torch.float32, device=dev)
+    d_a = torch.empty((di, ds), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((b, di, ds), dtype=torch.float32, device=dev)
+    if not (b and di and ds):
+        return ddt, dxh, dbm.zero_(), dcm.zero_(), d_a.zero_(), dh_last.clone()
+    warps = -(-di // 32)
+    # the states entering each step, the per-warp (d cmat, d bmat) sums of
+    # each step, and each batch row's d a
+    hs = torch.empty((b, c, ds, di), dtype=torch.float32, device=dev)
+    part = torch.empty((b, c, warps, 2 * MAX_SCAN_STATE), dtype=torch.float32,
+                       device=dev)
+    a_part = torch.empty((b, di, ds), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = build.load("repro_ssm_scan_chunk_bwd")(
+            dt.data_ptr(), xh.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
+            a.data_ptr(), h0.data_ptr(), dy.data_ptr(), dh_last.data_ptr(),
+            ddt.data_ptr(), dxh.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
+            d_a.data_ptr(), dh0.data_ptr(), hs.data_ptr(), part.data_ptr(),
+            a_part.data_ptr(), b, c, di, ds, dt.stride(0), dt.stride(1),
+            xh.stride(0), xh.stride(1), bmat.stride(0), bmat.stride(1),
+            cmat.stride(0), cmat.stride(1), _stream(dev))
+    _raise_on(rc, "ssm_scan_chunk_bwd")
+    LAUNCHES["ssm_scan_chunk_bwd"] += 1
+    return ddt, dxh, dbm, dcm, d_a, dh0
+
+
 # Keys per KV tile of csrc/flash_attention.cu (kFlashKeys, both types): the
 # twin with block_kv = FLASH_TILE rounds where the kernel rounds.
 FLASH_TILE = 64
@@ -444,6 +535,8 @@ FLASH_TILE = 64
 _FLASH_ROWS = {torch.bfloat16: 128, torch.float32: 64}
 # Head widths the flash kernel is compiled for.
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
+# Keys (and query rows) per block of csrc/flash_attention_bwd.cu, both types.
+_FLASH_BWD_KEYS = 64
 
 
 def _aligned(name: str, t: torch.Tensor) -> None:
@@ -473,32 +566,118 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if tuple(t.shape) != (bh, skv, dh):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{(bh, skv, dh)}")
-    if not _on_cuda("flash_attention", q, k, v):
-        return ref.flash_attention_ref(q, k, v, causal=causal)
+    return _FlashAttention.apply(q, k, v, causal)
+
+
+def _check_flash_grid(q: torch.Tensor) -> None:
+    bh, sq, dh = q.shape
     if dh not in FLASH_HEAD_DIMS:
         raise ValueError(f"flash_attention is compiled for Dh in "
                          f"{FLASH_HEAD_DIMS}, got {dh}")
     if bh > _INT_MAX or -(-sq // _FLASH_ROWS[q.dtype]) > _GRID_Y_MAX:
         raise ValueError(f"flash_attention of [{bh}, {sq}, {dh}] exceeds the grid")
+
+
+def _flash_forward(q, k, v, causal):
+    """(out, lse): the output and its float32 row log-sum-exp ``[BH,
+    Sq]`` (``m + log l``; -inf for a row with no keys)."""
+    if not _on_cuda("flash_attention", q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    _check_flash_grid(q)
+    bh, sq, dh = q.shape
+    skv = k.shape[1]
     for name, t in (("q", q), ("k", k), ("v", v)):
         _aligned(name, t)
     out = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     if bh and sq and skv:
         with torch.cuda.device(q.device):
             rc = build.load("repro_flash_attention")(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
-                sq, skv, dh, int(causal), int(q.dtype == torch.bfloat16),
-                dh ** -0.5, _stream(q.device))
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), bh, sq, skv, dh, int(causal),
+                int(q.dtype == torch.bfloat16), dh ** -0.5, _stream(q.device))
         _raise_on(rc, "flash_attention")
         LAUNCHES["flash_attention"] += 1
     elif bh and sq:
         out.zero_()  # no keys: acc and l stay 0, acc / max(l, 1e-30) = 0
-    return out
+        lse.fill_(-float("inf"))
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel (or its twin) forward, keeping the row
+    log-sum-exp; ``flash_attention_bwd`` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = _flash_forward(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                     causal=ctx.causal), None)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention` from its inputs, its
+    output ``o``, the float32 row log-sum-exp ``lse [BH, Sq]`` its forward
+    keeps and the output gradient ``do``; contiguous, ``do`` and ``o`` in
+    q's dtype. On the CPU: ``ref.flash_attention_bwd_ref``. On the card
+    the ``flash_attention_bwd.cu`` kernels, FA2's split: ``D =
+    rowsum(dO o)``, then one block per KV tile for dK and dV and one per
+    query tile for dQ, no atomics (deterministic). ``p`` is rounded to
+    v's dtype before ``dV = p^T dO`` and ``dS`` to q's before ``dQ = dS K``
+    and ``dK = dS^T Q``, as the twin does; bf16 products on the tensor
+    cores, float32 on the CUDA cores."""
+    for name, t in (("o", o), ("do", do)):
+        _check(name, t, q.dtype, 3)
+        if t.shape != q.shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(q.shape)}")
+    for name, t in (("k", k), ("v", v)):
+        _check(name, t, q.dtype, 3)
+    bh, sq, dh = q.shape
+    skv = k.shape[1]
+    _check("lse", lse, torch.float32, 2)
+    if tuple(lse.shape) != (bh, sq) or tuple(v.shape) != (bh, skv, dh):
+        raise ValueError(f"lse {tuple(lse.shape)} or v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if not _on_cuda("flash_attention_bwd", q, k, v, o, lse, do):
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    _check_flash_grid(q)
+    if -(-skv // _FLASH_BWD_KEYS) > _GRID_Y_MAX:
+        raise ValueError(f"flash_attention_bwd of {skv} keys exceeds the grid")
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        _aligned(name, t)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if not (bh and sq and skv):
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = build.load("repro_flash_attention_bwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), bh, sq, skv, dh, int(causal),
+            int(q.dtype == torch.bfloat16), dh ** -0.5, _stream(q.device))
+    _raise_on(rc, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
 
 
 # Longest chunk and most chunks csrc/mlstm_chunk.cu takes, and the rows of
 # dk (and columns of dv) one block of its states kernel holds.
 MLSTM_MAX_CHUNK, MLSTM_MAX_CHUNKS, MLSTM_TILE = 256, 1024, 128
+# [BH, S] and [BH, S/L] vectors of the backward's scratch (the slots of
+# csrc/mlstm_chunk.cu's kV* and kC* enums).
+MLSTM_BWD_VECS, MLSTM_BWD_CVECS = 10, 5
 
 
 def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -522,8 +701,12 @@ def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           ("logi", logi, (bh, s)), ("logf", logf, (bh, s))):
         if tuple(t.shape) != want:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want}")
-    if not _on_cuda("mlstm_chunked", q, k, v, logi, logf):
-        return ref.mlstm_chunked_ref(q, k, v, logi, logf, chunk=chunk)
+    return _MlstmChunked.apply(q, k, v, logi, logf, chunk)
+
+
+def _check_mlstm_grid(bh: int, s: int, dk: int, dv: int, chunk: int) -> int:
+    """The chunk length L the kernels run, after the checks of their
+    limits."""
     ln = min(chunk, s)
     if ln < 8 or ln % 8 or ln > MLSTM_MAX_CHUNK or s % ln:
         raise ValueError(f"mlstm_chunked on the card needs a chunk that is a "
@@ -537,6 +720,19 @@ def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bh * nc > _GRID_Y_MAX or -(-dk // MLSTM_TILE) > _GRID_Y_MAX:
         raise ValueError(f"mlstm_chunked of [{bh}, {s}, {dk}, {dv}] exceeds "
                          "the grid (BH x chunks or dk / 128 past 65535)")
+    return ln
+
+
+def _mlstm_forward(q, k, v, logi, logf, chunk):
+    """(y, C, n, m, states, nstates): the outputs and the states entering
+    chunks 1.. that the backward takes."""
+    if not _on_cuda("mlstm_chunked", q, k, v, logi, logf):
+        return ref.mlstm_chunked_ref(q, k, v, logi, logf, chunk=chunk,
+                                     return_states=True)
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    ln = _check_mlstm_grid(bh, s, dk, dv, chunk)
+    nc = s // ln
     for name, t in (("q", q), ("k", k), ("v", v)):
         _aligned(name, t)
     dev = q.device
@@ -544,15 +740,15 @@ def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     c_out = torch.empty((bh, dk, dv), dtype=torch.float32, device=dev)
     n_out = torch.empty((bh, 1, dk), dtype=torch.float32, device=dev)
     m_out = torch.empty((bh, 1, 1), dtype=torch.float32, device=dev)
+    # the states entering chunks 1.. (503 MB at xlstm-1.3b's training
+    # shape, [8, 15, 1024, 1024] float32), kept for the backward
+    states = torch.empty((bh, nc - 1, dk, dv), dtype=torch.float32, device=dev)
+    nstates = torch.empty((bh, nc - 1, dk), dtype=torch.float32, device=dev)
     if bh:
         sw = torch.empty((bh, nc, ln, ln), dtype=torch.float32, device=dev)
         gates = torch.empty((4, bh, s), dtype=torch.float32, device=dev)
         decay = torch.empty((bh, nc), dtype=torch.float32, device=dev)
         chunk_ends = torch.empty((bh, nc, 2), dtype=torch.float32, device=dev)
-        # the states entering chunks 1.. (503 MB at xlstm-1.3b's training
-        # shape, [8, 15, 1024, 1024] float32)
-        states = torch.empty((bh, nc - 1, dk, dv), dtype=torch.float32, device=dev)
-        nstates = torch.empty((bh, nc - 1, dk), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             rc = build.load("repro_mlstm_chunked")(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), logi.data_ptr(),
@@ -563,7 +759,102 @@ def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 bh, s, ln, dk, dv, _stream(dev))
         _raise_on(rc, "mlstm_chunked")
         LAUNCHES["mlstm_chunked"] += 1
-    return y, c_out, n_out, m_out
+    return y, c_out, n_out, m_out, states, nstates
+
+
+class _MlstmChunked(torch.autograd.Function):
+    """The mLSTM kernel (or its twin) forward, keeping the chunk states;
+    ``mlstm_chunked_bwd`` backward. y, C and n are differentiated; a
+    gradient reaching the final stabilizer m raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, logi, logf, chunk):
+        ctx.set_materialize_grads(False)
+        y, c_out, n_out, m_out, states, nstates = _mlstm_forward(
+            q, k, v, logi, logf, chunk)
+        ctx.chunk = chunk
+        ctx.save_for_backward(q, k, v, logi, logf, y, states, nstates)
+        return y, c_out, n_out, m_out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dC, dn, dm):
+        if dm is not None:
+            raise RuntimeError(
+                "mlstm_chunked: a gradient reached the final stabilizer m, "
+                "which no caller differentiates through (it has no backward)")
+        q, k, v, logi, logf, y, states, nstates = ctx.saved_tensors
+        dy = torch.zeros_like(y) if dy is None else dy.contiguous()
+        dC, dn = (None if g is None else g.contiguous() for g in (dC, dn))
+        return (*mlstm_chunked_bwd(q, k, v, logi, logf, y, states, nstates, dy,
+                                   dC, dn, chunk=ctx.chunk), None)
+
+
+def mlstm_chunked_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      logi: torch.Tensor, logf: torch.Tensor, y: torch.Tensor,
+                      states: torch.Tensor, nstates: torch.Tensor,
+                      dy: torch.Tensor, dC: torch.Tensor | None = None,
+                      dn: torch.Tensor | None = None, *, chunk: int = 128
+                      ) -> tuple[torch.Tensor, ...]:
+    """``(dq, dk, dv, dlogi, dlogf)`` of :func:`mlstm_chunked` from its
+    inputs, its output ``y``, the states entering chunks 1.. its forward
+    keeps (``states [BH, S/L - 1, dk, dv]``, ``nstates [BH, S/L - 1,
+    dk]``), ``dy`` and the final state's ``dC [BH, dk, dv]``, ``dn [BH,
+    1, dk]`` (None: zero); float32 contiguous. On the CPU:
+    ``ref.mlstm_chunked_bwd_ref``. On the card the backward launches of
+    ``mlstm_chunk.cu``: the gates again, the intra-chunk products, a
+    reverse scan over chunks for the state gradients, then the gates'
+    gradients chunk by chunk from the last; float32 on the CUDA cores,
+    no atomics."""
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    for name, t, want in (("y", y, (bh, s, dv)), ("dy", dy, (bh, s, dv))):
+        _check(name, t, torch.float32, 3)
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want}")
+    ln = min(chunk, s)
+    nc = s // ln if ln else 0
+    for name, t, want in (("states", states, (bh, nc - 1, dk, dv)),
+                          ("nstates", nstates, (bh, nc - 1, dk)),
+                          ("dC", dC, (bh, dk, dv)), ("dn", dn, (bh, 1, dk))):
+        if t is None:
+            continue
+        _check(name, t, torch.float32, len(want))
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want}")
+    operands = [q, k, v, logi, logf, y, states, nstates, dy]
+    operands += [t for t in (dC, dn) if t is not None]
+    if not _on_cuda("mlstm_chunked_bwd", *operands):
+        return ref.mlstm_chunked_bwd_ref(q, k, v, logi, logf, y, states,
+                                         nstates, dy, dC, dn, chunk=chunk)
+    ln = _check_mlstm_grid(bh, s, dk, dv, chunk)
+    dev = q.device
+    grads = tuple(torch.empty_like(t) for t in (q, k, v, logi, logf))
+    if not bh:
+        return grads
+    f32 = dict(dtype=torch.float32, device=dev)
+    # scratch: the chunks' [L, L] scores (then S o W) and their gradients,
+    # dy / D, a [S, dk] product, the state gradients leaving each chunk,
+    # and per-step / per-chunk vectors
+    sw = torch.empty((bh, nc, ln, ln), **f32)
+    dsw = torch.empty((bh, nc, ln, ln), **f32)
+    dnum = torch.empty((bh, s, dv), **f32)
+    prod = torch.empty((bh, s, dk), **f32)
+    dc_out = torch.empty((bh, nc, dk, dv), **f32)
+    dn_out = torch.empty((bh, nc, dk), **f32)
+    vec = torch.empty((MLSTM_BWD_VECS, bh, s), **f32)
+    cvec = torch.empty((MLSTM_BWD_CVECS, bh, nc), **f32)
+    with torch.cuda.device(dev):
+        rc = build.load("repro_mlstm_chunked_bwd")(
+            *(t.data_ptr() for t in (q, k, v, logi, logf, y, states, nstates, dy)),
+            None if dC is None else dC.data_ptr(),
+            None if dn is None else dn.data_ptr(),
+            *(t.data_ptr() for t in grads),
+            *(t.data_ptr() for t in (sw, dsw, dnum, prod, dc_out, dn_out, vec, cvec)),
+            bh, s, ln, dk, dv, _stream(dev))
+    _raise_on(rc, "mlstm_chunked_bwd")
+    LAUNCHES["mlstm_chunked_bwd"] += 1
+    return grads
 
 
 def _ints(values) -> ctypes.Array:
@@ -803,5 +1094,6 @@ def megakernel_chain(w_stack: torch.Tensor, a_stack: torch.Tensor,
 __all__ = ["LAUNCHES", "reset_launches", "xnor_gemm", "fused_xnor_gemm",
            "fused_direct_conv", "megakernel_conv_stage", "megakernel_chain",
            "pack_rows", "direct_conv", "unpack_gemm", "ssm_scan_chunk",
-           "flash_attention", "mlstm_chunked", "RAGGED_TILE_N",
+           "flash_attention", "mlstm_chunked", "ssm_scan_chunk_bwd",
+           "flash_attention_bwd", "mlstm_chunked_bwd", "RAGGED_TILE_N",
            "MAX_SCAN_STATE", "FLASH_TILE", "FLASH_HEAD_DIMS"]

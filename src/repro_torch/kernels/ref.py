@@ -67,9 +67,52 @@ def ssm_scan_chunk_chain(dt: torch.Tensor, xh: torch.Tensor,
     return torch.stack(ys, dim=1), h
 
 
+def ssm_scan_chunk_bwd_ref(dt: torch.Tensor, xh: torch.Tensor,
+                           bmat: torch.Tensor, cmat: torch.Tensor,
+                           a: torch.Tensor, h0: torch.Tensor, dy: torch.Tensor,
+                           dh_last: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The gradients of :func:`ssm_scan_chunk_ref` with respect to all six
+    inputs, from the output gradients ``dy [B, C, di]`` and ``dh_last [B,
+    di, ds]``, with no autograd. The states entering each step are
+    recomputed forward from ``h0`` (never by dividing the recurrence
+    backwards: ``exp(dt A)`` underflows), then the recurrence runs in
+    reverse: ``g_t = dh + dy_t C_t`` (the gradient of ``h_t``), ``dC_t =
+    sum_di dy_t h_t``, ``dB_t = sum_di g_t dt_t x_t``, ``d(dt)_t = sum_s
+    g_t h_{t-1} exp(dt_t A) A + x_t sum_s g_t B_t``, ``dx_t = dt_t sum_s
+    g_t B_t``, ``dA = sum_{b,t} g_t h_{t-1} exp(dt_t A) dt_t``, ``dh = g_t
+    exp(dt_t A)``, down to ``dh0``. Returns ``(d dt, d xh, d bmat, d
+    cmat, d a, d h0)``."""
+    b, c, di = dt.shape
+    hs, h = [], h0
+    for t in range(c):
+        hs.append(h)
+        da = torch.exp(dt[:, t, :, None] * a)
+        h = h * da + (dt[:, t] * xh[:, t])[..., None] * bmat[:, t, None, :]
+    dh = dh_last.clone()
+    like = dict(dtype=dt.dtype, device=dt.device)
+    ddt, dxh = (torch.empty((b, c, di), **like) for _ in range(2))
+    dbm, dcm = (torch.empty((b, c, a.shape[1]), **like) for _ in range(2))
+    d_a = torch.zeros((b, di, a.shape[1]), **like)
+    for t in reversed(range(c)):
+        h_prev, dt_t, x_t = hs[t], dt[:, t], xh[:, t]
+        da = torch.exp(dt_t[..., None] * a)
+        dtx = dt_t * x_t
+        h_t = h_prev * da + dtx[..., None] * bmat[:, t, None, :]
+        g = dh + dy[:, t, :, None] * cmat[:, t, None, :]
+        dcm[:, t] = (dy[:, t, :, None] * h_t).sum(1)
+        dbm[:, t] = (g * dtx[..., None]).sum(1)
+        gb = (g * bmat[:, t, None, :]).sum(-1)
+        gda = g * h_prev * da
+        ddt[:, t] = (gda * a).sum(-1) + x_t * gb
+        dxh[:, t] = dt_t * gb
+        d_a += gda * dt_t[..., None]
+        dh = g * da
+    return ddt, dxh, dbm, dcm, d_a.sum(0), dh
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, block_q: int = 512,
-                        block_kv: int = 512) -> torch.Tensor:
+                        block_kv: int = 512, return_lse: bool = False):
     """Online-softmax attention over KV blocks of ``block_kv``, rounding
     where the JAX package's Pallas ``flash_attention`` rounds:
     ``s = (q . k in float32) * Dh**-0.5``, masked with -1e30 (causal:
@@ -84,7 +127,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     shorter than ``block_kv`` is taken as it is. A causal block lying
     wholly above a row's diagonal leaves that row exactly as it was
     (``p = 0``, ``exp(m - m') = 1``), so only the rows it reaches are
-    updated."""
+    updated. ``return_lse``: also the float32 row log-sum-exp ``m +
+    log(l)`` ``[BH, Sq]`` that :func:`flash_attention_bwd_ref` takes."""
     del block_q
     bh, sq, dh = q.shape
     skv = k.shape[1]
@@ -113,7 +157,50 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         den = torch.cat([den[:, :r0], den[:, r0:] * corr + p.sum(-1)], 1)
         acc = torch.cat([acc[:, :r0], acc[:, r0:] * corr[..., None] + pv], 1)
         m = torch.cat([m[:, :r0], m_new], 1)
-    return (acc / torch.clamp(den, min=1e-30)[..., None]).to(q.dtype)
+    out = (acc / torch.clamp(den, min=1e-30)[..., None]).to(q.dtype)
+    if return_lse:
+        return out, m + torch.log(den)
+    return out
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, lse: torch.Tensor,
+                            do: torch.Tensor, *, causal: bool = True,
+                            block_q: int = 512
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention_ref` from
+    what its forward keeps (``o`` and the row log-sum-exp ``lse``), with
+    no autograd: per query row ``p = exp(s - lse)`` (``s`` the masked
+    scaled scores in float32), ``D = rowsum(dO o)`` in float32, ``dV =
+    round(p)^T dO`` (``p`` rounded to v's dtype, as the forward's PV
+    product takes it, whose rounding ``jax.grad`` treats as the identity),
+    ``dP = dO V^T``, ``dS = p (dP - D)`` rounded to q's dtype, ``dQ = dS K
+    scale``, ``dK = dS^T Q scale``; every sum in float32, the outputs in
+    the inputs' dtypes. Query rows go ``block_q`` at a time (the [rows,
+    Skv] matrices of one block are what it holds)."""
+    bh, sq, dh = q.shape
+    skv = k.shape[1]
+    scale = dh ** -0.5
+    kf, vf = k.float(), v.float()
+    delta = (do.float() * o.float()).sum(-1)
+    dq = torch.empty((bh, sq, dh), device=q.device)
+    dk = torch.zeros((bh, skv, dh), device=q.device)
+    dv = torch.zeros((bh, skv, v.shape[-1]), device=q.device)
+    k_pos = torch.arange(skv, device=q.device)
+    for i0 in range(0, sq, block_q):
+        rows = slice(i0, i0 + block_q)
+        qf, dof = q[:, rows].float(), do[:, rows].float()
+        s = torch.matmul(qf, kf.transpose(1, 2)) * scale
+        if causal:
+            q_pos = torch.arange(i0, i0 + qf.shape[1], device=q.device)
+            s = torch.where(k_pos[None, :] <= q_pos[:, None], s, NEG)
+        p = torch.exp(s - lse[:, rows, None])
+        dv += torch.matmul(p.to(v.dtype).float().transpose(1, 2), dof)
+        dp = torch.matmul(dof, vf.transpose(1, 2))
+        ds = (p * (dp - delta[:, rows, None])).to(q.dtype).float()
+        dq[:, rows] = torch.matmul(ds, kf) * scale
+        dk += torch.matmul(ds.transpose(1, 2), qf)
+    return dq.to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
 
 
 def split_bf16_pieces(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
@@ -399,8 +486,7 @@ def _mlstm_gates(logi: torch.Tensor, logf: torch.Tensor, chunk: int):
 
 def mlstm_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       logi: torch.Tensor, logf: torch.Tensor, *,
-                      chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor,
-                                                 torch.Tensor, torch.Tensor]:
+                      chunk: int = 128, return_states: bool = False):
     """Chunkwise stabilized mLSTM from a zero state, as the JAX package's
     Pallas ``mlstm_chunked`` computes it, chunk after chunk carrying the
     matrix memory ``C``, the normalizer ``n`` and the stabilizer ``m``
@@ -414,7 +500,10 @@ def mlstm_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q (pre-scaled by ``dk**-0.5``), k ``[BH, S, dk]``, v ``[BH, S, dv]``,
     logi, logf ``[BH, S]``, float32. Returns (y ``[BH, S, dv]`` in q's
-    dtype, C ``[BH, dk, dv]``, n ``[BH, 1, dk]``, m ``[BH, 1, 1]``)."""
+    dtype, C ``[BH, dk, dv]``, n ``[BH, 1, dk]``, m ``[BH, 1, 1]``);
+    ``return_states`` adds the states entering chunks 1.. that
+    :func:`mlstm_chunked_bwd_ref` takes, C's ``[BH, S/L - 1, dk, dv]``
+    and n's ``[BH, S/L - 1, dk]`` (the CUDA kernel's scratch layout)."""
     bh, s, dk = q.shape
     dv = v.shape[-1]
     ln, nc, b_cum, g, big_m = _mlstm_gates(logi, logf, chunk)
@@ -423,8 +512,11 @@ def mlstm_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     C = torch.zeros((bh, dk, dv), device=dev)
     n = torch.zeros((bh, 1, dk), device=dev)
     m = torch.full((bh,), NEG, device=dev)
-    ys = []
+    ys, cs, ns = [], [], []
     for c in range(nc):
+        if c:
+            cs.append(C)
+            ns.append(n[:, 0])
         sl = slice(c * ln, (c + 1) * ln)
         qc, kc, vc = q[:, sl].float(), k[:, sl].float(), v[:, sl].float()
         gc, mc = g[:, c], big_m[:, c]
@@ -443,7 +535,11 @@ def mlstm_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         C = decay[:, None, None] * C + torch.matmul(kw.transpose(1, 2), vc)
         n = decay[:, None, None] * n + kw.sum(1, keepdim=True)
         m = b_cum[:, c, -1] + m_loc_l
-    return torch.cat(ys, dim=1).to(q.dtype), C, n, m.reshape(bh, 1, 1)
+    out = torch.cat(ys, dim=1).to(q.dtype), C, n, m.reshape(bh, 1, 1)
+    if not return_states:
+        return out
+    return (*out, torch.stack(cs, 1) if cs else q.new_zeros((bh, 0, dk, dv)),
+            torch.stack(ns, 1) if ns else q.new_zeros((bh, 0, dk)))
 
 
 def mlstm_chunked_states_ref(q: torch.Tensor, k: torch.Tensor,
@@ -463,12 +559,7 @@ def mlstm_chunked_states_ref(q: torch.Tensor, k: torch.Tensor,
     dv = v.shape[-1]
     ln, nc, b_cum, g, big_m = _mlstm_gates(logi, logf, chunk)
     dev = q.device
-    m_prev = [torch.full((bh,), NEG, device=dev)]
-    for c in range(nc):
-        m_loc_l = torch.maximum(big_m[:, c, -1], m_prev[c])
-        m_prev.append(b_cum[:, c, -1] + m_loc_l)
-    m_in = torch.stack(m_prev[:nc], 1)                    # [BH, nc]
-    m_last = torch.maximum(big_m[..., -1], m_in)          # m_L of each chunk
+    m_in, m_last = _mlstm_chain(b_cum, big_m)             # [BH, nc] each
     qc, kc, vc = (x.float().reshape(bh, nc, ln, x.shape[-1]) for x in (q, k, v))
     wk = torch.exp(g - m_last[..., None])
     decay = torch.exp(m_in - m_last)
@@ -491,4 +582,123 @@ def mlstm_chunked_states_ref(q: torch.Tensor, k: torch.Tensor,
     den = sw.sum(-1) + (qc * n_in).sum(-1) * inter
     y = num / torch.clamp(den.abs(), min=1.0)[..., None]
     return (y.reshape(bh, s, dv).to(q.dtype), C, n,
-            m_prev[nc].reshape(bh, 1, 1))
+            (b_cum[:, -1, -1] + m_last[:, -1]).reshape(bh, 1, 1))
+
+
+def _mlstm_chain(b_cum: torch.Tensor, big_m: torch.Tensor):
+    """The stabilizer entering each chunk (``m_in``, -1e30 for the first)
+    and ``m_L = max(M_L, m_in)`` of each, ``[BH, nc]``, in the forward's
+    order of operations."""
+    m_prev = [torch.full(b_cum.shape[:1], NEG, device=b_cum.device)]
+    for c in range(b_cum.shape[1] - 1):
+        m_prev.append(b_cum[:, c, -1] + torch.maximum(big_m[:, c, -1], m_prev[c]))
+    m_in = torch.stack(m_prev, 1)
+    return m_in, torch.maximum(big_m[..., -1], m_in)
+
+
+def _half_at_ties(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The share of ``max(x, y)``'s gradient that goes to ``x``, as
+    ``jax.grad`` splits it: 1 where x > y, 1/2 at a tie, else 0."""
+    return torch.where(x > y, 1.0, torch.where(x == y, 0.5, 0.0))
+
+
+def mlstm_chunked_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          logi: torch.Tensor, logf: torch.Tensor,
+                          y: torch.Tensor, states: torch.Tensor,
+                          nstates: torch.Tensor, dy: torch.Tensor,
+                          dC: torch.Tensor | None = None,
+                          dn: torch.Tensor | None = None, *,
+                          chunk: int = 128) -> tuple[torch.Tensor, ...]:
+    """The gradients ``(dq, dk, dv, dlogi, dlogf)`` of
+    :func:`mlstm_chunked_ref` from its output ``y`` and the states entering
+    chunks 1.. (``states [BH, S/L - 1, dk, dv]``, ``nstates [BH, S/L - 1,
+    dk]``), given ``dy`` and the final state's ``dC [BH, dk, dv]`` and
+    ``dn [BH, 1, dk]`` (None: zero), with no autograd. The final ``m`` has
+    no gradient: it is a stabilizer no caller differentiates through.
+
+    Within a chunk, with ``D = max(|den|, 1)``: ``dnum = dy / D``,
+    ``dden = -(dy . y) / D`` times ``sign(den)`` where ``|den| > 1`` (half
+    of it at ``|den| = 1``, as ``jax.grad`` splits a tie of ``max``), 0
+    under the clamp; ``dSW = dnum V^T + dden`` on the causal triangle; the
+    intra-chunk products and ``q C_in``, ``q . n_in`` give ``dq, dk, dv``
+    and the gradients of the log-weights; the state gradients run as a
+    reverse scan over chunks, ``dC_in = exp(m_in - m_L) dC_out + Q^T
+    (inter dnum)``, seeded by ``dC``. The stabilizer does not cancel
+    where ``D`` clamps, so the gradient flows through ``m_loc = max(M,
+    m_in)`` (ties split in halves), the running max ``M`` (to the latest
+    maximum of ``g``, torch.cummax's index) and the chain ``m' = b_L +
+    m_L`` back to earlier chunks; ``g = logi - b``, ``b`` the cumsum of
+    ``logf``, give ``dlogi = dg`` and ``dlogf`` the reverse cumsum of
+    ``-dg`` (plus ``dm'`` at the chunk's last step)."""
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    ln, nc, b_cum, g, big_m = _mlstm_gates(logi, logf, chunk)
+    dev = q.device
+    m_in, m_last = _mlstm_chain(b_cum, big_m)
+    c_in = torch.cat([torch.zeros((bh, 1, dk, dv), device=dev), states.float()], 1)
+    n_in = torch.cat([torch.zeros((bh, 1, dk), device=dev), nstates.float()], 1)
+    qc, kc, vc, yc, dyc = (x.float().reshape(bh, nc, ln, x.shape[-1])
+                           for x in (q, k, v, y, dy))
+    m_loc = torch.maximum(big_m, m_in[..., None])
+    inter = torch.exp(m_in[..., None] - m_loc)
+    tril = torch.ones((ln, ln), dtype=torch.bool, device=dev).tril()
+    w = torch.where(tril, torch.exp(g[..., None, :] - m_loc[..., :, None]), 0.0)
+    sw = torch.matmul(qc, kc.transpose(-1, -2)) * w
+    qn = (qc * n_in[:, :, None, :]).sum(-1)
+    den = sw.sum(-1) + qn * inter
+    dmax = torch.clamp(den.abs(), min=1.0)
+    dnum = dyc / dmax[..., None]
+    dden = (-(dyc * yc).sum(-1) / dmax * torch.sign(den)
+            * _half_at_ties(den.abs(), torch.ones_like(den)))
+    dsw = torch.where(tril, torch.matmul(dnum, vc.transpose(-1, -2)) + dden[..., None], 0.0)
+    dlogw = dsw * sw
+    dsc = dsw * w
+    dq = torch.matmul(dsc, kc)
+    dk_ = torch.matmul(dsc.transpose(-1, -2), qc)
+    dv_ = torch.matmul(sw.transpose(-1, -2), dnum)
+    p7 = torch.matmul(dnum, c_in.transpose(-1, -2))
+    dq = dq + inter[..., None] * p7 + (inter * dden)[..., None] * n_in[:, :, None, :]
+    dinter = (qc * p7).sum(-1) + dden * qn
+    dc_loc = torch.matmul(qc.transpose(-1, -2), inter[..., None] * dnum)
+    dn_loc = (qc * (inter * dden)[..., None]).sum(2)
+    decay = torch.exp(m_in - m_last)
+    dc_out = [None] * nc
+    dn_out = [None] * nc
+    dc_out[-1] = torch.zeros((bh, dk, dv), device=dev) if dC is None else dC.float()
+    dn_out[-1] = (torch.zeros((bh, dk), device=dev) if dn is None
+                  else dn.float().reshape(bh, dk))
+    for c in range(nc - 1, 0, -1):
+        dc_out[c - 1] = decay[:, c, None, None] * dc_out[c] + dc_loc[:, c]
+        dn_out[c - 1] = decay[:, c, None] * dn_out[c] + dn_loc[:, c]
+    dc_out, dn_out = torch.stack(dc_out, 1), torch.stack(dn_out, 1)
+    wk = torch.exp(g - m_last[..., None])
+    p8 = torch.matmul(vc, dc_out.transpose(-1, -2)) + dn_out[:, :, None, :]
+    dk_ = dk_ + wk[..., None] * p8
+    dv_ = dv_ + wk[..., None] * torch.matmul(kc, dc_out)
+    dwk = (kc * p8).sum(-1)
+    ddecay = (dc_out * c_in).sum((-1, -2)) + (dn_out * n_in).sum(-1)
+
+    # The gates, chunk by chunk from the last, carrying dm_out: the
+    # gradient of the stabilizer leaving the chunk (0 for the final m).
+    row_lw, col_lw = dlogw.sum(-1), dlogw.sum(-2)
+    arg = torch.cummax(g, dim=-1).indices
+    dlogi = torch.empty((bh, nc, ln), device=dev)
+    dlogf = torch.empty((bh, nc, ln), device=dev)
+    dm_out = torch.zeros((bh,), device=dev)
+    for c in range(nc - 1, -1, -1):
+        f = _half_at_ties(big_m[:, c], m_in[:, c, None])
+        it, wt = dinter[:, c] * inter[:, c], dwk[:, c] * wk[:, c]
+        dd = ddecay[:, c] * decay[:, c]
+        dm_loc = -row_lw[:, c] - it
+        dm_l = dm_out - wt.sum(-1) - dd
+        dm_in = it.sum(-1) + dd + (dm_loc * (1 - f)).sum(-1) + dm_l * (1 - f[:, -1])
+        dbig_m = dm_loc * f
+        dbig_m[:, -1] += dm_l * f[:, -1]
+        dg = (col_lw[:, c] + wt).scatter_add(-1, arg[:, c], dbig_m)
+        db = -dg
+        db[:, -1] += dm_out
+        dlogi[:, c] = dg
+        dlogf[:, c] = db.flip(-1).cumsum(-1).flip(-1)
+        dm_out = dm_in
+    return (dq.reshape(bh, s, dk), dk_.reshape(bh, s, dk),
+            dv_.reshape(bh, s, dv), dlogi.reshape(bh, s), dlogf.reshape(bh, s))

@@ -1,0 +1,153 @@
+"""End-to-end LM training driver, as ``repro.launch.train``: the synthetic
+data pipeline (prefetched), the quantization-aware model, AdamW with the
+latent clip, global-norm clip and schedule, checksummed async
+checkpoints with auto-resume, and the fault-tolerance monitor.
+
+Runs on CUDA (``train(device=...)`` takes another device, as the tests
+do; the CLI has the JAX launcher's flags and no device flag). One card:
+with more than one CUDA device visible the JAX launcher shards over a
+(data, model) mesh, and the port has no LM sharding rules yet (ROADMAP
+A6d), so ``train`` raises; so does a config fed by embeddings (A6a).
+Each step is eager PyTorch: no ``torch.compile``; attention, the SSM
+scan and the mLSTM run their kernels forward and backward.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+      --smoke --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import manager as ckpt
+from repro_torch.configs.base import (float_policy, get_config, smoke_config,
+                                      train_policy)
+from repro_torch.core.bnn import resolve_device
+from repro_torch.data.pipeline import DataConfig, Prefetcher, synthetic_lm_batches
+from repro_torch.distributed.fault_tolerance import (HeartbeatMonitor,
+                                                     StragglerDetector,
+                                                     make_elastic_mesh)
+from repro_torch.models.model_factory import build_model
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.step import TrainConfig, init_opt_state, make_train_step
+
+
+def _refuse_what_is_not_ported(cfg, dev: torch.device) -> None:
+    if cfg.input_kind == "embeddings":
+        raise NotImplementedError(
+            f"{cfg.name}: a config fed by embeddings (the vlm/audio stubs) "
+            "is not ported yet (ROADMAP A6a)")
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        n = torch.cuda.device_count()
+        grid, axes = make_elastic_mesh(list(range(n)), model_parallel=min(n, 16))
+        raise NotImplementedError(
+            f"{n} CUDA devices are visible: the JAX launcher would shard over "
+            f"a {dict(zip(axes, grid.shape))} mesh, and the port has no LM "
+            "sharding rules yet (ROADMAP A6d); make one card visible "
+            "(CUDA_VISIBLE_DEVICES=0)")
+
+
+def train(
+    arch: str,
+    *,
+    smoke: bool = True,
+    steps: int = 50,
+    batch: int = 8,
+    seq: int = 128,
+    lr: float = 3e-4,
+    microbatches: int = 1,
+    ckpt_dir: str | None = None,
+    ckpt_every: int = 20,
+    quantized: bool = True,
+    log_every: int = 10,
+    seed: int = 0,
+    device=None,
+) -> dict:
+    cfg = smoke_config(arch) if smoke else get_config(arch)
+    policy = train_policy() if quantized else float_policy()
+    model = build_model(cfg, policy)
+    dev = resolve_device(device)
+    _refuse_what_is_not_ported(cfg, dev)
+
+    dcfg = DataConfig(seed=seed, global_batch=batch, seq_len=seq,
+                      vocab_size=cfg.vocab_size)
+    data = Prefetcher(synthetic_lm_batches(dcfg))
+
+    params = model.init(torch.Generator(dev).manual_seed(seed))
+    opt_state = init_opt_state(params)
+    tcfg = TrainConfig(
+        adamw=AdamWConfig(lr=lr, weight_decay=0.01, latent_clip=quantized),
+        microbatches=microbatches,
+    )
+    step_fn = make_train_step(model, tcfg)
+
+    start_step = 0
+    writer = None
+    if ckpt_dir:
+        writer = ckpt.AsyncCheckpointer(ckpt_dir)
+        latest = ckpt.latest_valid_step(ckpt_dir)
+        if latest is not None:
+            state = ckpt.restore(ckpt_dir, latest,
+                                 {"params": params, "opt": opt_state})
+            params, opt_state = state["params"], state["opt"]
+            start_step = latest
+            print(f"resumed from step {latest}")
+
+    monitor = HeartbeatMonitor(num_hosts=1, timeout=3600.0)
+    straggler = StragglerDetector()
+    metrics = {}
+    losses = []
+    # A resumed run restarts the data stream at batch 0, as the JAX
+    # launcher's zip does.
+    for step, b in zip(range(start_step, steps), data):
+        t0 = time.time()
+        monitor.beat(0)
+        monitor.check()
+        batch_arrays = {"tokens": b["tokens"].to(dev), "labels": b["labels"].to(dev)}
+        params, opt_state, metrics = step_fn(params, opt_state, batch_arrays)
+        dt = time.time() - t0
+        straggler.observe({0: dt})
+        losses.append(float(metrics["loss"]))
+        if step % log_every == 0 or step == steps - 1:
+            print(f"step {step:5d}  loss {float(metrics['loss']):.4f}  "
+                  f"gnorm {float(metrics['grad_norm']):.3f}  {dt:.2f}s",
+                  flush=True)
+        if writer and (step + 1) % ckpt_every == 0:
+            writer.save(step + 1, {"params": params, "opt": opt_state})
+    if writer:
+        writer.close()
+    return {"params": params, "losses": losses, "final_metrics": metrics}
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--float", dest="quantized", action="store_false")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    out = train(args.arch, smoke=args.smoke, steps=args.steps,
+                batch=args.batch, seq=args.seq, lr=args.lr,
+                microbatches=args.microbatches, ckpt_dir=args.ckpt_dir,
+                quantized=args.quantized)
+    first = np.mean(out["losses"][:5])
+    last = np.mean(out["losses"][-5:])
+    print(f"loss {first:.4f} -> {last:.4f}")
+
+
+if __name__ == "__main__":
+    main()

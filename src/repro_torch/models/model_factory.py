@@ -6,8 +6,9 @@ signatures:
   prefill(params, state, batch)       -> (last_logits, state)
   decode_step(params, state, batch)   -> (logits, state)
 
-Decoder-only token families only; ``loss`` is the forward alone (no
-backward through the kernels yet); ``input_specs`` (the dry-run) and the
+Decoder-only token families only; ``loss`` rematerializes each period
+in the backward, as the JAX package's does, and differentiates through
+the LM kernels' backward kernels; ``input_specs`` (the dry-run) and the
 encoder-decoder family are not ported yet.
 """
 

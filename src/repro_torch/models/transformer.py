@@ -15,8 +15,13 @@ the state it was given.
 
 ``lm_loss`` is the training forward: ``lm_forward`` with no state,
 where long causal attention takes the flash kernel and the mLSTM the
-chunkwise kernel. Not ported: ``remat`` (it comes with the backward)
-and ``input_embeds`` (the vlm/audio stubs).
+chunkwise kernel, each with a backward kernel. With ``remat`` (the
+default of ``lm_loss``, as in the JAX package) each period's body runs
+under ``torch.utils.checkpoint``: its activations are recomputed in the
+backward instead of kept, which changes no number. The JAX package saves
+the dot outputs (``dots_with_no_batch_dims_saveable``); here the whole
+period is recomputed. Not ported: ``input_embeds`` (the vlm/audio
+stubs).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.bnn import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -219,10 +225,13 @@ def _index_tree(tree, i: int):
 
 def lm_forward(params: Params, cfg, policy: QuantPolicy, *,
                tokens: torch.Tensor, state: Optional[dict] = None,
-               causal: bool = True, logits_last_only: bool = False,
+               remat: bool = False, causal: bool = True,
+               logits_last_only: bool = False,
                ) -> tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """tokens ``[B, S]`` -> (logits ``[B, S, V]`` float32, new state,
-    aux loss). ``logits_last_only`` (prefill) keeps the last position."""
+    aux loss). ``logits_last_only`` (prefill) keeps the last position.
+    ``remat``: with no state and grad mode on, each period runs under
+    ``torch.utils.checkpoint`` (recomputed in the backward)."""
     _, norm = _norm_fns(cfg)
     x = embed(params["embed"], tokens, dtype=cfg.dtype)
     s = tokens.shape[1]
@@ -233,7 +242,25 @@ def lm_forward(params: Params, cfg, policy: QuantPolicy, *,
     per_period = _kind_per_period(cfg)
     new_states: dict[str, list] = {}
     aux_total = torch.zeros((), device=x.device)
-    for p in range(num_periods(cfg)):
+    if remat and state is None and torch.is_grad_enabled():
+        def period_body(x, layers):
+            auxes = []
+            for kind, lp in zip(period, layers):
+                x, _, aux = _apply_layer(x, lp, cfg, policy, kind,
+                                         positions=positions, layer_state=None,
+                                         causal=causal)
+                auxes.append(aux)
+            return x, *auxes
+
+        for p in range(num_periods(cfg)):
+            layers = [_index_tree(lp, p) for lp in params["layers"]]
+            x, *auxes = checkpoint(period_body, x, layers, use_reentrant=False)
+            for aux in auxes:
+                aux_total = aux_total + aux
+        periods = 0
+    else:
+        periods = num_periods(cfg)
+    for p in range(periods):
         cursor: dict[str, int] = {}
         for i, kind in enumerate(period):
             lstate = None
@@ -269,12 +296,14 @@ def lm_forward(params: Params, cfg, policy: QuantPolicy, *,
 
 
 def lm_loss(params, batch: dict, cfg, policy: QuantPolicy, *,
-            aux_weight: float = 0.01):
+            remat: bool = True, aux_weight: float = 0.01):
     """The training forward: next-token cross-entropy of ``batch["tokens"]``
     against ``batch["labels"]`` (``[B, S]``) over the first
     ``cfg.vocab_size`` logits, plus ``aux_weight`` times the MoE balance
-    loss. Returns (total, ``{"loss", "aux"}``)."""
-    logits, _, aux = lm_forward(params, cfg, policy, tokens=batch["tokens"])
+    loss, each period rematerialized in the backward (``remat``). Returns
+    (total, ``{"loss", "aux"}``)."""
+    logits, _, aux = lm_forward(params, cfg, policy, tokens=batch["tokens"],
+                                remat=remat)
     loss = softmax_cross_entropy(logits[..., :cfg.vocab_size], batch["labels"])
     return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 

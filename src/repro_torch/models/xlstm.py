@@ -196,13 +196,17 @@ def init_slstm(generator: torch.Generator, cfg, *,
     }
 
 
-def _slstm_step(carry, wx, R, h_heads: int, dh: int):
+def _slstm_step(carry, wx, r_heads, h_heads: int, dh: int):
     """One time step: carry (h, c, n, m) ``[B, d]`` each, ``wx [B, 4d]``
-    the step's input projections. Returns the new carry."""
+    the step's input projections, ``r_heads [H, dh, 4 dh]`` the recurrent
+    weights per head (``R [4, H, dh, dh]`` laid out once per sequence, so
+    the step's product saves no copy of them for the backward). Returns
+    the new carry."""
     hprev, c, n, m = carry
     b = hprev.shape[0]
-    hh = hprev.reshape(b, h_heads, dh)
-    rec = torch.einsum("bhd,ghde->bghe", hh, R).reshape(b, 4, h_heads * dh)
+    hh = hprev.reshape(b, h_heads, dh).transpose(0, 1)            # [H, B, dh]
+    rec = torch.bmm(hh, r_heads).reshape(h_heads, b, 4, dh)
+    rec = rec.permute(1, 2, 0, 3).reshape(b, 4, h_heads * dh)
     pre = wx.reshape(b, 4, -1) + rec
     zi, ii, fi, oi = pre.unbind(1)
     logi = ii
@@ -228,9 +232,10 @@ def slstm_block(params: Params, x: torch.Tensor, cfg, policy: QuantPolicy, *,
         carry = (zeros, zeros, zeros, torch.full((b, d), NEG, device=x.device))
     else:
         carry = (state["h"], state["c"], state["n"], state["m"])
+    r_heads = params["R"].permute(1, 2, 0, 3).reshape(h, dh, 4 * dh)
     ys = []
     for t in range(s):
-        carry = _slstm_step(carry, wx[:, t], params["R"], h, dh)
+        carry = _slstm_step(carry, wx[:, t], r_heads, h, dh)
         ys.append(carry[0])
     y = torch.stack(ys, dim=1).to(x.dtype)                # [B, S, d]
     y = rmsnorm({"scale": params["gn_scale"]}, y)

@@ -171,7 +171,8 @@ def test_configs_mirror_the_jax_package():
 NO_MEGAKERNEL = {"megakernel_conv_stage": 0, "megakernel_chain": 0,
                  "pack_rows": 0, "direct_conv": 0, "unpack_gemm": 0,
                  "ssm_scan_chunk": 0, "flash_attention": 0,
-                 "mlstm_chunked": 0}
+                 "mlstm_chunked": 0, "flash_attention_bwd": 0,
+                 "ssm_scan_chunk_bwd": 0, "mlstm_chunked_bwd": 0}
 WRAPPER_CALLS = {
     "direct": {"xnor_gemm": 1, "fused_xnor_gemm": 2, "fused_direct_conv": 5,
                **NO_MEGAKERNEL},

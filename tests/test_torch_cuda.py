@@ -19,7 +19,8 @@ for bit.
 Bit-exact, but for ``unpack_gemm`` on real input, the scan, flash
 attention and the mLSTM (tolerances at the tests). The grad guard of the
 wrappers and the smoke LM losses on the card against the CPU are here
-too. Every test here needs a GPU and
+too, with the three LM kernels differentiated on the card against their
+twins on the CPU and the LM launcher's smoke run. Every test here needs a GPU and
 ``nvcc`` and skips without them; run on the card with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -773,9 +774,11 @@ def test_flash_and_mlstm_wrappers_raise_rather_than_fall_back(dev):
 
 
 def test_wrappers_refuse_cuda_operands_that_require_grad(dev):
-    """No kernel has a backward: a CUDA operand that requires grad, in
-    grad mode, is refused by every wrapper that takes a float operand;
-    under no_grad the same call launches."""
+    """The BNN kernels and ``unpack_gemm`` have no backward: a CUDA operand
+    that requires grad, in grad mode, is refused by each of them (those
+    that take a float operand); under no_grad the same call launches. The
+    three LM kernels have one: under grad their forward launches, and a
+    backward through them launches their backward kernel."""
     rng = np.random.default_rng(52)
     q = cu(rng.normal(size=(1, 64, 32)).astype(np.float32), dev)
     qg = q.clone().requires_grad_()
@@ -785,25 +788,107 @@ def test_wrappers_refuse_cuda_operands_that_require_grad(dev):
     dt = torch.nn.functional.softplus(cu(rng.normal(size=(1, 8, 16)).astype(np.float32), dev))
     scan = (dt, dt.clone(), dt[..., :4].contiguous(), dt[..., :4].contiguous(),
             -torch.ones((16, 4), device=dev), torch.zeros((1, 16, 4), device=dev))
-    calls = {
-        "flash_attention": lambda t: ops.flash_attention(t, q, q),
-        "mlstm_chunked": lambda t: ops.mlstm_chunked(t, q, q, g, g, chunk=16),
-        "unpack_gemm": lambda t: ops.unpack_gemm(wp, t),
-        "pack_rows": lambda t: ops.pack_rows(t.T),
-        "ssm_scan_chunk": lambda t: ops.ssm_scan_chunk(t, *scan[1:]),
+    refused = {
+        "unpack_gemm": (lambda t: ops.unpack_gemm(wp, t), x.clone().requires_grad_()),
+        "pack_rows": (lambda t: ops.pack_rows(t.T), x.T.contiguous().requires_grad_()),
     }
-    args = {"flash_attention": qg, "mlstm_chunked": qg,
-            "unpack_gemm": x.clone().requires_grad_(),
-            "pack_rows": x.T.contiguous().requires_grad_(),
-            "ssm_scan_chunk": dt.clone().requires_grad_()}
-    for name, call in calls.items():
+    for name, (call, arg) in refused.items():
         with pytest.raises(RuntimeError, match=f"{name}: an operand requires grad"):
-            call(args[name])
+            call(arg)
         before = ops.LAUNCHES[name]
         with torch.no_grad():
-            call(args[name])
+            call(arg)
         torch.cuda.synchronize()
         assert ops.LAUNCHES[name] == before + 1, name
+    differentiated = {
+        "flash_attention": (lambda t: ops.flash_attention(t, q, q), qg),
+        "mlstm_chunked": (lambda t: ops.mlstm_chunked(t, q, q, g, g, chunk=16)[0], qg),
+        "ssm_scan_chunk": (lambda t: ops.ssm_scan_chunk(t, *scan[1:])[0],
+                           dt.clone().requires_grad_()),
+    }
+    for name, (call, arg) in differentiated.items():
+        before = dict(ops.LAUNCHES)
+        (grad,) = torch.autograd.grad(call(arg).sum(), (arg,))
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[name] == before[name] + 1, name
+        assert ops.LAUNCHES[name + "_bwd"] == before[name + "_bwd"] + 1, name
+        assert bool(torch.isfinite(grad).all()), name
+
+
+# The three LM wrappers differentiated on the card (their forward and
+# backward kernels) against the same on the CPU (their twins, forward and
+# backward): float32 within rtol 1e-4 plus atol 2e-5 of each gradient's
+# largest magnitude (chip_smoke.py's BWD_F32_TOL: sums in other orders;
+# the flash twin on the CPU tiles keys by 512, the kernel by 64); bf16
+# flash within 2 bf16 ulps of the largest magnitude (BWD_BF16_ULPS) and of
+# the largest output for the forward.
+def _lm_grad_case(kind, rng, dtype):
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32))
+
+    if kind == "flash_causal":
+        args = [arr(3, 300, 64) for _ in range(3)]
+        return (lambda q, k, v: ops.flash_attention(q, k, v)), [a.to(dtype) for a in args]
+    if kind == "flash_full":
+        args = [arr(2, 100, 32), arr(2, 150, 32), arr(2, 150, 32)]
+        return (lambda q, k, v: ops.flash_attention(q, k, v, causal=False)), \
+            [a.to(dtype) for a in args]
+    if kind == "ssm":
+        dt = torch.nn.functional.softplus(arr(2, 37, 300))
+        a = -torch.arange(1, 17, dtype=torch.float32).expand(300, 16).contiguous()
+        args = [dt, arr(2, 37, 300), arr(2, 37, 16), arr(2, 37, 16), a,
+                arr(2, 300, 16, scale=0.1)]
+        return (lambda *xs: ops.ssm_scan_chunk(*xs)), args
+    logf = torch.nn.functional.logsigmoid(arr(2, 512) + 2)
+    args = [arr(2, 512, 64, scale=0.125), arr(2, 512, 64), arr(2, 512, 48), arr(2, 512),
+            logf]
+    return (lambda *xs: ops.mlstm_chunked(*xs, chunk=128)[:3]), args
+
+
+@pytest.mark.parametrize("kind,dtype", [
+    ("flash_causal", torch.float32), ("flash_causal", torch.bfloat16),
+    ("flash_full", torch.float32), ("ssm", torch.float32), ("mlstm", torch.float32)])
+def test_lm_kernel_gradients_match_the_twins(dev, kind, dtype):
+    rng = np.random.default_rng(53)
+    fn, args = _lm_grad_case(kind, rng, dtype)
+    results = {}
+    for where in ("cpu", dev):
+        live = [a.to(where).requires_grad_() for a in args]
+        outs = fn(*live)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        cts = [torch.from_numpy(np.random.default_rng(54 + i).normal(
+            size=tuple(o.shape)).astype(np.float32)).to(where).to(o.dtype)
+            for i, o in enumerate(outs)]
+        total = sum((o.float() * c.float()).sum() for o, c in zip(outs, cts))
+        results[str(where)] = [g.cpu() for g in torch.autograd.grad(total, live)]
+    for got, want in zip(results[str(dev)], results["cpu"]):
+        diff = (got.float() - want.float()).abs()
+        scale = float(want.float().abs().max())
+        if dtype == torch.bfloat16:
+            limit = 2 * float(bf16_ulp(torch.tensor(scale)))
+            assert float(diff.max()) <= limit, (float(diff.max()), limit)
+        else:
+            assert bool((diff <= 1e-4 * want.abs() + 2e-5 * scale).all()), (
+                float(diff.max()), scale)
+
+
+def test_train_runs_on_the_card_and_refuses_two(dev, tmp_path, monkeypatch):
+    """``launch.train.train`` on the card: the smoke xlstm takes a few
+    steps through the mLSTM's forward and backward kernels, resumes from
+    its checkpoint; with two CUDA devices visible it raises (ROADMAP
+    A6d)."""
+    from repro_torch.launch.train import train
+
+    before = dict(ops.LAUNCHES)
+    kw = dict(smoke=True, batch=4, seq=64, lr=1e-3, ckpt_dir=str(tmp_path),
+              ckpt_every=3, log_every=100)
+    out = train("xlstm-1.3b", steps=4, **kw)
+    assert len(out["losses"]) == 4 and np.isfinite(out["losses"]).all()
+    assert ops.LAUNCHES["mlstm_chunked_bwd"] - before["mlstm_chunked_bwd"] == 4 * 2
+    assert len(train("xlstm-1.3b", steps=5, **kw)["losses"]) == 2
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="A6d"):
+        train("smollm-360m", steps=1)
 
 
 @pytest.mark.parametrize("arch,seq", [("smollm-360m", 4096), ("xlstm-1.3b", 512)])

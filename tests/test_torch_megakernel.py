@@ -320,4 +320,6 @@ def test_megakernel_forward_calls_one_kernel_per_stage(models, images,
                      "fused_direct_conv": 0, "megakernel_conv_stage": 3,
                      "megakernel_chain": 1, "pack_rows": 0, "direct_conv": 0,
                      "unpack_gemm": 0, "ssm_scan_chunk": 0,
-                     "flash_attention": 0, "mlstm_chunked": 0}
+                     "flash_attention": 0, "mlstm_chunked": 0,
+                     "flash_attention_bwd": 0, "ssm_scan_chunk_bwd": 0,
+                     "mlstm_chunked_bwd": 0}
