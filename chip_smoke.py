@@ -25,13 +25,7 @@
    (exact) and on real input in [-1, 1], held within rtol 1e-5 / atol
    1e-4 of the float64-accumulated dot, and the same at jamba's decode
    shape (one packed [8192, 8192] expert, bf16 X [8192, 4]; yardstick
-   bf16 ``torch.matmul``; not summed). The two kernels redesigned last,
-   ``xnor_gemm`` (at the eight batch-64 products) and
-   ``megakernel_chain`` (at the FC trunk), are also timed beside their
-   parent commit's versions on the same inputs (``parent_ms``,
-   ``PARENT_KERNELS``; the parent's outputs held to the twin too), built
-   into ``build/parent/`` from ``--parent-src DIR`` or ``git show HEAD~1``
-   (not measured without either). The three conv kernels are timed beside
+   bf16 ``torch.matmul``; not summed). The three conv kernels are timed beside
    a bf16 ``F.conv2d`` of the same ±1 operands (``library_bf16_ms``, a
    timing yardstick only: its outputs round).
    Before them, the rates of the three inner loops a packed ±1
@@ -152,8 +146,15 @@
 11. The LM trainer (``lm_bwd_kernel_phase``, ``lm_train_phase``): the
    three backward kernels (``flash_attention_bwd``, ``ssm_scan_chunk_bwd``,
    ``mlstm_chunked_bwd``) at their training shapes against their twins on
-   the same saved tensors (``BWD_F32_TOL``, ``BWD_BF16_ULPS``), timed
-   beside their bounds, twins and, for flash, SDPA's backward; then
+   the same saved tensors (``BWD_F32_TOL``, ``BWD_BF16_ULPS``), each
+   repeating bit for bit over two calls, timed beside their bounds, twins
+   and, for flash, SDPA's backward (flash also at a head width of 128).
+   The two kernels redesigned last, the flash backward (bf16 at smollm's
+   shape) and the mLSTM backward (at xlstm's), are also timed beside their
+   parent commit's versions on the same inputs (``parent_ms``,
+   ``PARENT_KERNELS``; the parent's outputs held to the twin too), built
+   into ``build/parent/`` from ``--parent-src DIR`` or ``git show HEAD~1``
+   (not measured without either); then
    smollm-360m (32 layers, batch 4 x 4096) and xlstm-1.3b (one 8-layer
    period, batch 2 x 4096) trained through ``launch.train.train`` under
    ``train_policy()``: the first step's loss and per-leaf gradients held
@@ -352,15 +353,16 @@ def check_equal(name: str, label: str, got: torch.Tensor,
 # The kernels this commit redesigned, timed beside their parent commit's
 # versions in the same run (``--parent-src``, else ``git show HEAD~1``).
 # {kernel: (its source, the parent's C launcher, its argtypes as the
-# parent's build.py declared them)}: the xnor GEMM (w, x, out, M, KW, N,
-# k_bits, stream) and the chain (w, a, b, x, wf, out, kw_layer[],
-# k_bits[], n_layers, m_max, kw_max, kw_act, mf, kwf, final_k_bits, n,
-# n_real, cluster, stream).
+# parent's build.py declared them)}: the flash backward (q, k, v, o, lse,
+# dout, delta, dq, dk, dv, BH, Sq, Skv, dh, causal, is_bf16, scale,
+# stream) and the mLSTM backward (24 pointers: operands, dC, dn,
+# gradients, scratch; BH, S, L, dk, dv, stream).
 PARENT_KERNELS = {
-    "xnor_gemm": ("xnor_gemm", "repro_xnor_gemm",
-                  (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)),
-    "megakernel_chain": ("megakernel_chain", "repro_megakernel_chain",
-                         (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 10 + (ctypes.c_void_p,)),
+    "flash_attention_bwd": ("flash_attention_bwd", "repro_flash_attention_bwd",
+                            (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
+                            + (ctypes.c_float, ctypes.c_void_p)),
+    "mlstm_chunked_bwd": ("mlstm_chunk", "repro_mlstm_chunked_bwd",
+                          (ctypes.c_void_p,) * 24 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)),
 }
 PARENT_SOURCES = sorted({source for source, _, _ in PARENT_KERNELS.values()})
 PARENT_DIR = OUT_DIR / "parent"
@@ -551,49 +553,68 @@ def xnor_loop_rates(procs: dict) -> dict:
     return rates
 
 
-def parent_xnor_gemm(fn, w, x, k_bits):
-    """The parent's xnor GEMM on (w, x): a callable for ``record``."""
-    m, kw = w.shape
-    n = x.shape[1]
-    out = torch.empty((m, n), dtype=torch.int32, device=w.device)
+def parent_flash_bwd(fn, q, k, v, o, lse, do, causal=True):
+    """The parent's flash backward on the same saved tensors, its D
+    scratch [BH, Sq] as the parent's wrapper allocated it: a callable for
+    ``record``."""
+    bh, sq, dh = q.shape
+    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
     def run():
-        rc = fn(w.data_ptr(), x.data_ptr(), out.data_ptr(), m, kw, n, k_bits,
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), bh, sq, k.shape[1], dh, int(causal),
+                int(q.dtype == torch.bfloat16), dh ** -0.5,
                 torch.cuda.current_stream().cuda_stream)
         if rc:
-            fail(f"parent xnor_gemm launch failed: CUDA error {rc}")
-        return out
+            fail(f"parent flash_attention_bwd launch failed: CUDA error {rc}")
+        return dq, dk, dv
     return run
 
 
-def parent_megakernel_chain(fn, w_stack, a_stack, b_stack, k_bits, x, fin,
-                            final_k_bits, n_real):
-    """The parent's chain with its head on a tile-padded ``x [KW_act, N]``,
-    launched as the parent's wrapper launched it (clusters of gcd(8,
-    M_max/32) CTAs): a callable for ``record``."""
-    import math
-
+def parent_mlstm_bwd(fn, q, k, v, logi, logf, y, states, nstates, dy, dC, dn,
+                     chunk):
+    """The parent's mLSTM backward with the scratch its wrapper
+    allocated: a callable for ``record``."""
     from repro_torch.kernels import ops
 
-    n_layers, m_max, kw_max = w_stack.shape
-    kw_act, n = x.shape
-    mf, kwf = fin.shape
-    kw_layer = ops._ints([min(kw_max, -(-k // 32)) for k in k_bits])
-    c_bits = ops._ints(list(k_bits))
-    out = torch.empty((mf, n), dtype=torch.int32, device=x.device)
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    ln = min(chunk, s)
+    nc = s // ln
+    f32 = dict(dtype=torch.float32, device=q.device)
+    grads = tuple(torch.empty_like(t) for t in (q, k, v, logi, logf))
+    scratch = (torch.empty((bh, nc, ln, ln), **f32), torch.empty((bh, nc, ln, ln), **f32),
+               torch.empty((bh, s, dv), **f32), torch.empty((bh, s, dk), **f32),
+               torch.empty((bh, nc, dk, dv), **f32), torch.empty((bh, nc, dk), **f32),
+               torch.empty((ops.MLSTM_BWD_VECS, bh, s), **f32),
+               torch.empty((ops.MLSTM_BWD_CVECS, bh, nc), **f32))
 
     def run():
-        rc = fn(w_stack.data_ptr(), a_stack.data_ptr(), b_stack.data_ptr(),
-                x.data_ptr(), fin.data_ptr(), out.data_ptr(), kw_layer, c_bits,
-                n_layers, m_max, kw_max, kw_act, mf, kwf, final_k_bits, n, n_real,
-                math.gcd(8, m_max // 32), torch.cuda.current_stream().cuda_stream)
+        rc = fn(*(t.data_ptr() for t in (q, k, v, logi, logf, y, states, nstates, dy)),
+                None if dC is None else dC.data_ptr(),
+                None if dn is None else dn.data_ptr(),
+                *(t.data_ptr() for t in grads), *(t.data_ptr() for t in scratch),
+                bh, s, ln, dk, dv, torch.cuda.current_stream().cuda_stream)
         if rc:
-            fail(f"parent megakernel_chain launch failed: CUDA error {rc}")
-        return out
+            fail(f"parent mlstm_chunked_bwd launch failed: CUDA error {rc}")
+        return grads
     return run
 
 
-def kernel_phase(dev, paper_batch: int, parents) -> tuple[dict, list]:
+def repeats_exactly(kernel: str, label: str, run) -> bool:
+    """Two calls on the same inputs give bit-identical outputs."""
+    first = [t.clone() for t in run()]
+    second = run()
+    for i, (a, b) in enumerate(zip(first, second)):
+        if not torch.equal(a, b):
+            fail(f"{kernel} {label}: output {i} differs between two calls on the "
+                 f"same inputs ({int((a != b).sum())} elements)")
+    return True
+
+
+def kernel_phase(dev, paper_batch: int) -> tuple[dict, list]:
     from repro_torch.core import bitops
     from repro_torch.kernels import ops
 
@@ -629,19 +650,16 @@ def kernel_phase(dev, paper_batch: int, parents) -> tuple[dict, list]:
         wf = bitops.unpack_bits(w, axis=-1)
         xf = bitops.unpack_bits(x, axis=0)
         lib = lambda: torch.matmul(wf, xf)  # noqa: E731
-        lib_bf16 = parent = None
+        lib_bf16 = None
         if name == "xnor_gemm" and summed:
             # and in bf16 (a timing yardstick only: exact here, K <= 8192)
             wh, xh = wf.bfloat16(), xf.bfloat16()
             lib_bf16 = lambda: torch.matmul(wh, xh)  # noqa: E731
-            if isinstance(parents, dict):
-                parent = parent_xnor_gemm(parents["xnor_gemm"], w, x, k_bits)
-                check_equal("parent xnor_gemm", label, parent(), want)
         nbytes = (w.numel() + x.numel()) * 4 + out_bytes
         nbytes += 0 if a is None else 8 * m
         ops_n = 2 * m * n * k_bits
         row = record(totals[name], name, label, err, run, twin, lib, nbytes, ops_n,
-                     summed=summed, parent=parent, lib_bf16=lib_bf16)
+                     summed=summed, lib_bf16=lib_bf16)
         if name == "xnor_gemm" and not summed:
             totals[name]["served_head_ms"] = row["ms"]
         rows.append(row)
@@ -749,11 +767,10 @@ def stage_operands(gen, h, chans, n, dev):
     return x, ws, [p[0] for p in aff], [p[1] for p in aff], k_bits
 
 
-def megakernel_phase(dev, totals: dict, rows: list, parents=None) -> None:
+def megakernel_phase(dev, totals: dict, rows: list) -> None:
     """Both megakernels at the main path's shapes, bit-exact against their
     twins, timed beside the per-layer kernels and a library chain (fp32,
-    and bf16 for the conv stages); the chain also beside its parent
-    commit's version (``parents``)."""
+    and bf16 for the conv stages)."""
     from repro_torch.core import bitops
     from repro_torch.kernels import ops
 
@@ -839,12 +856,6 @@ def megakernel_phase(dev, totals: dict, rows: list, parents=None) -> None:
         err = check_equal("megakernel_chain", label, got, want)
         if got[:, n_real:].any():
             fail(f"megakernel_chain {label}: pad columns not zeroed")
-        parent = None
-        if isinstance(parents, dict):
-            parent = parent_megakernel_chain(parents["megakernel_chain"], w_stack,
-                                             a_stack, b_stack, k_bits, x, fin,
-                                             1024, n_real)
-            check_equal("parent megakernel_chain", label, parent(), want)
 
         def per_layer(x=x):
             y = ops.fused_xnor_gemm(w0, x, 8192, a_stack[0], b_stack[0])
@@ -864,7 +875,7 @@ def megakernel_phase(dev, totals: dict, rows: list, parents=None) -> None:
         ops_n = 2 * n * (1024 * 8192 + 1024 * 1024 + 10 * 1024)
         row = record(totals["megakernel_chain"], "megakernel_chain", label,
                      err, run, twin, lib, nbytes, ops_n, per_layer=per_layer,
-                     summed=n == n_real == BATCH, parent=parent)
+                     summed=n == n_real == BATCH)
         # the launch's cluster (gcd(16, M_max/32) where the card holds one)
         # and the occupancy query's shared memory a CTA
         geometry = ((256, 32), 2, 1024, 256, 10, 32)
@@ -973,6 +984,9 @@ FLASH_PAST_SHARE = 1e-3
 # total) and a one-chunk sequence.
 MLSTM_CASES = [("xlstm layer", 8, 4096, 1024, 1024, 256),
                ("one chunk", 8, 256, 1024, 1024, 256)]
+# The flash backward's cases: the forward's, and a head width of 128 (the
+# dK/dV kernel's query tile halves there so its accumulators fit).
+FLASH_BWD_CASES = FLASH_CASES + [("dh 128", 16, 4096, 128, torch.bfloat16)]
 # y, C, n: float32 sums over dk and the chunk in other orders. m: the same
 # float operations in the same order as the twin, so equal.
 MLSTM_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -3402,33 +3416,60 @@ def grad_error(kernel: str, label: str, names, got, want, dtype) -> dict:
     return out
 
 
-def lm_bwd_kernel_phase(dev, totals: dict, rows: list) -> None:
+def kernel_split(run, top: int):
+    """``device_breakdown`` of one call, printed kernel by kernel; profiled
+    again once if the profiler saw no kernel."""
+    split = device_breakdown(run, top=top)
+    if isinstance(split, list) and len(split) == 1:
+        split = device_breakdown(run, top=top)
+    if isinstance(split, list) and len(split) == 1:
+        split = "not measured (the profiler saw no kernel)"
+    print("    its kernels: " + (split if isinstance(split, str) else ", ".join(
+        f"{n.split('(')[0].split('<')[0].split()[-1]} {ms:.3f} ms"
+        for n, ms, _ in split[:-1])), flush=True)
+    return split
+
+
+def lm_bwd_kernel_phase(dev, totals: dict, rows: list, parents=None) -> None:
     """The three backward kernels at their training shapes, each held to
     its twin run on the card on the same saved tensors (the forward
     kernel's output and what it keeps: flash attention's row log-sum-exp,
-    the mLSTM's chunk states) and timed: flash attention at FLASH_CASES
-    (bf16 at smollm-360m's training shape makes the total) with SDPA's
-    backward on the same tensors as its yardstick, the scan at
+    the mLSTM's chunk states), checked to repeat bit for bit over two
+    calls, and timed: flash attention at FLASH_BWD_CASES (bf16 at
+    smollm-360m's training shape makes the total) with SDPA's backward on
+    the same tensors as its yardstick, the scan at
     SCAN_BWD_CASES, the mLSTM at MLSTM_CASES with random final-state
     gradients. Bounds: flash 5 BH S^2 Dh operations (2.5x the forward's)
     at the bf16 tensor-core rate (float32: the CUDA cores'), against its
     operands and gradients; the scan B C di ds exps at the MUFU rate
     against its operands and gradients; the mLSTM L (L + 1) (3 dk + 2
     dv) + 8 L dk dv per (bh, chunk) (five [L, L] products over the causal
-    half, four [L, d] x [d, d] ones) at the float32 rate."""
+    half, four [L, d] x [d, d] ones) at the float32 rate. The flash and
+    mLSTM backward at their training shapes are also timed beside the
+    parent commit's kernels (``parents``, ``PARENT_KERNELS``), whose
+    outputs are held to the twin too."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref
 
     gen = torch.Generator(device=dev).manual_seed(25)
     F = torch.nn.functional
-    for label, bh, s, dh, dtype in FLASH_CASES:
+    for label, bh, s, dh, dtype in FLASH_BWD_CASES:
         q, k, v = (torch.randn((bh, s, dh), generator=gen, device=dev).to(dtype)
                    for _ in range(3))
         do = torch.randn((bh, s, dh), generator=gen, device=dev).to(dtype)
         o, lse = ops._flash_forward(q, k, v, True)
         run = lambda: ops.flash_attention_bwd(q, k, v, o, lse, do)  # noqa: E731,B023
         twin = lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do)  # noqa: E731,B023
-        e = grad_error("flash_attention_bwd", label, "qkv", run(), twin(), dtype)
+        want = twin()
+        e = grad_error("flash_attention_bwd", label, "qkv", run(), want, dtype)
+        e["repeats_exactly"] = repeats_exactly("flash_attention_bwd", label, run)
+        parent = None
+        if label == "smollm layer" and isinstance(parents, dict):
+            parent = parent_flash_bwd(parents["flash_attention_bwd"], q, k, v, o, lse, do)
+            e["parent_max_abs_err"] = grad_error("parent flash_attention_bwd", label,
+                                                 "qkv", parent(), want,
+                                                 dtype)["max_abs_err"]
+        del want
         q4, k4, v4 = (t[None].detach().requires_grad_() for t in (q, k, v))
         out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
         do4 = do[None]
@@ -3441,10 +3482,12 @@ def lm_bwd_kernel_phase(dev, totals: dict, rows: list) -> None:
                      f"{label} [{bh},{s},{dh}] {str(dtype)[6:]}", e["max_abs_err"],
                      run, twin, None, nbytes, 5 * bh * s * s * dh, summed=summed,
                      check=("max |err| / max |grad|: " + ", ".join(
-                         f"d{n} {e[n + '_rel']:.2g}" for n in "qkv")), rate=rate)
+                         f"d{n} {e[n + '_rel']:.2g}" for n in "qkv")
+                         + ", two calls bit-identical"), rate=rate, parent=parent)
         row.update(e, library_ms=sdpa_ms)
         if summed:
             totals["flash_attention_bwd"]["library_ms"] = sdpa_ms
+            row["breakdown"] = kernel_split(run, top=4)
         print(f"    SDPA backward (library yardstick) {sdpa_ms:.4f} ms", flush=True)
         rows.append(row)
         del q4, k4, v4, out4
@@ -3478,8 +3521,17 @@ def lm_bwd_kernel_phase(dev, totals: dict, rows: list) -> None:
         args = (q, k, v, logi, logf, y, states, nstates, dy, dC, dn)
         run = lambda: ops.mlstm_chunked_bwd(*args, chunk=chunk)  # noqa: E731,B023
         twin = lambda: ref.mlstm_chunked_bwd_ref(*args, chunk=chunk)  # noqa: E731,B023
-        e = grad_error("mlstm_chunked_bwd", label, ("q", "k", "v", "logi", "logf"),
-                       run(), twin(), torch.float32)
+        names = ("q", "k", "v", "logi", "logf")
+        want = twin()
+        e = grad_error("mlstm_chunked_bwd", label, names, run(), want, torch.float32)
+        e["repeats_exactly"] = repeats_exactly("mlstm_chunked_bwd", label, run)
+        parent = None
+        if label == "xlstm layer" and isinstance(parents, dict):
+            parent = parent_mlstm_bwd(parents["mlstm_chunked_bwd"], *args, chunk)
+            e["parent_max_abs_err"] = grad_error("parent mlstm_chunked_bwd", label, names,
+                                                 parent(), want,
+                                                 torch.float32)["max_abs_err"]
+        del want
         ln = min(chunk, s)
         ops_n = (s // ln) * bh * (ln * (ln + 1) * (3 * dk + 2 * dv) + 8 * ln * dk * dv)
         nbytes = 4 * (bh * s * (4 * dk + 6 * dv + 4) + states.numel() + nstates.numel()
@@ -3488,17 +3540,13 @@ def lm_bwd_kernel_phase(dev, totals: dict, rows: list) -> None:
                      f"{label} [{bh},{s},{dk},{dv}] L{ln}", e["max_abs_err"], run, twin,
                      None, nbytes, ops_n, summed=label == "xlstm layer",
                      check=("max |err| / max |grad|: " + ", ".join(
-                         f"d{n} {e[n + '_rel']:.2g}"
-                         for n in ("q", "k", "v", "logi", "logf"))))
+                         f"d{n} {e[n + '_rel']:.2g}" for n in names)
+                         + ", two calls bit-identical"), parent=parent)
         row.update(e)
         if label == "xlstm layer":
-            row["breakdown"] = device_breakdown(run, top=8)
-            print("    its kernels: " + (row["breakdown"] if isinstance(
-                row["breakdown"], str) else ", ".join(
-                    f"{n.split('(')[0].split()[-1]} {ms:.3f} ms"
-                    for n, ms, _ in row["breakdown"][:-1])), flush=True)
+            row["breakdown"] = kernel_split(run, top=8)
         rows.append(row)
-        del args, states, nstates
+        del args, states, nstates, parent
         torch.cuda.empty_cache()
 
 
@@ -3629,7 +3677,7 @@ def lm_train_run(dev, arch: str, batch: int, seq: int, steps: int,
             step_counts.append(dict(ops.LAUNCHES))
             if len(step_ms) == steps - 1 and not profiled:
                 profiled["breakdown"] = device_breakdown(
-                    lambda: inner(p, o, bt), top=8, warm=False)
+                    lambda: inner(p, o, bt), top=16, warm=False)
             return out
 
         return step
@@ -3805,7 +3853,7 @@ def main() -> None:
                                 f"not measured ({parents})"), flush=True)
     for name, log in info["ptxas"].items():
         for line in log.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
     print("phase 3: the packed product's inner loops, then kernels vs plain "
@@ -3814,8 +3862,8 @@ def main() -> None:
     # The Table 2 forward's own shapes (its batch) make the totals of its
     # kernels; the batch-32 shapes are checked and timed beside them.
     paper_batch = BNNExperiment("table2").batch
-    totals, rows = kernel_phase(dev, paper_batch, parents)
-    megakernel_phase(dev, totals, rows, parents)
+    totals, rows = kernel_phase(dev, paper_batch)
+    megakernel_phase(dev, totals, rows)
     unfused_kernel_phase(dev, totals, rows, paper_batch, summed=True)
     unfused_kernel_phase(dev, totals, rows, BATCH, summed=False)
     unpack_decode_phase(dev, totals, rows)
@@ -3869,7 +3917,7 @@ def main() -> None:
     print("phase 11: the LM trainer: the backward kernels against their "
           "twins, then smollm-360m and xlstm-1.3b trained at full width, the "
           "smoke families and a resume through the launcher", flush=True)
-    lm_bwd_kernel_phase(dev, totals, rows)
+    lm_bwd_kernel_phase(dev, totals, rows, parents)
     lm_train = lm_train_phase(dev)
     jamba_launches = dict(jamba["launches"]["prefill"])
     for counts in jamba["launches"]["decode"]:

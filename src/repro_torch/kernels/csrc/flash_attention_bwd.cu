@@ -2,13 +2,14 @@
 // attention from q, k, v [BH, S*, Dh], the forward's output o, its row
 // log-sum-exp lse [BH, Sq] (float32) and the output gradient dO, by FA2's
 // split into three launches:
-//   1. delta: D = rowsum(dO o) per query row, in float32;
-//   2. dkdv: one block per 64-key tile of one (batch, head), looping over
-//      the 64-row query tiles from the causal diagonal on: p = exp(s - lse)
-//      with s = (q . k in float32) * scale masked as the forward masks,
+//   1. stats: D = rowsum(dO o) per query row in float32 (and, bf16, the
+//      row's lse in base 2, both padded to whole row tiles);
+//   2. dkdv: one block per key tile of one (batch, head), looping over the
+//      query tiles from the causal diagonal on: p = exp(s - lse) with s =
+//      (q . k in float32) * scale masked as the forward masks,
 //      dV += round(p)^T dO, dP = dO V^T, dS = p (dP - D), dK += round(dS)^T Q;
-//   3. dq: one block per 64-row query tile, looping over the key tiles up to
-//      the diagonal: the same p, dP and dS, dQ += round(dS) K.
+//   3. dq: one block per query tile, looping over the key tiles up to the
+//      diagonal: the same p, dP and dS, dQ += round(dS) K.
 // dK and dQ are scaled once at the end; every sum is float32 and lands in
 // the block that owns it, so there are no atomics and the gradients are
 // deterministic. round() is to v's (p) and q's (dS) dtype, as the twin
@@ -26,28 +27,50 @@
 // triangle (S and dP recomputed, dV, dK, dQ) are 2.5x the forward's two:
 // 5 * BH * S^2 * Dh = 322 GFLOP = 0.326 ms at 989 TFLOP/s.
 //
-// Design, bf16. A block of 4 warps owns 64 keys (dkdv) or 64 query rows
-// (dq), 16 per warp, with its own rows' fragments loaded once by ldmatrix;
-// the other operand's 64-row tiles are staged in shared memory by cp.async
-// (one stage: a simple first kernel). Every product runs on the tensor
-// cores as mma.sync m16n8k16 (bf16 in, float32 out), the forward's
-// fragment tricks reused: the C fragments of S^T (dkdv) or S (dq) turn
-// into the A fragments of the next product after rounding to bf16, and
-// ldmatrix.trans reads a row-major [rows, Dh] tile as the B operand of a
-// product over its rows. Float32: the same loops on the CUDA cores, two
-// threads a key (or row), each holding half of Dh in registers.
+// Design, bf16 (wgmma.cuh's building blocks). The split without atomics
+// computes S and dP twice (7 products where the bound counts 5), so the
+// products have to run near the tensor cores' rate: every one is a
+// warpgroup wgmma (m64nNk16, float32 accumulation), both operands in
+// shared memory in the swizzled layout the descriptors name. A block is
+// one warpgroup (4 warps). dkdv: 64 keys a block; S^T = K Q^T and dP^T =
+// V dO^T read K, V (staged once) and the query tile K-major; p and dS are
+// rounded to bf16 into a [64, tile] shared tile each, the A operands of
+// dV += P^T dO and dK += dS^T Q, whose B (dO, Q) is the same staged tile
+// read MN-major. dq: 64 query rows a block; S = Q K^T, dP = dO V^T (Q, dO
+// staged once), then dQ += dS K with the key tile read MN-major. The
+// streamed tiles (query tiles of 64 rows, 32 at Dh 128, with their lse
+// and D; key tiles of 64) arrive by cp.async in a ring of two stages, the
+// next tile in flight during this one's math, one barrier a tile; each
+// thread's copy offsets are worked out once a block (WgStream). Within a
+// tile the products are issued in groups so the elementwise work
+// overlaps the tensor cores (p while dP^T runs, dS while dV runs).
+// Holding p and dS in shared memory rather than registers leaves the
+// accumulators and two score tiles a thread: 3 blocks (12 warps) an SM at
+// Dh <= 64 (__launch_bounds__ caps the registers at 170), 1 at Dh 128.
+// p = 2^(s * scale * log2(e) - lse * log2(e)) by ex2.approx (one fma and
+// one MUFU op; within 2 float32 ulps of expf plus the fma's rounding of
+// the exponent, far below p's bf16 rounding). Masks only on the tiles
+// that cross the causal diagonal or the last key (rows past Sq have lse
+// = +inf in the padded stats, so their p is exactly 0).
+//
+// Measured on an H100 (PERF.md, scripts/flash_bwd_ablation.py, bf16 [60,
+// 4096, 64] causal): 1.22 ms, dK/dV 0.65 and dQ 0.46 of it, against the
+// first design's 3.01 (one cp.async stage, mma.sync, 4 warps a block) and
+// SDPA's backward 0.94. expf in place of ex2.approx adds 0.26 ms; copy
+// addresses worked out a chunk at a time add 0.21.
+//
+// Float32: the same loops on the CUDA cores, two threads a key (or row),
+// each holding half of Dh in registers (a first design; no training path
+// runs flash in float32).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace repro_torch {
 
-constexpr int kBwdRows = 64;     // keys (dkdv) or query rows (dq) per block
-constexpr int kBwdWarps = 4;     // 16 rows each
-constexpr int kBwdThreads = 32 * kBwdWarps;
-
-// --- 1. D = rowsum(dO o) --------------------------------------------------
+// --- 1. row statistics ------------------------------------------------------
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
 template <>
@@ -57,48 +80,362 @@ __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// One warp a row (bh, i) of [BH, ld]: delta = rowsum(dO o) (0 past Sq) and,
+// where lse2 is given, lse * log2(e) (+inf past Sq).
 template <typename T>
-__global__ void flash_bwd_delta_kernel(const T* __restrict__ o,
+__global__ void flash_bwd_stats_kernel(const T* __restrict__ o,
                                        const T* __restrict__ dout,
-                                       float* __restrict__ delta, long long rows,
-                                       int DH) {
+                                       const float* __restrict__ lse,
+                                       float* __restrict__ delta,
+                                       float* __restrict__ lse2, int BH, int Sq,
+                                       int ld, int DH) {
   const long long row = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const T* orow = o + row * DH;
-  const T* drow = dout + row * DH;
+  if (row >= static_cast<long long>(BH) * ld) return;
+  const int bh = static_cast<int>(row / ld), i = static_cast<int>(row % ld);
   float acc = 0.f;
-  for (int d = lane; d < DH; d += 32) acc = fmaf(to_f(drow[d]), to_f(orow[d]), acc);
+  if (i < Sq) {
+    const long long src = (static_cast<long long>(bh) * Sq + i) * DH;
+    for (int d = lane; d < DH; d += 32) acc = fmaf(to_f(dout[src + d]), to_f(o[src + d]), acc);
 #pragma unroll
-  for (int off = 16; off >= 1; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
+    for (int off = 16; off >= 1; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+  if (lane == 0) {
+    delta[row] = acc;
+    if (lse2 != nullptr) {
+      lse2[row] = i < Sq ? __fmul_rn(lse[static_cast<long long>(bh) * Sq + i], 1.4426950408889634f)
+                         : __int_as_float(0x7f800000);
+    }
+  }
 }
 
 // --- bf16 -----------------------------------------------------------------
+// Two tunings, set from scripts/flash_bwd_ablation.py's readings on an
+// H100 (PERF.md): the ring's stages, and the blocks an SM must hold (which
+// caps the registers: 3 at Dh <= 64, where the accumulators fit in 170;
+// 1 at Dh 128).
+constexpr int kWgStages = 2;   // streamed tiles in flight
 template <int DH>
-struct BwdBf16Smem {
-  static constexpr int kLd = DH + 8;  // bf16 per staged row (16-byte pad)
-  static constexpr int kTile = kBwdRows * kLd;
-  // two operand tiles of the block's own rows, two streamed ones
-  static constexpr size_t kBytes = size_t(4 * kTile) * sizeof(__nv_bfloat16) +
-                                   2 * kBwdRows * sizeof(float);
+constexpr int kMinBlocks = DH <= 64 ? 3 : 1;
+constexpr int kDqKeys = 64;       // keys of a streamed tile (dq)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One warpgroup a block: 64 keys (dkdv) or query rows (dq).
+template <int DH>
+struct DkdvCfg {
+  static constexpr int kQt = DH <= 64 ? 64 : 32;   // query rows of a streamed tile
+  static constexpr int kTile = WgTile<DH>::bytes(kQt);
+  static constexpr int kOwn = WgTile<DH>::bytes(64);
+  static constexpr int kScore = WgTile<kQt>::bytes(64);   // P^T or dS^T
+  // K, V; the ring of (Q, dO) tiles; P^T and dS^T; lse2 and D of each
+  // stage; 1024 to align
+  static constexpr size_t kBytes = 2 * kOwn + kWgStages * 2 * kTile + 2 * kScore +
+                                   kWgStages * 2 * kQt * sizeof(float) + 1024;
 };
 
-// Rows [row0, row0 + 64) of a [rows, DH] bf16 matrix into a [64][kLd] tile
-// by cp.async (committed, not waited for); rows past `rows` are zero.
 template <int DH>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src, int row0,
-                                           int rows) {
-  constexpr int kPerRow = DH / 8;
-  constexpr int kLd = BwdBf16Smem<DH>::kLd;
-  for (int i = threadIdx.x; i < kBwdRows * kPerRow; i += kBwdThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * 8;
-    const bool ok = row0 + r < rows;
-    cp_async16(dst + r * kLd + c, src + (ok ? static_cast<long long>(row0 + r) * DH + c : 0),
-               ok ? 16 : 0);
+struct DqCfg {
+  static constexpr int kTile = WgTile<DH>::bytes(kDqKeys);
+  static constexpr int kOwn = WgTile<DH>::bytes(64);
+  static constexpr int kScore = WgTile<kDqKeys>::bytes(64);   // dS
+  static constexpr size_t kBytes = 2 * kOwn + kWgStages * 2 * kTile + kScore + 1024;
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_addr(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(128, kMinBlocks<DH>)
+flash_bwd_dkdv_wg_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse2,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int ld,
+                         int causal, float scale) {
+  using Cfg = DkdvCfg<DH>;
+  using Tl = WgTile<DH>;
+  constexpr int kQt = Cfg::kQt;
+  extern __shared__ unsigned char wg_smem_raw[];
+  unsigned char* sK = align1024(wg_smem_raw);
+  unsigned char* sV = sK + Cfg::kOwn;
+  unsigned char* ring = sV + Cfg::kOwn;               // [stage][Q, dO]
+  unsigned char* sP = ring + kWgStages * 2 * Cfg::kTile;   // P^T
+  unsigned char* sS = sP + Cfg::kScore;                    // dS^T
+  float* stats = reinterpret_cast<float*>(sS + Cfg::kScore);  // [stage][lse2, D][kQt]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, k0 = blockIdx.y * 64;
+  const long long qoff = static_cast<long long>(bh) * Sq * DH;
+  const long long koff = static_cast<long long>(bh) * Skv * DH;
+  const float* lb = lse2 + static_cast<long long>(bh) * ld;
+  const float* db = delta + static_cast<long long>(bh) * ld;
+  const int n_q = (Sq + kQt - 1) / kQt;
+  const int i_start = causal ? k0 / kQt : 0;   // no query before k0 sees these keys
+  const int steps = n_q > i_start ? n_q - i_start : 0;
+
+  const WgStream<DH, kQt, 128> stream(tid);
+  auto load = [&](int it) {
+    const int st = it % kWgStages, q0 = (i_start + it) * kQt;
+    unsigned char* tq = ring + st * 2 * Cfg::kTile;
+    stream.load(tq, q + qoff, q0, Sq);
+    stream.load(tq + Cfg::kTile, dout + qoff, q0, Sq);
+    if (tid < kQt / 2) {   // lse2 and D, 4 rows a copy (padded: no bounds)
+      const int which = tid / (kQt / 4), c = (tid % (kQt / 4)) * 4;
+      cp_async16(stats + (st * 2 + which) * kQt + c, (which ? db : lb) + q0 + c, 16);
+    }
+  };
+  Tl::stage(sK, k + koff, k0, Skv, 64, tid, 128);
+  Tl::stage(sV, v + koff, k0, Skv, 64, tid, 128);
+#pragma unroll
+  for (int s = 0; s < kWgStages - 1; ++s) {
+    if (s < steps) load(s);
+    cp_async_commit();
+  }
+
+  float acc_k[DH / 2], acc_v[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  const float c2 = __fmul_rn(scale, kLog2e);
+  const int key_a = k0 + 16 * warp + g;   // this thread's keys: key_a, key_a + 8
+
+  for (int it = 0; it < steps; ++it) {
+    cp_async_wait<kWgStages - 2>();   // tile it (and K, V) landed
+    fence_proxy_async();
+    __syncthreads();                  // ... for every thread; stage it - 1 is free
+    if (it + kWgStages - 1 < steps) load(it + kWgStages - 1);
+    cp_async_commit();
+    const int st = it % kWgStages, q0 = (i_start + it) * kQt;
+    const unsigned char* tq = ring + st * 2 * Cfg::kTile;
+    const unsigned char* to = tq + Cfg::kTile;
+    const float* sl = stats + st * 2 * kQt;
+    const float* sd = sl + kQt;
+
+    // S^T = K Q^T, dP^T = V dO^T: [64 keys, kQt queries]
+    float s_t[kQt / 2], dp_t[kQt / 2];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < Tl::kSteps; ++kk) {
+      wgmma_ss<kQt, 0>(s_t, desc_kmajor<DH>(sK, 64, 0, kk), desc_kmajor<DH>(tq, kQt, 0, kk), kk);
+    }
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < Tl::kSteps; ++kk) {
+      wgmma_ss<kQt, 0>(dp_t, desc_kmajor<DH>(sV, 64, 0, kk), desc_kmajor<DH>(to, kQt, 0, kk),
+                       kk);
+    }
+    wg_commit();
+    wg_wait<1>();   // S^T done, dP^T in flight
+    wg_hold(s_t);
+    const bool diag = causal && k0 + 63 > q0;
+#pragma unroll
+    for (int j = 0; j < kQt / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(fmaf(s_t[4 * j + e], c2, -((e & 1) ? l2.y : l2.x)));
+        if (diag && key_a + 8 * (e >> 1) > q0 + 8 * j + 2 * t + (e & 1)) p = 0.f;
+        s_t[4 * j + e] = p;
+      }
+    }
+    store_acc_bf16<kQt>(sP, s_t);
+    fence_proxy_async();
+    wg_sync(0);
+    // dV += P^T dO (P^T K-major, dO read MN-major)
+    wg_hold(acc_v);
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < kQt / 16; ++c) {
+      wgmma_ss<DH, 1>(acc_v, desc_kmajor<kQt>(sP, 64, 0, c), desc_mnmajor<DH>(to, kQt, c), 1);
+    }
+    wg_commit();
+    wg_wait<1>();   // dP^T done, dV in flight
+    wg_hold(dp_t);
+#pragma unroll
+    for (int j = 0; j < kQt / 8; ++j) {
+      const float2 dd = *reinterpret_cast<const float2*>(sd + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dp_t[4 * j + e] =
+            __fmul_rn(s_t[4 * j + e], __fsub_rn(dp_t[4 * j + e], (e & 1) ? dd.y : dd.x));
+      }
+    }
+    store_acc_bf16<kQt>(sS, dp_t);
+    fence_proxy_async();
+    wg_sync(0);
+    // dK += dS^T Q (Q read MN-major)
+    wg_hold(acc_k);
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < kQt / 16; ++c) {
+      wgmma_ss<DH, 1>(acc_k, desc_kmajor<kQt>(sS, 64, 0, c), desc_mnmajor<DH>(tq, kQt, c), 1);
+    }
+    wg_commit();
+    wg_wait<0>();   // the stage and sP, sS are free after the next barrier
+    wg_hold(acc_v);
+    wg_hold(acc_k);
+  }
+  cp_async_wait<0>();   // nothing lands after the block has left
+
+  __nv_bfloat16* dkb = dk + koff;
+  __nv_bfloat16* dvb = dv + koff;
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = key_a + 8 * h;
+      if (key >= Skv) continue;
+      const long long o = static_cast<long long>(key) * DH + col;
+      *reinterpret_cast<uint32_t*>(dkb + o) = pack_bf16x2(
+          __fmul_rn(acc_k[4 * j + 2 * h], scale), __fmul_rn(acc_k[4 * j + 2 * h + 1], scale));
+      *reinterpret_cast<uint32_t*>(dvb + o) =
+          pack_bf16x2(acc_v[4 * j + 2 * h], acc_v[4 * j + 2 * h + 1]);
+    }
   }
 }
+
+template <int DH>
+__global__ void __launch_bounds__(128, kMinBlocks<DH>)
+flash_bwd_dq_wg_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse2,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int ld,
+                       int causal, float scale) {
+  using Cfg = DqCfg<DH>;
+  using Tl = WgTile<DH>;
+  constexpr int kKt = kDqKeys;
+  extern __shared__ unsigned char wg_smem_raw[];
+  unsigned char* sQ = align1024(wg_smem_raw);
+  unsigned char* sO = sQ + Cfg::kOwn;   // dO
+  unsigned char* ring = sO + Cfg::kOwn;  // [stage][K, V]
+  unsigned char* sS = ring + kWgStages * 2 * Cfg::kTile;   // dS
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int q_blocks = (Sq + 63) / 64;
+  const int q0 = (q_blocks - 1 - blockIdx.y) * 64;  // heaviest first
+  const long long qoff = static_cast<long long>(bh) * Sq * DH;
+  const long long koff = static_cast<long long>(bh) * Skv * DH;
+  const int k_end = causal ? min(Skv, q0 + 64) : Skv;   // keys <= the block's last row
+  const int steps = (k_end + kKt - 1) / kKt;
+
+  const WgStream<DH, kKt, 128> stream(tid);
+  auto load = [&](int it) {
+    unsigned char* tk = ring + (it % kWgStages) * 2 * Cfg::kTile;
+    stream.load(tk, k + koff, it * kKt, Skv);
+    stream.load(tk + Cfg::kTile, v + koff, it * kKt, Skv);
+  };
+  Tl::stage(sQ, q + qoff, q0, Sq, 64, tid, 128);
+  Tl::stage(sO, dout + qoff, q0, Sq, 64, tid, 128);
+#pragma unroll
+  for (int s = 0; s < kWgStages - 1; ++s) {
+    if (s < steps) load(s);
+    cp_async_commit();
+  }
+  const int row_a = q0 + 16 * warp + g;   // this thread's rows: row_a, row_a + 8
+  const long long sb = static_cast<long long>(bh) * ld;
+  const float l2[2] = {lse2[sb + row_a], lse2[sb + row_a + 8]};   // padded rows: +inf
+  const float dd[2] = {delta[sb + row_a], delta[sb + row_a + 8]};
+  const float c2 = __fmul_rn(scale, kLog2e);
+  float acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+
+  for (int it = 0; it < steps; ++it) {
+    cp_async_wait<kWgStages - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    if (it + kWgStages - 1 < steps) load(it + kWgStages - 1);
+    cp_async_commit();
+    const int k0 = it * kKt;
+    const unsigned char* tk = ring + (it % kWgStages) * 2 * Cfg::kTile;
+    const unsigned char* tv = tk + Cfg::kTile;
+
+    // S = Q K^T, dP = dO V^T: [64 rows, 64 keys]
+    float s[kKt / 2], dp[kKt / 2];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < Tl::kSteps; ++kk) {
+      wgmma_ss<kKt, 0>(s, desc_kmajor<DH>(sQ, 64, 0, kk), desc_kmajor<DH>(tk, kKt, 0, kk), kk);
+    }
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < Tl::kSteps; ++kk) {
+      wgmma_ss<kKt, 0>(dp, desc_kmajor<DH>(sO, 64, 0, kk), desc_kmajor<DH>(tv, kKt, 0, kk), kk);
+    }
+    wg_commit();
+    wg_wait<1>();
+    wg_hold(s);
+    const bool edge = k0 + kKt > Skv || (causal && k0 + kKt - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < kKt / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(fmaf(s[4 * j + e], c2, -l2[e >> 1]));
+        const int key = k0 + 8 * j + 2 * t + (e & 1);
+        if (edge && (key >= Skv || (causal && key > row_a + 8 * (e >> 1)))) p = 0.f;
+        s[4 * j + e] = p;
+      }
+    }
+    wg_wait<0>();
+    wg_hold(dp);
+#pragma unroll
+    for (int j = 0; j < kKt / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dp[4 * j + e] = __fmul_rn(s[4 * j + e], __fsub_rn(dp[4 * j + e], dd[e >> 1]));
+      }
+    }
+    store_acc_bf16<kKt>(sS, dp);
+    fence_proxy_async();
+    wg_sync(0);
+    // dQ += dS K (dS K-major, K read MN-major)
+    wg_hold(acc);
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < kKt / 16; ++c) {
+      wgmma_ss<DH, 1>(acc, desc_kmajor<kKt>(sS, 64, 0, c), desc_mnmajor<DH>(tk, kKt, c), 1);
+    }
+    wg_commit();
+    wg_wait<0>();
+    wg_hold(acc);
+  }
+  cp_async_wait<0>();
+
+  __nv_bfloat16* dqb = dq + qoff;
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_a + 8 * h;
+      if (row >= Sq) continue;
+      *reinterpret_cast<uint32_t*>(dqb + static_cast<long long>(row) * DH + col) =
+          pack_bf16x2(__fmul_rn(acc[4 * j + 2 * h], scale),
+                      __fmul_rn(acc[4 * j + 2 * h + 1], scale));
+    }
+  }
+}
+
+// --- float32 --------------------------------------------------------------
+constexpr int kBwdRows = 64;     // keys (dkdv) or query rows (dq) per block
+constexpr int kBwdThreads = 128;
 
 // lse and D of query rows [row0, row0 + 64) into shared memory; rows past
 // Sq get lse = +inf, so their p is exactly 0.
@@ -113,271 +450,6 @@ __device__ __forceinline__ void stage_row_stats(float* s_lse, float* s_d,
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const __nv_bfloat16* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           __nv_bfloat16* __restrict__ dk,
-                           __nv_bfloat16* __restrict__ dv, int Sq, int Skv,
-                           int causal, float scale) {
-  using Smem = BwdBf16Smem<DH>;
-  constexpr int kLd = Smem::kLd;
-  constexpr int kDt = DH / 8, kDk = DH / 16, kNt = kBwdRows / 8;
-  extern __shared__ __align__(128) unsigned char bwd_smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(bwd_smem);
-  __nv_bfloat16* sV = sK + Smem::kTile;
-  __nv_bfloat16* sQ = sV + Smem::kTile;
-  __nv_bfloat16* sO = sQ + Smem::kTile;   // dO
-  float* s_lse = reinterpret_cast<float*>(sO + Smem::kTile);
-  float* s_d = s_lse + kBwdRows;
-
-  const int bh = blockIdx.x, k0 = blockIdx.y * kBwdRows;
-  const long long qoff = static_cast<long long>(bh) * Sq * DH;
-  const long long koff = static_cast<long long>(bh) * Skv * DH;
-  const float* lb = lse + static_cast<long long>(bh) * Sq;
-  const float* db = delta + static_cast<long long>(bh) * Sq;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int key_a = k0 + warp * 16 + g, key_b = key_a + 8;
-  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
-
-  stage_rows<DH>(sK, k + koff, k0, Skv);
-  stage_rows<DH>(sV, v + koff, k0, Skv);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t kf[kDk][4], vf[kDk][4];
-#pragma unroll
-  for (int kk = 0; kk < kDk; ++kk) {
-    ldmatrix_x4(kf[kk], sK + (warp * 16 + a_row) * kLd + kk * 16 + a_col);
-    ldmatrix_x4(vf[kk], sV + (warp * 16 + a_row) * kLd + kk * 16 + a_col);
-  }
-  float acc_k[kDt][4], acc_v[kDt][4];
-#pragma unroll
-  for (int d = 0; d < kDt; ++d)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc_k[d][i] = acc_v[d][i] = 0.f;
-
-  const int i_start = causal ? k0 : 0;   // no query before k0 sees these keys
-  for (int i0 = i_start; i0 < Sq; i0 += kBwdRows) {
-    __syncthreads();   // every warp is done with the previous Q, dO tiles
-    stage_rows<DH>(sQ, q + qoff, i0, Sq);
-    stage_rows<DH>(sO, dout + qoff, i0, Sq);
-    cp_async_commit();
-    stage_row_stats(s_lse, s_d, lb, db, i0, Sq);
-    cp_async_wait<0>();
-    __syncthreads();
-    // the warp's keys all lie past the tile's last query: p = 0 throughout
-    if (causal && k0 + warp * 16 > i0 + kBwdRows - 1) continue;
-
-    // S^T = K Q^T and dP^T = V dO^T: [16 keys, 64 queries] each
-    float st[kNt][4], dpt[kNt][4];
-#pragma unroll
-    for (int j = 0; j < kNt; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) st[j][i] = dpt[j][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDk; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kNt / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, sQ + (np * 16 + b_row) * kLd + kk * 16 + b_col);
-        mma_bf16(st[2 * np], kf[kk], b[0], b[1]);
-        mma_bf16(st[2 * np + 1], kf[kk], b[2], b[3]);
-        ldmatrix_x4(b, sO + (np * 16 + b_row) * kLd + kk * 16 + b_col);
-        mma_bf16(dpt[2 * np], vf[kk], b[0], b[1]);
-        mma_bf16(dpt[2 * np + 1], vf[kk], b[2], b[3]);
-      }
-    }
-    // p and dS (float32), rounded to bf16 as the A fragments of the
-    // products over the tile's queries
-    uint32_t pf[kNt / 2][4], sf[kNt / 2][4];
-#pragma unroll
-    for (int j = 0; j < kNt; ++j) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = j * 8 + 2 * t + (i & 1);
-        const int key = i < 2 ? key_a : key_b;
-        const bool keep = key < Skv && (!causal || key <= i0 + qi);
-        p[i] = keep ? expf(__fsub_rn(__fmul_rn(st[j][i], scale), s_lse[qi])) : 0.f;
-        ds[i] = __fmul_rn(p[i], __fsub_rn(dpt[j][i], s_d[qi]));
-      }
-      pf[j / 2][(j & 1) * 2] = pack_bf16x2(p[0], p[1]);
-      pf[j / 2][(j & 1) * 2 + 1] = pack_bf16x2(p[2], p[3]);
-      sf[j / 2][(j & 1) * 2] = pack_bf16x2(ds[0], ds[1]);
-      sf[j / 2][(j & 1) * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
-    }
-    // dV += P^T dO, dK += dS^T Q (dO, Q read transposed as B operands)
-#pragma unroll
-    for (int dp = 0; dp < kDt / 2; ++dp) {
-#pragma unroll
-      for (int c = 0; c < kNt / 2; ++c) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, sO + (c * 16 + a_row) * kLd + dp * 16 + a_col);
-        mma_bf16(acc_v[2 * dp], pf[c], b[0], b[1]);
-        mma_bf16(acc_v[2 * dp + 1], pf[c], b[2], b[3]);
-        ldmatrix_x4_trans(b, sQ + (c * 16 + a_row) * kLd + dp * 16 + a_col);
-        mma_bf16(acc_k[2 * dp], sf[c], b[0], b[1]);
-        mma_bf16(acc_k[2 * dp + 1], sf[c], b[2], b[3]);
-      }
-    }
-  }
-
-  __nv_bfloat16* dkb = dk + koff;
-  __nv_bfloat16* dvb = dv + koff;
-#pragma unroll
-  for (int d = 0; d < kDt; ++d) {
-    const int col = d * 8 + 2 * t;
-    if (key_a < Skv) {
-      const long long o = static_cast<long long>(key_a) * DH + col;
-      *reinterpret_cast<uint32_t*>(dkb + o) =
-          pack_bf16x2(__fmul_rn(acc_k[d][0], scale), __fmul_rn(acc_k[d][1], scale));
-      *reinterpret_cast<uint32_t*>(dvb + o) = pack_bf16x2(acc_v[d][0], acc_v[d][1]);
-    }
-    if (key_b < Skv) {
-      const long long o = static_cast<long long>(key_b) * DH + col;
-      *reinterpret_cast<uint32_t*>(dkb + o) =
-          pack_bf16x2(__fmul_rn(acc_k[d][2], scale), __fmul_rn(acc_k[d][3], scale));
-      *reinterpret_cast<uint32_t*>(dvb + o) = pack_bf16x2(acc_v[d][2], acc_v[d][3]);
-    }
-  }
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dq, int Sq, int Skv,
-                         int causal, float scale) {
-  using Smem = BwdBf16Smem<DH>;
-  constexpr int kLd = Smem::kLd;
-  constexpr int kDt = DH / 8, kDk = DH / 16, kNt = kBwdRows / 8;
-  extern __shared__ __align__(128) unsigned char bwd_smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(bwd_smem);
-  __nv_bfloat16* sO = sQ + Smem::kTile;   // dO
-  __nv_bfloat16* sK = sO + Smem::kTile;
-  __nv_bfloat16* sV = sK + Smem::kTile;
-  float* s_lse = reinterpret_cast<float*>(sV + Smem::kTile);
-  float* s_d = s_lse + kBwdRows;
-
-  const int bh = blockIdx.x;
-  const int q_tiles = (Sq + kBwdRows - 1) / kBwdRows;
-  const int q0 = (q_tiles - 1 - blockIdx.y) * kBwdRows;  // heaviest first
-  const long long qoff = static_cast<long long>(bh) * Sq * DH;
-  const long long koff = static_cast<long long>(bh) * Skv * DH;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int w0 = q0 + warp * 16;
-  const int row_a = w0 + g, row_b = row_a + 8;
-  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
-
-  stage_rows<DH>(sQ, q + qoff, q0, Sq);
-  stage_rows<DH>(sO, dout + qoff, q0, Sq);
-  cp_async_commit();
-  stage_row_stats(s_lse, s_d, lse + static_cast<long long>(bh) * Sq,
-                  delta + static_cast<long long>(bh) * Sq, q0, Sq);
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[kDk][4], of[kDk][4];
-#pragma unroll
-  for (int kk = 0; kk < kDk; ++kk) {
-    ldmatrix_x4(qf[kk], sQ + (warp * 16 + a_row) * kLd + kk * 16 + a_col);
-    ldmatrix_x4(of[kk], sO + (warp * 16 + a_row) * kLd + kk * 16 + a_col);
-  }
-  const float lse_a = s_lse[warp * 16 + g], lse_b = s_lse[warp * 16 + g + 8];
-  const float d_a = s_d[warp * 16 + g], d_b = s_d[warp * 16 + g + 8];
-  float acc[kDt][4];
-#pragma unroll
-  for (int d = 0; d < kDt; ++d)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[d][i] = 0.f;
-
-  int k_end = Skv;
-  if (causal) k_end = min(Skv, q0 + kBwdRows);  // keys <= the block's last row
-  for (int k0 = 0; k0 < k_end; k0 += kBwdRows) {
-    __syncthreads();   // every warp is done with the previous K, V tiles
-    stage_rows<DH>(sK, k + koff, k0, Skv);
-    stage_rows<DH>(sV, v + koff, k0, Skv);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    if (causal && k0 > w0 + 15) continue;   // wholly above the warp's rows
-
-    float s[kNt][4], dp[kNt][4];
-#pragma unroll
-    for (int j = 0; j < kNt; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDk; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kNt / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, sK + (np * 16 + b_row) * kLd + kk * 16 + b_col);
-        mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
-        ldmatrix_x4(b, sV + (np * 16 + b_row) * kLd + kk * 16 + b_col);
-        mma_bf16(dp[2 * np], of[kk], b[0], b[1]);
-        mma_bf16(dp[2 * np + 1], of[kk], b[2], b[3]);
-      }
-    }
-    uint32_t sf[kNt / 2][4];
-#pragma unroll
-    for (int j = 0; j < kNt; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + j * 8 + 2 * t + (i & 1);
-        const int row = i < 2 ? row_a : row_b;
-        const bool keep = key < Skv && (!causal || key <= row);
-        const float p = keep ? expf(__fsub_rn(__fmul_rn(s[j][i], scale),
-                                              i < 2 ? lse_a : lse_b))
-                             : 0.f;
-        ds[i] = __fmul_rn(p, __fsub_rn(dp[j][i], i < 2 ? d_a : d_b));
-      }
-      sf[j / 2][(j & 1) * 2] = pack_bf16x2(ds[0], ds[1]);
-      sf[j / 2][(j & 1) * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
-    }
-    // dQ += dS K (K read transposed as the B operand)
-#pragma unroll
-    for (int dd = 0; dd < kDt / 2; ++dd) {
-#pragma unroll
-      for (int c = 0; c < kNt / 2; ++c) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, sK + (c * 16 + a_row) * kLd + dd * 16 + a_col);
-        mma_bf16(acc[2 * dd], sf[c], b[0], b[1]);
-        mma_bf16(acc[2 * dd + 1], sf[c], b[2], b[3]);
-      }
-    }
-  }
-
-  __nv_bfloat16* dqb = dq + qoff;
-#pragma unroll
-  for (int d = 0; d < kDt; ++d) {
-    const int col = d * 8 + 2 * t;
-    if (row_a < Sq) {
-      *reinterpret_cast<uint32_t*>(dqb + static_cast<long long>(row_a) * DH + col) =
-          pack_bf16x2(__fmul_rn(acc[d][0], scale), __fmul_rn(acc[d][1], scale));
-    }
-    if (row_b < Sq) {
-      *reinterpret_cast<uint32_t*>(dqb + static_cast<long long>(row_b) * DH + col) =
-          pack_bf16x2(__fmul_rn(acc[d][2], scale), __fmul_rn(acc[d][3], scale));
-    }
-  }
-}
-
-// --- float32 --------------------------------------------------------------
 // Two threads a key (dkdv) or a query row (dq), each holding half of Dh of
 // its row's operands and gradients in registers; the other operand's
 // 64-row tiles in shared memory, read as broadcasts.
@@ -535,44 +607,55 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 template <int DH>
 cudaError_t launch_flash_bwd(const void* q, const void* k, const void* v,
                              const void* o, const float* lse, const void* dout,
-                             float* delta, void* dq, void* dk, void* dv, int BH,
+                             float* stats, void* dq, void* dk, void* dv, int BH,
                              int Sq, int Skv, int causal, int is_bf16,
                              float scale, cudaStream_t s) {
-  const long long rows = static_cast<long long>(BH) * Sq;
-  const dim3 kv_grid(BH, (Skv + kBwdRows - 1) / kBwdRows);
-  const dim3 q_grid(BH, (Sq + kBwdRows - 1) / kBwdRows);
   cudaError_t err;
   if (is_bf16) {
     using T = __nv_bfloat16;
-    flash_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
-        static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, DH);
-    const size_t smem = BwdBf16Smem<DH>::kBytes;
-    if ((err = allow_smem(flash_bwd_dkdv_bf16_kernel<DH>, smem)) != cudaSuccess) return err;
-    if ((err = allow_smem(flash_bwd_dq_bf16_kernel<DH>, smem)) != cudaSuccess) return err;
-    flash_bwd_dkdv_bf16_kernel<DH><<<kv_grid, kBwdThreads, smem, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
-        static_cast<T*>(dv), Sq, Skv, causal, scale);
+    auto* dkdv = flash_bwd_dkdv_wg_kernel<DH>;
+    auto* dqk = flash_bwd_dq_wg_kernel<DH>;
+    // lse2 [BH, ld] then D [BH, ld], rows padded to whole 128-row blocks
+    const int ld = (Sq + 127) / 128 * 128;
+    float* lse2 = stats;
+    float* delta = stats + static_cast<long long>(BH) * ld;
+    const long long rows = static_cast<long long>(BH) * ld;
+    flash_bwd_stats_kernel<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
+        static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta, lse2, BH, Sq,
+        ld, DH);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    flash_bwd_dq_bf16_kernel<DH><<<q_grid, kBwdThreads, smem, s>>>(
+    if ((err = allow_smem(dkdv, DkdvCfg<DH>::kBytes)) != cudaSuccess) return err;
+    if ((err = allow_smem(dqk, DqCfg<DH>::kBytes)) != cudaSuccess) return err;
+    dkdv<<<dim3(BH, (Skv + 63) / 64), 128, DkdvCfg<DH>::kBytes, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), Sq, Skv,
-        causal, scale);
+        static_cast<const T*>(dout), lse2, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        Sq, Skv, ld, causal, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    dqk<<<dim3(BH, (Sq + 63) / 64), 128, DqCfg<DH>::kBytes, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse2, delta, static_cast<T*>(dq), Sq, Skv, ld, causal,
+        scale);
     return cudaGetLastError();
   }
-  flash_bwd_delta_kernel<float><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
-      static_cast<const float*>(o), static_cast<const float*>(dout), delta, rows, DH);
+  // float32: D [BH, Sq] alone
+  const long long rows = static_cast<long long>(BH) * Sq;
+  flash_bwd_stats_kernel<float><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
+      static_cast<const float*>(o), static_cast<const float*>(dout), lse, stats, nullptr,
+      BH, Sq, Sq, DH);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const dim3 kv_grid(BH, (Skv + kBwdRows - 1) / kBwdRows);
+  const dim3 q_grid(BH, (Sq + kBwdRows - 1) / kBwdRows);
   const size_t smem = BwdF32Smem<DH>::kBytes;
   if ((err = allow_smem(flash_bwd_dkdv_f32_kernel<DH>, smem)) != cudaSuccess) return err;
   if ((err = allow_smem(flash_bwd_dq_f32_kernel<DH>, smem)) != cudaSuccess) return err;
   flash_bwd_dkdv_f32_kernel<DH><<<kv_grid, kBwdThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, stats,
       static_cast<float*>(dk), static_cast<float*>(dv), Sq, Skv, causal, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   flash_bwd_dq_f32_kernel<DH><<<q_grid, kBwdThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, stats,
       static_cast<float*>(dq), Sq, Skv, causal, scale);
   return cudaGetLastError();
 }
@@ -581,19 +664,19 @@ cudaError_t launch_flash_bwd(const void* q, const void* k, const void* v,
 
 // q, o, dout, dq [BH, Sq, Dh]; k, v, dk, dv [BH, Skv, Dh]; contiguous,
 // 16-byte aligned, all bfloat16 (is_bf16) or all float32; lse [BH, Sq]
-// float32 from the forward; delta [BH, Sq] float32 scratch. Dh in {16, 32,
-// 64, 128}; 64 keys or query rows per block.
+// float32 from the forward; stats float32 scratch of 2 BH ceil(Sq / 128) 128
+// (bf16: lse2 and D; float32: D [BH, Sq]). Dh in {16, 32, 64, 128}.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
                                          const void* v, const void* o,
                                          const void* lse, const void* dout,
-                                         void* delta, void* dq, void* dk,
+                                         void* stats, void* dq, void* dk,
                                          void* dv, int BH, int Sq, int Skv,
                                          int dh, int causal, int is_bf16,
                                          float scale, void* stream) {
   using namespace repro_torch;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* l = static_cast<const float*>(lse);
-  auto* d = static_cast<float*>(delta);
+  auto* d = static_cast<float*>(stats);
   cudaError_t err;
   switch (dh) {
     case 16: err = launch_flash_bwd<16>(q, k, v, o, l, dout, d, dq, dk, dv, BH, Sq, Skv, causal, is_bf16, scale, s); break;

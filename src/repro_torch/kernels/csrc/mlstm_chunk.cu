@@ -185,11 +185,13 @@ __device__ __forceinline__ void flush_acc(Acc& total, Acc& part) {
 // or not ([32][kMlLdn]: one conflict-free load an element, the stride 8
 // mod 32); B likewise ([128 n][kMlLdk] or [32][kMlLdn]). `wa` (or null):
 // A's element at k is first multiplied by wa[k], one rounding, as the
-// twin's k * wk.
+// twin's k * wk. `wb` (or null; B stored [32][kMlLdn] only): B's element
+// at k multiplied by wb[k] likewise.
 template <bool kAKc, bool kBKc>
 __device__ __forceinline__ void slab_mma(const float* __restrict__ As,
                                          const float* __restrict__ Bs,
-                                         const float* __restrict__ wa, Acc& acc) {
+                                         const float* __restrict__ wa, Acc& acc,
+                                         const float* __restrict__ wb = nullptr) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row0 = (threadIdx.x >> 7) * 64, col0 = ((threadIdx.x >> 5) & 3) * 32;
 #pragma unroll
@@ -208,11 +210,18 @@ __device__ __forceinline__ void slab_mma(const float* __restrict__ As,
                      bl[2 * p + (i >> 1)][i & 1]);
       }
     } else {
+      const float v0 = wb != nullptr ? wb[kk + t] : 1.f;
+      const float v1 = wb != nullptr ? wb[kk + t + 4] : 1.f;
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const float* p = Bs + (kk + t) * kMlLdn + col0 + nt * 8 + g;
-        split_tf32(p[0], bh[nt][0], bl[nt][0]);
-        split_tf32(p[4 * kMlLdn], bh[nt][1], bl[nt][1]);
+        float b0 = p[0], b1 = p[4 * kMlLdn];
+        if (wb != nullptr) {
+          b0 = __fmul_rn(b0, v0);
+          b1 = __fmul_rn(b1, v1);
+        }
+        split_tf32(b0, bh[nt][0], bl[nt][0]);
+        split_tf32(b1, bh[nt][1], bl[nt][1]);
       }
     }
     const float w0 = wa != nullptr ? wa[kk + t] : 1.f;
@@ -723,16 +732,25 @@ extern "C" int repro_mlstm_chunked(const void* q, const void* k, const void* v,
 // GFLOP as computed; the causal half of the [L, L] ones, 318 GFLOP, =
 // 4.75 ms at 67 TFLOP/s (float32 on the CUDA cores).
 //
-// Design, a simple first kernel: float32 on the CUDA cores throughout. The
-// products run through one batched GEMM kernel (64 x 64 block tiles, 16-
-// deep k slabs in shared memory, 4 x 4 outputs a thread; either operand
-// read transposed; an optional scale along k or along the rows, an
-// optional accumulate), batched over (bh, chunk) by pointer strides; the
-// elementwise and row work (the weights, den and D, dS and the log-weight
-// sums, the row dots) runs one warp a row; the reverse scan over chunks
-// one thread an element of (C, n); the gates one block a (bh) with the
-// sequential parts (running max, the argmax routing, the reverse cumsum)
-// on one thread. Every sum has a fixed order: no atomics, deterministic.
+// Design. The nine products run on the forward's tensor-core machinery
+// (split_tf32, mma_tf32, slab_mma, flush_acc: 3xTF32 mma.sync, each
+// product within ~2^-21 of float32, sums over more than one 32-deep slab
+// carried in a float32 total rounded to nearest) through one batched
+// kernel, mlstm_bwd_mma_kernel: 128 x 128 block tiles, 64 x 32 warp
+// tiles, a 3-stage cp.async ring of 32-deep slabs, either operand read
+// as stored (k contiguous or not), batched over (bh, chunk) by pointer
+// strides, its scales folded in (a scale along k into the B operand as
+// it is split, one along the rows and an accumulate into the store). On
+// the [L, L] products it skips what lies wholly above the diagonal: the
+// output tiles of S and dSW (the row kernels read only t >= j), and the
+// slabs of dS (dq: j <= t) or its transpose (dk, dv: t >= j) that are
+// zero. Bound by the tensor cores' tf32 rate: 3 x 318 GFLOP in 1.93 ms.
+// The elementwise and row work (the weights, den and D, dS and the
+// log-weight sums, the row dots) runs one warp a row; the reverse scan
+// over chunks one thread an element of (C, n); the gates one block a
+// (bh) with the sequential parts (running max, the argmax routing, the
+// reverse cumsum) on one thread. Every sum has a fixed order: no atomics,
+// deterministic.
 // ============================================================================
 
 namespace repro_torch {
@@ -742,83 +760,100 @@ namespace repro_torch {
 enum { kVG, kVMloc, kVInter, kVWk, kVDden, kVQn, kVDinter, kVDwk, kVRow, kVCol };
 enum { kCBm = 0, kCDecay = 2, kCDdecay = 3, kCMout = 4 };
 
-constexpr int kGmTile = 64, kGmK = 16, kGmThreads = 256;
+// What a product skips on an [L, L] operand: nothing; output tiles wholly
+// above the diagonal (n > m); slabs past the diagonal of a lower-
+// triangular A (k > m); slabs before the diagonal of an upper-triangular
+// A (k < m).
+enum { kTriNone, kTriOut, kTriALower, kTriAUpper };
 
 struct GemmOp {
   const float* a;     // op(A) [M, K]: A[m * lda + k], or A[k * lda + m] (ta)
   const float* b;     // op(B) [K, N]: B[k * ldb + n], or B[n * ldb + k] (tb)
   float* c;           // C [M, N], C[m * ldc + n]
-  const float* kscale;   // op(B)[k, :] scaled by kscale[k], or NULL
+  const float* kscale;   // op(B)[k, :] scaled by kscale[k], or NULL (tb = 0)
   const float* rscale;   // the product's row m scaled by rscale[m], or NULL
   long long lda, ldb, ldc;
   // batch z = bh * nb + cb: every pointer advances by its (bh, cb) strides
   long long sa_bh, sa_c, sb_bh, sb_c, sc_bh, sc_c, sk_bh, sk_c, sr_bh, sr_c;
-  int M, N, K, nb, ta, tb, accumulate;
+  int M, N, K, nb, ta, tb, accumulate, tri;
 };
 
-// C = (accumulate ? C : 0) + rscale * (op(A) diag(kscale) op(B)), float32.
-__global__ void __launch_bounds__(kGmThreads)
-mlstm_bwd_gemm_kernel(const GemmOp p) {
-  __shared__ __align__(16) float sa[kGmK][kGmTile + 4];
-  __shared__ __align__(16) float sb[kGmK][kGmTile + 4];
+// C = (accumulate ? C : 0) + rscale * (op(A) diag(kscale) op(B)), 3xTF32
+// on the tensor cores; block (128 columns, 128 rows, batch).
+template <bool kAKc, bool kBKc>
+__global__ void __launch_bounds__(kMlThreads, 1)
+mlstm_bwd_mma_kernel(const GemmOp p) {
+  extern __shared__ __align__(16) float ring[];
   const int z = blockIdx.z, bh = z / p.nb, cb = z % p.nb;
+  const int m0 = blockIdx.y * kMlTile, n0 = blockIdx.x * kMlTile, tid = threadIdx.x;
+  if (p.tri == kTriOut && n0 > m0 + kMlTile - 1) return;
   const float* A = p.a + bh * p.sa_bh + cb * p.sa_c;
   const float* B = p.b + bh * p.sb_bh + cb * p.sb_c;
   float* C = p.c + bh * p.sc_bh + cb * p.sc_c;
   const float* ks = p.kscale ? p.kscale + bh * p.sk_bh + cb * p.sk_c : nullptr;
   const float* rs = p.rscale ? p.rscale + bh * p.sr_bh + cb * p.sr_c : nullptr;
-  const int m0 = blockIdx.y * kGmTile, n0 = blockIdx.x * kGmTile;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < p.K; k0 += kGmK) {
+  const int k_begin = p.tri == kTriAUpper ? m0 : 0;
+  const int k_end = p.tri == kTriALower ? min(p.K, m0 + kMlTile) : p.K;
+  const int rows = min(kMlTile, p.M - m0), cols = min(kMlTile, p.N - n0);
+  const int slabs = k_end > k_begin ? (k_end - k_begin + kMlSlab - 1) / kMlSlab : 0;
+  const float* a0 = kAKc ? A + static_cast<long long>(m0) * p.lda : A + m0;
+  const float* b0 = kBKc ? B + static_cast<long long>(n0) * p.ldb : B + n0;
+  auto load = [&](int s) {
+    float* st = ring + (s % kMlStages) * kMlStage;
+    const int k0 = k_begin + s * kMlSlab;
+    if constexpr (kAKc) load_kc(st, a0, p.lda, rows, k0, k_end);
+    else load_mn(st, a0, p.lda, rows, k0, k_end);
+    if constexpr (kBKc) load_kc(st + kMlOperand, b0, p.ldb, cols, k0, k_end);
+    else load_mn(st + kMlOperand, b0, p.ldb, cols, k0, k_end);
+    if (ks != nullptr && tid < kMlSlab / 4) {
+      const bool ok = k0 + tid * 4 < k_end;
+      cp_async16(st + 2 * kMlOperand + tid * 4, ok ? ks + k0 + tid * 4 : ks, ok ? 16 : 0);
+    }
+  };
+  Acc acc, slab;
+  zero_acc(acc);
+  zero_acc(slab);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * kGmThreads;
-      int m, k;
-      if (p.ta) { m = idx % kGmTile; k = idx / kGmTile; }
-      else { k = idx % kGmK; m = idx / kGmK; }
-      const bool ok = m0 + m < p.M && k0 + k < p.K;
-      sa[k][m] = ok ? (p.ta ? A[(k0 + k) * p.lda + m0 + m] : A[(m0 + m) * p.lda + k0 + k])
-                    : 0.f;
-      int n, kb;
-      if (p.tb) { kb = idx % kGmK; n = idx / kGmK; }
-      else { n = idx % kGmTile; kb = idx / kGmTile; }
-      const bool okb = n0 + n < p.N && k0 + kb < p.K;
-      float bv = 0.f;
-      if (okb) {
-        bv = p.tb ? B[(n0 + n) * p.ldb + k0 + kb] : B[(k0 + kb) * p.ldb + n0 + n];
-        if (ks) bv = __fmul_rn(bv, ks[k0 + kb]);
+  for (int s = 0; s < kMlStages - 1; ++s) {
+    if (s < slabs) load(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < slabs; ++s) {
+    cp_async_wait<kMlStages - 2>();
+    __syncthreads();  // slab s has landed; slab s - 1's stage is free
+    if (s + kMlStages - 1 < slabs) load(s + kMlStages - 1);
+    cp_async_commit();
+    const float* st = ring + (s % kMlStages) * kMlStage;
+    slab_mma<kAKc, kBKc>(st, st + kMlOperand, nullptr, slab,
+                         ks != nullptr ? st + 2 * kMlOperand : nullptr);
+    flush_acc(acc, slab);
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + frag_row(mt, 2 * h);
+      if (m >= p.M) continue;
+      const float r = rs != nullptr ? rs[m] : 1.f;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = n0 + frag_col(nt, 0);  // and n + 1 (N is a multiple of 4)
+        if (n >= p.N) continue;
+        float2 val = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        if (rs != nullptr) {
+          val.x = __fmul_rn(r, val.x);
+          val.y = __fmul_rn(r, val.y);
+        }
+        float2* dst = reinterpret_cast<float2*>(C + static_cast<long long>(m) * p.ldc + n);
+        if (p.accumulate) {
+          const float2 old = *dst;
+          val.x = __fadd_rn(old.x, val.x);
+          val.y = __fadd_rn(old.y, val.y);
+        }
+        *dst = val;
       }
-      sb[kb][n] = bv;
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kGmK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&sa[kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&sb[kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= p.M) continue;
-    const float r = rs ? rs[m] : 1.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= p.N) continue;
-      float v = rs ? __fmul_rn(r, acc[i][j]) : acc[i][j];
-      if (p.accumulate) v = __fadd_rn(C[m * p.ldc + n], v);
-      C[m * p.ldc + n] = v;
-    }
-  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -855,8 +890,8 @@ __global__ void mlstm_bwd_rows_kernel(const MlBwd p) {
                static_cast<long long>(t) * p.L;
   float den_i = 0.f;
   for (int j = lane; j < p.L; j += 32) {
-    const float w = j <= t ? expf(__fsub_rn(g[j], ml)) : 0.f;
-    const float x = __fmul_rn(swr[j], w);
+    // S above the diagonal is not computed (its tiles are skipped): zero it
+    const float x = j <= t ? __fmul_rn(swr[j], expf(__fsub_rn(g[j], ml))) : 0.f;
     swr[j] = x;
     den_i += x;
   }
@@ -1131,11 +1166,24 @@ mlstm_bwd_gates_kernel(const MlBwd p) {
   }
 }
 
-inline cudaError_t run_gemm(GemmOp op, int batches, cudaStream_t s) {
-  const dim3 grid((op.N + kGmTile - 1) / kGmTile, (op.M + kGmTile - 1) / kGmTile, batches);
-  if (batches == 0 || op.M == 0 || op.N == 0) return cudaSuccess;
-  mlstm_bwd_gemm_kernel<<<grid, kGmThreads, 0, s>>>(op);
+template <bool kAKc, bool kBKc>
+cudaError_t launch_mma(const GemmOp& op, int batches, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(mlstm_bwd_mma_kernel<kAKc, kBKc>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kMlRingBytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((op.N + kMlTile - 1) / kMlTile, (op.M + kMlTile - 1) / kMlTile, batches);
+  mlstm_bwd_mma_kernel<kAKc, kBKc><<<grid, kMlThreads, kMlRingBytes, s>>>(op);
   return cudaGetLastError();
+}
+
+inline cudaError_t run_gemm(GemmOp op, int batches, cudaStream_t s) {
+  if (batches == 0 || op.M == 0 || op.N == 0) return cudaSuccess;
+  if (op.kscale != nullptr && op.tb) return cudaErrorInvalidValue;
+  if (!op.ta && op.tb) return launch_mma<true, true>(op, batches, s);
+  if (op.ta && !op.tb) return launch_mma<false, false>(op, batches, s);
+  if (!op.ta && !op.tb) return launch_mma<true, false>(op, batches, s);
+  return cudaErrorInvalidValue;   // both transposed: no product takes it
 }
 
 }  // namespace repro_torch
@@ -1198,8 +1246,9 @@ extern "C" int repro_mlstm_chunked_bwd(
   auto op = [&](const float* a, long long lda, long long sa_bh, long long sa_c, int ta,
                 const float* b, long long ldb, long long sb_bh, long long sb_c, int tb,
                 float* c, long long ldc, long long sc_bh, long long sc_c, int M, int N,
-                int K, int nb) {
+                int K, int nb, int tri = kTriNone) {
     GemmOp o{};
+    o.tri = tri;
     o.a = a; o.b = b; o.c = c;
     o.lda = lda; o.ldb = ldb; o.ldc = ldc;
     o.sa_bh = sa_bh; o.sa_c = sa_c; o.sb_bh = sb_bh; o.sb_c = sb_c;
@@ -1218,23 +1267,23 @@ extern "C" int repro_mlstm_chunked_bwd(
   const unsigned row_blocks = static_cast<unsigned>((vs + 7) / 8);
   // S = Q K^T per chunk
   if ((err = run_gemm(op(fq, dk_, Sdk, Ldk, 0, fk, dk_, Sdk, Ldk, 1, fsw, L, nc * LL, LL,
-                         L, L, dk_, nc), batches, s)) != cudaSuccess) return static_cast<int>(err);
+                         L, L, dk_, nc, kTriOut), batches, s)) != cudaSuccess) return static_cast<int>(err);
   mlstm_bwd_rows_kernel<<<row_blocks, 256, 0, s>>>(p);
   REPRO_CHECK();
   // dnum V^T
   if ((err = run_gemm(op(fdnum, dv_, Sdv, Ldv, 0, fv, dv_, Sdv, Ldv, 1, fdsw, L, nc * LL, LL,
-                         L, L, dv_, nc), batches, s)) != cudaSuccess) return static_cast<int>(err);
+                         L, L, dv_, nc, kTriOut), batches, s)) != cudaSuccess) return static_cast<int>(err);
   mlstm_bwd_cols_kernel<<<dim3((L + 127) / 128, nc, BH), 128, 0, s>>>(p);
   REPRO_CHECK();
   mlstm_bwd_dsw_kernel<<<row_blocks, 256, 0, s>>>(p);
   REPRO_CHECK();
   // dv = SW^T dnum, dq = dS K, dk = dS^T Q
   if ((err = run_gemm(op(fsw, L, nc * LL, LL, 1, fdnum, dv_, Sdv, Ldv, 0, p.dv, dv_, Sdv, Ldv,
-                         L, dv_, L, nc), batches, s)) != cudaSuccess) return static_cast<int>(err);
+                         L, dv_, L, nc, kTriAUpper), batches, s)) != cudaSuccess) return static_cast<int>(err);
   if ((err = run_gemm(op(fdsw, L, nc * LL, LL, 0, fk, dk_, Sdk, Ldk, 0, p.dq, dk_, Sdk, Ldk,
-                         L, dk_, L, nc), batches, s)) != cudaSuccess) return static_cast<int>(err);
+                         L, dk_, L, nc, kTriALower), batches, s)) != cudaSuccess) return static_cast<int>(err);
   if ((err = run_gemm(op(fdsw, L, nc * LL, LL, 1, fq, dk_, Sdk, Ldk, 0, p.dk, dk_, Sdk, Ldk,
-                         L, dk_, L, nc), batches, s)) != cudaSuccess) return static_cast<int>(err);
+                         L, dk_, L, nc, kTriAUpper), batches, s)) != cudaSuccess) return static_cast<int>(err);
   if (nc > 1) {
     // prod = dnum C_in^T (chunks >= 1)
     if ((err = run_gemm(op(fdnum + Ldv, dv_, Sdv, Ldv, 0, static_cast<const float*>(states),

@@ -635,8 +635,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rowsum(dO o)``, then one block per KV tile for dK and dV and one per
     query tile for dQ, no atomics (deterministic). ``p`` is rounded to
     v's dtype before ``dV = p^T dO`` and ``dS`` to q's before ``dQ = dS K``
-    and ``dK = dS^T Q``, as the twin does; bf16 products on the tensor
-    cores, float32 on the CUDA cores."""
+    and ``dK = dS^T Q``, as the twin does; bf16 products as warpgroup
+    ``wgmma`` on the tensor cores, float32 on the CUDA cores."""
     for name, t in (("o", o), ("do", do)):
         _check(name, t, q.dtype, 3)
         if t.shape != q.shape:
@@ -660,11 +660,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if not (bh and sq and skv):
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    # the rows' D and (bf16) lse in base 2, padded to whole 128-row blocks
+    stats = torch.empty((2, bh, -(-sq // 128) * 128), dtype=torch.float32,
+                        device=q.device)
     with torch.cuda.device(q.device):
         rc = build.load("repro_flash_attention_bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), stats.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), bh, sq, skv, dh, int(causal),
             int(q.dtype == torch.bfloat16), dh ** -0.5, _stream(q.device))
     _raise_on(rc, "flash_attention_bwd")
@@ -804,8 +806,8 @@ def mlstm_chunked_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``ref.mlstm_chunked_bwd_ref``. On the card the backward launches of
     ``mlstm_chunk.cu``: the gates again, the intra-chunk products, a
     reverse scan over chunks for the state gradients, then the gates'
-    gradients chunk by chunk from the last; float32 on the CUDA cores,
-    no atomics."""
+    gradients chunk by chunk from the last; the products 3xTF32 on the
+    tensor cores (each within ~2^-21 of float32), no atomics."""
     bh, s, dk = q.shape
     dv = v.shape[-1]
     for name, t, want in (("y", y, (bh, s, dv)), ("dy", dy, (bh, s, dv))):

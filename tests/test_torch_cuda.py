@@ -757,6 +757,91 @@ def test_mlstm_chunked_is_deterministic(dev):
         assert torch.equal(g, w)
 
 
+# The two backward kernels against their twins on the card, on the saved
+# tensors the forward kernel gives (flash's output and row log-sum-exp,
+# the mLSTM's chunk states): float32 within rtol 1e-4 of each element plus
+# atol 2e-5 of the gradient's largest magnitude, bf16 within 2 bf16 ulps
+# of it (chip_smoke.py's BWD_F32_TOL, BWD_BF16_ULPS: sums in other
+# orders; a p or dS that rounds to the neighbouring bf16 value). Two calls
+# on the same inputs give the same bits (no atomics; fixed-order sums).
+def _bwd_within(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g).all())
+        diff = (g.float() - w.float()).abs()
+        scale = float(w.float().abs().max()) or 1.0
+        if g.dtype == torch.bfloat16:
+            limit = 2 * float(bf16_ulp(torch.tensor(scale)))
+            assert float(diff.max()) <= limit, (float(diff.max()), limit)
+        else:
+            bad = diff > 1e-4 * w.abs() + 2e-5 * scale
+            assert not bool(bad.any()), (float(diff.max()), scale)
+
+
+def _repeats_exactly(run):
+    first = [t.clone() for t in run()]
+    for a, b in zip(first, run()):
+        assert torch.equal(a, b)
+
+
+# Every compiled head width, causal and full, bf16 and float32, at Sq ==
+# Skv off every tile (200), Sq < Skv and Sq > Skv, ragged against the
+# 32-, 64- and 128-row tiles of both types.
+@pytest.mark.parametrize("bh,sq,skv", [(3, 200, 200), (2, 100, 260), (2, 330, 70)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_flash_attention_bwd_matches_twin(dev, bh, sq, skv, dh, dtype, causal):
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+
+    rng = np.random.default_rng(55)
+    q, k, v = (cu(rng.normal(size=(bh, s, dh)).astype(np.float32), dev).to(dtype)
+               for s in (sq, skv, skv))
+    do = cu(rng.normal(size=(bh, sq, dh)).astype(np.float32), dev).to(dtype)
+    o, lse = ops._flash_forward(q, k, v, causal)
+    before = ops.LAUNCHES["flash_attention_bwd"]
+
+    def run():
+        return ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+
+    got = run()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_bwd"] == before + 1
+    _bwd_within(got, flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal))
+    _repeats_exactly(run)
+
+
+# Chunks of 8, 64 and 256 steps, one chunk and several, dk != dv (and
+# neither a multiple of the 128-wide tile), with the final state's dC, dn
+# given and absent.
+@pytest.mark.parametrize("bh,s,dk,dv,chunk", [
+    (2, 8, 16, 12, 8), (2, 96, 20, 36, 8), (1, 64, 48, 64, 64),
+    (2, 256, 72, 40, 64), (1, 256, 132, 96, 256), (1, 768, 64, 200, 256)])
+@pytest.mark.parametrize("final", [True, False])
+def test_mlstm_chunked_bwd_matches_twin(dev, bh, s, dk, dv, chunk, final):
+    from repro_torch.kernels.ref import mlstm_chunked_bwd_ref
+
+    q, k, v, logi, logf = mlstm_inputs(dev, bh, s, dk, dv, seed=56)
+    y, _, _, _, states, nstates = ops._mlstm_forward(q, k, v, logi, logf, chunk)
+    rng = np.random.default_rng(57)
+    dy = cu(rng.normal(size=(bh, s, dv)).astype(np.float32), dev)
+    dC = dn = None
+    if final:
+        dC = cu((1e-2 * rng.normal(size=(bh, dk, dv))).astype(np.float32), dev)
+        dn = cu((1e-2 * rng.normal(size=(bh, 1, dk))).astype(np.float32), dev)
+    args = (q, k, v, logi, logf, y, states, nstates, dy, dC, dn)
+    before = ops.LAUNCHES["mlstm_chunked_bwd"]
+
+    def run():
+        return ops.mlstm_chunked_bwd(*args, chunk=chunk)
+
+    got = run()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mlstm_chunked_bwd"] == before + 1
+    _bwd_within(got, mlstm_chunked_bwd_ref(*args, chunk=chunk))
+    _repeats_exactly(run)
+
+
 def test_flash_and_mlstm_wrappers_raise_rather_than_fall_back(dev):
     q = torch.zeros((1, 64, 48), device=dev)
     with pytest.raises(ValueError, match="compiled for Dh"):

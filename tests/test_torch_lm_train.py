@@ -132,24 +132,27 @@ def test_mlstm_backward_twin_matches_autograd():
 
 # ---------------- backward twins against jax.grad of the JAX paths -----------
 
-def test_flash_backward_twin_matches_jax_attend_chunked():
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_flash_backward_twin_matches_jax_attend_chunked(dh, causal):
     """d/dq, dk, dv of <out, dO> against jax.grad of ``_attend_chunked``
-    (its chunks cut to 32 keys, so the online softmax runs over several)."""
+    (its chunks cut to 32 keys, so the online softmax runs over several),
+    at every head width the kernel is compiled for, causal and full."""
     rng = np.random.default_rng(254)
-    b, s, h, dh = 1, 64, 3, 16
+    b, s, h = 1, 64, 3
     q, k, v, do = (normal(rng, b, s, h, dh) for _ in range(4))
     pos = jnp.arange(s)
 
     def objective(q, k, v):
-        out = j_attn._attend_chunked(q, k, v, groups=1, causal=True, q_positions=pos,
+        out = j_attn._attend_chunked(q, k, v, groups=1, causal=causal, q_positions=pos,
                                      kv_positions=pos, kv_valid=None, sliding_window=0,
                                      q_chunk=32, kv_chunk=32)
         return jnp.sum(out * do)
 
     want = jax.jit(jax.grad(objective, argnums=(0, 1, 2)))(*map(jnp.asarray, (q, k, v)))
     tq, tk, tv = (t(heads(a)) for a in (q, k, v))
-    o, lse = ref.flash_attention_ref(tq, tk, tv, return_lse=True)
-    got = ops.flash_attention_bwd(tq, tk, tv, o, lse, t(heads(do)))
+    o, lse = ref.flash_attention_ref(tq, tk, tv, causal=causal, return_lse=True)
+    got = ops.flash_attention_bwd(tq, tk, tv, o, lse, t(heads(do)), causal=causal)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), heads(np.asarray(w)), **TOL)
 
@@ -199,15 +202,19 @@ def _port_mlstm_grads(q, k, v, logi, logf, dy, dC, dn, chunk):
     return [g.reshape(b, h, s, *g.shape[2:]).transpose(1, 2).numpy() for g in got]
 
 
-def test_mlstm_backward_twin_matches_jax_mlstm_chunk():
-    """Four chunks; q small enough that |den| clamps at 1 on some steps,
-    where the stabilizer does not cancel and its gradient flows through
-    m_loc, the running max and the chain to earlier chunks."""
+@pytest.mark.parametrize("chunk", [8, 16])
+@pytest.mark.parametrize("chunks", [1, 2, 4])
+def test_mlstm_backward_twin_matches_jax_mlstm_chunk(chunks, chunk):
+    """One, two and four chunks of 8 and 16 steps; q small enough that
+    |den| clamps at 1 on some steps, where the stabilizer does not cancel
+    and its gradient flows through m_loc, the running max and the chain
+    to earlier chunks."""
     rng = np.random.default_rng(256)
-    x = mlstm_inputs(rng, s=32)
-    cts = (normal(rng, 1, 32, 2, 8), normal(rng, 1, 2, 8, 8), normal(rng, 1, 2, 8))
-    want = _jax_mlstm_grads(*x, *cts, chunk=8)
-    got = _port_mlstm_grads(*x, *cts, chunk=8)
+    s = chunks * chunk
+    x = mlstm_inputs(rng, s=s)
+    cts = (normal(rng, 1, s, 2, 8), normal(rng, 1, 2, 8, 8), normal(rng, 1, 2, 8))
+    want = _jax_mlstm_grads(*x, *cts, chunk=chunk)
+    got = _port_mlstm_grads(*x, *cts, chunk=chunk)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, np.asarray(w), **TOL)
 
