@@ -149,12 +149,12 @@
    the same saved tensors (``BWD_F32_TOL``, ``BWD_BF16_ULPS``), each
    repeating bit for bit over two calls, timed beside their bounds, twins
    and, for flash, SDPA's backward (flash also at a head width of 128).
-   The two kernels redesigned last, the flash backward (bf16 at smollm's
-   shape) and the mLSTM backward (at xlstm's), are also timed beside their
-   parent commit's versions on the same inputs (``parent_ms``,
-   ``PARENT_KERNELS``; the parent's outputs held to the twin too), built
-   into ``build/parent/`` from ``--parent-src DIR`` or ``git show HEAD~1``
-   (not measured without either); then
+   The kernel redesigned last, the scan backward, is also timed beside
+   its parent commit's version on the same inputs at each of its shapes
+   (``parent_ms``, ``PARENT_KERNELS``; the parent's outputs held to the
+   twin too, and one call's peak memory printed beside the parent's),
+   built into ``build/parent/`` from ``--parent-src DIR`` or ``git show
+   HEAD~1`` (not measured without either); then
    smollm-360m (32 layers, batch 4 x 4096) and xlstm-1.3b (one 8-layer
    period, batch 2 x 4096) trained through ``launch.train.train`` under
    ``train_policy()``: the first step's loss and per-leaf gradients held
@@ -353,16 +353,13 @@ def check_equal(name: str, label: str, got: torch.Tensor,
 # The kernels this commit redesigned, timed beside their parent commit's
 # versions in the same run (``--parent-src``, else ``git show HEAD~1``).
 # {kernel: (its source, the parent's C launcher, its argtypes as the
-# parent's build.py declared them)}: the flash backward (q, k, v, o, lse,
-# dout, delta, dq, dk, dv, BH, Sq, Skv, dh, causal, is_bf16, scale,
-# stream) and the mLSTM backward (24 pointers: operands, dC, dn,
-# gradients, scratch; BH, S, L, dk, dv, stream).
+# parent's build.py declared them)}: the scan backward (17 pointers:
+# operands, gradients, the scratch hs, part, a_part; batch, chunk, di,
+# ds; 8 strides; stream).
 PARENT_KERNELS = {
-    "flash_attention_bwd": ("flash_attention_bwd", "repro_flash_attention_bwd",
-                            (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
-                            + (ctypes.c_float, ctypes.c_void_p)),
-    "mlstm_chunked_bwd": ("mlstm_chunk", "repro_mlstm_chunked_bwd",
-                          (ctypes.c_void_p,) * 24 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)),
+    "ssm_scan_chunk_bwd": ("ssm_scan_bwd", "repro_ssm_scan_chunk_bwd",
+                           (ctypes.c_void_p,) * 17 + (ctypes.c_int,) * 4
+                           + (ctypes.c_longlong,) * 8 + (ctypes.c_void_p,)),
 }
 PARENT_SOURCES = sorted({source for source, _, _ in PARENT_KERNELS.values()})
 PARENT_DIR = OUT_DIR / "parent"
@@ -553,54 +550,43 @@ def xnor_loop_rates(procs: dict) -> dict:
     return rates
 
 
-def parent_flash_bwd(fn, q, k, v, o, lse, do, causal=True):
-    """The parent's flash backward on the same saved tensors, its D
-    scratch [BH, Sq] as the parent's wrapper allocated it: a callable for
-    ``record``."""
-    bh, sq, dh = q.shape
-    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+def parent_scan_bwd(fn, dt, xh, bm, cm, a, h0, dy, dh_last):
+    """The parent's scan backward on the same operands, allocating in each
+    call what its wrapper allocated (the gradients and the scratch hs [B,
+    C, ds, di], part [B, C, ceil(di/32), 64], a_part [B, di, ds]): a
+    callable for ``record``."""
+    b, c, di = dt.shape
+    ds = a.shape[1]
+    f32 = dict(dtype=torch.float32, device=dt.device)
 
     def run():
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), bh, sq, k.shape[1], dh, int(causal),
-                int(q.dtype == torch.bfloat16), dh ** -0.5,
+        grads = (torch.empty((b, c, di), **f32), torch.empty((b, c, di), **f32),
+                 torch.empty((b, c, ds), **f32), torch.empty((b, c, ds), **f32),
+                 torch.empty((di, ds), **f32), torch.empty((b, di, ds), **f32))
+        scratch = (torch.empty((b, c, ds, di), **f32),
+                   torch.empty((b, c, -(-di // 32), 64), **f32),
+                   torch.empty((b, di, ds), **f32))
+        rc = fn(*(t.data_ptr() for t in (dt, xh, bm, cm, a, h0, dy, dh_last)),
+                *(t.data_ptr() for t in grads), *(t.data_ptr() for t in scratch),
+                b, c, di, ds, dt.stride(0), dt.stride(1), xh.stride(0), xh.stride(1),
+                bm.stride(0), bm.stride(1), cm.stride(0), cm.stride(1),
                 torch.cuda.current_stream().cuda_stream)
         if rc:
-            fail(f"parent flash_attention_bwd launch failed: CUDA error {rc}")
-        return dq, dk, dv
-    return run
-
-
-def parent_mlstm_bwd(fn, q, k, v, logi, logf, y, states, nstates, dy, dC, dn,
-                     chunk):
-    """The parent's mLSTM backward with the scratch its wrapper
-    allocated: a callable for ``record``."""
-    from repro_torch.kernels import ops
-
-    bh, s, dk = q.shape
-    dv = v.shape[-1]
-    ln = min(chunk, s)
-    nc = s // ln
-    f32 = dict(dtype=torch.float32, device=q.device)
-    grads = tuple(torch.empty_like(t) for t in (q, k, v, logi, logf))
-    scratch = (torch.empty((bh, nc, ln, ln), **f32), torch.empty((bh, nc, ln, ln), **f32),
-               torch.empty((bh, s, dv), **f32), torch.empty((bh, s, dk), **f32),
-               torch.empty((bh, nc, dk, dv), **f32), torch.empty((bh, nc, dk), **f32),
-               torch.empty((ops.MLSTM_BWD_VECS, bh, s), **f32),
-               torch.empty((ops.MLSTM_BWD_CVECS, bh, nc), **f32))
-
-    def run():
-        rc = fn(*(t.data_ptr() for t in (q, k, v, logi, logf, y, states, nstates, dy)),
-                None if dC is None else dC.data_ptr(),
-                None if dn is None else dn.data_ptr(),
-                *(t.data_ptr() for t in grads), *(t.data_ptr() for t in scratch),
-                bh, s, ln, dk, dv, torch.cuda.current_stream().cuda_stream)
-        if rc:
-            fail(f"parent mlstm_chunked_bwd launch failed: CUDA error {rc}")
+            fail(f"parent ssm_scan_chunk_bwd launch failed: CUDA error {rc}")
         return grads
     return run
+
+
+def call_peak_bytes(dev, run) -> int:
+    """Device memory one call allocates at its peak, above what was
+    allocated before it (its outputs and scratch)."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = run()
+    torch.cuda.synchronize(dev)
+    del out
+    return torch.cuda.max_memory_allocated(dev) - base
 
 
 def repeats_exactly(kernel: str, label: str, run) -> bool:
@@ -3346,13 +3332,17 @@ def replays_ms(dev, graphs: list, iters: int = 20, reps: int = 5) -> float:
 
 # ------------------------- phase 11: the LM trainer -------------------------
 
-# (label, B, C, di, ds) of the scan's backward: jamba's chunk (its time
-# makes the kernels-line total; the operands as the prefill's, chunk views
-# of a longer sequence), a ragged case and a state width past 16 (the
-# kernel's 32-state build).
+# (label, B, C, di, ds, sequence) of the scan's backward: jamba's chunk
+# (its time makes the kernels-line total; the operands as the prefill's,
+# chunk views of a longer sequence), a ragged case, a state width past 16
+# (the kernel's 32-state build), and timed beside them, not summed, the
+# jamba prefill's batch of 4 and the smoke jamba's training shape (2
+# launches a step in lm_train_phase).
 SCAN_BWD_CASES = [("jamba chunk", 1, 256, 16384, 16, 512),
                   ("ragged", 3, 37, 1000, 13, 37),
-                  ("ds 24", 2, 64, 300, 24, 64)]
+                  ("ds 24", 2, 64, 300, 24, 64),
+                  ("jamba prefill batch", 4, 256, 16384, 16, 512),
+                  ("smoke jamba step", 8, 64, 256, 8, 64)]
 # Backward kernels against their twins on the same saved tensors: each
 # gradient within rtol of itself plus atol of its largest magnitude
 # (a sum over thousands of terms in another order lands where
@@ -3409,7 +3399,8 @@ def grad_error(kernel: str, label: str, names, got, want, dtype) -> dict:
         else:
             limit = BWD_F32_TOL["rtol"] * wf.abs() + BWD_F32_TOL["atol"] * scale
             bad = int((diff > limit).sum())
-            what = "rtol 1e-3 of itself plus atol 1e-4 of its largest magnitude"
+            what = (f"rtol {BWD_F32_TOL['rtol']:g} of itself plus atol "
+                    f"{BWD_F32_TOL['atol']:g} of its largest magnitude")
         if bad:
             fail(f"{kernel} {label}: {bad} of d{name} outside {what} of the plain "
                  f"twin (max abs err {float(diff.max()):.3g}, largest {scale:.3g})")
@@ -3444,10 +3435,11 @@ def lm_bwd_kernel_phase(dev, totals: dict, rows: list, parents=None) -> None:
     operands and gradients; the scan B C di ds exps at the MUFU rate
     against its operands and gradients; the mLSTM L (L + 1) (3 dk + 2
     dv) + 8 L dk dv per (bh, chunk) (five [L, L] products over the causal
-    half, four [L, d] x [d, d] ones) at the float32 rate. The flash and
-    mLSTM backward at their training shapes are also timed beside the
-    parent commit's kernels (``parents``, ``PARENT_KERNELS``), whose
-    outputs are held to the twin too."""
+    half, four [L, d] x [d, d] ones) at the float32 rate. The scan
+    backward at every SCAN_BWD_CASES shape is also timed beside the parent
+    commit's kernel (``parents``, ``PARENT_KERNELS``), whose outputs are
+    held to the twin too, and one call's peak memory (its outputs and
+    scratch) is printed beside the parent's."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref
 
@@ -3463,12 +3455,6 @@ def lm_bwd_kernel_phase(dev, totals: dict, rows: list, parents=None) -> None:
         want = twin()
         e = grad_error("flash_attention_bwd", label, "qkv", run(), want, dtype)
         e["repeats_exactly"] = repeats_exactly("flash_attention_bwd", label, run)
-        parent = None
-        if label == "smollm layer" and isinstance(parents, dict):
-            parent = parent_flash_bwd(parents["flash_attention_bwd"], q, k, v, o, lse, do)
-            e["parent_max_abs_err"] = grad_error("parent flash_attention_bwd", label,
-                                                 "qkv", parent(), want,
-                                                 dtype)["max_abs_err"]
         del want
         q4, k4, v4 = (t[None].detach().requires_grad_() for t in (q, k, v))
         out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
@@ -3483,7 +3469,7 @@ def lm_bwd_kernel_phase(dev, totals: dict, rows: list, parents=None) -> None:
                      run, twin, None, nbytes, 5 * bh * s * s * dh, summed=summed,
                      check=("max |err| / max |grad|: " + ", ".join(
                          f"d{n} {e[n + '_rel']:.2g}" for n in "qkv")
-                         + ", two calls bit-identical"), rate=rate, parent=parent)
+                         + ", two calls bit-identical"), rate=rate)
         row.update(e, library_ms=sdpa_ms)
         if summed:
             totals["flash_attention_bwd"]["library_ms"] = sdpa_ms
@@ -3491,23 +3477,41 @@ def lm_bwd_kernel_phase(dev, totals: dict, rows: list, parents=None) -> None:
         print(f"    SDPA backward (library yardstick) {sdpa_ms:.4f} ms", flush=True)
         rows.append(row)
         del q4, k4, v4, out4
+    names = ("dt", "xh", "B", "C", "A", "h0")
     for label, b, c, di, ds, seq in SCAN_BWD_CASES:
         args = scan_operands(gen, b, c, di, ds, seq, dev)
         dy = torch.randn((b, c, di), generator=gen, device=dev)
         dh_last = torch.randn((b, di, ds), generator=gen, device=dev)
         run = lambda: ops.ssm_scan_chunk_bwd(*args, dy, dh_last)  # noqa: E731,B023
         twin = lambda: ref.ssm_scan_chunk_bwd_ref(*args, dy, dh_last)  # noqa: E731,B023
-        e = grad_error("ssm_scan_chunk_bwd", label, ("dt", "xh", "B", "C", "A", "h0"),
-                       run(), twin(), torch.float32)
+        want = twin()
+        e = grad_error("ssm_scan_chunk_bwd", label, names, run(), want, torch.float32)
+        e["repeats_exactly"] = repeats_exactly("ssm_scan_chunk_bwd", label, run)
+        e["peak_bytes"] = call_peak_bytes(dev, run)
+        parent = None
+        if isinstance(parents, dict):
+            parent = parent_scan_bwd(parents["ssm_scan_chunk_bwd"], *args, dy, dh_last)
+            e["parent_max_abs_err"] = grad_error("parent ssm_scan_chunk_bwd", label, names,
+                                                 parent(), want,
+                                                 torch.float32)["max_abs_err"]
+            e["parent_peak_bytes"] = call_peak_bytes(dev, parent)
+        del want
+        print(f"    {label}: one call's peak memory {e['peak_bytes'] / 1e6:.1f} MB"
+              + ("" if parent is None else
+                 f", the parent's {e['parent_peak_bytes'] / 1e6:.1f} MB"), flush=True)
         nbytes = (5 * b * c * di + 4 * b * c * ds + 2 * di * ds + 4 * b * di * ds) * 4
         row = record(totals["ssm_scan_chunk_bwd"], "ssm_scan_chunk_bwd",
                      f"{label} [{b},{c},{di},{ds}]", e["max_abs_err"], run, twin, None,
                      nbytes, b * c * di * ds, summed=label == "jamba chunk",
                      check=("max |err| / max |grad|: " + ", ".join(
-                         f"d{n} {e[n + '_rel']:.2g}"
-                         for n in ("dt", "xh", "B", "C", "A", "h0"))))
+                         f"d{n} {e[n + '_rel']:.2g}" for n in names)
+                         + ", two calls bit-identical"), parent=parent)
         row.update(e)
+        if label == "jamba chunk":
+            row["breakdown"] = kernel_split(run, top=3)
         rows.append(row)
+        del args, dy, dh_last, parent
+        torch.cuda.empty_cache()
     for label, bh, s, dk, dv, chunk in MLSTM_CASES:
         q = torch.randn((bh, s, dk), generator=gen, device=dev) * dk ** -0.5
         k = torch.randn((bh, s, dk), generator=gen, device=dev)
@@ -3525,12 +3529,6 @@ def lm_bwd_kernel_phase(dev, totals: dict, rows: list, parents=None) -> None:
         want = twin()
         e = grad_error("mlstm_chunked_bwd", label, names, run(), want, torch.float32)
         e["repeats_exactly"] = repeats_exactly("mlstm_chunked_bwd", label, run)
-        parent = None
-        if label == "xlstm layer" and isinstance(parents, dict):
-            parent = parent_mlstm_bwd(parents["mlstm_chunked_bwd"], *args, chunk)
-            e["parent_max_abs_err"] = grad_error("parent mlstm_chunked_bwd", label, names,
-                                                 parent(), want,
-                                                 torch.float32)["max_abs_err"]
         del want
         ln = min(chunk, s)
         ops_n = (s // ln) * bh * (ln * (ln + 1) * (3 * dk + 2 * dv) + 8 * ln * dk * dv)
@@ -3541,12 +3539,12 @@ def lm_bwd_kernel_phase(dev, totals: dict, rows: list, parents=None) -> None:
                      None, nbytes, ops_n, summed=label == "xlstm layer",
                      check=("max |err| / max |grad|: " + ", ".join(
                          f"d{n} {e[n + '_rel']:.2g}" for n in names)
-                         + ", two calls bit-identical"), parent=parent)
+                         + ", two calls bit-identical"))
         row.update(e)
         if label == "xlstm layer":
             row["breakdown"] = kernel_split(run, top=8)
         rows.append(row)
-        del args, states, nstates, parent
+        del args, states, nstates
         torch.cuda.empty_cache()
 
 

@@ -76,9 +76,11 @@ _SIGNATURES = {
     #  and time strides of dt, xh, B and C, stream)
     "repro_ssm_scan_chunk": (_P,) * 8 + (_I,) * 4 + (_L,) * 8 + (_P,),
     # (dt, xh, B, C, A, h0, dy, dh_last, d dt, d xh, d B, d C, d A, d h0,
-    #  then the scratch hs, part, a_part; batch, chunk, di, ds, then the
-    #  batch and time strides of dt, xh, B and C, stream)
-    "repro_ssm_scan_chunk_bwd": (_P,) * 17 + (_I,) * 4 + (_L,) * 8 + (_P,),
+    #  scratch; batch, chunk, di, ds, then the batch and time strides of
+    #  dt, xh, B and C, stream)
+    "repro_ssm_scan_chunk_bwd": (_P,) * 15 + (_I,) * 4 + (_L,) * 8 + (_P,),
+    # (batch, chunk, di, ds, &floats): the scratch the backward needs
+    "repro_ssm_scan_chunk_bwd_scratch": (_I,) * 4 + (_P,),
     # (q, k, v, out, lse, BH, Sq, Skv, Dh, causal, is_bf16, scale, stream);
     # lse [BH, Sq] float32
     "repro_flash_attention": (_P,) * 5 + (_I,) * 6 + (_F, _P),
@@ -110,6 +112,7 @@ _LIB_OF = {
     "repro_unpack_gemm_splits": "unpack_gemm",
     "repro_ssm_scan_chunk": "ssm_scan",
     "repro_ssm_scan_chunk_bwd": "ssm_scan_bwd",
+    "repro_ssm_scan_chunk_bwd_scratch": "ssm_scan_bwd",
     "repro_flash_attention": "flash_attention",
     "repro_flash_attention_bwd": "flash_attention_bwd",
     "repro_mlstm_chunked": "mlstm_chunk",

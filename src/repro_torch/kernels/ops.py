@@ -412,6 +412,12 @@ def ssm_scan_chunk(dt: torch.Tensor, xh: torch.Tensor, bmat: torch.Tensor,
     through their batch and time strides (unit stride along the last
     axis), so chunk views of a longer sequence need no copy; ``a`` and
     ``h0`` must be contiguous. ``ds`` up to ``MAX_SCAN_STATE``."""
+    _check_scan_operands(dt, xh, bmat, cmat, a, h0)
+    return _SsmScanChunk.apply(dt, xh, bmat, cmat, a, h0)
+
+
+def _check_scan_operands(dt, xh, bmat, cmat, a, h0) -> None:
+    """The scan's operands as its kernels read them (``ssm_scan_chunk``)."""
     for name, x in (("dt", dt), ("xh", xh), ("bmat", bmat), ("cmat", cmat)):
         _check_strided(name, x, (torch.float32,), 3)
         if x.numel() and x.shape[-1] > 1 and x.stride(-1) != 1:
@@ -426,7 +432,6 @@ def ssm_scan_chunk(dt: torch.Tensor, xh: torch.Tensor, bmat: torch.Tensor,
                           ("h0", h0, (b, di, ds))):
         if tuple(x.shape) != want:
             raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {want}")
-    return _SsmScanChunk.apply(dt, xh, bmat, cmat, a, h0)
 
 
 def _check_scan_grid(b: int, c: int, di: int, ds: int) -> None:
@@ -482,11 +487,13 @@ def ssm_scan_chunk_bwd(dt: torch.Tensor, xh: torch.Tensor, bmat: torch.Tensor,
     ``dh_last [B, di, ds]``, all float32; the inputs as the forward takes
     them (read through their strides), the gradients new and contiguous.
     On the CPU: ``ref.ssm_scan_chunk_bwd_ref``. On the card the
-    ``ssm_scan_bwd.cu`` kernel recomputes the states from ``h0`` into a
-    ``[B, C, ds, di]`` scratch and runs the recurrence in reverse; the
-    sums over channels (``d bmat``, ``d cmat``) and over batch and time
-    (``d a``) are per-warp partials added in a fixed order by a second
-    kernel: no atomics, the gradients are deterministic."""
+    ``ssm_scan_bwd.cu`` kernel keeps only every K-th step's state (a
+    segment's checkpoint, in shared memory) and recomputes each segment's
+    states from it as the reverse pass reaches it; its one scratch holds a
+    partial sum of ``d bmat`` and ``d cmat`` per block of channels and
+    step, and for B > 1 each batch row's ``d a``, which a second kernel
+    adds in a fixed order: no atomics, the gradients are deterministic."""
+    _check_scan_operands(dt, xh, bmat, cmat, a, h0)
     b, c, di = dt.shape
     ds = a.shape[1]
     for name, x, want in (("dy", dy, (b, c, di)), ("dh_last", dh_last, (b, di, ds))):
@@ -506,22 +513,18 @@ def ssm_scan_chunk_bwd(dt: torch.Tensor, xh: torch.Tensor, bmat: torch.Tensor,
     dh0 = torch.empty((b, di, ds), dtype=torch.float32, device=dev)
     if not (b and di and ds):
         return ddt, dxh, dbm.zero_(), dcm.zero_(), d_a.zero_(), dh_last.clone()
-    warps = -(-di // 32)
-    # the states entering each step, the per-warp (d cmat, d bmat) sums of
-    # each step, and each batch row's d a
-    hs = torch.empty((b, c, ds, di), dtype=torch.float32, device=dev)
-    part = torch.empty((b, c, warps, 2 * MAX_SCAN_STATE), dtype=torch.float32,
-                       device=dev)
-    a_part = torch.empty((b, di, ds), dtype=torch.float32, device=dev)
+    floats = (ctypes.c_longlong * 1)()
     with torch.cuda.device(dev):
+        _raise_on(build.load("repro_ssm_scan_chunk_bwd_scratch")(b, c, di, ds, floats),
+                  "ssm_scan_chunk_bwd")
+        scratch = torch.empty(floats[0], dtype=torch.float32, device=dev)
         rc = build.load("repro_ssm_scan_chunk_bwd")(
             dt.data_ptr(), xh.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
             a.data_ptr(), h0.data_ptr(), dy.data_ptr(), dh_last.data_ptr(),
             ddt.data_ptr(), dxh.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
-            d_a.data_ptr(), dh0.data_ptr(), hs.data_ptr(), part.data_ptr(),
-            a_part.data_ptr(), b, c, di, ds, dt.stride(0), dt.stride(1),
-            xh.stride(0), xh.stride(1), bmat.stride(0), bmat.stride(1),
-            cmat.stride(0), cmat.stride(1), _stream(dev))
+            d_a.data_ptr(), dh0.data_ptr(), scratch.data_ptr(), b, c, di, ds,
+            dt.stride(0), dt.stride(1), xh.stride(0), xh.stride(1), bmat.stride(0),
+            bmat.stride(1), cmat.stride(0), cmat.stride(1), _stream(dev))
     _raise_on(rc, "ssm_scan_chunk_bwd")
     LAUNCHES["ssm_scan_chunk_bwd"] += 1
     return ddt, dxh, dbm, dcm, d_a, dh0

@@ -110,6 +110,120 @@ def ssm_scan_chunk_bwd_ref(dt: torch.Tensor, xh: torch.Tensor,
     return ddt, dxh, dbm, dcm, d_a.sum(0), dh
 
 
+# Compiled state width of csrc/ssm_scan_bwd.cu -> (lanes a channel,
+# channels a block), as its kBwd16 / kBwd32 set them; the second kernel's
+# threads a block (kBwdSumThreads).
+SCAN_BWD_TILING = {16: (4, 64), 32: (8, 32)}
+SCAN_BWD_SUM_THREADS = 256
+
+
+def _fma(x: torch.Tensor, y: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """``fmaf``: the float64 product (exact) plus ``acc``, rounded to float32."""
+    return (x.double() * y.double() + acc.double()).float()
+
+
+def _in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum along ``dim`` one term at a time, from 0, in float32."""
+    acc = torch.zeros_like(x.select(dim, 0))
+    for i in range(x.shape[dim]):
+        acc = acc + x.select(dim, i)
+    return acc
+
+
+def ssm_scan_chunk_bwd_segmented(dt: torch.Tensor, xh: torch.Tensor,
+                                 bmat: torch.Tensor, cmat: torch.Tensor,
+                                 a: torch.Tensor, h0: torch.Tensor,
+                                 dy: torch.Tensor, dh_last: torch.Tensor,
+                                 k: int, *, return_states: bool = False):
+    """:func:`ssm_scan_chunk_bwd_ref` in the order of work of the
+    ``ssm_scan_chunk_bwd`` kernel (tests only). A forward pass keeps only
+    the state entering every ``k``-th step; the reverse pass recomputes
+    each segment's states and decays from its checkpoint, last segment
+    first, and reuses them. States are padded to the kernel's compiled
+    width and channels to whole blocks (``SCAN_BWD_TILING``), with zeros.
+    Sums over a channel's states: each lane's states as one fma chain, then
+    the lanes pairwise (the kernel's xor butterfly); sums over channels:
+    a warp's channels pairwise, the block's warps in order, then every
+    GROUPS-th block's partial in order and the groups in order (the second
+    kernel); d a over the batch rows in order. ``return_states``: also the
+    recomputed states ``[B, C, di, ds]`` (each ``h_t``). Its reverse step
+    takes ``g = fma(dy, C, dh)``, ``dh = g * da`` and ``g h_{t-1} da`` as
+    ``dh * h_{t-1}``, as the kernel does."""
+    b, c, di = dt.shape
+    ds = a.shape[1]
+    width = 16 if ds <= 16 else 32
+    lanes, block = SCAN_BWD_TILING[width]
+    ns, cpw = width // lanes, 32 // lanes
+    warps = block * lanes // 32
+    nblk = -(-di // block)
+    cpad, spad = nblk * block - di, width - ds
+    pad = torch.nn.functional.pad
+    dt_, xh_, dy_ = (pad(x, (0, cpad)) for x in (dt, xh, dy))
+    bm, cm = pad(bmat, (0, spad)), pad(cmat, (0, spad))
+    a_ = pad(a, (0, spad, 0, cpad))
+    h0_, dh = (pad(x, (0, spad, 0, cpad)) for x in (h0, dh_last))
+
+    def step(h, t):
+        da = torch.exp(dt_[:, t, :, None] * a_)
+        return h * da + (dt_[:, t] * xh_[:, t])[..., None] * bm[:, t, None, :], da
+
+    def over_lanes(x, y):  # [b, D, width] -> each lane's fma chain, lanes pairwise
+        x, y = x.reshape(*x.shape[:-1], lanes, ns), y.reshape(*y.shape[:-1], lanes, ns)
+        acc = torch.zeros(x.shape[:-1])
+        for q in range(ns):
+            acc = _fma(x[..., q], y[..., q], acc)
+        while acc.shape[-1] > 1:
+            acc = acc[..., 0::2] + acc[..., 1::2]
+        return acc[..., 0]
+
+    def over_channels(v):  # [b, D, width] -> [b, nblk, width]
+        v = v.reshape(b, nblk, warps, cpw, width)
+        while v.shape[3] > 1:  # a warp's channels pairwise
+            v = v[:, :, :, 0::2] + v[:, :, :, 1::2]
+        return _in_order(v[:, :, :, 0], 2)
+
+    nseg = -(-c // k)
+    ckpt, h = [], h0_
+    for t in range(c):
+        if t % k == 0:
+            ckpt.append(h)
+        h, _ = step(h, t)
+    ddt, dxh = (torch.empty((b, c, di)) for _ in range(2))
+    part = torch.empty((b, c, nblk, 2, width))
+    gacc = torch.zeros_like(a_.expand_as(dh))
+    states = torch.empty((b, c, di, ds))
+    for seg in reversed(range(nseg)):
+        t0 = seg * k
+        hs, das = [ckpt[seg]], []
+        for t in range(t0, min(t0 + k, c)):
+            h, da = step(hs[-1], t)
+            hs.append(h)
+            das.append(da)
+            states[:, t] = h[:, :di, :ds]
+        for j in reversed(range(len(das))):
+            t = t0 + j
+            dtv, xv, dyv = dt_[:, t], xh_[:, t], dy_[:, t]
+            dtx = dtv * xv
+            g = _fma(dyv[..., None].expand_as(dh), cm[:, t, None, :].expand_as(dh), dh)
+            dh = g * das[j]
+            gda = dh * hs[j]
+            gb, ga = over_lanes(g, bm[:, t, None, :].expand_as(g)), over_lanes(gda, a_.expand_as(g))
+            gacc = _fma(gda, dtv[..., None], gacc)
+            ddt[:, t] = _fma(xv, gb, ga)[:, :di]
+            dxh[:, t] = (dtv * gb)[:, :di]
+            part[:, t, :, 0] = over_channels(dyv[..., None] * hs[j + 1])
+            part[:, t, :, 1] = over_channels(g * dtx[..., None])
+    groups = SCAN_BWD_SUM_THREADS // (2 * width)
+    sums = torch.zeros((b, c, groups, 2, width))
+    for i in range(nblk):
+        sums[:, :, i % groups] = sums[:, :, i % groups] + part[:, :, i]
+    sums = _in_order(sums, 2)
+    d_a = gacc[0] if b == 1 else _in_order(gacc, 0)
+    grads = (ddt, dxh, sums[:, :, 1, :ds], sums[:, :, 0, :ds], d_a[:di, :ds],
+             dh[:, :di, :ds])
+    return (grads, states) if return_states else grads
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, block_q: int = 512,
                         block_kv: int = 512, return_lse: bool = False):

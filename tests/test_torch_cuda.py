@@ -7,7 +7,9 @@ layers; ``xnor_gemm`` at Table 2's eight batch-64 products and with K
 split; for the unfused
 PACKED kernels strided and offset inputs, -0.0 and NaN, bfloat16 and
 K not a multiple of the tile; for the scan ragged chunks, channels and
-states, and chunk views; for flash attention ragged and unequal Sq and
+states, and chunk views, and its backward at every state width, chunk
+length and ragged di (one launch, two calls bit-identical, states padded
+by the caller exactly 0); for flash attention ragged and unequal Sq and
 Skv, odd BH, every compiled head width, bf16 and float32; for the mLSTM
 chunks of 16 to 256 steps, dk and dv not multiples of the tile).
 The BNN's train-to-serve loop on the card: a 20-step ``train_bnn`` that
@@ -614,6 +616,20 @@ def test_scan_wrapper_raises_rather_than_fall_back(dev):
         ops.ssm_scan_chunk(x.transpose(1, 2).contiguous().transpose(1, 2), x,
                            x[..., :4], x[..., :4], torch.zeros((8, 4), device=dev),
                            torch.zeros((1, 8, 4), device=dev))
+    # and its backward, called directly
+    dy, wide = torch.zeros((1, 4, 8), device=dev), torch.zeros((1, 4, 33), device=dev)
+    with pytest.raises(ValueError, match="at most 32 states"):
+        ops.ssm_scan_chunk_bwd(x, x, wide, wide, torch.zeros((8, 33), device=dev),
+                               torch.zeros((1, 8, 33), device=dev), dy,
+                               torch.zeros((1, 8, 33), device=dev))
+    narrow = torch.zeros((1, 8, 4), device=dev)
+    with pytest.raises(ValueError, match="unit stride"):
+        ops.ssm_scan_chunk_bwd(x.transpose(1, 2).contiguous().transpose(1, 2), x,
+                               x[..., :4], x[..., :4], torch.zeros((8, 4), device=dev),
+                               narrow, dy, narrow)
+    with pytest.raises(ValueError, match="unit stride"):
+        ops.ssm_scan_chunk_bwd(x, x, x[..., ::2], x[..., ::2],
+                               torch.zeros((8, 4), device=dev), narrow, dy, narrow)
 
 
 def test_jamba_smoke_serving_matches_the_cpu(dev):
@@ -840,6 +856,96 @@ def test_mlstm_chunked_bwd_matches_twin(dev, bh, s, dk, dv, chunk, final):
     assert ops.LAUNCHES["mlstm_chunked_bwd"] == before + 1
     _bwd_within(got, mlstm_chunked_bwd_ref(*args, chunk=chunk))
     _repeats_exactly(run)
+
+
+# The scan's backward at B 1 and 3, C 1, 37, 64 and 256 (segments of the
+# kernel's K steps, a short last one, and one step), every state width up
+# to 32 (ds 1, 8, 13 and 24 padded to the compiled 16 or 32), di of 1000,
+# 300 and 50 (under one block; 50 also breaks the 16-byte copies), read as
+# the mamba layer hands the operands over: dt and x chunk views of a longer
+# sequence, B and C column slices of an x_proj output (at an odd column
+# offset for odd C: 4-byte copies), h0 != 0. Each case: within
+# _bwd_within of the twin, one launch, two calls bit-identical; and with
+# A, B, C, h0 and dh_last zero-padded to the compiled width by the caller,
+# the padded states' gradients exactly 0 and the others the same bits.
+@pytest.mark.parametrize("di", [1000, 300, 50])
+@pytest.mark.parametrize("ds", [1, 8, 13, 16, 24, 32])
+@pytest.mark.parametrize("c", [1, 37, 64, 256])
+@pytest.mark.parametrize("b", [1, 3])
+def test_ssm_scan_chunk_bwd_matches_twin(dev, b, c, di, ds):
+    from repro_torch.kernels.ref import ssm_scan_chunk_bwd_ref
+
+    rng = np.random.default_rng(58 + b + c + di + ds)
+
+    def normal(*shape, scale=1.0):
+        return cu((rng.normal(size=shape) * scale).astype(np.float32), dev)
+
+    seq, r = c + 5, 7 if c % 2 else 8
+    dt = torch.nn.functional.softplus(normal(b, seq, di))[:, 5:]
+    xh = normal(b, seq, di)[:, 5:]
+    bc = normal(b, seq, r + 2 * ds)[:, 5:]
+    bm, cm = bc[..., r:r + ds], bc[..., r + ds:]
+    a = -torch.arange(1, ds + 1, dtype=torch.float32, device=dev).expand(di, ds) * (
+        1 + 0.1 * normal(di, ds).abs())
+    h0 = normal(b, di, ds, scale=0.1)
+    dy, dh_last = normal(b, c, di), normal(b, di, ds)
+    args = (dt, xh, bm, cm, a.contiguous(), h0)
+    before = ops.LAUNCHES["ssm_scan_chunk_bwd"]
+
+    def run():
+        return ops.ssm_scan_chunk_bwd(*args, dy, dh_last)
+
+    got = run()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssm_scan_chunk_bwd"] == before + 1
+    _bwd_within(got, ssm_scan_chunk_bwd_ref(*args, dy, dh_last))
+    _repeats_exactly(run)
+    width = 16 if ds <= 16 else 32
+    if ds == width:
+        return
+    padded = [torch.nn.functional.pad(x, (0, width - ds))
+              for x in (bm, cm, args[4], h0, dh_last)]
+    out = ops.ssm_scan_chunk_bwd(dt, xh, *padded[:4], dy, padded[4])
+    for g, p in zip(got, out):
+        assert torch.equal(p[..., :g.shape[-1]], g)
+    for p in out[2:]:
+        assert not bool(p[..., ds:].any())
+
+
+# The scan backward writes nothing outside its outputs and its scratch: the
+# launcher called on buffers between guard regions of a sentinel, at both
+# compiled widths, one step, a chunk whose last segment is short (37) and
+# whole segments (64), B 3 (the batch rows' d a in the scratch).
+@pytest.mark.parametrize("ds", [8, 24])
+@pytest.mark.parametrize("c", [1, 37, 64])
+def test_ssm_scan_chunk_bwd_writes_only_its_buffers(dev, c, ds):
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    rng = np.random.default_rng(59 + c + ds)
+    b, di, guard, mark = 3, 300, 4096, 12345.5
+
+    def normal(*shape):
+        return cu(rng.normal(size=shape).astype(np.float32), dev)
+
+    dt = torch.nn.functional.softplus(normal(b, c, di))
+    xh, bm, cm = normal(b, c, di), normal(b, c, ds), normal(b, c, ds)
+    a = -torch.exp(normal(di, ds))
+    h0, dy, dh_last = normal(b, di, ds), normal(b, c, di), normal(b, di, ds)
+    floats = (ctypes.c_longlong * 1)()
+    assert build.load("repro_ssm_scan_chunk_bwd_scratch")(b, c, di, ds, floats) == 0
+    sizes = (b * c * di, b * c * di, b * c * ds, b * c * ds, di * ds, b * di * ds, floats[0])
+    bufs = [torch.full((n + 2 * guard,), mark, device=dev) for n in sizes]
+    rc = build.load("repro_ssm_scan_chunk_bwd")(
+        *(t.data_ptr() for t in (dt, xh, bm, cm, a, h0, dy, dh_last)),
+        *(buf[guard:].data_ptr() for buf in bufs), b, c, di, ds, dt.stride(0), dt.stride(1),
+        xh.stride(0), xh.stride(1), bm.stride(0), bm.stride(1), cm.stride(0), cm.stride(1),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    for n, buf in zip(sizes, bufs):
+        assert bool((buf[:guard] == mark).all()) and bool((buf[guard + n:] == mark).all()), n
 
 
 def test_flash_and_mlstm_wrappers_raise_rather_than_fall_back(dev):
