@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--parent-src DIR]
+    python3 chip_smoke.py
 
 1. Prints the card (``nvidia-smi``), torch and CUDA versions.
 2. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``.
@@ -90,17 +90,19 @@
    peak memory and profiles. (Phase 3 also runs ``ssm_scan_chunk`` at
    the prefill's chunk, a short prompt's and a ragged case, within
    rtol/atol 1e-5 of its twin. It also runs ``flash_attention`` at
-   smollm-360m's training shape [60, 4096, 64] in bf16, in float32 and at
-   a ragged [3, 1000, 64], against its twin with the kernel's KV tile,
+   smollm-360m's training shape [60, 4096, 64] in bf16, in float32, at
+   a ragged [3, 1000, 64] and at pixtral-12b's [64, 4096, 128] in bf16,
+   against its twin with the kernel's KV tile,
    with ``F.scaled_dot_product_attention`` as the yardstick, and
    ``mlstm_chunked`` at xlstm-1.3b's [8, 4096, 1024, 1024], chunk 256, and
    on one chunk (``attention_phase``).)
 7. The LM training forward (``lm_phase``): ``Model.loss`` of smollm-360m
-   (32 layers, batch 4 x 4096) and xlstm-1.3b (48 layers, batch 2 x 4096)
-   at full width under ``train_policy()``, on random float32 params and a
-   batch of ``synthetic_lm_batches``. The launch counts are reset just
-   before each loss forward and read after it: 32 ``flash_attention`` /
-   42 ``mlstm_chunked`` launches and nothing else; every kernel call of
+   (32 layers, batch 4 x 4096) and xlstm-1.3b (one 8-layer period of its
+   48 layers, batch 2 x 4096) at full width under ``train_policy()``, on
+   random float32 params and a batch of ``synthetic_lm_batches``. The
+   launch counts are reset just before each loss forward and read after
+   it: 32 ``flash_attention`` / 7 ``mlstm_chunked`` launches and nothing
+   else; every kernel call of
    that forward is held against its twin on its own inputs; loss and
    logits are held to the same model with the twins in place of the
    kernels (``LM_CASES``, ``LM_LOSS_TOL``, ``LM_LOGIT_TOL``,
@@ -148,21 +150,37 @@
    ``mlstm_chunked_bwd``) at their training shapes against their twins on
    the same saved tensors (``BWD_F32_TOL``, ``BWD_BF16_ULPS``), each
    repeating bit for bit over two calls, timed beside their bounds, twins
-   and, for flash, SDPA's backward (flash also at a head width of 128).
-   The kernel redesigned last, the scan backward, is also timed beside
-   its parent commit's version on the same inputs at each of its shapes
-   (``parent_ms``, ``PARENT_KERNELS``; the parent's outputs held to the
-   twin too, and one call's peak memory printed beside the parent's),
-   built into ``build/parent/`` from ``--parent-src DIR`` or ``git show
-   HEAD~1`` (not measured without either); then
+   and, for flash, SDPA's backward (flash also at a head width of 128),
+   and one scan backward call's peak memory; then
    smollm-360m (32 layers, batch 4 x 4096) and xlstm-1.3b (one 8-layer
    period, batch 2 x 4096) trained through ``launch.train.train`` under
    ``train_policy()``: the first step's loss and per-leaf gradients held
    to the twins' (``LM_GRAD_TOL``), the launch counts of every step (with
    remat each period's forward runs twice), ms a step, tokens/s, peak
-   memory, busy share and a profile; the three smoke families must learn
-   with ``quickstart.py``'s settings, and a run resumes from its
-   checkpoint. The phase's launches are the path ``lm_train``.
+   memory, and for smollm busy share and a profile (xlstm's step is not
+   profiled: its sLSTM loop's ~10^5 launches cost the profiler ~90 s);
+   the three smoke families must learn with ``quickstart.py``'s settings,
+   and a run resumes from its checkpoint. The phase's launches are the
+   path ``lm_train``.
+12. The remaining LM families (``families_phase``): qwen2.5-3b (36
+   layers), qwen2.5-32b, mistral-large-123b, moonshot-v1-16b-a3b (8
+   layers each), arctic-480b (2 layers), pixtral-12b (8 layers, prompted
+   with patch embeddings) and seamless-m4t-large-v2 (24 + 24 layers,
+   frames and a token prompt), every width the published one, served
+   from 1-bit packed weights through ``serve_config`` (bf16, batch 4, a
+   512-token prompt, 8 greedy tokens): no kernel launched (the ``xla``
+   engine, experts one by one, a KV cache, as the JAX package's
+   ``serve_policy``), packed and bf16 weight bytes, prefill and decode
+   ms (CUDA events), peak memory, a profile of the largest; in float32
+   activations at batch 1 decode agrees with prefill (``DECODE_TOL``).
+   Then seamless-m4t-large-v2 (all 48 layers) and pixtral-12b (2 layers)
+   trained at batch 2 x 4096 as in phase 11, with exact flash launch
+   counts (the decoder's causal self-attention; the encoder's and the
+   cross-attention take the chunked path), and the seven smoke configs
+   must learn. The phase's launches are the paths ``lm_families_serve``
+   and ``lm_families_train``.
+
+Every phase prints its seconds.
 
 Last, prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``.
 
@@ -178,7 +196,6 @@ import ctypes
 import dataclasses
 import json
 import pathlib
-import re
 import statistics
 import subprocess
 import sys
@@ -350,90 +367,6 @@ def check_equal(name: str, label: str, got: torch.Tensor,
     return err
 
 
-# The kernels this commit redesigned, timed beside their parent commit's
-# versions in the same run (``--parent-src``, else ``git show HEAD~1``).
-# {kernel: (its source, the parent's C launcher, its argtypes as the
-# parent's build.py declared them)}: the scan backward (17 pointers:
-# operands, gradients, the scratch hs, part, a_part; batch, chunk, di,
-# ds; 8 strides; stream).
-PARENT_KERNELS = {
-    "ssm_scan_chunk_bwd": ("ssm_scan_bwd", "repro_ssm_scan_chunk_bwd",
-                           (ctypes.c_void_p,) * 17 + (ctypes.c_int,) * 4
-                           + (ctypes.c_longlong,) * 8 + (ctypes.c_void_p,)),
-}
-PARENT_SOURCES = sorted({source for source, _, _ in PARENT_KERNELS.values()})
-PARENT_DIR = OUT_DIR / "parent"
-
-
-def start_parent_build(parent_src: str | None):
-    """Fetch the parent's sources of ``PARENT_KERNELS`` and the headers
-    they include (from the directory ``parent_src``, else from git's
-    ``HEAD~1``) into ``build/parent/`` and start one ``nvcc`` per source,
-    beside the main build. Returns ``{source: Popen}``, or a reason string
-    where there is no parent source."""
-    from repro_torch.kernels import build
-
-    def fetch(fname: str) -> str | None:
-        if parent_src is not None:
-            path = pathlib.Path(parent_src) / fname
-            return path.read_text() if path.is_file() else None
-        got = subprocess.run(
-            ["git", "-C", str(ROOT), "show",
-             f"HEAD~1:src/repro_torch/kernels/csrc/{fname}"],
-            capture_output=True, text=True)
-        return got.stdout if got.returncode == 0 else None
-
-    PARENT_DIR.mkdir(parents=True, exist_ok=True)
-    procs, headers = {}, set()
-    for name in PARENT_SOURCES:
-        text = fetch(f"{name}.cu")
-        if text is None:
-            return (f"no parent {name}.cu (from --parent-src or git show "
-                    "HEAD~1)")
-        # The parent's launchers must still take the arguments listed above.
-        for source, symbol, argtypes in PARENT_KERNELS.values():
-            if source != name:
-                continue
-            decl = text[text.find(f'extern "C" int {symbol}('):]
-            decl = decl[:decl.find(")")]
-            if not decl or decl.count(",") + 1 != len(argtypes):
-                return f"the parent's {symbol} takes other arguments"
-        (PARENT_DIR / f"{name}.cu").write_text(text)
-        pending = [text]
-        while pending:  # the headers it includes, and theirs
-            for header in re.findall(r'#include "([^"]+)"', pending.pop()):
-                if header not in headers:
-                    headers.add(header)
-                    body = fetch(header)
-                    if body is None:
-                        return f"no parent {header}"
-                    (PARENT_DIR / header).write_text(body)
-                    pending.append(body)
-        procs[name] = subprocess.Popen(
-            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(PARENT_DIR / f"{name}.so"),
-             str(PARENT_DIR / f"{name}.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-    return procs
-
-
-def finish_parent_build(procs) -> dict | str:
-    """``{kernel: launcher}`` of the parent's kernels (argtypes set), or
-    the reason they are not measured."""
-    if isinstance(procs, str):
-        return procs
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            return f"the parent's {name}.cu did not build:\n{log[-2000:]}"
-    launchers = {}
-    for kernel, (source, symbol, argtypes) in PARENT_KERNELS.items():
-        fn = getattr(ctypes.CDLL(str(PARENT_DIR / f"{source}.so")), symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        launchers[kernel] = fn
-    return launchers
-
-
 # The three inner loops a packed ±1 product can run on this card, each in
 # registers (no loads), many independent accumulators a warp, so each runs
 # at its instruction's issue ceiling: (a) xnor + popc + add on the CUDA
@@ -550,33 +483,6 @@ def xnor_loop_rates(procs: dict) -> dict:
     return rates
 
 
-def parent_scan_bwd(fn, dt, xh, bm, cm, a, h0, dy, dh_last):
-    """The parent's scan backward on the same operands, allocating in each
-    call what its wrapper allocated (the gradients and the scratch hs [B,
-    C, ds, di], part [B, C, ceil(di/32), 64], a_part [B, di, ds]): a
-    callable for ``record``."""
-    b, c, di = dt.shape
-    ds = a.shape[1]
-    f32 = dict(dtype=torch.float32, device=dt.device)
-
-    def run():
-        grads = (torch.empty((b, c, di), **f32), torch.empty((b, c, di), **f32),
-                 torch.empty((b, c, ds), **f32), torch.empty((b, c, ds), **f32),
-                 torch.empty((di, ds), **f32), torch.empty((b, di, ds), **f32))
-        scratch = (torch.empty((b, c, ds, di), **f32),
-                   torch.empty((b, c, -(-di // 32), 64), **f32),
-                   torch.empty((b, di, ds), **f32))
-        rc = fn(*(t.data_ptr() for t in (dt, xh, bm, cm, a, h0, dy, dh_last)),
-                *(t.data_ptr() for t in grads), *(t.data_ptr() for t in scratch),
-                b, c, di, ds, dt.stride(0), dt.stride(1), xh.stride(0), xh.stride(1),
-                bm.stride(0), bm.stride(1), cm.stride(0), cm.stride(1),
-                torch.cuda.current_stream().cuda_stream)
-        if rc:
-            fail(f"parent ssm_scan_chunk_bwd launch failed: CUDA error {rc}")
-        return grads
-    return run
-
-
 def call_peak_bytes(dev, run) -> int:
     """Device memory one call allocates at its peak, above what was
     allocated before it (its outputs and scratch)."""
@@ -684,13 +590,11 @@ def record(total: dict, name: str, label: str, err, run, twin, lib,
            nbytes: int, ops_n: int, per_layer=None, summed: bool = True,
            plain_reps: int = 3, cold: bool = False,
            check: str = "exact", rate: float | None = None,
-           parent=None, lib_bf16=None) -> dict:
+           lib_bf16=None) -> dict:
     """Time one main-path shape: kernel (graph replay and eager call),
     twin, library yardstick (``lib``; None where no single PyTorch call
-    computes the function), for a megakernel the slice-1 per-layer
-    kernels over the same layers (``per_layer``), and for a redesigned
-    kernel the parent commit's version on the same inputs (``parent``,
-    see ``parent_kernels``). The kernel's totals sum the times of its
+    computes the function) and, for a megakernel, the slice-1 per-layer
+    kernels over the same layers (``per_layer``). The kernel's totals sum the times of its
     main path's shapes only (``summed``); every shape's error counts.
     ``cold``: the kernel's time is taken with a cold L2 (its warm time is
     kept as ``warm_ms``). ``lib_bf16``: the library yardstick in bf16 (a
@@ -718,9 +622,6 @@ def record(total: dict, name: str, label: str, err, run, twin, lib,
     if per_layer is not None:
         row["per_layer_ms"] = graph_ms(per_layer)
         line += f"  per-layer kernels {row['per_layer_ms']:.4f} ms"
-    if parent is not None:
-        row["parent_ms"] = graph_ms(parent)
-        line += f"  parent {row['parent_ms']:.4f} ms"
     if lib_bf16 is not None:
         row["library_bf16_ms"] = graph_ms(lib_bf16, iters=5)
         line += f"  library bf16 {row['library_bf16_ms']:.4f} ms"
@@ -729,7 +630,7 @@ def record(total: dict, name: str, label: str, err, run, twin, lib,
     if not summed:
         return row
     for k in ("ms", "plain_ms", "library_ms", "bound_ms", "per_layer_ms",
-              "parent_ms", "library_bf16_ms"):
+              "library_bf16_ms"):
         if k in row:
             total[k] = None if row[k] is None else total.get(k, 0.0) + row[k]
     total["bytes"] += nbytes
@@ -949,11 +850,13 @@ def scan_phase(dev, totals: dict, rows: list) -> None:
 
 # (label, BH, S, Dh, dtype) of flash attention: smollm-360m's training
 # forward (batch 4 x 15 heads, S 4096; its time makes the kernels-line
-# total), the same in float32, and a ragged case (odd BH, S not a
-# multiple of the bf16 kernel's 128-row block).
+# total), the same in float32, a ragged case (odd BH, S not a multiple of
+# the bf16 kernel's 128-row block), and pixtral-12b's training forward
+# (batch 2 x 32 heads, the 8 KV heads repeated, Dh 128; phase 12).
 FLASH_CASES = [("smollm layer", 60, 4096, 64, torch.bfloat16),
                ("float32", 60, 4096, 64, torch.float32),
-               ("ragged", 3, 1000, 64, torch.bfloat16)]
+               ("ragged", 3, 1000, 64, torch.bfloat16),
+               ("pixtral layer", 64, 4096, 128, torch.bfloat16)]
 # Float32: rtol/atol 1e-5 (dot products and sums in other orders). Bf16:
 # one bf16 ulp of the largest output of the row, each output within
 # FLASH_ELEM_ULPS bf16 ulps of its own and at most FLASH_PAST_SHARE of
@@ -972,7 +875,7 @@ MLSTM_CASES = [("xlstm layer", 8, 4096, 1024, 1024, 256),
                ("one chunk", 8, 256, 1024, 1024, 256)]
 # The flash backward's cases: the forward's, and a head width of 128 (the
 # dK/dV kernel's query tile halves there so its accumulators fit).
-FLASH_BWD_CASES = FLASH_CASES + [("dh 128", 16, 4096, 128, torch.bfloat16)]
+FLASH_BWD_CASES = FLASH_CASES[:3] + [("dh 128", 16, 4096, 128, torch.bfloat16)]
 # y, C, n: float32 sums over dk and the chunk in other orders. m: the same
 # float operations in the same order as the twin, so equal.
 MLSTM_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -1059,7 +962,8 @@ def flash_twin(q, k, v, causal=True):
 
 def attention_phase(dev, totals: dict, rows: list) -> None:
     """``flash_attention`` at smollm-360m's training shape (bf16; its time
-    makes the kernels-line total), in float32 and at a ragged shape, and
+    makes the kernels-line total), in float32, at a ragged shape and at
+    pixtral-12b's training shape (Dh 128), and
     ``mlstm_chunked`` at xlstm-1.3b's (its time makes the total) and on a
     one-chunk sequence, each held to its twin on the card and timed.
     Library yardstick of flash: ``F.scaled_dot_product_attention(...,
@@ -1949,10 +1853,11 @@ def _proj_bytes(tree) -> tuple[int, int]:
     return sum(p[0] for p in parts), sum(p[1] for p in parts)
 
 
-def events_ms(fn, reps: int = 3) -> float:
+def events_ms(fn, reps: int = 3, warm: bool = True) -> float:
     """Median device-clock time of one call (CUDA events around it) after
-    one warm-up call."""
-    fn()
+    one warm-up call (``warm``; without, for a ``fn`` already warm)."""
+    if warm:
+        fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -2146,15 +2051,18 @@ def jamba_phase(dev, cfg=None) -> dict:
 
 # Phase 7: the LM training forward (Model.loss) at full width.
 # (arch, batch, kernel it must launch, launches per forward, whether its
-# bf16 logits are held to LM_LOGIT_TOL): the train_4k shape's sequence of
-# 4096 tokens, its batch of 256 cut to 4 / 2. xlstm-1.3b's bf16 logits
+# bf16 logits are held to LM_LOGIT_TOL, layers or None for all): the
+# train_4k shape's sequence of 4096 tokens, its batch of 256 cut to 4 /
+# 2; xlstm-1.3b cut to one 8-layer period (7 mLSTM + 1 sLSTM), as phase
+# 11 trains it (at 48 layers its forward took ~12 s a call, the sLSTM
+# loop's). xlstm-1.3b's bf16 logits
 # are reported, not held: on an H100 a one-float32-ulp nudge of the
 # mLSTM output in the twin path moves them by 3.1 (more than the kernel
 # does), so they measure the random-weight model's bf16 sensitivity, not
 # the kernel. Its kernel is held per call, by the bf16 loss and by the
 # float32-activation logits and loss.
-LM_CASES = [("smollm-360m", 4, "flash_attention", 32, True),
-            ("xlstm-1.3b", 2, "mlstm_chunked", 42, False)]
+LM_CASES = [("smollm-360m", 4, "flash_attention", 32, True, None),
+            ("xlstm-1.3b", 2, "mlstm_chunked", 7, False, 8)]
 LM_SEQ = 4096
 # Kernel path vs twin path, bf16 activations: |loss diff| <= LM_LOSS_TOL
 # and |logit diff| <= atol + rtol * |twin logit|. Stated before the first
@@ -2254,14 +2162,15 @@ def twins_in_place():
 
 
 def lm_phase(dev, cases=LM_CASES, seq: int = LM_SEQ) -> dict:
-    """``Model.loss`` of smollm-360m (batch 4) and xlstm-1.3b (batch 2) at
-    full width and S 4096 on the card, under ``train_policy()`` (fake-quant
+    """``Model.loss`` of smollm-360m (batch 4) and one 8-layer period of
+    xlstm-1.3b (batch 2) at full width and S 4096 on the card, under
+    ``train_policy()`` (fake-quant
     ±1 weights with the XNOR-Net alpha), on random float32 params from a
     seeded generator and a batch of ``synthetic_lm_batches``.
 
     The launch counts are 0 just before the loss forward and read after
     it: smollm must launch ``flash_attention`` 32 times, xlstm
-    ``mlstm_chunked`` 42 times, and nothing else. Every kernel call of that
+    ``mlstm_chunked`` 7 times, and nothing else. Every kernel call of that
     forward is held against its twin on its own inputs. The loss and the
     logits (``lm_forward``) are held to the same model run with the twins
     in place of the kernels: the loss within ``LM_LOSS_TOL``, the logits
@@ -2289,11 +2198,13 @@ def lm_phase(dev, cases=LM_CASES, seq: int = LM_SEQ) -> dict:
         return held
 
     results = {}
-    for arch, batch_size, kernel, per_forward, hold_bf16_logits in cases:
+    for arch, batch_size, kernel, per_forward, hold_bf16_logits, layers in cases:
         if isinstance(arch, str):
             cfg = get_config(arch)
         else:
             cfg, arch = arch, arch.name
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
         policy = train_policy()
         model = build_model(cfg, policy)
         torch.cuda.empty_cache()
@@ -3364,11 +3275,15 @@ BWD_BF16_ULPS = 2.0
 LM_GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
 # The LM training runs: (arch, batch, seq, steps, layers or None for the
 # published depth, the activations' dtype of the first-step gradient
-# check or None for the config's). xlstm's is float32: in bf16 its
-# logits are not reproducible under float32-ulp changes of one mLSTM
-# output (phase 7), so no kernel-vs-twin gradient gate holds there.
-LM_TRAIN_CASES = [("smollm-360m", 4, 4096, 3, None, None),
-                  ("xlstm-1.3b", 2, 4096, 2, 8, torch.float32)]
+# check or None for the config's, whether a step is profiled). xlstm's
+# dtype is float32: in bf16 its logits are not reproducible under
+# float32-ulp changes of one mLSTM output (phase 7), so no
+# kernel-vs-twin gradient gate holds there. Its step is not profiled:
+# on an H100 the profiler took ~90 s over the sLSTM loop's ~10^5
+# launches (a profiled step: 105.8 s on the host clock, 15.2 s of it the
+# step itself).
+LM_TRAIN_CASES = [("smollm-360m", 4, 4096, 3, None, None, True),
+                  ("xlstm-1.3b", 2, 4096, 2, 8, torch.float32, False)]
 # quickstart.py's settings, through the launcher, for the smoke families
 SMOKE_TRAIN = dict(steps=60, batch=8, seq=64, lr=1e-3)
 SMOKE_ARCHS = ("smollm-360m", "xlstm-1.3b", "jamba-1.5-large-398b")
@@ -3421,7 +3336,7 @@ def kernel_split(run, top: int):
     return split
 
 
-def lm_bwd_kernel_phase(dev, totals: dict, rows: list, parents=None) -> None:
+def lm_bwd_kernel_phase(dev, totals: dict, rows: list) -> None:
     """The three backward kernels at their training shapes, each held to
     its twin run on the card on the same saved tensors (the forward
     kernel's output and what it keeps: flash attention's row log-sum-exp,
@@ -3435,11 +3350,9 @@ def lm_bwd_kernel_phase(dev, totals: dict, rows: list, parents=None) -> None:
     operands and gradients; the scan B C di ds exps at the MUFU rate
     against its operands and gradients; the mLSTM L (L + 1) (3 dk + 2
     dv) + 8 L dk dv per (bh, chunk) (five [L, L] products over the causal
-    half, four [L, d] x [d, d] ones) at the float32 rate. The scan
-    backward at every SCAN_BWD_CASES shape is also timed beside the parent
-    commit's kernel (``parents``, ``PARENT_KERNELS``), whose outputs are
-    held to the twin too, and one call's peak memory (its outputs and
-    scratch) is printed beside the parent's."""
+    half, four [L, d] x [d, d] ones) at the float32 rate. One scan
+    backward call's peak memory (its outputs and scratch) is printed at
+    every SCAN_BWD_CASES shape."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref
 
@@ -3488,29 +3401,21 @@ def lm_bwd_kernel_phase(dev, totals: dict, rows: list, parents=None) -> None:
         e = grad_error("ssm_scan_chunk_bwd", label, names, run(), want, torch.float32)
         e["repeats_exactly"] = repeats_exactly("ssm_scan_chunk_bwd", label, run)
         e["peak_bytes"] = call_peak_bytes(dev, run)
-        parent = None
-        if isinstance(parents, dict):
-            parent = parent_scan_bwd(parents["ssm_scan_chunk_bwd"], *args, dy, dh_last)
-            e["parent_max_abs_err"] = grad_error("parent ssm_scan_chunk_bwd", label, names,
-                                                 parent(), want,
-                                                 torch.float32)["max_abs_err"]
-            e["parent_peak_bytes"] = call_peak_bytes(dev, parent)
         del want
-        print(f"    {label}: one call's peak memory {e['peak_bytes'] / 1e6:.1f} MB"
-              + ("" if parent is None else
-                 f", the parent's {e['parent_peak_bytes'] / 1e6:.1f} MB"), flush=True)
+        print(f"    {label}: one call's peak memory {e['peak_bytes'] / 1e6:.1f} MB",
+              flush=True)
         nbytes = (5 * b * c * di + 4 * b * c * ds + 2 * di * ds + 4 * b * di * ds) * 4
         row = record(totals["ssm_scan_chunk_bwd"], "ssm_scan_chunk_bwd",
                      f"{label} [{b},{c},{di},{ds}]", e["max_abs_err"], run, twin, None,
                      nbytes, b * c * di * ds, summed=label == "jamba chunk",
                      check=("max |err| / max |grad|: " + ", ".join(
                          f"d{n} {e[n + '_rel']:.2g}" for n in names)
-                         + ", two calls bit-identical"), parent=parent)
+                         + ", two calls bit-identical"))
         row.update(e)
         if label == "jamba chunk":
             row["breakdown"] = kernel_split(run, top=3)
         rows.append(row)
-        del args, dy, dh_last, parent
+        del args, dy, dh_last
         torch.cuda.empty_cache()
     for label, bh, s, dk, dv, chunk in MLSTM_CASES:
         q = torch.randn((bh, s, dk), generator=gen, device=dev) * dk ** -0.5
@@ -3587,15 +3492,18 @@ def _leaf_rel_l2(got, want) -> dict:
 
 
 def lm_train_run(dev, arch: str, batch: int, seq: int, steps: int,
-                 layers: int | None, grad_dtype=None) -> dict:
+                 layers: int | None, grad_dtype=None, profile: bool = True) -> dict:
     """One LM family trained at full width through ``launch.train.train``
     (``smoke=False``, ``train_policy()``, ``layers`` cutting the depth
-    where given): the first step's loss and gradients against the same
-    step with the twins in place (forward and backward; activations in
-    ``grad_dtype`` where given), per-leaf relative L2 within
-    ``LM_GRAD_TOL``; the launch counts of every step;
-    a finite loss at every step; ms a step by CUDA events, tokens/s, peak
-    memory, and a profile of one step with its busy share."""
+    where given; a config fed by embeddings gets the launcher's
+    ``stub_embeddings``): the first step's loss and gradients against the
+    same step with the twins in place (forward and backward; activations
+    in ``grad_dtype`` where given), per-leaf relative L2 within
+    ``LM_GRAD_TOL``; the launch counts of every step (encdec: the
+    decoder's self-attention only, the encoder's and the cross-attention
+    take the chunked path); a finite loss at every step; ms a step by
+    CUDA events, tokens/s, peak memory, and, with ``profile``, a profile
+    of one step with its busy share."""
     from repro_torch.configs.base import get_config, train_policy
     from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
     from repro_torch.kernels import ops
@@ -3612,11 +3520,13 @@ def lm_train_run(dev, arch: str, batch: int, seq: int, steps: int,
     for kind in period_spec(cfg):
         if kind.mixer in mixer:
             per_period[mixer[kind.mixer]] = per_period.get(mixer[kind.mixer], 0) + 1
+    # encdec: one flash call a decoder layer (a one-layer "period")
+    periods = cfg.num_layers if cfg.family == "encdec" else num_periods(cfg)
     # remat: each period's forward runs twice, its backward once
     want = {name: 0 for name in ops.LAUNCHES}
     for name, n in per_period.items():
-        want[name] = 2 * n * num_periods(cfg)
-        want[name + "_bwd"] = n * num_periods(cfg)
+        want[name] = 2 * n * periods
+        want[name + "_bwd"] = n * periods
     res = {"layers": cfg.num_layers, "batch": batch, "seq": seq}
 
     # the first step's gradients, kernels and twins, on train()'s params
@@ -3627,7 +3537,10 @@ def lm_train_run(dev, arch: str, batch: int, seq: int, steps: int,
     params = model.init(torch.Generator(dev).manual_seed(0))
     b0 = next(synthetic_lm_batches(DataConfig(seed=0, global_batch=batch,
                                               seq_len=seq, vocab_size=cfg.vocab_size)))
-    b0 = {"tokens": b0["tokens"].to(dev), "labels": b0["labels"].to(dev)}
+    b0 = {"tokens": b0["tokens"].to(dev), "labels": b0["labels"].to(dev),
+          **({"input_embeds": launch_train.stub_embeddings(
+              b0["tokens"], cfg.d_model).to(dev)}
+             if cfg.input_kind == "embeddings" else {})}
     ops.reset_launches()
     loss_k, _, grads_k = _grads_of(model, params, b0)
     torch.cuda.synchronize()
@@ -3664,6 +3577,14 @@ def lm_train_run(dev, arch: str, batch: int, seq: int, steps: int,
         inner = made(model_, tcfg)
 
         def step(p, o, bt):
+            if profile and len(step_ms) == steps - 1 and not profiled:
+                # the last step once more on its inputs, profiled, before
+                # it runs: its outputs are dropped, so the card never holds
+                # a third copy of the params and the optimizer state
+                t0 = time.monotonic()
+                profiled["breakdown"] = device_breakdown(
+                    lambda: inner(p, o, bt), top=16, warm=False)
+                profiled["seconds"] = time.monotonic() - t0
             ops.reset_launches()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -3673,9 +3594,6 @@ def lm_train_run(dev, arch: str, batch: int, seq: int, steps: int,
             end.synchronize()
             step_ms.append(start.elapsed_time(end))
             step_counts.append(dict(ops.LAUNCHES))
-            if len(step_ms) == steps - 1 and not profiled:
-                profiled["breakdown"] = device_breakdown(
-                    lambda: inner(p, o, bt), top=16, warm=False)
             return out
 
         return step
@@ -3700,7 +3618,7 @@ def lm_train_run(dev, arch: str, batch: int, seq: int, steps: int,
             fail(f"{arch} training step {i}: launches {c}, expected {want}")
     timed = step_ms[1:] or step_ms
     ms = statistics.median(timed)
-    bd = profiled.get("breakdown", "not measured")
+    bd = profiled.get("breakdown", "not measured" if profile else "not profiled")
     busy = (bd[-1][1] / ms) if isinstance(bd, list) else None
     # the path's launches: the first step's gradients and every step
     res["launches"] = {name: counts[name] + sum(c[name] for c in step_counts)
@@ -3711,11 +3629,38 @@ def lm_train_run(dev, arch: str, batch: int, seq: int, steps: int,
           f"{[round(x, 4) for x in losses]}, {ms:.1f} ms a step (steps "
           f"{[round(x, 1) for x in step_ms]}), {res['tokens_per_s']:.0f} tokens/s, "
           f"peak memory {res['max_memory_allocated'] / 2**30:.2f} GiB, busy "
-          + ("not measured" if busy is None else f"{busy:.2f}"), flush=True)
+          + (bd if isinstance(bd, str) else f"{busy:.2f}"), flush=True)
     if isinstance(bd, list):
-        print("    step profile: " + ", ".join(
+        res["profile_s"] = profiled["seconds"]
+        print(f"    step profile ({profiled['seconds']:.1f} s to take): " + ", ".join(
             f"{n.split('(')[0][:40]} {t:.1f} ms" for n, t, _ in bd[:-1]), flush=True)
     return res
+
+
+def smoke_runs(dev, archs, total: dict) -> dict:
+    """Each smoke config of ``archs`` trained through the launcher with
+    ``quickstart.py``'s settings (``SMOKE_TRAIN``); each must learn (the
+    mean of the last 5 losses below the first 5's). Its launches are
+    added to ``total``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+
+    smoke = {}
+    for arch in archs:
+        ops.reset_launches()
+        out = train(arch, smoke=True, log_every=SMOKE_TRAIN["steps"], device=dev,
+                    **SMOKE_TRAIN)
+        losses = out["losses"]
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+        for name, n in counts.items():
+            total[name] += n
+        smoke[arch] = {"first5": first, "last5": last, "launches": counts}
+        print(f"  smoke {arch}: loss {first:.4f} -> {last:.4f} over "
+              f"{SMOKE_TRAIN['steps']} steps; launches {counts}", flush=True)
+        if not (np.isfinite(losses).all() and last < first):
+            fail(f"smoke {arch} did not learn: {first} -> {last}")
+    return smoke
 
 
 def lm_train_phase(dev, cases=LM_TRAIN_CASES) -> dict:
@@ -3735,26 +3680,13 @@ def lm_train_phase(dev, cases=LM_TRAIN_CASES) -> dict:
 
     t0 = time.monotonic()
     res, total = {}, {name: 0 for name in ops.LAUNCHES}
-    for arch, batch, seq, steps, layers, grad_dtype in cases:
+    for arch, batch, seq, steps, layers, grad_dtype, profile in cases:
         ops.reset_launches()
-        res[arch] = lm_train_run(dev, arch, batch, seq, steps, layers, grad_dtype)
+        res[arch] = lm_train_run(dev, arch, batch, seq, steps, layers, grad_dtype,
+                                 profile)
         for name, n in res[arch]["launches"].items():
             total[name] += n
-    smoke = {}
-    for arch in SMOKE_ARCHS:
-        ops.reset_launches()
-        out = train(arch, smoke=True, log_every=SMOKE_TRAIN["steps"], device=dev,
-                    **SMOKE_TRAIN)
-        losses = out["losses"]
-        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-        counts = {k: v for k, v in ops.LAUNCHES.items() if v}
-        for name, n in counts.items():
-            total[name] += n
-        smoke[arch] = {"first5": first, "last5": last, "launches": counts}
-        print(f"  smoke {arch}: loss {first:.4f} -> {last:.4f} over "
-              f"{SMOKE_TRAIN['steps']} steps; launches {counts}", flush=True)
-        if not (np.isfinite(losses).all() and last < first):
-            fail(f"smoke {arch} did not learn: {first} -> {last}")
+    smoke = smoke_runs(dev, SMOKE_ARCHS, total)
     if not smoke["jamba-1.5-large-398b"]["launches"].get("ssm_scan_chunk_bwd"):
         fail("the smoke jamba run launched no ssm_scan_chunk_bwd")
     ckpt = OUT_DIR / "chip_smoke_lm_ckpt"
@@ -3774,6 +3706,202 @@ def lm_train_phase(dev, cases=LM_TRAIN_CASES) -> dict:
                launches=total, seconds=time.monotonic() - t0)
     print(f"  resume: 12 steps, then {len(resumed)} from step 10; phase 11 "
           f"{res['seconds']:.1f} s", flush=True)
+    return res
+
+
+# ------------------- phase 12: the remaining LM families --------------------
+
+# (arch, layers served or None for all of them): every width the published
+# one; depth cut only for time (PERF.md §4, ``reduced``).
+FAMILY_SERVE = [("qwen2.5-3b", None), ("qwen2.5-32b", 8),
+                ("mistral-large-123b", 8), ("moonshot-v1-16b-a3b", 8),
+                ("arctic-480b", 2), ("pixtral-12b", 8),
+                ("seamless-m4t-large-v2", None)]
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN = 4, 512, 8
+# Decode against prefill in float32 activations, batch 1, a 64-token
+# prompt, the same packed params: the JAX package's own tolerance for it
+# (tests/test_arch_smoke.py::test_decode_matches_parallel_forward),
+# stated before the first run. MoE configs run at capacity_factor 16, as
+# that test does, so that no token is dropped in either.
+DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
+DECODE_PROMPT = 64
+# (arch, batch, seq, steps, layers or None for all): train_4k's sequence,
+# its batch of 256 cut to 2; pixtral-12b cut to 2 of its 40 layers (its
+# 12.4 G float32 params with AdamW's state take ~200 GB).
+FAMILY_TRAIN = [("seamless-m4t-large-v2", 2, 4096, 3, None),
+                ("pixtral-12b", 2, 4096, 2, 2)]
+FAMILY_SMOKE = ("qwen2.5-3b", "qwen2.5-32b", "mistral-large-123b",
+                "moonshot-v1-16b-a3b", "arctic-480b", "pixtral-12b",
+                "seamless-m4t-large-v2")
+# the config whose serving is profiled: the most weights (2 x 128 experts)
+FAMILY_PROFILED = "arctic-480b"
+
+
+def decode_matches_prefill(dev, cfg, params) -> dict:
+    """Decode against prefill in float32 activations on ``params``, batch
+    1, ``DECODE_PROMPT`` tokens (seamless: as many frames too): the logits
+    of the decode step after a prefill of P tokens against the last
+    position of a prefill of all P + 1. Pixtral, prompted with P patch
+    embeddings, decodes two tokens one at a time, held to one call of
+    ``lm_forward`` with both on the same prefilled state. Within
+    ``DECODE_TOL``."""
+    from repro_torch.configs.base import serve_policy
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.models.model_factory import build_model
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, **(
+        {"capacity_factor": 16.0} if cfg.num_experts else {}))
+    policy = serve_policy()
+    model = build_model(cfg32, policy)
+    p, v = DECODE_PROMPT, cfg.vocab_size
+    host = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, v, (1, p + 2), generator=host).to(dev)
+    frames = torch.randn((1, p, cfg.d_model), generator=host).to(dev)
+    with torch.inference_mode():
+        if cfg.input_kind == "embeddings" and cfg.family != "encdec":
+            state = model.init_state(1, p + 2, dtype=torch.float32, device=dev)
+            _, state = model.prefill(params, state, {"input_embeds": frames})
+            one, st = model.decode_step(params, state, {"tokens": toks[:, :1]})
+            two, _ = model.decode_step(params, st, {"tokens": toks[:, 1:2]})
+            both, _, _ = tf_mod.lm_forward(params, cfg32, policy, tokens=toks[:, :2],
+                                           state=state)
+            got, want = [one, two], [both[:, 0, :v], both[:, 1, :v]]
+        else:
+            extra = {"input_embeds": frames} if cfg.family == "encdec" else {}
+            state = model.init_state(1, p + 1, dtype=torch.float32, device=dev)
+            _, state = model.prefill(params, state, {"tokens": toks[:, :p], **extra})
+            step, _ = model.decode_step(params, state, {"tokens": toks[:, p:p + 1]})
+            full, _ = model.prefill(
+                params, model.init_state(1, p + 1, dtype=torch.float32, device=dev),
+                {"tokens": toks[:, :p + 1], **extra})
+            got, want = [step], [full]
+    out = {"max_abs_diff": 0.0, "abs_max": 0.0}
+    for i, (g, w) in enumerate(zip(got, want)):
+        diff = (g - w).abs()
+        out["max_abs_diff"] = max(out["max_abs_diff"], float(diff.max()))
+        out["abs_max"] = max(out["abs_max"], float(w.abs().max()))
+        bad = int((diff > DECODE_TOL["atol"] + DECODE_TOL["rtol"] * w.abs()).sum())
+        if bad or not torch.isfinite(g).all():
+            fail(f"{cfg.name}: decode step {i} vs prefill, float32: {bad} logits "
+                 f"outside {DECODE_TOL} (max abs diff {float(diff.max()):.3g})")
+    return out
+
+
+def serve_family(dev, arch: str, layers) -> dict:
+    """One family served at full width from 1-bit packed weights through
+    ``serve_config`` (``init_packed`` on the card, bf16 activations, f32
+    KV cache), launching no kernel; its weight bytes, prefill and decode
+    ms (CUDA events), peak memory, a profile where it is
+    ``FAMILY_PROFILED``, and ``decode_matches_prefill``."""
+    from repro_torch.configs.base import get_config, serve_policy
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_config
+    from repro_torch.models.model_factory import build_model
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    policy = serve_policy()
+    model = build_model(cfg, policy)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    params = model.init_packed(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    packed_b, bf16_b = _proj_bytes(params)
+    res = {"layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+           "init_packed_s": time.monotonic() - t0, "packed_weight_bytes": packed_b,
+           "bf16_weight_bytes": bf16_b, "param_bytes": _nbytes(params)}
+    seen = []
+
+    def on_step(step, logits):
+        seen.append((tuple(logits.shape), bool(torch.isfinite(logits).all())))
+
+    ops.reset_launches()
+    served = serve_config(cfg, policy, batch=FAMILY_BATCH, prompt_len=FAMILY_PROMPT,
+                          gen=FAMILY_GEN, seed=0, cache_dtype=torch.float32,
+                          device=dev, params=params, on_step=on_step)
+    want_shape = (FAMILY_BATCH, cfg.vocab_size)
+    if served["tokens"].shape != (FAMILY_BATCH, FAMILY_GEN) or seen != [
+            (want_shape, True)] * FAMILY_GEN:
+        fail(f"{arch}: tokens {tuple(served['tokens'].shape)}, logits {seen}")
+    batch_p = served["batch"]
+    with torch.inference_mode():
+        state0 = model.init_state(FAMILY_BATCH, FAMILY_PROMPT + FAMILY_GEN,
+                                  dtype=torch.float32, device=dev)
+        _, state1 = model.prefill(params, state0, batch_p)
+        batch_d = {"tokens": served["tokens"][:, -1:]}
+        res["prefill_ms"] = events_ms(lambda: model.prefill(params, state0, batch_p),
+                                      reps=1, warm=False)
+        res["decode_ms_per_token"] = events_ms(
+            lambda: model.decode_step(params, state1, batch_d), reps=2, warm=False)
+        if arch == FAMILY_PROFILED:
+            res["prefill_breakdown"] = device_breakdown(
+                lambda: model.prefill(params, state0, batch_p), warm=False)
+            res["decode_breakdown"] = device_breakdown(
+                lambda: model.decode_step(params, state1, batch_d), warm=False)
+        del state0, state1
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    res["decode_vs_prefill"] = decode_matches_prefill(dev, cfg, params)
+    torch.cuda.synchronize()
+    res["launches"] = dict(ops.LAUNCHES)
+    if any(res["launches"].values()):
+        fail(f"{arch} serving launched {res['launches']}, expected no kernel")
+    dvp = res["decode_vs_prefill"]
+    print(f"  {arch} ({cfg.num_layers} layers"
+          + (f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers else "")
+          + f", d_model {cfg.d_model}): init_packed {res['init_packed_s']:.1f} s; "
+          f"projections {packed_b / 1e9:.3f} GB packed vs {bf16_b / 1e9:.2f} GB "
+          f"bf16, all params {res['param_bytes'] / 1e9:.2f} GB; batch "
+          f"{FAMILY_BATCH} x {FAMILY_PROMPT} prefill {res['prefill_ms']:.1f} ms, "
+          f"decode {res['decode_ms_per_token']:.1f} ms a token (CUDA events); peak "
+          f"{res['max_memory_allocated'] / 1e9:.2f} GB; no kernel launched; "
+          f"float32 decode vs prefill max |diff| {dvp['max_abs_diff']:.3g} "
+          f"(|logits| up to {dvp['abs_max']:.3g}, tolerance {DECODE_TOL})",
+          flush=True)
+    for what in ("prefill", "decode"):
+        top = res.get(f"{what}_breakdown")
+        if top is None:
+            continue
+        print(f"    {what} profile: " + (top if isinstance(top, str) else ""),
+              flush=True)
+        if not isinstance(top, str):
+            for kname, ms, share in top:
+                print(f"    {ms:10.3f} ms {share:6.1%}  {kname}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def families_phase(dev) -> dict:
+    """Phase 12: (a) every family of ``FAMILY_SERVE`` served through
+    ``serve_family`` (no kernel: the ``xla`` engine, the experts one by
+    one, attention over a KV cache, as the JAX package's
+    ``serve_policy``); (b) ``FAMILY_TRAIN`` trained through
+    ``lm_train_run``; (c) the smoke configs of ``FAMILY_SMOKE`` must
+    learn. The launches of (a) are the path ``lm_families_serve``, those
+    of (b) and (c) ``lm_families_train``."""
+    from repro_torch.kernels import ops
+
+    res = {"serve": {}, "train": {}}
+    print("  (a) packed serving launches no kernel, as the JAX package's "
+          "serve_policy: each projection unpacked and multiplied in float32 "
+          "(engine xla), MoE experts one by one, attention over the KV cache "
+          "(never the flash branch)", flush=True)
+    serve_total = {name: 0 for name in ops.LAUNCHES}
+    for arch, layers in FAMILY_SERVE:
+        res["serve"][arch] = r = serve_family(dev, arch, layers)
+        for name, n in r["launches"].items():
+            serve_total[name] += n
+    train_total = {name: 0 for name in ops.LAUNCHES}
+    for arch, batch, seq, steps, layers in FAMILY_TRAIN:
+        ops.reset_launches()
+        res["train"][arch] = r = lm_train_run(dev, arch, batch, seq, steps, layers)
+        for name, n in r["launches"].items():
+            train_total[name] += n
+    res["smoke"] = smoke_runs(dev, FAMILY_SMOKE, train_total)
+    res["launches"] = {"lm_families_serve": serve_total,
+                       "lm_families_train": train_total}
     return res
 
 
@@ -3812,15 +3940,22 @@ KERNELS = {
 }
 
 
+class PhaseClock:
+    """Seconds of each phase on the host clock, printed as it ends."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+        self._t = time.monotonic()
+
+    def done(self, phase: str) -> None:
+        now = time.monotonic()
+        self.seconds[phase] = now - self._t
+        self._t = now
+        print(f"  phase {phase}: {self.seconds[phase]:.1f} s", flush=True)
+
+
 def main() -> None:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument(
-        "--parent-src", default=None,
-        help="directory holding the parent commit's " + ", ".join(
-            f"{name}.cu" for name in PARENT_SOURCES) + " and the headers they "
-             "include, timed beside the "
-             "kernels (default: git show HEAD~1; not measured without either)")
-    args = parser.parse_args()
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
     try:
@@ -3840,20 +3975,17 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
-    parent_procs = start_parent_build(args.parent_src)
+    start = time.monotonic()
     loop_procs = start_xnor_loop_build()
     info = build.build()
-    parents = finish_parent_build(parent_procs)
     print(f"kernel build: {info['seconds']:.1f} s ({', '.join(info['built']) or 'cached'})"
           f" in {info['dir']}", flush=True)
-    print("parent kernels: " + (", ".join(sorted(parents)) + f" built in {PARENT_DIR}"
-                                if isinstance(parents, dict) else
-                                f"not measured ({parents})"), flush=True)
     for name, log in info["ptxas"].items():
         for line in log.splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
+    clock = PhaseClock()
     print("phase 3: the packed product's inner loops, then kernels vs plain "
           "twins at their main paths' shapes (bit-exact)", flush=True)
     xnor_loops = xnor_loop_rates(loop_procs)
@@ -3867,6 +3999,7 @@ def main() -> None:
     unpack_decode_phase(dev, totals, rows)
     scan_phase(dev, totals, rows)
     attention_phase(dev, totals, rows)
+    clock.done("3")
     print("phase 4: serving on the trained checkpoint", flush=True)
     serve = serve_phase(dev)
     from repro_torch.core.bnn import (load_binary_checkpoint,
@@ -3895,28 +4028,41 @@ def main() -> None:
               f"{serve[f'forward_b{BATCH}_{fwd}_ms']:.3f} ms eager forward, "
               f"{serve[f'forward_b{BATCH}_{fwd}_graph_ms']:.3f} ms graph "
               "replay alone", flush=True)
+    clock.done("4")
     print("phase 5: Table 2 on the card", flush=True)
     table2 = table2_phase(dev)
+    clock.done("5")
     print("phase 6: jamba-1.5-large-398b, one full-width period, served "
           "from 1-bit weights", flush=True)
     jamba = jamba_phase(dev)
+    clock.done("6")
     print("phase 7: LM training forward (Model.loss) at full width",
           flush=True)
     lm = lm_phase(dev)
+    clock.done("7")
     print("phase 8: the BNN trained, resumed, exported and served on the card",
           flush=True)
     train = train_phase(dev)
+    clock.done("8")
     print("phase 9: the BNN served over a mesh of replicas, with a device "
           "loss and a silent heartbeat", flush=True)
     mesh = mesh_phase(dev)
+    clock.done("9")
     print("phase 10: the BNN trained over a mesh of replicas, under chaos, "
           "and exported", flush=True)
     resilient = train_resilient_phase(dev)
+    clock.done("10")
     print("phase 11: the LM trainer: the backward kernels against their "
           "twins, then smollm-360m and xlstm-1.3b trained at full width, the "
           "smoke families and a resume through the launcher", flush=True)
-    lm_bwd_kernel_phase(dev, totals, rows, parents)
+    lm_bwd_kernel_phase(dev, totals, rows)
     lm_train = lm_train_phase(dev)
+    clock.done("11")
+    print("phase 12: the remaining LM families: seven served at full width "
+          "from 1-bit weights, seamless-m4t-large-v2 and pixtral-12b trained, "
+          "the smoke configs", flush=True)
+    families = families_phase(dev)
+    clock.done("12")
     jamba_launches = dict(jamba["launches"]["prefill"])
     for counts in jamba["launches"]["decode"]:
         for name, n in counts.items():
@@ -3927,7 +4073,7 @@ def main() -> None:
                 "bnn_train_export": train["launches"],
                 "bnn_serve_mesh": mesh["launches"],
                 "bnn_train_resilient": resilient["launches"],
-                "lm_train": lm_train["launches"]}
+                "lm_train": lm_train["launches"], **families["launches"]}
     for name in KERNELS:
         if not sum(path[name] for path in launches.values()):
             fail(f"kernel {name} was not launched on the main path")
@@ -3939,7 +4085,8 @@ def main() -> None:
          "serve": serve,
          "table2": table2, "jamba": jamba, "lm_loss": lm, "train": train,
          "mesh": mesh, "train_resilient": resilient, "lm_train": lm_train,
-         "totals": totals},
+         "families": families, "totals": totals,
+         "phase_seconds": clock.seconds},
         indent=2))
 
     kernels = []
@@ -3951,18 +4098,24 @@ def main() -> None:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(p[name] for p in launches.values()),
+            # the families' paths stand in the flash rows even at 0 (no
+            # kernel serves them)
             "launches_by_path": {path: p[name] for path, p in launches.items()
-                                 if p[name]},
+                                 if p[name] or (name.startswith("flash")
+                                                and path in families["launches"])},
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": t["library_ms"],
         })
         for extra in ("per_layer_ms", "real_input_max_abs_err",
-                      "fp32_bound_ms", "tc_bound_ms", "parent_ms",
+                      "fp32_bound_ms", "tc_bound_ms",
                       "library_bf16_ms", "served_head_ms"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
+    print(f"chip_smoke: {time.monotonic() - start:.1f} s in all (phases "
+          + ", ".join(f"{k} {v:.1f}" for k, v in clock.seconds.items()) + " s)",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

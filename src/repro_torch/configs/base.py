@@ -1,11 +1,14 @@
 """Model configurations of the LM stack: the ``ModelConfig`` schema, the
-quantization policies and the registry, as ``repro.configs.base``.
+four input-shape cells (``ShapeConfig``, ``SHAPES``, ``cell_applicable``),
+the quantization policies and the registry, as ``repro.configs.base``.
 
 Each architecture module registers one ``ModelConfig`` at import;
 ``get_config(name)`` and ``list_configs()`` import the package first so
-the registry is full. The port registers the families it runs
-(hybrid: jamba-1.5-large-398b; dense: smollm-360m; ssm: xlstm-1.3b);
-the others come with their families.
+the registry is full. Every family of the JAX package is registered:
+dense, moe, hybrid, ssm, vlm (pixtral-12b, fed patch embeddings) and
+encdec (seamless-m4t-large-v2, fed frame embeddings). A cell is one
+``(ModelConfig, ShapeConfig)`` pair; ``cell_applicable`` says which of
+the 40 run, with the JAX package's reasons word for word.
 """
 
 from __future__ import annotations
@@ -101,6 +104,34 @@ class ModelConfig:
     @property
     def has_decode(self) -> bool:
         return True
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def cell_applicable(model: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """(runnable, reason-if-skipped) for one of the 40 cells."""
+    if shape.name == "long_500k" and not model.subquadratic:
+        return False, (
+            "long_500k needs sub-quadratic attention; "
+            f"{model.name} is pure full-attention (DESIGN.md §4)"
+        )
+    if shape.kind == "decode" and not model.has_decode:
+        return False, f"{model.name} has no decode step"
+    return True, ""
 
 
 # --- quantization policies (the paper's encoding applied to a whole model) --

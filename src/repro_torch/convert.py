@@ -5,8 +5,10 @@
 (``pack_bnn_params_fused``: ``w_packed``, ``a``, ``b``), or an LM's
 (``Model.init``, ``Model.pack``: ``layers`` a list over period positions
 of dicts whose leaves carry the periods axis, int32 ``w_packed``,
-``alpha``) — as nested dicts and lists of arrays, and returns the same
-tree of torch tensors.
+``alpha``; a config fed by embeddings adds ``in_norm``; the
+encoder-decoder's ``encoder`` / ``decoder`` each hold ``layers``, dicts
+whose leaves carry the layer axis, and ``final_norm``) — as nested
+dicts and lists of arrays, and returns the same tree of torch tensors.
 The keys and layouts of both packages agree, so nothing is renamed or
 transposed. Every array is copied: ``np.asarray`` of a JAX array is
 read-only, which ``torch.from_numpy`` would warn about and share.

@@ -7,7 +7,11 @@ cache and the SSM state. As ``repro.launch.serve``, on CUDA unless
       --arch jamba-1.5-large-398b --batch 4 --prompt-len 32 --gen 16 --device cpu
 
 Prompts longer than 256 tokens must be a multiple of 256 (the mamba
-prefill chunk).
+prefill chunk). Every family of the JAX package serves: a config fed by
+embeddings (pixtral-12b) is prompted with ``[batch, prompt_len,
+d_model]`` normal patch embeddings, the encoder-decoder
+(seamless-m4t-large-v2) with as many frame embeddings and a token
+prompt; decode feeds tokens.
 """
 
 from __future__ import annotations
@@ -43,27 +47,36 @@ def serve_config(cfg, policy, *, batch: int = 4, prompt_len: int = 32,
     ``params``: the model's params; by default drawn from a
     ``torch.Generator`` on the device seeded with ``seed`` (``init_packed``
     under a packed policy, else ``init``). Prompts come from a CPU
-    generator seeded with ``seed``. ``on_step(step, logits)`` is called
-    after the prefill (step 0) and after each decode step, with that
-    step's logits ``[batch, vocab]``. Returns the prompts, the generated
-    tokens ``[batch, gen]`` and the prefill and decode times (seconds,
-    the device synchronized)."""
+    generator seeded with ``seed``, and after them, for a config fed by
+    embeddings, ``[batch, prompt_len, d_model]`` float32 normal
+    embeddings from the same generator (the JAX serve batch: the
+    embeddings alone, or beside the prompts for encdec). ``on_step(step,
+    logits)`` is called after the prefill (step 0) and after each decode
+    step, with that step's logits ``[batch, vocab]``. Returns the prompts, the prefill's
+    inputs (``batch``), the generated tokens ``[batch, gen]`` and the
+    prefill and decode times (seconds, the device synchronized)."""
     dev = resolve_device(device)
     model = build_model(cfg, policy)
     if params is None:
         weights = torch.Generator(device=dev).manual_seed(seed)
         params = (model.init_packed(weights) if policy.packed
                   else model.init(weights))
+    host = torch.Generator().manual_seed(seed)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                            generator=torch.Generator().manual_seed(seed))
-    prompts = prompts.to(dev)
+                            generator=host).to(dev)
+    batch_in = {"tokens": prompts}
+    if cfg.input_kind == "embeddings":
+        embeds = torch.randn((batch, prompt_len, cfg.d_model), generator=host)
+        batch_in = {"input_embeds": embeds.to(dev)}
+        if cfg.family == "encdec":
+            batch_in["tokens"] = prompts
     state = model.init_state(batch, prompt_len + gen, dtype=cache_dtype,
                              device=dev)
     now = _clock(dev)
 
     with torch.inference_mode():
         t0 = now()
-        logits, state = model.prefill(params, state, {"tokens": prompts})
+        logits, state = model.prefill(params, state, batch_in)
         t_prefill = now() - t0
         if on_step is not None:
             on_step(0, logits)
@@ -79,6 +92,7 @@ def serve_config(cfg, policy, *, batch: int = 4, prompt_len: int = 32,
         t_decode = now() - t0
     return {
         "prompts": prompts,
+        "batch": batch_in,
         "tokens": torch.cat(generated, dim=1),
         "prefill_s": t_prefill,
         "decode_s": t_decode,

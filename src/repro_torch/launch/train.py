@@ -7,9 +7,12 @@ Runs on CUDA (``train(device=...)`` takes another device, as the tests
 do; the CLI has the JAX launcher's flags and no device flag). One card:
 with more than one CUDA device visible the JAX launcher shards over a
 (data, model) mesh, and the port has no LM sharding rules yet (ROADMAP
-A6d), so ``train`` raises; so does a config fed by embeddings (A6a).
-Each step is eager PyTorch: no ``torch.compile``; attention, the SSM
-scan and the mLSTM run their kernels forward and backward.
+A6d), so ``train`` raises. Every family trains: a config fed by
+embeddings (pixtral-12b, seamless-m4t-large-v2) gets them derived from
+each batch's tokens as the JAX launcher derives them
+(``stub_embeddings``). Each step is eager PyTorch: no
+``torch.compile``; attention, the SSM scan and the mLSTM run their
+kernels forward and backward.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --smoke --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
@@ -36,11 +39,18 @@ from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import TrainConfig, init_opt_state, make_train_step
 
 
-def _refuse_what_is_not_ported(cfg, dev: torch.device) -> None:
-    if cfg.input_kind == "embeddings":
-        raise NotImplementedError(
-            f"{cfg.name}: a config fed by embeddings (the vlm/audio stubs) "
-            "is not ported yet (ROADMAP A6a)")
+def stub_embeddings(tokens: torch.Tensor, d_model: int) -> torch.Tensor:
+    """The modality stub's embeddings of a batch, as the JAX launcher
+    derives them: ``normal(0, 1, (*tokens.shape, d_model))`` in float32
+    from ``np.random.default_rng(tokens[0, 0])`` (0 for an empty batch),
+    on the CPU."""
+    tok = tokens.cpu().numpy()
+    rng = np.random.default_rng(tok[0, 0] if tok.size else 0)
+    emb = rng.normal(0, 1, (*tok.shape, d_model)).astype(np.float32)
+    return torch.from_numpy(emb)
+
+
+def _refuse_what_is_not_ported(dev: torch.device) -> None:
     if dev.type == "cuda" and torch.cuda.device_count() > 1:
         n = torch.cuda.device_count()
         grid, axes = make_elastic_mesh(list(range(n)), model_parallel=min(n, 16))
@@ -71,7 +81,7 @@ def train(
     policy = train_policy() if quantized else float_policy()
     model = build_model(cfg, policy)
     dev = resolve_device(device)
-    _refuse_what_is_not_ported(cfg, dev)
+    _refuse_what_is_not_ported(dev)
 
     dcfg = DataConfig(seed=seed, global_batch=batch, seq_len=seq,
                       vocab_size=cfg.vocab_size)
@@ -108,6 +118,9 @@ def train(
         monitor.beat(0)
         monitor.check()
         batch_arrays = {"tokens": b["tokens"].to(dev), "labels": b["labels"].to(dev)}
+        if cfg.input_kind == "embeddings":
+            batch_arrays["input_embeds"] = stub_embeddings(
+                b["tokens"], cfg.d_model).to(dev)
         params, opt_state, metrics = step_fn(params, opt_state, batch_arrays)
         dt = time.time() - t0
         straggler.observe({0: dt})

@@ -12,7 +12,8 @@ cache and no window (the training forward) runs through
 ``kernels.ops.flash_attention``: the kernel on the card, its plain twin
 on the CPU, where the JAX package takes this branch on the TPU only and
 the chunked path elsewhere. Every other long input takes the chunked
-path.
+path: the encoder-decoder's non-causal encoder self-attention and its
+``cross_attention`` too, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -214,6 +215,32 @@ def attention(
         sliding_window=cfg.sliding_window,
     )
     return proj(params["o_proj"], out.reshape(b, s, cfg.q_dim), policy), new_cache
+
+
+def cross_attention(
+    params: Params,
+    x: torch.Tensor,                    # [B, Sq, D] decoder states
+    memory: torch.Tensor,               # [B, Skv, D] encoder output
+    cfg,
+    policy: QuantPolicy,
+) -> torch.Tensor:
+    """Encoder-decoder cross-attention (the seamless decoder): queries
+    from ``x``, keys and values from ``memory``, no RoPE, no mask."""
+    b, sq, _ = x.shape
+    skv = memory.shape[1]
+    q = proj(params["q_proj"], x, policy).reshape(b, sq, cfg.num_heads, cfg.head_dim)
+    k = proj(params["k_proj"], memory, policy).reshape(b, skv, cfg.num_kv_heads,
+                                                       cfg.head_dim)
+    v = proj(params["v_proj"], memory, policy).reshape(b, skv, cfg.num_kv_heads,
+                                                       cfg.head_dim)
+    out = _attend(
+        q, k, v,
+        groups=cfg.num_heads // cfg.num_kv_heads,
+        causal=False,
+        q_positions=torch.arange(sq, device=x.device),
+        kv_positions=torch.arange(skv, device=x.device),
+    )
+    return proj(params["o_proj"], out.reshape(b, sq, cfg.q_dim), policy)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, layers: Optional[int] = None,

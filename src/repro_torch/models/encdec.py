@@ -1,0 +1,194 @@
+"""Encoder-decoder transformer (the seamless-m4t backbone), as
+``repro.models.encdec``.
+
+The speech frontend is a stub: the encoder is fed precomputed frame
+embeddings ``[B, S_enc, D]``. The decoder is a causal stack with
+cross-attention into the encoder's output (``memory``); its
+self-attention KV cache has the decoder-only models' layout
+(``{"kv": {"k", "v": [L, B, Smax, Hkv, Dh]}, "index"}``). LayerNorm, not
+RMS, as in the original architecture. Every projection is a ``*_proj``,
+so a PACKED policy runs it on 1-bit weights.
+
+The param tree is the JAX package's: ``encoder`` and ``decoder``, each
+with ``layers`` (leaves with a leading ``[L]`` axis) and
+``final_norm``, then ``embed`` and ``lm_head``, so
+``repro_torch.convert.params_from_numpy`` carries it unchanged. The
+stacks are Python loops over layers where the JAX package scans; with
+``remat`` each layer runs under ``torch.utils.checkpoint``, as
+``jax.checkpoint(body)`` does there. Decode recomputes the
+cross-attention keys and values from ``memory`` at every step, as the
+JAX package does.
+
+The decoder's causal self-attention at long S takes the flash kernel
+(``attention._attend``); the encoder's self-attention and the
+cross-attention are not causal and take the chunked path.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import tree
+from repro_torch.core.bnn import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import ffn as ffn_mod
+from repro_torch.models.common import (Finish, Params, QuantPolicy, as_drawn,
+                                       embed, init_embedding, init_layernorm,
+                                       layernorm, randn, softmax_cross_entropy,
+                                       stack_trees)
+
+
+def _init_enc_layer(generator: torch.Generator, cfg, finish: Finish) -> Params:
+    dev = generator.device
+    return {
+        "norm1": init_layernorm(cfg.d_model, dev),
+        "attn": attn_mod.init_attention(generator, cfg, finish=finish),
+        "norm2": init_layernorm(cfg.d_model, dev),
+        "ffn": ffn_mod.init_dense_ffn(generator, cfg.d_model, cfg.d_ff, cfg.act,
+                                      finish=finish),
+    }
+
+
+def _init_dec_layer(generator: torch.Generator, cfg, finish: Finish) -> Params:
+    dev = generator.device
+    return {
+        "norm1": init_layernorm(cfg.d_model, dev),
+        "self_attn": attn_mod.init_attention(generator, cfg, finish=finish),
+        "norm2": init_layernorm(cfg.d_model, dev),
+        "cross_attn": attn_mod.init_attention(generator, cfg, finish=finish),
+        "norm3": init_layernorm(cfg.d_model, dev),
+        "ffn": ffn_mod.init_dense_ffn(generator, cfg.d_model, cfg.d_ff, cfg.act,
+                                      finish=finish),
+    }
+
+
+def init_encdec_params(generator: torch.Generator, cfg, *,
+                       finish: Finish = as_drawn) -> Params:
+    """Random params on the generator's device, drawn in a fixed order
+    (encoder layers, decoder layers, embedding, LM head); ``finish`` is
+    applied to each projection dict as it is drawn, as in
+    ``transformer.init_lm_params``."""
+    dev = generator.device
+    enc = [_init_enc_layer(generator, cfg, finish)
+           for _ in range(cfg.encoder_layers)]
+    dec = [_init_dec_layer(generator, cfg, finish) for _ in range(cfg.num_layers)]
+    table = init_embedding(generator, cfg.padded_vocab, cfg.d_model)
+    # the LM head stays real-valued: a plain param, not a *_proj
+    head = randn(generator, (cfg.padded_vocab, cfg.d_model), cfg.d_model ** -0.5)
+    return {
+        "encoder": {"layers": stack_trees(enc),
+                    "final_norm": init_layernorm(cfg.d_model, dev)},
+        "decoder": {"layers": stack_trees(dec),
+                    "final_norm": init_layernorm(cfg.d_model, dev)},
+        "embed": table,
+        "lm_head": {"w": head},
+    }
+
+
+def _run_layers(body, x, layers: Params, n: int, remat: bool):
+    """``x = body(x, layer i)`` for each of the ``n`` stacked layers, each
+    under ``torch.utils.checkpoint`` when ``remat`` and grad mode is on."""
+    remat = remat and torch.is_grad_enabled()
+    for i in range(n):
+        lp = tree.tree_map(lambda t: t[i], layers)
+        x = checkpoint(body, x, lp, use_reentrant=False) if remat else body(x, lp)
+    return x
+
+
+def encode(params: Params, frames: torch.Tensor, cfg, policy: QuantPolicy, *,
+           remat: bool = False) -> torch.Tensor:
+    """frames ``[B, S_enc, D]`` (the frontend stub's output) -> memory
+    ``[B, S_enc, D]`` in ``cfg.dtype``."""
+    s = frames.shape[1]
+    positions = torch.arange(s, device=frames.device)
+
+    def body(x, lp):
+        h = layernorm(lp["norm1"], x)
+        out, _ = attn_mod.attention(lp["attn"], h, cfg, policy,
+                                    positions=positions, causal=False)
+        x = x + out
+        h = layernorm(lp["norm2"], x)
+        return x + ffn_mod.dense_ffn(lp["ffn"], h, policy, cfg.act)
+
+    x = _run_layers(body, frames.to(cfg.dtype), params["encoder"]["layers"],
+                    cfg.encoder_layers, remat)
+    return layernorm(params["encoder"]["final_norm"], x)
+
+
+def _dec_layer(x, lp: Params, memory, cfg, policy: QuantPolicy, *, positions,
+               cache: Optional[dict]):
+    """One decoder block. Returns (x, updated self-attention cache)."""
+    h = layernorm(lp["norm1"], x)
+    out, new_cache = attn_mod.attention(lp["self_attn"], h, cfg, policy,
+                                        positions=positions, cache=cache)
+    x = x + out
+    h = layernorm(lp["norm2"], x)
+    x = x + attn_mod.cross_attention(lp["cross_attn"], h, memory, cfg, policy)
+    h = layernorm(lp["norm3"], x)
+    return x + ffn_mod.dense_ffn(lp["ffn"], h, policy, cfg.act), new_cache
+
+
+def decode(params: Params, tokens: torch.Tensor, memory: torch.Tensor, cfg,
+           policy: QuantPolicy, *, state: Optional[dict] = None,
+           remat: bool = False) -> tuple[torch.Tensor, Optional[dict]]:
+    """tokens ``[B, S]``, memory ``[B, S_enc, D]`` -> (logits ``[B, S, V]``
+    float32, new state). The state given is not written."""
+    s = tokens.shape[1]
+    x = embed(params["embed"], tokens, dtype=cfg.dtype)
+    index = state["index"] if state is not None else 0
+    positions = index + torch.arange(s, device=x.device)
+    layers = params["decoder"]["layers"]
+
+    if state is None:
+        def body(x, lp):
+            return _dec_layer(x, lp, memory, cfg, policy, positions=positions,
+                              cache=None)[0]
+
+        x = _run_layers(body, x, layers, cfg.num_layers, remat)
+        new_state = None
+    else:
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            cache = {"k": state["kv"]["k"][i], "v": state["kv"]["v"][i],
+                     "index": index}
+            lp = tree.tree_map(lambda t: t[i], layers)
+            x, c = _dec_layer(x, lp, memory, cfg, policy, positions=positions,
+                              cache=cache)
+            ks.append(c["k"])
+            vs.append(c["v"])
+        new_state = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)},
+                     "index": index + s}
+
+    x = layernorm(params["decoder"]["final_norm"], x)
+    logits = torch.matmul(x.float(), params["lm_head"]["w"].float().T)
+    return logits, new_state
+
+
+def init_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None) -> dict:
+    """The decoder's self-attention KV cache, on ``device`` (CUDA unless
+    given)."""
+    c = attn_mod.init_cache(cfg, batch, max_len, layers=cfg.num_layers,
+                            dtype=dtype, device=resolve_device(device))
+    return {"kv": {"k": c["k"], "v": c["v"]}, "index": 0}
+
+
+def encdec_loss(params, batch: dict, cfg, policy: QuantPolicy, *,
+                remat: bool = True):
+    """Cross-entropy of the decoder's logits on ``batch["tokens"]``, given
+    the encoded ``batch["input_embeds"]``, against ``batch["labels"]``.
+    Returns (loss, ``{"loss"}``)."""
+    memory = encode(params, batch["input_embeds"], cfg, policy, remat=remat)
+    logits, _ = decode(params, batch["tokens"], memory, cfg, policy, remat=remat)
+    loss = softmax_cross_entropy(logits[..., :cfg.vocab_size], batch["labels"])
+    return loss, {"loss": loss}
+
+
+def decode_step(params, cfg, policy: QuantPolicy, *, state: dict,
+                memory: torch.Tensor, tokens: torch.Tensor):
+    """One serving step: tokens ``[B, 1]`` -> (logits ``[B, V]``, state)."""
+    logits, state = decode(params, tokens, memory, cfg, policy, state=state)
+    return logits[:, -1, :cfg.vocab_size], state

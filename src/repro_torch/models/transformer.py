@@ -20,8 +20,13 @@ default of ``lm_loss``, as in the JAX package) each period's body runs
 under ``torch.utils.checkpoint``: its activations are recomputed in the
 backward instead of kept, which changes no number. The JAX package saves
 the dot outputs (``dots_with_no_batch_dims_saveable``); here the whole
-period is recomputed. Not ported: ``input_embeds`` (the vlm/audio
-stubs).
+period is recomputed.
+
+A config fed by embeddings (pixtral-12b's patch-embedding stub) takes
+``input_embeds [B, S, D]`` in place of tokens in ``lm_forward``,
+``lm_loss`` and ``prefill``, normed by its ``in_norm``; decode still
+feeds tokens through ``embed``. The encoder-decoder family is
+``models/encdec.py``.
 """
 
 from __future__ import annotations
@@ -117,14 +122,14 @@ def init_lm_params(generator: torch.Generator, cfg, *,
     weights of the whole model never exist at once. The draws do not
     depend on ``finish``, so packing after a float init gives the same
     params."""
-    if cfg.input_kind != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: input_kind {cfg.input_kind!r} (vlm/audio stubs) is "
-            "not ported yet")
     period = period_spec(cfg)
     init_norm, _ = _norm_fns(cfg)
+    # An embeddings config keeps the table too: decode feeds tokens.
     params: Params = {"embed": init_embedding(generator, cfg.padded_vocab,
                                               cfg.d_model)}
+    if cfg.input_kind != "tokens":
+        # modality stub: the inputs are precomputed patch/frame embeddings
+        params["in_norm"] = init_norm(cfg.d_model, generator.device)
     if not cfg.tie_embeddings:
         # the LM head stays real-valued: a plain param, not a *_proj
         params["lm_head"] = {"w": randn(generator, (cfg.padded_vocab,
@@ -224,17 +229,26 @@ def _index_tree(tree, i: int):
 
 
 def lm_forward(params: Params, cfg, policy: QuantPolicy, *,
-               tokens: torch.Tensor, state: Optional[dict] = None,
+               tokens: Optional[torch.Tensor] = None,
+               input_embeds: Optional[torch.Tensor] = None,
+               state: Optional[dict] = None,
                remat: bool = False, causal: bool = True,
                logits_last_only: bool = False,
                ) -> tuple[torch.Tensor, Optional[dict], torch.Tensor]:
-    """tokens ``[B, S]`` -> (logits ``[B, S, V]`` float32, new state,
-    aux loss). ``logits_last_only`` (prefill) keeps the last position.
+    """tokens ``[B, S]`` or ``input_embeds [B, S, D]`` (the vlm stub;
+    taken when given) -> (logits ``[B, S, V]`` float32, new state, aux
+    loss). ``logits_last_only`` (prefill) keeps the last position.
     ``remat``: with no state and grad mode on, each period runs under
     ``torch.utils.checkpoint`` (recomputed in the backward)."""
     _, norm = _norm_fns(cfg)
-    x = embed(params["embed"], tokens, dtype=cfg.dtype)
-    s = tokens.shape[1]
+    if input_embeds is not None:
+        x = input_embeds.to(cfg.dtype)
+        if "in_norm" in params:
+            x = norm(params["in_norm"], x)
+        s = input_embeds.shape[1]
+    else:
+        x = embed(params["embed"], tokens, dtype=cfg.dtype)
+        s = tokens.shape[1]
     index = state["index"] if state is not None else 0
     positions = index + torch.arange(s, device=x.device)
 
@@ -298,20 +312,25 @@ def lm_forward(params: Params, cfg, policy: QuantPolicy, *,
 def lm_loss(params, batch: dict, cfg, policy: QuantPolicy, *,
             remat: bool = True, aux_weight: float = 0.01):
     """The training forward: next-token cross-entropy of ``batch["tokens"]``
-    against ``batch["labels"]`` (``[B, S]``) over the first
-    ``cfg.vocab_size`` logits, plus ``aux_weight`` times the MoE balance
-    loss, each period rematerialized in the backward (``remat``). Returns
-    (total, ``{"loss", "aux"}``)."""
-    logits, _, aux = lm_forward(params, cfg, policy, tokens=batch["tokens"],
+    (or of ``batch["input_embeds"]`` where given) against
+    ``batch["labels"]`` (``[B, S]``) over the first ``cfg.vocab_size``
+    logits, plus ``aux_weight`` times the MoE balance loss, each period
+    rematerialized in the backward (``remat``). Returns (total, ``{"loss",
+    "aux"}``)."""
+    logits, _, aux = lm_forward(params, cfg, policy, tokens=batch.get("tokens"),
+                                input_embeds=batch.get("input_embeds"),
                                 remat=remat)
     loss = softmax_cross_entropy(logits[..., :cfg.vocab_size], batch["labels"])
     return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
 
-def prefill(params, cfg, policy: QuantPolicy, *, state: dict, tokens):
-    """Fill the state with a prompt; returns (last-token logits, state)."""
+def prefill(params, cfg, policy: QuantPolicy, *, state: dict, tokens=None,
+            input_embeds=None):
+    """Fill the state with a prompt (tokens, or ``input_embeds`` where
+    given); returns (last-token logits, state)."""
     logits, state, _ = lm_forward(params, cfg, policy, tokens=tokens,
-                                  state=state, logits_last_only=True)
+                                  input_embeds=input_embeds, state=state,
+                                  logits_last_only=True)
     return logits[:, -1, :cfg.vocab_size], state
 
 

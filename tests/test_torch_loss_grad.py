@@ -1,8 +1,13 @@
 """Gradients of the LM loss: ``torch.autograd.grad`` of the port's
 ``Model.loss`` against ``jax.grad`` of the JAX package's, with respect to
-every parameter, for the smoke configs of smollm-360m (dense), xlstm-1.3b
-(ssm: sLSTM and the chunkwise mLSTM) and jamba-1.5-large-398b (hybrid:
-the selective scan, attention and MoE experts with their aux loss).
+every parameter, for the smoke configs of every family: smollm-360m,
+qwen2.5-3b (tied embeddings, QKV bias), qwen2.5-32b and
+mistral-large-123b (dense), xlstm-1.3b (ssm: sLSTM and the chunkwise
+mLSTM), jamba-1.5-large-398b (hybrid: the selective scan, attention and
+MoE experts with their aux loss), moonshot-v1-16b-a3b and arctic-480b
+(moe; arctic with its dense residual FFN), pixtral-12b (vlm: patch
+embeddings through ``in_norm``) and seamless-m4t-large-v2 (encdec:
+frames into the encoder, cross-attention, LayerNorm, GeLU).
 
 On the CPU the port's kernel wrappers return their plain twins, which
 autograd differentiates; on CUDA the wrappers raise on operands that
@@ -14,7 +19,8 @@ gradients the backward kernels will be held to. The loss is taken under
 Params and batch come from numpy: every leaf of the JAX package's init
 tree is drawn from ``np.random.default_rng`` at the init's scale
 (``numpy_params``), and the tokens and labels are numpy integers; both
-packages get the same arrays. A batch of 2 x 32 keeps every layer on its
+packages get the same arrays (and, for the configs fed by embeddings,
+normal ``input_embeds [2, 32, 128]``). A batch of 2 x 32 keeps every layer on its
 one-chunk path (the mLSTM and the scan through their kernels' twins,
 attention unchunked). Tolerance: float32 sums in other orders through
 every layer and back, rtol 1e-4 and atol 1e-5 on every gradient (a
@@ -38,7 +44,9 @@ from repro_torch.models.model_factory import build_model
 
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 BATCH, SEQ = 2, 32
-ARCHS = ["jamba-1.5-large-398b", "smollm-360m", "xlstm-1.3b"]
+ARCHS = ["jamba-1.5-large-398b", "smollm-360m", "xlstm-1.3b", "qwen2.5-3b",
+         "qwen2.5-32b", "mistral-large-123b", "moonshot-v1-16b-a3b",
+         "arctic-480b", "pixtral-12b", "seamless-m4t-large-v2"]
 
 
 def numpy_params(jm, rng):
@@ -80,9 +88,13 @@ def test_loss_gradient_matches_jax(arch):
     params = numpy_params(jm, rng)
     tokens = rng.integers(0, j_cfg.vocab_size, size=(BATCH, SEQ), dtype=np.int32)
     labels = rng.integers(0, j_cfg.vocab_size, size=(BATCH, SEQ), dtype=np.int32)
+    batch = {"tokens": tokens, "labels": labels}
+    if j_cfg.input_kind == "embeddings":
+        batch["input_embeds"] = rng.normal(size=(BATCH, SEQ, j_cfg.d_model)).astype(
+            np.float32)
 
     def j_total(p):
-        return jm.loss(p, {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)})[0]
+        return jm.loss(p, {k: jnp.asarray(v) for k, v in batch.items()})[0]
 
     want_total, want = jax.jit(jax.value_and_grad(j_total))(params)
     names = [jax.tree_util.keystr(path)
@@ -92,9 +104,12 @@ def test_loss_gradient_matches_jax(arch):
     tparams = params_from_numpy(params, device="cpu")
     tleaves = [t.requires_grad_() for t in leaves(tparams)]
     before = dict(ops.LAUNCHES)
-    total, _ = model.loss(tparams, {"tokens": torch.from_numpy(tokens).long(),
-                                    "labels": torch.from_numpy(labels).long()})
-    got = torch.autograd.grad(total, tleaves)
+    total, _ = model.loss(tparams, {k: torch.from_numpy(v).long() if v.dtype == np.int32
+                                    else torch.from_numpy(v) for k, v in batch.items()})
+    # pixtral's embedding table is unused by a loss fed embeddings: its
+    # gradient is zero, as jax.grad gives it
+    got = [torch.zeros_like(p) if g is None else g
+           for p, g in zip(tleaves, torch.autograd.grad(total, tleaves, allow_unused=True))]
     assert ops.LAUNCHES == before   # the twins, on the CPU
     np.testing.assert_allclose(float(total.detach()), float(want_total), rtol=1e-5,
                                atol=1e-5)
