@@ -180,6 +180,17 @@
    must learn. The phase's launches are the paths ``lm_families_serve``
    and ``lm_families_train``.
 
+13. The dry run's counter and data-parallel LM training
+   (``dryrun_dp_phase``): smollm-360m at full width (batch 4 x 4096, bf16,
+   ``train_policy()``) takes one data-parallel step on 2 replicas sharing
+   the card and one single-device step on the same params and batch; loss
+   and reduced gradients agree within phase 11's first-step tolerances,
+   and flash attention forward and backward launch exactly twice as often.
+   The single-device step is counted by ``roofline.op_cost`` on the card
+   and on meta (FLOPs, bytes and kernel calls equal) and its ms (CUDA
+   events) printed beside the one-card roofline. The DP step's launches
+   are the path ``lm_dp_train``.
+
 Every phase prints its seconds.
 
 Last, prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``.
@@ -828,6 +839,7 @@ def scan_phase(dev, totals: dict, rows: list) -> None:
     issue bound (6 operations per exp plus dt*x) is kept beside it."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ssm_scan_chunk_ref
+    from repro_torch.roofline import op_cost
 
     gen = torch.Generator(device=dev).manual_seed(14)
     for label, b, c, di, ds, seq in SCAN_CASES:
@@ -836,7 +848,7 @@ def scan_phase(dev, totals: dict, rows: list) -> None:
         twin = lambda: ssm_scan_chunk_ref(*args)  # noqa: E731,B023
         want = twin()
         err = scan_error("ssm_scan_chunk", label, run(), want)
-        exps = b * c * di * ds
+        exps = op_cost.scan_flops(b, c, di, ds)
         nbytes = (3 * b * c * di + 2 * b * di * ds + di * ds + 2 * b * c * ds) * 4
         row = record(totals["ssm_scan_chunk"], "ssm_scan_chunk",
                      f"{label} [{b},{c},{di},{ds}]", err, run, twin, None,
@@ -976,6 +988,7 @@ def attention_phase(dev, totals: dict, rows: list) -> None:
     its operands."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import mlstm_chunked_ref
+    from repro_torch.roofline import op_cost
 
     gen = torch.Generator(device=dev).manual_seed(15)
     F = torch.nn.functional
@@ -995,7 +1008,7 @@ def attention_phase(dev, totals: dict, rows: list) -> None:
             f"own ulp" if "max_row_ulps" in e else "")
         row = record(totals["flash_attention"], "flash_attention",
                      f"{label} [{bh},{s},{dh}] {str(dtype)[6:]}", e["max_abs_err"],
-                     run, twin, lib, nbytes, 2 * bh * s * s * dh,
+                     run, twin, lib, nbytes, op_cost.flash_flops(bh, s, s, dh),
                      summed=label == "smollm layer", check=check, rate=rate)
         row.update(e)
         rows.append(row)
@@ -1010,7 +1023,7 @@ def attention_phase(dev, totals: dict, rows: list) -> None:
         twin = lambda: mlstm_chunked_ref(*args, chunk=chunk)  # noqa: E731,B023
         err = mlstm_error(label, run(), twin())
         ln = min(chunk, s)
-        ops_n = (s // ln) * bh * (ln * (ln + 1) * (dk + dv) + 4 * ln * dk * dv)
+        ops_n = op_cost.mlstm_flops(bh, s, dk, dv, chunk)
         nbytes = 4 * (bh * s * (2 * dk + 2 * dv + 2) + bh * (dk * dv + dk + 1))
         row = record(totals["mlstm_chunked"], "mlstm_chunked",
                      f"{label} [{bh},{s},{dk},{dv}] L{ln}", err["max_abs_err"],
@@ -1514,6 +1527,7 @@ def unfused_kernel_phase(dev, totals: dict, rows: list, batch: int,
     totals."""
     from repro_torch.core import bitops
     from repro_torch.kernels import ops
+    from repro_torch.roofline import op_cost
 
     gen = torch.Generator(device=dev).manual_seed(2 + batch)
     cpu_gen = torch.Generator().manual_seed(3 + batch)
@@ -1561,7 +1575,7 @@ def unfused_kernel_phase(dev, totals: dict, rows: list, batch: int,
         wf = bitops.unpack_bits(wp, axis=-1)
         row = record(totals["unpack_gemm"], "unpack_gemm", f"{label} [{m},{k}]x[{k},{n}]",
                      err, run, twin, lambda: torch.matmul(wf, xpt),  # noqa: B023
-                     (m * k // 32 + k * n + m * n) * 4, 2 * m * n * k,
+                     (m * k // 32 + k * n + m * n) * 4, op_cost.gemm_flops(m, k, n),
                      summed=summed)
         row["real_input_max_abs_err"] = float(dev_err.max())
         totals["unpack_gemm"]["real_input_max_abs_err"] = max(
@@ -1607,6 +1621,7 @@ def unpack_decode_phase(dev, totals: dict, rows: list) -> None:
     the main path: not summed."""
     from repro_torch.core import bitops
     from repro_torch.kernels import ops
+    from repro_torch.roofline import op_cost
 
     label, m, k, n = DECODE_CASE
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1632,7 +1647,7 @@ def unpack_decode_phase(dev, totals: dict, rows: list) -> None:
     row = record(totals["unpack_gemm"], "unpack_gemm",
                  f"{label} [{m},{k}]x[{k},{n}] bf16", err, run, twin,
                  lambda: torch.matmul(wb, xpt), m * k // 8 + k * n * 2 + m * n * 4,
-                 2 * m * n * k, summed=False)
+                 op_cost.gemm_flops(m, k, n), summed=False)
     row["real_input_max_abs_err"] = float(dev_err.max())
     rows.append(row)
 
@@ -3355,6 +3370,7 @@ def lm_bwd_kernel_phase(dev, totals: dict, rows: list) -> None:
     every SCAN_BWD_CASES shape."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref
+    from repro_torch.roofline import op_cost
 
     gen = torch.Generator(device=dev).manual_seed(25)
     F = torch.nn.functional
@@ -3379,7 +3395,8 @@ def lm_bwd_kernel_phase(dev, totals: dict, rows: list) -> None:
         summed = label == "smollm layer"
         row = record(totals["flash_attention_bwd"], "flash_attention_bwd",
                      f"{label} [{bh},{s},{dh}] {str(dtype)[6:]}", e["max_abs_err"],
-                     run, twin, None, nbytes, 5 * bh * s * s * dh, summed=summed,
+                     run, twin, None, nbytes,
+                     op_cost.flash_flops(bh, s, s, dh, backward=True), summed=summed,
                      check=("max |err| / max |grad|: " + ", ".join(
                          f"d{n} {e[n + '_rel']:.2g}" for n in "qkv")
                          + ", two calls bit-identical"), rate=rate)
@@ -3407,7 +3424,8 @@ def lm_bwd_kernel_phase(dev, totals: dict, rows: list) -> None:
         nbytes = (5 * b * c * di + 4 * b * c * ds + 2 * di * ds + 4 * b * di * ds) * 4
         row = record(totals["ssm_scan_chunk_bwd"], "ssm_scan_chunk_bwd",
                      f"{label} [{b},{c},{di},{ds}]", e["max_abs_err"], run, twin, None,
-                     nbytes, b * c * di * ds, summed=label == "jamba chunk",
+                     nbytes, op_cost.scan_flops(b, c, di, ds),
+                     summed=label == "jamba chunk",
                      check=("max |err| / max |grad|: " + ", ".join(
                          f"d{n} {e[n + '_rel']:.2g}" for n in names)
                          + ", two calls bit-identical"))
@@ -3436,7 +3454,7 @@ def lm_bwd_kernel_phase(dev, totals: dict, rows: list) -> None:
         e["repeats_exactly"] = repeats_exactly("mlstm_chunked_bwd", label, run)
         del want
         ln = min(chunk, s)
-        ops_n = (s // ln) * bh * (ln * (ln + 1) * (3 * dk + 2 * dv) + 8 * ln * dk * dv)
+        ops_n = op_cost.mlstm_flops(bh, s, dk, dv, chunk, backward=True)
         nbytes = 4 * (bh * s * (4 * dk + 6 * dv + 4) + states.numel() + nstates.numel()
                       + bh * (dk * dv + dk))
         row = record(totals["mlstm_chunked_bwd"], "mlstm_chunked_bwd",
@@ -3905,6 +3923,124 @@ def families_phase(dev) -> dict:
     return res
 
 
+# ----------- phase 13: the dry run's counter and data-parallel training -----
+
+# (arch, batch, seq): phase 11's smollm-360m training batch, full width.
+DP_LM_CASE = ("smollm-360m", 4, 4096)
+# Replicas of the data-parallel step, sharing one card.
+DP_LM_REPLICAS = 2
+
+
+def dryrun_dp_phase(dev, card: str) -> dict:
+    """Phase 13: (a) one data-parallel step (``train.step.
+    make_dp_train_step``) of smollm-360m at full width under
+    ``train_policy()`` in bf16, batch ``DP_LM_CASE``, on ``DP_LM_REPLICAS``
+    replicas sharing the card, and one single-device step on the same
+    params and batch: the losses within ``LM_LOSS_TOL`` and the reduced
+    gradients (read back from Adam's first moment, 0.1 x the clipped
+    gradient) per leaf within phase 11's first-step ``LM_GRAD_TOL``; flash
+    attention forward and backward launch exactly ``DP_LM_REPLICAS`` x as
+    often as in the single step. (b) The single-device step counted by
+    ``roofline.op_cost`` on the card (kernels) and on meta: FLOPs, bytes
+    and kernel calls equal; the counted FLOPs, the step's ms (CUDA events)
+    and the one-card roofline's ``compute_s`` and ``memory_s`` (the H100's
+    published peaks) printed beside the card's name and power limit. The
+    DP step's launches are the path ``lm_dp_train``."""
+    from repro_torch.configs.base import ShapeConfig, get_config, train_policy
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import ServingMesh
+    from repro_torch.models.model_factory import build_model
+    from repro_torch.roofline import analysis, op_cost
+    from repro_torch.train.step import (TrainConfig, init_opt_state,
+                                        make_dp_train_step, make_train_step)
+
+    t0 = time.monotonic()
+    arch, batch, seq = DP_LM_CASE
+    cfg = get_config(arch)
+    model = build_model(cfg, train_policy())
+    tcfg = TrainConfig()
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    opt = init_opt_state(params)
+    b0 = next(synthetic_lm_batches(DataConfig(seed=0, global_batch=batch,
+                                              seq_len=seq, vocab_size=cfg.vocab_size)))
+    b0 = {"tokens": b0["tokens"].to(dev), "labels": b0["labels"].to(dev)}
+    mesh = ServingMesh((dev,) * DP_LM_REPLICAS)
+    single = make_train_step(model, tcfg)
+    dp = make_dp_train_step(model, tcfg, mesh)
+
+    ops.reset_launches()
+    _, opt_one, m_one = single(params, opt, b0)
+    torch.cuda.synchronize()
+    one = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    _, opt_dp, m_dp = dp(params, opt, b0)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    rel = _leaf_rel_l2(opt_dp["adam"]["mu"], opt_one["adam"]["mu"])
+    del opt_one, opt_dp
+    torch.cuda.empty_cache()
+    worst = max(rel, key=rel.get)
+    res = {"card": card, "replicas": DP_LM_REPLICAS, "batch": batch, "seq": seq,
+           "loss_single": float(m_one["loss"]), "loss_dp": float(m_dp["loss"]),
+           "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_leaf": worst,
+           "grad_rel_l2_median": statistics.median(rel.values()),
+           "launches_single": {k: v for k, v in one.items() if v},
+           "launches": launches}
+    print(f"  (a) {arch} batch {batch} x {seq} bf16, {DP_LM_REPLICAS} replicas on one "
+          f"card: loss {res['loss_dp']:.5f} (single device {res['loss_single']:.5f}), "
+          f"reduced gradients per-leaf rel L2 max {rel[worst]:.3g} ({worst}), median "
+          f"{res['grad_rel_l2_median']:.3g}; launches {res['launches_single']} single, "
+          f"{ {k: v for k, v in launches.items() if v} } DP [{card}]", flush=True)
+    if not abs(res["loss_dp"] - res["loss_single"]) <= LM_LOSS_TOL:
+        fail(f"DP step loss {res['loss_dp']} vs single device {res['loss_single']}")
+    if rel[worst] > LM_GRAD_TOL["bfloat16"]:
+        fail(f"DP step: reduced gradient {worst} rel L2 {rel[worst]:.3g} > "
+             f"{LM_GRAD_TOL['bfloat16']} of the single-device step's")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if not one[name] or launches[name] != DP_LM_REPLICAS * one[name]:
+            fail(f"DP step launched {name} {launches[name]} times, the single "
+                 f"step {one[name]}: expected {DP_LM_REPLICAS}x")
+
+    # (b) the single-device step timed, then counted on the card and on meta
+    step_ms = events_ms(lambda: single(params, opt, b0), reps=3)
+    with op_cost.count() as on_card:
+        single(params, opt, b0)
+        torch.cuda.synchronize()
+    del params, opt
+    torch.cuda.empty_cache()
+    meta_params = model.init()
+    meta_opt = init_opt_state(meta_params)
+    meta_batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                  for k, v in b0.items()}
+    with op_cost.count() as on_meta:
+        single(meta_params, meta_opt, meta_batch)
+    card_c, meta_c = on_card.as_dict(), on_meta.as_dict()
+    for key in ("flops", "bytes", "kernels"):
+        if card_c[key] != meta_c[key]:
+            fail(f"op_cost {key}: {card_c[key]} counted on the card, "
+                 f"{meta_c[key]} on meta")
+    n_params = analysis.count_params(meta_params)
+    shape = ShapeConfig("train", seq, batch, "train")
+    rf = analysis.Roofline(
+        arch=arch, shape=f"train {batch}x{seq}", mesh="one card", chips=1,
+        hlo_flops_per_chip=card_c["flops"], hlo_bytes_per_chip=card_c["bytes"],
+        collective_bytes_per_chip=0.0, collective_breakdown={},
+        model_flops=analysis.model_flops_for(cfg, shape, n_params, n_params),
+        fusible_bytes_per_chip=card_c["fusible_bytes"])
+    res.update(counted=card_c, counted_meta=meta_c, step_ms=step_ms,
+               roofline=rf.to_dict(), seconds=time.monotonic() - t0)
+    print(f"  (b) {arch} step counted on the card and on meta, equal: "
+          f"{card_c['flops']:.6g} FLOPs, {card_c['bytes']:.6g} bytes, kernels "
+          f"{card_c['kernels']}; the step {step_ms:.2f} ms (CUDA events) against "
+          f"the one-card roofline compute_s {rf.compute_s * 1e3:.2f} ms, memory_s "
+          f"{rf.memory_s * 1e3:.2f} ms (published peaks: {analysis.PEAK_FLOPS:.3g} "
+          f"FLOP/s, {analysis.HBM_BW:.3g} B/s), roofline MFU {rf.mfu:.3f}, "
+          f"measured model-FLOP rate {rf.model_flops / (step_ms / 1e3) / 1e12:.1f} "
+          f"TFLOP/s [{card}]; phase 13 {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 KERNELS = {
     "xnor_gemm": ("src/repro_torch/kernels/csrc/xnor_gemm.cu",
                   "src/repro/kernels/xnor_gemm.py:105"),
@@ -4063,6 +4199,11 @@ def main() -> None:
           "the smoke configs", flush=True)
     families = families_phase(dev)
     clock.done("12")
+    print("phase 13: the dry run's op counter on the card and on meta, and "
+          "smollm-360m trained data-parallel on replicas sharing the card",
+          flush=True)
+    dryrun_dp = dryrun_dp_phase(dev, smi)
+    clock.done("13")
     jamba_launches = dict(jamba["launches"]["prefill"])
     for counts in jamba["launches"]["decode"]:
         for name, n in counts.items():
@@ -4073,7 +4214,8 @@ def main() -> None:
                 "bnn_train_export": train["launches"],
                 "bnn_serve_mesh": mesh["launches"],
                 "bnn_train_resilient": resilient["launches"],
-                "lm_train": lm_train["launches"], **families["launches"]}
+                "lm_train": lm_train["launches"], **families["launches"],
+                "lm_dp_train": dryrun_dp["launches"]}
     for name in KERNELS:
         if not sum(path[name] for path in launches.values()):
             fail(f"kernel {name} was not launched on the main path")
@@ -4085,7 +4227,7 @@ def main() -> None:
          "serve": serve,
          "table2": table2, "jamba": jamba, "lm_loss": lm, "train": train,
          "mesh": mesh, "train_resilient": resilient, "lm_train": lm_train,
-         "families": families, "totals": totals,
+         "families": families, "dryrun_dp": dryrun_dp, "totals": totals,
          "phase_seconds": clock.seconds},
         indent=2))
 

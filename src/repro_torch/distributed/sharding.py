@@ -1,32 +1,264 @@
-"""The BNN serving half of the JAX package's sharding rules (DESIGN.md
-§10): packed weights replicated on every device of a 1-D serving mesh
-(``launch.mesh.ServingMesh``), the batch split into one contiguous shard a
-device.
+"""Sharding rules, as ``repro.distributed.sharding``: the LM rule table
+(param / state / batch tree -> spec tree) and the BNN serving rules.
 
-The JAX package builds ``shard_map`` specs for this (``serve_specs``:
-params ``P()``, images and logits ``P("data")``). The port drives the mesh
-from one process, so the rule becomes data: :func:`replicate` makes one
-packed tree a device and :func:`shard_rows` the size of each device's
-shard. Each replica runs the single-device forward on its shard; samples
-are independent, so the gathered logits equal the unsharded forward's bit
-for bit.
+LM rule table (DESIGN.md §5), the JAX package's word for word:
 
-The LM rule table (``param_spec``, ``state_spec``, ``batch_spec``,
-``activation_mesh``, ``constrain``) is not ported: it waits for the LM
-trainer and dry-run (ROADMAP A6 / A6d).
+* float weight matrices ``w [.., out, in]`` — 2D-sharded: ``out -> model``
+  and ``in -> data`` (the data axis doubles as an FSDP axis). MoE stacks
+  ``[E, out, in]`` shard experts over ``model`` and ``in`` over ``data``
+  when the stack is too big to replicate.
+* packed 1-bit weights ``w_packed [.., out, in/32]`` — ``out -> model``,
+  replicated over data.
+* embeddings / LM head ``[V, D]`` — vocab over ``model``, D over ``data``.
+* norms, biases of tiny fan-out, SSM dynamics, recurrent R — replicated.
+* every rule is divisibility-guarded: an axis that does not divide the
+  dim is left unsharded.
+
+Leading stack axes (periods, per-period layers) are never sharded. A spec
+is a :class:`PartitionSpec`, a tuple of one entry a dim (an axis name, a
+tuple of them, or None), equal as a tuple to the JAX package's. The tree
+forms (:func:`params_shardings`, :func:`state_shardings`,
+:func:`batch_shardings`) return spec trees: the port has no partitioner,
+so a spec is data that the dry run (``launch.dryrun``) reads, through
+:func:`shard_shape`, to size each device's shard and reckon the
+collectives (``roofline.op_cost.collective_bytes``). A mesh is anything
+with the ``.shape`` of a ``jax.sharding.Mesh`` (axis name -> size):
+``launch.mesh.AbstractMesh``, the production meshes, or a
+``ServingMesh``. The activation constraints (``activation_mesh``,
+``constrain``, ``constrain_seq``) are not ported: with no partitioner they
+would be identity functions (ROADMAP A5b).
+
+BNN serving (DESIGN.md §10): packed weights replicated on every device of
+a 1-D serving mesh (``launch.mesh.ServingMesh``), the batch split into one
+contiguous shard a device. The JAX package builds ``shard_map`` specs for
+this (``serve_specs``); the port drives the mesh from one process, so the
+rule becomes data: :func:`replicate` makes one packed tree a device and
+:func:`shard_rows` the size of each device's shard. Each replica runs the
+single-device forward on its shard; samples are independent, so the
+gathered logits equal the unsharded forward's bit for bit.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Any, Optional
+
 import torch
 
+from repro_torch import tree
 from repro_torch.tree import tree_map
+
+# mesh-axis names used across the project
+DATA_AXES = ("pod", "data")      # batch / FSDP axes (pod absent on 1-pod mesh)
+MODEL_AXIS = "model"
+
+_REPLICATED_LEAVES = {
+    "scale", "bias", "gamma", "beta", "mean", "var", "gn_scale",
+    "conv_w", "conv_b", "A_log", "D", "R",
+}
+
+
+class PartitionSpec(tuple):
+    """``jax.sharding.PartitionSpec``'s counterpart: one entry a dim, an
+    axis name, a tuple of axis names or None (replicated); compares equal
+    to a tuple of its entries."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def _shape(leaf) -> tuple:
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def _axis_size(mesh, name) -> int:
+    if isinstance(name, tuple):
+        return math.prod(_axis_size(mesh, n) for n in name)
+    return mesh.shape[name] if name in mesh.shape else 1
+
+
+def _guard(mesh, dim: int, axis) -> Optional[Any]:
+    """axis if it exists in the mesh and divides dim, else None."""
+    if axis is None:
+        return None
+    if isinstance(axis, tuple):
+        axis = tuple(a for a in axis if a in mesh.shape)
+        if not axis:
+            return None
+        axis = axis if len(axis) > 1 else axis[0]
+    elif axis not in mesh.shape:
+        return None
+    return axis if dim % _axis_size(mesh, axis) == 0 else None
+
+
+# Megatron-style roles: column-parallel projections put the tensor axis
+# on their OUT dim (q/k/v/up/gate produce model-sharded features);
+# row-parallel projections contract over the model-sharded feature and
+# put FSDP on their OUT dim (down/o/out: partial-sum -> one all-reduce /
+# reduce-scatter per block instead of re-gathering the wide activation).
+_ROW_PARALLEL = {"down_proj", "o_proj", "out_proj"}
+
+
+def _matrix_spec(mesh, shape, *, name: str) -> P:
+    """Weight base shape [..., out, in] -> role-dependent spec.
+
+    column-parallel: (model on out, (pod,data)-FSDP on in)
+    row-parallel:    ((pod,data)-FSDP on out, model on in)
+    MoE stacks [E, out, in]: experts over model, FSDP on in only for a
+    stack past 1e9 elements (arctic, jamba); smaller stacks replicate
+    over data.
+    """
+    if len(shape) >= 3:  # stacked experts
+        e_ax = _guard(mesh, shape[0], MODEL_AXIS)
+        big = float(math.prod(shape)) > 1e9
+        in_ax = _guard(mesh, shape[-1], DATA_AXES) if big else None
+        return P(e_ax, *(None,) * (len(shape) - 2), in_ax)
+    if name in _ROW_PARALLEL:
+        return P(_guard(mesh, shape[-2], DATA_AXES),
+                 _guard(mesh, shape[-1], MODEL_AXIS))
+    return P(_guard(mesh, shape[-2], MODEL_AXIS),
+             _guard(mesh, shape[-1], DATA_AXES))
+
+
+def param_spec(mesh, path, leaf) -> P:
+    """The spec of one param leaf; ``path`` is its tuple of dict keys and
+    list indices (``tree.leaves_with_path``)."""
+    keys = list(path)
+    name = keys[-1] if keys else ""
+    parent = next((k for k in reversed(keys[:-1]) if isinstance(k, str)), "")
+    shape = _shape(leaf)
+    # stacked layers carry one leading period/layer axis — never sharded
+    stacked = 1 if "layers" in keys and len(shape) >= 1 else 0
+    base = shape[stacked:]
+    lead = (None,) * stacked
+
+    if name in _REPLICATED_LEAVES or len(base) == 0:
+        return P()
+    if len(base) == 1:
+        if name in ("b", "alpha") and parent not in _ROW_PARALLEL:
+            return P(*lead, _guard(mesh, base[0], MODEL_AXIS))
+        return P()
+    if parent == "router":  # tiny, accuracy-critical — replicate
+        return P()
+    if name == "w_packed":
+        if len(base) >= 3:  # stacked experts [E, out, kw]
+            return P(*lead, _guard(mesh, base[0], MODEL_AXIS),
+                     *(None,) * (len(base) - 1))
+        return P(*lead, _guard(mesh, base[-2], MODEL_AXIS), None)
+    if name == "table":  # embedding [V, D]
+        return P(_guard(mesh, base[0], MODEL_AXIS),
+                 _guard(mesh, base[1], DATA_AXES))
+    if name == "w":
+        return P(*lead, *_matrix_spec(mesh, base, name=parent))
+    return P()
+
+
+def params_shardings(mesh, params) -> Any:
+    return tree.map_with_path(lambda path, leaf: param_spec(mesh, path, leaf),
+                              params)
+
+
+# ----------------------------- streaming state -------------------------------
+
+
+def state_spec(mesh, path, leaf) -> P:
+    """KV caches [L, B, S, H, Dh]; SSM/xLSTM states [L, B, ...].
+
+    Batch shards over (pod, data) when divisible; for batch-1
+    long-context the KV sequence axis shards over model instead; other
+    feature axes shard over model when they divide.
+    """
+    keys = list(path)
+    shape = _shape(leaf)
+    if len(shape) == 0:
+        return P()
+    name = keys[-1] if keys else ""
+    top = keys[0] if keys else ""
+    if top == "kv" or name in ("k", "v"):
+        # [L, B, S, Hkv, Dh]
+        b_ax = _guard(mesh, shape[1], DATA_AXES)
+        if b_ax is None:
+            b_ax = _guard(mesh, shape[1], "data")
+        s_ax = _guard(mesh, shape[2], MODEL_AXIS)
+        return P(None, b_ax, s_ax, None, None)
+    if top == "memory" or name == "memory":
+        # encoder memory [B, S, D]
+        return P(_guard(mesh, shape[0], DATA_AXES),
+                 _guard(mesh, shape[1], MODEL_AXIS), None)
+    if len(shape) >= 2:
+        b_ax = _guard(mesh, shape[1], DATA_AXES) or _guard(mesh, shape[1], "data")
+        rest = [None] * (len(shape) - 2)
+        # shard the largest divisible feature axis over model
+        cands = [
+            (shape[i], i) for i in range(2, len(shape))
+            if _guard(mesh, shape[i], MODEL_AXIS) is not None
+        ]
+        if cands:
+            _, i = max(cands)
+            rest[i - 2] = MODEL_AXIS
+        return P(None, b_ax, *rest)
+    return P()
+
+
+def state_shardings(mesh, state) -> Any:
+    return tree.map_with_path(lambda path, leaf: state_spec(mesh, path, leaf),
+                              state)
+
+
+# ------------------------------- batches -------------------------------------
+
+
+def batch_spec(mesh, path, leaf) -> P:
+    shape = _shape(leaf)
+    if len(shape) == 0:
+        return P()
+    b_ax = _guard(mesh, shape[0], DATA_AXES) or _guard(mesh, shape[0], "data")
+    return P(b_ax, *(None,) * (len(shape) - 1))
+
+
+def batch_shardings(mesh, batch) -> Any:
+    return tree.map_with_path(lambda path, leaf: batch_spec(mesh, path, leaf),
+                              batch)
+
+
+def replicated(mesh) -> P:
+    """The spec of a leaf held whole on every device."""
+    del mesh
+    return P()
+
+
+def shard_shape(mesh, shape, spec) -> tuple:
+    """The shape of one device's shard of a ``shape`` leaf laid out by
+    ``spec``: each dim divided by the size of the axes it is sharded over
+    (the rules only shard a dim its axes divide; ``ValueError`` if not)."""
+    shape = tuple(shape)
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than shape {shape}")
+    out = list(shape)
+    for i, axis in enumerate(spec):
+        if axis is None:
+            continue
+        size = _axis_size(mesh, axis)
+        if shape[i] % size:
+            raise ValueError(f"dim {i} of {shape} does not divide over {axis!r} "
+                             f"({size} devices)")
+        out[i] = shape[i] // size
+    return tuple(out)
+
+
+# --------------------------- BNN serving (DESIGN.md §10) ----------------------
 
 
 def mesh_devices(mesh) -> int:
-    """Device count of a serving mesh (1 for ``None``: the single-device
-    dispatch path)."""
-    return 1 if mesh is None else len(mesh)
+    """Device count of a mesh, every axis counted (1 for ``None``: the
+    single-device dispatch path)."""
+    return 1 if mesh is None else math.prod(mesh.shape.values())
 
 
 def replicate(packed: dict, mesh) -> list:
@@ -58,4 +290,7 @@ def shard_rows(rows: int, devices: int) -> int:
     return rows // devices
 
 
-__all__ = ["mesh_devices", "replicate", "shard_rows"]
+__all__ = ["DATA_AXES", "MODEL_AXIS", "P", "PartitionSpec", "batch_shardings",
+           "batch_spec", "mesh_devices", "param_spec", "params_shardings",
+           "replicate", "replicated", "shard_rows", "shard_shape",
+           "state_shardings", "state_spec"]

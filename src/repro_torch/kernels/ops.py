@@ -30,6 +30,15 @@ not depend on it; a tiling a kernel cannot run raises ``ValueError``,
 on the CPU too, where the twins ignore a valid one. ``unpack_gemm`` and
 ``pack_rows`` take none.
 
+On ``meta`` tensors the LM kernels' entries (``flash_attention``,
+``ssm_scan_chunk``, ``mlstm_chunked``, their backwards and
+``unpack_gemm``) return empty meta results of the shapes and dtypes the
+kernel gives (the row log-sum-exp and the chunk states too), running
+neither kernel nor twin: a whole step can be traced on meta
+(``launch.dryrun``). Under a ``roofline.op_cost`` counter each of their
+calls counts as one call of its kernel, by formula, whichever of kernel,
+twin or meta stand-in runs.
+
 ``LAUNCHES[name]`` counts the launches of each kernel, and nothing
 else; :func:`reset_launches` sets every count to 0 and
 :func:`add_launches` adds the launches a replayed CUDA graph makes
@@ -39,6 +48,7 @@ else; :func:`reset_launches` sets every count to 0 and
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -47,6 +57,7 @@ from repro_torch.core.bitops import PACK_BITS, PACKED_DTYPE
 from repro_torch.core.im2col import conv_out_size
 from repro_torch.kernels import autotune, build, ref
 from repro_torch.kernels.autotune import AUTO
+from repro_torch.roofline import op_cost
 
 LAUNCHES = {"xnor_gemm": 0, "fused_xnor_gemm": 0, "fused_direct_conv": 0,
             "megakernel_conv_stage": 0, "megakernel_chain": 0,
@@ -145,6 +156,31 @@ def _on_cuda(kernel: str, *tensors: torch.Tensor) -> bool:
         raise ValueError(f"no kernel for device {dev}")
     _check_no_grad(kernel, *tensors)
     return True
+
+
+def _on_meta(*tensors: torch.Tensor) -> bool:
+    """True if every operand is a meta tensor: an LM kernel's entry then
+    returns meta results (``_meta``) and runs nothing."""
+    return all(t.device.type == "meta" for t in tensors)
+
+
+def _meta(*shapes_dtypes) -> tuple:
+    """Empty meta tensors, one a ``(shape, dtype)``."""
+    return tuple(torch.empty(shape, dtype=dtype, device="meta")
+                 for shape, dtype in shapes_dtypes)
+
+
+def _counted(name: str, flops):
+    """Count each call of the decorated entry as one call of kernel
+    ``name`` under a roofline counter (``op_cost.kernel``), ``flops`` its
+    FLOPs from the call's arguments."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            return op_cost.kernel(name, flops(*args, **kwargs), fn, *args,
+                                  **kwargs)
+        return call
+    return wrap
 
 
 def _stream(dev: torch.device) -> int:
@@ -365,6 +401,8 @@ def pack_rows(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@_counted("unpack_gemm",
+          lambda wp, x: op_cost.gemm_flops(wp.shape[0], x.shape[0], x.shape[1]))
 def unpack_gemm(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Packed weights ``[M, KW]`` x real input ``[KW*32, N]`` (float32 or
     bfloat16, any strides) -> float32 ``[M, N]``: the weights unpack to
@@ -375,6 +413,8 @@ def unpack_gemm(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     (m, kw), (k, n) = wp.shape, x.shape
     if k != kw * PACK_BITS:
         raise ValueError(f"x has {k} rows, expected KW*32 = {kw * PACK_BITS}")
+    if _on_meta(wp, x):
+        return _meta(((m, n), torch.float32))[0]
     if not _on_cuda("unpack_gemm", wp, x):
         return bitops.packed_matmul_unpack(wp, x, compute_dtype=x.dtype)
     if m * n > _INT_MAX:
@@ -442,11 +482,18 @@ def _check_scan_grid(b: int, c: int, di: int, ds: int) -> None:
         raise ValueError(f"ssm_scan_chunk of [{b}, {c}, {di}] exceeds the grid")
 
 
+def _scan_flops(dt, xh, bmat, cmat, a, h0, *grads) -> float:
+    return op_cost.scan_flops(*dt.shape, a.shape[1])
+
+
+@_counted("ssm_scan_chunk", _scan_flops)
 def _ssm_forward(dt, xh, bmat, cmat, a, h0):
-    if not _on_cuda("ssm_scan_chunk", dt, xh, bmat, cmat, a, h0):
-        return ref.ssm_scan_chunk_ref(dt, xh, bmat, cmat, a, h0)
     b, c, di = dt.shape
     ds = a.shape[1]
+    if _on_meta(dt, xh, bmat, cmat, a, h0):
+        return _meta(((b, c, di), torch.float32), ((b, di, ds), torch.float32))
+    if not _on_cuda("ssm_scan_chunk", dt, xh, bmat, cmat, a, h0):
+        return ref.ssm_scan_chunk_ref(dt, xh, bmat, cmat, a, h0)
     _check_scan_grid(b, c, di, ds)
     y = torch.empty((b, c, di), dtype=torch.float32, device=dt.device)
     h_last = torch.empty((b, di, ds), dtype=torch.float32, device=dt.device)
@@ -478,6 +525,7 @@ class _SsmScanChunk(torch.autograd.Function):
         return ssm_scan_chunk_bwd(*ctx.saved_tensors, dy, dh_last)
 
 
+@_counted("ssm_scan_chunk_bwd", _scan_flops)
 def ssm_scan_chunk_bwd(dt: torch.Tensor, xh: torch.Tensor, bmat: torch.Tensor,
                        cmat: torch.Tensor, a: torch.Tensor, h0: torch.Tensor,
                        dy: torch.Tensor, dh_last: torch.Tensor
@@ -500,6 +548,10 @@ def ssm_scan_chunk_bwd(dt: torch.Tensor, xh: torch.Tensor, bmat: torch.Tensor,
         _check_strided(name, x, (torch.float32,), 3)
         if tuple(x.shape) != want:
             raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {want}")
+    if _on_meta(dt, xh, bmat, cmat, a, h0, dy, dh_last):
+        f32 = torch.float32
+        return _meta(((b, c, di), f32), ((b, c, di), f32), ((b, c, ds), f32),
+                     ((b, c, ds), f32), ((di, ds), f32), ((b, di, ds), f32))
     if not _on_cuda("ssm_scan_chunk_bwd", dt, xh, bmat, cmat, a, h0, dy, dh_last):
         return ref.ssm_scan_chunk_bwd_ref(dt, xh, bmat, cmat, a, h0, dy, dh_last)
     _check_scan_grid(b, c, di, ds)
@@ -581,13 +633,22 @@ def _check_flash_grid(q: torch.Tensor) -> None:
         raise ValueError(f"flash_attention of [{bh}, {sq}, {dh}] exceeds the grid")
 
 
+def _flash_dims(q, k) -> tuple:
+    """(BH, Sq, Skv, Dh) of a flash call."""
+    return q.shape[0], q.shape[1], k.shape[1], q.shape[2]
+
+
+@_counted("flash_attention", lambda q, k, v, causal:
+          op_cost.flash_flops(*_flash_dims(q, k), causal))
 def _flash_forward(q, k, v, causal):
     """(out, lse): the output and its float32 row log-sum-exp ``[BH,
     Sq]`` (``m + log l``; -inf for a row with no keys)."""
+    bh, sq, dh = q.shape
+    if _on_meta(q, k, v):
+        return _meta((q.shape, q.dtype), ((bh, sq), torch.float32))
     if not _on_cuda("flash_attention", q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
     _check_flash_grid(q)
-    bh, sq, dh = q.shape
     skv = k.shape[1]
     for name, t in (("q", q), ("k", k), ("v", v)):
         _aligned(name, t)
@@ -626,6 +687,8 @@ class _FlashAttention(torch.autograd.Function):
                                      causal=ctx.causal), None)
 
 
+@_counted("flash_attention_bwd", lambda q, k, v, o, lse, do, causal=True:
+          op_cost.flash_flops(*_flash_dims(q, k), causal, backward=True))
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, causal: bool = True
@@ -653,6 +716,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tuple(lse.shape) != (bh, sq) or tuple(v.shape) != (bh, skv, dh):
         raise ValueError(f"lse {tuple(lse.shape)} or v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if _on_meta(q, k, v, o, lse, do):
+        return _meta((q.shape, q.dtype), (k.shape, k.dtype), (v.shape, v.dtype))
     if not _on_cuda("flash_attention_bwd", q, k, v, o, lse, do):
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
     _check_flash_grid(q)
@@ -728,14 +793,22 @@ def _check_mlstm_grid(bh: int, s: int, dk: int, dv: int, chunk: int) -> int:
     return ln
 
 
+@_counted("mlstm_chunked", lambda q, k, v, logi, logf, chunk:
+          op_cost.mlstm_flops(*q.shape, v.shape[2], chunk))
 def _mlstm_forward(q, k, v, logi, logf, chunk):
     """(y, C, n, m, states, nstates): the outputs and the states entering
     chunks 1.. that the backward takes."""
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    if _on_meta(q, k, v, logi, logf):
+        nc = s // min(chunk, s) if s else 0
+        f32 = torch.float32
+        return _meta(((bh, s, dv), f32), ((bh, dk, dv), f32), ((bh, 1, dk), f32),
+                     ((bh, 1, 1), f32), ((bh, nc - 1, dk, dv), f32),
+                     ((bh, nc - 1, dk), f32))
     if not _on_cuda("mlstm_chunked", q, k, v, logi, logf):
         return ref.mlstm_chunked_ref(q, k, v, logi, logf, chunk=chunk,
                                      return_states=True)
-    bh, s, dk = q.shape
-    dv = v.shape[-1]
     ln = _check_mlstm_grid(bh, s, dk, dv, chunk)
     nc = s // ln
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -795,6 +868,8 @@ class _MlstmChunked(torch.autograd.Function):
                                    dC, dn, chunk=ctx.chunk), None)
 
 
+@_counted("mlstm_chunked_bwd", lambda q, k, v, *saved, chunk=128, **grads:
+          op_cost.mlstm_flops(*q.shape, v.shape[2], chunk, backward=True))
 def mlstm_chunked_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       logi: torch.Tensor, logf: torch.Tensor, y: torch.Tensor,
                       states: torch.Tensor, nstates: torch.Tensor,
@@ -829,6 +904,8 @@ def mlstm_chunked_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want}")
     operands = [q, k, v, logi, logf, y, states, nstates, dy]
     operands += [t for t in (dC, dn) if t is not None]
+    if _on_meta(*operands):
+        return _meta(*((t.shape, t.dtype) for t in (q, k, v, logi, logf)))
     if not _on_cuda("mlstm_chunked_bwd", *operands):
         return ref.mlstm_chunked_bwd_ref(q, k, v, logi, logf, y, states,
                                          nstates, dy, dC, dn, chunk=chunk)

@@ -18,12 +18,17 @@ On the CPU a mesh of ``n`` entries ``cpu:0 .. cpu:n-1`` is the counterpart
 of the JAX package's forced host devices: every entry is the CPU, and the
 shards run one after another through the plain-torch twins.
 
-The LM dry-run's ``make_production_mesh`` is not ported (ROADMAP A6d).
+The LM dry run's production meshes (``SINGLE_POD``, ``MULTI_POD``,
+:func:`make_production_mesh`) are abstract: an :class:`AbstractMesh` holds
+the axis names and sizes the rule table (``distributed.sharding``) and the
+roofline read, and no device.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -91,4 +96,49 @@ def make_serving_mesh(n_devices: Optional[int] = None, *,
     return ServingMesh(tuple(torch.device(dev.type, i) for i in range(n)))
 
 
-__all__ = ["ServingMesh", "make_serving_mesh"]
+# Both meshes carry the full (pod, data, model) axis-name set so one
+# sharding-rule table serves both; single-pod just has pod=1.
+SINGLE_POD = (1, 16, 16)              # 256 chips
+MULTI_POD = (2, 16, 16)               # 512 chips
+PRODUCTION_AXES = ("pod", "data", "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh of ``axis_sizes`` devices on ``axis_names``, with no device
+    behind it: what the sharding rules and the dry run read of a
+    ``jax.sharding.Mesh`` (``.shape``, ``.axis_names``, ``.size``)."""
+
+    axis_sizes: tuple
+    axis_names: tuple = PRODUCTION_AXES
+
+    def __post_init__(self):
+        if len(self.axis_sizes) != len(self.axis_names):
+            raise ValueError(f"{len(self.axis_sizes)} axis sizes for the axes "
+                             f"{self.axis_names}")
+        if any(int(n) < 1 for n in self.axis_sizes):
+            raise ValueError(f"mesh axes need >= 1 device, got {self.axis_sizes}")
+
+    @property
+    def shape(self) -> collections.OrderedDict:
+        """Axis name -> size, in axis order (``jax.sharding.Mesh.shape``)."""
+        return collections.OrderedDict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The JAX dry run's production mesh, ``SINGLE_POD`` (256 devices) or
+    ``MULTI_POD`` (512) over ``("pod", "data", "model")``, as an
+    :class:`AbstractMesh`: it touches no device and opens no process
+    group. The port plans such a fleet from one process, which cannot run
+    it: the dry run (``launch.dryrun``) shards every cell by the rule table
+    against this mesh and reckons its cost per device; training runs on a
+    ``ServingMesh`` of the devices one process drives."""
+    return AbstractMesh(MULTI_POD if multi_pod else SINGLE_POD)
+
+
+__all__ = ["AbstractMesh", "MULTI_POD", "SINGLE_POD", "ServingMesh",
+           "make_production_mesh", "make_serving_mesh"]

@@ -4,10 +4,21 @@ latent clip, global-norm clip and schedule, checksummed async
 checkpoints with auto-resume, and the fault-tolerance monitor.
 
 Runs on CUDA (``train(device=...)`` takes another device, as the tests
-do; the CLI has the JAX launcher's flags and no device flag). One card:
-with more than one CUDA device visible the JAX launcher shards over a
-(data, model) mesh, and the port has no LM sharding rules yet (ROADMAP
-A6d), so ``train`` raises. Every family trains: a config fed by
+do; the CLI has the JAX launcher's flags and no device flag), on every
+visible card: ``train(mesh=None)`` builds a ``ServingMesh`` of them, and
+``train(mesh=ServingMesh(...))`` takes any 1-D mesh (CPU entries, or
+several replicas sharing one card). One device runs
+``train.step.make_train_step``; more run data parallelism
+(``train.step.make_dp_train_step``): the params and optimizer state live
+on the mesh's first device, each replica takes the gradient of its batch
+shard and the gradients are averaged there in mesh order. The JAX
+launcher, given the same devices, puts up to 16 of them on the model axis
+(``plan_mesh_for``, ``distributed.fault_tolerance.make_elastic_mesh``)
+and shards the weights by the rule table; the port replicates the params
+on every device until the model axis's tensor-parallel layers are ported
+(ROADMAP A5b). An MoE config's balance loss is batch-global: on several
+devices it is formed from the router terms of every shard, and with
+``--microbatches`` as well the step raises. Every family trains: a config fed by
 embeddings (pixtral-12b, seamless-m4t-large-v2) gets them derived from
 each batch's tokens as the JAX launcher derives them
 (``stub_embeddings``). Each step is eager PyTorch: no
@@ -32,11 +43,12 @@ from repro_torch.configs.base import (float_policy, get_config, smoke_config,
 from repro_torch.core.bnn import resolve_device
 from repro_torch.data.pipeline import DataConfig, Prefetcher, synthetic_lm_batches
 from repro_torch.distributed.fault_tolerance import (HeartbeatMonitor,
-                                                     StragglerDetector,
-                                                     make_elastic_mesh)
+                                                     StragglerDetector)
+from repro_torch.launch.mesh import ServingMesh, make_serving_mesh
 from repro_torch.models.model_factory import build_model
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.train.step import TrainConfig, init_opt_state, make_train_step
+from repro_torch.train.step import (TrainConfig, init_opt_state,
+                                    make_dp_train_step, make_train_step)
 
 
 def stub_embeddings(tokens: torch.Tensor, d_model: int) -> torch.Tensor:
@@ -50,15 +62,15 @@ def stub_embeddings(tokens: torch.Tensor, d_model: int) -> torch.Tensor:
     return torch.from_numpy(emb)
 
 
-def _refuse_what_is_not_ported(dev: torch.device) -> None:
-    if dev.type == "cuda" and torch.cuda.device_count() > 1:
-        n = torch.cuda.device_count()
-        grid, axes = make_elastic_mesh(list(range(n)), model_parallel=min(n, 16))
-        raise NotImplementedError(
-            f"{n} CUDA devices are visible: the JAX launcher would shard over "
-            f"a {dict(zip(axes, grid.shape))} mesh, and the port has no LM "
-            "sharding rules yet (ROADMAP A6d); make one card visible "
-            "(CUDA_VISIBLE_DEVICES=0)")
+def train_mesh(device=None, mesh=None) -> ServingMesh:
+    """The mesh ``train`` runs on: ``mesh`` when given, else every visible
+    card (``make_serving_mesh``) on CUDA, or the one device named."""
+    if mesh is not None:
+        return mesh
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return make_serving_mesh(device=dev)
+    return ServingMesh((dev,))
 
 
 def train(
@@ -76,12 +88,17 @@ def train(
     log_every: int = 10,
     seed: int = 0,
     device=None,
+    mesh: ServingMesh | None = None,
 ) -> dict:
+    """Train ``arch`` for ``steps`` steps on ``train_mesh(device, mesh)``:
+    one device, or data parallelism over several with the params on the
+    first (module docstring). Returns the params, the losses and the last
+    step's metrics."""
     cfg = smoke_config(arch) if smoke else get_config(arch)
     policy = train_policy() if quantized else float_policy()
     model = build_model(cfg, policy)
-    dev = resolve_device(device)
-    _refuse_what_is_not_ported(dev)
+    mesh = train_mesh(device, mesh)
+    dev = mesh.devices[0]
 
     dcfg = DataConfig(seed=seed, global_batch=batch, seq_len=seq,
                       vocab_size=cfg.vocab_size)
@@ -93,7 +110,8 @@ def train(
         adamw=AdamWConfig(lr=lr, weight_decay=0.01, latent_clip=quantized),
         microbatches=microbatches,
     )
-    step_fn = make_train_step(model, tcfg)
+    step_fn = (make_train_step(model, tcfg) if len(mesh) == 1
+               else make_dp_train_step(model, tcfg, mesh))
 
     start_step = 0
     writer = None

@@ -25,6 +25,7 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (Finish, Params, QuantPolicy, apply_rope,
                                        init_proj, as_drawn, proj)
+from repro_torch.roofline import op_cost
 
 # Above this many score elements per (q, kv) pair, the chunked online-
 # softmax path runs, so the [Sq, Skv] score matrix never exists whole.
@@ -103,14 +104,14 @@ def _attend_chunked(
     scale = dh ** -0.5
     if kv_valid is None:
         kv_valid = torch.ones((skv,), dtype=torch.bool, device=q.device)
-    outs = []
-    for q0 in range(0, sq, qc):
+    outs, q_chunks = [], op_cost.trips(range(0, sq, qc))
+    for q0 in q_chunks:
         q5 = q[:, q0:q0 + qc].reshape(b, qc, hkv, groups, dh)
         qpos = q_positions[q0:q0 + qc]
         acc = torch.zeros((b, hkv, groups, qc, dh), device=q.device)
         mx = torch.full((b, hkv, groups, qc), -torch.inf, device=q.device)
         den = torch.zeros((b, hkv, groups, qc), device=q.device)
-        for k0 in range(0, skv, kc):
+        for k0 in op_cost.trips(range(0, skv, kc)):
             kj, vj = k[:, k0:k0 + kc], v[:, k0:k0 + kc]
             s = _scores(q5, kj, scale)
             msk = _mask_for(qpos, kv_positions[k0:k0 + kc], causal=causal,
@@ -128,7 +129,7 @@ def _attend_chunked(
         out = acc / torch.clamp(den, min=1e-30)[..., None]
         # [B, Hkv, G, qc, Dh] -> [B, qc, H, Dh]
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, qc, h, dh).to(q.dtype))
-    return torch.cat(outs, dim=1)
+    return q_chunks.cat(outs, dim=1)
 
 
 def _attend(

@@ -11,6 +11,9 @@ matmul of the network. A projection is packed iff its key ends in
 Initializers draw from a ``torch.Generator`` on the device the params
 live on. They take ``finish``, applied to each projection dict as soon
 as it is drawn (identity, or packing: see ``transformer.init_lm_params``).
+Given ``None`` for the generator they draw nothing: every leaf is an
+empty tensor on the ``meta`` device, with the shape and dtype the draw
+would have (``init_device``), so a full-width tree costs no memory.
 """
 
 from __future__ import annotations
@@ -57,8 +60,17 @@ def as_drawn(params: Params) -> Params:
     return params
 
 
-def randn(generator: torch.Generator, shape, std: float) -> torch.Tensor:
-    """``N(0, std²)`` float32 draws on the generator's device."""
+def init_device(generator) -> torch.device:
+    """Where an initializer puts its params: the generator's device, or
+    ``meta`` for no generator (shapes and dtypes, nothing drawn)."""
+    return torch.device("meta") if generator is None else generator.device
+
+
+def randn(generator, shape, std: float) -> torch.Tensor:
+    """``N(0, std²)`` float32 draws on the generator's device; an empty
+    meta tensor of that shape for no generator."""
+    if generator is None:
+        return torch.empty(shape, device="meta")
     return torch.randn(shape, generator=generator,
                        device=generator.device) * std
 
@@ -67,7 +79,7 @@ def init_proj(generator: torch.Generator, d_in: int, d_out: int, *,
               bias: bool = False, finish: Finish = as_drawn) -> Params:
     p = {"w": randn(generator, (d_out, d_in), d_in ** -0.5)}
     if bias:
-        p["b"] = torch.zeros((d_out,), device=generator.device)
+        p["b"] = torch.zeros((d_out,), device=init_device(generator))
     return finish(p)
 
 

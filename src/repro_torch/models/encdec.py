@@ -36,13 +36,13 @@ from repro_torch.core.bnn import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.common import (Finish, Params, QuantPolicy, as_drawn,
-                                       embed, init_embedding, init_layernorm,
-                                       layernorm, randn, softmax_cross_entropy,
-                                       stack_trees)
+                                       embed, init_device, init_embedding,
+                                       init_layernorm, layernorm, randn,
+                                       softmax_cross_entropy, stack_trees)
 
 
 def _init_enc_layer(generator: torch.Generator, cfg, finish: Finish) -> Params:
-    dev = generator.device
+    dev = init_device(generator)
     return {
         "norm1": init_layernorm(cfg.d_model, dev),
         "attn": attn_mod.init_attention(generator, cfg, finish=finish),
@@ -53,7 +53,7 @@ def _init_enc_layer(generator: torch.Generator, cfg, finish: Finish) -> Params:
 
 
 def _init_dec_layer(generator: torch.Generator, cfg, finish: Finish) -> Params:
-    dev = generator.device
+    dev = init_device(generator)
     return {
         "norm1": init_layernorm(cfg.d_model, dev),
         "self_attn": attn_mod.init_attention(generator, cfg, finish=finish),
@@ -71,7 +71,7 @@ def init_encdec_params(generator: torch.Generator, cfg, *,
     (encoder layers, decoder layers, embedding, LM head); ``finish`` is
     applied to each projection dict as it is drawn, as in
     ``transformer.init_lm_params``."""
-    dev = generator.device
+    dev = init_device(generator)
     enc = [_init_enc_layer(generator, cfg, finish)
            for _ in range(cfg.encoder_layers)]
     dec = [_init_dec_layer(generator, cfg, finish) for _ in range(cfg.num_layers)]
@@ -94,7 +94,9 @@ def _run_layers(body, x, layers: Params, n: int, remat: bool):
     remat = remat and torch.is_grad_enabled()
     for i in range(n):
         lp = tree.tree_map(lambda t: t[i], layers)
-        x = checkpoint(body, x, lp, use_reentrant=False) if remat else body(x, lp)
+        # the bodies draw no random numbers: no RNG state to stash
+        x = (checkpoint(body, x, lp, use_reentrant=False, preserve_rng_state=False)
+             if remat else body(x, lp))
     return x
 
 

@@ -12,6 +12,8 @@ weights.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -19,6 +21,7 @@ from repro_torch.core import bitops
 from repro_torch.core.binarize import QuantMode, binarize_weights
 from repro_torch.models.common import (Finish, Params, QuantPolicy, init_proj,
                                        as_drawn, proj, randn, stack_trees)
+from repro_torch.roofline import op_cost
 
 # --------------------------------- dense ------------------------------------
 
@@ -52,6 +55,8 @@ def init_moe(generator: torch.Generator, cfg, *, finish: Finish = as_drawn) -> P
     e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
 
     def experts(d_out: int, d_in: int, std: float) -> Params:
+        if generator is None:  # the abstract tree: one stacked meta draw
+            return finish({"w": randn(None, (e, d_out, d_in), std)})
         return stack_trees([finish({"w": randn(generator, (d_out, d_in), std)})
                             for _ in range(e)])
 
@@ -61,6 +66,31 @@ def init_moe(generator: torch.Generator, cfg, *, finish: Finish = as_drawn) -> P
         "gate_proj": experts(f, d, d ** -0.5),
         "down_proj": experts(d, f, f ** -0.5),
     }
+
+
+# The collectors of ``balance_terms`` now open, innermost last.
+_BALANCE: list = []
+
+
+@contextlib.contextmanager
+def balance_terms():
+    """Collect the router terms ``(me, ce)`` of every MoE layer that runs
+    in the block, in call order: ``me`` the mean router probability of
+    each expert over the layer's tokens (it carries the gradient), ``ce``
+    the mean count of slots routed to it. The data-parallel step
+    (``train.step.make_dp_train_step``) averages them over its shards to
+    form the whole batch's balance loss (:func:`balance_loss`)."""
+    terms: list = []
+    _BALANCE.append(terms)
+    try:
+        yield terms
+    finally:
+        _BALANCE.remove(terms)
+
+
+def balance_loss(me: torch.Tensor, ce: torch.Tensor) -> torch.Tensor:
+    """The Switch/GShard load-balancing loss ``E * sum_e me_e ce_e``."""
+    return me.shape[-1] * (me * ce).sum()
 
 
 def _capacity(cfg, num_tokens: int) -> int:
@@ -82,14 +112,14 @@ def _expert_matmul(w: Params, x: torch.Tensor, policy: QuantPolicy) -> torch.Ten
     that)."""
     k = x.shape[-1]
     if policy.packed and "w_packed" in w:
-        ys = []
-        for e in range(w["w_packed"].shape[0]):
+        ys, experts = [], op_cost.trips(range(w["w_packed"].shape[0]))
+        for e in experts:
             wv = bitops.unpack_bits(w["w_packed"][e], axis=-1)[:, :k]
             y = torch.matmul(x[:, e].float(), wv.T)          # [B, C, M]
             if "alpha" in w:
                 y = y * w["alpha"][e]
             ys.append(y.to(x.dtype))
-        return torch.stack(ys, dim=1)
+        return experts.stack(ys, dim=1)
     wv = w["w"]
     alpha = None
     if policy.enabled and policy.mode == QuantMode.FAKE_QUANT:
@@ -123,7 +153,9 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg, policy: QuantPolicy,
     # load-balancing auxiliary loss (Switch/GShard)
     me = probs.mean(dim=(0, 1))
     ce = F.one_hot(expert_idx, e).float().sum(2).mean(dim=(0, 1))
-    aux = e * (me * ce).sum()
+    aux = balance_loss(me, ce)
+    if _BALANCE:
+        _BALANCE[-1].append((me, ce))
 
     flat_e = expert_idx.reshape(b, p)
     sort_idx = torch.argsort(flat_e, dim=1, stable=True)

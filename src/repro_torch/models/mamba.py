@@ -19,8 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import (Finish, Params, QuantPolicy, init_proj,
-                                       as_drawn, proj, randn)
+from repro_torch.models.common import (Finish, Params, QuantPolicy, as_drawn,
+                                       init_device, init_proj, proj, randn)
+from repro_torch.roofline import op_cost
 
 
 def _dt_rank(cfg) -> int:
@@ -30,7 +31,7 @@ def _dt_rank(cfg) -> int:
 def init_mamba(generator: torch.Generator, cfg, *, finish: Finish = as_drawn) -> Params:
     d, di, ds = cfg.d_model, cfg.d_inner, cfg.d_state
     r = _dt_rank(cfg)
-    dev = generator.device
+    dev = init_device(generator)
     a = torch.arange(1, ds + 1, dtype=torch.float32, device=dev).expand(di, ds)
     return {
         "in_proj": init_proj(generator, d, 2 * di, finish=finish),
@@ -110,13 +111,13 @@ def mamba(params: Params, x: torch.Tensor, cfg, policy: QuantPolicy, *,
                              f"of it, got S={s}")
         # Each chunk is a view of the whole sequence (batch stride S*di),
         # read in place by the kernel; h_last carries into the next call.
-        h_last, ys = h0.contiguous(), []
-        for t0 in range(0, s, c):
+        h_last, ys, chunks = h0.contiguous(), [], op_cost.trips(range(0, s, c))
+        for t0 in chunks:
             sl = slice(t0, t0 + c)
             h_last, y = _selective_scan_chunk(
                 h_last, (dt[:, sl], xh32[:, sl], bmat[:, sl], cmat[:, sl], a))
             ys.append(y)
-        y = torch.cat(ys, dim=1)
+        y = chunks.cat(ys, dim=1)
 
     y = y + xh.float() * params["D"]
     y = y.to(x.dtype) * F.silu(z)

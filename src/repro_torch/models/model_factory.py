@@ -22,7 +22,7 @@ allocation-free counterpart of ``jax.ShapeDtypeStruct``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -78,20 +78,27 @@ class Model:
     def encdec(self) -> bool:
         return self.cfg.family == "encdec"
 
-    def _init(self, generator: torch.Generator, **kw) -> Params:
+    def _init(self, generator: Optional[torch.Generator], **kw) -> Params:
         init = (encdec_mod.init_encdec_params if self.encdec
                 else tf_mod.init_lm_params)
         return init(generator, self.cfg, **kw)
 
-    def init(self, generator: torch.Generator) -> Params:
-        """Random float params on the generator's device."""
+    def init(self, generator: Optional[torch.Generator] = None) -> Params:
+        """Random float params on the generator's device. With no
+        generator, the abstract tree: every leaf an empty tensor on the
+        ``meta`` device with the shape and dtype of its draw, nothing
+        drawn or allocated (the JAX package's ``jax.eval_shape(model.init,
+        key)``; ``launch.dryrun`` builds full-width cells from it). A
+        ``with torch.device("meta")`` block does not do this: the draws
+        follow the generator's device."""
         return self._init(generator)
 
-    def init_packed(self, generator: torch.Generator) -> Params:
+    def init_packed(self, generator: Optional[torch.Generator] = None) -> Params:
         """The params of ``pack(init(generator))``, drawn and packed one
         projection at a time (MoE stacks expert by expert), so the float
         weights of the whole model never exist: one full-width jamba
-        period is 177 GB in float32 and 5.5 GB packed."""
+        period is 177 GB in float32 and 5.5 GB packed. With no generator,
+        the abstract packed tree on the ``meta`` device, as :meth:`init`."""
         use_scale = self.policy.use_scale
         return self._init(
             generator,

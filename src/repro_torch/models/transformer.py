@@ -43,7 +43,7 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (Finish, Params, QuantPolicy, embed,
-                                       init_embedding, init_layernorm,
+                                       init_device, init_embedding, init_layernorm,
                                        init_rmsnorm, as_drawn, layernorm, randn,
                                        rmsnorm, softmax_cross_entropy,
                                        stack_trees)
@@ -91,7 +91,7 @@ def _norm_fns(cfg):
 def _init_layer(generator: torch.Generator, cfg, kind: LayerKind, *,
                 finish: Finish = as_drawn) -> Params:
     init_norm, _ = _norm_fns(cfg)
-    dev = generator.device
+    dev = init_device(generator)
     p: Params = {"norm1": init_norm(cfg.d_model, dev)}
     if kind.mixer == "attn":
         p["attn"] = attn_mod.init_attention(generator, cfg, finish=finish)
@@ -129,7 +129,7 @@ def init_lm_params(generator: torch.Generator, cfg, *,
                                               cfg.d_model)}
     if cfg.input_kind != "tokens":
         # modality stub: the inputs are precomputed patch/frame embeddings
-        params["in_norm"] = init_norm(cfg.d_model, generator.device)
+        params["in_norm"] = init_norm(cfg.d_model, init_device(generator))
     if not cfg.tie_embeddings:
         # the LM head stays real-valued: a plain param, not a *_proj
         params["lm_head"] = {"w": randn(generator, (cfg.padded_vocab,
@@ -138,7 +138,7 @@ def init_lm_params(generator: torch.Generator, cfg, *,
     periods = [[_init_layer(generator, cfg, kind, finish=finish)
                 for kind in period] for _ in range(num_periods(cfg))]
     params["layers"] = [stack_trees(list(per_pos)) for per_pos in zip(*periods)]
-    params["final_norm"] = init_norm(cfg.d_model, generator.device)
+    params["final_norm"] = init_norm(cfg.d_model, init_device(generator))
     return params
 
 
@@ -268,7 +268,9 @@ def lm_forward(params: Params, cfg, policy: QuantPolicy, *,
 
         for p in range(num_periods(cfg)):
             layers = [_index_tree(lp, p) for lp in params["layers"]]
-            x, *auxes = checkpoint(period_body, x, layers, use_reentrant=False)
+            # a period draws no random numbers: no RNG state to stash
+            x, *auxes = checkpoint(period_body, x, layers, use_reentrant=False,
+                                   preserve_rng_state=False)
             for aux in auxes:
                 aux_total = aux_total + aux
         periods = 0
@@ -309,8 +311,12 @@ def lm_forward(params: Params, cfg, policy: QuantPolicy, *,
 # ------------------------------ entry points ---------------------------------
 
 
+# Weight of the MoE balance loss in the training loss.
+AUX_WEIGHT = 0.01
+
+
 def lm_loss(params, batch: dict, cfg, policy: QuantPolicy, *,
-            remat: bool = True, aux_weight: float = 0.01):
+            remat: bool = True, aux_weight: float = AUX_WEIGHT):
     """The training forward: next-token cross-entropy of ``batch["tokens"]``
     (or of ``batch["input_embeds"]`` where given) against
     ``batch["labels"]`` (``[B, S]``) over the first ``cfg.vocab_size``

@@ -26,7 +26,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (Finish, Params, QuantPolicy, as_drawn,
-                                       init_proj, proj, randn, rmsnorm)
+                                       init_device, init_proj, proj, randn,
+                                       rmsnorm)
+from repro_torch.roofline import op_cost
 
 # The stabilizer's start: exp(m - anything finite) is 0.
 NEG = -1e30
@@ -47,7 +49,7 @@ def init_mlstm(generator: torch.Generator, cfg, *,
         # input and forget gate pre-activations
         "if_proj": init_proj(generator, di, 2 * h, bias=True, finish=finish),
         "down_proj": init_proj(generator, di, d, finish=finish),
-        "gn_scale": torch.ones((di,), device=generator.device),
+        "gn_scale": torch.ones((di,), device=init_device(generator)),
     }
 
 
@@ -131,14 +133,14 @@ def mlstm_cell(q, k, v, logi, logf, state: Optional[dict], *, chunk: int = 256):
                    "m": mk.reshape(b, h)}
 
     qf, kf, vf = q.float(), k.float(), v.float()
-    carry, ys = (C, n, m), []
-    for c0 in range(0, s, c):
+    carry, ys, chunks = (C, n, m), [], op_cost.trips(range(0, s, c))
+    for c0 in chunks:
         sl = slice(c0, c0 + c)
         carry, y = _mlstm_chunk(carry, qf[:, sl], kf[:, sl], vf[:, sl],
                                 logi[:, sl], logf[:, sl])
         ys.append(y)
     C, n, m = carry
-    return torch.cat(ys, dim=1), {"C": C, "n": n, "m": m}
+    return chunks.cat(ys, dim=1), {"C": C, "n": n, "m": m}
 
 
 def mlstm_block(params: Params, x: torch.Tensor, cfg, policy: QuantPolicy, *,
@@ -192,7 +194,7 @@ def init_slstm(generator: torch.Generator, cfg, *,
         "R": randn(generator, (4, h, dh, dh), dh ** -0.5),
         "up_proj": init_proj(generator, d, dff, finish=finish),
         "down_proj": init_proj(generator, dff // 2, d, finish=finish),
-        "gn_scale": torch.ones((d,), device=generator.device),
+        "gn_scale": torch.ones((d,), device=init_device(generator)),
     }
 
 
@@ -233,11 +235,11 @@ def slstm_block(params: Params, x: torch.Tensor, cfg, policy: QuantPolicy, *,
     else:
         carry = (state["h"], state["c"], state["n"], state["m"])
     r_heads = params["R"].permute(1, 2, 0, 3).reshape(h, dh, 4 * dh)
-    ys = []
-    for t in range(s):
+    ys, steps = [], op_cost.trips(range(s))
+    for t in steps:
         carry = _slstm_step(carry, wx[:, t], r_heads, h, dh)
         ys.append(carry[0])
-    y = torch.stack(ys, dim=1).to(x.dtype)                # [B, S, d]
+    y = steps.stack(ys, dim=1).to(x.dtype)                # [B, S, d]
     y = rmsnorm({"scale": params["gn_scale"]}, y)
 
     a, g = proj(params["up_proj"], y, policy).chunk(2, dim=-1)

@@ -34,6 +34,7 @@ on another card is moved to the first with ``.to()``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
@@ -47,11 +48,9 @@ from repro_torch.core.bnn import (BNNConfig, bnn_eval_logits,
                                   xent_and_acc)
 from repro_torch.data.pipeline import DataConfig, synthetic_cifar_batches
 from repro_torch.distributed import compression
-from repro_torch.distributed.sharding import shard_rows
-from repro_torch.optim.adamw import AdamWConfig, adamw_update
-from repro_torch.optim.clip import clip_by_global_norm
-from repro_torch.optim.schedules import cosine_schedule
-from repro_torch.train.step import (TrainConfig, _grads_of, init_opt_state,
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.step import (TrainConfig, _apply_update, _grads_of,
+                                    dp_mesh_mean, dp_shards, init_opt_state,
                                     make_train_step)
 
 
@@ -254,28 +253,14 @@ def make_dp_train_step(task, tcfg: TrainConfig, mesh, *,
     reduce = {"int8": compression.psum_compressed,
               "signsgd": compression.psum_signsgd}.get(grad_compression)
     devices = tuple(mesh.devices)
-    n = len(devices)
-
-    def mesh_mean(xs, home):
-        return (compression._mesh_sum(list(xs)) / n).to(home)
 
     def train_step(params, opt_state, err, batch):
         home = tree.leaves(params)[0].device
-        rows = shard_rows(int(tree.leaves(batch)[0].shape[0]), n)
-        replicas: dict = {home: params}
-        losses, shard_metrics, shard_grads = [], [], []
-        for i, dev in enumerate(devices):
-            if dev not in replicas:
-                replicas[dev] = tree.tree_map(lambda t: t.to(dev), params)
-            shard = tree.tree_map(
-                lambda t: t[i * rows:(i + 1) * rows].to(dev), batch)
-            loss, metrics, grads = _grads_of(task, replicas[dev], shard)
-            losses.append(loss)
-            shard_metrics.append(metrics)
-            shard_grads.append(tree.leaves(grads))
-        per_leaf = list(zip(*shard_grads))
+        losses, shard_metrics, shard_grads = zip(*dp_shards(
+            functools.partial(_grads_of, task), params, batch, devices))
+        per_leaf = list(zip(*map(tree.leaves, shard_grads)))
         if reduce is None:
-            means = [mesh_mean(gs, home) for gs in per_leaf]
+            means = [dp_mesh_mean(gs, home) for gs in per_leaf]
             new_err = err
         else:
             means, rows_out = [], []
@@ -288,17 +273,12 @@ def make_dp_train_step(task, tcfg: TrainConfig, mesh, *,
         leaves = iter(means)
         grads = tree.tree_map(lambda _: next(leaves), params)
 
-        grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
-        step = opt_state["adam"]["count"] + 1  # post-increment, as make_train_step
-        lr_scale = cosine_schedule(step, warmup_steps=tcfg.warmup_steps,
-                                   total_steps=tcfg.total_steps)
-        new_params, new_adam = adamw_update(
-            grads, opt_state["adam"], params, tcfg.adamw, lr_scale=lr_scale,
-            clip_predicate=clip_predicate)
+        new_params, new_opt, gnorm, lr_scale = _apply_update(
+            tcfg, params, opt_state, grads, clip_predicate)
         metrics = {
-            **tree.tree_map(lambda *ms: mesh_mean(ms, home), *shard_metrics),
-            "loss": mesh_mean(losses, home), "grad_norm": gnorm,
+            **tree.tree_map(lambda *ms: dp_mesh_mean(ms, home), *shard_metrics),
+            "loss": dp_mesh_mean(losses, home), "grad_norm": gnorm,
             "lr_scale": lr_scale}
-        return new_params, {"adam": new_adam}, new_err, metrics
+        return new_params, new_opt, new_err, metrics
 
     return train_step

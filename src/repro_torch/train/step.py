@@ -19,6 +19,12 @@ A leaf the loss does not reach (a BatchNorm ``mean``/``var`` buffer in
 training mode) gets a zero gradient, as ``jax.grad`` gives it, so
 Adam's moments and the global norm see the JAX package's tree.
 
+``make_dp_train_step(model, tcfg, mesh)`` is the same step over a 1-D
+``"data"`` mesh (``launch.mesh.ServingMesh``): data parallelism from one
+process, each replica's gradient on its batch shard summed in mesh order
+(``dp_shards``, ``dp_mesh_mean``, which the BNN trainer's
+compressed DP step shares).
+
 ``make_prefill`` / ``make_decode_step`` wrap ``Model.prefill`` /
 ``Model.decode_step``.
 """
@@ -32,6 +38,10 @@ import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.distributed import compression
+from repro_torch.distributed.sharding import shard_rows
+from repro_torch.models import ffn
+from repro_torch.models.transformer import AUX_WEIGHT
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.clip import clip_by_global_norm
 from repro_torch.optim.schedules import cosine_schedule
@@ -94,38 +104,175 @@ def _grads_of(model, params, batch):
             tree.tree_map(lambda _: next(grads), live))
 
 
+def _accumulated_grads(model, params, batch, microbatches: int):
+    """(loss, metrics, grads) of ``batch``, over ``microbatches`` of it
+    taken in order and summed from zeros where there is more than one."""
+    if microbatches <= 1:
+        return _grads_of(model, params, batch)
+    gsum = tree.tree_map(torch.zeros_like, params)
+    losses, mmetrics = [], []
+    mbs = _split_microbatches(batch, microbatches)
+    for i in range(microbatches):
+        mb = tree.tree_map(lambda t, i=i: t[i], mbs)
+        loss, metrics, grads = _grads_of(model, params, mb)
+        gsum = tree.tree_map(torch.add, gsum, grads)
+        losses.append(loss)
+        mmetrics.append(metrics)
+    grads = tree.tree_map(lambda g: g / microbatches, gsum)
+    loss = torch.mean(torch.stack(losses))
+    model_metrics = tree.tree_map(
+        lambda *ms: torch.mean(torch.stack(ms), dim=0), *mmetrics)
+    return loss, model_metrics, grads
+
+
+def _apply_update(tcfg: TrainConfig, params, opt_state, grads, clip_predicate):
+    """One global-norm clip, the schedule on the post-increment count
+    (``cosine_schedule(0)`` is 0.0) and one AdamW update: (new params, new
+    optimizer state, grad norm, lr scale)."""
+    grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
+    step = opt_state["adam"]["count"] + 1
+    lr_scale = cosine_schedule(step, warmup_steps=tcfg.warmup_steps,
+                               total_steps=tcfg.total_steps)
+    new_params, new_adam = adamw_update(
+        grads, opt_state["adam"], params, tcfg.adamw, lr_scale=lr_scale,
+        clip_predicate=clip_predicate)
+    return new_params, {"adam": new_adam}, gnorm, lr_scale
+
+
 def make_train_step(model, tcfg: TrainConfig,
                     clip_predicate: Optional[Callable] = None):
     def train_step(params, opt_state, batch):
-        # Post-increment: adamw_update runs with count + 1, and
-        # cosine_schedule(0) == 0.0.
-        step = opt_state["adam"]["count"] + 1
-        if tcfg.microbatches > 1:
-            gsum = tree.tree_map(torch.zeros_like, params)
-            losses, mmetrics = [], []
-            mbs = _split_microbatches(batch, tcfg.microbatches)
-            for i in range(tcfg.microbatches):
-                mb = tree.tree_map(lambda t, i=i: t[i], mbs)
-                loss, metrics, grads = _grads_of(model, params, mb)
-                gsum = tree.tree_map(torch.add, gsum, grads)
-                losses.append(loss)
-                mmetrics.append(metrics)
-            grads = tree.tree_map(lambda g: g / tcfg.microbatches, gsum)
-            loss = torch.mean(torch.stack(losses))
-            model_metrics = tree.tree_map(
-                lambda *ms: torch.mean(torch.stack(ms), dim=0), *mmetrics)
-        else:
-            loss, model_metrics, grads = _grads_of(model, params, batch)
-
-        grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
-        lr_scale = cosine_schedule(step, warmup_steps=tcfg.warmup_steps,
-                                   total_steps=tcfg.total_steps)
-        new_params, new_adam = adamw_update(
-            grads, opt_state["adam"], params, tcfg.adamw, lr_scale=lr_scale,
-            clip_predicate=clip_predicate)
+        loss, model_metrics, grads = _accumulated_grads(
+            model, params, batch, tcfg.microbatches)
+        new_params, new_opt, gnorm, lr_scale = _apply_update(
+            tcfg, params, opt_state, grads, clip_predicate)
         metrics = {**model_metrics, "loss": loss, "grad_norm": gnorm,
                    "lr_scale": lr_scale}
-        return new_params, {"adam": new_adam}, metrics
+        return new_params, new_opt, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism over a 1-D mesh, from one process.
+# ---------------------------------------------------------------------------
+
+
+def dp_shards(fn: Callable, params, batch, devices) -> list:
+    """``fn(params, shard)`` of each replica, in mesh order: replica ``i``
+    on ``devices[i]`` with its contiguous batch shard
+    (``distributed.sharding.shard_rows``). The params are copied once to
+    each device they are not on; replicas on one device share them."""
+    home = tree.leaves(params)[0].device
+    rows = shard_rows(int(tree.leaves(batch)[0].shape[0]), len(devices))
+    replicas: dict = {home: params}
+    outs = []
+    for i, dev in enumerate(devices):
+        if dev not in replicas:
+            replicas[dev] = tree.tree_map(lambda t: t.to(dev), params)
+        shard = tree.tree_map(lambda t: t[i * rows:(i + 1) * rows].to(dev), batch)
+        outs.append(fn(replicas[dev], shard))
+    return outs
+
+
+def dp_mesh_mean(xs, home: torch.device) -> torch.Tensor:
+    """The replicas' tensors summed in mesh order on the first one's device
+    (``compression._mesh_sum``), divided by their count, moved to
+    ``home``: the JAX package's ``pmean``."""
+    xs = list(xs)
+    return (compression._mesh_sum(xs) / len(xs)).to(home)
+
+
+def _whole_batch_moe_grads(model, params, batch, devices) -> tuple:
+    """(loss, metrics, grads) of an MoE model's loss on the whole batch,
+    each contiguous shard's forward on its replica's device: the
+    cross-entropy is the mean of the shards', and each MoE layer's balance
+    loss is formed from its router terms averaged over the shards
+    (``models.ffn.balance_terms``), which are the whole batch's, so the
+    loss is the single-device loss of the whole batch. One backward
+    through every shard's graph, autograd adding the replicas' gradients
+    onto the params."""
+    home = tree.leaves(params)[0].device
+    live = tree.tree_map(lambda t: t.detach().requires_grad_(True), params)
+
+    def shard_loss(replica, shard):
+        with ffn.balance_terms() as terms:
+            _, metrics = model.loss(replica, shard)
+        return metrics["loss"], terms
+
+    with torch.enable_grad():
+        ces, terms = zip(*dp_shards(shard_loss, live, batch, devices))
+        aux = sum(ffn.balance_loss(dp_mesh_mean(mes, home), dp_mesh_mean(cs, home))
+                  for mes, cs in (zip(*layer) for layer in zip(*terms)))
+        ce = dp_mesh_mean(ces, home)
+        loss = ce + AUX_WEIGHT * aux
+        flat = tree.leaves(live)
+        got = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = iter([torch.zeros_like(p) if g is None else g
+                  for p, g in zip(flat, got)])
+    return (loss.detach(), {"loss": ce.detach(), "aux": aux.detach()},
+            tree.tree_map(lambda _: next(grads), params))
+
+
+def make_dp_train_step(model, tcfg: TrainConfig, mesh,
+                       clip_predicate: Optional[Callable] = None):
+    """:func:`make_train_step` over ``mesh``'s devices (a 1-D
+    ``launch.mesh.ServingMesh``): ``(params, opt_state, batch) -> (params,
+    opt_state, metrics)``, params and optimizer state on one device and the
+    results back there.
+
+    The batch splits into ``len(mesh)`` contiguous shards; replica ``i``
+    takes the gradient of ``model.loss`` on shard ``i`` on
+    ``mesh.devices[i]`` (``tcfg.microbatches`` splitting each shard).
+    The gradients are summed in mesh order on the first replica's device
+    and divided by n, then one global-norm clip, one schedule step and one
+    AdamW update, as the single-device step. ``loss`` and the model's
+    metrics are the replicas' means in mesh order. With equal shards the
+    token-mean loss of the whole batch is the mean of the shards', so the
+    loss and the reduced gradients equal the single-device step's on the
+    whole batch up to the order of float sums.
+
+    An MoE config's balance loss is nonlinear in the batch (a product of
+    two means over every token), so the mean of the shards' losses is not
+    the whole batch's: on more than one replica its step forms the loss
+    from the router terms averaged over the shards
+    (:func:`_whole_batch_moe_grads`), the whole batch's loss, and takes its
+    gradient in one backward. With ``tcfg.microbatches > 1`` as well it
+    raises ``NotImplementedError`` (ROADMAP A5b): the single-device step
+    then balances each microbatch of the whole batch, rows no shard
+    holds together."""
+    devices = tuple(mesh.devices)
+    n = len(devices)
+    moe = n > 1 and bool(model.cfg.num_experts)
+    if moe and tcfg.microbatches > 1:
+        raise NotImplementedError(
+            f"{model.cfg.name} is an MoE config: with microbatches its "
+            "single-device step balances each microbatch of the whole batch, "
+            f"which {n} shards do not hold; data-parallel MoE training with "
+            "microbatches waits for ROADMAP A5b")
+
+    def grads_of(params, shard):
+        return _accumulated_grads(model, params, shard, tcfg.microbatches)
+
+    def train_step(params, opt_state, batch):
+        home = tree.leaves(params)[0].device
+        if moe:
+            loss, model_metrics, grads = _whole_batch_moe_grads(
+                model, params, batch, devices)
+        else:
+            losses, shard_metrics, shard_grads = zip(*dp_shards(
+                grads_of, params, batch, devices))
+            means = iter([dp_mesh_mean(gs, home)
+                          for gs in zip(*map(tree.leaves, shard_grads))])
+            grads = tree.tree_map(lambda _: next(means), params)
+            loss = dp_mesh_mean(losses, home)
+            model_metrics = tree.tree_map(lambda *ms: dp_mesh_mean(ms, home),
+                                          *shard_metrics)
+        new_params, new_opt, gnorm, lr_scale = _apply_update(
+            tcfg, params, opt_state, grads, clip_predicate)
+        metrics = {**model_metrics, "loss": loss, "grad_norm": gnorm,
+                   "lr_scale": lr_scale}
+        return new_params, new_opt, metrics
 
     return train_step
 

@@ -29,6 +29,7 @@ from repro_torch.configs.base import float_policy, smoke_config
 from repro_torch.distributed.fault_tolerance import make_elastic_mesh
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import ServingMesh
 from repro_torch.models.model_factory import build_model
 from repro_torch.models.encdec import encdec_loss
 from repro_torch.models.transformer import lm_loss
@@ -304,12 +305,24 @@ def test_train_learns_and_resumes(tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(monkeypatch):
-    """More than one visible card is refused (A6d); a config fed by
-    embeddings trains (pixtral's smoke config, 2 steps on the CPU)."""
+    """The launcher's mesh: with no mesh it takes every visible card; on a
+    2-entry CPU mesh smollm trains as on one device (losses within rtol
+    1e-5: the float order of the reduce); an MoE config with microbatches
+    on more than one replica is refused (ROADMAP A5b: its balance loss is
+    batch-global); a config fed by embeddings trains (pixtral's smoke
+    config, 2 steps)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A6d.*CUDA_VISIBLE_DEVICES"):
-        launch_train.train("smollm-360m", steps=1)
+    assert launch_train.train_mesh().devices == (torch.device("cuda", 0),
+                                                 torch.device("cuda", 1))
+    monkeypatch.undo()
+    kw = dict(steps=3, batch=4, seq=32, log_every=100, quantized=False)
+    one = launch_train.train("smollm-360m", device="cpu", **kw)
+    two = launch_train.train("smollm-360m", mesh=ServingMesh(("cpu", "cpu")), **kw)
+    np.testing.assert_allclose(two["losses"], one["losses"], rtol=1e-5)
+    with pytest.raises(NotImplementedError, match="A5b"):
+        launch_train.train("moonshot-v1-16b-a3b", steps=1, batch=4, seq=32,
+                           microbatches=2, mesh=ServingMesh(("cpu", "cpu")))
     out = launch_train.train("pixtral-12b", steps=2, batch=2, seq=16,
                              log_every=100, device="cpu")
     assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()

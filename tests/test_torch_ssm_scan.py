@@ -138,8 +138,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         ops.ssm_scan_chunk(dt, xh, bm, cm, a.T.contiguous().T, h0)
     with pytest.raises(ValueError, match="different devices"):
         ops.ssm_scan_chunk(dt, xh, bm, cm, a, h0.to("meta"))
-    with pytest.raises(ValueError, match="no kernel for device"):
-        ops.ssm_scan_chunk(*(x.to("meta") for x in (dt, xh, bm, cm, a, h0)))
+    # meta operands (the dry run's trace) get meta results of the kernel's
+    # shapes; neither kernel nor twin runs
+    y, h_last = ops.ssm_scan_chunk(*(x.to("meta") for x in (dt, xh, bm, cm, a, h0)))
+    assert (y.device.type, y.shape, h_last.shape) == ("meta", dt.shape, h0.shape)
 
 
 def test_cuda_path_raises_without_cuda_and_never_falls_back(monkeypatch):
