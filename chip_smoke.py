@@ -191,6 +191,20 @@
    events) printed beside the one-card roofline. The DP step's launches
    are the path ``lm_dp_train``.
 
+14. Tensor parallelism over the model axis (``tp_phase``): qwen2.5-3b at
+   its published widths, 8 of 36 layers (batch 2 x 4096, bf16,
+   ``train_policy()``) takes one ``train.step.make_tp_train_step`` step on
+   a (1, 2) ``("data", "model")`` mesh of two ranks sharing the card, the
+   params laid out by the rule table, and one single-device step on the
+   same params and batch: loss within ``LM_LOSS_TOL``, the gathered
+   gradients (Adam's first moment) per leaf within phase 11's bf16
+   ``LM_GRAD_TOL``, flash attention forward and backward launched exactly
+   twice as often, each rank's param bytes the rule table's shard bytes.
+   Prints ms a step for both (CUDA events), their peak memory and the TP
+   step's counted all-reduce bytes a device beside the dry run's
+   ``op_cost.collective_bytes`` for the same mesh. The TP step's launches
+   are the path ``lm_tp_train``.
+
 Every phase prints its seconds.
 
 Last, prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``.
@@ -206,6 +220,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -4041,6 +4056,141 @@ def dryrun_dp_phase(dev, card: str) -> dict:
     return res
 
 
+# ------------- phase 14: tensor parallelism over the model axis -------------
+
+# (arch, layers, batch, seq): qwen2.5-3b at its published widths, 8 of its
+# 36 layers (depth cut for time).
+TP_LM_CASE = ("qwen2.5-3b", 8, 2, 4096)
+# Ranks on the model axis, sharing one card.
+TP_RANKS = 2
+
+
+def tp_phase(dev, card: str) -> dict:
+    """Phase 14: one tensor-parallel step (``train.step.make_tp_train_step``)
+    of ``TP_LM_CASE`` under ``train_policy()`` in bf16 on a (1,
+    ``TP_RANKS``) ``("data", "model")`` mesh of ranks sharing the card, and
+    one single-device step on the same params and batch. Holds: the losses
+    within ``LM_LOSS_TOL``; the gathered gradients (Adam's first moment,
+    0.1 x the clipped gradient) per leaf within phase 11's bf16
+    ``LM_GRAD_TOL``; flash attention forward and backward launched exactly
+    ``TP_RANKS`` x as often as in the single step; each rank's param bytes
+    equal to the rule table's shard bytes (``param_spec``,
+    ``shard_shape``). Prints the ms of a step of each (CUDA events), their
+    peak memory, and the TP step's all-reduce bytes a device as
+    ``distributed.tensor_parallel`` counts them, by site, beside the dry
+    run's ``roofline.op_cost.collective_bytes`` for the same mesh. The TP
+    step's launches are the path ``lm_tp_train``."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config, train_policy
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models.model_factory import build_model
+    from repro_torch.roofline import op_cost
+    from repro_torch.train.step import (TrainConfig, init_opt_state,
+                                        make_tp_train_step, make_train_step)
+
+    t0 = time.monotonic()
+    arch, layers, batch, seq = TP_LM_CASE
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    model = build_model(cfg, train_policy())
+    tcfg = TrainConfig()
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    opt = init_opt_state(params)
+    b0 = next(synthetic_lm_batches(DataConfig(seed=0, global_batch=batch,
+                                              seq_len=seq, vocab_size=cfg.vocab_size)))
+    b0 = {"tokens": b0["tokens"].to(dev), "labels": b0["labels"].to(dev)}
+    mesh = DeviceMesh(np.array([[dev] * TP_RANKS], dtype=object), ("data", "model"))
+    single = make_train_step(model, tcfg)
+    step = make_tp_train_step(model, tcfg, mesh)
+
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, opt_one, m_one = single(params, opt, b0)
+    torch.cuda.synchronize()
+    one = dict(ops.LAUNCHES)
+    peak_single = torch.cuda.max_memory_allocated(dev)
+    mu_one = opt_one["adam"]["mu"]
+    del opt_one
+    sp, so = sharding.shard_params(params, mesh), sharding.shard_params(opt, mesh)
+    rank_bytes = [_nbytes(t) for t in sp.rows()[0]]
+    rule_bytes = sum(
+        math.prod(sharding.shard_shape(mesh, leaf.shape, sharding.param_spec(
+            mesh, path, leaf))) * leaf.element_size()
+        for path, leaf in tree.leaves_with_path(params))
+    torch.cuda.empty_cache()
+    tp.reset_bytes()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, opt_tp, m_tp = step(sp, so, b0)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak_tp = torch.cuda.max_memory_allocated(dev)
+    counted, by_kind = dict(tp.BYTES), tp.bytes_by_kind()
+    rel = _leaf_rel_l2(sharding.gather_params(opt_tp, mesh)["adam"]["mu"], mu_one)
+    del opt_tp, mu_one
+    torch.cuda.empty_cache()
+    worst = max(rel, key=rel.get)
+    single_ms = events_ms(lambda: single(params, opt, b0), reps=2, warm=False)
+    tp_ms = events_ms(lambda: step(sp, so, b0), reps=2, warm=False)
+    meta = model.init()
+    reckoned = op_cost.collective_bytes(
+        mesh, (meta, init_opt_state(meta),
+               {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                for k, v in b0.items()}), "train")
+    del params, opt, sp, so
+    torch.cuda.empty_cache()
+    res = {"card": card, "arch": arch, "layers": layers, "batch": batch, "seq": seq,
+           "ranks": TP_RANKS, "loss_single": float(m_one["loss"]),
+           "loss_tp": float(m_tp["loss"]), "grad_norm_single": float(m_one["grad_norm"]),
+           "grad_norm_tp": float(m_tp["grad_norm"]),
+           "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_leaf": worst,
+           "grad_rel_l2_median": statistics.median(rel.values()),
+           "launches_single": {k: v for k, v in one.items() if v},
+           "launches": launches, "rank_param_bytes": rank_bytes,
+           "rule_table_bytes": rule_bytes, "single_ms": single_ms, "tp_ms": tp_ms,
+           "peak_single_bytes": peak_single, "peak_tp_bytes": peak_tp,
+           "collective_bytes_counted": {f"{k} {s} {d}": n
+                                        for (k, s, d), n in sorted(counted.items())},
+           "collective_bytes_by_kind": by_kind,
+           "collective_bytes_reckoned": reckoned}
+    print(f"  {arch} ({layers} of its layers) batch {batch} x {seq} bf16 on a (1, "
+          f"{TP_RANKS}) mesh of ranks sharing the card: loss {res['loss_tp']:.5f} "
+          f"(single device {res['loss_single']:.5f}), grad norm "
+          f"{res['grad_norm_tp']:.6g} ({res['grad_norm_single']:.6g}); gathered "
+          f"gradients per-leaf rel L2 max {rel[worst]:.3g} ({worst}), median "
+          f"{res['grad_rel_l2_median']:.3g}; launches {res['launches_single']} single, "
+          f"{ {k: v for k, v in launches.items() if v} } TP; rank param bytes "
+          f"{rank_bytes} (rule table {rule_bytes}) [{card}]", flush=True)
+    print(f"  a step {single_ms:.2f} ms single, {tp_ms:.2f} ms TP (CUDA events); "
+          f"peak memory {peak_single / 2**30:.2f} GiB single, {peak_tp / 2**30:.2f} GiB "
+          f"TP (both ranks, with the single step's params and state) [{card}]",
+          flush=True)
+    print(f"  collective bytes a device, counted in the TP step: "
+          + ", ".join(f"{k} {v:.6g}" for k, v in sorted(by_kind.items()))
+          + f"; the dry run's op_cost.collective_bytes for this mesh: "
+          + ", ".join(f"{k} {v:.6g}" for k, v in reckoned.items() if v), flush=True)
+    for (kind, site, direction), n in sorted(counted.items()):
+        print(f"    {kind} {site} {direction}: {n:.6g}", flush=True)
+    if not abs(res["loss_tp"] - res["loss_single"]) <= LM_LOSS_TOL:
+        fail(f"TP step loss {res['loss_tp']} vs single device {res['loss_single']}")
+    if rel[worst] > LM_GRAD_TOL["bfloat16"]:
+        fail(f"TP step: gathered gradient {worst} rel L2 {rel[worst]:.3g} > "
+             f"{LM_GRAD_TOL['bfloat16']} of the single-device step's")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if not one[name] or launches[name] != TP_RANKS * one[name]:
+            fail(f"TP step launched {name} {launches[name]} times, the single "
+                 f"step {one[name]}: expected {TP_RANKS}x")
+    if rank_bytes != [rule_bytes] * TP_RANKS:
+        fail(f"TP ranks hold {rank_bytes} param bytes, the rule table's shards "
+             f"{rule_bytes}")
+    res["seconds"] = time.monotonic() - t0
+    print(f"  phase 14 {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 KERNELS = {
     "xnor_gemm": ("src/repro_torch/kernels/csrc/xnor_gemm.cu",
                   "src/repro/kernels/xnor_gemm.py:105"),
@@ -4204,6 +4354,10 @@ def main() -> None:
           flush=True)
     dryrun_dp = dryrun_dp_phase(dev, smi)
     clock.done("13")
+    print("phase 14: qwen2.5-3b trained tensor-parallel over a (1, 2) mesh of "
+          "ranks sharing the card, against the single-device step", flush=True)
+    tp_run = tp_phase(dev, smi)
+    clock.done("14")
     jamba_launches = dict(jamba["launches"]["prefill"])
     for counts in jamba["launches"]["decode"]:
         for name, n in counts.items():
@@ -4215,7 +4369,8 @@ def main() -> None:
                 "bnn_serve_mesh": mesh["launches"],
                 "bnn_train_resilient": resilient["launches"],
                 "lm_train": lm_train["launches"], **families["launches"],
-                "lm_dp_train": dryrun_dp["launches"]}
+                "lm_dp_train": dryrun_dp["launches"],
+                "lm_tp_train": tp_run["launches"]}
     for name in KERNELS:
         if not sum(path[name] for path in launches.values()):
             fail(f"kernel {name} was not launched on the main path")
@@ -4227,7 +4382,8 @@ def main() -> None:
          "serve": serve,
          "table2": table2, "jamba": jamba, "lm_loss": lm, "train": train,
          "mesh": mesh, "train_resilient": resilient, "lm_train": lm_train,
-         "families": families, "dryrun_dp": dryrun_dp, "totals": totals,
+         "families": families, "dryrun_dp": dryrun_dp, "tp": tp_run,
+         "totals": totals,
          "phase_seconds": clock.seconds},
         indent=2))
 

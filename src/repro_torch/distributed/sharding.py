@@ -18,15 +18,24 @@ Leading stack axes (periods, per-period layers) are never sharded. A spec
 is a :class:`PartitionSpec`, a tuple of one entry a dim (an axis name, a
 tuple of them, or None), equal as a tuple to the JAX package's. The tree
 forms (:func:`params_shardings`, :func:`state_shardings`,
-:func:`batch_shardings`) return spec trees: the port has no partitioner,
-so a spec is data that the dry run (``launch.dryrun``) reads, through
-:func:`shard_shape`, to size each device's shard and reckon the
-collectives (``roofline.op_cost.collective_bytes``). A mesh is anything
-with the ``.shape`` of a ``jax.sharding.Mesh`` (axis name -> size):
-``launch.mesh.AbstractMesh``, the production meshes, or a
-``ServingMesh``. The activation constraints (``activation_mesh``,
-``constrain``, ``constrain_seq``) are not ported: with no partitioner they
-would be identity functions (ROADMAP A5b).
+:func:`batch_shardings`) return spec trees: the port has no partitioner.
+The dry run (``launch.dryrun``) reads a spec, through :func:`shard_shape`,
+to size each device's shard and reckon the collectives
+(``roofline.op_cost.collective_bytes``); tensor-parallel training lays the
+params out by it (:func:`shard_params`, :func:`gather_params`). A mesh is
+anything with the ``.shape`` of a ``jax.sharding.Mesh`` (axis name ->
+size): ``launch.mesh.AbstractMesh``, the production meshes, a
+``DeviceMesh`` or a ``ServingMesh``.
+
+One process holds the model axis of the rule table's layout and not its
+data axes: :func:`shard_params` slices every leaf over ``model`` by its
+spec and replicates the slices over the data axes (the FSDP half of the
+table, ``in -> data``, would save no memory in one process). The
+activation constraints (:func:`activation_mesh`, :func:`constrain`,
+:func:`constrain_seq`) keep the JAX names and signatures; under an
+installed mesh :func:`constrain` lays an activation out by its guarded
+spec, slicing or gathering the ranks' parts of a
+``distributed.tensor_parallel.Ranked``, and checks each part's shape.
 
 BNN serving (DESIGN.md §10): packed weights replicated on every device of
 a 1-D serving mesh (``launch.mesh.ServingMesh``), the batch split into one
@@ -40,7 +49,9 @@ gathered logits equal the unsharded forward's bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Any, Optional
 
 import torch
@@ -252,6 +263,200 @@ def shard_shape(mesh, shape, spec) -> tuple:
     return tuple(out)
 
 
+# ------------------------ the model axis, in one process -----------------------
+
+
+def _has_model(entry) -> bool:
+    return entry == MODEL_AXIS or (isinstance(entry, tuple) and MODEL_AXIS in entry)
+
+
+def model_axis_size(mesh) -> int:
+    """Devices on the mesh's model axis (1 where it has none)."""
+    return mesh.shape[MODEL_AXIS] if MODEL_AXIS in mesh.shape else 1
+
+
+def flat_devices(mesh) -> tuple:
+    """A mesh's devices in mesh order."""
+    flat = getattr(mesh, "flat", None)
+    return tuple(flat) if flat is not None else tuple(mesh.devices)
+
+
+def model_spec(mesh, path, leaf) -> P:
+    """:func:`param_spec` over the model axis alone: its ``model``
+    entries kept, every data entry dropped."""
+    return P(*(MODEL_AXIS if _has_model(e) else None
+               for e in param_spec(mesh, path, leaf)))
+
+
+def model_specs(mesh, params) -> Any:
+    """:func:`model_spec` of every leaf, a spec tree."""
+    return tree.map_with_path(lambda path, leaf: model_spec(mesh, path, leaf),
+                              params)
+
+
+def spec_at(specs, path: tuple) -> P:
+    """The spec of the leaf at ``path`` of a spec tree."""
+    for k in path:
+        specs = specs[k]
+    return specs
+
+
+def model_slice(t: torch.Tensor, spec, ranks: int, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s part of ``t`` laid out by ``spec`` (model entries):
+    each dim split over ``model`` cut into ``ranks`` contiguous parts in
+    rank order (a view)."""
+    for dim, entry in enumerate(spec):
+        if entry == MODEL_AXIS:
+            if t.shape[dim] % ranks:
+                raise ValueError(f"dim {dim} of {tuple(t.shape)} does not "
+                                 f"split over {ranks} ranks")
+            w = t.shape[dim] // ranks
+            t = t.narrow(dim, rank * w, w)
+    return t
+
+
+class Shards(list):
+    """A tree laid out over ``mesh``: one tree a device, in mesh order,
+    each leaf its device's slice over the model axis by ``specs``
+    (:func:`model_specs`); the trees of one model rank are equal over the
+    data axes (and shared by ranks on one device). ``rows()`` groups them
+    by data shard, one tree a model rank."""
+
+    def __init__(self, trees, specs, mesh):
+        super().__init__(trees)
+        self.specs = specs
+        self.mesh = mesh
+
+    @classmethod
+    def of_row(cls, row: list, specs, mesh) -> "Shards":
+        """One data shard's trees (one a model rank) on every device of
+        ``mesh``: rank ``r``'s tree moved to each device holding rank
+        ``r``, shared where the device is the same."""
+        ranks = len(row)
+        made = {(tree.leaves(t)[0].device, r): t for r, t in enumerate(row)}
+        trees = []
+        for i, dev in enumerate(flat_devices(mesh)):
+            key = (torch.device(dev), i % ranks)
+            if key not in made:
+                made[key] = tree.tree_map(lambda t, d=key[0]: t.to(d), row[i % ranks])
+            trees.append(made[key])
+        return cls(trees, specs, mesh)
+
+    def rows(self) -> list:
+        m = model_axis_size(self.mesh)
+        return [list(self[i:i + m]) for i in range(0, len(self), m)]
+
+
+def shard_params(params, mesh) -> Shards:
+    """The full tree ``params`` (params or optimizer state, whose leaves
+    the rule table also reads by path) as one tree a device of ``mesh``:
+    each leaf sliced over ``model`` by :func:`model_spec`, in mesh order
+    (``model`` the last axis), a copy on the device. A rank's shard shape
+    is :func:`shard_shape` of the spec with the data axes dropped. Over
+    the data axes the slices are replicated; ranks on one device share
+    one tree."""
+    names = tuple(mesh.shape)
+    if MODEL_AXIS in names and names[-1] != MODEL_AXIS:
+        raise ValueError(f"the model axis must be the mesh's last, got {names}")
+    specs = model_specs(mesh, params)
+    m = model_axis_size(mesh)
+    devices = flat_devices(mesh)
+    row = [tree.map_with_path(
+        lambda path, t, r=r: model_slice(t, spec_at(specs, path), m, r).to(
+            devices[r], copy=True).contiguous(), params) for r in range(m)]
+    return Shards.of_row(row, specs, mesh)
+
+
+def gather_params(shards: Shards, mesh) -> Any:
+    """The full tree of :func:`shard_params`' ``shards``, on the first
+    device: each leaf's model parts concatenated in rank order (the first
+    data shard's; the others hold the same)."""
+    row = shards[:model_axis_size(mesh)]
+    home = tree.leaves(row[0])[0].device
+
+    def whole(path, *parts):
+        dims = [d for d, e in enumerate(spec_at(shards.specs, path))
+                if e == MODEL_AXIS]
+        if not dims:
+            return parts[0].to(home)
+        return torch.cat([p.to(home) for p in parts], dims[0])
+
+    return tree.map_with_path(whole, *row)
+
+
+# ------------------------- activation constraints -----------------------------
+#
+# Models are mesh-agnostic; the launcher installs the active mesh here and
+# model code calls ``constrain(x, ...)`` at layer boundaries, as the JAX
+# package's does. Every axis is divisibility-guarded.
+
+_ACTIVE = threading.local()
+
+
+def get_active_mesh():
+    return getattr(_ACTIVE, "mesh", None)
+
+
+@contextlib.contextmanager
+def activation_mesh(mesh):
+    """Install ``mesh`` for :func:`constrain` in this thread, for the
+    block."""
+    prev = get_active_mesh()
+    _ACTIVE.mesh = mesh
+    try:
+        yield
+    finally:
+        _ACTIVE.mesh = prev
+
+
+def _data_devices(mesh) -> int:
+    return math.prod(mesh.shape[a] for a in DATA_AXES if a in mesh.shape)
+
+
+def constrain(x, *axes):
+    """``with_sharding_constraint`` under the installed mesh, guarded.
+
+    ``axes`` entries are mesh-axis names / tuples / None, one a dim. With
+    no mesh installed, ``x`` unchanged. Under a mesh the spec is each
+    entry guarded against the whole tensor's dim:
+
+    * a ``tensor_parallel.Ranked`` (one data shard's parts; its whole
+      batch is its rows times the data axes' devices) is laid out by the
+      spec's model entries (a dim whole on each rank and split here is
+      sliced on each rank, the converse all-gathered);
+    * a plain tensor is one device's whole tensor;
+
+    and each rank's tensor is checked to be :func:`shard_shape` of the
+    spec: ``ValueError`` if not.
+    """
+    mesh = get_active_mesh()
+    if mesh is None:
+        return x
+    from repro_torch.distributed.tensor_parallel import Ranked
+    whole = list(x.shape)
+    if isinstance(x, Ranked):
+        whole[0] *= _data_devices(mesh)
+    spec = P(*(_guard(mesh, n, a) for n, a in zip(whole, axes)))
+    parts = [x]
+    if isinstance(x, Ranked):
+        x = x.laid_out([MODEL_AXIS if _has_model(e) else None for e in spec]
+                       + [None] * (len(whole) - len(spec)), site="constrain")
+        parts = x.parts
+    want = shard_shape(mesh, whole, spec)
+    for r, part in enumerate(parts):
+        if tuple(part.shape) != want:
+            raise ValueError(f"rank {r}'s tensor {tuple(part.shape)} is not the "
+                             f"{want} shard of {tuple(whole)} by {spec}")
+    return x
+
+
+def constrain_seq(x):
+    """Residual stream [B, S, D] between blocks: batch over (pod, data),
+    seq and features replicated over model (the Megatron layout: the model
+    axis works inside the blocks, through the column / row rules)."""
+    return constrain(x, DATA_AXES, None, None)
+
+
 # --------------------------- BNN serving (DESIGN.md §10) ----------------------
 
 
@@ -290,7 +495,10 @@ def shard_rows(rows: int, devices: int) -> int:
     return rows // devices
 
 
-__all__ = ["DATA_AXES", "MODEL_AXIS", "P", "PartitionSpec", "batch_shardings",
-           "batch_spec", "mesh_devices", "param_spec", "params_shardings",
-           "replicate", "replicated", "shard_rows", "shard_shape",
-           "state_shardings", "state_spec"]
+__all__ = ["DATA_AXES", "MODEL_AXIS", "P", "PartitionSpec", "Shards",
+           "activation_mesh", "batch_shardings", "batch_spec", "constrain",
+           "constrain_seq", "flat_devices", "gather_params", "get_active_mesh", "mesh_devices",
+           "model_axis_size", "model_slice", "model_spec", "model_specs", "param_spec",
+           "params_shardings", "replicate", "replicated", "shard_params",
+           "shard_rows", "shard_shape", "spec_at", "state_shardings",
+           "state_spec"]

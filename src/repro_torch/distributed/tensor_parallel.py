@@ -1,0 +1,288 @@
+"""Tensor parallelism over the ``"model"`` mesh axis, driven from one
+process: the collectives, and the tensors and param trees laid out over
+the axis.
+
+The JAX package has no counterpart: XLA's SPMD partitioner inserts the
+all-reduces and gathers its sharded step needs. The port runs the model
+axis of one data shard (a row of a ``launch.mesh.DeviceMesh``) in
+lockstep: each layer runs every rank's part before the next starts, and a
+collective takes every rank's tensor at once, a list in mesh order, and
+returns one tensor a rank on that rank's device. Ranks that share a card
+run one after another.
+
+* :func:`all_reduce`: the sum in mesh order on the first rank's device
+  (accumulated in float32 for narrower dtypes, then rounded once), a copy
+  to each rank. Backward: the gradients of the ranks' copies summed the
+  same way and passed to each input, whose contribution reached every
+  copy.
+* :func:`all_gather`: the ranks' tensors concatenated along a dim in mesh
+  order, a copy to each rank. Backward: each input's slice of the
+  gradients, summed over the ranks' copies in mesh order (a
+  reduce-scatter: each rank uses its own copy of the gathered tensor).
+* :func:`all_max`: the elementwise maximum, a copy to each rank, no
+  gradient (it is the softmax's shift).
+
+Each is deterministic: its sums run in a fixed order, so two runs give the
+same bits. Each adds the bytes it moves per device to :data:`BYTES` in the
+convention of ``roofline.op_cost.collective_bytes``: the result's bytes on
+each device times ``COLL_MULT`` of its kind (2 for an all-reduce), keyed
+by (kind, site, ``"fwd"`` or ``"bwd"``); with several data shards each
+shard's ranks count their own, so the counts are the shards' sum.
+
+A :class:`Ranked` is one activation laid out over the ranks: ``parts`` in
+mesh order and ``spec``, one entry a dim, ``None`` (each rank holds the
+whole dim) or ``"model"`` (split into contiguous equal parts in rank
+order). Its dim 0 holds one data shard's rows. A :class:`RankedTree` is
+one param tree a rank beside the spec tree that laid it out
+(``distributed.sharding.shard_params``).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch import tree
+
+MODEL = "model"
+# The wire-byte multiplier of each kind, as ``roofline.op_cost.COLL_MULT``.
+_MULT = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0}
+
+# (kind, site, "fwd" | "bwd") -> bytes moved per device, since the last
+# ``reset_bytes``.
+BYTES: collections.Counter = collections.Counter()
+
+
+def reset_bytes() -> None:
+    BYTES.clear()
+
+
+def bytes_by_kind() -> dict:
+    """:data:`BYTES` summed by kind of collective."""
+    out: dict = collections.defaultdict(float)
+    for (kind, _, _), n in BYTES.items():
+        out[kind] += n
+    return dict(out)
+
+
+def _count(kind: str, site: str, direction: str, result: torch.Tensor) -> None:
+    BYTES[(kind, site, direction)] += (result.numel() * result.element_size()
+                                       * _MULT[kind])
+
+
+def _sum(xs) -> torch.Tensor:
+    """``xs[0] + xs[1] + ...`` in mesh order on the device of ``xs[0]``,
+    accumulated in float32 where the dtype is narrower, a new tensor."""
+    home, dtype = xs[0].device, xs[0].dtype
+    acc = torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
+    total = xs[0].to(acc, copy=True)
+    for x in xs[1:]:
+        total = total + x.to(home).to(acc)
+    return total.to(dtype)
+
+
+def _copies(total: torch.Tensor, devices) -> tuple:
+    """One tensor a rank: ``total`` for the first, a copy for each other."""
+    return tuple(total if i == 0 else total.to(dev, copy=True)
+                 for i, dev in enumerate(devices))
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, site, *xs):
+        ctx.site, ctx.devices = site, [x.device for x in xs]
+        total = _sum(xs)
+        _count("all-reduce", site, "fwd", total)
+        return _copies(total, ctx.devices)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        live = [g for g in gs if g is not None]
+        if not live:
+            return (None,) * (1 + len(gs))
+        total = _sum(live)
+        _count("all-reduce", ctx.site, "bwd", total)
+        return (None, *_copies(total, ctx.devices))
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, site, dim, *xs):
+        ctx.site, ctx.dim = site, dim
+        ctx.devices = [x.device for x in xs]
+        ctx.sizes = [x.shape[dim] for x in xs]
+        home = xs[0].device
+        total = torch.cat([x.to(home) for x in xs], dim)
+        _count("all-gather", site, "fwd", total)
+        return _copies(total, ctx.devices)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        live = [g for g in gs if g is not None]
+        if not live:
+            return (None,) * (2 + len(gs))
+        total = _sum(live)
+        parts = torch.split(total, ctx.sizes, ctx.dim)
+        _count("reduce-scatter", ctx.site, "bwd", parts[0])
+        return (None, None, *(p.to(dev, copy=True).contiguous()
+                              for p, dev in zip(parts, ctx.devices)))
+
+
+def all_reduce(xs, site: str = "") -> tuple:
+    """The sum of the ranks' ``xs`` (same shape), one copy a rank."""
+    return _AllReduce.apply(site, *xs)
+
+
+def all_gather(xs, dim: int, site: str = "") -> tuple:
+    """The ranks' ``xs`` concatenated along ``dim`` in mesh order, one copy
+    a rank."""
+    return _AllGather.apply(site, dim % xs[0].ndim, *xs)
+
+
+def all_max(xs, site: str = "") -> tuple:
+    """The elementwise maximum of the ranks' ``xs``, one copy a rank; no
+    gradient flows through it."""
+    with torch.no_grad():
+        home = xs[0].device
+        total = xs[0].detach().clone()
+        for x in xs[1:]:
+            total = torch.maximum(total, x.detach().to(home))
+    _count("all-reduce", site, "fwd", total)
+    return _copies(total, [x.device for x in xs])
+
+
+# --------------------------- laid-out activations -----------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Ranked:
+    """One activation over the model ranks of a data shard: ``parts`` in
+    mesh order, ``spec`` one entry a dim (``None`` whole, ``"model"``
+    split into contiguous parts in rank order)."""
+
+    parts: tuple
+    spec: tuple
+
+    def __post_init__(self):
+        object.__setattr__(self, "parts", tuple(self.parts))
+        spec = tuple(self.spec)
+        ndim = self.parts[0].ndim
+        if len(spec) != ndim or any(e not in (None, MODEL) for e in spec):
+            raise ValueError(f"spec {spec} for a {ndim}-D tensor")
+        object.__setattr__(self, "spec", spec)
+
+    @classmethod
+    def replicated(cls, x: torch.Tensor, devices) -> "Ranked":
+        """``x`` whole on every rank of ``devices``: a copy a device other
+        than ``x``'s, ``x`` itself on its own."""
+        return cls(tuple(x.to(d) for d in devices), (None,) * x.ndim)
+
+    @property
+    def ranks(self) -> int:
+        return len(self.parts)
+
+    @property
+    def devices(self) -> tuple:
+        return tuple(p.device for p in self.parts)
+
+    @property
+    def shape(self) -> tuple:
+        """The shape of the data shard's whole tensor."""
+        return tuple(n * self.ranks if e == MODEL else n
+                     for n, e in zip(self.parts[0].shape, self.spec))
+
+    def laid_out(self, spec, site: str = "") -> "Ranked":
+        """The same tensor laid out by ``spec``: a dim the ranks hold
+        whole and ``spec`` splits is sliced on each rank (no collective);
+        a split dim ``spec`` wants whole is all-gathered."""
+        spec = tuple(spec)
+        parts = list(self.parts)
+        for dim, (have, want) in enumerate(zip(self.spec, spec)):
+            if have == want:
+                continue
+            if want == MODEL:
+                n = parts[0].shape[dim]
+                if n % self.ranks:
+                    raise ValueError(f"dim {dim} of {n} does not split over "
+                                     f"{self.ranks} ranks")
+                w = n // self.ranks
+                parts = [p.narrow(dim, r * w, w) for r, p in enumerate(parts)]
+            else:
+                parts = list(all_gather(parts, dim, site))
+        return Ranked(parts, spec)
+
+
+def _is_ranked(a) -> bool:
+    return isinstance(a, (Ranked, RankedTree))
+
+
+def each(fn: Callable, *args, spec=None) -> Ranked:
+    """``fn`` on every rank: each :class:`Ranked` or :class:`RankedTree`
+    argument gives its rank's part, any other is passed as it is. The
+    result is laid out by ``spec``, by default the :class:`Ranked`
+    arguments' (``ValueError`` where they differ)."""
+    ranked = [a for a in args if _is_ranked(a)]
+    ranks = len(ranked[0].parts)
+    if any(len(a.parts) != ranks for a in ranked):
+        raise ValueError("arguments laid out over different rank counts")
+    if spec is None:
+        specs = {a.spec for a in args if isinstance(a, Ranked)}
+        if len(specs) != 1:
+            raise ValueError(f"arguments laid out differently: {sorted(specs, key=str)}")
+        (spec,) = specs
+    outs = [fn(*(a.parts[r] if _is_ranked(a) else a for a in args))
+            for r in range(ranks)]
+    return Ranked(outs, spec)
+
+
+# ------------------------------ laid-out params -------------------------------
+
+
+def _map_specs(fn: Callable, specs):
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [_map_specs(fn, v) for v in specs]
+    return fn(specs)
+
+
+class RankedTree:
+    """One param (sub)tree a model rank of a data shard, in mesh order,
+    and its spec tree (each leaf a spec over the model axis alone, as
+    ``distributed.sharding.model_spec`` gives it). Indexing descends
+    every rank's tree and the spec tree together; at a leaf, ``parts``
+    are tensors and ``spec`` their spec. ``path`` is the keys taken from
+    the root (the collectives' byte counts name a projection by it)."""
+
+    def __init__(self, parts, spec, path: tuple = ()):
+        self.parts = tuple(parts)
+        self.spec = spec
+        self.path = path
+
+    def __getitem__(self, key) -> "RankedTree":
+        return RankedTree([p[key] for p in self.parts], self.spec[key],
+                          self.path + (key,))
+
+    def __contains__(self, key) -> bool:
+        return key in self.parts[0]
+
+    def split(self, dim: int) -> bool:
+        """Whether this leaf's ``dim`` is split over the ranks."""
+        dim = dim % self.parts[0].ndim
+        return dim < len(self.spec) and self.spec[dim] == MODEL
+
+    def index(self, i: int) -> "RankedTree":
+        """Entry ``i`` of every leaf's leading stacked axis (a period's
+        layer of ``params["layers"]``), the specs without their first
+        entry."""
+        from repro_torch.distributed.sharding import PartitionSpec
+        return RankedTree(
+            [tree.tree_map(lambda t: t[i], p) for p in self.parts],
+            _map_specs(lambda s: PartitionSpec(*s[1:]), self.spec), self.path)
+
+
+__all__ = ["BYTES", "MODEL", "Ranked", "RankedTree", "all_gather", "all_max",
+           "all_reduce", "bytes_by_kind", "each", "reset_bytes"]

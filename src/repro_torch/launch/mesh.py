@@ -18,6 +18,15 @@ On the CPU a mesh of ``n`` entries ``cpu:0 .. cpu:n-1`` is the counterpart
 of the JAX package's forced host devices: every entry is the CPU, and the
 shards run one after another through the plain-torch twins.
 
+LM training over the model axis runs on a :class:`DeviceMesh`: a device
+grid with named axes, the JAX ``Mesh``'s ``.shape`` / ``.axis_names`` /
+``.devices``, laid out as the JAX launcher lays out its devices
+(:func:`make_device_mesh`, from ``distributed.fault_tolerance.
+make_elastic_mesh``). One process drives every entry, and entries may
+repeat one card (ranks sharing it run one after another) or be CPU
+entries, as a ``ServingMesh``'s may; a ``ServingMesh`` is its 1-D
+``("data",)`` case.
+
 The LM dry run's production meshes (``SINGLE_POD``, ``MULTI_POD``,
 :func:`make_production_mesh`) are abstract: an :class:`AbstractMesh` holds
 the axis names and sizes the rule table (``distributed.sharding``) and the
@@ -31,6 +40,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.bnn import resolve_device
@@ -50,17 +60,7 @@ class ServingMesh:
     devices: tuple
 
     def __post_init__(self):
-        devs = tuple(torch.device(d) for d in self.devices)
-        if not devs:
-            raise ValueError("a serving mesh needs >= 1 device")
-        kinds = {d.type for d in devs}
-        if len(kinds) > 1 or not kinds <= {"cuda", "cpu"}:
-            raise ValueError("a serving mesh holds CUDA devices or CPU "
-                             f"devices, not {sorted(map(str, devs))}")
-        if "cuda" in kinds:
-            devs = tuple(d if d.index is not None else torch.device(
-                "cuda", torch.cuda.current_device()) for d in devs)
-        object.__setattr__(self, "devices", devs)
+        object.__setattr__(self, "devices", _devices_of_one_kind(self.devices))
 
     @property
     def shape(self) -> dict:
@@ -94,6 +94,63 @@ def make_serving_mesh(n_devices: Optional[int] = None, *,
         raise RuntimeError(f"need {n} CUDA devices for the serving mesh, "
                            f"have {have}")
     return ServingMesh(tuple(torch.device(dev.type, i) for i in range(n)))
+
+
+def _devices_of_one_kind(devices) -> tuple:
+    """``devices`` as ``torch.device``s, CUDA ones with their index made
+    explicit; ``ValueError`` for none, or for a mix of kinds."""
+    devs = tuple(torch.device(d) for d in devices)
+    if not devs:
+        raise ValueError("a mesh needs >= 1 device")
+    kinds = {d.type for d in devs}
+    if len(kinds) > 1 or not kinds <= {"cuda", "cpu"}:
+        raise ValueError("a mesh holds CUDA devices or CPU devices, not "
+                         f"{sorted(map(str, devs))}")
+    if "cuda" in kinds:
+        devs = tuple(d if d.index is not None else torch.device(
+            "cuda", torch.cuda.current_device()) for d in devs)
+    return devs
+
+
+class DeviceMesh:
+    """A device grid with named axes, the JAX ``jax.sharding.Mesh`` as one
+    process drives it: ``devices`` a numpy object array of
+    ``torch.device`` (mesh order is its C order), ``axis_names`` one name
+    a grid axis, ``.shape`` axis name -> size in axis order. The same
+    devices as a :class:`ServingMesh` accepts: CUDA entries (repeats
+    share a card) or CPU entries, not a mix."""
+
+    def __init__(self, devices, axis_names):
+        grid = np.asarray(devices, dtype=object)
+        axis_names = tuple(axis_names)
+        if grid.ndim != len(axis_names):
+            raise ValueError(f"a {grid.ndim}-D device grid for the axes "
+                             f"{axis_names}")
+        flat = np.empty(grid.size, dtype=object)
+        flat[:] = _devices_of_one_kind(grid.reshape(-1))
+        self.devices = flat.reshape(grid.shape)
+        self.axis_names = axis_names
+
+    @property
+    def shape(self) -> collections.OrderedDict:
+        """Axis name -> size, in axis order (``jax.sharding.Mesh.shape``)."""
+        return collections.OrderedDict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def flat(self) -> tuple:
+        """Every device in mesh order."""
+        return tuple(self.devices.reshape(-1))
+
+
+def make_device_mesh(devices, *, model_parallel: int = 16) -> DeviceMesh:
+    """The JAX launcher's LM training mesh over ``devices``:
+    ``distributed.fault_tolerance.make_elastic_mesh`` (``plan_mesh_for``),
+    ``(data, model)`` with ``model = model_parallel`` once there are that
+    many devices, else the 1-D ``("data",)`` mesh of them all. The JAX
+    launcher asks ``model_parallel=min(len(devices), 16)``."""
+    from repro_torch.distributed.fault_tolerance import make_elastic_mesh
+    grid, axes = make_elastic_mesh(list(devices), model_parallel=model_parallel)
+    return DeviceMesh(grid, axes)
 
 
 # Both meshes carry the full (pod, data, model) axis-name set so one
@@ -140,5 +197,6 @@ def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
     return AbstractMesh(MULTI_POD if multi_pod else SINGLE_POD)
 
 
-__all__ = ["AbstractMesh", "MULTI_POD", "SINGLE_POD", "ServingMesh",
-           "make_production_mesh", "make_serving_mesh"]
+__all__ = ["AbstractMesh", "DeviceMesh", "MULTI_POD", "SINGLE_POD",
+           "ServingMesh", "make_device_mesh", "make_production_mesh",
+           "make_serving_mesh"]

@@ -5,20 +5,25 @@ checkpoints with auto-resume, and the fault-tolerance monitor.
 
 Runs on CUDA (``train(device=...)`` takes another device, as the tests
 do; the CLI has the JAX launcher's flags and no device flag), on every
-visible card: ``train(mesh=None)`` builds a ``ServingMesh`` of them, and
-``train(mesh=ServingMesh(...))`` takes any 1-D mesh (CPU entries, or
-several replicas sharing one card). One device runs
-``train.step.make_train_step``; more run data parallelism
-(``train.step.make_dp_train_step``): the params and optimizer state live
-on the mesh's first device, each replica takes the gradient of its batch
-shard and the gradients are averaged there in mesh order. The JAX
-launcher, given the same devices, puts up to 16 of them on the model axis
-(``plan_mesh_for``, ``distributed.fault_tolerance.make_elastic_mesh``)
-and shards the weights by the rule table; the port replicates the params
-on every device until the model axis's tensor-parallel layers are ported
-(ROADMAP A5b). An MoE config's balance loss is batch-global: on several
-devices it is formed from the router terms of every shard, and with
-``--microbatches`` as well the step raises. Every family trains: a config fed by
+visible card, laid out as the JAX launcher lays its devices out
+(:func:`train_mesh`): ``make_elastic_mesh(devices, model_parallel=min(n,
+16))``, a ``("data", "model")`` ``DeviceMesh``. A dense attention family
+(``models.transformer.model_axis_ready``) trains there by
+``train.step.make_tp_train_step``: tensor parallelism over the model axis,
+the params and optimizer state laid out by the rule table
+(``distributed.sharding.shard_params``), the step under
+``activation_mesh``, as the JAX launcher runs its steps. A
+family not yet on the model axis (experts, mamba, xLSTM, the
+encoder-decoder; ROADMAP A5b) keeps the data-parallel layout over every
+card (``train.step.make_dp_train_step``, a ``ServingMesh``: params on the
+first device, each replica the gradient of its batch shard, averaged there
+in mesh order; an MoE config's balance loss formed from every shard's
+router terms). The launcher prints the layout it took. ``train(mesh=)``
+takes either kind of mesh, CPU entries or replicas sharing one card; a
+``DeviceMesh`` whose model axis holds more than one device refuses a family
+not on it (``NotImplementedError`` naming A5b). Checkpoints hold the
+gathered tree, so a run saved on one mesh resumes on another. Every
+family trains: a config fed by
 embeddings (pixtral-12b, seamless-m4t-large-v2) gets them derived from
 each batch's tokens as the JAX launcher derives them
 (``stub_embeddings``). Each step is eager PyTorch: no
@@ -44,11 +49,16 @@ from repro_torch.core.bnn import resolve_device
 from repro_torch.data.pipeline import DataConfig, Prefetcher, synthetic_lm_batches
 from repro_torch.distributed.fault_tolerance import (HeartbeatMonitor,
                                                      StragglerDetector)
-from repro_torch.launch.mesh import ServingMesh, make_serving_mesh
+from repro_torch.distributed.sharding import (flat_devices, gather_params,
+                                              model_axis_size, shard_params)
+from repro_torch.launch.mesh import (DeviceMesh, ServingMesh, make_device_mesh,
+                                     make_serving_mesh)
 from repro_torch.models.model_factory import build_model
+from repro_torch.models.transformer import model_axis_ready
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import (TrainConfig, init_opt_state,
-                                    make_dp_train_step, make_train_step)
+                                    make_dp_train_step, make_tp_train_step,
+                                    make_train_step)
 
 
 def stub_embeddings(tokens: torch.Tensor, d_model: int) -> torch.Tensor:
@@ -62,15 +72,40 @@ def stub_embeddings(tokens: torch.Tensor, d_model: int) -> torch.Tensor:
     return torch.from_numpy(emb)
 
 
-def train_mesh(device=None, mesh=None) -> ServingMesh:
+def train_mesh(device=None, mesh=None, cfg=None):
     """The mesh ``train`` runs on: ``mesh`` when given, else every visible
-    card (``make_serving_mesh``) on CUDA, or the one device named."""
+    card on CUDA, or the one device named. Several cards and a ``cfg`` on
+    the model axis (``model_axis_ready``) give the JAX launcher's layout,
+    ``make_device_mesh(cards, model_parallel=min(n, 16))``; otherwise the
+    1-D ``ServingMesh`` of them all (``make_serving_mesh``)."""
     if mesh is not None:
         return mesh
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        return make_serving_mesh(device=dev)
-    return ServingMesh((dev,))
+    if dev.type != "cuda":
+        return ServingMesh((dev,))
+    cards = make_serving_mesh(device=dev)
+    if len(cards) > 1 and cfg is not None and model_axis_ready(cfg):
+        return make_device_mesh(cards.devices,
+                                model_parallel=min(len(cards), 16))
+    return cards
+
+
+def _layout(model, tcfg: TrainConfig, mesh):
+    """(step, laid out, gathered, description): the train step for
+    ``mesh``, the functions from a full tree to the step's layout of it
+    and back, and what the launcher prints."""
+    if isinstance(mesh, DeviceMesh):
+        if model_axis_size(mesh) > 1:
+            return (make_tp_train_step(model, tcfg, mesh),
+                    lambda t: shard_params(t, mesh),
+                    lambda t: gather_params(t, mesh),
+                    f"tensor parallel over {dict(mesh.shape)} {list(map(str, mesh.flat))}")
+        mesh = ServingMesh(mesh.flat)
+    if len(mesh) == 1:
+        return (make_train_step(model, tcfg), lambda t: t, lambda t: t,
+                f"one device, {mesh.devices[0]}")
+    return (make_dp_train_step(model, tcfg, mesh), lambda t: t, lambda t: t,
+            f"data parallel over {len(mesh)} devices {list(map(str, mesh.devices))}")
 
 
 def train(
@@ -88,17 +123,18 @@ def train(
     log_every: int = 10,
     seed: int = 0,
     device=None,
-    mesh: ServingMesh | None = None,
+    mesh: ServingMesh | DeviceMesh | None = None,
 ) -> dict:
-    """Train ``arch`` for ``steps`` steps on ``train_mesh(device, mesh)``:
-    one device, or data parallelism over several with the params on the
-    first (module docstring). Returns the params, the losses and the last
-    step's metrics."""
+    """Train ``arch`` for ``steps`` steps on ``train_mesh(device, mesh,
+    cfg)``: one device, tensor parallelism over a ``DeviceMesh``'s model
+    axis, or data parallelism over several devices with the params on the
+    first (module docstring). Returns the (gathered) params, the losses
+    and the last step's metrics."""
     cfg = smoke_config(arch) if smoke else get_config(arch)
     policy = train_policy() if quantized else float_policy()
     model = build_model(cfg, policy)
-    mesh = train_mesh(device, mesh)
-    dev = mesh.devices[0]
+    mesh = train_mesh(device, mesh, cfg)
+    dev = flat_devices(mesh)[0]
 
     dcfg = DataConfig(seed=seed, global_batch=batch, seq_len=seq,
                       vocab_size=cfg.vocab_size)
@@ -110,8 +146,8 @@ def train(
         adamw=AdamWConfig(lr=lr, weight_decay=0.01, latent_clip=quantized),
         microbatches=microbatches,
     )
-    step_fn = (make_train_step(model, tcfg) if len(mesh) == 1
-               else make_dp_train_step(model, tcfg, mesh))
+    step_fn, lay_out, gather, layout = _layout(model, tcfg, mesh)
+    print(f"layout: {layout}", flush=True)
 
     start_step = 0
     writer = None
@@ -124,6 +160,7 @@ def train(
             params, opt_state = state["params"], state["opt"]
             start_step = latest
             print(f"resumed from step {latest}")
+    params, opt_state = lay_out(params), lay_out(opt_state)
 
     monitor = HeartbeatMonitor(num_hosts=1, timeout=3600.0)
     straggler = StragglerDetector()
@@ -148,10 +185,11 @@ def train(
                   f"gnorm {float(metrics['grad_norm']):.3f}  {dt:.2f}s",
                   flush=True)
         if writer and (step + 1) % ckpt_every == 0:
-            writer.save(step + 1, {"params": params, "opt": opt_state})
+            writer.save(step + 1, {"params": gather(params),
+                                   "opt": gather(opt_state)})
     if writer:
         writer.close()
-    return {"params": params, "losses": losses, "final_metrics": metrics}
+    return {"params": gather(params), "losses": losses, "final_metrics": metrics}
 
 
 def parse_args(argv=None):

@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (Finish, Params, QuantPolicy, apply_rope,
                                        init_proj, as_drawn, proj)
@@ -181,7 +182,14 @@ def attention(
     causal: bool = True,
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Returns (output ``[B, S, D]``, updated cache). The cache is not
-    written in place: the updated ``k``/``v`` are new tensors."""
+    written in place: the updated ``k``/``v`` are new tensors. Over the
+    model ranks (a ``tensor_parallel.Ranked`` ``x``, no cache) see
+    :func:`_attention_tp`."""
+    if isinstance(x, tp.Ranked):
+        if cache is not None:
+            raise NotImplementedError("tensor-parallel attention trains: no cache")
+        return _attention_tp(params, x, cfg, policy, positions=positions,
+                             causal=causal), None
     b, s, _ = x.shape
     q = proj(params["q_proj"], x, policy).reshape(b, s, cfg.num_heads, cfg.head_dim)
     k = proj(params["k_proj"], x, policy).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
@@ -216,6 +224,41 @@ def attention(
         sliding_window=cfg.sliding_window,
     )
     return proj(params["o_proj"], out.reshape(b, s, cfg.q_dim), policy), new_cache
+
+
+def _attention_tp(params, x: tp.Ranked, cfg, policy: QuantPolicy, *,
+                  positions: tp.Ranked, causal: bool) -> tp.Ranked:
+    """Self-attention over the model ranks. Where the rank count ``m``
+    divides both ``num_heads`` and ``num_kv_heads``, the column-parallel
+    q/k/v give rank ``r`` the q heads ``[rH/m, (r+1)H/m)`` and the kv heads
+    ``[rHkv/m, (r+1)Hkv/m)``, the GQA map ``h // groups`` with no head
+    across ranks, and each rank attends its heads. Where the rule table's
+    split of a projection's out width cuts a head, the projections are
+    all-gathered and every rank attends all heads. ``o_proj`` is then
+    row-parallel (each rank takes its slice of a whole output)."""
+    b, s = x.parts[0].shape[:2]
+    m, dh = x.ranks, cfg.head_dim
+    q, k, v = (proj(params[name], x, policy)
+               for name in ("q_proj", "k_proj", "v_proj"))
+    local = (cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
+             and all(t.spec[-1] == tp.MODEL for t in (q, k, v)))
+    if not local:
+        q, k, v = (t.laid_out((None, None, None), site="gather heads")
+                   for t in (q, k, v))
+    h = cfg.num_heads // m if local else cfg.num_heads
+    hkv = cfg.num_kv_heads // m if local else cfg.num_kv_heads
+
+    def attend(qr, kr, vr, pos):
+        qr = apply_rope(qr.reshape(b, s, h, dh), pos[None, :], cfg.rope_theta)
+        kr = apply_rope(kr.reshape(b, s, hkv, dh), pos[None, :], cfg.rope_theta)
+        out = _attend(qr, kr, vr.reshape(b, s, hkv, dh), groups=h // hkv,
+                      causal=causal, q_positions=pos, kv_positions=pos,
+                      sliding_window=cfg.sliding_window)
+        return out.reshape(b, s, h * dh)
+
+    out = tp.each(attend, q, k, v, positions,
+                  spec=(None, None, tp.MODEL if local else None))
+    return proj(params["o_proj"], out, policy)
 
 
 def cross_attention(

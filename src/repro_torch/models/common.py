@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.core.binarize import QuantMode
 from repro_torch.core.layers import BitLinearConfig, bit_linear, pack_linear_params
+from repro_torch.distributed import tensor_parallel as tp
 
 Params = dict[str, Any]
 Finish = Callable[[Params], Params]
@@ -86,8 +87,58 @@ def init_proj(generator: torch.Generator, d_in: int, d_out: int, *,
 def proj(params: Params, x: torch.Tensor, policy: QuantPolicy) -> torch.Tensor:
     """Quantization-aware ``y = x @ W^T (+ b)``, in ``x``'s dtype and
     row-major (a PACKED ``bit_linear`` returns the transpose of its
-    ``[out, N]`` product, whose rows would be ``N`` elements apart)."""
+    ``[out, N]`` product, whose rows would be ``N`` elements apart).
+
+    Given a ``tensor_parallel.Ranked`` ``x`` and a ``RankedTree`` of the
+    projection, each rank runs its part (:func:`_proj_tp`)."""
+    if isinstance(x, tp.Ranked):
+        return _proj_tp(params, x, policy)
     return bit_linear(params, x, policy.layer_cfg()).to(x.dtype).contiguous()
+
+
+def _proj_tp(params: tp.RankedTree, x: tp.Ranked, policy: QuantPolicy) -> tp.Ranked:
+    """One projection over the model ranks, by its weight's spec:
+
+    * column-parallel (``out`` split): each rank holds whole rows, so its
+      alpha is the whole row's; ``x`` is taken whole on every rank
+      (gathered if split) and the output is split like ``out``, the bias
+      its rank's slice;
+    * row-parallel (``in`` split): ``x`` is taken split (sliced on each
+      rank if whole); each rank's partial product, with no alpha, is
+      all-reduced; XNOR-Net's alpha is ``mean(|w|)`` over the whole row,
+      the all-reduced sum of the ranks' partial ``|w|`` sums over the
+      whole ``in``, detached; the replicated bias is added once, after;
+    * replicated: every rank computes the whole output from a whole ``x``.
+    """
+    cfg = policy.layer_cfg()
+    if cfg.mode == QuantMode.PACKED:
+        raise NotImplementedError("tensor-parallel projections train; a PACKED "
+                                  "policy serves on one device")
+    w = params["w"]
+    lead = x.spec[:-1]
+    if not w.split(-1):
+        x = x.laid_out(lead + (None,), site=f"gather {_site(params)}")
+        return tp.each(lambda p, xr: bit_linear(p, xr, cfg).to(xr.dtype).contiguous(),
+                       params, x, spec=lead + (tp.MODEL if w.split(-2) else None,))
+    x = x.laid_out(lead + (tp.MODEL,))
+    bare = dataclasses.replace(cfg, use_scale=False)
+    partial = [bit_linear({"w": wr}, xr, bare) for wr, xr in zip(w.parts, x.parts)]
+    y = tp.all_reduce(partial, site=_site(params))
+    if cfg.mode == QuantMode.FAKE_QUANT and cfg.use_scale:
+        n_in = sum(wr.shape[-1] for wr in w.parts)
+        sums = tp.all_reduce([wr.detach().abs().sum(-1) for wr in w.parts],
+                             site="alpha")
+        y = [yr * (s / n_in).reshape(1, -1).to(yr.dtype) for yr, s in zip(y, sums)]
+    if "b" in params:
+        y = [yr + b.to(yr.dtype) for yr, b in zip(y, params["b"].parts)]
+    return tp.Ranked([yr.to(xr.dtype).contiguous() for yr, xr in zip(y, x.parts)],
+                     lead + (None,))
+
+
+def _site(params: tp.RankedTree) -> str:
+    """A projection's name for the collectives' byte counts: its key."""
+    return next((k for k in reversed(params.path)
+                 if isinstance(k, str) and k.endswith(PROJ_SUFFIX)), "proj")
 
 
 def pack_projection_tree(params, *, use_scale: bool = True):
@@ -157,7 +208,25 @@ def init_embedding(generator: torch.Generator, vocab: int, d: int) -> Params:
 
 
 def embed(p: Params, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    return p["table"][ids].to(dtype)
+    """Rows ``ids`` of the table, in ``dtype``. Over the model ranks (a
+    ``RankedTree`` table, ``Ranked`` ids) a vocab-split table is
+    vocab-parallel: each rank looks up the ids in its slice, zero
+    elsewhere, and the parts are all-reduced; a whole table is looked up
+    on every rank."""
+    if not isinstance(ids, tp.Ranked):
+        return p["table"][ids].to(dtype)
+    table = p["table"]
+    if not table.split(0):
+        return tp.each(lambda t, i: t[i].to(dtype), table, ids,
+                       spec=ids.spec + (None,))
+    parts = []
+    for r, (t, i) in enumerate(zip(table.parts, ids.parts)):
+        v = t.shape[0]
+        local = i.long() - r * v
+        hit = (local >= 0) & (local < v)
+        rows = t[torch.clamp(local, 0, v - 1)]
+        parts.append(torch.where(hit[..., None], rows, 0.0).to(dtype))
+    return tp.Ranked(tp.all_reduce(parts, site="embed"), ids.spec + (None,))
 
 
 def stack_trees(trees: list):
@@ -180,3 +249,36 @@ def softmax_cross_entropy(logits: torch.Tensor,
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = logp.gather(-1, labels.long()[..., None])[..., 0]
     return -ll.mean()
+
+
+def vocab_parallel_cross_entropy(logits: tp.Ranked, labels: tp.Ranked,
+                                 vocab: int) -> torch.Tensor:
+    """:func:`softmax_cross_entropy` of the first ``vocab`` columns of
+    logits laid out over the model ranks, on the first rank's device.
+
+    Vocab split over the ranks (rank ``r`` holds columns ``[r V/m, (r+1)
+    V/m)`` of the padded vocab): each rank masks its columns past
+    ``vocab`` (the padding, in the last ranks' slices), then the row max
+    is a max all-reduce (no gradient: the shift), the sum of exps an
+    all-reduce, and the label's logit an all-reduce of the one rank that
+    holds it. A whole vocab: every rank's loss is the plain one, and the
+    first rank's is returned."""
+    if logits.spec[-1] != tp.MODEL:
+        return softmax_cross_entropy(logits.parts[0][..., :vocab], labels.parts[0])
+    cols, parts = logits.parts[0].shape[-1], []
+    for r, z in enumerate(logits.parts):
+        z = z.float()
+        col = torch.arange(r * cols, (r + 1) * cols, device=z.device)
+        parts.append(torch.where(col < vocab, z, -torch.inf))
+    shift = tp.all_max([z.amax(-1) for z in parts], site="loss max")
+    sums = tp.all_reduce([torch.exp(z - s[..., None]).sum(-1)
+                          for z, s in zip(parts, shift)], site="loss sum")
+    picked = []
+    for r, (z, lab) in enumerate(zip(parts, labels.parts)):
+        local = lab.long() - r * cols
+        hit = (local >= 0) & (local < cols)
+        got = z.gather(-1, torch.clamp(local, 0, cols - 1)[..., None])[..., 0]
+        picked.append(torch.where(hit, got, 0.0))
+    label_logit = tp.all_reduce(picked, site="loss label")
+    nll = shift[0] + torch.log(sums[0]) - label_logit[0]
+    return nll.mean()

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import bitops
 from repro_torch.core.binarize import QuantMode, binarize_weights
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.common import (Finish, Params, QuantPolicy, init_proj,
                                        as_drawn, proj, randn, stack_trees)
 from repro_torch.roofline import op_cost
@@ -37,6 +38,18 @@ def init_dense_ffn(generator: torch.Generator, d_model: int, d_ff: int,
 
 def dense_ffn(params: Params, x: torch.Tensor, policy: QuantPolicy,
               act: str) -> torch.Tensor:
+    """The dense FFN. Over the model ranks (a ``tensor_parallel.Ranked``
+    ``x``): ``up_proj`` / ``gate_proj`` column-parallel, the activation on
+    each rank's slice of ``d_ff``, ``down_proj`` row-parallel, its partial
+    sums all-reduced."""
+    if isinstance(x, tp.Ranked):
+        up = proj(params["up_proj"], x, policy)
+        if act == "swiglu":
+            return proj(params["down_proj"], tp.each(
+                lambda g, u: F.silu(g) * u, proj(params["gate_proj"], x, policy),
+                up), policy)
+        return proj(params["down_proj"], tp.each(
+            lambda u: F.gelu(u, approximate="tanh"), up), policy)
     up = proj(params["up_proj"], x, policy)
     if act == "swiglu":
         h = F.silu(proj(params["gate_proj"], x, policy)) * up

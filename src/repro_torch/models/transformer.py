@@ -22,6 +22,16 @@ backward instead of kept, which changes no number. The JAX package saves
 the dot outputs (``dots_with_no_batch_dims_saveable``); here the whole
 period is recomputed.
 
+Over a mesh's model axis (``params`` a ``tensor_parallel.RankedTree``,
+the inputs ``Ranked``; ``train.step.make_tp_train_step``) the forward
+runs every rank's part of each block in lockstep: the residual stream and
+the norms replicated on every rank, attention and the dense FFN split by
+the rule table (``attention._attention_tp``, ``ffn.dense_ffn``), the
+embedding and the head vocab-parallel, a period's ranks rematerialized
+together. ``constrain_seq`` / ``constrain`` stand where the JAX model
+has them: identity with no mesh installed, a layout check under one. The
+dense attention families run there (:func:`check_model_axis`).
+
 A config fed by embeddings (pixtral-12b's patch-embedding stub) takes
 ``input_embeds [B, S, D]`` in place of tokens in ``lm_forward``,
 ``lm_loss`` and ``prefill``, normed by its ``in_norm``; decode still
@@ -38,6 +48,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.bnn import resolve_device
+from repro_torch.distributed import sharding as shard_rules
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import mamba as mamba_mod
@@ -46,7 +58,7 @@ from repro_torch.models.common import (Finish, Params, QuantPolicy, embed,
                                        init_device, init_embedding, init_layernorm,
                                        init_rmsnorm, as_drawn, layernorm, randn,
                                        rmsnorm, softmax_cross_entropy,
-                                       stack_trees)
+                                       stack_trees, vocab_parallel_cross_entropy)
 
 # ------------------------------ period spec ----------------------------------
 
@@ -77,6 +89,24 @@ def num_periods(cfg) -> int:
         raise ValueError(f"{cfg.name}: {cfg.num_layers} layers is not a whole "
                          f"number of {p}-layer periods")
     return cfg.num_layers // p
+
+
+def model_axis_ready(cfg) -> bool:
+    """Whether ``cfg`` trains over the model axis: a decoder-only stack of
+    attention and dense FFN layers (the dense and vlm families)."""
+    return cfg.family != "encdec" and all(
+        k.mixer == "attn" and k.ffn == "dense" for k in period_spec(cfg))
+
+
+def check_model_axis(cfg) -> None:
+    """``NotImplementedError`` naming ROADMAP A5b for a config whose layers
+    are not yet on the model axis (experts, mamba, xLSTM, the
+    encoder-decoder)."""
+    if not model_axis_ready(cfg):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on a mesh with model > 1: only the "
+            "dense attention families' layers are on the model axis yet; "
+            "experts, mamba, xLSTM and the encoder-decoder wait for ROADMAP A5b")
 
 
 def _norm_fns(cfg):
@@ -188,8 +218,19 @@ def init_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 
 def _apply_layer(x, lp: Params, cfg, policy: QuantPolicy, kind: LayerKind, *,
                  positions, layer_state, causal=True):
-    """One residual block. Returns (x, new_layer_state, aux_loss)."""
+    """One residual block. Returns (x, new_layer_state, aux_loss). Over
+    the model ranks (a ``tensor_parallel.Ranked`` ``x``: an attention and
+    dense FFN block) every rank runs its part, the norms on each rank's
+    copy of the residual stream."""
     _, norm = _norm_fns(cfg)
+    if isinstance(x, tp.Ranked):
+        h = tp.each(norm, lp["norm1"], x)
+        out, _ = attn_mod.attention(lp["attn"], h, cfg, policy,
+                                    positions=positions, causal=causal)
+        x = tp.each(torch.add, x, out)
+        h = tp.each(norm, lp["norm2"], x)
+        x = tp.each(torch.add, x, ffn_mod.dense_ffn(lp["ffn"], h, policy, cfg.act))
+        return x, None, torch.zeros((), device=x.devices[0])
     aux = torch.zeros((), device=x.device)
     h = norm(lp["norm1"], x)
     new_state = layer_state
@@ -240,6 +281,13 @@ def lm_forward(params: Params, cfg, policy: QuantPolicy, *,
     loss). ``logits_last_only`` (prefill) keeps the last position.
     ``remat``: with no state and grad mode on, each period runs under
     ``torch.utils.checkpoint`` (recomputed in the backward)."""
+    if isinstance(params, tp.RankedTree):
+        if state is not None or logits_last_only:
+            raise NotImplementedError("the forward over the model ranks trains: "
+                                      "no streaming state")
+        return _lm_forward_tp(params, cfg, policy, tokens=tokens,
+                              input_embeds=input_embeds, remat=remat,
+                              causal=causal)
     _, norm = _norm_fns(cfg)
     if input_embeds is not None:
         x = input_embeds.to(cfg.dtype)
@@ -258,6 +306,7 @@ def lm_forward(params: Params, cfg, policy: QuantPolicy, *,
     aux_total = torch.zeros((), device=x.device)
     if remat and state is None and torch.is_grad_enabled():
         def period_body(x, layers):
+            x = shard_rules.constrain_seq(x)
             auxes = []
             for kind, lp in zip(period, layers):
                 x, _, aux = _apply_layer(x, lp, cfg, policy, kind,
@@ -277,6 +326,7 @@ def lm_forward(params: Params, cfg, policy: QuantPolicy, *,
     else:
         periods = num_periods(cfg)
     for p in range(periods):
+        x = shard_rules.constrain_seq(x)
         cursor: dict[str, int] = {}
         for i, kind in enumerate(period):
             lstate = None
@@ -305,7 +355,52 @@ def lm_forward(params: Params, cfg, policy: QuantPolicy, *,
     x = norm(params["final_norm"], x)
     head = params["embed"]["table"] if cfg.tie_embeddings else params["lm_head"]["w"]
     logits = torch.matmul(x.float(), head.float().T)
+    logits = shard_rules.constrain(logits, shard_rules.DATA_AXES, None,
+                                   shard_rules.MODEL_AXIS)
     return logits, new_state, aux_total
+
+
+def _lm_forward_tp(params: tp.RankedTree, cfg, policy: QuantPolicy, *,
+                   tokens, input_embeds, remat: bool, causal: bool):
+    """:func:`lm_forward` with no state over the model ranks of one data
+    shard: ``params`` a ``RankedTree``, ``tokens`` / ``input_embeds``
+    ``Ranked``. Returns vocab-parallel logits (``Ranked``, vocab split
+    where the rule table splits the head), no state, and a zero aux
+    loss."""
+    check_model_axis(cfg)
+    _, norm = _norm_fns(cfg)
+    if input_embeds is not None:
+        x = tp.each(lambda e: e.to(cfg.dtype), input_embeds)
+        if "in_norm" in params:
+            x = tp.each(norm, params["in_norm"], x)
+    else:
+        x = embed(params["embed"], tokens, dtype=cfg.dtype)
+    positions = tp.Ranked([torch.arange(x.shape[1], device=d) for d in x.devices],
+                          (None,))
+    period = period_spec(cfg)
+
+    def period_body(x, layers):
+        x = shard_rules.constrain_seq(x)
+        for kind, lp in zip(period, layers):
+            x, _, _ = _apply_layer(x, lp, cfg, policy, kind, positions=positions,
+                                   layer_state=None, causal=causal)
+        return x
+
+    for p in range(num_periods(cfg)):
+        layers = [lp.index(p) for lp in params["layers"]]
+        if remat and torch.is_grad_enabled():
+            # every rank's part of the period, recomputed together
+            x = checkpoint(period_body, x, layers, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = period_body(x, layers)
+    x = tp.each(norm, params["final_norm"], x)
+    head = params["embed"]["table"] if cfg.tie_embeddings else params["lm_head"]["w"]
+    logits = tp.each(lambda xr, hr: torch.matmul(xr.float(), hr.float().T), x,
+                     head, spec=(None, None, tp.MODEL if head.split(0) else None))
+    logits = shard_rules.constrain(logits, shard_rules.DATA_AXES, None,
+                                   shard_rules.MODEL_AXIS)
+    return logits, None, torch.zeros((), device=x.devices[0])
 
 
 # ------------------------------ entry points ---------------------------------
@@ -322,11 +417,16 @@ def lm_loss(params, batch: dict, cfg, policy: QuantPolicy, *,
     ``batch["labels"]`` (``[B, S]``) over the first ``cfg.vocab_size``
     logits, plus ``aux_weight`` times the MoE balance loss, each period
     rematerialized in the backward (``remat``). Returns (total, ``{"loss",
-    "aux"}``)."""
+    "aux"}``). Over the model ranks (``RankedTree`` params, ``Ranked``
+    batch leaves) the loss is vocab-parallel, on the first rank's
+    device."""
     logits, _, aux = lm_forward(params, cfg, policy, tokens=batch.get("tokens"),
                                 input_embeds=batch.get("input_embeds"),
                                 remat=remat)
-    loss = softmax_cross_entropy(logits[..., :cfg.vocab_size], batch["labels"])
+    if isinstance(logits, tp.Ranked):
+        loss = vocab_parallel_cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    else:
+        loss = softmax_cross_entropy(logits[..., :cfg.vocab_size], batch["labels"])
     return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
 

@@ -25,6 +25,11 @@ process, each replica's gradient on its batch shard summed in mesh order
 (``dp_shards``, ``dp_mesh_mean``, which the BNN trainer's
 compressed DP step shares).
 
+``make_tp_train_step(model, tcfg, mesh)`` is the step over a ``("data",
+"model")`` mesh (``launch.mesh.DeviceMesh``): tensor parallelism over the
+model axis inside each data shard, the params and optimizer state laid
+out by the rule table (``distributed.sharding.shard_params``).
+
 ``make_prefill`` / ``make_decode_step`` wrap ``Model.prefill`` /
 ``Model.decode_step``.
 """
@@ -32,16 +37,18 @@ compressed DP step shares).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import tree
-from repro_torch.distributed import compression
+from repro_torch.distributed import compression, sharding
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import shard_rows
 from repro_torch.models import ffn
-from repro_torch.models.transformer import AUX_WEIGHT
+from repro_torch.models.transformer import AUX_WEIGHT, check_model_axis
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.clip import clip_by_global_norm
 from repro_torch.optim.schedules import cosine_schedule
@@ -104,17 +111,18 @@ def _grads_of(model, params, batch):
             tree.tree_map(lambda _: next(grads), live))
 
 
-def _accumulated_grads(model, params, batch, microbatches: int):
-    """(loss, metrics, grads) of ``batch``, over ``microbatches`` of it
-    taken in order and summed from zeros where there is more than one."""
+def _accumulated_grads(grads_of: Callable, params, batch, microbatches: int):
+    """(loss, metrics, grads) of ``batch`` by ``grads_of(params, batch)``,
+    over ``microbatches`` of it taken in order and summed from zeros where
+    there is more than one."""
     if microbatches <= 1:
-        return _grads_of(model, params, batch)
+        return grads_of(params, batch)
     gsum = tree.tree_map(torch.zeros_like, params)
     losses, mmetrics = [], []
     mbs = _split_microbatches(batch, microbatches)
     for i in range(microbatches):
         mb = tree.tree_map(lambda t, i=i: t[i], mbs)
-        loss, metrics, grads = _grads_of(model, params, mb)
+        loss, metrics, grads = grads_of(params, mb)
         gsum = tree.tree_map(torch.add, gsum, grads)
         losses.append(loss)
         mmetrics.append(metrics)
@@ -143,7 +151,7 @@ def make_train_step(model, tcfg: TrainConfig,
                     clip_predicate: Optional[Callable] = None):
     def train_step(params, opt_state, batch):
         loss, model_metrics, grads = _accumulated_grads(
-            model, params, batch, tcfg.microbatches)
+            functools.partial(_grads_of, model), params, batch, tcfg.microbatches)
         new_params, new_opt, gnorm, lr_scale = _apply_update(
             tcfg, params, opt_state, grads, clip_predicate)
         metrics = {**model_metrics, "loss": loss, "grad_norm": gnorm,
@@ -237,28 +245,26 @@ def make_dp_train_step(model, tcfg: TrainConfig, mesh,
     the whole batch's: on more than one replica its step forms the loss
     from the router terms averaged over the shards
     (:func:`_whole_batch_moe_grads`), the whole batch's loss, and takes its
-    gradient in one backward. With ``tcfg.microbatches > 1`` as well it
-    raises ``NotImplementedError`` (ROADMAP A5b): the single-device step
-    then balances each microbatch of the whole batch, rows no shard
-    holds together."""
+    gradient in one backward. With ``tcfg.microbatches > 1`` the whole
+    batch splits into microbatches first, as the single-device step
+    splits it, and each microbatch's whole loss is taken over the
+    replicas, its balance loss over that microbatch's rows."""
     devices = tuple(mesh.devices)
     n = len(devices)
     moe = n > 1 and bool(model.cfg.num_experts)
-    if moe and tcfg.microbatches > 1:
-        raise NotImplementedError(
-            f"{model.cfg.name} is an MoE config: with microbatches its "
-            "single-device step balances each microbatch of the whole batch, "
-            f"which {n} shards do not hold; data-parallel MoE training with "
-            "microbatches waits for ROADMAP A5b")
 
     def grads_of(params, shard):
-        return _accumulated_grads(model, params, shard, tcfg.microbatches)
+        return _accumulated_grads(functools.partial(_grads_of, model), params,
+                                  shard, tcfg.microbatches)
+
+    def whole_batch_grads(params, batch):
+        return _whole_batch_moe_grads(model, params, batch, devices)
 
     def train_step(params, opt_state, batch):
         home = tree.leaves(params)[0].device
         if moe:
-            loss, model_metrics, grads = _whole_batch_moe_grads(
-                model, params, batch, devices)
+            loss, model_metrics, grads = _accumulated_grads(
+                whole_batch_grads, params, batch, tcfg.microbatches)
         else:
             losses, shard_metrics, shard_grads = zip(*dp_shards(
                 grads_of, params, batch, devices))
@@ -273,6 +279,121 @@ def make_dp_train_step(model, tcfg: TrainConfig, mesh,
         metrics = {**model_metrics, "loss": loss, "grad_norm": gnorm,
                    "lr_scale": lr_scale}
         return new_params, new_opt, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the model axis, data parallelism over the data
+# axis, from one process.
+# ---------------------------------------------------------------------------
+
+
+def _mean_over_rows(trees: list, home: torch.device):
+    """The data shards' trees of one model rank averaged leaf by leaf in
+    mesh order on ``home`` (``dp_mesh_mean``)."""
+    means = iter([dp_mesh_mean(gs, home) for gs in zip(*map(tree.leaves, trees))])
+    return tree.tree_map(lambda _: next(means), trees[0])
+
+
+def _sum_replicated(grads: list, specs) -> list:
+    """The ranks' gradient trees with every leaf the ranks hold whole (the
+    norms and the biases each rank applies to its copy of the residual
+    stream) replaced by the sum of the ranks' shares in rank order
+    (``compression._mesh_sum``), on every rank; leaves split over the
+    model axis are left as they are."""
+    leaves = [tree.leaves(g) for g in grads]
+    per_rank: list = [[] for _ in grads]
+    for i, (path, _) in enumerate(tree.leaves_with_path(grads[0])):
+        parts = [lv[i] for lv in leaves]
+        if sharding.MODEL_AXIS not in sharding.spec_at(specs, path):
+            total = compression._mesh_sum(parts)
+            parts = [total.to(p.device) for p in parts]
+        for r, p in enumerate(parts):
+            per_rank[r].append(p)
+    return [tree.tree_map(lambda _, it=iter(per_rank[r]): next(it), g)
+            for r, g in enumerate(grads)]
+
+
+def make_tp_train_step(model, tcfg: TrainConfig, mesh,
+                       clip_predicate: Optional[Callable] = None):
+    """:func:`make_train_step` over a ``("data", "model")`` mesh
+    (``launch.mesh.DeviceMesh``): ``(params, opt_state, batch) -> (params,
+    opt_state, metrics)`` with ``params`` and ``opt_state`` laid out by
+    ``distributed.sharding.shard_params`` (one tree a device, each leaf its
+    rank's slice by the rule table), and returned so.
+
+    The batch splits into contiguous shards over the mesh's data rows.
+    Each row's model ranks take the gradient of ``model.loss`` on its
+    shard in lockstep (``models.transformer``: column- and row-parallel
+    projections, local attention heads, a vocab-parallel embedding and
+    loss), under ``activation_mesh(mesh)``, ``tcfg.microbatches``
+    splitting the shard. Each rank's gradients are averaged over the rows
+    in mesh order (``dp_mesh_mean``), and a leaf every rank holds whole
+    sums its ranks' shares. Then one clip by the global norm of the whole
+    tree (``optim.clip``: a replicated leaf counted once), and on each
+    rank's slice one schedule step and one AdamW update, copied to the
+    rank's devices on the other rows. Up to the order of float sums this
+    is the single-device step on the whole batch.
+
+    A config whose layers are not yet on the model axis (experts, mamba,
+    xLSTM, the encoder-decoder) raises ``NotImplementedError`` naming
+    ROADMAP A5b when the model axis holds more than one device."""
+    ranks = sharding.model_axis_size(mesh)
+    if ranks > 1:
+        check_model_axis(model.cfg)
+
+    def row_grads(trees: list, shard: dict, specs):
+        devs = [tree.leaves(t)[0].device for t in trees]
+        live = [tree.tree_map(lambda t: t.detach().requires_grad_(True), t)
+                for t in trees]
+        ranked = {k: tp.Ranked.replicated(v, devs) for k, v in shard.items()}
+        flat = [leaf for t in live for leaf in tree.leaves(t)]
+        with torch.enable_grad():
+            loss, metrics = model.loss(tp.RankedTree(live, specs), ranked)
+            got = torch.autograd.grad(loss, flat, allow_unused=True)
+        got = iter([torch.zeros_like(p) if g is None else g
+                    for p, g in zip(flat, got)])
+        return (loss.detach(), tree.tree_map(torch.Tensor.detach, metrics),
+                [tree.tree_map(lambda _: next(got), t) for t in live])
+
+    def train_step(params, opt_state, batch):
+        rows = params.rows()
+        per_row = shard_rows(int(tree.leaves(batch)[0].shape[0]), len(rows))
+        outs = []
+        with sharding.activation_mesh(mesh):
+            for d, trees in enumerate(rows):
+                first = tree.leaves(trees[0])[0].device
+                shard = tree.tree_map(
+                    lambda t: t[d * per_row:(d + 1) * per_row].to(first), batch)
+                outs.append(_accumulated_grads(
+                    functools.partial(row_grads, specs=params.specs), trees,
+                    shard, tcfg.microbatches))
+        losses, row_metrics, row_grads_ = zip(*outs)
+        home = [tree.leaves(t)[0].device for t in rows[0]]
+        grads = _sum_replicated(
+            [_mean_over_rows([g[r] for g in row_grads_], home[r])
+             for r in range(ranks)], params.specs)
+        grads, gnorm = clip_by_global_norm(
+            sharding.Shards(grads, params.specs, mesh), tcfg.clip_norm)
+        new_row, new_opt_row, lr_scales = [], [], []
+        for p, o, g in zip(rows[0], opt_state.rows()[0], grads):
+            lr_scales.append(cosine_schedule(o["adam"]["count"] + 1,
+                                             warmup_steps=tcfg.warmup_steps,
+                                             total_steps=tcfg.total_steps))
+            new_p, new_adam = adamw_update(g, o["adam"], p, tcfg.adamw,
+                                           lr_scale=lr_scales[-1],
+                                           clip_predicate=clip_predicate)
+            new_row.append(new_p)
+            new_opt_row.append({"adam": new_adam})
+        loss = dp_mesh_mean(losses, home[0])
+        model_metrics = tree.tree_map(lambda *ms: dp_mesh_mean(ms, home[0]),
+                                      *row_metrics)
+        metrics = {**model_metrics, "loss": loss, "grad_norm": gnorm,
+                   "lr_scale": lr_scales[0]}
+        return (sharding.Shards.of_row(new_row, params.specs, mesh),
+                sharding.Shards.of_row(new_opt_row, opt_state.specs, mesh),
+                metrics)
 
     return train_step
 

@@ -81,7 +81,8 @@ def test_dp_step_with_microbatches():
 def test_moe_dp_loss_is_the_whole_batch_s_and_jax_s():
     """moonshot's smoke config on 2 replicas: the step's loss and balance
     loss equal the single-device step's and the JAX package's loss of the
-    whole batch (rtol 1e-5); with microbatches it is refused (A5b)."""
+    whole batch (rtol 1e-5); with microbatches it equals the single-device
+    microbatched step, each microbatch's balance loss over its own rows."""
     arch = "moonshot-v1-16b-a3b"
     one, dp, tcfg = steps(arch, "float", 2)
     assert_same_step(one, dp, tcfg)
@@ -98,9 +99,7 @@ def test_moe_dp_loss_is_the_whole_batch_s_and_jax_s():
         jparams, {k: jnp.asarray(v.numpy()) for k, v in batch.items()})
     np.testing.assert_allclose(float(metrics["loss"]), float(total), rtol=1e-5)
     np.testing.assert_allclose(float(metrics["aux"]), float(jmetrics["aux"]), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        make_dp_train_step(model, TrainConfig(microbatches=2),
-                           ServingMesh(("cpu", "cpu")))
+    assert_same_step(*steps(arch, "float", 2, TrainConfig(microbatches=2)))
 
 
 def test_one_replica_is_the_single_device_step():

@@ -29,7 +29,7 @@ from repro_torch.configs.base import float_policy, smoke_config
 from repro_torch.distributed.fault_tolerance import make_elastic_mesh
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import train as launch_train
-from repro_torch.launch.mesh import ServingMesh
+from repro_torch.launch.mesh import DeviceMesh, ServingMesh
 from repro_torch.models.model_factory import build_model
 from repro_torch.models.encdec import encdec_loss
 from repro_torch.models.transformer import lm_loss
@@ -308,8 +308,9 @@ def test_train_refuses_what_is_not_ported(monkeypatch):
     """The launcher's mesh: with no mesh it takes every visible card; on a
     2-entry CPU mesh smollm trains as on one device (losses within rtol
     1e-5: the float order of the reduce); an MoE config with microbatches
-    on more than one replica is refused (ROADMAP A5b: its balance loss is
-    batch-global); a config fed by embeddings trains (pixtral's smoke
+    on more than one replica trains; a layer kind not yet on the model
+    axis is refused on a ``DeviceMesh`` whose model axis holds 2 devices
+    (ROADMAP A5b); a config fed by embeddings trains (pixtral's smoke
     config, 2 steps)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
@@ -320,9 +321,14 @@ def test_train_refuses_what_is_not_ported(monkeypatch):
     one = launch_train.train("smollm-360m", device="cpu", **kw)
     two = launch_train.train("smollm-360m", mesh=ServingMesh(("cpu", "cpu")), **kw)
     np.testing.assert_allclose(two["losses"], one["losses"], rtol=1e-5)
+    moe = launch_train.train("moonshot-v1-16b-a3b", steps=1, batch=4, seq=32,
+                             microbatches=2, mesh=ServingMesh(("cpu", "cpu")),
+                             log_every=100)
+    assert np.isfinite(moe["losses"]).all()
     with pytest.raises(NotImplementedError, match="A5b"):
         launch_train.train("moonshot-v1-16b-a3b", steps=1, batch=4, seq=32,
-                           microbatches=2, mesh=ServingMesh(("cpu", "cpu")))
+                           mesh=DeviceMesh(np.array([["cpu", "cpu"]], dtype=object),
+                                           ("data", "model")))
     out = launch_train.train("pixtral-12b", steps=2, batch=2, seq=16,
                              log_every=100, device="cpu")
     assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
