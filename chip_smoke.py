@@ -199,11 +199,28 @@
    same params and batch: loss within ``LM_LOSS_TOL``, the gathered
    gradients (Adam's first moment) per leaf within phase 11's bf16
    ``LM_GRAD_TOL``, flash attention forward and backward launched exactly
-   twice as often, each rank's param bytes the rule table's shard bytes.
-   Prints ms a step for both (CUDA events), their peak memory and the TP
-   step's counted all-reduce bytes a device beside the dry run's
-   ``op_cost.collective_bytes`` for the same mesh. The TP step's launches
-   are the path ``lm_tp_train``.
+   twice as often, each rank's param bytes the rule table's shard bytes,
+   the TP step's collective bytes a device, as counted, the dry run's
+   reckoning for the same mesh (``op_cost.collective_bytes`` plus
+   ``collective_bytes_bwd``, kind by kind and direction by direction).
+   Prints ms a step for both (CUDA events), their peak memory and the
+   bytes by site. The TP step's launches are the path ``lm_tp_train``.
+
+15. Expert parallelism over the model axis (``ep_phase``):
+   moonshot-v1-16b-a3b at its published widths (64 experts of d_ff 1408,
+   top-6), 2 of 48 layers (batch 2 x 4096, bf16, ``train_policy()``)
+   takes one ``make_tp_train_step`` step on a (1, 2) mesh of two ranks
+   sharing the card, each rank holding 32 experts, and one single-device
+   step first; its first moment goes to the host and its trees leave the
+   card before the EP step. Holds the loss and the balance loss within
+   ``LM_LOSS_TOL``, the gathered gradients within the bf16
+   ``LM_GRAD_TOL``, flash forward and backward exactly twice as often,
+   rank bytes the rule table's, collective bytes the reckoning; prints ms
+   a step, peak memory, bytes by site and the (token, slot) pairs routed
+   to another expert than the single step's, layer by layer. arctic's
+   smoke config (its dense residual beside the experts) takes the same
+   two steps in float32. The EP step's launches are the path
+   ``lm_ep_train``.
 
 Every phase prints its seconds.
 
@@ -216,6 +233,7 @@ phase fails. Per-shape details go to ``build/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -4075,11 +4093,12 @@ def tp_phase(dev, card: str) -> dict:
     ``LM_GRAD_TOL``; flash attention forward and backward launched exactly
     ``TP_RANKS`` x as often as in the single step; each rank's param bytes
     equal to the rule table's shard bytes (``param_spec``,
-    ``shard_shape``). Prints the ms of a step of each (CUDA events), their
-    peak memory, and the TP step's all-reduce bytes a device as
-    ``distributed.tensor_parallel`` counts them, by site, beside the dry
-    run's ``roofline.op_cost.collective_bytes`` for the same mesh. The TP
-    step's launches are the path ``lm_tp_train``."""
+    ``shard_shape``); the TP step's collective bytes a device as
+    ``distributed.tensor_parallel`` counts them equal to the dry run's
+    reckoning for the same mesh (:func:`collectives_against_reckoning`).
+    Prints the ms of a step of each (CUDA events), their peak memory, and
+    the bytes by site. The TP step's launches are the path
+    ``lm_tp_train``."""
     from repro_torch import tree
     from repro_torch.configs.base import get_config, train_policy
     from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
@@ -4088,7 +4107,6 @@ def tp_phase(dev, card: str) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import DeviceMesh
     from repro_torch.models.model_factory import build_model
-    from repro_torch.roofline import op_cost
     from repro_torch.train.step import (TrainConfig, init_opt_state,
                                         make_tp_train_step, make_train_step)
 
@@ -4135,11 +4153,7 @@ def tp_phase(dev, card: str) -> dict:
     worst = max(rel, key=rel.get)
     single_ms = events_ms(lambda: single(params, opt, b0), reps=2, warm=False)
     tp_ms = events_ms(lambda: step(sp, so, b0), reps=2, warm=False)
-    meta = model.init()
-    reckoned = op_cost.collective_bytes(
-        mesh, (meta, init_opt_state(meta),
-               {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
-                for k, v in b0.items()}), "train")
+    coll = collectives_against_reckoning(mesh, model, b0, counted)
     del params, opt, sp, so
     torch.cuda.empty_cache()
     res = {"card": card, "arch": arch, "layers": layers, "batch": batch, "seq": seq,
@@ -4154,8 +4168,7 @@ def tp_phase(dev, card: str) -> dict:
            "peak_single_bytes": peak_single, "peak_tp_bytes": peak_tp,
            "collective_bytes_counted": {f"{k} {s} {d}": n
                                         for (k, s, d), n in sorted(counted.items())},
-           "collective_bytes_by_kind": by_kind,
-           "collective_bytes_reckoned": reckoned}
+           "collective_bytes_by_kind": by_kind, "collectives": coll}
     print(f"  {arch} ({layers} of its layers) batch {batch} x {seq} bf16 on a (1, "
           f"{TP_RANKS}) mesh of ranks sharing the card: loss {res['loss_tp']:.5f} "
           f"(single device {res['loss_single']:.5f}), grad norm "
@@ -4168,12 +4181,7 @@ def tp_phase(dev, card: str) -> dict:
           f"peak memory {peak_single / 2**30:.2f} GiB single, {peak_tp / 2**30:.2f} GiB "
           f"TP (both ranks, with the single step's params and state) [{card}]",
           flush=True)
-    print(f"  collective bytes a device, counted in the TP step: "
-          + ", ".join(f"{k} {v:.6g}" for k, v in sorted(by_kind.items()))
-          + f"; the dry run's op_cost.collective_bytes for this mesh: "
-          + ", ".join(f"{k} {v:.6g}" for k, v in reckoned.items() if v), flush=True)
-    for (kind, site, direction), n in sorted(counted.items()):
-        print(f"    {kind} {site} {direction}: {n:.6g}", flush=True)
+    print_collectives(counted, coll)
     if not abs(res["loss_tp"] - res["loss_single"]) <= LM_LOSS_TOL:
         fail(f"TP step loss {res['loss_tp']} vs single device {res['loss_single']}")
     if rel[worst] > LM_GRAD_TOL["bfloat16"]:
@@ -4186,8 +4194,269 @@ def tp_phase(dev, card: str) -> dict:
     if rank_bytes != [rule_bytes] * TP_RANKS:
         fail(f"TP ranks hold {rank_bytes} param bytes, the rule table's shards "
              f"{rule_bytes}")
+    hold_collectives("TP step", coll)
     res["seconds"] = time.monotonic() - t0
     print(f"  phase 14 {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def collectives_against_reckoning(mesh, model, b0, counted: dict) -> dict:
+    """A TP step's collectives as ``distributed.tensor_parallel.BYTES``
+    counted them (``counted``), summed by kind and direction, beside the dry
+    run's reckoning for the same mesh and batch: ``op_cost.
+    collective_bytes`` (one forward) plus ``op_cost.collective_bytes_bwd``
+    (remat's recompute, the backward, the embedding, gathers and loss;
+    ``train_policy()``'s alpha). Returns both and the worst relative gap."""
+    from repro_torch.roofline import op_cost
+
+    got: dict = collections.Counter()
+    for (kind, _, direction), n in counted.items():
+        got[f"{kind} {direction}"] += n
+    meta = model.init()
+    args = (meta, None, {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                         for k, v in b0.items()})
+    act = torch.empty((), dtype=model.cfg.dtype).element_size()
+    want: dict = collections.Counter(
+        {f"{k} {d}": v for (k, d), v in op_cost.collective_bytes_bwd(
+            mesh, args, "train", model.cfg).items()})
+    for kind, v in op_cost.collective_bytes(mesh, args, "train",
+                                            act_bytes=act).items():
+        want[f"{kind} fwd"] += v
+    keys = sorted(k for k in set(got) | set(want) if got[k] or want[k])
+    worst = max(abs(got[k] - want[k]) / max(got[k], want[k]) for k in keys)
+    return {"counted": {k: got[k] for k in keys},
+            "reckoned": {k: want[k] for k in keys}, "worst_rel": worst}
+
+
+def print_collectives(counted: dict, coll: dict) -> None:
+    print("  collective bytes a device, counted in the TP step, beside the dry "
+          "run's reckoning (op_cost.collective_bytes + collective_bytes_bwd): "
+          + ", ".join(f"{k} {coll['counted'][k]:.6g} ({coll['reckoned'][k]:.6g})"
+                      for k in coll["counted"])
+          + f"; worst relative gap {coll['worst_rel']:.3g}", flush=True)
+    for (kind, site, direction), n in sorted(counted.items()):
+        print(f"    {kind} {site} {direction}: {n:.6g}", flush=True)
+
+
+def hold_collectives(label: str, coll: dict) -> None:
+    if coll["worst_rel"] > 1e-9:
+        fail(f"{label}: counted collective bytes {coll['counted']} are not the "
+             f"dry run's reckoning {coll['reckoned']}")
+
+
+# ------------- phase 15: expert parallelism over the model axis -------------
+
+# (arch, layers, batch, seq): moonshot-v1-16b-a3b at its published widths
+# (64 experts of d_ff 1408, top-6, C = 480), 2 of its 48 layers (depth cut
+# for memory: 1.8122e9 float32 params, 7.25 GB, with the untied head).
+EP_LM_CASE = ("moonshot-v1-16b-a3b", 2, 2, 4096)
+# Ranks on the model axis, sharing one card.
+EP_RANKS = 2
+# arctic's dense residual branch beside its experts: the smoke config
+# (float32), batch x seq, on the same mesh.
+EP_SMOKE_CASE = ("arctic-480b", 8, 64)
+
+
+def routing_flips(routes_one: list, routes_ep: list, layers: int,
+                  ranks: int) -> list:
+    """Per MoE layer of the forward, the (token, slot) pairs whose expert
+    differs between the single-device step and the EP step's rank 0 (the
+    collectors hold the forward's routes first, remat's after), and
+    whether every rank of the EP step routed alike."""
+    out = []
+    for layer in range(layers):
+        one = routes_one[layer][0]
+        ep = [routes_ep[layer * ranks + r][0] for r in range(ranks)]
+        out.append({"flips": int((ep[0] != one).sum()),
+                    "pairs": one.numel(),
+                    "ranks_agree": all(torch.equal(e, ep[0]) for e in ep)})
+    return out
+
+
+def ep_smoke_step(dev, mesh) -> dict:
+    """arctic's smoke config (``moe+dense``: the experts and the dense
+    residual FFN) under ``train_policy()``: one EP step on ``mesh`` and one
+    single-device step, loss within ``LM_LOSS_TOL`` and gathered gradients
+    within the float32 ``LM_GRAD_TOL``."""
+    from repro_torch.configs.base import smoke_config, train_policy
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+    from repro_torch.distributed import sharding
+    from repro_torch.models.model_factory import build_model
+    from repro_torch.train.step import (TrainConfig, init_opt_state,
+                                        make_tp_train_step, make_train_step)
+
+    arch, batch, seq = EP_SMOKE_CASE
+    cfg = smoke_config(arch)
+    model = build_model(cfg, train_policy())
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    opt = init_opt_state(params)
+    b0 = next(synthetic_lm_batches(DataConfig(seed=0, global_batch=batch,
+                                              seq_len=seq, vocab_size=cfg.vocab_size)))
+    b0 = {"tokens": b0["tokens"].to(dev), "labels": b0["labels"].to(dev)}
+    _, opt_one, m_one = make_train_step(model, TrainConfig())(params, opt, b0)
+    _, opt_ep, m_ep = make_tp_train_step(model, TrainConfig(), mesh)(
+        sharding.shard_params(params, mesh), sharding.shard_params(opt, mesh), b0)
+    rel = _leaf_rel_l2(sharding.gather_params(opt_ep, mesh)["adam"]["mu"],
+                       opt_one["adam"]["mu"])
+    worst = max(rel, key=rel.get)
+    res = {"arch": arch, "batch": batch, "seq": seq,
+           "loss_single": float(m_one["loss"]), "loss_ep": float(m_ep["loss"]),
+           "aux_single": float(m_one["aux"]), "aux_ep": float(m_ep["aux"]),
+           "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_leaf": worst}
+    print(f"  {arch} smoke config (moe+dense) batch {batch} x {seq} float32: loss "
+          f"{res['loss_ep']:.6f} EP ({res['loss_single']:.6f} single), aux "
+          f"{res['aux_ep']:.6f} ({res['aux_single']:.6f}); gathered gradients "
+          f"per-leaf rel L2 max {rel[worst]:.3g} ({worst})", flush=True)
+    if not abs(res["loss_ep"] - res["loss_single"]) <= LM_LOSS_TOL:
+        fail(f"{arch} EP step loss {res['loss_ep']} vs single {res['loss_single']}")
+    if not abs(res["aux_ep"] - res["aux_single"]) <= LM_LOSS_TOL:
+        fail(f"{arch} EP step aux {res['aux_ep']} vs single {res['aux_single']}")
+    if rel[worst] > LM_GRAD_TOL["float32"]:
+        fail(f"{arch} EP step: gathered gradient {worst} rel L2 {rel[worst]:.3g} "
+             f"> {LM_GRAD_TOL['float32']} of the single-device step's")
+    return res
+
+
+def ep_phase(dev, card: str) -> dict:
+    """Phase 15: one expert-parallel step (``train.step.make_tp_train_step``)
+    of ``EP_LM_CASE`` under ``train_policy()`` in bf16 on a (1,
+    ``EP_RANKS``) ``("data", "model")`` mesh of ranks sharing the card (the
+    experts, attention heads and vocab split over the ranks by the rule
+    table), and one single-device step on the same params and batch.
+    Holds: the losses and the balance losses within ``LM_LOSS_TOL``; the
+    gathered gradients (Adam's first moment) per leaf within phase 11's
+    bf16 ``LM_GRAD_TOL``; flash attention forward and backward launched
+    exactly ``EP_RANKS`` x as often as in the single step; each rank's
+    param bytes the rule table's shard bytes; the counted collective bytes
+    the dry run's reckoning. Prints the ms of a step of each (CUDA events,
+    the second call of each), their peak memory, the bytes by site and the
+    (token, slot) pairs routed to another expert than the single step's,
+    layer by layer. The single step runs first; its first moment and
+    metrics go to the host and its trees leave the card before the EP
+    step. Then ``EP_SMOKE_CASE`` (:func:`ep_smoke_step`). The EP step's
+    launches are the path ``lm_ep_train``."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config, train_policy
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models import ffn
+    from repro_torch.models.model_factory import build_model
+    from repro_torch.train.step import (TrainConfig, init_opt_state,
+                                        make_tp_train_step, make_train_step)
+
+    t0 = time.monotonic()
+    arch, layers, batch, seq = EP_LM_CASE
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    model = build_model(cfg, train_policy())
+    tcfg = TrainConfig()
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    opt = init_opt_state(params)
+    b0 = next(synthetic_lm_batches(DataConfig(seed=0, global_batch=batch,
+                                              seq_len=seq, vocab_size=cfg.vocab_size)))
+    b0 = {"tokens": b0["tokens"].to(dev), "labels": b0["labels"].to(dev)}
+    mesh = DeviceMesh(np.array([[dev] * EP_RANKS], dtype=object), ("data", "model"))
+    single = make_train_step(model, tcfg)
+    step = make_tp_train_step(model, tcfg, mesh)
+
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with ffn.routing() as routes:
+        new_p, opt_one, m_one = single(params, opt, b0)
+    torch.cuda.synchronize()
+    one = dict(ops.LAUNCHES)
+    peak_single = torch.cuda.max_memory_allocated(dev)
+    mu_one = tree.tree_map(lambda t: t.cpu(), opt_one["adam"]["mu"])
+    m_one = {k: float(v) for k, v in m_one.items()}
+    routes_one = [tuple(t.cpu() for t in r) for r in routes]
+    del new_p, opt_one, routes
+    torch.cuda.empty_cache()
+    single_ms = events_ms(lambda: single(params, opt, b0), reps=1, warm=False)
+    sp, so = sharding.shard_params(params, mesh), sharding.shard_params(opt, mesh)
+    rank_bytes = [_nbytes(t) for t in sp.rows()[0]]
+    rule_bytes = sum(
+        math.prod(sharding.shard_shape(mesh, leaf.shape, sharding.param_spec(
+            mesh, path, leaf))) * leaf.element_size()
+        for path, leaf in tree.leaves_with_path(params))
+    whole_bytes = _nbytes(params)
+    del params, opt
+    torch.cuda.empty_cache()
+    tp.reset_bytes()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with ffn.routing() as routes:
+        new_p, opt_ep, m_ep = step(sp, so, b0)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak_ep = torch.cuda.max_memory_allocated(dev)
+    counted = dict(tp.BYTES)
+    routes_ep = [tuple(t.cpu() for t in r) for r in routes]
+    mu_ep = tree.tree_map(lambda t: t.cpu(),
+                          sharding.gather_params(opt_ep, mesh)["adam"]["mu"])
+    m_ep = {k: float(v) for k, v in m_ep.items()}
+    del new_p, opt_ep, routes
+    torch.cuda.empty_cache()
+    ep_ms = events_ms(lambda: step(sp, so, b0), reps=1, warm=False)
+    del sp, so
+    torch.cuda.empty_cache()
+    rel = _leaf_rel_l2(mu_ep, mu_one)
+    worst = max(rel, key=rel.get)
+    flips = routing_flips(routes_one, routes_ep, layers, EP_RANKS)
+    coll = collectives_against_reckoning(mesh, model, b0, counted)
+    res = {"card": card, "arch": arch, "layers": layers, "batch": batch, "seq": seq,
+           "ranks": EP_RANKS, "loss_single": m_one["loss"], "loss_ep": m_ep["loss"],
+           "aux_single": m_one["aux"], "aux_ep": m_ep["aux"],
+           "grad_norm_single": m_one["grad_norm"], "grad_norm_ep": m_ep["grad_norm"],
+           "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_leaf": worst,
+           "grad_rel_l2_median": statistics.median(rel.values()),
+           "routing": flips, "launches_single": {k: v for k, v in one.items() if v},
+           "launches": launches, "rank_param_bytes": rank_bytes,
+           "rule_table_bytes": rule_bytes, "whole_param_bytes": whole_bytes,
+           "single_ms": single_ms, "ep_ms": ep_ms,
+           "peak_single_bytes": peak_single, "peak_ep_bytes": peak_ep,
+           "collective_bytes_counted": {f"{k} {s} {d}": n
+                                        for (k, s, d), n in sorted(counted.items())},
+           "collectives": coll}
+    print(f"  {arch} ({layers} of its layers) batch {batch} x {seq} bf16 on a (1, "
+          f"{EP_RANKS}) mesh of ranks sharing the card: loss {res['loss_ep']:.5f} "
+          f"(single device {res['loss_single']:.5f}), aux {res['aux_ep']:.6f} "
+          f"({res['aux_single']:.6f}), grad norm {res['grad_norm_ep']:.6g} "
+          f"({res['grad_norm_single']:.6g}); gathered gradients per-leaf rel L2 max "
+          f"{rel[worst]:.3g} ({worst}), median {res['grad_rel_l2_median']:.3g}; "
+          f"launches {res['launches_single']} single, "
+          f"{ {k: v for k, v in launches.items() if v} } EP; rank param bytes "
+          f"{rank_bytes} (rule table {rule_bytes}, whole {whole_bytes}) [{card}]",
+          flush=True)
+    print(f"  routing, EP rank 0 against the single step, layer by layer: "
+          + ", ".join(f"{f['flips']} of {f['pairs']} (token, slot) pairs to another "
+                      f"expert, ranks agree {f['ranks_agree']}" for f in flips),
+          flush=True)
+    print(f"  a step {single_ms:.2f} ms single, {ep_ms:.2f} ms EP (CUDA events, "
+          f"the second call of each); peak memory {peak_single / 2**30:.2f} GiB "
+          f"single, {peak_ep / 2**30:.2f} GiB EP (both ranks) [{card}]", flush=True)
+    print_collectives(counted, coll)
+    if not abs(res["loss_ep"] - res["loss_single"]) <= LM_LOSS_TOL:
+        fail(f"EP step loss {res['loss_ep']} vs single device {res['loss_single']}")
+    if not abs(res["aux_ep"] - res["aux_single"]) <= LM_LOSS_TOL:
+        fail(f"EP step aux {res['aux_ep']} vs single device {res['aux_single']}")
+    if rel[worst] > LM_GRAD_TOL["bfloat16"]:
+        fail(f"EP step: gathered gradient {worst} rel L2 {rel[worst]:.3g} > "
+             f"{LM_GRAD_TOL['bfloat16']} of the single-device step's")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if not one[name] or launches[name] != EP_RANKS * one[name]:
+            fail(f"EP step launched {name} {launches[name]} times, the single "
+                 f"step {one[name]}: expected {EP_RANKS}x")
+    if rank_bytes != [rule_bytes] * EP_RANKS:
+        fail(f"EP ranks hold {rank_bytes} param bytes, the rule table's shards "
+             f"{rule_bytes}")
+    if not all(f["ranks_agree"] for f in flips):
+        fail("EP step: the ranks routed the same tokens differently")
+    hold_collectives("EP step", coll)
+    res["smoke"] = ep_smoke_step(dev, mesh)
+    res["seconds"] = time.monotonic() - t0
+    print(f"  phase 15 {res['seconds']:.1f} s", flush=True)
     return res
 
 
@@ -4358,6 +4627,11 @@ def main() -> None:
           "ranks sharing the card, against the single-device step", flush=True)
     tp_run = tp_phase(dev, smi)
     clock.done("14")
+    print("phase 15: moonshot-v1-16b-a3b trained expert-parallel over a (1, 2) "
+          "mesh of ranks sharing the card, against the single-device step; "
+          "arctic's smoke config beside it", flush=True)
+    ep_run = ep_phase(dev, smi)
+    clock.done("15")
     jamba_launches = dict(jamba["launches"]["prefill"])
     for counts in jamba["launches"]["decode"]:
         for name, n in counts.items():
@@ -4370,7 +4644,8 @@ def main() -> None:
                 "bnn_train_resilient": resilient["launches"],
                 "lm_train": lm_train["launches"], **families["launches"],
                 "lm_dp_train": dryrun_dp["launches"],
-                "lm_tp_train": tp_run["launches"]}
+                "lm_tp_train": tp_run["launches"],
+                "lm_ep_train": ep_run["launches"]}
     for name in KERNELS:
         if not sum(path[name] for path in launches.values()):
             fail(f"kernel {name} was not launched on the main path")
@@ -4383,6 +4658,7 @@ def main() -> None:
          "table2": table2, "jamba": jamba, "lm_loss": lm, "train": train,
          "mesh": mesh, "train_resilient": resilient, "lm_train": lm_train,
          "families": families, "dryrun_dp": dryrun_dp, "tp": tp_run,
+         "ep": ep_run,
          "totals": totals,
          "phase_seconds": clock.seconds},
         indent=2))

@@ -14,7 +14,8 @@ For each cell this prints and records:
     ``temp_size_in_bytes`` is an upper bound.
   * ``roofline`` — ``roofline.analysis.Roofline.to_dict()``: the same
     meta run counted op by op (``roofline.op_cost``) and split over the
-    model axis, and the collectives the rule table's layout implies.
+    model axis, and the collectives the rule table's layout implies (a
+    train cell's backward and recompute included).
 
 The JAX package lowers and compiles each cell for 512 placeholder
 devices; the port has no partitioner, so it traces one data shard's step
@@ -42,6 +43,7 @@ from repro_torch import tree
 from repro_torch.configs import ASSIGNED
 from repro_torch.configs.base import (SHAPES, cell_applicable, float_policy,
                                       get_config, serve_policy, train_policy)
+from repro_torch.core.binarize import QuantMode
 from repro_torch.distributed import sharding as shard_rules
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.model_factory import build_model
@@ -222,10 +224,16 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
         collectives = op_cost.collective_bytes(
             mesh, args, shape.kind, act_bytes=torch.tensor(
                 [], dtype=cfg.dtype).element_size())
+        policy = _policy_for(shape.kind, policy_name)
+        collectives_bwd = op_cost.collective_bytes_bwd(
+            mesh, args, shape.kind, cfg, alpha=(
+                policy.enabled and policy.mode == QuantMode.FAKE_QUANT
+                and policy.use_scale))
         rf = roofline.from_counted(
             counted, arch=arch, shape=shape_name, mesh_name=mesh_name,
             chips=mesh.size, model_shards=mesh.shape["model"],
             model_flops=model_flops, collectives=collectives,
+            collectives_bwd=collectives_bwd,
             memory_stats={"temp_bytes": mem_stats["temp_size_in_bytes"]})
         result.update(
             status="ok",

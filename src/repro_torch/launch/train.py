@@ -7,18 +7,18 @@ Runs on CUDA (``train(device=...)`` takes another device, as the tests
 do; the CLI has the JAX launcher's flags and no device flag), on every
 visible card, laid out as the JAX launcher lays its devices out
 (:func:`train_mesh`): ``make_elastic_mesh(devices, model_parallel=min(n,
-16))``, a ``("data", "model")`` ``DeviceMesh``. A dense attention family
-(``models.transformer.model_axis_ready``) trains there by
-``train.step.make_tp_train_step``: tensor parallelism over the model axis,
-the params and optimizer state laid out by the rule table
+16))``, a ``("data", "model")`` ``DeviceMesh``. An attention family,
+dense or MoE (``models.transformer.model_axis_ready``), trains there by
+``train.step.make_tp_train_step``: tensor and expert parallelism over the
+model axis, the params and optimizer state laid out by the rule table
 (``distributed.sharding.shard_params``), the step under
-``activation_mesh``, as the JAX launcher runs its steps. A
-family not yet on the model axis (experts, mamba, xLSTM, the
-encoder-decoder; ROADMAP A5b) keeps the data-parallel layout over every
-card (``train.step.make_dp_train_step``, a ``ServingMesh``: params on the
-first device, each replica the gradient of its batch shard, averaged there
-in mesh order; an MoE config's balance loss formed from every shard's
-router terms). The launcher prints the layout it took. ``train(mesh=)``
+``activation_mesh``, as the JAX launcher runs its steps. A family not yet
+on the model axis (mamba, xLSTM, the encoder-decoder; ROADMAP A5b) keeps
+the data-parallel layout over every card (``train.step.
+make_dp_train_step``, a ``ServingMesh``: params on the first device, each
+replica the gradient of its batch shard, averaged there in mesh order; an
+MoE config's balance loss formed from every shard's router terms). The
+launcher prints the layout it took. ``train(mesh=)``
 takes either kind of mesh, CPU entries or replicas sharing one card; a
 ``DeviceMesh`` whose model axis holds more than one device refuses a family
 not on it (``NotImplementedError`` naming A5b). Checkpoints hold the
@@ -75,7 +75,8 @@ def stub_embeddings(tokens: torch.Tensor, d_model: int) -> torch.Tensor:
 def train_mesh(device=None, mesh=None, cfg=None):
     """The mesh ``train`` runs on: ``mesh`` when given, else every visible
     card on CUDA, or the one device named. Several cards and a ``cfg`` on
-    the model axis (``model_axis_ready``) give the JAX launcher's layout,
+    the model axis (``model_axis_ready``: an attention family, dense or
+    MoE) give the JAX launcher's layout,
     ``make_device_mesh(cards, model_parallel=min(n, 16))``; otherwise the
     1-D ``ServingMesh`` of them all (``make_serving_mesh``)."""
     if mesh is not None:

@@ -27,10 +27,11 @@ the inputs ``Ranked``; ``train.step.make_tp_train_step``) the forward
 runs every rank's part of each block in lockstep: the residual stream and
 the norms replicated on every rank, attention and the dense FFN split by
 the rule table (``attention._attention_tp``, ``ffn.dense_ffn``), the
-embedding and the head vocab-parallel, a period's ranks rematerialized
-together. ``constrain_seq`` / ``constrain`` stand where the JAX model
-has them: identity with no mesh installed, a layout check under one. The
-dense attention families run there (:func:`check_model_axis`).
+experts over the ranks (``ffn.moe_ffn``), the embedding and the head
+vocab-parallel, a period's ranks rematerialized together.
+``constrain_seq`` / ``constrain`` stand where the JAX model has them:
+identity with no mesh installed, a layout check under one. The attention
+families run there, dense and MoE (:func:`check_model_axis`).
 
 A config fed by embeddings (pixtral-12b's patch-embedding stub) takes
 ``input_embeds [B, S, D]`` in place of tokens in ``lm_forward``,
@@ -45,7 +46,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.core.bnn import resolve_device
 from repro_torch.distributed import sharding as shard_rules
@@ -93,20 +94,22 @@ def num_periods(cfg) -> int:
 
 def model_axis_ready(cfg) -> bool:
     """Whether ``cfg`` trains over the model axis: a decoder-only stack of
-    attention and dense FFN layers (the dense and vlm families)."""
+    attention layers with dense, MoE or MoE-plus-dense FFNs (the dense,
+    vlm and moe families)."""
     return cfg.family != "encdec" and all(
-        k.mixer == "attn" and k.ffn == "dense" for k in period_spec(cfg))
+        k.mixer == "attn" and k.ffn in ("dense", "moe", "moe+dense")
+        for k in period_spec(cfg))
 
 
 def check_model_axis(cfg) -> None:
     """``NotImplementedError`` naming ROADMAP A5b for a config whose layers
-    are not yet on the model axis (experts, mamba, xLSTM, the
-    encoder-decoder)."""
+    are not yet on the model axis (mamba, xLSTM, the encoder-decoder)."""
     if not model_axis_ready(cfg):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) on a mesh with model > 1: only the "
-            "dense attention families' layers are on the model axis yet; "
-            "experts, mamba, xLSTM and the encoder-decoder wait for ROADMAP A5b")
+            "attention families' layers (dense FFNs and experts) are on the "
+            "model axis yet; mamba, xLSTM and the encoder-decoder wait for "
+            "ROADMAP A5b")
 
 
 def _norm_fns(cfg):
@@ -219,9 +222,11 @@ def init_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 def _apply_layer(x, lp: Params, cfg, policy: QuantPolicy, kind: LayerKind, *,
                  positions, layer_state, causal=True):
     """One residual block. Returns (x, new_layer_state, aux_loss). Over
-    the model ranks (a ``tensor_parallel.Ranked`` ``x``: an attention and
-    dense FFN block) every rank runs its part, the norms on each rank's
-    copy of the residual stream."""
+    the model ranks (a ``tensor_parallel.Ranked`` ``x``: an attention
+    block with a dense, MoE or MoE-plus-dense FFN) every rank runs its
+    part, the norms on each rank's copy of the residual stream. arctic's
+    two branches are all-reduced each (sites ``"moe"`` and
+    ``"down_proj"``) and added after, as the single device adds them."""
     _, norm = _norm_fns(cfg)
     if isinstance(x, tp.Ranked):
         h = tp.each(norm, lp["norm1"], x)
@@ -229,8 +234,15 @@ def _apply_layer(x, lp: Params, cfg, policy: QuantPolicy, kind: LayerKind, *,
                                     positions=positions, causal=causal)
         x = tp.each(torch.add, x, out)
         h = tp.each(norm, lp["norm2"], x)
-        x = tp.each(torch.add, x, ffn_mod.dense_ffn(lp["ffn"], h, policy, cfg.act))
-        return x, None, torch.zeros((), device=x.devices[0])
+        aux = torch.zeros((), device=x.devices[0])
+        if "moe" in kind.ffn:
+            y, aux = ffn_mod.moe_ffn(lp["moe"], h, cfg, policy, cfg.act)
+            if kind.ffn == "moe+dense":
+                y = tp.each(torch.add, y,
+                            ffn_mod.dense_ffn(lp["ffn"], h, policy, cfg.act))
+        else:
+            y = ffn_mod.dense_ffn(lp["ffn"], h, policy, cfg.act)
+        return tp.each(torch.add, x, y), None, aux
     aux = torch.zeros((), device=x.device)
     h = norm(lp["norm1"], x)
     new_state = layer_state
@@ -365,8 +377,8 @@ def _lm_forward_tp(params: tp.RankedTree, cfg, policy: QuantPolicy, *,
     """:func:`lm_forward` with no state over the model ranks of one data
     shard: ``params`` a ``RankedTree``, ``tokens`` / ``input_embeds``
     ``Ranked``. Returns vocab-parallel logits (``Ranked``, vocab split
-    where the rule table splits the head), no state, and a zero aux
-    loss."""
+    where the rule table splits the head), no state, and the MoE balance
+    loss, once (``ffn._moe_ffn_tp``), on the first rank's device."""
     check_model_axis(cfg)
     _, norm = _norm_fns(cfg)
     if input_embeds is not None:
@@ -381,26 +393,35 @@ def _lm_forward_tp(params: tp.RankedTree, cfg, policy: QuantPolicy, *,
 
     def period_body(x, layers):
         x = shard_rules.constrain_seq(x)
+        auxes = []
         for kind, lp in zip(period, layers):
-            x, _, _ = _apply_layer(x, lp, cfg, policy, kind, positions=positions,
-                                   layer_state=None, causal=causal)
-        return x
+            x, _, aux = _apply_layer(x, lp, cfg, policy, kind, positions=positions,
+                                     layer_state=None, causal=causal)
+            auxes.append(aux)
+        return x, *auxes
 
+    aux_total = torch.zeros((), device=x.devices[0])
     for p in range(num_periods(cfg)):
         layers = [lp.index(p) for lp in params["layers"]]
         if remat and torch.is_grad_enabled():
-            # every rank's part of the period, recomputed together
-            x = checkpoint(period_body, x, layers, use_reentrant=False,
-                           preserve_rng_state=False)
+            # every rank's part of the period, recomputed together and
+            # whole: with early stop the recompute would end at the last
+            # saved tensor and skip a trailing all-reduce or not, by policy
+            with set_checkpoint_early_stop(False):
+                x, *auxes = checkpoint(period_body, x, layers,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
         else:
-            x = period_body(x, layers)
+            x, *auxes = period_body(x, layers)
+        for aux in auxes:
+            aux_total = aux_total + aux
     x = tp.each(norm, params["final_norm"], x)
     head = params["embed"]["table"] if cfg.tie_embeddings else params["lm_head"]["w"]
     logits = tp.each(lambda xr, hr: torch.matmul(xr.float(), hr.float().T), x,
                      head, spec=(None, None, tp.MODEL if head.split(0) else None))
     logits = shard_rules.constrain(logits, shard_rules.DATA_AXES, None,
                                    shard_rules.MODEL_AXIS)
-    return logits, None, torch.zeros((), device=x.devices[0])
+    return logits, None, aux_total
 
 
 # ------------------------------ entry points ---------------------------------

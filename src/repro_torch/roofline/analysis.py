@@ -11,8 +11,10 @@ over the data axes where it divides, else the whole batch) and splits it
 evenly over the ``model`` axis. So "per chip" here is the counted
 shard's work divided by the model axis's size: what the rule table's
 tensor parallelism would leave each device if it split every op evenly.
-The collective term is ``op_cost.collective_bytes``, reckoned from the
-rule table's layout, a lower bound.
+The collective term is ``op_cost.collective_bytes`` (one forward's),
+plus for a train cell ``op_cost.collective_bytes_bwd`` (the recompute's,
+the backward's and the smaller sites'), reckoned from the rule table's
+layout as the port's tensor-parallel step moves them.
 
 Hardware constants: the NVIDIA H100 SXM5 (700 W), published peaks, not
 measurements: 989 TFLOP/s dense bf16 on the tensor cores and 3.35 TB/s of
@@ -118,19 +120,27 @@ class Roofline:
 
 def from_counted(counted, *, arch: str, shape: str, mesh_name: str,
                  chips: int, model_shards: int, model_flops: float,
-                 collectives: dict,
+                 collectives: dict, collectives_bwd: Optional[dict] = None,
                  memory_stats: Optional[dict] = None) -> Roofline:
     """The roofline from ``counted`` (a finished ``op_cost.Counter``, or its
     ``as_dict()``) of one data shard's step, split evenly over the
     ``model_shards`` devices of the model axis, and the per-device
-    ``collectives`` (``op_cost.collective_bytes``)."""
+    ``collectives`` (``op_cost.collective_bytes``) plus, for a train cell,
+    ``collectives_bwd`` (``op_cost.collective_bytes_bwd``: the recompute,
+    the backward and the smaller sites), listed apart in the breakdown
+    under ``"bwd and recompute"``, keyed ``"<kind> <fwd|bwd>"``."""
     c = counted if isinstance(counted, dict) else counted.as_dict()
+    rest = {f"{k} {d}": v for (k, d), v in (collectives_bwd or {}).items()}
+    breakdown = dict(collectives)
+    if rest:
+        breakdown["bwd and recompute"] = rest
     return Roofline(
         arch=arch, shape=shape, mesh=mesh_name, chips=chips,
         hlo_flops_per_chip=c["flops"] / model_shards,
         hlo_bytes_per_chip=c["bytes"] / model_shards,
-        collective_bytes_per_chip=float(sum(collectives.values())),
-        collective_breakdown=dict(collectives),
+        collective_bytes_per_chip=float(sum(collectives.values())
+                                        + sum(rest.values())),
+        collective_breakdown=breakdown,
         model_flops=model_flops,
         bytes_per_chip_peak=(memory_stats or {}).get("temp_bytes"),
         fusible_bytes_per_chip=c["fusible_bytes"] / model_shards,

@@ -37,9 +37,11 @@ The count follows the ops eager PyTorch runs, so it differs from the HLO
 walker's where eager autograd does other work than XLA's: a loop's
 backward here adds up the gradients of a stacked input trip by trip.
 
-:func:`collective_bytes` reckons the collectives a mesh's layout implies,
-from the rule table (``distributed.sharding``), since there is no
-partitioner and no HLO to read.
+:func:`collective_bytes` reckons the collectives a mesh's layout implies
+for one forward, from the rule table (``distributed.sharding``), since
+there is no partitioner and no HLO to read; :func:`collective_bytes_bwd`
+the rest of a train step's (remat's recompute, the backward, the
+embedding, gathers and loss).
 """
 
 from __future__ import annotations
@@ -377,21 +379,19 @@ def collective_bytes(mesh, args, kind: str, *, act_bytes: int = 2) -> dict:
       the SPMD partitioner emits it: an all-reduce of the gradient
       gathered over data, ``bytes(leaf) / M_leaf``, times 2, after which
       each device keeps its shard.
-    * **all-reduce** of each row-parallel projection's output (``o_proj``,
-      ``down_proj``, ``out_proj`` with ``in`` over ``model``), once a layer
-      that runs: ``tokens / D_batch x out x act_bytes``, times 2. A decode
-      cell does not run an encoder.
+    * **all-reduce** of each layer output summed over ``model``
+      (:func:`_layer_all_reduces`: each row-parallel projection's and
+      each expert-parallel MoE layer's combine), once a layer that runs:
+      ``tokens / D_batch x width x act_bytes``, times 2. A decode cell
+      does not run an encoder.
 
-    An axis of one device moves nothing. A lower bound: no resharding of
-    activations is counted (there is no
-    partitioner to insert it), nor the backward's all-reduces of the
-    column-parallel projections' input gradients."""
+    An axis of one device moves nothing. One forward's worth: a train
+    step's recompute, backward and smaller sites are
+    :func:`collective_bytes_bwd`. No resharding of activations is counted
+    (there is no partitioner to insert it)."""
     params, _, batch = args
     out = {k: 0.0 for k in COLL_MULT}
     data_axes = [a for a in sharding.DATA_AXES if a in mesh.shape]
-    lead = tree.leaves(batch)[0]
-    b = lead.shape[0]
-    d_batch = _over(mesh, _spec_axes(sharding.batch_spec(mesh, (), lead)))
     reduce_grads = kind == "train" and _over(mesh, data_axes) > 1
     for path, leaf in tree.leaves_with_path(params):
         if not hasattr(leaf, "shape"):
@@ -405,16 +405,130 @@ def collective_bytes(mesh, args, kind: str, *, act_bytes: int = 2) -> dict:
         if reduce_grads:
             out["all-reduce"] += (_leaf_bytes(leaf) / m_leaf
                                   * COLL_MULT["all-reduce"])
+    for elems, _ in _layer_all_reduces(mesh, params, batch, kind):
+        out["all-reduce"] += elems * act_bytes * COLL_MULT["all-reduce"]
+    return out
+
+
+def _d_batch(mesh, batch) -> int:
+    """Devices the batch is split over."""
+    lead = tree.leaves(batch)[0]
+    return _over(mesh, _spec_axes(sharding.batch_spec(mesh, (), lead)))
+
+
+def _layer_all_reduces(mesh, params, batch, kind: str):
+    """``(elements a device, alpha_elements)`` of every layer output
+    the model axis sums, all layers of a stack together: each row-parallel
+    projection's (``o_proj``, ``down_proj``, ``out_proj`` with ``in`` over
+    ``model``; ``alpha_elements`` its out width a layer, the XNOR-Net
+    alpha's all-reduce) and each MoE layer's combine where the experts
+    split over ``model`` (``alpha_elements`` 0: an expert's alpha is
+    local). None on a model axis of one device."""
+    if _over(mesh, {sharding.MODEL_AXIS}) <= 1:
+        return
+    b = tree.leaves(batch)[0].shape[0]
+    d_batch = _d_batch(mesh, batch)
+    for path, leaf in tree.leaves_with_path(params):
         keys = [k for k in path if isinstance(k, str)]
-        if (len(keys) >= 2 and keys[-1] == "w" and keys[-2] in sharding._ROW_PARALLEL
-                and len(spec) >= 2 and spec[-1] == sharding.MODEL_AXIS
-                and _over(mesh, {sharding.MODEL_AXIS}) > 1
-                and not (kind == "decode" and "encoder" in keys)):
-            layers = leaf.shape[0] if "layers" in path and leaf.ndim == 3 else 1
-            seq = 1 if kind == "decode" else _tokens_per_row(batch, keys)
-            rows = b * seq / d_batch
-            out["all-reduce"] += (layers * rows * leaf.shape[-2] * act_bytes
-                                  * COLL_MULT["all-reduce"])
+        if (len(keys) < 2 or keys[-1] != "w" or not hasattr(leaf, "shape")
+                or (kind == "decode" and "encoder" in keys)):
+            continue
+        layers = leaf.shape[0] if "layers" in path and leaf.ndim == 3 else 1
+        if keys[-2] in sharding._ROW_PARALLEL:
+            spec = sharding.param_spec(mesh, path, leaf)
+            if len(spec) < 2 or spec[-1] != sharding.MODEL_AXIS:
+                continue
+            width, alpha = leaf.shape[-2], leaf.shape[-2]
+        elif keys[-2] == "router" and "moe" in keys:
+            if sharding._guard(mesh, leaf.shape[-2], sharding.MODEL_AXIS) is None:
+                continue
+            width, alpha = leaf.shape[-1], 0
+        else:
+            continue
+        seq = 1 if kind == "decode" else _tokens_per_row(batch, keys)
+        yield layers * b * seq / d_batch * width, layers * alpha
+
+
+def collective_bytes_bwd(mesh, args, kind: str, cfg, *, alpha: bool = True) -> dict:
+    """Per-device wire bytes of a ``train`` cell's collectives that
+    :func:`collective_bytes` leaves out, as the port's tensor-parallel
+    step (``train.step.make_tp_train_step``) moves them over ``model``, by
+    ``(kind of collective, "fwd" | "bwd")``, the keys of
+    ``distributed.tensor_parallel.BYTES`` less the site. ``cfg`` gives the
+    heads and the activations' dtype; ``alpha``: the row-parallel
+    projections take XNOR-Net's alpha (a FAKE_QUANT policy with
+    ``use_scale``, every train cell's). Zero for another ``kind`` or a
+    model axis of one device. With ``n`` a site's tokens over ``D_batch``:
+
+    * **remat's recompute**, ``"fwd"``: every period is recomputed whole
+      in the backward, so each all-reduce of :func:`_layer_all_reduces`
+      runs again, and every forward site below that lies in a period.
+    * **the backward** of each of them, ``"bwd"``: the all-reduce's
+      gradient is the sum of its copies' gradients, the same bytes.
+    * **the vocab-parallel embedding** (a batch of tokens, the table's
+      vocab over ``model``): ``n x d_model`` activations all-reduced,
+      forward and backward, not recomputed.
+    * **a head cut mid-way** in self-attention (``m`` does not divide the
+      q or kv heads, or a projection's out width): the q, k and v outputs
+      split over ``model`` are all-gathered, ``n x out`` each, in the
+      forward and the recompute; their gradients reduce-scattered, ``n x
+      out / m``, in the backward. Cross-attention, mamba and the xLSTM
+      have no tensor-parallel path yet (ROADMAP A5b): only their
+      row-parallel outputs are reckoned, by the rule table.
+    * **the vocab-parallel loss** (the head's vocab over ``model``): the
+      row max, the sum of exps and the label's logit, float32 ``n``
+      each, all-reduced in the forward, the last two in the backward.
+    * **the row-parallel alpha**: the ranks' ``|w|`` sums, float32, one
+      out width a layer, in the forward and the recompute (detached: no
+      backward). With ``TrainConfig.microbatches`` it runs once a
+      microbatch; it is reckoned once.
+
+    Each all-reduce counts times 2 (:data:`COLL_MULT`)."""
+    out = {(k, d): 0.0 for k in ("all-reduce", "all-gather", "reduce-scatter")
+           for d in ("fwd", "bwd")}
+    m = _over(mesh, {sharding.MODEL_AXIS})
+    if kind != "train" or m <= 1:
+        return out
+    params, _, batch = args
+    act = torch.empty((), dtype=cfg.dtype).element_size()
+    ar = COLL_MULT["all-reduce"]
+    for elems, alpha_elems in _layer_all_reduces(mesh, params, batch, kind):
+        out[("all-reduce", "fwd")] += elems * act * ar
+        out[("all-reduce", "bwd")] += elems * act * ar
+        if alpha:
+            out[("all-reduce", "fwd")] += 2 * alpha_elems * 4 * ar
+
+    b = tree.leaves(batch)[0].shape[0]
+    rows = b / _d_batch(mesh, batch)
+    leaves = dict(tree.leaves_with_path(params))
+    table = leaves[("embed", "table")]
+    split_vocab = sharding._guard(mesh, table.shape[0], sharding.MODEL_AXIS) is not None
+    if "tokens" in batch and split_vocab:
+        n = rows * batch["tokens"].shape[1] * table.shape[1] * act * ar
+        out[("all-reduce", "fwd")] += n
+        out[("all-reduce", "bwd")] += n
+    if split_vocab:   # the head: the table or lm_head, of the same vocab
+        n = rows * batch["labels"].shape[1] * 4 * ar
+        out[("all-reduce", "fwd")] += 3 * n
+        out[("all-reduce", "bwd")] += 2 * n
+
+    def out_split(path) -> bool:
+        return sharding.param_spec(mesh, path, leaves[path])[-2] == sharding.MODEL_AXIS
+
+    qkv = ("q_proj", "k_proj", "v_proj")
+    heads_whole = cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
+    for path, leaf in leaves.items():
+        if (path[-1] != "w" or path[-2] not in qkv
+                or path[-3] not in ("attn", "self_attn")):
+            continue
+        group = path[:-2]
+        local = heads_whole and all(out_split(group + (name, "w")) for name in qkv)
+        if local or not out_split(path):
+            continue
+        layers = leaf.shape[0] if "layers" in path and leaf.ndim == 3 else 1
+        n = layers * rows * _tokens_per_row(batch, path) * leaf.shape[-2] * act
+        out[("all-gather", "fwd")] += 2 * n
+        out[("reduce-scatter", "bwd")] += n / m
     return out
 
 
@@ -428,6 +542,7 @@ def _tokens_per_row(batch, keys) -> int:
     return src.shape[1]
 
 
-__all__ = ["COLL_MULT", "Counter", "active", "collective_bytes", "count",
+__all__ = ["COLL_MULT", "Counter", "active", "collective_bytes",
+           "collective_bytes_bwd", "count",
            "flash_flops", "gemm_flops", "kernel", "mlstm_flops", "scan_flops",
            "trips"]

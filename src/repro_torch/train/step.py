@@ -191,6 +191,18 @@ def dp_mesh_mean(xs, home: torch.device) -> torch.Tensor:
     return (compression._mesh_sum(xs) / len(xs)).to(home)
 
 
+def _whole_batch_loss(ces, terms, home) -> tuple:
+    """(loss, cross-entropy, balance loss) of the whole batch from its
+    shards' cross-entropies ``ces`` and router terms ``terms`` (one list a
+    shard, ``models.ffn.balance_terms``): the mean of the shards'
+    cross-entropies, and each MoE layer's balance loss formed from its
+    router terms averaged over the shards, all in mesh order on ``home``."""
+    aux = sum(ffn.balance_loss(dp_mesh_mean(mes, home), dp_mesh_mean(cs, home))
+              for mes, cs in (zip(*layer) for layer in zip(*terms)))
+    ce = dp_mesh_mean(ces, home)
+    return ce + AUX_WEIGHT * aux, ce, aux
+
+
 def _whole_batch_moe_grads(model, params, batch, devices) -> tuple:
     """(loss, metrics, grads) of an MoE model's loss on the whole batch,
     each contiguous shard's forward on its replica's device: the
@@ -210,10 +222,7 @@ def _whole_batch_moe_grads(model, params, batch, devices) -> tuple:
 
     with torch.enable_grad():
         ces, terms = zip(*dp_shards(shard_loss, live, batch, devices))
-        aux = sum(ffn.balance_loss(dp_mesh_mean(mes, home), dp_mesh_mean(cs, home))
-                  for mes, cs in (zip(*layer) for layer in zip(*terms)))
-        ce = dp_mesh_mean(ces, home)
-        loss = ce + AUX_WEIGHT * aux
+        loss, ce, aux = _whole_batch_loss(ces, terms, home)
         flat = tree.leaves(live)
         got = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = iter([torch.zeros_like(p) if g is None else g
@@ -315,6 +324,41 @@ def _sum_replicated(grads: list, specs) -> list:
             for r, g in enumerate(grads)]
 
 
+def _whole_batch_moe_tp_grads(model, rows: list, batch, specs) -> tuple:
+    """(loss, metrics, grads) of an MoE model's loss on the whole batch
+    over a mesh's data rows (``rows``: one tree a model rank, a list a
+    row): row ``d``'s ranks take its contiguous shard in lockstep, the
+    cross-entropy is the mean of the rows', and each MoE layer's balance
+    loss is formed from its router terms (each row's, rank 0's: the loss
+    counts them once) averaged over the rows (:func:`_whole_batch_loss`),
+    as :func:`_whole_batch_moe_grads` forms it over replicas. Every row runs
+    on copies of one live tree a rank, on row 0's devices, so one backward
+    adds the rows' gradients onto it; ``grads`` is one tree a rank."""
+    home = tree.leaves(rows[0][0])[0].device
+    per_row = shard_rows(int(tree.leaves(batch)[0].shape[0]), len(rows))
+    live = [tree.tree_map(lambda t: t.detach().requires_grad_(True), t)
+            for t in rows[0]]
+    ces, terms = [], []
+    with torch.enable_grad():
+        for d, trees in enumerate(rows):
+            devs = [tree.leaves(t)[0].device for t in trees]
+            replica = [tree.tree_map(lambda t, dev=dev: t.to(dev), lt)
+                       for lt, dev in zip(live, devs)]
+            shard = {k: tp.Ranked.replicated(
+                v[d * per_row:(d + 1) * per_row].to(devs[0]), devs)
+                for k, v in batch.items()}
+            with ffn.balance_terms() as row_terms:
+                _, metrics = model.loss(tp.RankedTree(replica, specs), shard)
+            ces.append(metrics["loss"])
+            terms.append(row_terms)
+        loss, ce, aux = _whole_batch_loss(ces, terms, home)
+        flat = [leaf for t in live for leaf in tree.leaves(t)]
+        got = torch.autograd.grad(loss, flat, allow_unused=True)
+    got = iter([torch.zeros_like(p) if g is None else g for p, g in zip(flat, got)])
+    return (loss.detach(), {"loss": ce.detach(), "aux": aux.detach()},
+            [tree.tree_map(lambda _: next(got), t) for t in live])
+
+
 def make_tp_train_step(model, tcfg: TrainConfig, mesh,
                        clip_predicate: Optional[Callable] = None):
     """:func:`make_train_step` over a ``("data", "model")`` mesh
@@ -336,9 +380,16 @@ def make_tp_train_step(model, tcfg: TrainConfig, mesh,
     rank's devices on the other rows. Up to the order of float sums this
     is the single-device step on the whole batch.
 
-    A config whose layers are not yet on the model axis (experts, mamba,
-    xLSTM, the encoder-decoder) raises ``NotImplementedError`` naming
-    ROADMAP A5b when the model axis holds more than one device."""
+    An MoE config's balance loss is a product of two means over every
+    token, so with more than one data row its step forms the loss from the
+    router terms averaged over the rows (:func:`_whole_batch_moe_tp_grads`)
+    and takes one backward, as :func:`make_dp_train_step` does over its
+    replicas; with ``tcfg.microbatches > 1`` the whole batch splits into
+    microbatches first, each one's balance loss over its own rows.
+
+    A config whose layers are not yet on the model axis (mamba, xLSTM,
+    the encoder-decoder) raises ``NotImplementedError`` naming ROADMAP A5b
+    when the model axis holds more than one device."""
     ranks = sharding.model_axis_size(mesh)
     if ranks > 1:
         check_model_axis(model.cfg)
@@ -357,23 +408,38 @@ def make_tp_train_step(model, tcfg: TrainConfig, mesh,
         return (loss.detach(), tree.tree_map(torch.Tensor.detach, metrics),
                 [tree.tree_map(lambda _: next(got), t) for t in live])
 
-    def train_step(params, opt_state, batch):
-        rows = params.rows()
+    def row_mean_grads(rows, batch, specs, home):
+        """Each row's gradients on its contiguous shard, averaged over the
+        rows rank by rank; the loss and metrics likewise."""
         per_row = shard_rows(int(tree.leaves(batch)[0].shape[0]), len(rows))
         outs = []
-        with sharding.activation_mesh(mesh):
-            for d, trees in enumerate(rows):
-                first = tree.leaves(trees[0])[0].device
-                shard = tree.tree_map(
-                    lambda t: t[d * per_row:(d + 1) * per_row].to(first), batch)
-                outs.append(_accumulated_grads(
-                    functools.partial(row_grads, specs=params.specs), trees,
-                    shard, tcfg.microbatches))
+        for d, trees in enumerate(rows):
+            first = tree.leaves(trees[0])[0].device
+            shard = tree.tree_map(
+                lambda t: t[d * per_row:(d + 1) * per_row].to(first), batch)
+            outs.append(_accumulated_grads(
+                functools.partial(row_grads, specs=specs), trees, shard,
+                tcfg.microbatches))
         losses, row_metrics, row_grads_ = zip(*outs)
+        grads = [_mean_over_rows([g[r] for g in row_grads_], home[r])
+                 for r in range(ranks)]
+        return (dp_mesh_mean(losses, home[0]),
+                tree.tree_map(lambda *ms: dp_mesh_mean(ms, home[0]), *row_metrics),
+                grads)
+
+    def train_step(params, opt_state, batch):
+        rows = params.rows()
         home = [tree.leaves(t)[0].device for t in rows[0]]
-        grads = _sum_replicated(
-            [_mean_over_rows([g[r] for g in row_grads_], home[r])
-             for r in range(ranks)], params.specs)
+        with sharding.activation_mesh(mesh):
+            if len(rows) > 1 and model.cfg.num_experts:
+                loss, model_metrics, grads = _accumulated_grads(
+                    lambda _, mb: _whole_batch_moe_tp_grads(model, rows, mb,
+                                                            params.specs),
+                    rows[0], batch, tcfg.microbatches)
+            else:
+                loss, model_metrics, grads = row_mean_grads(
+                    rows, batch, params.specs, home)
+        grads = _sum_replicated(grads, params.specs)
         grads, gnorm = clip_by_global_norm(
             sharding.Shards(grads, params.specs, mesh), tcfg.clip_norm)
         new_row, new_opt_row, lr_scales = [], [], []
@@ -386,9 +452,6 @@ def make_tp_train_step(model, tcfg: TrainConfig, mesh,
                                            clip_predicate=clip_predicate)
             new_row.append(new_p)
             new_opt_row.append({"adam": new_adam})
-        loss = dp_mesh_mean(losses, home[0])
-        model_metrics = tree.tree_map(lambda *ms: dp_mesh_mean(ms, home[0]),
-                                      *row_metrics)
         metrics = {**model_metrics, "loss": loss, "grad_norm": gnorm,
                    "lr_scale": lr_scales[0]}
         return (sharding.Shards.of_row(new_row, params.specs, mesh),

@@ -326,7 +326,7 @@ def test_train_refuses_what_is_not_ported(monkeypatch):
                              log_every=100)
     assert np.isfinite(moe["losses"]).all()
     with pytest.raises(NotImplementedError, match="A5b"):
-        launch_train.train("moonshot-v1-16b-a3b", steps=1, batch=4, seq=32,
+        launch_train.train("jamba-1.5-large-398b", steps=1, batch=4, seq=32,
                            mesh=DeviceMesh(np.array([["cpu", "cpu"]], dtype=object),
                                            ("data", "model")))
     out = launch_train.train("pixtral-12b", steps=2, batch=2, seq=16,

@@ -2,9 +2,11 @@
 known-FLOP programs and ``tests/test_roofline.py``'s cases, the LM
 kernels' counts on the CPU (twin) and on meta, the trip-counted loops
 (bit-identical outside the counter, the same FLOPs under it), the
-collectives reckoned from the rule table (exact on hand-worked trees, and
-no more than the JAX package's ``hlo_cost`` count of the compiled cell on
-a (1, 2, 4) mesh of the 8 forced host devices), and the ``Roofline``
+collectives reckoned from the rule table (exact on hand-worked trees, no
+more than the JAX package's ``hlo_cost`` count of the compiled cell on a
+(1, 2, 4) mesh of the 8 forced host devices for one forward, and with the
+backward and recompute equal to what a tensor-parallel step moves), and
+the ``Roofline``
 math with the H100's constants. Counts are exact: FLOPs and bytes of
 integer shapes, compared with ``==``.
 """
@@ -313,6 +315,96 @@ def test_collectives_are_a_lower_bound_of_the_jax_cell(kind):
     assert sum(got.values()) > 0
     for k, v in got.items():
         assert v <= want[k], (k, v, want[k])
+
+
+def test_moe_combine_of_a_hand_worked_tree():
+    """A stacked MoE layer's combine is all-reduced over ``model`` where
+    its experts split (8 experts on 4 devices; not 6), once a layer: its
+    ``[3 x 8/2*16 tokens x 32]`` output at 2 bytes, times 2."""
+    mesh = AbstractMesh((1, 2, 4))
+    batch = {"tokens": _meta(8, 16, dtype=torch.int32),
+             "labels": _meta(8, 16, dtype=torch.int32)}
+    for experts, want in ((8, 3 * (8 / 2 * 16) * 32 * 2 * 2), (6, 0.0)):
+        params = {"layers": [{"moe": {"router": {"w": _meta(3, experts, 32)},
+                                      "up_proj": {"w": _meta(3, experts, 16, 32)}}}]}
+        got = op_cost.collective_bytes(mesh, (params, None, batch), "prefill",
+                                       act_bytes=2)
+        assert got["all-reduce"] == want
+
+
+def _counted_and_reckoned(arch, shape):
+    """One TP step of ``arch``'s smoke config under ``train_policy()`` on a
+    ``shape`` mesh of CPU entries: ``tensor_parallel.BYTES`` summed by
+    (kind, direction), and ``collective_bytes`` + ``collective_bytes_bwd``
+    of the same cell keyed so."""
+    from test_torch_tp import batch_of, cpu_mesh
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.train.step import TrainConfig, make_tp_train_step
+
+    cfg = smoke_config(arch)
+    model = build_model(cfg, train_policy())
+    params = model.init(torch.Generator().manual_seed(1))
+    batch = batch_of(cfg)
+    mesh = cpu_mesh(shape)
+    tp.reset_bytes()
+    make_tp_train_step(model, TrainConfig(), mesh)(
+        sharding.shard_params(params, mesh),
+        sharding.shard_params(init_opt_state(params), mesh), batch)
+    counted = {}
+    for (kind, _, direction), n in tp.BYTES.items():
+        counted[(kind, direction)] = counted.get((kind, direction), 0.0) + n
+    meta = model.init()
+    args = (meta, None, {k: _meta(*v.shape, dtype=v.dtype) for k, v in batch.items()})
+    reckoned = op_cost.collective_bytes_bwd(mesh, args, "train", cfg)
+    for kind, n in op_cost.collective_bytes(mesh, args, "train", act_bytes=4).items():
+        reckoned[(kind, "fwd")] = reckoned.get((kind, "fwd"), 0.0) + n
+    return counted, reckoned
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "moonshot-v1-16b-a3b", "arctic-480b"])
+def test_reckoning_is_what_a_tp_step_moves(arch, shape):
+    """ROADMAP C5: the dry run's reckoning of a train cell, one forward
+    (``collective_bytes``) plus the recompute, the backward and the
+    smaller sites (``collective_bytes_bwd``), equals the bytes one TP step
+    counts in ``tensor_parallel.BYTES``, kind by kind and direction by
+    direction, to 1e-9 relative: the row-parallel outputs, the MoE combine,
+    the embedding, a head cut mid-way at m = 4, the loss and the alpha."""
+    counted, reckoned = _counted_and_reckoned(arch, shape)
+    for key in set(counted) | set(reckoned):
+        got, want = counted.get(key, 0.0), reckoned.get(key, 0.0)
+        assert abs(got - want) <= 1e-9 * max(got, want), (key, got, want)
+    assert counted[("all-reduce", "bwd")] > 0
+    assert (("all-gather", "fwd") in counted) == (shape == (1, 4))
+
+
+def test_repaired_train_cell_beside_the_jax_cell():
+    """smollm's smoke train cell at 4 x 64 on a (1, 2, 4) mesh: the
+    repaired total (``collective_bytes`` + ``collective_bytes_bwd``)
+    beside ``hlo_cost``'s count of the JAX cell compiled with
+    ``shardings_for``, both printed; the repaired total is the larger
+    reckoning of the two the port makes."""
+    arch, seq, batch = "smollm-360m", 64, 4
+    devices = np.asarray(jax.devices()[:8]).reshape(1, 2, 4)
+    mesh = jax.sharding.Mesh(devices, ("pod", "data", "model"))
+    step, args, donate = _j_cell(arch, "train", seq, batch)
+    with mesh, j_sharding.activation_mesh(mesh):
+        compiled = jax.jit(step, in_shardings=j_shardings_for(mesh, args, "train"),
+                           donate_argnums=donate).lower(*args).compile()
+    jax_total = sum(hlo_cost.analyze(compiled.as_text()).collective_breakdown.values())
+    cfg = smoke_config(arch)
+    model = build_model(cfg, train_policy())
+    params = model.init()
+    targs = (params, init_opt_state(params),
+             model.input_specs(ShapeConfig("x", seq, batch, "train")))
+    one = sum(op_cost.collective_bytes(AbstractMesh((1, 2, 4)), targs, "train").values())
+    rest = sum(op_cost.collective_bytes_bwd(AbstractMesh((1, 2, 4)), targs, "train",
+                                            cfg).values())
+    print(f"smollm smoke train 4 x 64 on (1, 2, 4): reckoned {one + rest:.6g} bytes "
+          f"a device ({one:.6g} forward, {rest:.6g} recompute, backward and small "
+          f"sites), hlo_cost of the JAX cell {jax_total:.6g}")
+    assert rest > 0 and one + rest > one
 
 
 # -------------------------------- roofline -----------------------------------
