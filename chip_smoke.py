@@ -222,6 +222,27 @@
    two steps in float32. The EP step's launches are the path
    ``lm_ep_train``.
 
+16. The model axis for the remaining layers (``ssm_tp_phase``), each part
+   on a (1, 2) mesh of two ranks sharing the card against one device on
+   the same params and inputs, each holding the rank bytes to the rule
+   table's, the collective bytes a device as counted to the dry run's
+   reckoning, and the scan, mLSTM and flash launches, forward and
+   backward, to exactly twice the single device's: (a) jamba's mamba
+   block at its published widths (d_model 8192, d_inner 16384, d_state
+   16, dt rank 512, conv 4), batch 2 x 4096, bf16, ``train_policy()``,
+   forward and backward under remat as a period runs it, the output, the
+   input's gradient and every param's gradient within the bf16
+   ``LM_GRAD_TOL``; (b) jamba's smoke config (attention, experts and mamba
+   in one period), one ``make_tp_train_step`` step in float32; (c)
+   xlstm-1.3b at its published widths (4 heads, mLSTM heads of 1024,
+   vocab 50304), 8 of 48 layers, batch 2 x 4096, float32 activations;
+   (d) seamless-m4t-large-v2 at its published widths (16 heads, d_ff
+   8192, vocab 256206), 4 + 4 of 24 + 24 layers, batch 2 x 4096, bf16.
+   Steps: loss within ``LM_LOSS_TOL``, the gathered first moments within
+   ``LM_GRAD_TOL``. Prints each part's seconds, ms of the single and TP
+   calls (CUDA events around the checked call) and the bytes by site. The
+   parts' TP launches are the path ``lm_tp_ssm_train``.
+
 Every phase prints its seconds.
 
 Last, prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``.
@@ -4076,6 +4097,34 @@ def dryrun_dp_phase(dev, card: str) -> dict:
 
 # ------------- phase 14: tensor parallelism over the model axis -------------
 
+def _rule_bytes(mesh, params) -> int:
+    """Bytes of one rank's shard of ``params`` by the rule table."""
+    from repro_torch import tree
+    from repro_torch.distributed import sharding
+
+    return sum(math.prod(sharding.shard_shape(mesh, leaf.shape, sharding.param_spec(
+        mesh, path, leaf))) * leaf.element_size()
+        for path, leaf in tree.leaves_with_path(params))
+
+
+def _timed(fn):
+    """(``fn()``, ms of the call by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _hold_launches(label: str, one: dict, launches: dict, kernels, ranks: int) -> None:
+    for name in kernels:
+        if not one[name] or launches[name] != ranks * one[name]:
+            fail(f"{label} launched {name} {launches[name]} times, the single "
+                 f"device {one[name]}: expected {ranks}x")
+
+
 # (arch, layers, batch, seq): qwen2.5-3b at its published widths, 8 of its
 # 36 layers (depth cut for time).
 TP_LM_CASE = ("qwen2.5-3b", 8, 2, 4096)
@@ -4099,7 +4148,6 @@ def tp_phase(dev, card: str) -> dict:
     Prints the ms of a step of each (CUDA events), their peak memory, and
     the bytes by site. The TP step's launches are the path
     ``lm_tp_train``."""
-    from repro_torch import tree
     from repro_torch.configs.base import get_config, train_policy
     from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
     from repro_torch.distributed import sharding
@@ -4134,10 +4182,7 @@ def tp_phase(dev, card: str) -> dict:
     del opt_one
     sp, so = sharding.shard_params(params, mesh), sharding.shard_params(opt, mesh)
     rank_bytes = [_nbytes(t) for t in sp.rows()[0]]
-    rule_bytes = sum(
-        math.prod(sharding.shard_shape(mesh, leaf.shape, sharding.param_spec(
-            mesh, path, leaf))) * leaf.element_size()
-        for path, leaf in tree.leaves_with_path(params))
+    rule_bytes = _rule_bytes(mesh, params)
     torch.cuda.empty_cache()
     tp.reset_bytes()
     ops.reset_launches()
@@ -4187,10 +4232,8 @@ def tp_phase(dev, card: str) -> dict:
     if rel[worst] > LM_GRAD_TOL["bfloat16"]:
         fail(f"TP step: gathered gradient {worst} rel L2 {rel[worst]:.3g} > "
              f"{LM_GRAD_TOL['bfloat16']} of the single-device step's")
-    for name in ("flash_attention", "flash_attention_bwd"):
-        if not one[name] or launches[name] != TP_RANKS * one[name]:
-            fail(f"TP step launched {name} {launches[name]} times, the single "
-                 f"step {one[name]}: expected {TP_RANKS}x")
+    _hold_launches("TP step", one, launches, ("flash_attention", "flash_attention_bwd"),
+                   TP_RANKS)
     if rank_bytes != [rule_bytes] * TP_RANKS:
         fail(f"TP ranks hold {rank_bytes} param bytes, the rule table's shards "
              f"{rule_bytes}")
@@ -4207,18 +4250,25 @@ def collectives_against_reckoning(mesh, model, b0, counted: dict) -> dict:
     collective_bytes`` (one forward) plus ``op_cost.collective_bytes_bwd``
     (remat's recompute, the backward, the embedding, gathers and loss;
     ``train_policy()``'s alpha). Returns both and the worst relative gap."""
+    args = (model.init(), None, {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                                 for k, v in b0.items()})
+    return reckoning_gap(mesh, args, model.cfg, counted)
+
+
+def reckoning_gap(mesh, args, cfg, counted: dict) -> dict:
+    """``counted`` (``tensor_parallel.BYTES``) summed by kind and direction
+    beside ``op_cost.collective_bytes`` + ``collective_bytes_bwd`` of a
+    train cell's ``args`` (meta params, no state, meta batch) on ``mesh``:
+    both, and the worst relative gap."""
     from repro_torch.roofline import op_cost
 
     got: dict = collections.Counter()
     for (kind, _, direction), n in counted.items():
         got[f"{kind} {direction}"] += n
-    meta = model.init()
-    args = (meta, None, {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
-                         for k, v in b0.items()})
-    act = torch.empty((), dtype=model.cfg.dtype).element_size()
+    act = torch.empty((), dtype=cfg.dtype).element_size()
     want: dict = collections.Counter(
         {f"{k} {d}": v for (k, d), v in op_cost.collective_bytes_bwd(
-            mesh, args, "train", model.cfg).items()})
+            mesh, args, "train", cfg).items()})
     for kind, v in op_cost.collective_bytes(mesh, args, "train",
                                             act_bytes=act).items():
         want[f"{kind} fwd"] += v
@@ -4376,10 +4426,7 @@ def ep_phase(dev, card: str) -> dict:
     single_ms = events_ms(lambda: single(params, opt, b0), reps=1, warm=False)
     sp, so = sharding.shard_params(params, mesh), sharding.shard_params(opt, mesh)
     rank_bytes = [_nbytes(t) for t in sp.rows()[0]]
-    rule_bytes = sum(
-        math.prod(sharding.shard_shape(mesh, leaf.shape, sharding.param_spec(
-            mesh, path, leaf))) * leaf.element_size()
-        for path, leaf in tree.leaves_with_path(params))
+    rule_bytes = _rule_bytes(mesh, params)
     whole_bytes = _nbytes(params)
     del params, opt
     torch.cuda.empty_cache()
@@ -4444,10 +4491,8 @@ def ep_phase(dev, card: str) -> dict:
     if rel[worst] > LM_GRAD_TOL["bfloat16"]:
         fail(f"EP step: gathered gradient {worst} rel L2 {rel[worst]:.3g} > "
              f"{LM_GRAD_TOL['bfloat16']} of the single-device step's")
-    for name in ("flash_attention", "flash_attention_bwd"):
-        if not one[name] or launches[name] != EP_RANKS * one[name]:
-            fail(f"EP step launched {name} {launches[name]} times, the single "
-                 f"step {one[name]}: expected {EP_RANKS}x")
+    _hold_launches("EP step", one, launches, ("flash_attention", "flash_attention_bwd"),
+                   EP_RANKS)
     if rank_bytes != [rule_bytes] * EP_RANKS:
         fail(f"EP ranks hold {rank_bytes} param bytes, the rule table's shards "
              f"{rule_bytes}")
@@ -4458,6 +4503,304 @@ def ep_phase(dev, card: str) -> dict:
     res["seconds"] = time.monotonic() - t0
     print(f"  phase 15 {res['seconds']:.1f} s", flush=True)
     return res
+
+
+# ---- phase 16: mamba, the xLSTM and the encoder-decoder on the model axis ----
+
+# Ranks on the model axis, sharing one card.
+SSM_TP_RANKS = 2
+# (arch, batch, seq): jamba's mamba block at its published widths; one
+# full-width period (8 layers, 44.2 G params, 177 GB in float32) does not
+# train on one card.
+TP_MAMBA_CASE = ("jamba-1.5-large-398b", 2, 4096)
+# (arch, batch, seq): jamba's smoke config, its hybrid period whole.
+TP_HYBRID_SMOKE_CASE = ("jamba-1.5-large-398b", 8, 64)
+# (arch, layers, batch, seq): xlstm-1.3b, one 8-layer period of its 48
+# (7 mLSTM, 1 sLSTM), for time, in float32 activations (in bf16 an ulp of
+# an mLSTM output moves its logits by O(1), so two sum orders would not
+# agree in bf16 whatever the code).
+TP_XLSTM_CASE = ("xlstm-1.3b", 8, 2, 4096)
+# (arch, encoder and decoder layers, batch, seq): seamless-m4t-large-v2,
+# 4 + 4 of its 24 + 24 layers, for time.
+TP_ENCDEC_CASE = ("seamless-m4t-large-v2", 4, 2, 4096)
+
+
+def mamba_block_tp(dev, card: str, mesh) -> dict:
+    """Part (a) of phase 16: ``mamba.mamba`` of ``TP_MAMBA_CASE``'s config
+    under ``train_policy()`` in bf16, forward and backward under remat (a
+    period's checkpoint, early stop off) on one device and on ``mesh``'s
+    ranks (a ``RankedTree`` of the block laid out by the rule table), the
+    same params, input and output weights. Holds the output, the input's
+    gradient and every param's gradient (the ranks' gathered, the
+    replicated leaves' summed) per tensor rel L2 within the bf16
+    ``LM_GRAD_TOL``; the scan and its backward launched exactly ``ranks``
+    x as often; rank bytes; collective bytes against the reckoning of a
+    one-layer stack of the block (no vocab split: a 1-row table)."""
+    from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config, train_policy
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.kernels import ops
+    from repro_torch.models import mamba
+    from repro_torch.train.step import _sum_replicated
+
+    arch, batch, seq = TP_MAMBA_CASE
+    cfg, policy, ranks = get_config(arch), train_policy(), SSM_TP_RANKS
+    gen = torch.Generator(dev).manual_seed(0)
+    block = mamba.init_mamba(gen, cfg)
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+    w = torch.randn((batch, seq, cfg.d_model), generator=gen, device=dev)
+
+    def run(params, xx, ranked: bool):
+        def body(xb, pb):
+            xin = tp.Ranked([xb] * ranks, (None, None, None)) if ranked else xb
+            out, _ = mamba.mamba(pb, xin, cfg, policy)
+            return out.parts[0] if ranked else out
+
+        with set_checkpoint_early_stop(False):
+            return checkpoint(body, xx, params, use_reentrant=False,
+                              preserve_rng_state=False)
+
+    live = tree.tree_map(lambda t: t.detach().requires_grad_(True), block)
+    xs = x.clone().requires_grad_(True)
+    ops.reset_launches()
+
+    def single():
+        out = run(live, xs, False)
+        return out, torch.autograd.grad((out.float() * w).sum(), [xs] + tree.leaves(live))
+
+    out_one, g_one = single()
+    one = dict(ops.LAUNCHES)
+    out_one = out_one.detach()
+    single_ms = events_ms(single, reps=1, warm=False)
+    shards = sharding.shard_params({"block": block}, mesh)
+    rank_bytes = [_nbytes(t) for t in shards.rows()[0]]
+    rule_bytes = _rule_bytes(mesh, {"block": block})
+    rows = [tree.tree_map(lambda t: t.detach().requires_grad_(True), t)
+            for t in shards.rows()[0]]
+    ranked = tp.RankedTree(rows, shards.specs)["block"]
+    xr = x.clone().requires_grad_(True)
+    tp.reset_bytes()
+    ops.reset_launches()
+
+    def tp_call():
+        out = run(ranked, xr, True)
+        flat = [leaf for t in rows for leaf in tree.leaves(t)]
+        return out, torch.autograd.grad((out.float() * w).sum(), [xr] + flat)
+
+    out_tp, g_tp = tp_call()
+    launches, counted = dict(ops.LAUNCHES), dict(tp.BYTES)
+    out_tp = out_tp.detach()
+    tp_ms = events_ms(tp_call, reps=1, warm=False)
+    n = len(tree.leaves(block))
+    per_rank = [tree.tree_map(lambda _, it=iter(g_tp[1 + r * n:]): next(it), {"block": block})
+                for r in range(ranks)]
+    grads = sharding.gather_params(sharding.Shards(
+        _sum_replicated(per_rank, shards.specs), shards.specs, mesh), mesh)["block"]
+    rel = {"output": _leaf_rel_l2(out_tp, out_one)[""],
+           "x": _leaf_rel_l2(g_tp[0], g_one[0])[""],
+           **_leaf_rel_l2(grads, tree.tree_map(lambda _, it=iter(g_one[1:]): next(it), block))}
+    del g_one, g_tp, grads, per_rank, out_one, out_tp
+
+    # the reckoning of a one-layer stack of the block; a 1-row table splits
+    # no vocab
+    meta = {"embed": {"table": torch.empty((1, cfg.d_model), device="meta")},
+            "layers": [{"mamba": tree.tree_map(
+                lambda t: torch.empty((1, *t.shape), dtype=t.dtype, device="meta"),
+                block)}]}
+    args = (meta, None, {"tokens": torch.empty((batch, seq), dtype=torch.int32,
+                                               device="meta")})
+    coll = reckoning_gap(mesh, args, cfg, counted)
+    worst = max(rel, key=rel.get)
+    res = {"arch": arch, "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+           "d_state": cfg.d_state, "dt_rank": mamba._dt_rank(cfg), "batch": batch,
+           "seq": seq, "rel_l2": rel, "rel_l2_max": rel[worst], "rel_l2_worst": worst,
+           "launches_single": {k: v for k, v in one.items() if v},
+           "launches": launches, "rank_param_bytes": rank_bytes,
+           "rule_table_bytes": rule_bytes, "single_ms": single_ms, "tp_ms": tp_ms,
+           "collective_bytes_counted": {f"{k} {s} {d}": v
+                                        for (k, s, d), v in sorted(counted.items())},
+           "collectives": coll}
+    print(f"  (a) {arch}'s mamba block (d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
+          f"d_state {cfg.d_state}, dt rank {res['dt_rank']}) batch {batch} x {seq} bf16, "
+          f"forward and backward under remat: rel L2 output {rel['output']:.3g}, "
+          f"input gradient {rel['x']:.3g}, worst {rel[worst]:.3g} ({worst}); launches "
+          f"{res['launches_single']} single, { {k: v for k, v in launches.items() if v} } "
+          f"TP; rank param bytes {rank_bytes} (rule table {rule_bytes}); "
+          f"{single_ms:.2f} ms single, {tp_ms:.2f} ms TP (CUDA events, the second "
+          f"call of each) [{card}]", flush=True)
+    print_collectives(counted, coll)
+    if rel[worst] > LM_GRAD_TOL["bfloat16"]:
+        fail(f"mamba block TP: {worst} rel L2 {rel[worst]:.3g} > "
+             f"{LM_GRAD_TOL['bfloat16']} of the single device's")
+    _hold_launches("mamba block TP", one, launches,
+                   ("ssm_scan_chunk", "ssm_scan_chunk_bwd"), ranks)
+    if rank_bytes != [rule_bytes] * ranks:
+        fail(f"mamba block ranks hold {rank_bytes} bytes, the rule table's {rule_bytes}")
+    hold_collectives("mamba block TP", coll)
+    return res
+
+
+def tp_step_part(dev, card: str, mesh, label: str, model, b0: dict, kernels,
+                 retime: bool = True) -> dict:
+    """One ``make_tp_train_step`` step of ``model`` (``train_policy()``) on
+    ``mesh`` and one single-device step first, on the same params (a
+    seeded generator on the card) and batch ``b0``: the loss within
+    ``LM_LOSS_TOL``, the gathered first moments per leaf within
+    ``LM_GRAD_TOL`` of the config's dtype, ``kernels`` launched exactly
+    ``ranks`` x as often forward and backward, rank bytes the rule
+    table's, counted collective bytes the reckoning. The single step's
+    first moment goes to the host and its trees leave the card first.
+    Each step's ms is a second call's (CUDA events) with ``retime``, else
+    the checked call's."""
+    from repro_torch import tree
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.kernels import ops
+    from repro_torch.train.step import (TrainConfig, init_opt_state,
+                                        make_tp_train_step, make_train_step)
+
+    ranks, tcfg = SSM_TP_RANKS, TrainConfig()
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    opt = init_opt_state(params)
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    single = make_train_step(model, tcfg)
+    (new_p, opt_one, m_one), single_ms = _timed(lambda: single(params, opt, b0))
+    one = dict(ops.LAUNCHES)
+    peak_single = torch.cuda.max_memory_allocated(dev)
+    mu_one = tree.tree_map(lambda t: t.cpu(), opt_one["adam"]["mu"])
+    m_one = {k: float(v) for k, v in m_one.items()}
+    del new_p, opt_one
+    if retime:
+        torch.cuda.empty_cache()
+        single_ms = events_ms(lambda: single(params, opt, b0), reps=1, warm=False)
+    sp, so = sharding.shard_params(params, mesh), sharding.shard_params(opt, mesh)
+    rank_bytes = [_nbytes(t) for t in sp.rows()[0]]
+    rule_bytes = _rule_bytes(mesh, params)
+    del params, opt
+    torch.cuda.empty_cache()
+    tp.reset_bytes()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step = make_tp_train_step(model, tcfg, mesh)
+    (new_p, opt_tp, m_tp), tp_ms = _timed(lambda: step(sp, so, b0))
+    launches, counted = dict(ops.LAUNCHES), dict(tp.BYTES)
+    peak_tp = torch.cuda.max_memory_allocated(dev)
+    mu_tp = tree.tree_map(lambda t: t.cpu(), sharding.gather_params(opt_tp, mesh)["adam"]["mu"])
+    m_tp = {k: float(v) for k, v in m_tp.items()}
+    del new_p, opt_tp
+    torch.cuda.empty_cache()
+    if retime:
+        tp_ms = events_ms(lambda: step(sp, so, b0), reps=1, warm=False)
+    del sp, so
+    torch.cuda.empty_cache()
+    rel = _leaf_rel_l2(mu_tp, mu_one)
+    worst = max(rel, key=rel.get)
+    dname = str(model.cfg.dtype)[6:]
+    coll = collectives_against_reckoning(mesh, model, b0, counted)
+    res = {"loss_single": m_one["loss"], "loss_tp": m_tp["loss"],
+           "grad_norm_single": m_one["grad_norm"], "grad_norm_tp": m_tp["grad_norm"],
+           "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_leaf": worst,
+           "grad_rel_l2_median": statistics.median(rel.values()),
+           "launches_single": {k: v for k, v in one.items() if v},
+           "launches": launches, "rank_param_bytes": rank_bytes,
+           "rule_table_bytes": rule_bytes, "single_ms": single_ms, "tp_ms": tp_ms,
+           "peak_single_bytes": peak_single, "peak_tp_bytes": peak_tp,
+           "collective_bytes_counted": {f"{k} {s} {d}": n
+                                        for (k, s, d), n in sorted(counted.items())},
+           "collectives": coll}
+    print(f"  {label}: loss {m_tp['loss']:.6f} TP ({m_one['loss']:.6f} single), grad "
+          f"norm {m_tp['grad_norm']:.6g} ({m_one['grad_norm']:.6g}); gathered gradients "
+          f"per-leaf rel L2 max {rel[worst]:.3g} ({worst}), median "
+          f"{res['grad_rel_l2_median']:.3g} ({dname}); launches {res['launches_single']} "
+          f"single, { {k: v for k, v in launches.items() if v} } TP; rank param bytes "
+          f"{rank_bytes} (rule table {rule_bytes}); a step {single_ms:.2f} ms single, "
+          f"{tp_ms:.2f} ms TP (CUDA events, {'a second' if retime else 'the checked'} "
+          f"call of each); peak "
+          f"{peak_single / 2**30:.2f} / {peak_tp / 2**30:.2f} GiB [{card}]", flush=True)
+    print_collectives(counted, coll)
+    if not abs(m_tp["loss"] - m_one["loss"]) <= LM_LOSS_TOL:
+        fail(f"{label}: TP loss {m_tp['loss']} vs single device {m_one['loss']}")
+    if rel[worst] > LM_GRAD_TOL[dname]:
+        fail(f"{label}: gathered gradient {worst} rel L2 {rel[worst]:.3g} > "
+             f"{LM_GRAD_TOL[dname]} of the single-device step's")
+    _hold_launches(label, one, launches, kernels, ranks)
+    if rank_bytes != [rule_bytes] * ranks:
+        fail(f"{label}: ranks hold {rank_bytes} param bytes, the rule table's {rule_bytes}")
+    hold_collectives(label, coll)
+    return res
+
+
+def _lm_batch(dev, cfg, batch: int, seq: int) -> dict:
+    """The launcher's first batch (seed 0), with its stub embeddings for a
+    config fed by them (the encoder-decoder keeps its tokens too)."""
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+    from repro_torch.launch.train import stub_embeddings
+
+    b0 = next(synthetic_lm_batches(DataConfig(seed=0, global_batch=batch, seq_len=seq,
+                                              vocab_size=cfg.vocab_size)))
+    out = {"tokens": b0["tokens"].to(dev), "labels": b0["labels"].to(dev)}
+    if cfg.input_kind == "embeddings":
+        out["input_embeds"] = stub_embeddings(b0["tokens"], cfg.d_model).to(dev)
+    return out
+
+
+def ssm_tp_phase(dev, card: str) -> dict:
+    """Phase 16: mamba, the xLSTM and the encoder-decoder trained over a
+    (1, ``SSM_TP_RANKS``) ``("data", "model")`` mesh of ranks sharing the
+    card, each part against one device (module docstring, 16): (a)
+    :func:`mamba_block_tp`; (b)-(d) :func:`tp_step_part` of jamba's smoke
+    config, xlstm-1.3b (float32) and seamless-m4t-large-v2 (bf16). The
+    parts' TP launches, summed, are the path ``lm_tp_ssm_train``."""
+    from repro_torch.configs.base import get_config, smoke_config, train_policy
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models.model_factory import build_model
+
+    t0 = time.monotonic()
+    mesh = DeviceMesh(np.array([[dev] * SSM_TP_RANKS], dtype=object), ("data", "model"))
+    res, seconds = {}, {}
+
+    def part(name: str, fn):
+        t = time.monotonic()
+        res[name] = fn()
+        seconds[name] = time.monotonic() - t
+        print(f"  phase 16 ({name}) {seconds[name]:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+
+    part("a", lambda: mamba_block_tp(dev, card, mesh))
+
+    arch, batch, seq = TP_HYBRID_SMOKE_CASE
+    cfg = smoke_config(arch)
+    part("b", lambda: tp_step_part(
+        dev, card, mesh, f"(b) {arch} smoke config batch {batch} x {seq} float32",
+        build_model(cfg, train_policy()), _lm_batch(dev, cfg, batch, seq),
+        ("ssm_scan_chunk", "ssm_scan_chunk_bwd")))
+
+    arch, layers, batch, seq = TP_XLSTM_CASE
+    xcfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=torch.float32)
+    part("c", lambda: tp_step_part(
+        dev, card, mesh, f"(c) {arch} ({layers} of its layers) batch {batch} x {seq} "
+        "float32", build_model(xcfg, train_policy()), _lm_batch(dev, xcfg, batch, seq),
+        ("mlstm_chunked", "mlstm_chunked_bwd"), retime=False))
+
+    arch, layers, batch, seq = TP_ENCDEC_CASE
+    ecfg = dataclasses.replace(get_config(arch), num_layers=layers, encoder_layers=layers)
+    part("d", lambda: tp_step_part(
+        dev, card, mesh, f"(d) {arch} ({layers} + {layers} of its layers) batch "
+        f"{batch} x {seq} bf16", build_model(ecfg, train_policy()),
+        _lm_batch(dev, ecfg, batch, seq), ("flash_attention", "flash_attention_bwd")))
+
+    launches = collections.Counter()
+    for r in res.values():
+        launches.update(r["launches"])
+    out = {"card": card, "ranks": SSM_TP_RANKS, "parts": res, "part_seconds": seconds,
+           "launches": {k: launches[k] for k in res["a"]["launches"]},
+           "seconds": time.monotonic() - t0}
+    print(f"  phase 16 {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 KERNELS = {
@@ -4632,6 +4975,11 @@ def main() -> None:
           "arctic's smoke config beside it", flush=True)
     ep_run = ep_phase(dev, smi)
     clock.done("15")
+    print("phase 16: jamba's mamba block, jamba's smoke config, xlstm-1.3b and "
+          "seamless-m4t-large-v2 trained tensor-parallel over a (1, 2) mesh of "
+          "ranks sharing the card, against one device", flush=True)
+    ssm_tp = ssm_tp_phase(dev, smi)
+    clock.done("16")
     jamba_launches = dict(jamba["launches"]["prefill"])
     for counts in jamba["launches"]["decode"]:
         for name, n in counts.items():
@@ -4645,7 +4993,8 @@ def main() -> None:
                 "lm_train": lm_train["launches"], **families["launches"],
                 "lm_dp_train": dryrun_dp["launches"],
                 "lm_tp_train": tp_run["launches"],
-                "lm_ep_train": ep_run["launches"]}
+                "lm_ep_train": ep_run["launches"],
+                "lm_tp_ssm_train": ssm_tp["launches"]}
     for name in KERNELS:
         if not sum(path[name] for path in launches.values()):
             fail(f"kernel {name} was not launched on the main path")
@@ -4658,7 +5007,7 @@ def main() -> None:
          "table2": table2, "jamba": jamba, "lm_loss": lm, "train": train,
          "mesh": mesh, "train_resilient": resilient, "lm_train": lm_train,
          "families": families, "dryrun_dp": dryrun_dp, "tp": tp_run,
-         "ep": ep_run,
+         "ep": ep_run, "ssm_tp": ssm_tp,
          "totals": totals,
          "phase_seconds": clock.seconds},
         indent=2))

@@ -215,6 +215,30 @@ class Ranked:
         return Ranked(parts, spec)
 
 
+def piece(x: Ranked, index: int, pieces: int, *, split: bool = True) -> Ranked:
+    """Piece ``index`` of ``pieces`` equal pieces of the last dim of ``x``,
+    which every rank holds whole (a fused projection's output gathered:
+    mamba's and the mLSTM's two halves, the sLSTM's four gates): laid out
+    over the ranks, rank ``r`` its contiguous ``1/m`` of the piece (a view,
+    no collective), or whole on every rank with ``split=False``. The rule
+    table splits a fused output into contiguous parts, which cut the
+    pieces apart (at m = 2 rank 0 holds the whole first half), so a layer
+    gathers first and takes each piece's channels here."""
+    if x.spec[-1] == MODEL:
+        raise ValueError("piece() takes a last dim every rank holds whole")
+    width = x.parts[0].shape[-1]
+    if width % pieces:
+        raise ValueError(f"{width} does not split into {pieces} pieces")
+    size = width // pieces
+    if not split:
+        return Ranked([p.narrow(-1, index * size, size) for p in x.parts], x.spec)
+    if size % x.ranks:
+        raise ValueError(f"a piece of {size} does not split over {x.ranks} ranks")
+    w = size // x.ranks
+    return Ranked([p.narrow(-1, index * size + r * w, w) for r, p in enumerate(x.parts)],
+                  x.spec[:-1] + (MODEL,))
+
+
 def _is_ranked(a) -> bool:
     return isinstance(a, (Ranked, RankedTree))
 
@@ -274,6 +298,21 @@ class RankedTree:
         dim = dim % self.parts[0].ndim
         return dim < len(self.spec) and self.spec[dim] == MODEL
 
+    def rank_slices(self, dim: int = 0) -> tuple:
+        """Each rank's contiguous ``1/m`` slice along ``dim`` of a leaf every
+        rank holds whole (a replicated leaf used a slice a rank: the SSM
+        dynamics, ``R``, a group norm's scale), in rank order, views. Each
+        rank's gradient is then zero outside its slice, so the step's sum
+        over the ranks (``train.step._sum_replicated``) is exact."""
+        if self.split(dim):
+            raise ValueError(f"dim {dim} is already split over the ranks")
+        m = len(self.parts)
+        n = self.parts[0].shape[dim]
+        if n % m:
+            raise ValueError(f"dim {dim} of {n} does not split over {m} ranks")
+        return tuple(p.narrow(dim, r * (n // m), n // m)
+                     for r, p in enumerate(self.parts))
+
     def index(self, i: int) -> "RankedTree":
         """Entry ``i`` of every leaf's leading stacked axis (a period's
         layer of ``params["layers"]``), the specs without their first
@@ -285,4 +324,4 @@ class RankedTree:
 
 
 __all__ = ["BYTES", "MODEL", "Ranked", "RankedTree", "all_gather", "all_max",
-           "all_reduce", "bytes_by_kind", "each", "reset_bytes"]
+           "all_reduce", "bytes_by_kind", "each", "piece", "reset_bytes"]

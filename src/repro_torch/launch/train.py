@@ -7,23 +7,19 @@ Runs on CUDA (``train(device=...)`` takes another device, as the tests
 do; the CLI has the JAX launcher's flags and no device flag), on every
 visible card, laid out as the JAX launcher lays its devices out
 (:func:`train_mesh`): ``make_elastic_mesh(devices, model_parallel=min(n,
-16))``, a ``("data", "model")`` ``DeviceMesh``. An attention family,
-dense or MoE (``models.transformer.model_axis_ready``), trains there by
-``train.step.make_tp_train_step``: tensor and expert parallelism over the
-model axis, the params and optimizer state laid out by the rule table
-(``distributed.sharding.shard_params``), the step under
-``activation_mesh``, as the JAX launcher runs its steps. A family not yet
-on the model axis (mamba, xLSTM, the encoder-decoder; ROADMAP A5b) keeps
-the data-parallel layout over every card (``train.step.
-make_dp_train_step``, a ``ServingMesh``: params on the first device, each
+16))``, a ``("data", "model")`` ``DeviceMesh``. Every family trains there
+by ``train.step.make_tp_train_step``: tensor and expert parallelism over
+the model axis (attention, dense and MoE FFNs, mamba, the xLSTM, the
+encoder-decoder), the params and optimizer state laid out by the rule
+table (``distributed.sharding.shard_params``), the step under
+``activation_mesh``, as the JAX launcher runs its steps. ``train(mesh=)``
+takes a ``DeviceMesh`` or a 1-D ``ServingMesh`` (data parallelism:
+``train.step.make_dp_train_step``, params on the first device, each
 replica the gradient of its batch shard, averaged there in mesh order; an
-MoE config's balance loss formed from every shard's router terms). The
-launcher prints the layout it took. ``train(mesh=)``
-takes either kind of mesh, CPU entries or replicas sharing one card; a
-``DeviceMesh`` whose model axis holds more than one device refuses a family
-not on it (``NotImplementedError`` naming A5b). Checkpoints hold the
-gathered tree, so a run saved on one mesh resumes on another. Every
-family trains: a config fed by
+MoE config's balance loss formed from every shard's router terms), CPU
+entries or replicas sharing one card. The launcher prints the layout it
+took. Checkpoints hold the gathered tree, so a run saved on one mesh
+resumes on another. Every family trains: a config fed by
 embeddings (pixtral-12b, seamless-m4t-large-v2) gets them derived from
 each batch's tokens as the JAX launcher derives them
 (``stub_embeddings``). Each step is eager PyTorch: no
@@ -54,7 +50,6 @@ from repro_torch.distributed.sharding import (flat_devices, gather_params,
 from repro_torch.launch.mesh import (DeviceMesh, ServingMesh, make_device_mesh,
                                      make_serving_mesh)
 from repro_torch.models.model_factory import build_model
-from repro_torch.models.transformer import model_axis_ready
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import (TrainConfig, init_opt_state,
                                     make_dp_train_step, make_tp_train_step,
@@ -72,20 +67,19 @@ def stub_embeddings(tokens: torch.Tensor, d_model: int) -> torch.Tensor:
     return torch.from_numpy(emb)
 
 
-def train_mesh(device=None, mesh=None, cfg=None):
+def train_mesh(device=None, mesh=None):
     """The mesh ``train`` runs on: ``mesh`` when given, else every visible
-    card on CUDA, or the one device named. Several cards and a ``cfg`` on
-    the model axis (``model_axis_ready``: an attention family, dense or
-    MoE) give the JAX launcher's layout,
-    ``make_device_mesh(cards, model_parallel=min(n, 16))``; otherwise the
-    1-D ``ServingMesh`` of them all (``make_serving_mesh``)."""
+    card on CUDA, or the one device named. Several cards give the JAX
+    launcher's layout, ``make_device_mesh(cards, model_parallel=min(n,
+    16))``, for every family; one card its 1-D ``ServingMesh``
+    (``make_serving_mesh``)."""
     if mesh is not None:
         return mesh
     dev = resolve_device(device)
     if dev.type != "cuda":
         return ServingMesh((dev,))
     cards = make_serving_mesh(device=dev)
-    if len(cards) > 1 and cfg is not None and model_axis_ready(cfg):
+    if len(cards) > 1:
         return make_device_mesh(cards.devices,
                                 model_parallel=min(len(cards), 16))
     return cards
@@ -126,15 +120,14 @@ def train(
     device=None,
     mesh: ServingMesh | DeviceMesh | None = None,
 ) -> dict:
-    """Train ``arch`` for ``steps`` steps on ``train_mesh(device, mesh,
-    cfg)``: one device, tensor parallelism over a ``DeviceMesh``'s model
+    """Train ``arch`` for ``steps`` steps on ``train_mesh(device, mesh)``: one device, tensor parallelism over a ``DeviceMesh``'s model
     axis, or data parallelism over several devices with the params on the
     first (module docstring). Returns the (gathered) params, the losses
     and the last step's metrics."""
     cfg = smoke_config(arch) if smoke else get_config(arch)
     policy = train_policy() if quantized else float_policy()
     model = build_model(cfg, policy)
-    mesh = train_mesh(device, mesh, cfg)
+    mesh = train_mesh(device, mesh)
     dev = flat_devices(mesh)[0]
 
     dcfg = DataConfig(seed=seed, global_batch=batch, seq_len=seq,

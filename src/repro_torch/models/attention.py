@@ -13,7 +13,8 @@ cache and no window (the training forward) runs through
 on the CPU, where the JAX package takes this branch on the TPU only and
 the chunked path elsewhere. Every other long input takes the chunked
 path: the encoder-decoder's non-causal encoder self-attention and its
-``cross_attention`` too, as in the JAX package.
+``cross_attention`` too, as in the JAX package. Over a mesh's model axis
+self- and cross-attention run each rank's heads (:func:`_heads_tp`).
 """
 
 from __future__ import annotations
@@ -226,27 +227,36 @@ def attention(
     return proj(params["o_proj"], out.reshape(b, s, cfg.q_dim), policy), new_cache
 
 
-def _attention_tp(params, x: tp.Ranked, cfg, policy: QuantPolicy, *,
-                  positions: tp.Ranked, causal: bool) -> tp.Ranked:
-    """Self-attention over the model ranks. Where the rank count ``m``
-    divides both ``num_heads`` and ``num_kv_heads``, the column-parallel
-    q/k/v give rank ``r`` the q heads ``[rH/m, (r+1)H/m)`` and the kv heads
+def _heads_tp(q: tp.Ranked, k: tp.Ranked, v: tp.Ranked, cfg):
+    """The column-parallel q, k, v of attention over the ``m`` model ranks
+    laid out by heads: where ``m`` divides both ``num_heads`` and
+    ``num_kv_heads`` and the rule table splits each projection's out
+    width, rank ``r`` holds q heads ``[rH/m, (r+1)H/m)`` and kv heads
     ``[rHkv/m, (r+1)Hkv/m)``, the GQA map ``h // groups`` with no head
-    across ranks, and each rank attends its heads. Where the rule table's
-    split of a projection's out width cuts a head, the projections are
-    all-gathered and every rank attends all heads. ``o_proj`` is then
-    row-parallel (each rank takes its slice of a whole output)."""
-    b, s = x.parts[0].shape[:2]
-    m, dh = x.ranks, cfg.head_dim
-    q, k, v = (proj(params[name], x, policy)
-               for name in ("q_proj", "k_proj", "v_proj"))
+    across ranks. Otherwise (a head cut mid-way) they are all-gathered and
+    every rank attends every head. Returns (q, k, v, q heads a rank, kv
+    heads a rank, the output's spec)."""
+    m = q.ranks
     local = (cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
              and all(t.spec[-1] == tp.MODEL for t in (q, k, v)))
     if not local:
-        q, k, v = (t.laid_out((None, None, None), site="gather heads")
+        q, k, v = (t.laid_out(t.spec[:-1] + (None,), site="gather heads")
                    for t in (q, k, v))
     h = cfg.num_heads // m if local else cfg.num_heads
     hkv = cfg.num_kv_heads // m if local else cfg.num_kv_heads
+    return q, k, v, h, hkv, q.spec
+
+
+def _attention_tp(params, x: tp.Ranked, cfg, policy: QuantPolicy, *,
+                  positions: tp.Ranked, causal: bool) -> tp.Ranked:
+    """Self-attention over the model ranks: the heads laid out by
+    :func:`_heads_tp`, each rank attending its heads, then ``o_proj``
+    row-parallel (each rank takes its slice of a whole output)."""
+    b, s = x.parts[0].shape[:2]
+    dh = cfg.head_dim
+    q, k, v, h, hkv, spec = _heads_tp(
+        *(proj(params[name], x, policy) for name in ("q_proj", "k_proj", "v_proj")),
+        cfg)
 
     def attend(qr, kr, vr, pos):
         qr = apply_rope(qr.reshape(b, s, h, dh), pos[None, :], cfg.rope_theta)
@@ -256,9 +266,8 @@ def _attention_tp(params, x: tp.Ranked, cfg, policy: QuantPolicy, *,
                       sliding_window=cfg.sliding_window)
         return out.reshape(b, s, h * dh)
 
-    out = tp.each(attend, q, k, v, positions,
-                  spec=(None, None, tp.MODEL if local else None))
-    return proj(params["o_proj"], out, policy)
+    return proj(params["o_proj"], tp.each(attend, q, k, v, positions, spec=spec),
+                policy)
 
 
 def cross_attention(
@@ -269,7 +278,11 @@ def cross_attention(
     policy: QuantPolicy,
 ) -> torch.Tensor:
     """Encoder-decoder cross-attention (the seamless decoder): queries
-    from ``x``, keys and values from ``memory``, no RoPE, no mask."""
+    from ``x``, keys and values from ``memory``, no RoPE, no mask. Over
+    the model ranks (``tensor_parallel.Ranked`` ``x`` and ``memory``, each
+    whole on every rank) see :func:`_cross_attention_tp`."""
+    if isinstance(x, tp.Ranked):
+        return _cross_attention_tp(params, x, memory, cfg, policy)
     b, sq, _ = x.shape
     skv = memory.shape[1]
     q = proj(params["q_proj"], x, policy).reshape(b, sq, cfg.num_heads, cfg.head_dim)
@@ -285,6 +298,30 @@ def cross_attention(
         kv_positions=torch.arange(skv, device=x.device),
     )
     return proj(params["o_proj"], out.reshape(b, sq, cfg.q_dim), policy)
+
+
+def _cross_attention_tp(params, x: tp.Ranked, memory: tp.Ranked, cfg,
+                        policy: QuantPolicy) -> tp.Ranked:
+    """:func:`cross_attention` over the model ranks: ``q`` column-parallel
+    from the decoder's stream ``x``, ``k`` and ``v`` column-parallel from
+    the encoder's output ``memory`` (both whole on every rank), the heads
+    laid out by :func:`_heads_tp` (local, or all-gathered where the rule
+    table cuts a head: the smoke config's 2 kv heads at m = 4), each rank
+    attending its heads with no RoPE and no mask, ``o_proj`` row-parallel."""
+    b, sq = x.parts[0].shape[:2]
+    skv, dh = memory.parts[0].shape[1], cfg.head_dim
+    q, k, v, h, hkv, spec = _heads_tp(proj(params["q_proj"], x, policy),
+                                      proj(params["k_proj"], memory, policy),
+                                      proj(params["v_proj"], memory, policy), cfg)
+
+    def attend(qr, kr, vr):
+        out = _attend(qr.reshape(b, sq, h, dh), kr.reshape(b, skv, hkv, dh),
+                      vr.reshape(b, skv, hkv, dh), groups=h // hkv, causal=False,
+                      q_positions=torch.arange(sq, device=qr.device),
+                      kv_positions=torch.arange(skv, device=qr.device))
+        return out.reshape(b, sq, h * dh)
+
+    return proj(params["o_proj"], tp.each(attend, q, k, v, spec=spec), policy)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, layers: Optional[int] = None,

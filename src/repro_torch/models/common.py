@@ -168,6 +168,26 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x32 * inv * p["scale"]).to(x.dtype)
 
 
+def rmsnorm_tp(scale: tp.RankedTree, x: tp.Ranked, eps: float = 1e-5,
+               site: str = "group norm") -> tp.Ranked:
+    """:func:`rmsnorm` with ``scale`` over the model ranks, a leaf every
+    rank holds whole. With the last dim of ``x`` whole on each rank, each
+    rank norms its copy. With it split (a layer's channels or heads over
+    the ranks) the norm still runs over the whole width, as the single
+    device's does: each rank's float32 partial sum of squares (``[...,
+    1]``, not the activations) is all-reduced, divided by the whole width,
+    and each rank scales its part by its slice of ``scale`` (Megatron's
+    way)."""
+    if x.spec[-1] != tp.MODEL:
+        return tp.each(lambda sc, xr: rmsnorm({"scale": sc}, xr, eps), scale, x)
+    width = x.shape[-1]
+    x32 = [xr.float() for xr in x.parts]
+    sums = tp.all_reduce([(t * t).sum(-1, keepdim=True) for t in x32], site=site)
+    return tp.Ranked([(t * torch.rsqrt(ss / width + eps) * sc).to(xr.dtype)
+                      for t, ss, sc, xr in zip(x32, sums, scale.rank_slices(0), x.parts)],
+                     x.spec)
+
+
 def init_layernorm(d: int, device=None) -> Params:
     return {"scale": torch.ones((d,), device=device),
             "bias": torch.zeros((d,), device=device)}

@@ -6,6 +6,8 @@ default 256), carrying the state ``h [B, d_inner, d_state]`` from one
 chunk to the next; each chunk is one ``kernels.ops.ssm_scan_chunk``
 call: the CUDA kernel for CUDA tensors, its plain twin on the CPU. A
 decode step (``S == 1``) is one step of the recurrence in plain torch.
+Over a mesh's model axis the training forward runs on each rank's
+channels (:func:`_mamba_tp`).
 
 Projections (``in_proj/x_proj/dt_proj/out_proj``) are binarizable; the
 SSM dynamics (A_log, D, the conv) stay real.
@@ -18,6 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (Finish, Params, QuantPolicy, as_drawn,
                                        init_device, init_proj, proj, randn)
@@ -70,14 +73,45 @@ def _selective_scan_chunk(carry: torch.Tensor, xs):
     return h_last, y
 
 
+def _chunked_scan(dt, xh32, bmat, cmat, a, h0, chunk: int):
+    """The prefill's scan, ``chunk`` steps a ``kernels.ops.ssm_scan_chunk``
+    call, ``h0`` carried from one chunk to the next: (y ``[B, S, di]``,
+    h_last)."""
+    s = dt.shape[1]
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"mamba prefill needs S <= {chunk} or a multiple "
+                         f"of it, got S={s}")
+    # Each chunk is a view of the whole sequence (batch stride S*di),
+    # read in place by the kernel; h_last carries into the next call.
+    h_last, ys, chunks = h0.contiguous(), [], op_cost.trips(range(0, s, c))
+    for t0 in chunks:
+        sl = slice(t0, t0 + c)
+        h_last, y = _selective_scan_chunk(
+            h_last, (dt[:, sl], xh32[:, sl], bmat[:, sl], cmat[:, sl], a))
+        ys.append(y)
+    return chunks.cat(ys, dim=1), h_last
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus: log(exp(x) + 1) without a threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
 def mamba(params: Params, x: torch.Tensor, cfg, policy: QuantPolicy, *,
           state: Optional[dict] = None, chunk: int = 256
           ) -> tuple[torch.Tensor, Optional[dict]]:
     """x: ``[B, S, D]`` -> (y ``[B, S, D]``, new streaming state).
 
     ``state = {"h": [B, di, ds], "conv": [B, K-1, di]}`` for serving.
-    ``S`` must be at most ``chunk`` or a multiple of it.
+    ``S`` must be at most ``chunk`` or a multiple of it. Over the model
+    ranks (a ``tensor_parallel.Ranked`` ``x``, no state) see
+    :func:`_mamba_tp`.
     """
+    if isinstance(x, tp.Ranked):
+        if state is not None:
+            raise NotImplementedError("tensor-parallel mamba trains: no state")
+        return _mamba_tp(params, x, cfg, policy, chunk=chunk), None
     b, s, _ = x.shape
     di, ds = cfg.d_inner, cfg.d_state
     xh, z = proj(params["in_proj"], x, policy).chunk(2, dim=-1)
@@ -90,9 +124,8 @@ def mamba(params: Params, x: torch.Tensor, cfg, policy: QuantPolicy, *,
     bcdt = proj(params["x_proj"], xh, policy).float()
     r = _dt_rank(cfg)
     dt_in, bmat, cmat = torch.split(bcdt, [r, ds, ds], dim=-1)
-    # softplus as jax.nn.softplus: log(exp(x) + 1) without a threshold
     dt_lin = proj(params["dt_proj"], dt_in.to(x.dtype), policy).float()
-    dt = torch.logaddexp(dt_lin, torch.zeros_like(dt_lin))     # [B, S, di]
+    dt = _softplus(dt_lin)                                      # [B, S, di]
     a = -torch.exp(params["A_log"])                             # [di, ds]
     xh32 = xh.float()
 
@@ -105,19 +138,7 @@ def mamba(params: Params, x: torch.Tensor, cfg, policy: QuantPolicy, *,
         h_last = h0 * da + dbx
         y = (h_last * cmat[:, 0, None, :]).sum(-1)[:, None]
     else:
-        c = min(chunk, s)
-        if s % c:
-            raise ValueError(f"mamba prefill needs S <= {chunk} or a multiple "
-                             f"of it, got S={s}")
-        # Each chunk is a view of the whole sequence (batch stride S*di),
-        # read in place by the kernel; h_last carries into the next call.
-        h_last, ys, chunks = h0.contiguous(), [], op_cost.trips(range(0, s, c))
-        for t0 in chunks:
-            sl = slice(t0, t0 + c)
-            h_last, y = _selective_scan_chunk(
-                h_last, (dt[:, sl], xh32[:, sl], bmat[:, sl], cmat[:, sl], a))
-            ys.append(y)
-        y = chunks.cat(ys, dim=1)
+        y, h_last = _chunked_scan(dt, xh32, bmat, cmat, a, h0, chunk)
 
     y = y + xh.float() * params["D"]
     y = y.to(x.dtype) * F.silu(z)
@@ -125,6 +146,57 @@ def mamba(params: Params, x: torch.Tensor, cfg, policy: QuantPolicy, *,
 
     new_state = {"h": h_last, "conv": new_conv} if state is not None else None
     return out, new_state
+
+
+def _mamba_tp(params: tp.RankedTree, x: tp.Ranked, cfg, policy: QuantPolicy, *,
+              chunk: int) -> tp.Ranked:
+    """:func:`mamba` with no state over the ``m`` model ranks, the residual
+    stream ``x`` whole on each, every rank on its ``d_inner / m`` channels
+    ``[r di/m, (r+1) di/m)``:
+
+    * ``in_proj`` is column-parallel; its output, split contiguously over
+      the ranks (at m = 2 rank 0 holds all of ``xh``, rank 1 all of
+      ``z``), is all-gathered (site ``"gather in_proj"``), then each rank
+      keeps the whole ``xh`` and its channels of ``z``;
+    * the causal conv and the silu run on every channel on every rank, so
+      ``x_proj``, column-parallel, takes its whole input with no second
+      gather; its output (``dt_in``, ``B``, ``C``) is all-gathered where the
+      rule table splits it (site ``"gather x_proj"``) and is whole on
+      every rank;
+    * ``dt_proj`` is column-parallel (its bias split): each rank's ``dt``;
+    * the scan (``kernels.ops.ssm_scan_chunk``, chunk by chunk, and its
+      backward kernel) runs on the rank's channels, with its slices of the
+      replicated ``A_log`` and ``D``; the silu(z) gate on its channels;
+    * ``out_proj`` is row-parallel: one all-reduce.
+
+    The replicated ``conv_w`` and ``conv_b`` get each rank's share of their
+    gradient (through its rows of ``x_proj`` and its channels' scan),
+    ``A_log`` and ``D`` gradients zero outside the rank's slice: the step
+    sums them over the ranks."""
+    b = x.parts[0].shape[0]
+    ds, r = cfg.d_state, _dt_rank(cfg)
+    whole = x.spec[:-1] + (None,)
+    split = x.spec[:-1] + (tp.MODEL,)
+    g = proj(params["in_proj"], x, policy).laid_out(whole, site="gather in_proj")
+    z = tp.piece(g, 1, 2)
+    xc = tp.each(lambda t, w, bias: F.silu(_causal_conv(t, w, bias)[0]),
+                 tp.piece(g, 0, 2, split=False), params["conv_w"], params["conv_b"])
+    bcdt = proj(params["x_proj"], xc, policy).laid_out(whole, site="gather x_proj")
+    bcdt = tp.each(torch.Tensor.float, bcdt)
+    dt_lin = proj(params["dt_proj"], tp.each(lambda t: t[..., :r].to(x.parts[0].dtype),
+                                             bcdt), policy).laid_out(split)
+    ys = []
+    for dtl, xr, bc, a_log, d, zr in zip(
+            dt_lin.parts, tp.piece(xc, 0, 1).parts, bcdt.parts,
+            params["A_log"].rank_slices(0), params["D"].rank_slices(0), z.parts):
+        _, bmat, cmat = torch.split(bc, [r, ds, ds], dim=-1)
+        xh32 = xr.float()
+        h0 = torch.zeros((b, xr.shape[-1], ds), device=xr.device)
+        y, _ = _chunked_scan(_softplus(dtl.float()), xh32, bmat, cmat,
+                             -torch.exp(a_log), h0, chunk)
+        y = y + xh32 * d
+        ys.append(y.to(xr.dtype) * F.silu(zr))
+    return proj(params["out_proj"], tp.Ranked(ys, split), policy)
 
 
 def init_mamba_state(cfg, batch: int, *, layers: int, device=None) -> dict:

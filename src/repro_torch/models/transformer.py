@@ -27,11 +27,13 @@ the inputs ``Ranked``; ``train.step.make_tp_train_step``) the forward
 runs every rank's part of each block in lockstep: the residual stream and
 the norms replicated on every rank, attention and the dense FFN split by
 the rule table (``attention._attention_tp``, ``ffn.dense_ffn``), the
-experts over the ranks (``ffn.moe_ffn``), the embedding and the head
-vocab-parallel, a period's ranks rematerialized together.
+experts over the ranks (``ffn.moe_ffn``), mamba on each rank's channels
+(``mamba._mamba_tp``), the mLSTM and the sLSTM on each rank's heads
+(``xlstm._mlstm_tp``, ``_slstm_tp``), the embedding and the head
+vocab-parallel, a period's ranks rematerialized together. Every family
+runs there (the encoder-decoder's is ``models/encdec.py``).
 ``constrain_seq`` / ``constrain`` stand where the JAX model has them:
-identity with no mesh installed, a layout check under one. The attention
-families run there, dense and MoE (:func:`check_model_axis`).
+identity with no mesh installed, a layout check under one.
 
 A config fed by embeddings (pixtral-12b's patch-embedding stub) takes
 ``input_embeds [B, S, D]`` in place of tokens in ``lm_forward``,
@@ -90,26 +92,6 @@ def num_periods(cfg) -> int:
         raise ValueError(f"{cfg.name}: {cfg.num_layers} layers is not a whole "
                          f"number of {p}-layer periods")
     return cfg.num_layers // p
-
-
-def model_axis_ready(cfg) -> bool:
-    """Whether ``cfg`` trains over the model axis: a decoder-only stack of
-    attention layers with dense, MoE or MoE-plus-dense FFNs (the dense,
-    vlm and moe families)."""
-    return cfg.family != "encdec" and all(
-        k.mixer == "attn" and k.ffn in ("dense", "moe", "moe+dense")
-        for k in period_spec(cfg))
-
-
-def check_model_axis(cfg) -> None:
-    """``NotImplementedError`` naming ROADMAP A5b for a config whose layers
-    are not yet on the model axis (mamba, xLSTM, the encoder-decoder)."""
-    if not model_axis_ready(cfg):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on a mesh with model > 1: only the "
-            "attention families' layers (dense FFNs and experts) are on the "
-            "model axis yet; mamba, xLSTM and the encoder-decoder wait for "
-            "ROADMAP A5b")
 
 
 def _norm_fns(cfg):
@@ -219,22 +201,40 @@ def init_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 # ------------------------------ forward --------------------------------------
 
 
+def _mixer(h, lp: Params, cfg, policy: QuantPolicy, kind: LayerKind, *,
+           positions, layer_state, causal):
+    """The block's mixer on the normed input ``h``: (output, new layer
+    state)."""
+    if kind.mixer == "attn":
+        return attn_mod.attention(lp["attn"], h, cfg, policy, positions=positions,
+                                  cache=layer_state, causal=causal)
+    if kind.mixer == "mamba":
+        return mamba_mod.mamba(lp["mamba"], h, cfg, policy, state=layer_state)
+    if kind.mixer == "mlstm":
+        return xlstm_mod.mlstm_block(lp["mlstm"], h, cfg, policy, state=layer_state)
+    if kind.mixer == "slstm":
+        return xlstm_mod.slstm_block(lp["slstm"], h, cfg, policy, state=layer_state)
+    raise ValueError(kind.mixer)
+
+
 def _apply_layer(x, lp: Params, cfg, policy: QuantPolicy, kind: LayerKind, *,
                  positions, layer_state, causal=True):
     """One residual block. Returns (x, new_layer_state, aux_loss). Over
-    the model ranks (a ``tensor_parallel.Ranked`` ``x``: an attention
-    block with a dense, MoE or MoE-plus-dense FFN) every rank runs its
-    part, the norms on each rank's copy of the residual stream. arctic's
-    two branches are all-reduced each (sites ``"moe"`` and
+    the model ranks (a ``tensor_parallel.Ranked`` ``x``) every rank runs
+    its part of the mixer (attention, mamba, the mLSTM or the sLSTM) and
+    the FFN, the norms on each rank's copy of the residual stream.
+    arctic's two branches are all-reduced each (sites ``"moe"`` and
     ``"down_proj"``) and added after, as the single device adds them."""
     _, norm = _norm_fns(cfg)
     if isinstance(x, tp.Ranked):
         h = tp.each(norm, lp["norm1"], x)
-        out, _ = attn_mod.attention(lp["attn"], h, cfg, policy,
-                                    positions=positions, causal=causal)
+        out, _ = _mixer(h, lp, cfg, policy, kind, positions=positions,
+                        layer_state=None, causal=causal)
         x = tp.each(torch.add, x, out)
-        h = tp.each(norm, lp["norm2"], x)
         aux = torch.zeros((), device=x.devices[0])
+        if kind.ffn == "none":
+            return x, None, aux
+        h = tp.each(norm, lp["norm2"], x)
         if "moe" in kind.ffn:
             y, aux = ffn_mod.moe_ffn(lp["moe"], h, cfg, policy, cfg.act)
             if kind.ffn == "moe+dense":
@@ -245,22 +245,8 @@ def _apply_layer(x, lp: Params, cfg, policy: QuantPolicy, kind: LayerKind, *,
         return tp.each(torch.add, x, y), None, aux
     aux = torch.zeros((), device=x.device)
     h = norm(lp["norm1"], x)
-    new_state = layer_state
-    if kind.mixer == "attn":
-        out, new_state = attn_mod.attention(
-            lp["attn"], h, cfg, policy, positions=positions, cache=layer_state,
-            causal=causal)
-    elif kind.mixer == "mamba":
-        out, new_state = mamba_mod.mamba(lp["mamba"], h, cfg, policy,
-                                         state=layer_state)
-    elif kind.mixer == "mlstm":
-        out, new_state = xlstm_mod.mlstm_block(lp["mlstm"], h, cfg, policy,
-                                               state=layer_state)
-    elif kind.mixer == "slstm":
-        out, new_state = xlstm_mod.slstm_block(lp["slstm"], h, cfg, policy,
-                                               state=layer_state)
-    else:
-        raise ValueError(kind.mixer)
+    out, new_state = _mixer(h, lp, cfg, policy, kind, positions=positions,
+                            layer_state=layer_state, causal=causal)
     x = x + out
 
     if kind.ffn != "none":
@@ -379,7 +365,6 @@ def _lm_forward_tp(params: tp.RankedTree, cfg, policy: QuantPolicy, *,
     ``Ranked``. Returns vocab-parallel logits (``Ranked``, vocab split
     where the rule table splits the head), no state, and the MoE balance
     loss, once (``ffn._moe_ffn_tp``), on the first rank's device."""
-    check_model_axis(cfg)
     _, norm = _norm_fns(cfg)
     if input_embeds is not None:
         x = tp.each(lambda e: e.to(cfg.dtype), input_embeds)

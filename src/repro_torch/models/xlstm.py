@@ -15,6 +15,9 @@ JAX package's ``lax.scan``).
 
 Projections (q/k/v/up/down and the gates from the input) are ``*_proj``
 and binarizable; the recurrent ``R`` and the norms stay real.
+
+Over a mesh's model axis the training forward of each block runs on each
+rank's heads (:func:`_mlstm_tp`, :func:`_slstm_tp`).
 """
 
 from __future__ import annotations
@@ -24,10 +27,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (Finish, Params, QuantPolicy, as_drawn,
                                        init_device, init_proj, proj, randn,
-                                       rmsnorm)
+                                       rmsnorm, rmsnorm_tp)
 from repro_torch.roofline import op_cost
 
 # The stabilizer's start: exp(m - anything finite) is 0.
@@ -146,6 +150,12 @@ def mlstm_cell(q, k, v, logi, logf, state: Optional[dict], *, chunk: int = 256):
 def mlstm_block(params: Params, x: torch.Tensor, cfg, policy: QuantPolicy, *,
                 state: Optional[dict] = None,
                 ) -> tuple[torch.Tensor, Optional[dict]]:
+    """Over the model ranks (a ``tensor_parallel.Ranked`` ``x``, no state)
+    see :func:`_mlstm_tp`."""
+    if isinstance(x, tp.Ranked):
+        if state is not None:
+            raise NotImplementedError("the tensor-parallel mLSTM trains: no state")
+        return _mlstm_tp(params, x, cfg, policy), None
     b, s, d = x.shape
     h = cfg.num_heads
     di = 2 * d
@@ -160,12 +170,58 @@ def mlstm_block(params: Params, x: torch.Tensor, cfg, policy: QuantPolicy, *,
 
     y, new_state = mlstm_cell(q, k, v, logi, logf, state)
     y = y.reshape(b, s, di).to(x.dtype)
-    y = rmsnorm({"scale": params["gn_scale"]}, y)   # per-cell group norm
+    # the group norm runs over the whole width di, one scale a channel
+    y = rmsnorm({"scale": params["gn_scale"]}, y)
     y = y * F.silu(z)
     # the training forward (no state in) emits no state
     if state is None:
         new_state = None
     return proj(params["down_proj"], y, policy), new_state
+
+
+def _mlstm_tp(params: tp.RankedTree, x: tp.Ranked, cfg, policy: QuantPolicy) -> tp.Ranked:
+    """:func:`mlstm_block` with no state over the ``m`` model ranks, the
+    residual stream ``x`` whole on each:
+
+    * ``up_proj`` is column-parallel; its output, split contiguously over
+      the ranks (at m = 2 rank 0 holds all of ``xm``, rank 1 all of ``z``),
+      is all-gathered (site ``"gather up_proj"``): each rank keeps the whole
+      ``xm`` and its channels of ``z``;
+    * ``q``, ``k``, ``v`` are column-parallel: where ``m`` divides the heads,
+      rank ``r`` holds heads ``[r H/m, (r+1) H/m)``; otherwise they are
+      all-gathered and every rank runs every head, as
+      ``attention._attention_tp`` does;
+    * ``if_proj`` (out ``2H``: every head's i, then every head's f) is
+      all-gathered where split (site ``"gather if_proj"``) and each rank
+      takes its heads' i and f;
+    * the cell runs on the rank's heads (``kernels.ops.mlstm_chunked`` and
+      its backward kernel);
+    * the group norm runs over the whole width (``common.rmsnorm_tp``: one
+      float32 all-reduce of the partial sums of squares), the gate on the
+      rank's channels of ``z``, and ``down_proj`` is row-parallel."""
+    b, s = x.parts[0].shape[:2]
+    h, m = cfg.num_heads, x.ranks
+    dh = 2 * cfg.d_model // h
+    whole = x.spec[:-1] + (None,)
+    g = proj(params["up_proj"], x, policy).laid_out(whole, site="gather up_proj")
+    xm = tp.piece(g, 0, 2, split=False)
+    q, k, v = (proj(params[name], xm, policy) for name in ("q_proj", "k_proj", "v_proj"))
+    local = h % m == 0 and all(t.spec[-1] == tp.MODEL for t in (q, k, v))
+    if not local:
+        q, k, v = (t.laid_out(whole, site="gather heads") for t in (q, k, v))
+    hl = h // m if local else h
+    gates = proj(params["if_proj"], xm, policy).laid_out(whole, site="gather if_proj")
+    ys = []
+    for r, (qr, kr, vr, gr) in enumerate(zip(q.parts, k.parts, v.parts, gates.parts)):
+        first = r * hl if local else 0
+        gr = gr.float().reshape(b, s, 2, h)[..., first:first + hl]
+        y, _ = mlstm_cell(qr.reshape(b, s, hl, dh), kr.reshape(b, s, hl, dh),
+                          vr.reshape(b, s, hl, dh), gr[:, :, 0],
+                          F.logsigmoid(gr[:, :, 1]), None)
+        ys.append(y.reshape(b, s, hl * dh).to(qr.dtype))
+    y = rmsnorm_tp(params["gn_scale"], tp.Ranked(ys, q.spec))
+    y = tp.each(lambda yr, zr: yr * F.silu(zr), y, tp.piece(g, 1, 2, split=local))
+    return proj(params["down_proj"], y, policy)
 
 
 def init_mlstm_state(cfg, batch: int, *, layers: int, device=None) -> dict:
@@ -222,25 +278,42 @@ def _slstm_step(carry, wx, r_heads, h_heads: int, dh: int):
     return h_new, c_new, n_new, m_new
 
 
-def slstm_block(params: Params, x: torch.Tensor, cfg, policy: QuantPolicy, *,
-                state: Optional[dict] = None,
-                ) -> tuple[torch.Tensor, Optional[dict]]:
-    b, s, d = x.shape
-    h = cfg.num_heads
-    dh = d // h
-    wx = proj(params["gates_proj"], x, policy).float()   # [B, S, 4d]
-    if state is None:
-        zeros = torch.zeros((b, d), device=x.device)
-        carry = (zeros, zeros, zeros, torch.full((b, d), NEG, device=x.device))
-    else:
-        carry = (state["h"], state["c"], state["n"], state["m"])
-    r_heads = params["R"].permute(1, 2, 0, 3).reshape(h, dh, 4 * dh)
-    ys, steps = [], op_cost.trips(range(s))
+def _slstm_loop(wx: torch.Tensor, R: torch.Tensor, carry):
+    """The recurrence over time: ``wx [B, S, 4 w]`` the input projections
+    (gate-major), ``R [4, H, dh, dh]`` the recurrent weights of the ``H``
+    heads of ``w`` channels, carry ``(h, c, n, m)`` ``[B, w]`` each.
+    Returns (``h`` of every step ``[B, S, w]`` float32, the last carry)."""
+    _, h, dh, _ = R.shape
+    r_heads = R.permute(1, 2, 0, 3).reshape(h, dh, 4 * dh)
+    ys, steps = [], op_cost.trips(range(wx.shape[1]))
     for t in steps:
         carry = _slstm_step(carry, wx[:, t], r_heads, h, dh)
         ys.append(carry[0])
-    y = steps.stack(ys, dim=1).to(x.dtype)                # [B, S, d]
-    y = rmsnorm({"scale": params["gn_scale"]}, y)
+    return steps.stack(ys, dim=1), carry
+
+
+def _zero_carry(b: int, w: int, device) -> tuple:
+    zeros = torch.zeros((b, w), device=device)
+    return zeros, zeros, zeros, torch.full((b, w), NEG, device=device)
+
+
+def slstm_block(params: Params, x: torch.Tensor, cfg, policy: QuantPolicy, *,
+                state: Optional[dict] = None,
+                ) -> tuple[torch.Tensor, Optional[dict]]:
+    """Over the model ranks (a ``tensor_parallel.Ranked`` ``x``, no state)
+    see :func:`_slstm_tp`."""
+    if isinstance(x, tp.Ranked):
+        if state is not None:
+            raise NotImplementedError("the tensor-parallel sLSTM trains: no state")
+        return _slstm_tp(params, x, cfg, policy), None
+    b, s, d = x.shape
+    wx = proj(params["gates_proj"], x, policy).float()   # [B, S, 4d]
+    if state is None:
+        carry = _zero_carry(b, d, x.device)
+    else:
+        carry = (state["h"], state["c"], state["n"], state["m"])
+    y, carry = _slstm_loop(wx, params["R"], carry)
+    y = rmsnorm({"scale": params["gn_scale"]}, y.to(x.dtype))   # [B, S, d]
 
     a, g = proj(params["up_proj"], y, policy).chunk(2, dim=-1)
     y = proj(params["down_proj"], a * F.silu(g), policy)
@@ -249,6 +322,52 @@ def slstm_block(params: Params, x: torch.Tensor, cfg, policy: QuantPolicy, *,
         hT, cT, nT, mT = carry
         new_state = {"h": hT, "c": cT, "n": nT, "m": mT}
     return y, new_state
+
+
+def _slstm_tp(params: tp.RankedTree, x: tp.Ranked, cfg, policy: QuantPolicy) -> tp.Ranked:
+    """:func:`slstm_block` with no state over the ``m`` model ranks, the
+    residual stream ``x`` whole on each. Where ``m`` divides the heads,
+    rank ``r`` runs the recurrence of heads ``[r H/m, (r+1) H/m)``, its
+    ``d / m`` channels (otherwise every rank runs every head):
+
+    * ``gates_proj`` (out ``4d``: gates z, i, f, o, each over every
+      channel) is column-parallel, its contiguous split cutting the gates
+      apart; it is all-gathered (site ``"gather gates_proj"``) and each rank
+      takes its channels of each gate;
+    * the loop over time carries ``[B, d/m]``, with the rank's heads of the
+      replicated ``R``;
+    * its output is all-gathered (site ``"gather slstm"``): ``up_proj``,
+      column-parallel, takes its input whole, so the group norm runs on
+      every rank's whole copy, as the single device's does (the gather
+      costs the same bytes before the norm as after it, and no all-reduce
+      of partial sums is needed);
+    * ``up_proj``'s output (halves a and g) is all-gathered (site
+      ``"gather up_proj"``): each rank takes its channels of a and g;
+    * ``down_proj`` is row-parallel over ``dff / 2``.
+
+    The loop is the host-bound loop of ROADMAP A7a: ranks sharing a card
+    run it in turn."""
+    b, s = x.parts[0].shape[:2]
+    d, h, m = cfg.d_model, cfg.num_heads, x.ranks
+    local = h % m == 0
+    w = d // m if local else d
+    whole = x.spec[:-1] + (None,)
+    wx = proj(params["gates_proj"], x, policy).laid_out(whole, site="gather gates_proj")
+    rec = params["R"].rank_slices(1) if local else params["R"].parts
+    ys = []
+    for r, (wr, rr) in enumerate(zip(wx.parts, rec)):
+        wr = wr.float()
+        if local:
+            wr = wr.reshape(b, s, 4, d)[..., r * w:(r + 1) * w].reshape(b, s, 4 * w)
+        y, _ = _slstm_loop(wr, rr, _zero_carry(b, w, wr.device))
+        ys.append(y.to(x.parts[r].dtype))
+    y = tp.Ranked(ys, x.spec[:-1] + (tp.MODEL if local else None,))
+    y = rmsnorm_tp(params["gn_scale"], y.laid_out(whole, site="gather slstm"))
+    u = proj(params["up_proj"], y, policy).laid_out(whole, site="gather up_proj")
+    split = params["down_proj"]["w"].split(-1)
+    return proj(params["down_proj"], tp.each(
+        lambda a, g: a * F.silu(g), tp.piece(u, 0, 2, split=split),
+        tp.piece(u, 1, 2, split=split)), policy)
 
 
 def init_slstm_state(cfg, batch: int, *, layers: int, device=None) -> dict:

@@ -472,9 +472,17 @@ def collective_bytes_bwd(mesh, args, kind: str, cfg, *, alpha: bool = True) -> d
       q or kv heads, or a projection's out width): the q, k and v outputs
       split over ``model`` are all-gathered, ``n x out`` each, in the
       forward and the recompute; their gradients reduce-scattered, ``n x
-      out / m``, in the backward. Cross-attention, mamba and the xLSTM
-      have no tensor-parallel path yet (ROADMAP A5b): only their
-      row-parallel outputs are reckoned, by the rule table.
+      out / m``, in the backward. Cross-attention likewise, its q over
+      the decoder's tokens and its k and v over the encoder's frames.
+    * **a fused output re-laid out** (:func:`_mixer_gathers`): mamba's
+      ``in_proj`` (``2 d_inner``) and ``x_proj`` (``dt_rank + 2 d_state``),
+      the mLSTM's ``up_proj`` (``2 d_inner``) and ``if_proj`` (``2 H``), the
+      sLSTM's ``gates_proj`` (``4 d``), its output (``d``, where its heads
+      are split) and its ``up_proj`` (``d_ff``), each all-gathered where the
+      rule table splits it, ``n x out``, in the forward and the recompute,
+      reduce-scattered, ``n x out / m``, in the backward; with the heads
+      split, the mLSTM's group norm all-reduces its float32 partial sums,
+      ``n`` each, in the forward, the recompute and the backward.
     * **the vocab-parallel loss** (the head's vocab over ``model``): the
       row max, the sum of exps and the label's logit, float32 ``n``
       each, all-reduced in the forward, the last two in the backward.
@@ -529,7 +537,72 @@ def collective_bytes_bwd(mesh, args, kind: str, cfg, *, alpha: bool = True) -> d
         n = layers * rows * _tokens_per_row(batch, path) * leaf.shape[-2] * act
         out[("all-gather", "fwd")] += 2 * n
         out[("reduce-scatter", "bwd")] += n / m
+    for key, n in _mixer_gathers(mesh, leaves, batch, cfg, rows, act):
+        out[key] += n
     return out
+
+
+def _mixer_gathers(mesh, leaves: dict, batch, cfg, rows: float, act: int):
+    """``((kind, "fwd" | "bwd"), bytes)`` of the gathers and group-norm
+    all-reduces of cross-attention, mamba, the mLSTM and the sLSTM over
+    the model axis (``models.attention._cross_attention_tp``,
+    ``models.mamba._mamba_tp``, ``models.xlstm._mlstm_tp`` and
+    ``_slstm_tp``), every layer of a stack together: see
+    :func:`collective_bytes_bwd`."""
+    m = _over(mesh, {sharding.MODEL_AXIS})
+    ar = COLL_MULT["all-reduce"]
+    heads_split = cfg.num_heads % m == 0
+
+    def out_split(path) -> bool:
+        return sharding.param_spec(mesh, path, leaves[path])[-2] == sharding.MODEL_AXIS
+
+    for path, leaf in leaves.items():
+        if path[-1] != "w" or len(path) < 3:
+            continue
+        group, name, mixer = path[:-2], path[-2], path[-3]
+        first = {"mamba": "in_proj", "mlstm": "up_proj", "slstm": "gates_proj",
+                 "cross_attn": "q_proj"}.get(mixer)
+        if name != first:
+            continue
+        layers = leaf.shape[0] if "layers" in path and leaf.ndim == 3 else 1
+        tokens = layers * rows * _tokens_per_row(batch, path)
+
+        def gather(proj, width=None, n=tokens):
+            wpath = group + (proj, "w")
+            if not out_split(wpath):
+                return []
+            elems = n * (leaves[wpath].shape[-2] if width is None else width)
+            return [(("all-gather", "fwd"), 2 * elems * act),
+                    (("reduce-scatter", "bwd"), elems * act / m)]
+
+        sites = []
+        if mixer == "mamba":
+            sites += gather("in_proj") + gather("x_proj")
+        elif mixer == "mlstm":
+            qkv = ("q_proj", "k_proj", "v_proj")
+            local = heads_split and all(out_split(group + (q, "w")) for q in qkv)
+            sites += gather("up_proj") + gather("if_proj")
+            if local:
+                sites += [(("all-reduce", "fwd"), 2 * tokens * 4 * ar),
+                          (("all-reduce", "bwd"), tokens * 4 * ar)]
+            else:
+                sites += [site for q in qkv for site in gather(q)]
+        elif mixer == "slstm":
+            d = leaf.shape[-1]
+            sites += gather("gates_proj") + gather("up_proj")
+            if heads_split:
+                elems = tokens * d
+                sites += [(("all-gather", "fwd"), 2 * elems * act),
+                          (("reduce-scatter", "bwd"), elems * act / m)]
+        else:   # cross-attention: q over the decoder, k and v over the frames
+            qkv = ("q_proj", "k_proj", "v_proj")
+            local = (heads_split and cfg.num_kv_heads % m == 0
+                     and all(out_split(group + (q, "w")) for q in qkv))
+            if not local:
+                frames = layers * rows * _tokens_per_row(batch, ("encoder",))
+                sites += (gather("q_proj") + gather("k_proj", n=frames)
+                          + gather("v_proj", n=frames))
+        yield from sites
 
 
 def _tokens_per_row(batch, keys) -> int:

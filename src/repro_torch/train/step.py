@@ -27,8 +27,9 @@ compressed DP step shares).
 
 ``make_tp_train_step(model, tcfg, mesh)`` is the step over a ``("data",
 "model")`` mesh (``launch.mesh.DeviceMesh``): tensor parallelism over the
-model axis inside each data shard, the params and optimizer state laid
-out by the rule table (``distributed.sharding.shard_params``).
+model axis inside each data shard for every family, the params and
+optimizer state laid out by the rule table
+(``distributed.sharding.shard_params``).
 
 ``make_prefill`` / ``make_decode_step`` wrap ``Model.prefill`` /
 ``Model.decode_step``.
@@ -48,7 +49,7 @@ from repro_torch.distributed import compression, sharding
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import shard_rows
 from repro_torch.models import ffn
-from repro_torch.models.transformer import AUX_WEIGHT, check_model_axis
+from repro_torch.models.transformer import AUX_WEIGHT
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.clip import clip_by_global_norm
 from repro_torch.optim.schedules import cosine_schedule
@@ -369,9 +370,9 @@ def make_tp_train_step(model, tcfg: TrainConfig, mesh,
 
     The batch splits into contiguous shards over the mesh's data rows.
     Each row's model ranks take the gradient of ``model.loss`` on its
-    shard in lockstep (``models.transformer``: column- and row-parallel
-    projections, local attention heads, a vocab-parallel embedding and
-    loss), under ``activation_mesh(mesh)``, ``tcfg.microbatches``
+    shard in lockstep (``models.transformer``, ``models.encdec``: column-
+    and row-parallel projections, local attention and xLSTM heads, mamba's
+    local channels, a vocab-parallel embedding and loss), under ``activation_mesh(mesh)``, ``tcfg.microbatches``
     splitting the shard. Each rank's gradients are averaged over the rows
     in mesh order (``dp_mesh_mean``), and a leaf every rank holds whole
     sums its ranks' shares. Then one clip by the global norm of the whole
@@ -387,12 +388,10 @@ def make_tp_train_step(model, tcfg: TrainConfig, mesh,
     replicas; with ``tcfg.microbatches > 1`` the whole batch splits into
     microbatches first, each one's balance loss over its own rows.
 
-    A config whose layers are not yet on the model axis (mamba, xLSTM,
-    the encoder-decoder) raises ``NotImplementedError`` naming ROADMAP A5b
-    when the model axis holds more than one device."""
+    Every family takes this step: attention with dense or MoE FFNs, mamba
+    on each rank's channels, the mLSTM and the sLSTM on each rank's heads,
+    and the encoder-decoder with its cross-attention (``models.encdec``)."""
     ranks = sharding.model_axis_size(mesh)
-    if ranks > 1:
-        check_model_axis(model.cfg)
 
     def row_grads(trees: list, shard: dict, specs):
         devs = [tree.leaves(t)[0].device for t in trees]

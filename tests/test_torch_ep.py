@@ -258,11 +258,10 @@ def test_every_rank_routes_as_the_single_device_in_float32(arch, shape):
 
 @pytest.mark.parametrize("n, shape", [(2, (1, 2)), (16, (1, 16)), (32, (2, 16))])
 def test_launcher_lays_moonshot_out_as_the_jax_launcher(monkeypatch, n, shape):
-    """Several cards and an MoE attention config give the JAX launcher's
-    ``(n // min(n, 16), min(n, 16))`` ``DeviceMesh``."""
+    """Several cards give the JAX launcher's ``(n // min(n, 16), min(n,
+    16))`` ``DeviceMesh``, the layout the MoE configs train on."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
-    for arch in ARCHS:
-        got = launch_train.train_mesh(cfg=smoke_config(arch))
-        assert isinstance(got, DeviceMesh)
-        assert tuple(got.shape.values()) == shape
+    got = launch_train.train_mesh()
+    assert isinstance(got, DeviceMesh)
+    assert tuple(got.shape.values()) == shape

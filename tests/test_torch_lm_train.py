@@ -308,14 +308,14 @@ def test_train_refuses_what_is_not_ported(monkeypatch):
     """The launcher's mesh: with no mesh it takes every visible card; on a
     2-entry CPU mesh smollm trains as on one device (losses within rtol
     1e-5: the float order of the reduce); an MoE config with microbatches
-    on more than one replica trains; a layer kind not yet on the model
-    axis is refused on a ``DeviceMesh`` whose model axis holds 2 devices
-    (ROADMAP A5b); a config fed by embeddings trains (pixtral's smoke
-    config, 2 steps)."""
+    on more than one replica trains; jamba's hybrid stack (mamba, attention
+    and experts) takes one step on a ``DeviceMesh`` whose model axis holds
+    2 devices, with a finite loss; a config fed by embeddings trains
+    (pixtral's smoke config, 2 steps)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    assert launch_train.train_mesh().devices == (torch.device("cuda", 0),
-                                                 torch.device("cuda", 1))
+    assert launch_train.train_mesh().flat == (torch.device("cuda", 0),
+                                              torch.device("cuda", 1))
     monkeypatch.undo()
     kw = dict(steps=3, batch=4, seq=32, log_every=100, quantized=False)
     one = launch_train.train("smollm-360m", device="cpu", **kw)
@@ -325,10 +325,11 @@ def test_train_refuses_what_is_not_ported(monkeypatch):
                              microbatches=2, mesh=ServingMesh(("cpu", "cpu")),
                              log_every=100)
     assert np.isfinite(moe["losses"]).all()
-    with pytest.raises(NotImplementedError, match="A5b"):
-        launch_train.train("jamba-1.5-large-398b", steps=1, batch=4, seq=32,
-                           mesh=DeviceMesh(np.array([["cpu", "cpu"]], dtype=object),
-                                           ("data", "model")))
+    jamba = launch_train.train("jamba-1.5-large-398b", steps=1, batch=4, seq=32,
+                               log_every=100,
+                               mesh=DeviceMesh(np.array([["cpu", "cpu"]], dtype=object),
+                                               ("data", "model")))
+    assert len(jamba["losses"]) == 1 and np.isfinite(jamba["losses"]).all()
     out = launch_train.train("pixtral-12b", steps=2, batch=2, seq=16,
                              log_every=100, device="cpu")
     assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()

@@ -338,6 +338,7 @@ def _counted_and_reckoned(arch, shape):
     (kind, direction), and ``collective_bytes`` + ``collective_bytes_bwd``
     of the same cell keyed so."""
     from test_torch_tp import batch_of, cpu_mesh
+    from test_torch_tp_encdec import batch_of as encdec_batch_of
     from repro_torch.distributed import sharding
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.train.step import TrainConfig, make_tp_train_step
@@ -345,7 +346,7 @@ def _counted_and_reckoned(arch, shape):
     cfg = smoke_config(arch)
     model = build_model(cfg, train_policy())
     params = model.init(torch.Generator().manual_seed(1))
-    batch = batch_of(cfg)
+    batch = encdec_batch_of(cfg) if cfg.family == "encdec" else batch_of(cfg)
     mesh = cpu_mesh(shape)
     tp.reset_bytes()
     make_tp_train_step(model, TrainConfig(), mesh)(
@@ -363,20 +364,39 @@ def _counted_and_reckoned(arch, shape):
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (1, 4)], ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "moonshot-v1-16b-a3b", "arctic-480b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "moonshot-v1-16b-a3b", "arctic-480b",
+                                  "jamba-1.5-large-398b", "xlstm-1.3b",
+                                  "seamless-m4t-large-v2"])
 def test_reckoning_is_what_a_tp_step_moves(arch, shape):
     """ROADMAP C5: the dry run's reckoning of a train cell, one forward
     (``collective_bytes``) plus the recompute, the backward and the
     smaller sites (``collective_bytes_bwd``), equals the bytes one TP step
     counts in ``tensor_parallel.BYTES``, kind by kind and direction by
     direction, to 1e-9 relative: the row-parallel outputs, the MoE combine,
-    the embedding, a head cut mid-way at m = 4, the loss and the alpha."""
+    the embedding, a head cut mid-way at m = 4 (self- and
+    cross-attention), the loss and the alpha; mamba's and the xLSTM's
+    fused outputs gathered and the mLSTM's group norm at both sizes."""
     counted, reckoned = _counted_and_reckoned(arch, shape)
+    _hold_reckoning(counted, reckoned)
+    if arch in ("jamba-1.5-large-398b", "xlstm-1.3b"):   # fused outputs gathered
+        assert counted[("all-gather", "fwd")] > 0
+    else:   # only a head cut mid-way gathers
+        assert (("all-gather", "fwd") in counted) == (shape == (1, 4))
+
+
+def test_reckoning_of_heads_the_ranks_do_not_divide():
+    """xlstm's smoke config on 8 ranks, which do not divide its 4 heads:
+    every rank runs every head (the mLSTM's q, k and v gathered, no group
+    norm all-reduce, the sLSTM's whole loop on every rank), and the
+    reckoning still equals the count to 1e-9 relative."""
+    _hold_reckoning(*_counted_and_reckoned("xlstm-1.3b", (1, 8)))
+
+
+def _hold_reckoning(counted: dict, reckoned: dict) -> None:
     for key in set(counted) | set(reckoned):
         got, want = counted.get(key, 0.0), reckoned.get(key, 0.0)
         assert abs(got - want) <= 1e-9 * max(got, want), (key, got, want)
     assert counted[("all-reduce", "bwd")] > 0
-    assert (("all-gather", "fwd") in counted) == (shape == (1, 4))
 
 
 def test_repaired_train_cell_beside_the_jax_cell():
