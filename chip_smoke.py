@@ -243,6 +243,24 @@
    calls (CUDA events around the checked call) and the bytes by site. The
    parts' TP launches are the path ``lm_tp_ssm_train``.
 
+17. Fully sharded data parallelism (``fsdp_phase``): one
+   ``make_tp_train_step`` step on a (2, 2) ``("data", "model")`` mesh of
+   four ranks sharing the card, every param and AdamW leaf split over
+   ``data`` and ``model`` by the rule table and gathered over ``data`` a
+   period at a time, against one single-device step on the same params
+   and batch: (a) qwen2.5-3b as phase 14 runs it (8 of 36 layers, batch 2
+   x 4096, bf16); (b) jamba's smoke config (attention, experts and mamba
+   in one period), batch 8 x 64, float32. Each holds the loss within
+   ``LM_LOSS_TOL``, the gathered first moments within ``LM_GRAD_TOL``,
+   each device's param and optimizer bytes the rule table's blocks
+   (``param_spec``, data axes included), the flash or scan launches,
+   forward and backward, exactly four times the single device's, and the
+   collective bytes a device as counted to the dry run's reckoning. (a)
+   prints its ms a step and peak memory beside phase 14's (1, 2) step, and
+   each device's at-rest bytes beside phase 14's ranks': on one card the
+   four blocks add up to the whole model, so no saving shows there. The
+   parts' launches are the path ``lm_fsdp_train``.
+
 Every phase prints its seconds.
 
 Last, prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``.
@@ -4269,9 +4287,9 @@ def reckoning_gap(mesh, args, cfg, counted: dict) -> dict:
     want: dict = collections.Counter(
         {f"{k} {d}": v for (k, d), v in op_cost.collective_bytes_bwd(
             mesh, args, "train", cfg).items()})
-    for kind, v in op_cost.collective_bytes(mesh, args, "train",
-                                            act_bytes=act).items():
-        want[f"{kind} fwd"] += v
+    for (kind, d), v in op_cost.collective_bytes(mesh, args, "train", act_bytes=act,
+                                                 by_direction=True).items():
+        want[f"{kind} {d}"] += v
     keys = sorted(k for k in set(got) | set(want) if got[k] or want[k])
     worst = max(abs(got[k] - want[k]) / max(got[k], want[k]) for k in keys)
     return {"counted": {k: got[k] for k in keys},
@@ -4650,8 +4668,9 @@ def tp_step_part(dev, card: str, mesh, label: str, model, b0: dict, kernels,
     seeded generator on the card) and batch ``b0``: the loss within
     ``LM_LOSS_TOL``, the gathered first moments per leaf within
     ``LM_GRAD_TOL`` of the config's dtype, ``kernels`` launched exactly
-    ``ranks`` x as often forward and backward, rank bytes the rule
-    table's, counted collective bytes the reckoning. The single step's
+    as often forward and backward as the mesh has devices times the
+    single step, each device's param and optimizer bytes the rule table's
+    (``_rule_bytes``), counted collective bytes the reckoning. The single step's
     first moment goes to the host and its trees leave the card first.
     Each step's ms is a second call's (CUDA events) with ``retime``, else
     the checked call's."""
@@ -4662,7 +4681,7 @@ def tp_step_part(dev, card: str, mesh, label: str, model, b0: dict, kernels,
     from repro_torch.train.step import (TrainConfig, init_opt_state,
                                         make_tp_train_step, make_train_step)
 
-    ranks, tcfg = SSM_TP_RANKS, TrainConfig()
+    ranks, tcfg = len(sharding.flat_devices(mesh)), TrainConfig()
     params = model.init(torch.Generator(dev).manual_seed(0))
     opt = init_opt_state(params)
     ops.reset_launches()
@@ -4678,8 +4697,8 @@ def tp_step_part(dev, card: str, mesh, label: str, model, b0: dict, kernels,
         torch.cuda.empty_cache()
         single_ms = events_ms(lambda: single(params, opt, b0), reps=1, warm=False)
     sp, so = sharding.shard_params(params, mesh), sharding.shard_params(opt, mesh)
-    rank_bytes = [_nbytes(t) for t in sp.rows()[0]]
-    rule_bytes = _rule_bytes(mesh, params)
+    rank_bytes, opt_bytes = [_nbytes(t) for t in sp], [_nbytes(t) for t in so]
+    rule_bytes, rule_opt_bytes = _rule_bytes(mesh, params), _rule_bytes(mesh, opt)
     del params, opt
     torch.cuda.empty_cache()
     tp.reset_bytes()
@@ -4707,8 +4726,9 @@ def tp_step_part(dev, card: str, mesh, label: str, model, b0: dict, kernels,
            "grad_rel_l2_median": statistics.median(rel.values()),
            "launches_single": {k: v for k, v in one.items() if v},
            "launches": launches, "rank_param_bytes": rank_bytes,
-           "rule_table_bytes": rule_bytes, "single_ms": single_ms, "tp_ms": tp_ms,
-           "peak_single_bytes": peak_single, "peak_tp_bytes": peak_tp,
+           "rule_table_bytes": rule_bytes, "rank_opt_bytes": opt_bytes,
+           "rule_table_opt_bytes": rule_opt_bytes, "single_ms": single_ms,
+           "tp_ms": tp_ms, "peak_single_bytes": peak_single, "peak_tp_bytes": peak_tp,
            "collective_bytes_counted": {f"{k} {s} {d}": n
                                         for (k, s, d), n in sorted(counted.items())},
            "collectives": coll}
@@ -4730,6 +4750,9 @@ def tp_step_part(dev, card: str, mesh, label: str, model, b0: dict, kernels,
     _hold_launches(label, one, launches, kernels, ranks)
     if rank_bytes != [rule_bytes] * ranks:
         fail(f"{label}: ranks hold {rank_bytes} param bytes, the rule table's {rule_bytes}")
+    if opt_bytes != [rule_opt_bytes] * ranks:
+        fail(f"{label}: ranks hold {opt_bytes} optimizer bytes, the rule table's "
+             f"{rule_opt_bytes}")
     hold_collectives(label, coll)
     return res
 
@@ -4800,6 +4823,70 @@ def ssm_tp_phase(dev, card: str) -> dict:
            "launches": {k: launches[k] for k in res["a"]["launches"]},
            "seconds": time.monotonic() - t0}
     print(f"  phase 16 {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ------- phase 17: fully sharded data parallelism over a (2, 2) mesh -------
+
+# The (data, model) mesh of phase 17: four ranks sharing the card.
+FSDP_MESH = (2, 2)
+# (arch, batch, seq): part (b), jamba's smoke config in float32.
+FSDP_HYBRID_SMOKE_CASE = ("jamba-1.5-large-398b", 8, 64)
+
+
+def fsdp_phase(dev, card: str, tp_run: dict) -> dict:
+    """Phase 17: :func:`tp_step_part` on a ``FSDP_MESH`` ``("data",
+    "model")`` mesh of ranks sharing the card (module docstring, 17): (a)
+    ``TP_LM_CASE`` in bf16, beside phase 14's (1, 2) step (``tp_run``);
+    (b) ``FSDP_HYBRID_SMOKE_CASE`` in float32. The parts' launches,
+    summed, are the path ``lm_fsdp_train``."""
+    from repro_torch.configs.base import get_config, smoke_config, train_policy
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models.model_factory import build_model
+
+    t0 = time.monotonic()
+    mesh = DeviceMesh(np.full(FSDP_MESH, dev, dtype=object), ("data", "model"))
+    res, seconds = {}, {}
+
+    def part(name: str, fn):
+        t = time.monotonic()
+        res[name] = fn()
+        seconds[name] = time.monotonic() - t
+        print(f"  phase 17 ({name}) {seconds[name]:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+
+    arch, layers, batch, seq = TP_LM_CASE
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    part("a", lambda: tp_step_part(
+        dev, card, mesh, f"(a) {arch} ({layers} of its layers) batch {batch} x {seq} "
+        f"bf16 on a {FSDP_MESH} mesh", build_model(cfg, train_policy()),
+        _lm_batch(dev, cfg, batch, seq), ("flash_attention", "flash_attention_bwd")))
+    a = res["a"]
+    print(f"  (a) a step {a['tp_ms']:.2f} ms FSDP on {FSDP_MESH}, {tp_run['tp_ms']:.2f} ms "
+          f"TP on (1, {TP_RANKS}) (phase 14), {a['single_ms']:.2f} ms single; peak "
+          f"{a['peak_tp_bytes'] / 2**30:.2f} GiB FSDP (the single step's trees freed "
+          f"first), {tp_run['peak_tp_bytes'] / 2**30:.2f} GiB TP (with the single step's "
+          f"params and state on the card) [{card}]", flush=True)
+    print(f"  (a) param bytes at rest a device: {a['rank_param_bytes']} FSDP, "
+          f"{tp_run['rank_param_bytes']} TP (phase 14); optimizer bytes "
+          f"{a['rank_opt_bytes']} FSDP. The four devices are ranks sharing one card, so "
+          "their blocks add up to the whole model there: no saving shows on one card",
+          flush=True)
+
+    arch, batch, seq = FSDP_HYBRID_SMOKE_CASE
+    scfg = smoke_config(arch)
+    part("b", lambda: tp_step_part(
+        dev, card, mesh, f"(b) {arch} smoke config batch {batch} x {seq} float32 on a "
+        f"{FSDP_MESH} mesh", build_model(scfg, train_policy()),
+        _lm_batch(dev, scfg, batch, seq), ("ssm_scan_chunk", "ssm_scan_chunk_bwd")))
+
+    launches = collections.Counter()
+    for r in res.values():
+        launches.update(r["launches"])
+    out = {"card": card, "mesh": list(FSDP_MESH), "parts": res, "part_seconds": seconds,
+           "launches": {k: launches[k] for k in res["a"]["launches"]},
+           "seconds": time.monotonic() - t0}
+    print(f"  phase 17 {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -4980,6 +5067,11 @@ def main() -> None:
           "ranks sharing the card, against one device", flush=True)
     ssm_tp = ssm_tp_phase(dev, smi)
     clock.done("16")
+    print("phase 17: qwen2.5-3b and jamba's smoke config trained fully sharded over "
+          "a (2, 2) mesh of ranks sharing the card, against the single-device step",
+          flush=True)
+    fsdp = fsdp_phase(dev, smi, tp_run)
+    clock.done("17")
     jamba_launches = dict(jamba["launches"]["prefill"])
     for counts in jamba["launches"]["decode"]:
         for name, n in counts.items():
@@ -4994,7 +5086,8 @@ def main() -> None:
                 "lm_dp_train": dryrun_dp["launches"],
                 "lm_tp_train": tp_run["launches"],
                 "lm_ep_train": ep_run["launches"],
-                "lm_tp_ssm_train": ssm_tp["launches"]}
+                "lm_tp_ssm_train": ssm_tp["launches"],
+                "lm_fsdp_train": fsdp["launches"]}
     for name in KERNELS:
         if not sum(path[name] for path in launches.values()):
             fail(f"kernel {name} was not launched on the main path")
@@ -5007,7 +5100,7 @@ def main() -> None:
          "table2": table2, "jamba": jamba, "lm_loss": lm, "train": train,
          "mesh": mesh, "train_resilient": resilient, "lm_train": lm_train,
          "families": families, "dryrun_dp": dryrun_dp, "tp": tp_run,
-         "ep": ep_run, "ssm_tp": ssm_tp,
+         "ep": ep_run, "ssm_tp": ssm_tp, "fsdp": fsdp,
          "totals": totals,
          "phase_seconds": clock.seconds},
         indent=2))

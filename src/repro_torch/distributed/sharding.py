@@ -27,10 +27,15 @@ anything with the ``.shape`` of a ``jax.sharding.Mesh`` (axis name ->
 size): ``launch.mesh.AbstractMesh``, the production meshes, a
 ``DeviceMesh`` or a ``ServingMesh``.
 
-One process holds the model axis of the rule table's layout and not its
-data axes: :func:`shard_params` slices every leaf over ``model`` by its
-spec and replicates the slices over the data axes (the FSDP half of the
-table, ``in -> data``, would save no memory in one process). The
+One process lays the whole rule table out, the data axes with the model
+axis: :func:`shard_params` gives each device of a mesh its block of every
+leaf, as ``jax.device_put`` with :func:`params_shardings` leaves each
+device its ``addressable_shards``. A device's block is its own tensor
+even where one process drives several devices of one card, so a mesh of
+cards holds each block once (the FSDP half of the table, ``in -> data``,
+divides every matrix's bytes by the data devices). The tensor-parallel
+step (``train.step.make_tp_train_step``) gathers a leaf split over the
+data axes where it is used (``tensor_parallel.ShardedTree``). The
 activation constraints (:func:`activation_mesh`, :func:`constrain`,
 :func:`constrain_seq`) keep the JAX names and signatures; under an
 installed mesh :func:`constrain` lays an activation out by its guarded
@@ -62,6 +67,11 @@ from repro_torch.tree import tree_map
 # mesh-axis names used across the project
 DATA_AXES = ("pod", "data")      # batch / FSDP axes (pod absent on 1-pod mesh)
 MODEL_AXIS = "model"
+
+# An MoE expert stack of more elements than this also splits ``in`` over
+# the data axes (arctic's and jamba's); a smaller one is replicated over
+# them. The JAX package's literal.
+EXPERT_FSDP_ELEMENTS = 1e9
 
 _REPLICATED_LEAVES = {
     "scale", "bias", "gamma", "beta", "mean", "var", "gn_scale",
@@ -122,12 +132,12 @@ def _matrix_spec(mesh, shape, *, name: str) -> P:
     column-parallel: (model on out, (pod,data)-FSDP on in)
     row-parallel:    ((pod,data)-FSDP on out, model on in)
     MoE stacks [E, out, in]: experts over model, FSDP on in only for a
-    stack past 1e9 elements (arctic, jamba); smaller stacks replicate
-    over data.
+    stack past ``EXPERT_FSDP_ELEMENTS`` (arctic, jamba); smaller stacks
+    replicate over data.
     """
     if len(shape) >= 3:  # stacked experts
         e_ax = _guard(mesh, shape[0], MODEL_AXIS)
-        big = float(math.prod(shape)) > 1e9
+        big = float(math.prod(shape)) > EXPERT_FSDP_ELEMENTS
         in_ax = _guard(mesh, shape[-1], DATA_AXES) if big else None
         return P(e_ax, *(None,) * (len(shape) - 2), in_ax)
     if name in _ROW_PARALLEL:
@@ -263,7 +273,7 @@ def shard_shape(mesh, shape, spec) -> tuple:
     return tuple(out)
 
 
-# ------------------------ the model axis, in one process -----------------------
+# ---------------------- the rule table's layout, in one process ----------------------
 
 
 def _has_model(entry) -> bool:
@@ -275,23 +285,65 @@ def model_axis_size(mesh) -> int:
     return mesh.shape[MODEL_AXIS] if MODEL_AXIS in mesh.shape else 1
 
 
+def data_axis_size(mesh) -> int:
+    """Devices over the mesh's data axes (``("pod", "data")``; 1 where it
+    has none)."""
+    return math.prod(mesh.shape[a] for a in DATA_AXES if a in mesh.shape)
+
+
 def flat_devices(mesh) -> tuple:
     """A mesh's devices in mesh order."""
     flat = getattr(mesh, "flat", None)
     return tuple(flat) if flat is not None else tuple(mesh.devices)
 
 
+def model_part(spec) -> P:
+    """``spec`` over the model axis alone: its ``model`` entries kept,
+    every data entry dropped."""
+    return P(*(MODEL_AXIS if _has_model(e) else None for e in spec))
+
+
 def model_spec(mesh, path, leaf) -> P:
-    """:func:`param_spec` over the model axis alone: its ``model``
-    entries kept, every data entry dropped."""
-    return P(*(MODEL_AXIS if _has_model(e) else None
-               for e in param_spec(mesh, path, leaf)))
+    """:func:`param_spec` over the model axis alone (:func:`model_part`)."""
+    return model_part(param_spec(mesh, path, leaf))
 
 
 def model_specs(mesh, params) -> Any:
     """:func:`model_spec` of every leaf, a spec tree."""
     return tree.map_with_path(lambda path, leaf: model_spec(mesh, path, leaf),
                               params)
+
+
+def layout_spec(mesh, path, leaf) -> P:
+    """:func:`param_spec` as :func:`shard_params` lays it out: a data
+    entry dropped where the data axes hold one device (a split over one
+    device leaves the dim whole), so on a ``(1, m)`` mesh it is
+    :func:`model_spec`."""
+    rows = data_axis_size(mesh)
+    return P(*(e if e is None or _has_model(e) or rows > 1 else None
+               for e in param_spec(mesh, path, leaf)))
+
+
+def layout_specs(mesh, params) -> Any:
+    """:func:`layout_spec` of every leaf, a spec tree."""
+    return tree.map_with_path(lambda path, leaf: layout_spec(mesh, path, leaf),
+                              params)
+
+
+def data_dim(spec) -> Optional[int]:
+    """The dim ``spec`` splits over the data axes, or None."""
+    for dim, entry in enumerate(spec):
+        if entry is not None and not _has_model(entry):
+            return dim
+    return None
+
+
+def model_dim(spec) -> Optional[int]:
+    """The dim ``spec`` splits over ``model``, or None."""
+    for dim, entry in enumerate(spec):
+        if _has_model(entry):
+            return dim
+    return None
 
 
 def spec_at(specs, path: tuple) -> P:
@@ -301,46 +353,47 @@ def spec_at(specs, path: tuple) -> P:
     return specs
 
 
+def _part(t: torch.Tensor, dim: int, parts: int, index: int) -> torch.Tensor:
+    if t.shape[dim] % parts:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split into "
+                         f"{parts} parts")
+    w = t.shape[dim] // parts
+    return t.narrow(dim, index * w, w)
+
+
 def model_slice(t: torch.Tensor, spec, ranks: int, rank: int) -> torch.Tensor:
     """Rank ``rank``'s part of ``t`` laid out by ``spec`` (model entries):
     each dim split over ``model`` cut into ``ranks`` contiguous parts in
     rank order (a view)."""
     for dim, entry in enumerate(spec):
         if entry == MODEL_AXIS:
-            if t.shape[dim] % ranks:
-                raise ValueError(f"dim {dim} of {tuple(t.shape)} does not "
-                                 f"split over {ranks} ranks")
-            w = t.shape[dim] // ranks
-            t = t.narrow(dim, rank * w, w)
+            t = _part(t, dim, ranks, rank)
     return t
 
 
+def device_block(t: torch.Tensor, spec, ranks: int, rank: int, rows: int,
+                 row: int) -> torch.Tensor:
+    """The block of ``t`` laid out by ``spec`` that the device on data row
+    ``row`` and model rank ``rank`` holds: each dim split over ``model``
+    cut into ``ranks`` contiguous parts in rank order, each dim split over
+    the data axes into ``rows`` in row order (a view)."""
+    t = model_slice(t, spec, ranks, rank)
+    dim = data_dim(spec)
+    return t if dim is None else _part(t, dim, rows, row)
+
+
 class Shards(list):
-    """A tree laid out over ``mesh``: one tree a device, in mesh order,
-    each leaf its device's slice over the model axis by ``specs``
-    (:func:`model_specs`); the trees of one model rank are equal over the
-    data axes (and shared by ranks on one device). ``rows()`` groups them
-    by data shard, one tree a model rank."""
+    """A tree laid out over ``mesh``: one tree a device, in mesh order
+    (the model axis last), each leaf that device's block by ``specs``
+    (:func:`layout_specs`, :func:`device_block`): its model rank's part
+    of a dim split over ``model``, its data row's part of a dim split over
+    the data axes, the whole of any other dim. Every device holds its own
+    tensors. ``rows()`` groups the trees by data row, one a model rank."""
 
     def __init__(self, trees, specs, mesh):
         super().__init__(trees)
         self.specs = specs
         self.mesh = mesh
-
-    @classmethod
-    def of_row(cls, row: list, specs, mesh) -> "Shards":
-        """One data shard's trees (one a model rank) on every device of
-        ``mesh``: rank ``r``'s tree moved to each device holding rank
-        ``r``, shared where the device is the same."""
-        ranks = len(row)
-        made = {(tree.leaves(t)[0].device, r): t for r, t in enumerate(row)}
-        trees = []
-        for i, dev in enumerate(flat_devices(mesh)):
-            key = (torch.device(dev), i % ranks)
-            if key not in made:
-                made[key] = tree.tree_map(lambda t, d=key[0]: t.to(d), row[i % ranks])
-            trees.append(made[key])
-        return cls(trees, specs, mesh)
 
     def rows(self) -> list:
         m = model_axis_size(self.mesh)
@@ -350,38 +403,44 @@ class Shards(list):
 def shard_params(params, mesh) -> Shards:
     """The full tree ``params`` (params or optimizer state, whose leaves
     the rule table also reads by path) as one tree a device of ``mesh``:
-    each leaf sliced over ``model`` by :func:`model_spec`, in mesh order
-    (``model`` the last axis), a copy on the device. A rank's shard shape
-    is :func:`shard_shape` of the spec with the data axes dropped. Over
-    the data axes the slices are replicated; ranks on one device share
-    one tree."""
+    each leaf the device's block by :func:`layout_spec`, over the data
+    axes and ``model`` both, in mesh order (``model`` the last axis, the
+    data axes before it), a copy on the device. A block's shape is
+    :func:`shard_shape` of :func:`param_spec`, the shape of the JAX
+    array's ``addressable_shards`` on that device."""
     names = tuple(mesh.shape)
     if MODEL_AXIS in names and names[-1] != MODEL_AXIS:
         raise ValueError(f"the model axis must be the mesh's last, got {names}")
-    specs = model_specs(mesh, params)
-    m = model_axis_size(mesh)
-    devices = flat_devices(mesh)
-    row = [tree.map_with_path(
-        lambda path, t, r=r: model_slice(t, spec_at(specs, path), m, r).to(
-            devices[r], copy=True).contiguous(), params) for r in range(m)]
-    return Shards.of_row(row, specs, mesh)
+    if any(a != MODEL_AXIS and a not in DATA_AXES for a in names):
+        raise ValueError(f"a mesh of data axes {DATA_AXES} and {MODEL_AXIS!r}, "
+                         f"got {names}")
+    specs = layout_specs(mesh, params)
+    m, rows = model_axis_size(mesh), data_axis_size(mesh)
+    trees = [tree.map_with_path(
+        lambda path, t, i=i, dev=dev: device_block(
+            t, spec_at(specs, path), m, i % m, rows, i // m).to(
+            dev, copy=True).contiguous(), params)
+        for i, dev in enumerate(flat_devices(mesh))]
+    return Shards(trees, specs, mesh)
 
 
 def gather_params(shards: Shards, mesh) -> Any:
     """The full tree of :func:`shard_params`' ``shards``, on the first
-    device: each leaf's model parts concatenated in rank order (the first
-    data shard's; the others hold the same)."""
-    row = shards[:model_axis_size(mesh)]
-    home = tree.leaves(row[0])[0].device
+    device: each leaf's blocks concatenated over ``model`` in rank order
+    within each data row, then over the data axes in row order (a dim
+    split over neither is the first device's)."""
+    m = model_axis_size(mesh)
+    home = tree.leaves(shards[0])[0].device
 
-    def whole(path, *parts):
-        dims = [d for d, e in enumerate(spec_at(shards.specs, path))
-                if e == MODEL_AXIS]
-        if not dims:
-            return parts[0].to(home)
-        return torch.cat([p.to(home) for p in parts], dims[0])
+    def whole(path, *blocks):
+        spec = spec_at(shards.specs, path)
+        mdim, ddim = model_dim(spec), data_dim(spec)
+        rows = [blocks[i:i + m] for i in range(0, len(blocks), m)]
+        per_row = [torch.cat([b.to(home) for b in row], mdim) if mdim is not None
+                   else row[0].to(home) for row in rows]
+        return torch.cat(per_row, ddim) if ddim is not None else per_row[0]
 
-    return tree.map_with_path(whole, *row)
+    return tree.map_with_path(whole, *shards)
 
 
 # ------------------------- activation constraints -----------------------------
@@ -409,10 +468,6 @@ def activation_mesh(mesh):
         _ACTIVE.mesh = prev
 
 
-def _data_devices(mesh) -> int:
-    return math.prod(mesh.shape[a] for a in DATA_AXES if a in mesh.shape)
-
-
 def constrain(x, *axes):
     """``with_sharding_constraint`` under the installed mesh, guarded.
 
@@ -435,7 +490,7 @@ def constrain(x, *axes):
     from repro_torch.distributed.tensor_parallel import Ranked
     whole = list(x.shape)
     if isinstance(x, Ranked):
-        whole[0] *= _data_devices(mesh)
+        whole[0] *= data_axis_size(mesh)
     spec = P(*(_guard(mesh, n, a) for n, a in zip(whole, axes)))
     parts = [x]
     if isinstance(x, Ranked):
@@ -495,10 +550,12 @@ def shard_rows(rows: int, devices: int) -> int:
     return rows // devices
 
 
-__all__ = ["DATA_AXES", "MODEL_AXIS", "P", "PartitionSpec", "Shards",
-           "activation_mesh", "batch_shardings", "batch_spec", "constrain",
-           "constrain_seq", "flat_devices", "gather_params", "get_active_mesh", "mesh_devices",
-           "model_axis_size", "model_slice", "model_spec", "model_specs", "param_spec",
+__all__ = ["DATA_AXES", "EXPERT_FSDP_ELEMENTS", "MODEL_AXIS", "P", "PartitionSpec",
+           "Shards", "activation_mesh", "batch_shardings", "batch_spec", "constrain",
+           "constrain_seq", "data_axis_size", "data_dim", "device_block",
+           "flat_devices", "gather_params", "get_active_mesh", "layout_spec",
+           "layout_specs", "mesh_devices", "model_axis_size", "model_dim",
+           "model_part", "model_slice", "model_spec", "model_specs", "param_spec",
            "params_shardings", "replicate", "replicated", "shard_params",
            "shard_rows", "shard_shape", "spec_at", "state_shardings",
            "state_spec"]

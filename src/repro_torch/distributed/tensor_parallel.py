@@ -23,25 +23,34 @@ run one after another.
   gradient (it is the softmax's shift).
 
 Each is deterministic: its sums run in a fixed order, so two runs give the
-same bits. Each adds the bytes it moves per device to :data:`BYTES` in the
+same bits. Each adds the bytes it moves a device to :data:`BYTES` in the
 convention of ``roofline.op_cost.collective_bytes``: the result's bytes on
-each device times ``COLL_MULT`` of its kind (2 for an all-reduce), keyed
-by (kind, site, ``"fwd"`` or ``"bwd"``); with several data shards each
-shard's ranks count their own, so the counts are the shards' sum.
+each device that receives it times ``COLL_MULT`` of its kind (2 for an
+all-reduce), keyed by (kind, site, ``"fwd"`` or ``"bwd"``). Inside
+:func:`counted_over` (a step over a whole mesh) that is the mean over the
+mesh's devices: a collective whose result lands on ``k`` of the ``n``
+devices adds ``k / n`` of its bytes, so the rows of a ``(data, model)``
+mesh, each its own collectives, add up to one device's bytes.
 
 A :class:`Ranked` is one activation laid out over the ranks: ``parts`` in
 mesh order and ``spec``, one entry a dim, ``None`` (each rank holds the
 whole dim) or ``"model"`` (split into contiguous equal parts in rank
 order). Its dim 0 holds one data shard's rows. A :class:`RankedTree` is
 one param tree a rank beside the spec tree that laid it out
-(``distributed.sharding.shard_params``).
+(``distributed.sharding.shard_params``). A :class:`ShardedTree` is the
+params of a mesh with several data rows as its devices hold them, each
+leaf in blocks over the data axes too; :func:`gathered` all-gathers a
+leaf's blocks over the data axes onto a row's ranks where the leaf is
+used (fully sharded data parallelism), giving the ``RankedTree`` the
+model code computes with.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -56,8 +65,34 @@ _MULT = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0}
 BYTES: collections.Counter = collections.Counter()
 
 
+# Devices of the mesh whose step is being counted (:func:`counted_over`);
+# None: each collective counts its bytes on one receiving device.
+_MESH_DEVICES: Optional[int] = None
+
+
 def reset_bytes() -> None:
     BYTES.clear()
+
+
+@contextlib.contextmanager
+def counted_over(devices: int):
+    """Count :data:`BYTES` for the block as the mean over a mesh of
+    ``devices`` devices (module docstring). Process-wide, so a backward
+    that autograd runs on another thread counts the same way."""
+    global _MESH_DEVICES
+    prev, _MESH_DEVICES = _MESH_DEVICES, devices
+    try:
+        yield
+    finally:
+        _MESH_DEVICES = prev
+
+
+def add_bytes(kind: str, site: str, direction: str, nbytes: float,
+              receivers: int) -> None:
+    """Count a collective whose result of ``nbytes`` bytes lands on
+    ``receivers`` devices (module docstring)."""
+    BYTES[(kind, site, direction)] += (nbytes * _MULT[kind] * receivers
+                                       / (_MESH_DEVICES or receivers))
 
 
 def bytes_by_kind() -> dict:
@@ -68,9 +103,10 @@ def bytes_by_kind() -> dict:
     return dict(out)
 
 
-def _count(kind: str, site: str, direction: str, result: torch.Tensor) -> None:
-    BYTES[(kind, site, direction)] += (result.numel() * result.element_size()
-                                       * _MULT[kind])
+def _count(kind: str, site: str, direction: str, result: torch.Tensor,
+           receivers: int) -> None:
+    add_bytes(kind, site, direction, result.numel() * result.element_size(),
+              receivers)
 
 
 def _sum(xs) -> torch.Tensor:
@@ -95,7 +131,7 @@ class _AllReduce(torch.autograd.Function):
     def forward(ctx, site, *xs):
         ctx.site, ctx.devices = site, [x.device for x in xs]
         total = _sum(xs)
-        _count("all-reduce", site, "fwd", total)
+        _count("all-reduce", site, "fwd", total, len(xs))
         return _copies(total, ctx.devices)
 
     @staticmethod
@@ -104,7 +140,7 @@ class _AllReduce(torch.autograd.Function):
         if not live:
             return (None,) * (1 + len(gs))
         total = _sum(live)
-        _count("all-reduce", ctx.site, "bwd", total)
+        _count("all-reduce", ctx.site, "bwd", total, len(gs))
         return (None, *_copies(total, ctx.devices))
 
 
@@ -116,7 +152,7 @@ class _AllGather(torch.autograd.Function):
         ctx.sizes = [x.shape[dim] for x in xs]
         home = xs[0].device
         total = torch.cat([x.to(home) for x in xs], dim)
-        _count("all-gather", site, "fwd", total)
+        _count("all-gather", site, "fwd", total, len(xs))
         return _copies(total, ctx.devices)
 
     @staticmethod
@@ -126,7 +162,7 @@ class _AllGather(torch.autograd.Function):
             return (None,) * (2 + len(gs))
         total = _sum(live)
         parts = torch.split(total, ctx.sizes, ctx.dim)
-        _count("reduce-scatter", ctx.site, "bwd", parts[0])
+        _count("reduce-scatter", ctx.site, "bwd", parts[0], len(gs))
         return (None, None, *(p.to(dev, copy=True).contiguous()
                               for p, dev in zip(parts, ctx.devices)))
 
@@ -150,7 +186,7 @@ def all_max(xs, site: str = "") -> tuple:
         total = xs[0].detach().clone()
         for x in xs[1:]:
             total = torch.maximum(total, x.detach().to(home))
-    _count("all-reduce", site, "fwd", total)
+    _count("all-reduce", site, "fwd", total, len(xs))
     return _copies(total, [x.device for x in xs])
 
 
@@ -323,5 +359,103 @@ class RankedTree:
             _map_specs(lambda s: PartitionSpec(*s[1:]), self.spec), self.path)
 
 
-__all__ = ["BYTES", "MODEL", "Ranked", "RankedTree", "all_gather", "all_max",
-           "all_reduce", "bytes_by_kind", "each", "piece", "reset_bytes"]
+# ------------------------- params sharded over data ---------------------------
+
+
+class _DataGather(torch.autograd.Function):
+    """One rank's blocks of a leaf concatenated along the dim the data axes
+    split, in row order, on one row's device. Backward: each block's slice
+    of that row's gradient, moved to the block's device (the sum over the
+    rows is the step's, ``train.step``)."""
+
+    @staticmethod
+    def forward(ctx, site, dim, home, *blocks):
+        ctx.dim = dim
+        ctx.devices = [b.device for b in blocks]
+        ctx.sizes = [b.shape[dim] for b in blocks]
+        total = torch.cat([b.to(home) for b in blocks], dim)
+        _count("all-gather", site, "fwd", total, 1)
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = torch.split(g, ctx.sizes, ctx.dim)
+        return (None, None, None, *(p.to(dev).contiguous()
+                                    for p, dev in zip(parts, ctx.devices)))
+
+
+class ShardedTree:
+    """The param (sub)tree of a mesh with several data rows as its devices
+    hold it (``distributed.sharding.shard_params``), seen from data row
+    ``row``: ``blocks[k][r]`` the tree of the device on data row ``k`` and
+    model rank ``r``, ``spec`` the layout spec tree (model and data
+    entries). Indexing descends the blocks and the specs together, as
+    :class:`RankedTree`'s does; :func:`gathered` makes the row's
+    ``RankedTree``."""
+
+    def __init__(self, blocks, spec, row: int, path: tuple = ()):
+        self.blocks = [list(r) for r in blocks]
+        self.spec = spec
+        self.row = row
+        self.path = path
+
+    def __getitem__(self, key) -> "ShardedTree":
+        return ShardedTree([[t[key] for t in r] for r in self.blocks], self.spec[key],
+                           self.row, self.path + (key,))
+
+    def __contains__(self, key) -> bool:
+        return key in self.blocks[0][0]
+
+    def index(self, i: int) -> "ShardedTree":
+        """Entry ``i`` of every leaf's leading stacked axis (never split),
+        the specs without their first entry."""
+        from repro_torch.distributed.sharding import PartitionSpec
+        return ShardedTree(
+            [[tree.tree_map(lambda t: t[i], t) for t in r] for r in self.blocks],
+            _map_specs(lambda s: PartitionSpec(*s[1:]), self.spec), self.row, self.path)
+
+
+def _holds(node, key) -> bool:
+    """Whether ``node`` is a dict that has ``key``, or one of its dict
+    values does, at any depth."""
+    return isinstance(node, dict) and (
+        key in node or any(_holds(v, key) for v in node.values()))
+
+
+def gathered(params, keep: Optional[str] = None):
+    """What data row ``params.row``'s ranks compute with, from a
+    :class:`ShardedTree`: a :class:`RankedTree` (model specs) whose every
+    leaf split over the data axes is its rank's blocks all-gathered over
+    them at the leaf's own width, in row order, onto the row's device of
+    that rank (one ``"all-gather"`` a rank, ``"fwd"``, site ``"fsdp
+    gather"``, counted on the one device it lands on), and whose every
+    other leaf is the row's own block. Any other ``params`` (a
+    ``RankedTree``: no data split) comes back as it is.
+
+    With ``keep``, a subtree under a dict key ``keep`` stays a
+    ``ShardedTree`` (a stack of layers, gathered one period at a time
+    where it is used) and the dicts above it come back as dicts of the
+    results, so a forward gathers everything else once."""
+    if not isinstance(params, ShardedTree):
+        return params
+    node = params.blocks[0][0]
+    if keep is not None and _holds(node, keep):
+        return {k: params[k] if k == keep else gathered(params[k], keep) for k in node}
+    from repro_torch.distributed.sharding import data_dim, model_part, spec_at
+    d, rows = params.row, len(params.blocks)
+    parts = []
+    for r in range(len(params.blocks[0])):
+        columns = [tree.leaves(params.blocks[k][r]) for k in range(rows)]
+        out = []
+        for j, (path, own) in enumerate(tree.leaves_with_path(params.blocks[d][r])):
+            dim = data_dim(spec_at(params.spec, path))
+            out.append(own if dim is None else _DataGather.apply(
+                "fsdp gather", dim, own.device, *(c[j] for c in columns)))
+        it = iter(out)
+        parts.append(tree.tree_map(lambda _: next(it), params.blocks[d][r]))
+    return RankedTree(parts, _map_specs(model_part, params.spec), params.path)
+
+
+__all__ = ["BYTES", "MODEL", "Ranked", "RankedTree", "ShardedTree", "add_bytes",
+           "all_gather", "all_max", "all_reduce", "bytes_by_kind", "counted_over",
+           "each", "gathered", "piece", "reset_bytes"]

@@ -10,11 +10,15 @@ visible card, laid out as the JAX launcher lays its devices out
 16))``, a ``("data", "model")`` ``DeviceMesh``. Every family trains there
 by ``train.step.make_tp_train_step``: tensor and expert parallelism over
 the model axis (attention, dense and MoE FFNs, mamba, the xLSTM, the
-encoder-decoder), the params and optimizer state laid out by the rule
-table (``distributed.sharding.shard_params``), the step under
-``activation_mesh``, as the JAX launcher runs its steps. ``train(mesh=)``
-takes a ``DeviceMesh`` or a 1-D ``ServingMesh`` (data parallelism:
-``train.step.make_dp_train_step``, params on the first device, each
+encoder-decoder), the params and optimizer state laid out by the whole
+rule table (``distributed.sharding.shard_params``), the step under
+``activation_mesh``, as the JAX launcher runs its steps. From 32 cards
+the data axis holds more than one (``(n // 16, 16)``), and every matrix is
+then split over it too: each card holds its block of the params and of
+AdamW's state, and a period's weights are gathered over data where they
+are used (fully sharded data parallelism; the layout line says so).
+``train(mesh=)`` takes a ``DeviceMesh`` or a 1-D ``ServingMesh`` (data
+parallelism: ``train.step.make_dp_train_step``, params on the first device, each
 replica the gradient of its batch shard, averaged there in mesh order; an
 MoE config's balance loss formed from every shard's router terms), CPU
 entries or replicas sharing one card. The launcher prints the layout it
@@ -45,8 +49,9 @@ from repro_torch.core.bnn import resolve_device
 from repro_torch.data.pipeline import DataConfig, Prefetcher, synthetic_lm_batches
 from repro_torch.distributed.fault_tolerance import (HeartbeatMonitor,
                                                      StragglerDetector)
-from repro_torch.distributed.sharding import (flat_devices, gather_params,
-                                              model_axis_size, shard_params)
+from repro_torch.distributed.sharding import (data_axis_size, flat_devices,
+                                              gather_params, model_axis_size,
+                                              shard_params)
 from repro_torch.launch.mesh import (DeviceMesh, ServingMesh, make_device_mesh,
                                      make_serving_mesh)
 from repro_torch.models.model_factory import build_model
@@ -91,10 +96,14 @@ def _layout(model, tcfg: TrainConfig, mesh):
     and back, and what the launcher prints."""
     if isinstance(mesh, DeviceMesh):
         if model_axis_size(mesh) > 1:
+            rows = data_axis_size(mesh)
+            fsdp = (f"; params and optimizer state sharded over data too, {rows} "
+                    "blocks a leaf, gathered where used" if rows > 1 else "")
             return (make_tp_train_step(model, tcfg, mesh),
                     lambda t: shard_params(t, mesh),
                     lambda t: gather_params(t, mesh),
-                    f"tensor parallel over {dict(mesh.shape)} {list(map(str, mesh.flat))}")
+                    f"tensor parallel over {dict(mesh.shape)} "
+                    f"{list(map(str, mesh.flat))}{fsdp}")
         mesh = ServingMesh(mesh.flat)
     if len(mesh) == 1:
         return (make_train_step(model, tcfg), lambda t: t, lambda t: t,

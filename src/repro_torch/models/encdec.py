@@ -28,7 +28,10 @@ Over a mesh's model axis (``train.step.make_tp_train_step``: params a
 runs every rank's part of each layer in lockstep: the residual streams
 and the norms replicated, attention and cross-attention on each rank's
 heads, the FFNs split by the rule table, the embedding and the head
-vocab-parallel, each layer's ranks rematerialized together.
+vocab-parallel, each layer's ranks rematerialized together. On a mesh
+with several data rows (params a ``tensor_parallel.ShardedTree``) the
+embedding, the head and the final norms are gathered over the data axes
+once a loss, and each layer's weights inside its rematerialized body.
 """
 
 from __future__ import annotations
@@ -119,17 +122,22 @@ def _run_layers(body, x, layers, n: int, remat: bool):
     Over the model ranks (a ``RankedTree`` of layers) a layer's ranks are
     recomputed together and whole: with early stop the recompute would end
     at the last saved tensor and skip a trailing all-reduce or not, by
-    policy (as ``transformer._lm_forward_tp``)."""
+    policy (as ``transformer._lm_forward_tp``). A ``ShardedTree`` layer is
+    gathered inside the body, so the recompute gathers it again."""
     remat = remat and torch.is_grad_enabled()
-    ranked = isinstance(layers, tp.RankedTree)
+    ranked = isinstance(layers, (tp.RankedTree, tp.ShardedTree))
+
+    def run(x, lp):
+        return body(x, tp.gathered(lp))
+
     for i in range(n):
         lp = layers.index(i) if ranked else tree.tree_map(lambda t: t[i], layers)
         if not remat:
-            x = body(x, lp)
+            x = run(x, lp)
             continue
         with set_checkpoint_early_stop(False) if ranked else contextlib.nullcontext():
             # the bodies draw no random numbers: no RNG state to stash
-            x = checkpoint(body, x, lp, use_reentrant=False, preserve_rng_state=False)
+            x = checkpoint(run, x, lp, use_reentrant=False, preserve_rng_state=False)
     return x
 
 
@@ -232,7 +240,9 @@ def encdec_loss(params, batch: dict, cfg, policy: QuantPolicy, *,
     the encoded ``batch["input_embeds"]``, against ``batch["labels"]``.
     Returns (loss, ``{"loss"}``). Over the model ranks (``RankedTree``
     params, ``Ranked`` batch leaves) the loss is vocab-parallel, on the
-    first rank's device."""
+    first rank's device. A ``ShardedTree`` is gathered where used (module
+    docstring)."""
+    params = tp.gathered(params, keep="layers")
     memory = encode(params, batch["input_embeds"], cfg, policy, remat=remat)
     logits, _ = decode(params, batch["tokens"], memory, cfg, policy, remat=remat)
     if isinstance(logits, tp.Ranked):

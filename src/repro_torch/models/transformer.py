@@ -31,7 +31,12 @@ experts over the ranks (``ffn.moe_ffn``), mamba on each rank's channels
 (``mamba._mamba_tp``), the mLSTM and the sLSTM on each rank's heads
 (``xlstm._mlstm_tp``, ``_slstm_tp``), the embedding and the head
 vocab-parallel, a period's ranks rematerialized together. Every family
-runs there (the encoder-decoder's is ``models/encdec.py``).
+runs there (the encoder-decoder's is ``models/encdec.py``). On a mesh
+with several data rows the params come as a ``tensor_parallel.
+ShardedTree``, each leaf in blocks over the data axes: the embedding, the
+head and the norms outside the stack are gathered once a forward, and
+each period's weights inside its rematerialized body, so the recompute
+gathers them again and at most one period's are whole at once.
 ``constrain_seq`` / ``constrain`` stand where the JAX model has them:
 identity with no mesh installed, a layout check under one.
 
@@ -279,7 +284,7 @@ def lm_forward(params: Params, cfg, policy: QuantPolicy, *,
     loss). ``logits_last_only`` (prefill) keeps the last position.
     ``remat``: with no state and grad mode on, each period runs under
     ``torch.utils.checkpoint`` (recomputed in the backward)."""
-    if isinstance(params, tp.RankedTree):
+    if isinstance(params, (tp.RankedTree, tp.ShardedTree)):
         if state is not None or logits_last_only:
             raise NotImplementedError("the forward over the model ranks trains: "
                                       "no streaming state")
@@ -358,14 +363,16 @@ def lm_forward(params: Params, cfg, policy: QuantPolicy, *,
     return logits, new_state, aux_total
 
 
-def _lm_forward_tp(params: tp.RankedTree, cfg, policy: QuantPolicy, *,
+def _lm_forward_tp(params, cfg, policy: QuantPolicy, *,
                    tokens, input_embeds, remat: bool, causal: bool):
     """:func:`lm_forward` with no state over the model ranks of one data
-    shard: ``params`` a ``RankedTree``, ``tokens`` / ``input_embeds``
+    shard: ``params`` a ``RankedTree`` (or a ``ShardedTree``, gathered
+    where used: module docstring), ``tokens`` / ``input_embeds``
     ``Ranked``. Returns vocab-parallel logits (``Ranked``, vocab split
     where the rule table splits the head), no state, and the MoE balance
     loss, once (``ffn._moe_ffn_tp``), on the first rank's device."""
     _, norm = _norm_fns(cfg)
+    params = tp.gathered(params, keep="layers")
     if input_embeds is not None:
         x = tp.each(lambda e: e.to(cfg.dtype), input_embeds)
         if "in_norm" in params:
@@ -380,8 +387,9 @@ def _lm_forward_tp(params: tp.RankedTree, cfg, policy: QuantPolicy, *,
         x = shard_rules.constrain_seq(x)
         auxes = []
         for kind, lp in zip(period, layers):
-            x, _, aux = _apply_layer(x, lp, cfg, policy, kind, positions=positions,
-                                     layer_state=None, causal=causal)
+            x, _, aux = _apply_layer(x, tp.gathered(lp), cfg, policy, kind,
+                                     positions=positions, layer_state=None,
+                                     causal=causal)
             auxes.append(aux)
         return x, *auxes
 

@@ -1,12 +1,13 @@
-"""Global-norm gradient clipping, of a tree or of a tree laid out over the
-model axis (``distributed.sharding.Shards``)."""
+"""Global-norm gradient clipping, of a tree or of a tree laid out over a
+mesh (``distributed.sharding.Shards``)."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch import tree
-from repro_torch.distributed.sharding import MODEL_AXIS, Shards, spec_at
+from repro_torch.distributed.sharding import (Shards, data_dim, model_axis_size,
+                                              model_dim, spec_at)
 
 
 def _square_sum(g: torch.Tensor) -> torch.Tensor:
@@ -18,24 +19,28 @@ def global_norm(grads) -> torch.Tensor:
     ``jax.tree.leaves`` order (``repro_torch.tree``), as the JAX package
     adds them.
 
-    Of ``Shards`` (one data shard's trees, one a model rank, on the first
-    rank's device): a leaf split over the model axis adds its ranks'
-    sums of squares in rank order, and a replicated leaf, whose every rank
-    holds the whole gradient, is counted once, so the norm is the whole
-    tree's."""
+    Of ``Shards`` (one tree a device of a mesh, each leaf the device's
+    block), on the first device: each leaf adds the sums of squares of its
+    distinct blocks in mesh order, so the norm is the whole tree's: a leaf
+    split over the data axes each data row's block once, a leaf split over
+    the model axis each rank's part once, a leaf a dim of which neither
+    splits (held whole, or whole over the other axis) counted once over
+    that axis."""
     if not isinstance(grads, Shards):
         total = 0
         for g in tree.leaves(grads):
             total = total + _square_sum(g)
         return torch.sqrt(total)
-    row = grads.rows()[0]
-    home = tree.leaves(row[0])[0].device
+    m = model_axis_size(grads.mesh)
+    home = tree.leaves(grads[0])[0].device
     total = 0
-    for (path, first), *rest in zip(tree.leaves_with_path(row[0]),
-                                    *map(tree.leaves, row[1:])):
-        parts = [first, *rest] if MODEL_AXIS in spec_at(grads.specs, path) else [first]
-        for g in parts:
-            total = total + _square_sum(g).to(home)
+    for (path, _), *blocks in zip(tree.leaves_with_path(grads[0]),
+                                  *map(tree.leaves, grads)):
+        spec = spec_at(grads.specs, path)
+        by_data, by_model = data_dim(spec) is not None, model_dim(spec) is not None
+        for i, g in enumerate(blocks):
+            if (by_data or i // m == 0) and (by_model or i % m == 0):
+                total = total + _square_sum(g).to(home)
     return torch.sqrt(total)
 
 

@@ -360,7 +360,8 @@ def _over(mesh, axes) -> int:
     return math.prod(mesh.shape[a] for a in axes if a in mesh.shape)
 
 
-def collective_bytes(mesh, args, kind: str, *, act_bytes: int = 2) -> dict:
+def collective_bytes(mesh, args, kind: str, *, act_bytes: int = 2,
+                     by_direction: bool = False) -> dict:
     """Per-device wire bytes of the collectives the rule table's layout
     needs for one step of a ``kind`` cell (``"train"``, ``"prefill"``,
     ``"decode"``) with ``args = (params, opt_state | state, batch)``, by
@@ -372,11 +373,15 @@ def collective_bytes(mesh, args, kind: str, *, act_bytes: int = 2) -> dict:
 
     * **all-gather** of every param sharded over the data axes (FSDP),
       before its use: each device receives the leaf gathered over data,
-      ``bytes(leaf) / M_leaf``, counted at the smaller of the leaf's and
-      the activations' width (the gather may move the cast weights).
+      ``bytes(leaf) / M_leaf``. A train cell gathers it at the leaf's own
+      width, as the port's step does (``tensor_parallel.gathered``: the
+      float32 latent weights, whose whole rows FAKE_QUANT's alpha needs);
+      a serving cell at the smaller of the leaf's and the activations'
+      (the gather may move the cast weights).
     * in ``train`` cells on a mesh whose data axes hold more than one
       device, the **reduction of every param's gradient** over them, as
-      the SPMD partitioner emits it: an all-reduce of the gradient
+      the SPMD partitioner emits it and the port's step counts it
+      (``train.step._reduce_over_rows``): an all-reduce of the gradient
       gathered over data, ``bytes(leaf) / M_leaf``, times 2, after which
       each device keeps its shard.
     * **all-reduce** of each layer output summed over ``model``
@@ -386,11 +391,14 @@ def collective_bytes(mesh, args, kind: str, *, act_bytes: int = 2) -> dict:
       does not run an encoder.
 
     An axis of one device moves nothing. One forward's worth: a train
-    step's recompute, backward and smaller sites are
-    :func:`collective_bytes_bwd`. No resharding of activations is counted
-    (there is no partitioner to insert it)."""
+    step's recompute (which gathers each period's weights again),
+    backward and smaller sites are :func:`collective_bytes_bwd`. No
+    resharding of activations is counted (there is no partitioner to
+    insert it). With ``by_direction`` the keys are ``(kind, "fwd" |
+    "bwd")``, as :func:`collective_bytes_bwd`'s: the gradient reduction is
+    the backward's, the rest the forward's."""
     params, _, batch = args
-    out = {k: 0.0 for k in COLL_MULT}
+    out = {(k, d): 0.0 for k in COLL_MULT for d in ("fwd", "bwd")}
     data_axes = [a for a in sharding.DATA_AXES if a in mesh.shape]
     reduce_grads = kind == "train" and _over(mesh, data_axes) > 1
     for path, leaf in tree.leaves_with_path(params):
@@ -400,14 +408,33 @@ def collective_bytes(mesh, args, kind: str, *, act_bytes: int = 2) -> dict:
         axes = _spec_axes(spec)
         m_leaf = _over(mesh, axes & {sharding.MODEL_AXIS})
         if _over(mesh, axes & set(data_axes)) > 1:
-            width = min(leaf.element_size(), act_bytes)
-            out["all-gather"] += _leaf_bytes(leaf, width) / m_leaf
+            width = (leaf.element_size() if kind == "train"
+                     else min(leaf.element_size(), act_bytes))
+            out[("all-gather", "fwd")] += _leaf_bytes(leaf, width) / m_leaf
         if reduce_grads:
-            out["all-reduce"] += (_leaf_bytes(leaf) / m_leaf
-                                  * COLL_MULT["all-reduce"])
+            out[("all-reduce", "bwd")] += (_leaf_bytes(leaf) / m_leaf
+                                           * COLL_MULT["all-reduce"])
     for elems, _ in _layer_all_reduces(mesh, params, batch, kind):
-        out["all-reduce"] += elems * act_bytes * COLL_MULT["all-reduce"]
-    return out
+        out[("all-reduce", "fwd")] += elems * act_bytes * COLL_MULT["all-reduce"]
+    if by_direction:
+        return out
+    return {k: out[(k, "fwd")] + out[(k, "bwd")] for k in COLL_MULT}
+
+
+def _recompute_gathers(mesh, params) -> float:
+    """Bytes a device all-gathers again in a train step's recompute: every
+    leaf of a layer stack (``layers``) split over the data axes, at its
+    own width, ``bytes(leaf) / M_leaf`` (each period, or each
+    encoder-decoder layer, is gathered inside its rematerialized body)."""
+    data_axes = set(a for a in sharding.DATA_AXES if a in mesh.shape)
+    total = 0.0
+    for path, leaf in tree.leaves_with_path(params):
+        if "layers" not in path or not hasattr(leaf, "shape"):
+            continue
+        axes = _spec_axes(sharding.param_spec(mesh, path, leaf))
+        if _over(mesh, axes & data_axes) > 1:
+            total += _leaf_bytes(leaf) / _over(mesh, axes & {sharding.MODEL_AXIS})
+    return total
 
 
 def _d_batch(mesh, batch) -> int:
@@ -452,13 +479,14 @@ def _layer_all_reduces(mesh, params, batch, kind: str):
 def collective_bytes_bwd(mesh, args, kind: str, cfg, *, alpha: bool = True) -> dict:
     """Per-device wire bytes of a ``train`` cell's collectives that
     :func:`collective_bytes` leaves out, as the port's tensor-parallel
-    step (``train.step.make_tp_train_step``) moves them over ``model``, by
+    step (``train.step.make_tp_train_step``) moves them, by
     ``(kind of collective, "fwd" | "bwd")``, the keys of
     ``distributed.tensor_parallel.BYTES`` less the site. ``cfg`` gives the
     heads and the activations' dtype; ``alpha``: the row-parallel
     projections take XNOR-Net's alpha (a FAKE_QUANT policy with
-    ``use_scale``, every train cell's). Zero for another ``kind`` or a
-    model axis of one device. With ``n`` a site's tokens over ``D_batch``:
+    ``use_scale``, every train cell's). Zero for another ``kind``, and
+    only the recompute's gathers over the data axes on a model axis of one
+    device. With ``n`` a site's tokens over ``D_batch``:
 
     * **remat's recompute**, ``"fwd"``: every period is recomputed whole
       in the backward, so each all-reduce of :func:`_layer_all_reduces`
@@ -489,15 +517,26 @@ def collective_bytes_bwd(mesh, args, kind: str, cfg, *, alpha: bool = True) -> d
     * **the row-parallel alpha**: the ranks' ``|w|`` sums, float32, one
       out width a layer, in the forward and the recompute (detached: no
       backward). With ``TrainConfig.microbatches`` it runs once a
-      microbatch; it is reckoned once.
+      microbatch; it is reckoned once. The gathered weights see whole
+      rows over the data axes, so no second reduction.
+    * **the recompute's gathers** over the data axes (FSDP), ``"fwd"``:
+      every layer stack's leaf split over them, again
+      (:func:`_recompute_gathers`), on a mesh whose data axes hold more
+      than one device, whatever the model axis. With
+      ``TrainConfig.microbatches`` a period is gathered once a microbatch
+      (forward and recompute) and the gradient reduced once a step; the
+      gathers are reckoned once, as the alpha is.
 
     Each all-reduce counts times 2 (:data:`COLL_MULT`)."""
     out = {(k, d): 0.0 for k in ("all-reduce", "all-gather", "reduce-scatter")
            for d in ("fwd", "bwd")}
-    m = _over(mesh, {sharding.MODEL_AXIS})
-    if kind != "train" or m <= 1:
+    if kind != "train":
         return out
     params, _, batch = args
+    out[("all-gather", "fwd")] += _recompute_gathers(mesh, params)
+    m = _over(mesh, {sharding.MODEL_AXIS})
+    if m <= 1:
+        return out
     act = torch.empty((), dtype=cfg.dtype).element_size()
     ar = COLL_MULT["all-reduce"]
     for elems, alpha_elems in _layer_all_reduces(mesh, params, batch, kind):

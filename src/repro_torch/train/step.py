@@ -27,9 +27,10 @@ compressed DP step shares).
 
 ``make_tp_train_step(model, tcfg, mesh)`` is the step over a ``("data",
 "model")`` mesh (``launch.mesh.DeviceMesh``): tensor parallelism over the
-model axis inside each data shard for every family, the params and
-optimizer state laid out by the rule table
-(``distributed.sharding.shard_params``).
+model axis inside each data shard for every family, and fully sharded
+data parallelism over the data axis: the params and optimizer state laid
+out by the whole rule table (``distributed.sharding.shard_params``), a
+leaf split over data gathered where it is used.
 
 ``make_prefill`` / ``make_decode_step`` wrap ``Model.prefill`` /
 ``Model.decode_step``.
@@ -115,19 +116,23 @@ def _grads_of(model, params, batch):
 def _accumulated_grads(grads_of: Callable, params, batch, microbatches: int):
     """(loss, metrics, grads) of ``batch`` by ``grads_of(params, batch)``,
     over ``microbatches`` of it taken in order and summed from zeros where
-    there is more than one."""
+    there is more than one (a None gradient, a block a data row does not
+    read, stays None)."""
     if microbatches <= 1:
         return grads_of(params, batch)
-    gsum = tree.tree_map(torch.zeros_like, params)
+    gsum = None
     losses, mmetrics = [], []
     mbs = _split_microbatches(batch, microbatches)
     for i in range(microbatches):
         mb = tree.tree_map(lambda t, i=i: t[i], mbs)
         loss, metrics, grads = grads_of(params, mb)
-        gsum = tree.tree_map(torch.add, gsum, grads)
+        if gsum is None:
+            gsum = tree.tree_map(lambda g: None if g is None else torch.zeros_like(g),
+                                 grads)
+        gsum = tree.tree_map(_add, gsum, grads)
         losses.append(loss)
         mmetrics.append(metrics)
-    grads = tree.tree_map(lambda g: g / microbatches, gsum)
+    grads = tree.tree_map(lambda g: None if g is None else g / microbatches, gsum)
     loss = torch.mean(torch.stack(losses))
     model_metrics = tree.tree_map(
         lambda *ms: torch.mean(torch.stack(ms), dim=0), *mmetrics)
@@ -294,16 +299,14 @@ def make_dp_train_step(model, tcfg: TrainConfig, mesh,
 
 
 # ---------------------------------------------------------------------------
-# Tensor parallelism over the model axis, data parallelism over the data
-# axis, from one process.
+# Tensor parallelism over the model axis, fully sharded data parallelism
+# over the data axis, from one process.
 # ---------------------------------------------------------------------------
 
 
-def _mean_over_rows(trees: list, home: torch.device):
-    """The data shards' trees of one model rank averaged leaf by leaf in
-    mesh order on ``home`` (``dp_mesh_mean``)."""
-    means = iter([dp_mesh_mean(gs, home) for gs in zip(*map(tree.leaves, trees))])
-    return tree.tree_map(lambda _: next(means), trees[0])
+def _add(a, b):
+    """``a + b`` of two gradients, None standing for zeros."""
+    return b if a is None else a if b is None else a + b
 
 
 def _sum_replicated(grads: list, specs) -> list:
@@ -325,61 +328,129 @@ def _sum_replicated(grads: list, specs) -> list:
             for r, g in enumerate(grads)]
 
 
-def _whole_batch_moe_tp_grads(model, rows: list, batch, specs) -> tuple:
+def _live_grid(grid: list) -> list:
+    """Every device's tree (``grid[k][r]``: data row ``k``, model rank
+    ``r``) as fresh leaves that require grad, sharing the storage."""
+    return [[tree.tree_map(lambda t: t.detach().requires_grad_(True), t) for t in row]
+            for row in grid]
+
+
+def _grid_grads(grid: list, got, specs, row: int) -> list:
+    """``torch.autograd.grad``'s results for the leaves of ``grid`` (every
+    device's tree, flattened device by device) as one tree a device, in
+    mesh order: zeros where data row ``row`` reads a block and no gradient
+    reached it (every block of a leaf split over the data axes, the row's
+    own copy of any other), None where the row does not read it."""
+    got = iter(got)
+
+    def grad(path, p, k):
+        g = next(got)
+        reads = k == row or sharding.data_dim(sharding.spec_at(specs, path)) is not None
+        return torch.zeros_like(p) if g is None and reads else g
+
+    return [tree.map_with_path(lambda path, p, k=k: grad(path, p, k), t)
+            for k, trees in enumerate(grid) for t in trees]
+
+
+def _reduce_over_rows(row_grads: list, shards, mean: bool) -> list:
+    """The data rows' gradients (``row_grads[d]``: one tree a device,
+    :func:`_grid_grads`) reduced over the rows, one tree a device: for a
+    leaf split over the data axes each device's block is the sum of the
+    rows' gradients of that block; for any other leaf the sum of the
+    rows' gradients of their own copies, on every row. Sums in mesh order
+    (``compression._mesh_sum``), divided by the rows with ``mean``
+    (``dp_mesh_mean``: each row's gradient is of its own shard's loss).
+    Over more than one row, counted as the reckoning counts it
+    (``roofline.op_cost.collective_bytes``): an all-reduce of each rank's
+    gathered gradient over the rows, site ``"data grads"``."""
+    m = sharding.model_axis_size(shards.mesh)
+    rows = len(row_grads)
+    flat = [[tree.leaves(t) for t in g] for g in row_grads]
+    out: list = [[] for _ in shards]
+    for j, (path, leaf) in enumerate(tree.leaves_with_path(shards[0])):
+        split = sharding.data_dim(sharding.spec_at(shards.specs, path)) is not None
+        for r in range(m):
+            if split:
+                totals = [compression._mesh_sum([flat[d][k * m + r][j] for d in range(rows)])
+                          for k in range(rows)]
+            else:
+                totals = [compression._mesh_sum(
+                    [flat[d][d * m + r][j] for d in range(rows)])] * rows
+            for k in range(rows):
+                g = totals[k] / rows if mean else totals[k]
+                out[k * m + r].append(g.to(tree.leaves(shards[k * m + r])[j].device))
+            if rows > 1:
+                tp.add_bytes("all-reduce", "data grads", "bwd",
+                             (rows if split else 1) * leaf.numel() * leaf.element_size(),
+                             rows)
+    return [tree.tree_map(lambda _, it=iter(g): next(it), t) for t, g in zip(shards, out)]
+
+
+def _whole_batch_moe_tp_grads(loss_of, grid: list, batch, specs) -> tuple:
     """(loss, metrics, grads) of an MoE model's loss on the whole batch
-    over a mesh's data rows (``rows``: one tree a model rank, a list a
-    row): row ``d``'s ranks take its contiguous shard in lockstep, the
-    cross-entropy is the mean of the rows', and each MoE layer's balance
-    loss is formed from its router terms (each row's, rank 0's: the loss
-    counts them once) averaged over the rows (:func:`_whole_batch_loss`),
-    as :func:`_whole_batch_moe_grads` forms it over replicas. Every row runs
-    on copies of one live tree a rank, on row 0's devices, so one backward
-    adds the rows' gradients onto it; ``grads`` is one tree a rank."""
-    home = tree.leaves(rows[0][0])[0].device
-    per_row = shard_rows(int(tree.leaves(batch)[0].shape[0]), len(rows))
-    live = [tree.tree_map(lambda t: t.detach().requires_grad_(True), t)
-            for t in rows[0]]
-    ces, terms = [], []
+    over a mesh's data rows (``grid``: one tree a device, a list a row):
+    row ``d``'s ranks take its contiguous shard in lockstep
+    (``loss_of(live, d, shard)``), the cross-entropy is the mean of the
+    rows', and each MoE layer's balance loss is formed from its router
+    terms (each row's, rank 0's: the loss counts them once) averaged over
+    the rows (:func:`_whole_batch_loss`), as :func:`_whole_batch_moe_grads`
+    forms it over replicas. Each row reads its own live leaves of every
+    block, so one backward gives each row's gradients apart
+    (:func:`_grid_grads`, one list a row), which the step sums over the
+    rows in mesh order."""
+    home = tree.leaves(grid[0][0])[0].device
+    rows = len(grid)
+    per_row = shard_rows(int(tree.leaves(batch)[0].shape[0]), rows)
+    lives, ces, terms = [], [], []
     with torch.enable_grad():
-        for d, trees in enumerate(rows):
-            devs = [tree.leaves(t)[0].device for t in trees]
-            replica = [tree.tree_map(lambda t, dev=dev: t.to(dev), lt)
-                       for lt, dev in zip(live, devs)]
-            shard = {k: tp.Ranked.replicated(
-                v[d * per_row:(d + 1) * per_row].to(devs[0]), devs)
-                for k, v in batch.items()}
+        for d in range(rows):
+            live = _live_grid(grid)
+            shard = {k: v[d * per_row:(d + 1) * per_row] for k, v in batch.items()}
             with ffn.balance_terms() as row_terms:
-                _, metrics = model.loss(tp.RankedTree(replica, specs), shard)
+                _, metrics = loss_of(live, d, shard)
+            lives.append(live)
             ces.append(metrics["loss"])
             terms.append(row_terms)
         loss, ce, aux = _whole_batch_loss(ces, terms, home)
-        flat = [leaf for t in live for leaf in tree.leaves(t)]
-        got = torch.autograd.grad(loss, flat, allow_unused=True)
-    got = iter([torch.zeros_like(p) if g is None else g for p, g in zip(flat, got)])
-    return (loss.detach(), {"loss": ce.detach(), "aux": aux.detach()},
-            [tree.tree_map(lambda _: next(got), t) for t in live])
+        flats = [[leaf for row in live for t in row for leaf in tree.leaves(t)]
+                 for live in lives]
+        got = torch.autograd.grad(loss, [leaf for f in flats for leaf in f],
+                                  allow_unused=True)
+    grads, at = [], 0
+    for d, f in enumerate(flats):
+        grads.append(_grid_grads(grid, got[at:at + len(f)], specs, d))
+        at += len(f)
+    return loss.detach(), {"loss": ce.detach(), "aux": aux.detach()}, grads
 
 
 def make_tp_train_step(model, tcfg: TrainConfig, mesh,
                        clip_predicate: Optional[Callable] = None):
     """:func:`make_train_step` over a ``("data", "model")`` mesh
-    (``launch.mesh.DeviceMesh``): ``(params, opt_state, batch) -> (params,
-    opt_state, metrics)`` with ``params`` and ``opt_state`` laid out by
-    ``distributed.sharding.shard_params`` (one tree a device, each leaf its
-    rank's slice by the rule table), and returned so.
+    (``launch.mesh.DeviceMesh``; ``("pod", "data", "model")`` too):
+    ``(params, opt_state, batch) -> (params, opt_state, metrics)`` with
+    ``params`` and ``opt_state`` laid out by
+    ``distributed.sharding.shard_params`` (one tree a device, each leaf
+    its device's block by the rule table, over the data axes and the model
+    axis), and returned so: no device holds a whole model slice between
+    steps.
 
     The batch splits into contiguous shards over the mesh's data rows.
     Each row's model ranks take the gradient of ``model.loss`` on its
     shard in lockstep (``models.transformer``, ``models.encdec``: column-
     and row-parallel projections, local attention and xLSTM heads, mamba's
-    local channels, a vocab-parallel embedding and loss), under ``activation_mesh(mesh)``, ``tcfg.microbatches``
-    splitting the shard. Each rank's gradients are averaged over the rows
-    in mesh order (``dp_mesh_mean``), and a leaf every rank holds whole
-    sums its ranks' shares. Then one clip by the global norm of the whole
-    tree (``optim.clip``: a replicated leaf counted once), and on each
-    rank's slice one schedule step and one AdamW update, copied to the
-    rank's devices on the other rows. Up to the order of float sums this
-    is the single-device step on the whole batch.
+    local channels, a vocab-parallel embedding and loss), under
+    ``activation_mesh(mesh)``, ``tcfg.microbatches`` splitting the shard.
+    Over several data rows the params reach the model as a
+    ``tensor_parallel.ShardedTree``: a leaf split over the data axes is
+    gathered onto the row's ranks where it is used, a period at a time
+    (``tensor_parallel.gathered``), and its gradient flows back to every
+    block. The rows' gradients are then summed in mesh order and divided
+    by the rows, each device keeping its block (:func:`_reduce_over_rows`),
+    and a leaf every rank holds whole sums its ranks' shares. Then one clip
+    by the global norm of the whole tree (``optim.clip``: every block
+    once), and on each device's own blocks one schedule step and one AdamW
+    update. Up to the order of float sums this is the single-device step
+    on the whole batch.
 
     An MoE config's balance loss is a product of two means over every
     token, so with more than one data row its step forms the loss from the
@@ -390,72 +461,69 @@ def make_tp_train_step(model, tcfg: TrainConfig, mesh,
 
     Every family takes this step: attention with dense or MoE FFNs, mamba
     on each rank's channels, the mLSTM and the sLSTM on each rank's heads,
-    and the encoder-decoder with its cross-attention (``models.encdec``)."""
+    and the encoder-decoder with its cross-attention (``models.encdec``).
+    Collective bytes count in ``tensor_parallel.BYTES`` as the mean over
+    the mesh's devices (``tensor_parallel.counted_over``)."""
     ranks = sharding.model_axis_size(mesh)
+    rows = sharding.data_axis_size(mesh)
+    moe = rows > 1 and bool(model.cfg.num_experts)
 
-    def row_grads(trees: list, shard: dict, specs):
-        devs = [tree.leaves(t)[0].device for t in trees]
-        live = [tree.tree_map(lambda t: t.detach().requires_grad_(True), t)
-                for t in trees]
-        ranked = {k: tp.Ranked.replicated(v, devs) for k, v in shard.items()}
-        flat = [leaf for t in live for leaf in tree.leaves(t)]
+    def loss_of(live, d: int, shard: dict, specs):
+        devs = [tree.leaves(t)[0].device for t in live[d]]
+        ranked = {k: tp.Ranked.replicated(v.to(devs[0]), devs) for k, v in shard.items()}
+        params = (tp.RankedTree(live[0], specs) if rows == 1
+                  else tp.ShardedTree(live, specs, d))
+        return model.loss(params, ranked)
+
+    def row_grads(grid, d: int, shard: dict, specs):
+        live = _live_grid(grid)
+        flat = [leaf for row in live for t in row for leaf in tree.leaves(t)]
         with torch.enable_grad():
-            loss, metrics = model.loss(tp.RankedTree(live, specs), ranked)
+            loss, metrics = loss_of(live, d, shard, specs)
             got = torch.autograd.grad(loss, flat, allow_unused=True)
-        got = iter([torch.zeros_like(p) if g is None else g
-                    for p, g in zip(flat, got)])
         return (loss.detach(), tree.tree_map(torch.Tensor.detach, metrics),
-                [tree.tree_map(lambda _: next(got), t) for t in live])
-
-    def row_mean_grads(rows, batch, specs, home):
-        """Each row's gradients on its contiguous shard, averaged over the
-        rows rank by rank; the loss and metrics likewise."""
-        per_row = shard_rows(int(tree.leaves(batch)[0].shape[0]), len(rows))
-        outs = []
-        for d, trees in enumerate(rows):
-            first = tree.leaves(trees[0])[0].device
-            shard = tree.tree_map(
-                lambda t: t[d * per_row:(d + 1) * per_row].to(first), batch)
-            outs.append(_accumulated_grads(
-                functools.partial(row_grads, specs=specs), trees, shard,
-                tcfg.microbatches))
-        losses, row_metrics, row_grads_ = zip(*outs)
-        grads = [_mean_over_rows([g[r] for g in row_grads_], home[r])
-                 for r in range(ranks)]
-        return (dp_mesh_mean(losses, home[0]),
-                tree.tree_map(lambda *ms: dp_mesh_mean(ms, home[0]), *row_metrics),
-                grads)
+                _grid_grads(grid, got, specs, d))
 
     def train_step(params, opt_state, batch):
-        rows = params.rows()
-        home = [tree.leaves(t)[0].device for t in rows[0]]
-        with sharding.activation_mesh(mesh):
-            if len(rows) > 1 and model.cfg.num_experts:
-                loss, model_metrics, grads = _accumulated_grads(
-                    lambda _, mb: _whole_batch_moe_tp_grads(model, rows, mb,
-                                                            params.specs),
-                    rows[0], batch, tcfg.microbatches)
+        grid, specs = params.rows(), params.specs
+        home = tree.leaves(params[0])[0].device
+        with sharding.activation_mesh(mesh), tp.counted_over(len(params)):
+            if moe:
+                loss, model_metrics, per_row = _accumulated_grads(
+                    lambda _, mb: _whole_batch_moe_tp_grads(
+                        lambda live, d, shard: loss_of(live, d, shard, specs),
+                        grid, mb, specs),
+                    None, batch, tcfg.microbatches)
+                grads = _reduce_over_rows(per_row, params, mean=False)
             else:
-                loss, model_metrics, grads = row_mean_grads(
-                    rows, batch, params.specs, home)
-        grads = _sum_replicated(grads, params.specs)
-        grads, gnorm = clip_by_global_norm(
-            sharding.Shards(grads, params.specs, mesh), tcfg.clip_norm)
-        new_row, new_opt_row, lr_scales = [], [], []
-        for p, o, g in zip(rows[0], opt_state.rows()[0], grads):
+                per_row = shard_rows(int(tree.leaves(batch)[0].shape[0]), rows)
+                outs = [_accumulated_grads(
+                    lambda _, mb, d=d: row_grads(grid, d, mb, specs), None,
+                    tree.tree_map(lambda t, d=d: t[d * per_row:(d + 1) * per_row], batch),
+                    tcfg.microbatches) for d in range(rows)]
+                losses, row_metrics, per_row_grads = zip(*outs)
+                grads = _reduce_over_rows(list(per_row_grads), params, mean=True)
+                loss = dp_mesh_mean(losses, home)
+                model_metrics = tree.tree_map(lambda *ms: dp_mesh_mean(ms, home),
+                                              *row_metrics)
+        grads = [g for k in range(rows)
+                 for g in _sum_replicated(grads[k * ranks:(k + 1) * ranks], specs)]
+        grads, gnorm = clip_by_global_norm(sharding.Shards(grads, specs, mesh),
+                                           tcfg.clip_norm)
+        new_params, new_opt, lr_scales = [], [], []
+        for p, o, g in zip(params, opt_state, grads):
             lr_scales.append(cosine_schedule(o["adam"]["count"] + 1,
                                              warmup_steps=tcfg.warmup_steps,
                                              total_steps=tcfg.total_steps))
             new_p, new_adam = adamw_update(g, o["adam"], p, tcfg.adamw,
                                            lr_scale=lr_scales[-1],
                                            clip_predicate=clip_predicate)
-            new_row.append(new_p)
-            new_opt_row.append({"adam": new_adam})
+            new_params.append(new_p)
+            new_opt.append({"adam": new_adam})
         metrics = {**model_metrics, "loss": loss, "grad_norm": gnorm,
                    "lr_scale": lr_scales[0]}
-        return (sharding.Shards.of_row(new_row, params.specs, mesh),
-                sharding.Shards.of_row(new_opt_row, opt_state.specs, mesh),
-                metrics)
+        return (sharding.Shards(new_params, specs, mesh),
+                sharding.Shards(new_opt, opt_state.specs, mesh), metrics)
 
     return train_step
 

@@ -358,27 +358,33 @@ def _counted_and_reckoned(arch, shape):
     meta = model.init()
     args = (meta, None, {k: _meta(*v.shape, dtype=v.dtype) for k, v in batch.items()})
     reckoned = op_cost.collective_bytes_bwd(mesh, args, "train", cfg)
-    for kind, n in op_cost.collective_bytes(mesh, args, "train", act_bytes=4).items():
-        reckoned[(kind, "fwd")] = reckoned.get((kind, "fwd"), 0.0) + n
+    for key, n in op_cost.collective_bytes(mesh, args, "train", act_bytes=4,
+                                           by_direction=True).items():
+        reckoned[key] = reckoned.get(key, 0.0) + n
     return counted, reckoned
 
 
-@pytest.mark.parametrize("shape", [(1, 2), (1, 4)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4), (2, 2), (2, 4)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "moonshot-v1-16b-a3b", "arctic-480b",
                                   "jamba-1.5-large-398b", "xlstm-1.3b",
                                   "seamless-m4t-large-v2"])
 def test_reckoning_is_what_a_tp_step_moves(arch, shape):
     """ROADMAP C5: the dry run's reckoning of a train cell, one forward
-    (``collective_bytes``) plus the recompute, the backward and the
-    smaller sites (``collective_bytes_bwd``), equals the bytes one TP step
-    counts in ``tensor_parallel.BYTES``, kind by kind and direction by
-    direction, to 1e-9 relative: the row-parallel outputs, the MoE combine,
-    the embedding, a head cut mid-way at m = 4 (self- and
-    cross-attention), the loss and the alpha; mamba's and the xLSTM's
-    fused outputs gathered and the mLSTM's group norm at both sizes."""
+    (``collective_bytes``, its gradient reduction over data keyed
+    ``"bwd"``) plus the recompute, the backward and the smaller sites
+    (``collective_bytes_bwd``), equals the bytes one TP step counts in
+    ``tensor_parallel.BYTES`` (a device's mean over the mesh), kind by kind
+    and direction by direction, to 1e-9 relative: the row-parallel
+    outputs, the MoE combine, the embedding, a head cut mid-way at m = 4
+    (self- and cross-attention), the loss and the alpha; mamba's and the
+    xLSTM's fused outputs gathered and the mLSTM's group norm at both
+    sizes; on two data rows the params' gathers over data (forward and
+    recompute) and the gradients' all-reduce."""
     counted, reckoned = _counted_and_reckoned(arch, shape)
     _hold_reckoning(counted, reckoned)
-    if arch in ("jamba-1.5-large-398b", "xlstm-1.3b"):   # fused outputs gathered
+    if arch in ("jamba-1.5-large-398b", "xlstm-1.3b") or shape[0] > 1:
+        # fused outputs gathered, or the params over data
         assert counted[("all-gather", "fwd")] > 0
     else:   # only a head cut mid-way gathers
         assert (("all-gather", "fwd") in counted) == (shape == (1, 4))

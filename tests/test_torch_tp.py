@@ -76,21 +76,23 @@ def j_mesh(shape):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_shards_are_the_jax_arrays_addressable_shards(arch):
-    """Leaf by leaf, each rank's shard has the shape of the JAX array's
-    shard on that device, placed by ``params_shardings`` on a (1, 2) host
-    mesh; ``gather_params(shard_params(p))`` is ``p`` bit for bit."""
+    """Leaf by leaf, each device's shard has the shape and the numbers of
+    the JAX array's shard on that device, placed by ``params_shardings`` on
+    a (1, 2) and a (2, 2) host mesh (there split over ``data`` too);
+    ``gather_params(shard_params(p))`` is ``p`` bit for bit."""
     _, jparams = j_params_of(arch, "float")
-    jm = j_mesh((1, 2))
-    placed = jax.device_put(jparams, j_sharding.params_shardings(jm, jparams))
     params = params_from_numpy(jparams, device="cpu")
-    mesh = cpu_mesh((1, 2))
-    shards = sharding.shard_params(params, mesh)
-    order = {d: i for i, d in enumerate(jm.devices.flat)}
-    jleaves = jax.tree_util.tree_leaves(placed)
-    assert len(jleaves) == len(tree.leaves(params))
-    for i, jleaf in enumerate(jleaves):
-        for s in jleaf.addressable_shards:
-            assert tuple(tree.leaves(shards[order[s.device]])[i].shape) == s.data.shape
+    for shape in ((1, 2), (2, 2)):
+        jm = j_mesh(shape)
+        placed = jax.device_put(jparams, j_sharding.params_shardings(jm, jparams))
+        shards = sharding.shard_params(params, cpu_mesh(shape))
+        order = {d: i for i, d in enumerate(jm.devices.flat)}
+        jleaves = jax.tree_util.tree_leaves(placed)
+        assert len(jleaves) == len(tree.leaves(params))
+        for i, jleaf in enumerate(jleaves):
+            for s in jleaf.addressable_shards:
+                got = tree.leaves(shards[order[s.device]])[i]
+                np.testing.assert_array_equal(got.numpy(), np.asarray(s.data))
     for shape in MESHES:
         again = sharding.gather_params(sharding.shard_params(params, cpu_mesh(shape)),
                                        cpu_mesh(shape))
@@ -99,22 +101,28 @@ def test_shards_are_the_jax_arrays_addressable_shards(arch):
 
 
 def test_shards_follow_the_rule_table():
-    """Each leaf's shard is ``shard_shape`` of its spec with the data axes
-    dropped, rank r's slice is the r-th contiguous part, and data rows hold
-    the same slices (ranks on one device share one tree)."""
+    """On a (2, 2) mesh each device's block of each leaf is ``shard_shape``
+    of its whole spec, data axes included: device (k, r) holds rank r's
+    contiguous part over ``model`` and data row k's over ``data``
+    (``device_block``); every device holds tensors of its own, so no tree
+    repeats down the rows."""
     model = build_model(smoke_config("qwen2.5-3b"), float_policy())
     params = model.init(torch.Generator().manual_seed(0))
     mesh = cpu_mesh((2, 2))
     shards = sharding.shard_params(params, mesh)
-    assert len(shards) == 4 and shards[0] is shards[2] and shards[1] is shards[3]
+    assert len(shards) == 4 and len(shards.rows()) == 2
+    split_over_data = 0
     for path, leaf in tree.leaves_with_path(params):
         spec = sharding.param_spec(mesh, path, leaf)
-        no_data = sharding.P(*(e if e == "model" else None for e in spec))
-        want = sharding.shard_shape(mesh, leaf.shape, no_data)
-        for r in range(2):
-            got = sharding.spec_at(shards.rows()[0][r], path)
+        want = sharding.shard_shape(mesh, leaf.shape, spec)
+        split_over_data += "data" in spec
+        blocks = [sharding.spec_at(shards[i], path) for i in range(4)]
+        assert len({b.data_ptr() for b in blocks}) == 4
+        for i, got in enumerate(blocks):
+            k, r = divmod(i, 2)
             assert tuple(got.shape) == want
-            assert torch.equal(got, sharding.model_slice(leaf, no_data, 2, r))
+            assert torch.equal(got, sharding.device_block(leaf, spec, 2, r, 2, k))
+    assert split_over_data > 0
 
 
 # ------------------------------ the step --------------------------------------
