@@ -261,6 +261,26 @@
    four blocks add up to the whole model, so no saving shows there. The
    parts' launches are the path ``lm_fsdp_train``.
 
+18. One process a device (``spmd_phase``; ``distributed.process_group``):
+   processes spawned with ``torch.multiprocessing`` meet through a
+   ``file://`` store under ``build/spmd`` and run the steps SPMD, each
+   holding its own position's blocks, the collectives through
+   ``torch.distributed``. (a) phase 14's qwen2.5-3b step on (1, 2) in two
+   processes sharing the card (gloo, by the backend rule): the loss within
+   ``LM_LOSS_TOL`` and the gathered first moment within the bf16
+   ``LM_GRAD_TOL`` of phase 14's single-device step, its largest
+   difference from phase 14's lockstep step printed (0 expected), each
+   process's flash launches the single device's (16 forward, 8 backward),
+   its param and optimizer bytes the rule table's, the counted collective
+   bytes (the processes' mean) phase 14's reckoning; ms a step and peak
+   memory per process. (c) phase 10's sign-SGD DP step, 3 steps in the same
+   two processes: params, residual rows and metrics bit-identical to the
+   lockstep step on two replicas. (b) phase 17 (a)'s step on (2, 2) in four
+   processes, held as (a). (d) the backend rule refuses NCCL for two ranks
+   on the one card; a world of one on NCCL runs the BNN's DP step bit for
+   bit as ``make_train_step``. A process's failure fails the run. The
+   processes' launches are the path ``lm_spmd_train``.
+
 Every phase prints its seconds.
 
 Last, prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``.
@@ -3815,11 +3835,13 @@ FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN = 4, 512, 8
 # that test does, so that no token is dropped in either.
 DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
 DECODE_PROMPT = 64
-# (arch, batch, seq, steps, layers or None for all): train_4k's sequence,
-# its batch of 256 cut to 2; pixtral-12b cut to 2 of its 40 layers (its
-# 12.4 G float32 params with AdamW's state take ~200 GB).
-FAMILY_TRAIN = [("seamless-m4t-large-v2", 2, 4096, 3, None),
-                ("pixtral-12b", 2, 4096, 2, 2)]
+# (arch, batch, seq, steps, layers or None for all, profiled): train_4k's
+# sequence, its batch of 256 cut to 2; pixtral-12b cut to 2 of its 40
+# layers (its 12.4 G float32 params with AdamW's state take ~200 GB).
+# seamless's step is not profiled: ~10^5 launches a step cost the
+# profiler ~49 s on the card (ROADMAP A7e), time phase 18 takes.
+FAMILY_TRAIN = [("seamless-m4t-large-v2", 2, 4096, 3, None, False),
+                ("pixtral-12b", 2, 4096, 2, 2, True)]
 FAMILY_SMOKE = ("qwen2.5-3b", "qwen2.5-32b", "mistral-large-123b",
                 "moonshot-v1-16b-a3b", "arctic-480b", "pixtral-12b",
                 "seamless-m4t-large-v2")
@@ -3984,9 +4006,10 @@ def families_phase(dev) -> dict:
         for name, n in r["launches"].items():
             serve_total[name] += n
     train_total = {name: 0 for name in ops.LAUNCHES}
-    for arch, batch, seq, steps, layers in FAMILY_TRAIN:
+    for arch, batch, seq, steps, layers, profile in FAMILY_TRAIN:
         ops.reset_launches()
-        res["train"][arch] = r = lm_train_run(dev, arch, batch, seq, steps, layers)
+        res["train"][arch] = r = lm_train_run(dev, arch, batch, seq, steps, layers,
+                                              profile=profile)
         for name, n in r["launches"].items():
             train_total[name] += n
     res["smoke"] = smoke_runs(dev, FAMILY_SMOKE, train_total)
@@ -4115,6 +4138,17 @@ def dryrun_dp_phase(dev, card: str) -> dict:
 
 # ------------- phase 14: tensor parallelism over the model axis -------------
 
+# Phase 14's and 17 (a)'s lockstep steps as phase 18 reads them: the
+# gathered first moments of the mesh step and of the single-device step on
+# the host, the single step's launches and both losses.
+LOCKSTEP: dict = {}
+
+
+def _host(tree_):
+    from repro_torch import tree
+    return tree.tree_map(lambda t: t.cpu(), tree_)
+
+
 def _rule_bytes(mesh, params) -> int:
     """Bytes of one rank's shard of ``params`` by the rule table."""
     from repro_torch import tree
@@ -4210,8 +4244,11 @@ def tp_phase(dev, card: str) -> dict:
     launches = dict(ops.LAUNCHES)
     peak_tp = torch.cuda.max_memory_allocated(dev)
     counted, by_kind = dict(tp.BYTES), tp.bytes_by_kind()
-    rel = _leaf_rel_l2(sharding.gather_params(opt_tp, mesh)["adam"]["mu"], mu_one)
-    del opt_tp, mu_one
+    mu_tp = sharding.gather_params(opt_tp, mesh)["adam"]["mu"]
+    rel = _leaf_rel_l2(mu_tp, mu_one)
+    LOCKSTEP["tp"] = {"mu": _host(mu_tp), "mu_one": _host(mu_one), "one": one,
+                      "loss": float(m_tp["loss"]), "loss_one": float(m_one["loss"])}
+    del opt_tp, mu_one, mu_tp
     torch.cuda.empty_cache()
     worst = max(rel, key=rel.get)
     single_ms = events_ms(lambda: single(params, opt, b0), reps=2, warm=False)
@@ -4280,9 +4317,7 @@ def reckoning_gap(mesh, args, cfg, counted: dict) -> dict:
     both, and the worst relative gap."""
     from repro_torch.roofline import op_cost
 
-    got: dict = collections.Counter()
-    for (kind, _, direction), n in counted.items():
-        got[f"{kind} {direction}"] += n
+    got = _by_kind_direction(counted)
     act = torch.empty((), dtype=cfg.dtype).element_size()
     want: dict = collections.Counter(
         {f"{k} {d}": v for (k, d), v in op_cost.collective_bytes_bwd(
@@ -4294,6 +4329,14 @@ def reckoning_gap(mesh, args, cfg, counted: dict) -> dict:
     worst = max(abs(got[k] - want[k]) / max(got[k], want[k]) for k in keys)
     return {"counted": {k: got[k] for k in keys},
             "reckoned": {k: want[k] for k in keys}, "worst_rel": worst}
+
+
+def _by_kind_direction(counted: dict) -> collections.Counter:
+    """``tensor_parallel.BYTES`` summed by kind and direction."""
+    got: collections.Counter = collections.Counter()
+    for (kind, _, direction), n in counted.items():
+        got[f"{kind} {direction}"] += n
+    return got
 
 
 def print_collectives(counted: dict, coll: dict) -> None:
@@ -4662,7 +4705,7 @@ def mamba_block_tp(dev, card: str, mesh) -> dict:
 
 
 def tp_step_part(dev, card: str, mesh, label: str, model, b0: dict, kernels,
-                 retime: bool = True) -> dict:
+                 retime: bool = True, keep: str | None = None) -> dict:
     """One ``make_tp_train_step`` step of ``model`` (``train_policy()``) on
     ``mesh`` and one single-device step first, on the same params (a
     seeded generator on the card) and batch ``b0``: the loss within
@@ -4673,7 +4716,9 @@ def tp_step_part(dev, card: str, mesh, label: str, model, b0: dict, kernels,
     (``_rule_bytes``), counted collective bytes the reckoning. The single step's
     first moment goes to the host and its trees leave the card first.
     Each step's ms is a second call's (CUDA events) with ``retime``, else
-    the checked call's."""
+    the checked call's. With ``keep`` both first moments, the single
+    step's launches and both losses stay on the host in ``LOCKSTEP[keep]``
+    (phase 18 holds the SPMD step to them)."""
     from repro_torch import tree
     from repro_torch.distributed import sharding
     from repro_torch.distributed import tensor_parallel as tp
@@ -4719,6 +4764,9 @@ def tp_step_part(dev, card: str, mesh, label: str, model, b0: dict, kernels,
     rel = _leaf_rel_l2(mu_tp, mu_one)
     worst = max(rel, key=rel.get)
     dname = str(model.cfg.dtype)[6:]
+    if keep:
+        LOCKSTEP[keep] = {"mu": mu_tp, "mu_one": mu_one, "one": one,
+                          "loss": m_tp["loss"], "loss_one": m_one["loss"]}
     coll = collectives_against_reckoning(mesh, model, b0, counted)
     res = {"loss_single": m_one["loss"], "loss_tp": m_tp["loss"],
            "grad_norm_single": m_one["grad_norm"], "grad_norm_tp": m_tp["grad_norm"],
@@ -4860,7 +4908,8 @@ def fsdp_phase(dev, card: str, tp_run: dict) -> dict:
     part("a", lambda: tp_step_part(
         dev, card, mesh, f"(a) {arch} ({layers} of its layers) batch {batch} x {seq} "
         f"bf16 on a {FSDP_MESH} mesh", build_model(cfg, train_policy()),
-        _lm_batch(dev, cfg, batch, seq), ("flash_attention", "flash_attention_bwd")))
+        _lm_batch(dev, cfg, batch, seq), ("flash_attention", "flash_attention_bwd"),
+        keep="fsdp"))
     a = res["a"]
     print(f"  (a) a step {a['tp_ms']:.2f} ms FSDP on {FSDP_MESH}, {tp_run['tp_ms']:.2f} ms "
           f"TP on (1, {TP_RANKS}) (phase 14), {a['single_ms']:.2f} ms single; peak "
@@ -4888,6 +4937,356 @@ def fsdp_phase(dev, card: str, tp_run: dict) -> dict:
            "seconds": time.monotonic() - t0}
     print(f"  phase 17 {out['seconds']:.1f} s", flush=True)
     return out
+
+
+
+# ---------------- phase 18: one process a device (SPMD) ----------------------
+
+# (c)'s steps of the BNN's sign-SGD DP step, two processes against phase
+# 10's lockstep step on two replicas.
+SPMD_BNN_STEPS = 3
+SPMD_RANKS = 2
+
+
+def _child_flags() -> None:
+    """A spawned process's math settings: ``main``'s (TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _spmd_tp_step(mesh_shape, retime: bool) -> dict:
+    """Phase 18 (a) / (b), in one process of a world of ``prod(mesh_shape)``:
+    ``TP_LM_CASE`` as phases 14 and 17 (a) build it (the params from the
+    same seeded generator on the card, the launcher's first batch), bound
+    to this process's position, one ``make_tp_train_step`` step and, with
+    ``retime``, a second one timed (else the first's ms). Returns the loss, launches, counted bytes (the
+    world's mean), held and rule-table bytes, ms, peak memory, and on rank
+    0 the gathered first moment on the host."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config, train_policy
+    from repro_torch.distributed import process_group as pg
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models.model_factory import build_model
+    from repro_torch.train.step import TrainConfig, init_opt_state, make_tp_train_step
+
+    _child_flags()
+    dev = pg.device()
+    arch, layers, batch, seq = TP_LM_CASE
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    model = build_model(cfg, train_policy())
+    mesh = pg.bind(DeviceMesh(np.full(mesh_shape, dev, dtype=object), ("data", "model")))
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    opt = init_opt_state(params)
+    rule, rule_opt = _rule_bytes(mesh, params), _rule_bytes(mesh, opt)
+    sp, so = sharding.shard_params(params, mesh), sharding.shard_params(opt, mesh)
+    del params, opt
+    torch.cuda.empty_cache()
+    b0 = _lm_batch(dev, cfg, batch, seq)
+    step = make_tp_train_step(model, TrainConfig(), mesh)
+    tp.reset_bytes()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (_, new_o, m), first_ms = _timed(lambda: step(sp, so, b0))
+    launches, counted = dict(ops.LAUNCHES), dict(tp.BYTES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    mu = sharding.gather_params(sharding.Shards(
+        [o["adam"]["mu"] for o in new_o], new_o.specs["adam"]["mu"], mesh), mesh)
+    mu = _host(mu) if pg.rank() == 0 else None
+    del new_o
+    torch.cuda.empty_cache()
+    ms = events_ms(lambda: step(sp, so, b0), reps=1, warm=False) if retime else first_ms
+    return {"rank": pg.rank(), "backend": pg.backend(), "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]), "launches": launches, "counted": counted,
+            "held": _nbytes(sp[0]), "held_opt": _nbytes(so[0]), "rule": rule,
+            "rule_opt": rule_opt, "first_ms": first_ms, "ms": ms, "peak": peak,
+            "mu": mu}
+
+
+def _bnn_dp_run(dev, mesh, steps: int) -> dict:
+    """Phase 10's sign-SGD DP step on ``mesh`` (lockstep, or bound to this
+    process's position), ``steps`` steps from phase 10's init and stream,
+    the running BN statistics updated as phase 10 updates them: params,
+    residual rows and each step's metrics on the host, launches, ms a
+    step."""
+    from repro_torch import tree
+    from repro_torch.core.bnn import init_bnn_params, update_bn_stats
+    from repro_torch.data.pipeline import DataConfig, cifar_batch_at
+    from repro_torch.kernels import ops
+    from repro_torch.train.bnn_trainer import (BNNTrainerConfig, _BNNTask,
+                                               bnn_clip_predicate,
+                                               init_dp_error_feedback,
+                                               make_dp_train_step)
+    from repro_torch.train.step import init_opt_state
+
+    cfg = BNNTrainerConfig(steps=DP_STEPS)
+    step = make_dp_train_step(_BNNTask(cfg.model_config()), cfg.train_config(), mesh,
+                              grad_compression="signsgd",
+                              clip_predicate=bnn_clip_predicate)
+    rows = 1 if mesh.position is not None else len(mesh)
+    params = init_bnn_params(cfg.seed, device=dev)
+    state = [params, init_opt_state(params), init_dp_error_feedback(params, rows)]
+    data_cfg = DataConfig(seed=cfg.data_seed, global_batch=cfg.batch)
+    feeds = [{k: cifar_batch_at(data_cfg, i)[k].to(dev) for k in ("images", "labels")}
+             for i in range(steps)]
+    ops.reset_launches()
+    metrics = []
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for feed in feeds:
+        p, o, e, m = step(*state, feed)
+        state = [update_bn_stats(p, m.pop("bn_stats"), momentum=cfg.bn_momentum), o, e]
+        metrics.append(_host(m))
+    torch.cuda.synchronize()
+    return {"params": _host(state[0]), "err": _host(state[2]), "metrics": metrics,
+            "launches": {k: v for k, v in ops.LAUNCHES.items() if v},
+            "ms": (time.monotonic() - t0) * 1e3 / steps}
+
+
+def _spmd_pair() -> dict:
+    """Phase 18 (a) then (c), in one process of a world of two."""
+    from repro_torch.distributed import process_group as pg
+    from repro_torch.launch.mesh import ServingMesh
+
+    out = {"tp": _spmd_tp_step((1, SPMD_RANKS), True)}
+    torch.cuda.empty_cache()
+    _child_flags()
+    dev = pg.device()
+    out["bnn"] = _bnn_dp_run(dev, pg.bind(ServingMesh(tuple(pg.world_devices()))),
+                             SPMD_BNN_STEPS)
+    out["bnn"]["rank"] = pg.rank()
+    return out
+
+
+def _nccl_alone() -> dict:
+    """Phase 18 (d), in a world of one under NCCL: the BNN's DP step over
+    the one-process mesh (its gradient gathered through NCCL) against
+    ``make_train_step``, three steps bit for bit, as phase 10 (a) holds
+    the one-shard lockstep step."""
+    from repro_torch import tree
+    from repro_torch.core.bnn import init_bnn_params
+    from repro_torch.data.pipeline import DataConfig, cifar_batch_at
+    from repro_torch.distributed import process_group as pg
+    from repro_torch.launch.mesh import ServingMesh
+    from repro_torch.train.bnn_trainer import (BNNTrainerConfig, _BNNTask,
+                                               bnn_clip_predicate,
+                                               init_dp_error_feedback,
+                                               make_dp_train_step)
+    from repro_torch.train.step import init_opt_state, make_train_step
+
+    _child_flags()
+    dev = pg.device()
+    cfg = BNNTrainerConfig(steps=DP_STEPS)
+    task, tcfg = _BNNTask(cfg.model_config()), cfg.train_config()
+    single = make_train_step(task, tcfg, clip_predicate=bnn_clip_predicate)
+    one = make_dp_train_step(task, tcfg, pg.bind(ServingMesh((dev,))),
+                             grad_compression="none", clip_predicate=bnn_clip_predicate)
+    params = init_bnn_params(cfg.seed, device=dev)
+    a = (params, init_opt_state(params))
+    b = (*a, init_dp_error_feedback(params, 1))
+    data_cfg = DataConfig(seed=cfg.data_seed, global_batch=cfg.batch)
+    differ = []
+    for i in range(3):
+        feed = {k: cifar_batch_at(data_cfg, i)[k].to(dev) for k in ("images", "labels")}
+        pa, oa, ma = single(*a, feed)
+        pb, ob, eb, mb = one(*b, feed)
+        differ += [(i, "/".join(map(str, path))) for (path, x), y in zip(
+            tree.leaves_with_path((pa, oa, ma)), tree.leaves((pb, ob, mb)))
+            if not torch.equal(x, y)]
+        a, b = (pa, oa), (pb, ob, eb)
+    return {"backend": pg.backend(), "world": pg.world_size(), "differ": differ}
+
+
+def _coll_gap(counted: dict, reckoned: dict) -> float:
+    """The worst relative gap of ``counted`` (``tensor_parallel.BYTES``)
+    summed by kind and direction from a phase's ``reckoned`` bytes."""
+    got = _by_kind_direction(counted)
+    keys = sorted(k for k in set(got) | set(reckoned) if got[k] or reckoned.get(k))
+    return max(abs(got[k] - reckoned.get(k, 0)) / max(got[k], reckoned.get(k, 0))
+               for k in keys)
+
+
+def _max_diff(got, want) -> float:
+    from repro_torch import tree
+    return max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(tree.leaves(got), tree.leaves(want)))
+
+
+def _hold_spmd_tp(label: str, card: str, ranks: list, ref: dict, reckoned: dict) -> dict:
+    """Phase 18's checks of (a) / (b): every process on gloo; the loss
+    within ``LM_LOSS_TOL`` of the single-device step's; the gathered first
+    moment within the bf16 ``LM_GRAD_TOL`` of the single step's, its
+    largest difference from the lockstep step's printed (0 expected); the
+    flash launches of each process the single device's; each process's
+    param and optimizer bytes the rule table's; the counted bytes (the
+    world's mean) the reckoning. Prints ms a step and peak memory per
+    process."""
+    mu = ranks[0]["mu"]
+    rel = _leaf_rel_l2(mu, ref["mu_one"])
+    worst = max(rel, key=rel.get)
+    diff = _max_diff(mu, ref["mu"])
+    res = {"backend": sorted({r["backend"] for r in ranks}),
+           "loss": [r["loss"] for r in ranks], "loss_lockstep": ref["loss"],
+           "loss_single": ref["loss_one"], "max_diff_from_lockstep": diff,
+           "loss_diff_from_lockstep": max(abs(r["loss"] - ref["loss"]) for r in ranks),
+           "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_leaf": worst,
+           "launches": [{k: v for k, v in r["launches"].items() if v} for r in ranks],
+           "held_bytes": [r["held"] for r in ranks], "rule_bytes": ranks[0]["rule"],
+           "held_opt_bytes": [r["held_opt"] for r in ranks],
+           "rule_opt_bytes": ranks[0]["rule_opt"],
+           "collective_gap": max(_coll_gap(r["counted"], reckoned) for r in ranks),
+           "collective_bytes_counted": {f"{k} {s} {d}": n for (k, s, d), n in
+                                        sorted(ranks[0]["counted"].items())},
+           "ms": [r["ms"] for r in ranks], "first_ms": [r["first_ms"] for r in ranks],
+           "peak_bytes": [r["peak"] for r in ranks]}
+    print(f"  {label}: {len(ranks)} processes on {res['backend']}, loss {res['loss'][0]:.6f} "
+          f"(lockstep {ref['loss']:.6f}, single device {ref['loss_one']:.6f}); gathered "
+          f"gradients: largest difference from the lockstep step {diff:.3g}, per-leaf rel "
+          f"L2 from the single step max {rel[worst]:.3g} ({worst}); launches per process "
+          f"{res['launches']}; param bytes {res['held_bytes']} (rule table "
+          f"{res['rule_bytes']}); counted collective bytes against the reckoning: worst "
+          f"gap {res['collective_gap']:.3g}; a step {res['ms']} ms per process (CUDA "
+          f"events; first call {[round(x, 1) for x in res['first_ms']]}), peak "
+          f"{[round(p / 2**30, 2) for p in res['peak_bytes']]} GiB [{card}]", flush=True)
+    if res["backend"] != ["gloo"]:
+        fail(f"{label}: ranks sharing the card ran on {res['backend']}, not gloo")
+    for r in ranks:
+        if not abs(r["loss"] - ref["loss_one"]) <= LM_LOSS_TOL:
+            fail(f"{label}: rank {r['rank']} loss {r['loss']} vs single {ref['loss_one']}")
+        for name in ("flash_attention", "flash_attention_bwd"):
+            if not ref["one"][name] or r["launches"][name] != ref["one"][name]:
+                fail(f"{label}: rank {r['rank']} launched {name} {r['launches'][name]} "
+                     f"times, the single device {ref['one'][name]}")
+        if r["held"] != r["rule"] or r["held_opt"] != r["rule_opt"]:
+            fail(f"{label}: rank {r['rank']} holds {r['held']} / {r['held_opt']} param / "
+                 f"optimizer bytes, the rule table's {r['rule']} / {r['rule_opt']}")
+    if rel[worst] > LM_GRAD_TOL["bfloat16"]:
+        fail(f"{label}: gathered gradient {worst} rel L2 {rel[worst]:.3g} > "
+             f"{LM_GRAD_TOL['bfloat16']} of the single-device step's")
+    if res["collective_gap"] > 1e-9:
+        fail(f"{label}: counted collective bytes are not the reckoning {reckoned}")
+    return res
+
+
+def spmd_phase(dev, card: str, tp_run: dict, fsdp: dict) -> dict:
+    """Phase 18: the training steps one process a device
+    (``distributed.process_group``), processes spawned with
+    ``torch.multiprocessing`` meeting through a ``file://`` store under
+    ``build/spmd``; the kernels are built already (phase 3). (a) phase 14's
+    step on (1, 2) in two processes sharing the card over gloo, (c) phase
+    10's sign-SGD DP step in the same two, while (d) a world of one runs on
+    NCCL beside them and this process runs (c)'s lockstep step; then (b)
+    phase 17 (a)'s step on (2, 2) in four. The layout rule's refusal of
+    NCCL for two ranks on the one card comes first. The processes'
+    launches, summed, are the path ``lm_spmd_train``."""
+    import concurrent.futures
+
+    from repro_torch.distributed import process_group as pg
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import ServingMesh
+
+    t0 = time.monotonic()
+    work = OUT_DIR / "spmd"
+    work.mkdir(parents=True, exist_ok=True)
+    torch.cuda.empty_cache()
+    res, seconds = {}, {}
+    launches = {name: 0 for name in ops.LAUNCHES}
+
+    def run(part: str, call):
+        try:
+            return call()
+        except Exception as e:  # a child's failure fails the run
+            fail(f"phase 18 ({part}): {type(e).__name__}: {e}")
+
+    try:
+        pg.backend_for([dev, dev], "nccl")
+        fail("phase 18 (d): NCCL for two ranks on one card was not refused")
+    except ValueError as e:
+        res["nccl_refusal"] = str(e)
+    print(f"  (d) the layout rule refuses NCCL for two ranks on the card: "
+          f"{res['nccl_refusal']}", flush=True)
+
+    t = time.monotonic()
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        pair = ex.submit(pg.spawn, _spmd_pair, SPMD_RANKS, workdir=str(work))
+        alone = ex.submit(pg.spawn, _nccl_alone, 1, backend="nccl", workdir=str(work))
+        lock = _bnn_dp_run(dev, ServingMesh((dev,) * SPMD_RANKS), SPMD_BNN_STEPS)
+        pair, (alone,) = run("a, c", pair.result), run("d", alone.result)
+    seconds["a, c, d"] = time.monotonic() - t
+    arch, layers, batch, seq = TP_LM_CASE
+    res["a"] = _hold_spmd_tp(
+        f"(a) {arch} ({layers} of its layers) batch {batch} x {seq} bf16 on (1, "
+        f"{SPMD_RANKS}), one process a rank", card, [p["tp"] for p in pair],
+        LOCKSTEP.pop("tp"), tp_run["collectives"]["reckoned"])
+    for p in pair:
+        for name, n in p["tp"]["launches"].items():
+            launches[name] += n
+
+    spmd_bnn = [p["bnn"] for p in pair]
+    differ = []
+    for r in spmd_bnn:
+        k = r["rank"]
+        for name, got, want in (("params", r["params"], lock["params"]),
+                                ("err", r["err"], _rows_of(lock["err"], k)),
+                                ("metrics", r["metrics"], lock["metrics"])):
+            if not _identical(got, want):
+                differ.append(f"rank {k} {name}")
+        for name, n in r["launches"].items():
+            launches[name] += n
+    res["c"] = {"steps": SPMD_BNN_STEPS, "differ": differ,
+                "ms": [r["ms"] for r in spmd_bnn], "lockstep_ms": lock["ms"],
+                "launches": [r["launches"] for r in spmd_bnn],
+                "lockstep_launches": lock["launches"],
+                "loss": [float(m["loss"]) for m in lock["metrics"]]}
+    print(f"  (c) the BNN's sign-SGD DP step, {SPMD_BNN_STEPS} steps in {SPMD_RANKS} "
+          f"processes sharing the card over gloo against phase 10's lockstep step on "
+          f"{SPMD_RANKS} replicas: params, residual rows and metrics "
+          f"{'bit-identical' if not differ else 'DIFFER: ' + ', '.join(differ)}; losses "
+          f"{res['c']['loss']}; {res['c']['ms']} ms a step per process (host clock), "
+          f"{lock['ms']:.1f} ms lockstep; launches per process {res['c']['launches']} "
+          f"(lockstep {lock['launches']}) [{card}]", flush=True)
+    if differ:
+        fail(f"phase 18 (c): SPMD BNN DP step differs from the lockstep one: {differ}")
+    del pair, spmd_bnn, lock
+    torch.cuda.empty_cache()
+
+    t = time.monotonic()
+    quad = run("b", lambda: pg.spawn(_spmd_tp_step, math.prod(FSDP_MESH), FSDP_MESH,
+                                     False, workdir=str(work)))
+    seconds["b"] = time.monotonic() - t
+    res["b"] = _hold_spmd_tp(
+        f"(b) {arch} ({layers} of its layers) batch {batch} x {seq} bf16 on "
+        f"{FSDP_MESH}, one process a device", card, quad, LOCKSTEP.pop("fsdp"),
+        fsdp["parts"]["a"]["collectives"]["reckoned"])
+    for q in quad:
+        for name, n in q["launches"].items():
+            launches[name] += n
+    del quad
+
+    res["d"] = alone
+    print(f"  (d) a world of one on {alone['backend']}: the BNN DP step over it against "
+          f"make_train_step, 3 steps: "
+          f"{'bit-identical' if not alone['differ'] else alone['differ'][:5]}", flush=True)
+    if alone["backend"] != "nccl" or alone["differ"]:
+        fail(f"phase 18 (d): {alone}")
+    res.update(launches=launches, part_seconds=seconds, seconds=time.monotonic() - t0)
+    print(f"  phase 18 parts {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())} s; "
+          f"{res['seconds']:.1f} s in all", flush=True)
+    return res
+
+
+def _rows_of(err, k: int):
+    from repro_torch import tree
+    return tree.tree_map(lambda t: t[k:k + 1], err)
+
+
+def _identical(a, b) -> bool:
+    from repro_torch import tree
+    la, lb = tree.leaves(a), tree.leaves(b)
+    return len(la) == len(lb) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                      for x, y in zip(la, lb))
 
 
 KERNELS = {
@@ -5072,6 +5471,11 @@ def main() -> None:
           flush=True)
     fsdp = fsdp_phase(dev, smi, tp_run)
     clock.done("17")
+    print("phase 18: one process a device: qwen2.5-3b's TP and FSDP steps and the "
+          "BNN's sign-SGD DP step in processes sharing the card over gloo, against "
+          "the lockstep steps; a world of one on NCCL", flush=True)
+    spmd = spmd_phase(dev, smi, tp_run, fsdp)
+    clock.done("18")
     jamba_launches = dict(jamba["launches"]["prefill"])
     for counts in jamba["launches"]["decode"]:
         for name, n in counts.items():
@@ -5087,7 +5491,8 @@ def main() -> None:
                 "lm_tp_train": tp_run["launches"],
                 "lm_ep_train": ep_run["launches"],
                 "lm_tp_ssm_train": ssm_tp["launches"],
-                "lm_fsdp_train": fsdp["launches"]}
+                "lm_fsdp_train": fsdp["launches"],
+                "lm_spmd_train": spmd["launches"]}
     for name in KERNELS:
         if not sum(path[name] for path in launches.values()):
             fail(f"kernel {name} was not launched on the main path")
@@ -5100,7 +5505,7 @@ def main() -> None:
          "table2": table2, "jamba": jamba, "lm_loss": lm, "train": train,
          "mesh": mesh, "train_resilient": resilient, "lm_train": lm_train,
          "families": families, "dryrun_dp": dryrun_dp, "tp": tp_run,
-         "ep": ep_run, "ssm_tp": ssm_tp, "fsdp": fsdp,
+         "ep": ep_run, "ssm_tp": ssm_tp, "fsdp": fsdp, "spmd": spmd,
          "totals": totals,
          "phase_seconds": clock.seconds},
         indent=2))

@@ -9,7 +9,12 @@ function over the shards' tensors given in mesh order, ``(gs, errs) ->
 (mean, new_errs)``: the shards are gathered to the device of the first
 (a shard on another card is moved there with ``.to()``), and the mean and
 the new residuals, stacked ``[n, ...]``, are computed there; every float
-sum runs in mesh order.
+sum runs in mesh order. Under a process group (one process a device,
+``distributed.process_group``) a process passes its own shard, ``[g]``
+and its residual row ``[1, ...]``: it gathers every shard's ``g + err``
+over the data group, computes what one process computes from them, and
+keeps its own residual row, so the mean and the residuals are the single
+process's bit for bit.
 Error feedback keeps the quantization noise unbiased across steps (Seide
 et al.; Karimireddy et al. 2019): each shard carries what its own
 rounding threw away into its next round.
@@ -38,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import tree
+from repro_torch.distributed import process_group as pg
 
 # Entropy ratio against a float32 all-reduce: bits kept a coordinate.
 INT8_BITS_RATIO = 32 / 8     # 4x: realized on int8-reducing fabrics only
@@ -90,14 +96,29 @@ def _corrected(gs, errs) -> torch.Tensor:
     return g + stack(errs).to(g.device)
 
 
+def _over_data(c: torch.Tensor) -> tuple:
+    """(every shard's ``c`` stacked ``[n, ...]``, the rows of those this
+    process holds): ``c`` and ``None`` (all of them) from one process; under a
+    process group this process's ``[1, ...]`` gathered over the data group
+    and its own row."""
+    if not pg.active():
+        return c, None
+    k = pg.index(pg.DATA)
+    return torch.cat(pg.everyone([c], pg.DATA)), slice(k, k + 1)
+
+
+def _rows(new_errs: torch.Tensor, mine) -> torch.Tensor:
+    return new_errs if mine is None else new_errs[mine].clone()
+
+
 def psum_compressed(gs, errs) -> tuple[torch.Tensor, torch.Tensor]:
     """EF-int8 all-reduce over the shards ``gs`` (with residuals
     ``errs``), in mesh order: one common scale from the max of every
     shard's ``|g + err|``, each shard rounded to int8 against it, the
     int8 payloads summed widened to int32, then ``total * scale / n``.
     Returns the mean and each shard's rounding error, its new residual,
-    stacked ``[n, ...]``."""
-    c = _corrected(gs, errs)
+    stacked ``[n, ...]`` (this process's row under a process group)."""
+    c, mine = _over_data(_corrected(gs, errs))
     n = c.shape[0]
     # The JAX package writes ``/ 127.0``; under jit XLA's algebraic
     # simplifier turns a division by a constant into a product with its
@@ -114,7 +135,7 @@ def psum_compressed(gs, errs) -> tuple[torch.Tensor, torch.Tensor]:
     # so this equals the fused result bit for bit.
     new_errs = (c.to(torch.float64) - q.to(torch.float64)
                 * scale.to(torch.float64)).to(torch.float32)
-    return mean, new_errs
+    return mean, _rows(new_errs, mine)
 
 
 def signsgd_compress_decompress(g: torch.Tensor, err: torch.Tensor,
@@ -136,15 +157,16 @@ def psum_signsgd(gs, errs) -> tuple[torch.Tensor, torch.Tensor]:
     shards' ``mean(|g + err|)``; each shard's signs (``x >= 0`` is +1, as
     the packed weight bits: NaN goes to -1 and -0.0 to +1) summed as
     int32, then ``total * scale / n``. Returns the mean and each shard's
-    ``corrected - scale * sign``, its new residual, stacked ``[n, ...]``."""
-    c = _corrected(gs, errs)
+    ``corrected - scale * sign``, its new residual, stacked ``[n, ...]``
+    (this process's row under a process group)."""
+    c, mine = _over_data(_corrected(gs, errs))
     n = c.shape[0]
     scale = _mesh_sum(torch.mean(torch.abs(c).reshape(n, -1), dim=1)) / n
     positive = c >= 0
     total = 2 * torch.sum(positive, dim=0, dtype=torch.int32) - n
     mean = total.to(torch.float32) * scale / n
     new_errs = c - torch.where(positive, scale, -scale)
-    return mean, new_errs
+    return mean, _rows(new_errs, mine)
 
 
 def tree_compress_decompress(grads, err_state):

@@ -388,7 +388,9 @@ class Shards(list):
     (:func:`layout_specs`, :func:`device_block`): its model rank's part
     of a dim split over ``model``, its data row's part of a dim split over
     the data axes, the whole of any other dim. Every device holds its own
-    tensors. ``rows()`` groups the trees by data row, one a model rank."""
+    tensors. ``rows()`` groups the trees by data row, one a model rank.
+    Where ``mesh`` runs one process a device (its ``position`` set) a
+    process holds its own device's tree alone."""
 
     def __init__(self, trees, specs, mesh):
         super().__init__(trees)
@@ -407,7 +409,9 @@ def shard_params(params, mesh) -> Shards:
     axes and ``model`` both, in mesh order (``model`` the last axis, the
     data axes before it), a copy on the device. A block's shape is
     :func:`shard_shape` of :func:`param_spec`, the shape of the JAX
-    array's ``addressable_shards`` on that device."""
+    array's ``addressable_shards`` on that device. Where ``mesh`` runs one
+    process a device (``position`` set) the process builds its own
+    device's blocks alone, from the same full tree every process holds."""
     names = tuple(mesh.shape)
     if MODEL_AXIS in names and names[-1] != MODEL_AXIS:
         raise ValueError(f"the model axis must be the mesh's last, got {names}")
@@ -416,11 +420,14 @@ def shard_params(params, mesh) -> Shards:
                          f"got {names}")
     specs = layout_specs(mesh, params)
     m, rows = model_axis_size(mesh), data_axis_size(mesh)
+    devices = flat_devices(mesh)
+    position = getattr(mesh, "position", None)
+    held = range(len(devices)) if position is None else [position]
     trees = [tree.map_with_path(
-        lambda path, t, i=i, dev=dev: device_block(
+        lambda path, t, i=i: device_block(
             t, spec_at(specs, path), m, i % m, rows, i // m).to(
-            dev, copy=True).contiguous(), params)
-        for i, dev in enumerate(flat_devices(mesh))]
+            devices[i], copy=True).contiguous(), params)
+        for i in held]
     return Shards(trees, specs, mesh)
 
 
@@ -428,9 +435,19 @@ def gather_params(shards: Shards, mesh) -> Any:
     """The full tree of :func:`shard_params`' ``shards``, on the first
     device: each leaf's blocks concatenated over ``model`` in rank order
     within each data row, then over the data axes in row order (a dim
-    split over neither is the first device's)."""
+    split over neither is the first device's). Where ``mesh`` runs one
+    process a device every process takes part and gets the full tree on
+    its own device, each leaf's blocks gathered over the world."""
     m = model_axis_size(mesh)
     home = tree.leaves(shards[0])[0].device
+    if getattr(mesh, "position", None) is not None:
+        from repro_torch.distributed import process_group as pg
+        per_leaf = [pg.gather(leaf, pg.WORLD) for leaf in tree.leaves(shards[0])]
+        trees = []
+        for i in range(pg.world_size()):
+            it = iter([blocks[i] for blocks in per_leaf])
+            trees.append(tree.tree_map(lambda _: next(it), shards[0]))
+        shards = Shards(trees, shards.specs, shards.mesh)
 
     def whole(path, *blocks):
         spec = spec_at(shards.specs, path)

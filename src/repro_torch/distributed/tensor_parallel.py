@@ -1,14 +1,21 @@
-"""Tensor parallelism over the ``"model"`` mesh axis, driven from one
-process: the collectives, and the tensors and param trees laid out over
-the axis.
+"""Tensor parallelism over the ``"model"`` mesh axis: the collectives,
+and the tensors and param trees laid out over the axis.
 
 The JAX package has no counterpart: XLA's SPMD partitioner inserts the
 all-reduces and gathers its sharded step needs. The port runs the model
-axis of one data shard (a row of a ``launch.mesh.DeviceMesh``) in
-lockstep: each layer runs every rank's part before the next starts, and a
-collective takes every rank's tensor at once, a list in mesh order, and
-returns one tensor a rank on that rank's device. Ranks that share a card
-run one after another.
+axis of one data shard (a row of a ``launch.mesh.DeviceMesh``) one of two
+ways, with the same model code:
+
+* in lockstep, from one process: each layer runs every rank's part before
+  the next starts, and a collective takes every rank's tensor at once, a
+  list in mesh order, and returns one tensor a rank on that rank's device.
+  Ranks that share a card run one after another.
+* SPMD, one process a device (``distributed.process_group``): a process
+  holds its own rank's part alone, and a collective gathers the other
+  ranks' parts over the axis's group (``process_group.everyone``), does
+  exactly what the lockstep collective does with the whole list, and keeps
+  its own rank's result. So its sums run in the lockstep order and give
+  the lockstep bits.
 
 * :func:`all_reduce`: the sum in mesh order on the first rank's device
   (accumulated in float32 for narrower dtypes, then rounded once), a copy
@@ -28,15 +35,22 @@ convention of ``roofline.op_cost.collective_bytes``: the result's bytes on
 each device that receives it times ``COLL_MULT`` of its kind (2 for an
 all-reduce), keyed by (kind, site, ``"fwd"`` or ``"bwd"``). Inside
 :func:`counted_over` (a step over a whole mesh) that is the mean over the
-mesh's devices: a collective whose result lands on ``k`` of the ``n``
-devices adds ``k / n`` of its bytes, so the rows of a ``(data, model)``
-mesh, each its own collectives, add up to one device's bytes.
+mesh's devices: in lockstep a collective whose result lands on ``k`` of
+the ``n`` devices adds ``k / n`` of its bytes, so the rows of a ``(data,
+model)`` mesh, each its own collectives, add up to one device's bytes;
+SPMD each process counts its own device and the block ends with the mean
+of the counts over the world. The convention is the reckoning's, not the
+wire's: a gathered all-reduce moves ``n - 1`` whole parts to each rank
+where a ring moves ``2 (n - 1) / n`` of one.
 
 A :class:`Ranked` is one activation laid out over the ranks: ``parts`` in
-mesh order and ``spec``, one entry a dim, ``None`` (each rank holds the
-whole dim) or ``"model"`` (split into contiguous equal parts in rank
-order). Its dim 0 holds one data shard's rows. A :class:`RankedTree` is
-one param tree a rank beside the spec tree that laid it out
+mesh order, the model rank of the first (``first``) and the ranks on the
+axis (``size``), and ``spec``, one entry a dim, ``None`` (each rank holds
+the whole dim) or ``"model"`` (split into contiguous equal parts in rank
+order). In lockstep ``first`` is 0 and ``parts`` hold all ``size`` ranks;
+SPMD ``first`` is the process's model rank and ``parts`` its one part.
+Its dim 0 holds one data shard's rows. A :class:`RankedTree` is one param
+tree a rank, placed the same way, beside the spec tree that laid it out
 (``distributed.sharding.shard_params``). A :class:`ShardedTree` is the
 params of a mesh with several data rows as its devices hold them, each
 leaf in blocks over the data axes too; :func:`gathered` all-gathers a
@@ -55,6 +69,8 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch import tree
+from repro_torch.distributed import compression
+from repro_torch.distributed import process_group as pg
 
 MODEL = "model"
 # The wire-byte multiplier of each kind, as ``roofline.op_cost.COLL_MULT``.
@@ -78,8 +94,18 @@ def reset_bytes() -> None:
 def counted_over(devices: int):
     """Count :data:`BYTES` for the block as the mean over a mesh of
     ``devices`` devices (module docstring). Process-wide, so a backward
-    that autograd runs on another thread counts the same way."""
+    that autograd runs on another thread counts the same way. Under a
+    process group each process counts its own device, and the block's
+    counts become their mean over the world as it ends."""
     global _MESH_DEVICES
+    if pg.active():
+        before = collections.Counter(BYTES)
+        yield
+        mean = pg.mean_over_world(BYTES - before)
+        BYTES.clear()
+        BYTES.update(before)
+        BYTES.update(mean)
+        return
     prev, _MESH_DEVICES = _MESH_DEVICES, devices
     try:
         yield
@@ -90,7 +116,10 @@ def counted_over(devices: int):
 def add_bytes(kind: str, site: str, direction: str, nbytes: float,
               receivers: int) -> None:
     """Count a collective whose result of ``nbytes`` bytes lands on
-    ``receivers`` devices (module docstring)."""
+    ``receivers`` devices (module docstring); under a process group, the
+    bytes on this process's device."""
+    if pg.active():
+        receivers = 1
     BYTES[(kind, site, direction)] += (nbytes * _MULT[kind] * receivers
                                        / (_MESH_DEVICES or receivers))
 
@@ -126,11 +155,17 @@ def _copies(total: torch.Tensor, devices) -> tuple:
                  for i, dev in enumerate(devices))
 
 
+def _mine(parts) -> tuple:
+    """Of one result a rank of the axis, in mesh order, those of the ranks
+    this process holds: all of them in lockstep, its own SPMD."""
+    return tuple(parts) if not pg.active() else (parts[pg.index(MODEL)],)
+
+
 class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, site, *xs):
         ctx.site, ctx.devices = site, [x.device for x in xs]
-        total = _sum(xs)
+        total = _sum(pg.everyone(xs, MODEL))
         _count("all-reduce", site, "fwd", total, len(xs))
         return _copies(total, ctx.devices)
 
@@ -139,7 +174,7 @@ class _AllReduce(torch.autograd.Function):
         live = [g for g in gs if g is not None]
         if not live:
             return (None,) * (1 + len(gs))
-        total = _sum(live)
+        total = _sum(pg.everyone(live, MODEL))
         _count("all-reduce", ctx.site, "bwd", total, len(gs))
         return (None, *_copies(total, ctx.devices))
 
@@ -149,10 +184,11 @@ class _AllGather(torch.autograd.Function):
     def forward(ctx, site, dim, *xs):
         ctx.site, ctx.dim = site, dim
         ctx.devices = [x.device for x in xs]
+        xs = pg.everyone(xs, MODEL)
         ctx.sizes = [x.shape[dim] for x in xs]
         home = xs[0].device
         total = torch.cat([x.to(home) for x in xs], dim)
-        _count("all-gather", site, "fwd", total, len(xs))
+        _count("all-gather", site, "fwd", total, len(ctx.devices))
         return _copies(total, ctx.devices)
 
     @staticmethod
@@ -160,11 +196,11 @@ class _AllGather(torch.autograd.Function):
         live = [g for g in gs if g is not None]
         if not live:
             return (None,) * (2 + len(gs))
-        total = _sum(live)
+        total = _sum(pg.everyone(live, MODEL))
         parts = torch.split(total, ctx.sizes, ctx.dim)
         _count("reduce-scatter", ctx.site, "bwd", parts[0], len(gs))
         return (None, None, *(p.to(dev, copy=True).contiguous()
-                              for p, dev in zip(parts, ctx.devices)))
+                              for p, dev in zip(_mine(parts), ctx.devices)))
 
 
 def all_reduce(xs, site: str = "") -> tuple:
@@ -182,12 +218,48 @@ def all_max(xs, site: str = "") -> tuple:
     """The elementwise maximum of the ranks' ``xs``, one copy a rank; no
     gradient flows through it."""
     with torch.no_grad():
-        home = xs[0].device
-        total = xs[0].detach().clone()
-        for x in xs[1:]:
-            total = torch.maximum(total, x.detach().to(home))
+        every = pg.everyone([x.detach() for x in xs], MODEL)
+        home = every[0].device
+        total = every[0].clone()
+        for x in every[1:]:
+            total = torch.maximum(total, x.to(home))
     _count("all-reduce", site, "fwd", total, len(xs))
     return _copies(total, [x.device for x in xs])
+
+
+class _FirstRank(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, keep: bool):
+        ctx.keep = keep
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.keep else torch.zeros_like(g)), None
+
+
+def first_rank(xs) -> torch.Tensor:
+    """The first model rank's copy of a collective's result, where the
+    model reads that copy alone (the loss). In lockstep ``xs[0]``; SPMD
+    every process computes on its own copy, which holds the same bits, and
+    a process other than the first passes zeros back, as the lockstep
+    graph sends none into the other ranks' copies."""
+    if not pg.active():
+        return xs[0]
+    return _FirstRank.apply(xs[0], pg.index(MODEL) == 0)
+
+
+def _placement(held: int, first: Optional[int], size: Optional[int]) -> tuple:
+    """(first, size) of ``held`` parts: by default the process group's
+    model rank and axis size under one, else 0 and ``held``."""
+    spmd = pg.active()
+    if first is None:
+        first = pg.index(MODEL) if spmd else 0
+    if size is None:
+        size = pg.axis_size(MODEL) if spmd else held
+    if not 0 <= first <= first + held <= size:
+        raise ValueError(f"{held} parts from rank {first} on an axis of {size} ranks")
+    return first, size
 
 
 # --------------------------- laid-out activations -----------------------------
@@ -197,10 +269,14 @@ def all_max(xs, site: str = "") -> tuple:
 class Ranked:
     """One activation over the model ranks of a data shard: ``parts`` in
     mesh order, ``spec`` one entry a dim (``None`` whole, ``"model"``
-    split into contiguous parts in rank order)."""
+    split into contiguous parts in rank order), ``first`` the model rank
+    of ``parts[0]`` and ``size`` the ranks on the axis (by default those
+    of the process group where one runs, else 0 and ``len(parts)``)."""
 
     parts: tuple
     spec: tuple
+    first: Optional[int] = None
+    size: Optional[int] = None
 
     def __post_init__(self):
         object.__setattr__(self, "parts", tuple(self.parts))
@@ -209,6 +285,9 @@ class Ranked:
         if len(spec) != ndim or any(e not in (None, MODEL) for e in spec):
             raise ValueError(f"spec {spec} for a {ndim}-D tensor")
         object.__setattr__(self, "spec", spec)
+        first, size = _placement(len(self.parts), self.first, self.size)
+        object.__setattr__(self, "first", first)
+        object.__setattr__(self, "size", size)
 
     @classmethod
     def replicated(cls, x: torch.Tensor, devices) -> "Ranked":
@@ -218,7 +297,13 @@ class Ranked:
 
     @property
     def ranks(self) -> int:
-        return len(self.parts)
+        """The ranks on the model axis."""
+        return self.size
+
+    @property
+    def indices(self) -> range:
+        """The model rank of each part."""
+        return range(self.first, self.first + len(self.parts))
 
     @property
     def devices(self) -> tuple:
@@ -245,10 +330,10 @@ class Ranked:
                     raise ValueError(f"dim {dim} of {n} does not split over "
                                      f"{self.ranks} ranks")
                 w = n // self.ranks
-                parts = [p.narrow(dim, r * w, w) for r, p in enumerate(parts)]
+                parts = [p.narrow(dim, r * w, w) for r, p in zip(self.indices, parts)]
             else:
                 parts = list(all_gather(parts, dim, site))
-        return Ranked(parts, spec)
+        return Ranked(parts, spec, self.first, self.size)
 
 
 def piece(x: Ranked, index: int, pieces: int, *, split: bool = True) -> Ranked:
@@ -267,12 +352,13 @@ def piece(x: Ranked, index: int, pieces: int, *, split: bool = True) -> Ranked:
         raise ValueError(f"{width} does not split into {pieces} pieces")
     size = width // pieces
     if not split:
-        return Ranked([p.narrow(-1, index * size, size) for p in x.parts], x.spec)
+        return Ranked([p.narrow(-1, index * size, size) for p in x.parts], x.spec,
+                      x.first, x.size)
     if size % x.ranks:
         raise ValueError(f"a piece of {size} does not split over {x.ranks} ranks")
     w = size // x.ranks
-    return Ranked([p.narrow(-1, index * size + r * w, w) for r, p in enumerate(x.parts)],
-                  x.spec[:-1] + (MODEL,))
+    return Ranked([p.narrow(-1, index * size + r * w, w) for r, p in zip(x.indices, x.parts)],
+                  x.spec[:-1] + (MODEL,), x.first, x.size)
 
 
 def _is_ranked(a) -> bool:
@@ -295,7 +381,7 @@ def each(fn: Callable, *args, spec=None) -> Ranked:
         (spec,) = specs
     outs = [fn(*(a.parts[r] if _is_ranked(a) else a for a in args))
             for r in range(ranks)]
-    return Ranked(outs, spec)
+    return Ranked(outs, spec, ranked[0].first, ranked[0].size)
 
 
 # ------------------------------ laid-out params -------------------------------
@@ -312,19 +398,27 @@ def _map_specs(fn: Callable, specs):
 class RankedTree:
     """One param (sub)tree a model rank of a data shard, in mesh order,
     and its spec tree (each leaf a spec over the model axis alone, as
-    ``distributed.sharding.model_spec`` gives it). Indexing descends
-    every rank's tree and the spec tree together; at a leaf, ``parts``
-    are tensors and ``spec`` their spec. ``path`` is the keys taken from
-    the root (the collectives' byte counts name a projection by it)."""
+    ``distributed.sharding.model_spec`` gives it), placed on the axis as a
+    :class:`Ranked` is (``first``, ``size``). Indexing descends every
+    rank's tree and the spec tree together; at a leaf, ``parts`` are
+    tensors and ``spec`` their spec. ``path`` is the keys taken from the
+    root (the collectives' byte counts name a projection by it)."""
 
-    def __init__(self, parts, spec, path: tuple = ()):
+    def __init__(self, parts, spec, path: tuple = (), first: Optional[int] = None,
+                 size: Optional[int] = None):
         self.parts = tuple(parts)
         self.spec = spec
         self.path = path
+        self.first, self.size = _placement(len(self.parts), first, size)
+
+    @property
+    def indices(self) -> range:
+        """The model rank of each part."""
+        return range(self.first, self.first + len(self.parts))
 
     def __getitem__(self, key) -> "RankedTree":
         return RankedTree([p[key] for p in self.parts], self.spec[key],
-                          self.path + (key,))
+                          self.path + (key,), self.first, self.size)
 
     def __contains__(self, key) -> bool:
         return key in self.parts[0]
@@ -342,12 +436,12 @@ class RankedTree:
         over the ranks (``train.step._sum_replicated``) is exact."""
         if self.split(dim):
             raise ValueError(f"dim {dim} is already split over the ranks")
-        m = len(self.parts)
+        m = self.size
         n = self.parts[0].shape[dim]
         if n % m:
             raise ValueError(f"dim {dim} of {n} does not split over {m} ranks")
         return tuple(p.narrow(dim, r * (n // m), n // m)
-                     for r, p in enumerate(self.parts))
+                     for r, p in zip(self.indices, self.parts))
 
     def index(self, i: int) -> "RankedTree":
         """Entry ``i`` of every leaf's leading stacked axis (a period's
@@ -356,7 +450,8 @@ class RankedTree:
         from repro_torch.distributed.sharding import PartitionSpec
         return RankedTree(
             [tree.tree_map(lambda t: t[i], p) for p in self.parts],
-            _map_specs(lambda s: PartitionSpec(*s[1:]), self.spec), self.path)
+            _map_specs(lambda s: PartitionSpec(*s[1:]), self.spec), self.path,
+            self.first, self.size)
 
 
 # ------------------------- params sharded over data ---------------------------
@@ -366,19 +461,32 @@ class _DataGather(torch.autograd.Function):
     """One rank's blocks of a leaf concatenated along the dim the data axes
     split, in row order, on one row's device. Backward: each block's slice
     of that row's gradient, moved to the block's device (the sum over the
-    rows is the step's, ``train.step``)."""
+    rows is the step's, ``train.step``).
+
+    SPMD a process holds its own row's block: it gathers the others over
+    its data group, and its backward gathers every row's gradient of the
+    whole leaf and sums their slices of its block in row order (a
+    reduce-scatter), the sum the lockstep step forms over the rows. With
+    one microbatch that is the lockstep step's sum bit for bit; with more
+    the rows are summed within each microbatch, before the microbatches."""
 
     @staticmethod
     def forward(ctx, site, dim, home, *blocks):
         ctx.dim = dim
         ctx.devices = [b.device for b in blocks]
-        ctx.sizes = [b.shape[dim] for b in blocks]
-        total = torch.cat([b.to(home) for b in blocks], dim)
+        every = pg.everyone(blocks, pg.DATA)
+        ctx.sizes = [b.shape[dim] for b in every]
+        total = torch.cat([b.to(home) for b in every], dim)
         _count("all-gather", site, "fwd", total, 1)
         return total
 
     @staticmethod
     def backward(ctx, g):
+        if pg.active():
+            k = pg.index(pg.DATA)
+            return None, None, None, compression._mesh_sum(
+                [torch.split(x, ctx.sizes, ctx.dim)[k].contiguous()
+                 for x in pg.everyone([g], pg.DATA)])
         parts = torch.split(g, ctx.sizes, ctx.dim)
         return (None, None, None, *(p.to(dev).contiguous()
                                     for p, dev in zip(parts, ctx.devices)))
@@ -458,4 +566,4 @@ def gathered(params, keep: Optional[str] = None):
 
 __all__ = ["BYTES", "MODEL", "Ranked", "RankedTree", "ShardedTree", "add_bytes",
            "all_gather", "all_max", "all_reduce", "bytes_by_kind", "counted_over",
-           "each", "gathered", "piece", "reset_bytes"]
+           "each", "first_rank", "gathered", "piece", "reset_bytes"]

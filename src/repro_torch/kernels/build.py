@@ -12,6 +12,7 @@ this module is imported: :func:`load` builds on first CUDA use, and the
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -151,12 +152,24 @@ def build() -> dict:
 
     Returns ``{"dir", "seconds", "built": [names], "ptxas": {name: log}}``;
     raises ``RuntimeError`` with the compiler's output if a build fails.
+    Processes that start together (one a device) build once: each takes
+    an exclusive lock on the build directory, and the ones that follow
+    find the libraries there.
     """
     out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build(out_dir)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build(out_dir: pathlib.Path) -> dict:
     t0 = time.monotonic()
     missing = [n for n in SOURCES if not (out_dir / f"{n}.so").exists()]
     compiler = nvcc() if missing else ""
-    out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in missing:
         tmp = out_dir / f"{name}.{os.getpid()}.tmp.so"

@@ -27,6 +27,12 @@ repeat one card (ranks sharing it run one after another) or be CPU
 entries, as a ``ServingMesh``'s may; a ``ServingMesh`` is its 1-D
 ``("data",)`` case.
 
+Either mesh may instead run one process a device (SPMD, as the JAX
+package's sharded steps run): ``distributed.process_group.bind`` gives
+each process the mesh with ``position``, the flat index it holds, and the
+training steps then compute that position's part alone, their collectives
+going through ``torch.distributed``.
+
 The LM dry run's production meshes (``SINGLE_POD``, ``MULTI_POD``,
 :func:`make_production_mesh`) are abstract: an :class:`AbstractMesh` holds
 the axis names and sizes the rule table (``distributed.sharding``) and the
@@ -55,9 +61,14 @@ class ServingMesh:
     accepted, repeats included (as ``jax.sharding.Mesh`` takes any device
     array): several replicas may share one card, each with its own
     stream, graph pool and graphs. A mix of CUDA and CPU devices raises.
+
+    ``position`` is the replica this process runs where the mesh runs one
+    process a device (``distributed.process_group.bind``), ``None`` where
+    one process drives every replica.
     """
 
     devices: tuple
+    position: Optional[int] = None
 
     def __post_init__(self):
         object.__setattr__(self, "devices", _devices_of_one_kind(self.devices))
@@ -118,9 +129,12 @@ class DeviceMesh:
     ``torch.device`` (mesh order is its C order), ``axis_names`` one name
     a grid axis, ``.shape`` axis name -> size in axis order. The same
     devices as a :class:`ServingMesh` accepts: CUDA entries (repeats
-    share a card) or CPU entries, not a mix."""
+    share a card) or CPU entries, not a mix. ``position`` is the flat
+    mesh index this process holds where the mesh runs one process a
+    device (``distributed.process_group.bind``), ``None`` where one
+    process drives every entry."""
 
-    def __init__(self, devices, axis_names):
+    def __init__(self, devices, axis_names, position: Optional[int] = None):
         grid = np.asarray(devices, dtype=object)
         axis_names = tuple(axis_names)
         if grid.ndim != len(axis_names):
@@ -130,6 +144,7 @@ class DeviceMesh:
         flat[:] = _devices_of_one_kind(grid.reshape(-1))
         self.devices = flat.reshape(grid.shape)
         self.axis_names = axis_names
+        self.position = position
 
     @property
     def shape(self) -> collections.OrderedDict:

@@ -30,13 +30,27 @@ each batch's tokens as the JAX launcher derives them
 ``torch.compile``; attention, the SSM scan and the mLSTM run their
 kernels forward and backward.
 
+Under ``torchrun`` (``WORLD_SIZE`` set) it runs one process a device, as
+the JAX package runs its sharded step: ``distributed.process_group.
+init_from_env`` starts the world (NCCL where every rank has a card of its
+own, gloo where ranks share one), the mesh of the world's devices is the
+one above with each rank at its flat position (``process_group.bind``),
+each process holds its own device's blocks and computes its own part,
+and the collectives go through ``torch.distributed``; the step is the
+one-process step bit for bit. Rank 0 prints and writes the checkpoints
+(the gathered trees); every rank reads the same checkpoint on resume and
+takes its own blocks. MoE configs do not run so yet (ROADMAP A5b step 6).
+
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --smoke --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \\
+      -m repro_torch.launch.train --arch qwen2.5-3b --steps 20
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -47,6 +61,7 @@ from repro_torch.configs.base import (float_policy, get_config, smoke_config,
                                       train_policy)
 from repro_torch.core.bnn import resolve_device
 from repro_torch.data.pipeline import DataConfig, Prefetcher, synthetic_lm_batches
+from repro_torch.distributed import process_group as pg
 from repro_torch.distributed.fault_tolerance import (HeartbeatMonitor,
                                                      StragglerDetector)
 from repro_torch.distributed.sharding import (data_axis_size, flat_devices,
@@ -77,7 +92,14 @@ def train_mesh(device=None, mesh=None):
     card on CUDA, or the one device named. Several cards give the JAX
     launcher's layout, ``make_device_mesh(cards, model_parallel=min(n,
     16))``, for every family; one card its 1-D ``ServingMesh``
-    (``make_serving_mesh``)."""
+    (``make_serving_mesh``). Under a process group the world's devices,
+    laid out the same way, bound to this process's position."""
+    if pg.active():
+        if mesh is None:
+            devs = pg.world_devices()
+            mesh = (make_device_mesh(devs, model_parallel=min(len(devs), 16))
+                    if len(devs) > 1 else ServingMesh(tuple(devs)))
+        return pg.bind(mesh)
     if mesh is not None:
         return mesh
     dev = resolve_device(device)
@@ -104,7 +126,7 @@ def _layout(model, tcfg: TrainConfig, mesh):
                     lambda t: gather_params(t, mesh),
                     f"tensor parallel over {dict(mesh.shape)} "
                     f"{list(map(str, mesh.flat))}{fsdp}")
-        mesh = ServingMesh(mesh.flat)
+        mesh = ServingMesh(mesh.flat, position=mesh.position)
     if len(mesh) == 1:
         return (make_train_step(model, tcfg), lambda t: t, lambda t: t,
                 f"one device, {mesh.devices[0]}")
@@ -131,13 +153,31 @@ def train(
 ) -> dict:
     """Train ``arch`` for ``steps`` steps on ``train_mesh(device, mesh)``: one device, tensor parallelism over a ``DeviceMesh``'s model
     axis, or data parallelism over several devices with the params on the
-    first (module docstring). Returns the (gathered) params, the losses
-    and the last step's metrics."""
+    first (module docstring); one process a device where a process group
+    runs, or ``WORLD_SIZE`` says one should (started here then, and ended
+    when the run ends). Returns the (gathered) params, the losses and the
+    last step's metrics."""
+    started = "WORLD_SIZE" in os.environ and not pg.active()
+    if started:
+        pg.init_from_env(device=device)
+    try:
+        return _train(arch, smoke=smoke, steps=steps, batch=batch, seq=seq, lr=lr,
+                      microbatches=microbatches, ckpt_dir=ckpt_dir,
+                      ckpt_every=ckpt_every, quantized=quantized,
+                      log_every=log_every, seed=seed, device=device, mesh=mesh)
+    finally:
+        if started:
+            pg.destroy()
+
+
+def _train(arch, *, smoke, steps, batch, seq, lr, microbatches, ckpt_dir, ckpt_every,
+           quantized, log_every, seed, device, mesh) -> dict:
     cfg = smoke_config(arch) if smoke else get_config(arch)
     policy = train_policy() if quantized else float_policy()
     model = build_model(cfg, policy)
     mesh = train_mesh(device, mesh)
-    dev = flat_devices(mesh)[0]
+    dev = flat_devices(mesh)[getattr(mesh, "position", None) or 0]
+    lead = not pg.active() or pg.rank() == 0
 
     dcfg = DataConfig(seed=seed, global_batch=batch, seq_len=seq,
                       vocab_size=cfg.vocab_size)
@@ -150,19 +190,24 @@ def train(
         microbatches=microbatches,
     )
     step_fn, lay_out, gather, layout = _layout(model, tcfg, mesh)
-    print(f"layout: {layout}", flush=True)
+    if pg.active():
+        layout += f"; one process a device, backend {pg.backend()}, {pg.world_size()} ranks"
+    if lead:
+        print(f"layout: {layout}", flush=True)
 
     start_step = 0
     writer = None
     if ckpt_dir:
-        writer = ckpt.AsyncCheckpointer(ckpt_dir)
+        if lead:
+            writer = ckpt.AsyncCheckpointer(ckpt_dir)
         latest = ckpt.latest_valid_step(ckpt_dir)
         if latest is not None:
             state = ckpt.restore(ckpt_dir, latest,
                                  {"params": params, "opt": opt_state})
             params, opt_state = state["params"], state["opt"]
             start_step = latest
-            print(f"resumed from step {latest}")
+            if lead:
+                print(f"resumed from step {latest}")
     params, opt_state = lay_out(params), lay_out(opt_state)
 
     monitor = HeartbeatMonitor(num_hosts=1, timeout=3600.0)
@@ -183,13 +228,14 @@ def train(
         dt = time.time() - t0
         straggler.observe({0: dt})
         losses.append(float(metrics["loss"]))
-        if step % log_every == 0 or step == steps - 1:
+        if lead and (step % log_every == 0 or step == steps - 1):
             print(f"step {step:5d}  loss {float(metrics['loss']):.4f}  "
                   f"gnorm {float(metrics['grad_norm']):.3f}  {dt:.2f}s",
                   flush=True)
-        if writer and (step + 1) % ckpt_every == 0:
-            writer.save(step + 1, {"params": gather(params),
-                                   "opt": gather(opt_state)})
+        if ckpt_dir and (step + 1) % ckpt_every == 0:
+            full = {"params": gather(params), "opt": gather(opt_state)}
+            if writer:
+                writer.save(step + 1, full)
     if writer:
         writer.close()
     return {"params": gather(params), "losses": losses, "final_metrics": metrics}
@@ -218,7 +264,8 @@ def main(argv=None):
                 quantized=args.quantized)
     first = np.mean(out["losses"][:5])
     last = np.mean(out["losses"][-5:])
-    print(f"loss {first:.4f} -> {last:.4f}")
+    if int(os.environ.get("RANK", 0)) == 0:
+        print(f"loss {first:.4f} -> {last:.4f}")
 
 
 if __name__ == "__main__":

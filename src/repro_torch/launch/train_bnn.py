@@ -10,8 +10,16 @@ asked for and absent); on CUDA with TF32 off, as the serving entry
 points run. The ``xnor`` and ``megakernel`` engines of the probe launch
 the kernels on CUDA and run their plain twins on the CPU.
 
+Under ``torchrun`` (``WORLD_SIZE`` set) it trains data parallel, one
+process a device (``distributed.process_group.init_from_env``: NCCL where
+every rank has a card of its own, gloo where ranks share one), each rank
+the gradient of its batch shard averaged over the world in rank order
+(``train.bnn_trainer.make_dp_train_step``); rank 0 exports and reports.
+
   PYTHONPATH=src python -m repro_torch.launch.train_bnn [--steps 120] \
       [--checkpoint-dir DIR] [--export trained.npz] [--device cpu]
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.train_bnn --steps 120
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ from repro_torch.core.bnn import (bnn_eval_logits, load_binary_checkpoint,
                                   pack_trained_params, resolve_device,
                                   save_binary_checkpoint)
 from repro_torch.data.pipeline import DataConfig, cifar_batch_at
+from repro_torch.distributed import process_group as pg
+from repro_torch.launch.mesh import ServingMesh
 from repro_torch.train.bnn_trainer import BNNTrainerConfig, train_bnn
 
 
@@ -47,7 +57,18 @@ def parse_args(argv=None):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    if "WORLD_SIZE" not in os.environ:
+        _run(args, None)
+        return
+    pg.init_from_env(device=args.device)
+    try:
+        _run(args, pg.bind(ServingMesh(tuple(pg.world_devices()))))
+    finally:
+        pg.destroy()
+
+
+def _run(args, mesh) -> None:
+    dev = pg.device() if mesh is not None else resolve_device(args.device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -55,7 +76,9 @@ def main(argv=None) -> None:
                            warmup_steps=max(1, args.steps // 12),
                            checkpoint_dir=args.checkpoint_dir)
     t0 = time.time()
-    res = train_bnn(cfg, verbose=True, device=dev)
+    res = train_bnn(cfg, verbose=True, device=dev, mesh=mesh)
+    if mesh is not None and mesh.position != 0:
+        return
     resumed = f" (resumed from {res.start_step})" if res.start_step else ""
     print(f"trained {args.steps - res.start_step} steps in "
           f"{time.time() - t0:.1f}s{resumed}")

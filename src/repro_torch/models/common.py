@@ -125,7 +125,7 @@ def _proj_tp(params: tp.RankedTree, x: tp.Ranked, policy: QuantPolicy) -> tp.Ran
     partial = [bit_linear({"w": wr}, xr, bare) for wr, xr in zip(w.parts, x.parts)]
     y = tp.all_reduce(partial, site=_site(params))
     if cfg.mode == QuantMode.FAKE_QUANT and cfg.use_scale:
-        n_in = sum(wr.shape[-1] for wr in w.parts)
+        n_in = w.parts[0].shape[-1] * w.size   # equal parts, every rank's
         sums = tp.all_reduce([wr.detach().abs().sum(-1) for wr in w.parts],
                              site="alpha")
         y = [yr * (s / n_in).reshape(1, -1).to(yr.dtype) for yr, s in zip(y, sums)]
@@ -240,7 +240,7 @@ def embed(p: Params, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
         return tp.each(lambda t, i: t[i].to(dtype), table, ids,
                        spec=ids.spec + (None,))
     parts = []
-    for r, (t, i) in enumerate(zip(table.parts, ids.parts)):
+    for r, t, i in zip(table.indices, table.parts, ids.parts):
         v = t.shape[0]
         local = i.long() - r * v
         hit = (local >= 0) & (local < v)
@@ -282,11 +282,13 @@ def vocab_parallel_cross_entropy(logits: tp.Ranked, labels: tp.Ranked,
     is a max all-reduce (no gradient: the shift), the sum of exps an
     all-reduce, and the label's logit an all-reduce of the one rank that
     holds it. A whole vocab: every rank's loss is the plain one, and the
-    first rank's is returned."""
+    first rank's is returned (``tensor_parallel.first_rank``: one process
+    a device, each computes the first rank's loss on its own copy)."""
     if logits.spec[-1] != tp.MODEL:
-        return softmax_cross_entropy(logits.parts[0][..., :vocab], labels.parts[0])
+        return softmax_cross_entropy(tp.first_rank(logits.parts)[..., :vocab],
+                                     labels.parts[0])
     cols, parts = logits.parts[0].shape[-1], []
-    for r, z in enumerate(logits.parts):
+    for r, z in zip(logits.indices, logits.parts):
         z = z.float()
         col = torch.arange(r * cols, (r + 1) * cols, device=z.device)
         parts.append(torch.where(col < vocab, z, -torch.inf))
@@ -294,11 +296,12 @@ def vocab_parallel_cross_entropy(logits: tp.Ranked, labels: tp.Ranked,
     sums = tp.all_reduce([torch.exp(z - s[..., None]).sum(-1)
                           for z, s in zip(parts, shift)], site="loss sum")
     picked = []
-    for r, (z, lab) in enumerate(zip(parts, labels.parts)):
+    for r, z, lab in zip(logits.indices, parts, labels.parts):
         local = lab.long() - r * cols
         hit = (local >= 0) & (local < cols)
         got = z.gather(-1, torch.clamp(local, 0, cols - 1)[..., None])[..., 0]
         picked.append(torch.where(hit, got, 0.0))
     label_logit = tp.all_reduce(picked, site="loss label")
-    nll = shift[0] + torch.log(sums[0]) - label_logit[0]
+    nll = (shift[0] + torch.log(tp.first_rank(sums))
+           - tp.first_rank(label_logit))
     return nll.mean()

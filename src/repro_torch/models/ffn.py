@@ -310,7 +310,7 @@ def _moe_ffn_tp(params: tp.RankedTree, x: tp.Ranked, cfg, policy: QuantPolicy,
                                                   x.parts)]
     _collect(routes)
     outs = []
-    for r, (pr, xr, route) in enumerate(zip(params.parts, x.parts, routes)):
+    for r, pr, xr, route in zip(params.indices, params.parts, x.parts, routes):
         first = r * pr["up_proj"]["w"].shape[0] if split else 0
         outs.append(_experts(pr, xr, route, first, policy, act))
     if split:

@@ -212,7 +212,7 @@ def _mlstm_tp(params: tp.RankedTree, x: tp.Ranked, cfg, policy: QuantPolicy) -> 
     hl = h // m if local else h
     gates = proj(params["if_proj"], xm, policy).laid_out(whole, site="gather if_proj")
     ys = []
-    for r, (qr, kr, vr, gr) in enumerate(zip(q.parts, k.parts, v.parts, gates.parts)):
+    for r, qr, kr, vr, gr in zip(q.indices, q.parts, k.parts, v.parts, gates.parts):
         first = r * hl if local else 0
         gr = gr.float().reshape(b, s, 2, h)[..., first:first + hl]
         y, _ = mlstm_cell(qr.reshape(b, s, hl, dh), kr.reshape(b, s, hl, dh),
@@ -355,12 +355,12 @@ def _slstm_tp(params: tp.RankedTree, x: tp.Ranked, cfg, policy: QuantPolicy) -> 
     wx = proj(params["gates_proj"], x, policy).laid_out(whole, site="gather gates_proj")
     rec = params["R"].rank_slices(1) if local else params["R"].parts
     ys = []
-    for r, (wr, rr) in enumerate(zip(wx.parts, rec)):
+    for r, wr, rr, xr in zip(x.indices, wx.parts, rec, x.parts):
         wr = wr.float()
         if local:
             wr = wr.reshape(b, s, 4, d)[..., r * w:(r + 1) * w].reshape(b, s, 4 * w)
         y, _ = _slstm_loop(wr, rr, _zero_carry(b, w, wr.device))
-        ys.append(y.to(x.parts[r].dtype))
+        ys.append(y.to(xr.dtype))
     y = tp.Ranked(ys, x.spec[:-1] + (tp.MODEL if local else None,))
     y = rmsnorm_tp(params["gn_scale"], y.laid_out(whole, site="gather slstm"))
     u = proj(params["up_proj"], y, policy).laid_out(whole, site="gather up_proj")

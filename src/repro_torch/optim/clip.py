@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import tree
+from repro_torch.distributed import process_group as pg
 from repro_torch.distributed.sharding import (Shards, data_dim, model_axis_size,
                                               model_dim, spec_at)
 
@@ -25,7 +26,10 @@ def global_norm(grads) -> torch.Tensor:
     split over the data axes each data row's block once, a leaf split over
     the model axis each rank's part once, a leaf a dim of which neither
     splits (held whole, or whole over the other axis) counted once over
-    that axis."""
+    that axis. Where the mesh runs one process a device (its ``position``
+    set) each process squares its own blocks, gathers every device's sums
+    over the world and adds them in the same order, so every process holds
+    the same norm, bit for bit the one-process norm."""
     if not isinstance(grads, Shards):
         total = 0
         for g in tree.leaves(grads):
@@ -33,14 +37,18 @@ def global_norm(grads) -> torch.Tensor:
         return torch.sqrt(total)
     m = model_axis_size(grads.mesh)
     home = tree.leaves(grads[0])[0].device
+    if getattr(grads.mesh, "position", None) is None:
+        blocks, square = list(zip(*map(tree.leaves, grads))), _square_sum
+    else:
+        own = torch.stack([_square_sum(g) for g in tree.leaves(grads[0])])
+        blocks, square = list(zip(*pg.gather(own, pg.WORLD))), lambda ss: ss
     total = 0
-    for (path, _), *blocks in zip(tree.leaves_with_path(grads[0]),
-                                  *map(tree.leaves, grads)):
+    for (path, _), per_device in zip(tree.leaves_with_path(grads[0]), blocks):
         spec = spec_at(grads.specs, path)
         by_data, by_model = data_dim(spec) is not None, model_dim(spec) is not None
-        for i, g in enumerate(blocks):
+        for i, g in enumerate(per_device):
             if (by_data or i // m == 0) and (by_model or i % m == 0):
-                total = total + _square_sum(g).to(home)
+                total = total + square(g).to(home)
     return torch.sqrt(total)
 
 

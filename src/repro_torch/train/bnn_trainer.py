@@ -27,7 +27,11 @@ first replica, neither ``torch.cuda.comm.reduce_add`` nor NCCL: the
 resilient trainer's chaos gates need replays bit-identical to their
 controls, so the order of every float sum must not vary; the mesh is one
 process with no process group; and replicas may share one card. A shard
-on another card is moved to the first with ``.to()``.
+on another card is moved to the first with ``.to()``. Where the mesh runs
+one process a device (``distributed.process_group``) each process takes
+its own shard's gradient and gathers the others over ``torch.distributed``
+before the same reduce, so its params, residuals and metrics are the
+one-process step's bit for bit.
 ``train/resilience.py`` wraps both steps in the fault-tolerance machinery.
 """
 
@@ -48,10 +52,11 @@ from repro_torch.core.bnn import (BNNConfig, bnn_eval_logits,
                                   xent_and_acc)
 from repro_torch.data.pipeline import DataConfig, synthetic_cifar_batches
 from repro_torch.distributed import compression
+from repro_torch.distributed import process_group as pg
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import (TrainConfig, _apply_update, _grads_of,
                                     dp_mesh_mean, dp_shards, init_opt_state,
-                                    make_train_step)
+                                    make_train_step, spmd)
 
 
 def bnn_clip_predicate(path: tuple) -> bool:
@@ -133,7 +138,7 @@ def evaluate_bnn(params, data_iter, *, batches: int,
 
 
 def train_bnn(cfg: BNNTrainerConfig, *, params=None, verbose: bool = False,
-              device=None) -> TrainResult:
+              device=None, mesh=None) -> TrainResult:
     """Train the CIFAR BNN with STE, the latent clip and running BN
     statistics, on ``device`` (CUDA unless given; ``params``, if given,
     are moved there, else ``init_bnn_params(cfg.seed)``).
@@ -145,8 +150,15 @@ def train_bnn(cfg: BNNTrainerConfig, *, params=None, verbose: bool = False,
     and the cosine horizon stays ``cfg.steps``, so a resumed run replays
     the rest of the run it resumes. The held-out eval takes the stream's
     batches ``steps .. steps + eval_batches - 1``.
+
+    With ``mesh`` (a ``ServingMesh`` bound to this process's position by
+    ``distributed.process_group.bind``) each step is
+    :func:`make_dp_train_step` with the plain mean (``"none"``) over the
+    world, one process a device on ``device``; rank 0 prints and writes the
+    checkpoints, and every rank resumes from the same one.
     """
     dev = resolve_device(device)
+    lead = mesh is None or mesh.position == 0
     task = _BNNTask(cfg.model_config())
     tcfg = cfg.train_config()
     if params is None:
@@ -165,6 +177,13 @@ def train_bnn(cfg: BNNTrainerConfig, *, params=None, verbose: bool = False,
             start_step = latest
 
     step_fn = make_train_step(task, tcfg, clip_predicate=bnn_clip_predicate)
+    if mesh is not None:
+        dp_step = make_dp_train_step(task, tcfg, mesh, grad_compression="none",
+                                     clip_predicate=bnn_clip_predicate)
+
+        def step_fn(p, o, b):
+            p, o, _, m = dp_step(p, o, None, b)
+            return p, o, m
     data = synthetic_cifar_batches(
         DataConfig(seed=cfg.data_seed, global_batch=cfg.batch))
     steps: dict = {"loss": [], "acc": [], "lr_scale": []}
@@ -178,15 +197,15 @@ def train_bnn(cfg: BNNTrainerConfig, *, params=None, verbose: bool = False,
                                  momentum=cfg.bn_momentum)
         for key in steps:
             steps[key].append(metrics[key])
-        if verbose and (i % cfg.log_every == 0 or i == cfg.steps - 1):
+        if verbose and lead and (i % cfg.log_every == 0 or i == cfg.steps - 1):
             print(f"step {i:4d} loss {float(metrics['loss']):.4f} "
                   f"acc {float(metrics['acc']):.3f} "
                   f"lr_scale {float(metrics['lr_scale']):.3f}")
-        if (cfg.checkpoint_dir and cfg.checkpoint_every
+        if (lead and cfg.checkpoint_dir and cfg.checkpoint_every
                 and (i + 1) % cfg.checkpoint_every == 0):
             ckpt_manager.save(cfg.checkpoint_dir, i + 1,
                               {"params": params, "opt": opt_state})
-    if cfg.checkpoint_dir:
+    if lead and cfg.checkpoint_dir:
         ckpt_manager.save(cfg.checkpoint_dir, cfg.steps,
                           {"params": params, "opt": opt_state})
     # One copy to the host for the run, not one a step.
@@ -195,7 +214,7 @@ def train_bnn(cfg: BNNTrainerConfig, *, params=None, verbose: bool = False,
     # Held-out: the stateless stream continues past the train range.
     eval_loss, eval_acc = evaluate_bnn(params, data, batches=cfg.eval_batches,
                                        use_scale=cfg.use_scale)
-    if verbose:
+    if verbose and lead:
         print(f"eval loss {eval_loss:.4f} acc {eval_acc:.3f} "
               f"(chance {1.0 / 10:.2f})")
     return TrainResult(params=params, opt_state=opt_state, history=history,
@@ -245,6 +264,15 @@ def make_dp_train_step(task, tcfg: TrainConfig, mesh, *,
     global batch's). Params, optimizer state and ``err`` live on one
     device; the results come back there. ``tcfg.microbatches`` is not
     read, as in the JAX package's step.
+
+    Where ``mesh`` runs one process a device (its ``position`` set by
+    ``distributed.process_group.bind``) a process takes the gradient of its
+    own shard alone, ``err`` holds its own residual row (``[1, ...]``, row
+    ``position`` of the stack), and the reduce gathers every shard's
+    gradient (``"none"``) or every shard's ``g + err``
+    (``distributed.compression``) over the world before summing in mesh
+    order; the metrics' means gather too. Params, optimizer state,
+    residuals and metrics equal the one-process step's bit for bit.
     """
     if grad_compression not in DP_COMPRESSIONS:
         raise ValueError(
@@ -253,11 +281,14 @@ def make_dp_train_step(task, tcfg: TrainConfig, mesh, *,
     reduce = {"int8": compression.psum_compressed,
               "signsgd": compression.psum_signsgd}.get(grad_compression)
     devices = tuple(mesh.devices)
+    own = mesh.position if spmd(mesh) else None
 
     def train_step(params, opt_state, err, batch):
         home = tree.leaves(params)[0].device
         losses, shard_metrics, shard_grads = zip(*dp_shards(
-            functools.partial(_grads_of, task), params, batch, devices))
+            functools.partial(_grads_of, task), params, batch, devices, own))
+        if own is not None and reduce is None:
+            shard_grads = pg.gather_tree(shard_grads[0], pg.DATA)
         per_leaf = list(zip(*map(tree.leaves, shard_grads)))
         if reduce is None:
             means = [dp_mesh_mean(gs, home) for gs in per_leaf]

@@ -32,6 +32,18 @@ data parallelism over the data axis: the params and optimizer state laid
 out by the whole rule table (``distributed.sharding.shard_params``), a
 leaf split over data gathered where it is used.
 
+Each multi-device step runs one of two ways. In lockstep one process
+drives every device of the mesh and runs each shard's part in turn. Where
+the mesh runs one process a device (its ``position`` set by
+``distributed.process_group.bind``: SPMD, as the JAX package's sharded
+steps run) each process computes its own position's part alone and its
+reductions gather the other processes' parts over ``torch.distributed``
+(``process_group.everyone``), then sum them in the lockstep order: every
+param, optimizer leaf and metric is the lockstep step's bit for bit. The
+MoE configs' whole-batch balance loss needs a gradient back through a
+cross-process gather, which the port does not have yet (ROADMAP A5b step
+6): their steps raise ``NotImplementedError`` under a process group.
+
 ``make_prefill`` / ``make_decode_step`` wrap ``Model.prefill`` /
 ``Model.decode_step``.
 """
@@ -47,6 +59,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.distributed import compression, sharding
+from repro_torch.distributed import process_group as pg
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import shard_rows
 from repro_torch.models import ffn
@@ -172,16 +185,38 @@ def make_train_step(model, tcfg: TrainConfig,
 # ---------------------------------------------------------------------------
 
 
-def dp_shards(fn: Callable, params, batch, devices) -> list:
+def spmd(mesh) -> bool:
+    """Whether ``mesh`` runs one process a device (its ``position`` set):
+    ``ValueError`` where it does and no process group runs."""
+    if getattr(mesh, "position", None) is None:
+        return False
+    if not pg.active():
+        raise ValueError("a mesh bound to a process position, and no process group")
+    return True
+
+
+def _no_moe_spmd(model) -> None:
+    if model.cfg.num_experts:
+        raise NotImplementedError(
+            "an MoE config's balance loss is formed from the router terms of the "
+            "whole batch, which needs a gradient back through a cross-process "
+            "gather: one process a device trains the MoE stacks from ROADMAP A5b "
+            "step 6 on; run it in lockstep from one process until then")
+
+
+def dp_shards(fn: Callable, params, batch, devices, only: Optional[int] = None) -> list:
     """``fn(params, shard)`` of each replica, in mesh order: replica ``i``
     on ``devices[i]`` with its contiguous batch shard
     (``distributed.sharding.shard_rows``). The params are copied once to
-    each device they are not on; replicas on one device share them."""
+    each device they are not on; replicas on one device share them. With
+    ``only`` (one process a device) replica ``only`` alone, a list of one."""
     home = tree.leaves(params)[0].device
     rows = shard_rows(int(tree.leaves(batch)[0].shape[0]), len(devices))
     replicas: dict = {home: params}
     outs = []
     for i, dev in enumerate(devices):
+        if only is not None and i != only:
+            continue
         if dev not in replicas:
             replicas[dev] = tree.tree_map(lambda t: t.to(dev), params)
         shard = tree.tree_map(lambda t: t[i * rows:(i + 1) * rows].to(dev), batch)
@@ -192,8 +227,9 @@ def dp_shards(fn: Callable, params, batch, devices) -> list:
 def dp_mesh_mean(xs, home: torch.device) -> torch.Tensor:
     """The replicas' tensors summed in mesh order on the first one's device
     (``compression._mesh_sum``), divided by their count, moved to
-    ``home``: the JAX package's ``pmean``."""
-    xs = list(xs)
+    ``home``: the JAX package's ``pmean``. Under a process group a
+    process's one tensor is gathered over the data group first."""
+    xs = pg.everyone(xs, pg.DATA)
     return (compression._mesh_sum(xs) / len(xs)).to(home)
 
 
@@ -263,10 +299,19 @@ def make_dp_train_step(model, tcfg: TrainConfig, mesh,
     gradient in one backward. With ``tcfg.microbatches > 1`` the whole
     batch splits into microbatches first, as the single-device step
     splits it, and each microbatch's whole loss is taken over the
-    replicas, its balance loss over that microbatch's rows."""
+    replicas, its balance loss over that microbatch's rows.
+
+    Where ``mesh`` runs one process a device (SPMD) a process takes the
+    gradient of its own shard, gathers every shard's gradient tree over
+    the world and averages it as above, on its own device; params and
+    optimizer state are whole on every process. MoE configs raise there
+    (ROADMAP A5b step 6)."""
     devices = tuple(mesh.devices)
     n = len(devices)
     moe = n > 1 and bool(model.cfg.num_experts)
+    own = mesh.position if spmd(mesh) else None
+    if own is not None:
+        _no_moe_spmd(model)
 
     def grads_of(params, shard):
         return _accumulated_grads(functools.partial(_grads_of, model), params,
@@ -282,7 +327,9 @@ def make_dp_train_step(model, tcfg: TrainConfig, mesh,
                 whole_batch_grads, params, batch, tcfg.microbatches)
         else:
             losses, shard_metrics, shard_grads = zip(*dp_shards(
-                grads_of, params, batch, devices))
+                grads_of, params, batch, devices, own))
+            if own is not None:
+                shard_grads = pg.gather_tree(shard_grads[0], pg.DATA)
             means = iter([dp_mesh_mean(gs, home)
                           for gs in zip(*map(tree.leaves, shard_grads))])
             grads = tree.tree_map(lambda _: next(means), params)
@@ -314,18 +361,23 @@ def _sum_replicated(grads: list, specs) -> list:
     norms and the biases each rank applies to its copy of the residual
     stream) replaced by the sum of the ranks' shares in rank order
     (``compression._mesh_sum``), on every rank; leaves split over the
-    model axis are left as they are."""
+    model axis are left as they are. Under a process group ``grads`` is
+    this process's one tree: the other ranks' shares are gathered over the
+    model group (one collective for every such leaf)."""
     leaves = [tree.leaves(g) for g in grads]
-    per_rank: list = [[] for _ in grads]
-    for i, (path, _) in enumerate(tree.leaves_with_path(grads[0])):
-        parts = [lv[i] for lv in leaves]
-        if sharding.MODEL_AXIS not in sharding.spec_at(specs, path):
-            total = compression._mesh_sum(parts)
-            parts = [total.to(p.device) for p in parts]
-        for r, p in enumerate(parts):
-            per_rank[r].append(p)
-    return [tree.tree_map(lambda _, it=iter(per_rank[r]): next(it), g)
-            for r, g in enumerate(grads)]
+    whole = [i for i, (path, _) in enumerate(tree.leaves_with_path(grads[0]))
+             if sharding.MODEL_AXIS not in sharding.spec_at(specs, path)]
+    if pg.active():
+        ranks = pg.gather_tree([leaves[0][i] for i in whole], pg.MODEL)
+        shares = {i: [rk[k] for rk in ranks] for k, i in enumerate(whole)}
+    else:
+        shares = {i: [lv[i] for lv in leaves] for i in whole}
+    for i, parts in shares.items():
+        total = compression._mesh_sum(parts)
+        for lv in leaves:
+            lv[i] = total.to(lv[i].device)
+    return [tree.tree_map(lambda _, it=iter(lv): next(it), g)
+            for g, lv in zip(grads, leaves)]
 
 
 def _live_grid(grid: list) -> list:
@@ -362,10 +414,18 @@ def _reduce_over_rows(row_grads: list, shards, mean: bool) -> list:
     (``dp_mesh_mean``: each row's gradient is of its own shard's loss).
     Over more than one row, counted as the reckoning counts it
     (``roofline.op_cost.collective_bytes``): an all-reduce of each rank's
-    gathered gradient over the rows, site ``"data grads"``."""
+    gathered gradient over the rows, site ``"data grads"``.
+
+    Under a process group ``row_grads`` is this process's row with its one
+    tree: a block of a leaf split over the data axes already holds the sum
+    over the rows (``tensor_parallel._DataGather``'s backward), and any
+    other leaf's row copies are gathered over the data group (one
+    collective) and summed in row order; a list of one tree."""
     m = sharding.model_axis_size(shards.mesh)
-    rows = len(row_grads)
+    rows = sharding.data_axis_size(shards.mesh)
     flat = [[tree.leaves(t) for t in g] for g in row_grads]
+    if pg.active():
+        return [_reduce_own_over_rows(flat[0][0], shards, rows, mean)]
     out: list = [[] for _ in shards]
     for j, (path, leaf) in enumerate(tree.leaves_with_path(shards[0])):
         split = sharding.data_dim(sharding.spec_at(shards.specs, path)) is not None
@@ -384,6 +444,25 @@ def _reduce_over_rows(row_grads: list, shards, mean: bool) -> list:
                              (rows if split else 1) * leaf.numel() * leaf.element_size(),
                              rows)
     return [tree.tree_map(lambda _, it=iter(g): next(it), t) for t, g in zip(shards, out)]
+
+
+def _reduce_own_over_rows(own: list, shards, rows: int, mean: bool):
+    """:func:`_reduce_over_rows` of one process's leaves ``own`` (its
+    row's gradient of its blocks), as its one tree."""
+    split = [sharding.data_dim(sharding.spec_at(shards.specs, path)) is not None
+             for path, _ in tree.leaves_with_path(shards[0])]
+    keep = [j for j, s in enumerate(split) if not s]
+    copies = pg.gather_tree([own[j] for j in keep], pg.DATA)
+    totals = {j: compression._mesh_sum([c[k] for c in copies]) for k, j in enumerate(keep)}
+    out = []
+    for j, (leaf, s) in enumerate(zip(tree.leaves(shards[0]), split)):
+        g = totals.get(j, own[j])
+        out.append(g / rows if mean else g)
+        if rows > 1:
+            tp.add_bytes("all-reduce", "data grads", "bwd",
+                         (rows if s else 1) * leaf.numel() * leaf.element_size(), rows)
+    it = iter(out)
+    return tree.tree_map(lambda _: next(it), shards[0])
 
 
 def _whole_batch_moe_tp_grads(loss_of, grid: list, batch, specs) -> tuple:
@@ -463,10 +542,22 @@ def make_tp_train_step(model, tcfg: TrainConfig, mesh,
     on each rank's channels, the mLSTM and the sLSTM on each rank's heads,
     and the encoder-decoder with its cross-attention (``models.encdec``).
     Collective bytes count in ``tensor_parallel.BYTES`` as the mean over
-    the mesh's devices (``tensor_parallel.counted_over``)."""
+    the mesh's devices (``tensor_parallel.counted_over``).
+
+    Where ``mesh`` runs one process a device (SPMD) a process holds its own
+    device's blocks (``shard_params`` of the bound mesh), takes its data
+    row's shard of the batch, computes its model rank's part, and its
+    collectives go over its row's model group and its column's data group;
+    every param, Adam leaf and metric is the lockstep step's bit for bit
+    (module docstring; with microbatches a leaf split over data sums the
+    rows within each microbatch first). MoE configs raise there (ROADMAP
+    A5b step 6)."""
     ranks = sharding.model_axis_size(mesh)
     rows = sharding.data_axis_size(mesh)
     moe = rows > 1 and bool(model.cfg.num_experts)
+    per_process = spmd(mesh)
+    if per_process:
+        _no_moe_spmd(model)
 
     def loss_of(live, d: int, shard: dict, specs):
         devs = [tree.leaves(t)[0].device for t in live[d]]
@@ -497,17 +588,19 @@ def make_tp_train_step(model, tcfg: TrainConfig, mesh,
                 grads = _reduce_over_rows(per_row, params, mean=False)
             else:
                 per_row = shard_rows(int(tree.leaves(batch)[0].shape[0]), rows)
+                held = [pg.index(pg.DATA)] if per_process else range(rows)
                 outs = [_accumulated_grads(
-                    lambda _, mb, d=d: row_grads(grid, d, mb, specs), None,
+                    lambda _, mb, i=i: row_grads(grid, i, mb, specs), None,
                     tree.tree_map(lambda t, d=d: t[d * per_row:(d + 1) * per_row], batch),
-                    tcfg.microbatches) for d in range(rows)]
+                    tcfg.microbatches) for i, d in enumerate(held)]
                 losses, row_metrics, per_row_grads = zip(*outs)
                 grads = _reduce_over_rows(list(per_row_grads), params, mean=True)
                 loss = dp_mesh_mean(losses, home)
                 model_metrics = tree.tree_map(lambda *ms: dp_mesh_mean(ms, home),
                                               *row_metrics)
-        grads = [g for k in range(rows)
-                 for g in _sum_replicated(grads[k * ranks:(k + 1) * ranks], specs)]
+        grads = (_sum_replicated(grads, specs) if per_process else
+                 [g for k in range(rows)
+                  for g in _sum_replicated(grads[k * ranks:(k + 1) * ranks], specs)])
         grads, gnorm = clip_by_global_norm(sharding.Shards(grads, specs, mesh),
                                            tcfg.clip_norm)
         new_params, new_opt, lr_scales = [], [], []
